@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and the script
+exits non-zero without printing the final result line:
+
+1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
+   versions;
+2. build: the port's CUDA kernels built from the checkout's sources
+   (torchbeast_tpu_torch/ops/_build.py), timed;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes, TF32 off, with its median time over CUDA-event
+   timed runs beside its bound, the plain version's time and, where one
+   PyTorch call computes the same function, that call's time;
+4. main path: `monobeast.train` through the port's own parser, deep
+   ResNet + LSTM at full width (84x84x4 frames, 16/32/32 trunk, fc and
+   LSTM 256), T=80, B=32, 3 updates, every kernel switch on; each
+   kernel's launch count must be above 0 and every loss stat finite;
+5. parity: one learner update from the same weights and batch with the
+   kernels and with the plain versions on the card (TF32 off, cuDNN
+   deterministic); params, RMSprop state and loss stats must agree.
+
+Then one JSON line with every kernel's numbers, and last
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It imports nothing of JAX or of the JAX package.
+"""
+
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# The slice's shape and random batch, shared with the port's profiler.
+from torchbeast_tpu_torch.profile_update import (  # noqa: E402
+    B, NUM_ACTIONS, T, random_batch)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor
+# core) rate, for the bound of each kernel.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+STAGES = ((84, 84, 16), (42, 42, 32), (21, 21, 32))  # pool inputs (H, W, C)
+# The pool kernel adds tied windows in the plain tap-sum's order, so it
+# should agree exactly; the check allows 1 ulp.
+POOL_RTOL = 2.0 ** -22
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(fn, reps=20):
+    """Median device time of fn() in ms over `reps` CUDA-event timed runs.
+    A sleep kernel first keeps the card busy while the host enqueues fn's
+    launches, so the events measure the card's work, not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def close(a, b, rtol, atol):
+    """max |a - b| and whether |a - b| <= atol + rtol * |b| everywhere."""
+    diff = (a.double() - b.double()).abs()
+    ok = bool((diff <= atol + rtol * b.double().abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    check(out, "nvidia-smi printed nothing")
+    return out[0]
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def check_vtrace(ops, dev):
+    from torchbeast_tpu_torch.ops import vtrace
+
+    def inputs(t, b, seed):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        r = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
+        n = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+        disc = 0.99 * (r(t, b) > 0.05).float()
+        cs = r(t, b)
+        xs = (disc * cs, n(t, b), r(t, b), n(t, b), disc, n(t, b), n(b))
+        return tuple(x.to(dev).contiguous() for x in xs)
+
+    err = 0.0
+    for t, b in ((T, B), (4000, 128)):
+        xs = inputs(t, b, seed=t)
+        got = vtrace.vtrace_targets(*xs)
+        torch.cuda.synchronize()
+        want = vtrace.vtrace_targets_plain(*xs)
+        e = 0.0
+        for g_, w_ in zip(got, want):
+            ei, ok = close(g_, w_, 1e-6, 1e-6)
+            check(ok, f"vtrace T={t} B={b}: max |err| {ei}")
+            e = max(e, ei)
+        err = max(err, e)
+        print(f"kernel vtrace_targets T={t} B={b}: max_abs_err {e:.3g} "
+              "(rtol 1e-6, atol 1e-6)")
+    xs = inputs(T, B, seed=T)
+    ms = time_ms(lambda: vtrace.vtrace_targets(*xs))
+    plain = time_ms(lambda: vtrace.vtrace_targets_plain(*xs))
+    nbytes = 4 * (8 * T * B + B)  # 6 [T,B] + boot in, 2 [T,B] out
+    bms, by = bound_ms(nbytes, 10 * T * B)
+    return {
+        "name": "vtrace_targets", "route": "cuda",
+        "source": "torchbeast_tpu_torch/csrc/vtrace.cu",
+        "replaces": "torchbeast_tpu/ops/pallas_vtrace.py:34",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+    }
+
+
+def check_pool(ops, dev):
+    from torchbeast_tpu_torch.ops import pool
+
+    n = (T + 1) * B
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for H, W, C in STAGES:
+        x = torch.randn(n, H, W, C, generator=gen, device=dev)
+        x = x.permute(0, 3, 1, 2)  # channels_last [N, C, H, W]
+        y, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+        g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        got = pool.pool_bwd(x, y, g)
+        torch.cuda.synchronize()
+        want = pool.pool_bwd_plain(x, y, g)
+        e, ok = close(got, want, POOL_RTOL, 0.0)
+        check(ok, f"pool_bwd {(n, H, W, C)}: max |err| {e}")
+        # Tie-free input: PyTorch's one-tie backward is the same function.
+        lib_gx = torch.ops.aten.max_pool2d_with_indices_backward(
+            g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+        e_lib, _ = close(got, lib_gx, 0.0, 0.0)
+        err = max(err, e)
+        ms = time_ms(lambda: pool.pool_bwd(x, y, g))
+        plain = time_ms(lambda: pool.pool_bwd_plain(x, y, g))
+        lib = time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx))
+        nbytes = 4 * (2 * x.numel() + 2 * y.numel())
+        bms, _ = bound_ms(nbytes, 9 * x.numel())
+        print(f"kernel pool_bwd N={n} {H}x{W}x{C}: max_abs_err {e:.3g} "
+              f"(within 1 ulp); vs torch backward {e_lib:.3g}; ms {ms:.4f} "
+              f"plain {plain:.4f} torch {lib:.4f} bound {bms:.4f}")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", bms)):
+            tot[k] += v
+        del x, y, g, idx, got, want, lib_gx
+        torch.cuda.empty_cache()
+    # Planted ties: values on a coarse grid tie inside most windows.
+    x = (torch.randint(0, 4, (64, 84, 84, 16), generator=gen, device=dev)
+         .float().permute(0, 3, 1, 2))
+    y = F.max_pool2d(x, 3, 2, 1)
+    g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    got = pool.pool_bwd(x, y, g)
+    want = pool.pool_bwd_plain(x, y, g)
+    e, ok = close(got, want, POOL_RTOL, 0.0)
+    check(ok, f"pool_bwd with ties: max |err| {e}")
+    err = max(err, e)
+    print(f"kernel pool_bwd ties N=64 84x84x16: max_abs_err {e:.3g} "
+          "(within 1 ulp)")
+    return {
+        "name": "pool_bwd", "route": "cuda",
+        "source": "torchbeast_tpu_torch/csrc/pool_bwd.cu",
+        "replaces": "torchbeast_tpu/ops/pallas_pool.py:54",
+        "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+        "library_ms": tot["library_ms"],
+    }
+
+
+def _param_tree(dev):
+    from torchbeast_tpu_torch.models import create_model
+
+    torch.manual_seed(0)
+    model = create_model("deep", NUM_ACTIONS, use_lstm=True).to(dev)
+    return model, [p.detach().clone() for p in model.parameters()]
+
+
+def check_opt(ops, dev):
+    from torchbeast_tpu_torch.ops import opt
+
+    model, params0 = _param_tree(dev)
+    n_params = sum(p.numel() for p in params0)
+    g_cpu = torch.Generator(device="cpu").manual_seed(1)
+    hyper = dict(alpha=0.99, eps=0.01, max_norm=40.0)
+    err = 0.0
+    for label, gscale, momentum in (("clip active", 1.0, 0.0),
+                                    ("clip inactive", 1e-3, 0.0),
+                                    ("momentum 0.9", 1.0, 0.9)):
+        pk = [p.clone() for p in params0]
+        pp = [p.clone() for p in params0]
+        nk = [torch.zeros_like(p) for p in params0]
+        npl = [torch.zeros_like(p) for p in params0]
+        mk = [torch.zeros_like(p) for p in params0] if momentum else None
+        mp = [torch.zeros_like(p) for p in params0] if momentum else None
+        steps = 1 if momentum else 3
+        for step in range(steps):
+            grads = [
+                (gscale * torch.randn(p.shape, generator=g_cpu)).to(dev)
+                .contiguous(memory_format=(
+                    torch.channels_last if p.dim() == 4
+                    else torch.contiguous_format))
+                for p in params0
+            ]
+            lr = 4.8e-4 * (1 - step / 10)
+            sk = opt.rmsprop_tail(pk, grads, nk, mk, lr=lr,
+                                  momentum=momentum, **hyper)
+            with ops.plain_on_device():
+                sp = opt.rmsprop_tail(pp, grads, npl, mp, lr=lr,
+                                      momentum=momentum, **hyper)
+        gnorm = float(torch.sqrt(sp))
+        # The squared norm the kernel returns (the learner's grad_norm).
+        pairs = [(sk, sp)] + list(zip(pk, pp)) + list(zip(nk, npl))
+        if momentum:
+            pairs += list(zip(mk, mp))
+        e = 0.0
+        for a, b in pairs:
+            ei, ok = close(a, b, 1e-6, 1e-6)
+            check(ok, f"rmsprop_tail ({label}): max |err| {ei}")
+            e = max(e, ei)
+        err = max(err, e)
+        print(f"kernel rmsprop_tail {label} (|g| {gnorm:.3g}, {steps} "
+              f"steps, {len(params0)} leaves, {n_params} params): "
+              f"max_abs_err {e:.3g} (rtol 1e-6, atol 1e-6)")
+    pk = [p.clone() for p in params0]
+    nk = [torch.zeros_like(p) for p in params0]
+    grads = [torch.randn_like(p) for p in params0]
+    ms = time_ms(lambda: opt.rmsprop_tail(pk, grads, nk, None, lr=1e-9,
+                                          momentum=0.0, **hyper))
+    with ops.plain_on_device():
+        plain = time_ms(lambda: opt.rmsprop_tail(
+            pk, grads, nk, None, lr=1e-9, momentum=0.0, **hyper))
+    # Yardstick: clip_grad_norm_ + torch.optim.RMSprop(foreach=True).
+    for p, g in zip(model.parameters(), grads):
+        p.grad = g
+    rms = torch.optim.RMSprop(model.parameters(), lr=1e-9, alpha=0.99,
+                              eps=0.01, foreach=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(model.parameters(), 40.0,
+                                       foreach=True)
+        rms.step()
+
+    lib = time_ms(library_step)
+    # Norm pass reads g; update reads g, nu, p and writes nu, p.
+    bms, by = bound_ms(4 * 6 * n_params, 12 * n_params)
+    return {
+        "name": "rmsprop_tail", "route": "cuda",
+        "source": "torchbeast_tpu_torch/csrc/rmsprop_tail.cu",
+        "replaces": "torchbeast_tpu/ops/pallas_opt.py:78",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+    }
+
+
+# -------------------------------------------------------------- main path
+
+
+def run_main_path(ops, savedir):
+    from torchbeast_tpu_torch import monobeast
+
+    flags = monobeast.make_parser().parse_args([
+        "--env", "Mock", "--model", "deep", "--use_lstm",
+        "--num_actors", str(B), "--batch_size", str(B),
+        "--unroll_length", str(T), "--vtrace_impl", "pallas",
+        "--opt_impl", "pallas", "--serial_envs",
+        "--total_steps", str(3 * T * B), "--savedir", savedir,
+        "--xpid", "chip_smoke",
+    ])
+    ops.reset_launch_counts()
+    t0 = time.time()
+    stats = monobeast.train(flags)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.launch_counts()
+    for name, count in counts.items():
+        check(count > 0, f"main path launched {name} {count} times")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(key in stats and np.isfinite(stats[key]),
+              f"loss stat {key} = {stats.get(key)}")
+    print(f"main path: deep+LSTM 84x84x4 T={T} B={B}, 3 updates in "
+          f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
+          f"{stats['update_ms_median']:.2f} ms; launches {counts}; "
+          f"total_loss {stats['total_loss']:.4f}")
+    return counts
+
+
+# ----------------------------------------------------------------- parity
+
+
+def check_update_parity(ops, dev):
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    batch = random_batch(0, dev)
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas")
+    model_k, _ = _param_tree(dev)
+    model_p = copy.deepcopy(model_k)
+    results = []
+    for model, plain in ((model_k, False), (model_p, True)):
+        optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
+        step = learner_lib.update_body(model, optimizer, hp)
+        state = model.initial_state(B, dev)
+        if plain:
+            with ops.plain_on_device():
+                stats = step(batch, state)
+        else:
+            stats = step(batch, state)
+        torch.cuda.synchronize()
+        results.append((list(model.parameters()), optimizer.state.nu, stats))
+    (pk, nk, sk), (pp, npl, sp) = results
+    e = 0.0
+    for a, b in list(zip(pk, pp)) + list(zip(nk, npl)):
+        ei, ok = close(a.detach(), b.detach(), 1e-5, 1e-8)
+        check(ok, f"update parity: params/nu max |err| {ei}")
+        e = max(e, ei)
+    es = 0.0
+    for k in sk:
+        ei, ok = close(sk[k].float(), sp[k].float(), 1e-5, 1e-6)
+        check(ok, f"update parity: stat {k} {float(sk[k])} vs "
+                  f"{float(sp[k])}")
+        es = max(es, ei)
+    print(f"parity: one deep+LSTM update, kernels vs plain on the card: "
+          f"params/nu max_abs_err {e:.3g} (rtol 1e-5, atol 1e-8), stats "
+          f"max_abs_err {es:.3g} (rtol 1e-5, atol 1e-6)")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from torchbeast_tpu_torch import ops
+    from torchbeast_tpu_torch.ops import _build
+
+    os.environ["TBT_POOL_PALLAS"] = "1"
+    dev = torch.device("cuda", 0)
+    print(card_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.time()
+    path = _build.build()
+    _build.library()
+    print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("kernel checks: TF32 off for matmul and cuDNN")
+    kernels = [check_vtrace(ops, dev), check_opt(ops, dev),
+               check_pool(ops, dev)]
+    torch.cuda.empty_cache()
+    for k in kernels:
+        lib = ("-" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f}")
+        print(f"timing {k['name']}: {k['ms']:.4f} ms (median of 20), bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
+              f"{k['plain_ms']:.4f} ms, library {lib} ms")
+
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    counts = run_main_path(ops, os.path.join(ROOT, "build", "chip_smoke"))
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    check_update_parity(ops, dev)
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Every test needs a CUDA device and skips without one.
+
+This module imports torch, numpy and the port only (no jax), so it also
+runs on the GPU machine, where the JAX package is absent:
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+(tests/conftest.py configures jax, hence --noconftest there).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from torchbeast_tpu_torch import ops
+from torchbeast_tpu_torch.models import create_model
+from torchbeast_tpu_torch.ops import opt, pool, vtrace
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The first CUDA device; skips the test where there is none. Defined
+    here rather than imported from tests/, whose package name another
+    installed package may shadow on the GPU machine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("T,B", [(80, 32), (4000, 128)])
+def test_vtrace_kernel_matches_plain_version(cuda, T, B):
+    rng = np.random.default_rng(T)
+    xs = [torch.from_numpy(rng.standard_normal((T, B)).astype(np.float32))
+          for _ in range(6)]
+    xs.append(torch.from_numpy(rng.standard_normal(B).astype(np.float32)))
+    xs = [x.to(cuda) for x in xs]
+    before = vtrace.vtrace_targets.launches
+    got = vtrace.vtrace_targets(*xs)
+    assert vtrace.vtrace_targets.launches == before + 1
+    want = vtrace.vtrace_targets_plain(*xs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_pool_kernel_matches_plain_version(cuda, ties):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shape = (64, 84, 84, 16)
+    if ties:
+        x = torch.randint(0, 4, shape, generator=gen, device=cuda).float()
+    else:
+        x = torch.randn(shape, generator=gen, device=cuda)
+    x = x.permute(0, 3, 1, 2)  # channels_last [N, C, H, W]
+    y = F.max_pool2d(x, 3, 2, 1).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(y.shape, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    before = pool.pool_bwd.launches
+    got = pool.pool_bwd(x, y, g)
+    assert pool.pool_bwd.launches == before + 1
+    torch.testing.assert_close(got, pool.pool_bwd_plain(x, y, g),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("scale,max_norm", [(1.0, 40.0), (1e-3, 40.0),
+                                            (1.0, None)])
+def test_rmsprop_tail_kernel_matches_plain_version(cuda, scale, max_norm):
+    torch.manual_seed(0)
+    params0 = [p.detach() for p in
+               create_model("deep", 6, use_lstm=True).to(cuda).parameters()]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grads = [[scale * torch.randn(p.shape, generator=gen, device=cuda)
+              .contiguous(memory_format=(torch.channels_last if p.dim() == 4
+                                         else torch.contiguous_format))
+              for p in params0] for _ in range(3)]
+    runs = []
+    for plain in (False, True):
+        p = [t.clone() for t in params0]
+        nu = [torch.zeros_like(t) for t in p]
+        sumsqs = []
+        for step, gs in enumerate(grads):
+            kw = dict(lr=4.8e-4 * (1 - step / 10), alpha=0.99, eps=0.01,
+                      max_norm=max_norm)
+            if plain:
+                with ops.plain_on_device():
+                    sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+            else:
+                before = opt.rmsprop_tail.launches
+                sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+                assert opt.rmsprop_tail.launches == before + 2
+        runs.append(sumsqs + p + nu)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

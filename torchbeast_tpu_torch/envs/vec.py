@@ -1,0 +1,231 @@
+"""Vectorized environment pools (a copy of torchbeast_tpu/envs/vec.py): B envs behind one batched step() call.
+
+The actor-parallelism layer (reference: `num_actors` forked processes each
+owning one env, monobeast.py:362-381). Here the batching is explicit because
+acting is centrally batched on the GPU: the driver calls `pool.step(actions)`
+with a `[B]` action vector and gets `[B, ...]`-stacked EnvOutput dicts back.
+
+Two implementations:
+- SerialEnvPool: in-process loop — zero IPC, right for cheap/mock envs and
+  tests.
+- ProcessEnvPool: one OS process per env (spawn context so workers never
+  inherit CUDA state), pipes carrying numpy arrays. Equivalent role to the
+  reference's actor processes; the heavy C++ shared-memory transport arrives
+  with the native runtime.
+"""
+
+import logging
+import multiprocessing as mp
+from typing import Callable, Dict, List
+
+import numpy as np
+
+from torchbeast_tpu_torch.envs.environment import Environment
+
+log = logging.getLogger(__name__)
+
+
+def _stack(outputs: List[Dict]) -> Dict[str, np.ndarray]:
+    return {
+        k: np.stack([o[k] for o in outputs], axis=0) for k in outputs[0]
+    }
+
+
+class SerialEnvPool:
+    def __init__(self, env_fns: List[Callable]):
+        self._envs = [Environment(fn()) for fn in env_fns]
+        self._pending = None
+
+    def __len__(self):
+        return len(self._envs)
+
+    def initial(self) -> Dict[str, np.ndarray]:
+        return _stack([e.initial() for e in self._envs])
+
+    def step(self, actions) -> Dict[str, np.ndarray]:
+        return _stack(
+            [e.step(int(a)) for e, a in zip(self._envs, actions)]
+        )
+
+    # step_async/step_wait: the split-phase contract the lag-1 pipelined
+    # collector overlaps against (rollout.py). Serially there is nothing
+    # to overlap — the step runs inside step_async — but the API holds,
+    # so collectors need no pool-type branches.
+    def step_async(self, actions) -> None:
+        if self._pending is not None:
+            raise RuntimeError("step_async called with a step in flight")
+        self._pending = self.step(actions)
+
+    def step_wait(self) -> Dict[str, np.ndarray]:
+        if self._pending is None:
+            raise RuntimeError("step_wait without step_async")
+        out, self._pending = self._pending, None
+        return out
+
+    def close(self):
+        for e in self._envs:
+            e.close()
+
+
+def _env_worker(conn, env_fn):
+    """Child process body: owns one Environment, serves initial/step."""
+    try:
+        env = Environment(env_fn())
+        while True:
+            cmd, arg = conn.recv()
+            if cmd == "initial":
+                conn.send(env.initial())
+            elif cmd == "step":
+                conn.send(env.step(arg))
+            elif cmd == "close":
+                env.close()
+                conn.send(None)
+                break
+    except (EOFError, KeyboardInterrupt):
+        pass
+
+
+class ProcessEnvPool:
+    """One OS process per env, with worker SUPERVISION: a crashed
+    worker (env segfault, OOM-kill) is respawned with a fresh env and
+    its slot emits that env's `initial()` — which IS the boundary-step
+    convention (done=True, reward 0), so the learner sees a normal
+    episode boundary and resets the slot's agent state. `max_restarts`
+    (cumulative, 0 = fail fast) caps crash-looping; exhaustion raises
+    with the transport error chained. A revived seeded env restarts
+    its draw stream (crash recovery trades a replayed stream for the
+    run surviving)."""
+
+    def __init__(self, env_fns: List[Callable], ctx: str = "spawn",
+                 max_restarts: int = 10):
+        self._ctx = mp.get_context(ctx)
+        self._env_fns = list(env_fns)
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self._inflight = None  # step_async's send-phase death record
+        n = len(self._env_fns)
+        self._parents = [None] * n
+        self._procs = [None] * n
+        for i in range(n):
+            self._spawn(i)
+
+    def _spawn(self, i: int) -> None:
+        parent, child = self._ctx.Pipe()
+        proc = self._ctx.Process(
+            target=_env_worker, args=(child, self._env_fns[i]),
+            daemon=True,
+        )
+        proc.start()
+        child.close()
+        self._parents[i] = parent
+        self._procs[i] = proc
+
+    def _revive(self, i: int, cause: BaseException) -> Dict:
+        # The revival is supervised by the SAME budget: a replacement
+        # that dies before answering its first "initial" (deterministic
+        # constructor crash, immediate re-OOM) consumes another restart
+        # and retries, and exhaustion always raises the documented
+        # RuntimeError with the transport error chained.
+        while True:
+            if self.restarts >= self.max_restarts:
+                raise RuntimeError(
+                    f"env worker {i} died and the restart budget "
+                    f"({self.max_restarts}) is exhausted"
+                ) from cause
+            self.restarts += 1
+            log.warning(
+                "env worker %d died (%s); respawning with a fresh env "
+                "(restart %d/%d) — its slot emits an episode boundary.",
+                i, cause, self.restarts, self.max_restarts,
+            )
+            old = self._procs[i]
+            self._parents[i].close()
+            old.kill()
+            old.join(timeout=5)
+            self._spawn(i)
+            try:
+                self._parents[i].send(("initial", None))
+                return self._parents[i].recv()
+            except (BrokenPipeError, EOFError, OSError) as e:
+                cause = e
+
+    def __len__(self):
+        return len(self._procs)
+
+    def initial(self) -> Dict[str, np.ndarray]:
+        # Two-phase like step(): send to every live worker first so all
+        # B env resets run concurrently (a serialized send+recv loop
+        # would multiply reset latency by the pool size).
+        dead = {}
+        for i, p in enumerate(self._parents):
+            try:
+                p.send(("initial", None))
+            except (BrokenPipeError, OSError) as e:
+                dead[i] = e
+        outs = []
+        for i, p in enumerate(self._parents):
+            if i in dead:
+                outs.append(self._revive(i, dead[i]))
+                continue
+            try:
+                outs.append(p.recv())
+            except (EOFError, OSError) as e:
+                outs.append(self._revive(i, e))
+        return _stack(outs)
+
+    def step(self, actions) -> Dict[str, np.ndarray]:
+        self.step_async(actions)
+        return self.step_wait()
+
+    def step_async(self, actions) -> None:
+        """Send phase only: every live worker starts stepping and the
+        caller gets control back while the envs run — the overlap window
+        the lag-1 pipelined collector uses to materialize the previous
+        tick's device results (rollout.py). Send-side deaths are
+        recorded and revived in step_wait."""
+        if self._inflight is not None:
+            raise RuntimeError("step_async called with a step in flight")
+        dead = {}
+        for i, (p, a) in enumerate(zip(self._parents, actions)):
+            try:
+                p.send(("step", int(a)))
+            except (BrokenPipeError, OSError) as e:
+                dead[i] = e
+        self._inflight = dead
+
+    def step_wait(self) -> Dict[str, np.ndarray]:
+        """Receive phase: blocks for every worker's step result."""
+        if self._inflight is None:
+            raise RuntimeError("step_wait without step_async")
+        dead, self._inflight = self._inflight, None
+        outs = []
+        for i, p in enumerate(self._parents):
+            if i in dead:
+                outs.append(self._revive(i, dead[i]))
+                continue
+            try:
+                outs.append(p.recv())
+            except (EOFError, OSError) as e:
+                outs.append(self._revive(i, e))
+        return _stack(outs)
+
+    def close(self):
+        for p in self._parents:
+            try:
+                p.send(("close", None))
+                p.recv()
+            except (BrokenPipeError, EOFError):
+                pass
+        for proc in self._procs:
+            proc.join(timeout=5)
+            if proc.is_alive():
+                # Full escalation (terminate -> join -> kill -> join):
+                # terminate-without-join strands spawn-context children
+                # when SIGTERM lands mid-bootstrap and leaves zombies
+                # otherwise — the same reaping contract as polybeast's
+                # _reap_servers.
+                proc.terminate()
+                proc.join(timeout=5)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=5)

@@ -1,0 +1,141 @@
+"""Recurrent core and policy head (counterpart of
+torchbeast_tpu/models/cores.py).
+
+Core state layout matches the reference: a tuple `(h, c)`, each
+`[num_layers, B, hidden_size]`.
+"""
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from torchbeast_tpu_torch.types import AgentOutput
+
+
+class LSTMCore(nn.Module):
+    """A stacked LSTM stepped over the time axis with episode-boundary
+    reset: wherever an episode ended before step t (done), the carried
+    state is zeroed before the step.
+
+    Per layer l the parameters are `weight_ih_l{l}` [4H, D],
+    `weight_hh_l{l}` [4H, H] and one bias `bias_hh_l{l}` [4H], gates in
+    torch's i, f, g, o order. flax's OptimizedLSTMCell has a single bias
+    (on the hidden-side kernels); a second, input-side bias would receive
+    the same gradient and take twice the reference's bias step, so there
+    is none.
+
+    forward(core_input [T, B, D], notdone [T, B], (h, c)) ->
+        (core_output [T, B, H], (h, c))
+    """
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        bound = 1.0 / math.sqrt(hidden_size)
+        for layer in range(num_layers):
+            d = input_size if layer == 0 else hidden_size
+            for name, shape in (
+                (f"weight_ih_l{layer}", (4 * hidden_size, d)),
+                (f"weight_hh_l{layer}", (4 * hidden_size, hidden_size)),
+                (f"bias_hh_l{layer}", (4 * hidden_size,)),
+            ):
+                p = nn.Parameter(torch.empty(shape))
+                nn.init.uniform_(p, -bound, bound)
+                self.register_parameter(name, p)
+
+    def _layer(self, name: str, layer: int):
+        return getattr(self, f"{name}_l{layer}")
+
+    def forward(self, core_input, notdone, core_state):
+        h, c = core_state
+        hs = list(h.unbind(0))
+        cs = list(c.unbind(0))
+        # Layer 0's input projection for every step in one product.
+        x_proj = F.linear(core_input, self._layer("weight_ih", 0))
+        outputs = []
+        for t in range(core_input.shape[0]):
+            nd = notdone[t].unsqueeze(-1)
+            y = None
+            for layer in range(self.num_layers):
+                h_l = hs[layer] * nd
+                c_l = cs[layer] * nd
+                gates = F.linear(
+                    h_l, self._layer("weight_hh", layer),
+                    self._layer("bias_hh", layer),
+                ) + (
+                    x_proj[t] if layer == 0
+                    else F.linear(y, self._layer("weight_ih", layer))
+                )
+                i, f, g, o = gates.chunk(4, dim=-1)
+                c_l = torch.sigmoid(f) * c_l + torch.sigmoid(i) * torch.tanh(g)
+                h_l = torch.sigmoid(o) * torch.tanh(c_l)
+                hs[layer], cs[layer] = h_l, c_l
+                y = h_l
+            outputs.append(y)
+        return torch.stack(outputs), (torch.stack(hs), torch.stack(cs))
+
+
+def lstm_initial_state(use_lstm: bool, num_layers: int, hidden_size: int,
+                       batch_size: int, device=None) -> Tuple:
+    """Zero (h, c) state, or () for feed-forward nets."""
+    if not use_lstm:
+        return ()
+    shape = (num_layers, batch_size, hidden_size)
+    return (
+        torch.zeros(shape, device=device),
+        torch.zeros(shape, device=device),
+    )
+
+
+class RecurrentPolicyHead(nn.Module):
+    """Optional LSTM core + policy/baseline heads + action selection, the
+    shared tail of every model family. Takes `[T*B, D]` core inputs and
+    the `[T, B]` done mask; returns (AgentOutput with `[T, B, ...]`
+    fields, new core state). Logits and baseline are f32 at the head
+    boundary."""
+
+    def __init__(self, input_size: int, num_actions: int, use_lstm: bool,
+                 hidden_size: int, num_layers: int):
+        super().__init__()
+        self.num_actions = num_actions
+        self.use_lstm = use_lstm
+        if use_lstm:
+            self.core = LSTMCore(input_size, hidden_size, num_layers)
+            out = hidden_size
+        else:
+            out = input_size
+        self.policy = nn.Linear(out, num_actions)
+        self.baseline = nn.Linear(out, 1)
+
+    def forward(self, core_input, done, core_state, T, B, sample_action,
+                generator=None):
+        if self.use_lstm:
+            notdone = 1.0 - done.float()
+            core_output, core_state = self.core(
+                core_input.reshape(T, B, -1), notdone, core_state
+            )
+            core_output = core_output.reshape(T * B, -1)
+        else:
+            core_output = core_input
+            core_state = ()
+        policy_logits = self.policy(core_output).float()
+        baseline = self.baseline(core_output).float()
+        if sample_action:
+            action = torch.multinomial(
+                F.softmax(policy_logits, dim=-1), 1, generator=generator
+            ).squeeze(-1)
+        else:
+            action = torch.argmax(policy_logits, dim=-1)
+        return (
+            AgentOutput(
+                action=action.reshape(T, B),
+                policy_logits=policy_logits.reshape(T, B, self.num_actions),
+                baseline=baseline.reshape(T, B),
+            ),
+            core_state,
+        )

@@ -1,0 +1,225 @@
+"""The fused RMSprop optimizer tail (--opt_impl pallas); counterpart of
+torchbeast_tpu/ops/pallas_opt.py.
+
+Global-norm clip -> torch-RMSprop second moment -> optional momentum
+trace -> learning-rate apply, over every parameter leaf at once. A CUDA
+tensor runs the hand-written kernel `csrc/rmsprop_tail.cu` (two launches
+per update for the whole tree); a CPU tensor runs `rmsprop_tail_plain`.
+
+Unlike the JAX transform, which returns new arrays, the port updates the
+parameters, `nu` and `mom` IN PLACE: no parameter-sized output is
+allocated per update.
+
+Precision: f32 only in this slice. bf16-resident training (the f32
+master copy and the narrowing cast) waits for the precision slice.
+"""
+
+import ctypes
+from typing import Any, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from torchbeast_tpu_torch.ops import _build
+from torchbeast_tpu_torch.ops._route import require, use_kernel
+
+MAX_LEAVES = 64  # kMaxLeaves in csrc/rmsprop_tail.cu
+
+
+def _sumsq(grads):
+    """The global squared norm: f64 sums per leaf, summed, then f32."""
+    return torch.stack(
+        [g.double().square().sum() for g in grads]
+    ).sum().float()
+
+
+def rmsprop_tail_plain(params, grads, nus, moms, *, lr, alpha, eps,
+                       momentum, max_norm):
+    """The plain PyTorch version of the kernel, in place, one elementary
+    f32 operation at a time in the kernel's order. Returns the gradients'
+    squared global norm, a 0-d f32 tensor."""
+    with torch.no_grad():
+        sumsq = _sumsq(grads)
+        scale = None
+        if max_norm is not None:
+            gnorm = torch.sqrt(sumsq)
+            # Multiplying by exactly 1.0 below the threshold keeps the
+            # gradient bit for bit, as the kernel's skipped multiply does.
+            scale = torch.where(
+                gnorm < max_norm, torch.ones_like(gnorm), max_norm / gnorm
+            )
+        one_minus_alpha = 1.0 - alpha
+        for i, (p, g, nu) in enumerate(zip(params, grads, nus)):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            new_nu = alpha * nu + (one_minus_alpha * g) * g
+            upd = g / (torch.sqrt(new_nu) + eps)
+            if momentum:
+                upd = momentum * moms[i] + upd
+                moms[i].copy_(upd)
+            nu.copy_(new_nu)
+            p.copy_(p - lr * upd)
+    return sumsq
+
+
+def _dense(t) -> bool:
+    return t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    )
+
+
+_sm_count = {}
+
+
+def _num_partials(device) -> int:
+    """Blocks of the norm pass: two per SM."""
+    if device not in _sm_count:
+        props = torch.cuda.get_device_properties(device)
+        _sm_count[device] = props.multi_processor_count
+    return 2 * _sm_count[device]
+
+
+def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
+                 eps: float, momentum: float = 0.0,
+                 max_norm: Optional[float] = None):
+    """Apply one update in place. `params`, `grads`, `nus` (and `moms`
+    when momentum > 0) are equal-length lists of f32 tensors; leaf i of
+    each has one shape and one dense layout. `lr` is this update's
+    learning rate, `max_norm` None for no clipping. Returns the squared
+    global norm of `grads` (before clipping), a 0-d f32 tensor on their
+    device."""
+    name = "rmsprop_tail"
+    n = len(params)
+    require(n > 0 and len(grads) == n and len(nus) == n, name,
+            "params, grads and nus must be non-empty and of one length")
+    has_mom = bool(momentum)
+    if has_mom:
+        require(moms is not None and len(moms) == n, name,
+                "momentum > 0 needs one mom tensor per leaf")
+    device = params[0].device
+    for i in range(n):
+        leaf = [params[i], grads[i], nus[i]] + ([moms[i]] if has_mom else [])
+        for t in leaf:
+            require(t.dtype == torch.float32, name,
+                    f"leaf {i}: dtype {t.dtype} != f32")
+            require(t.device == device, name, f"leaf {i}: two devices")
+            require(t.shape == params[i].shape, name,
+                    f"leaf {i}: shape {tuple(t.shape)} != "
+                    f"{tuple(params[i].shape)}")
+    if not use_kernel(params[0], name):
+        return rmsprop_tail_plain(params, grads, nus, moms, lr=lr,
+                                  alpha=alpha, eps=eps, momentum=momentum,
+                                  max_norm=max_norm)
+    require(n <= MAX_LEAVES, name,
+            f"{n} leaves; the kernel's table holds {MAX_LEAVES}")
+    for i in range(n):
+        leaf = [params[i], grads[i], nus[i]] + ([moms[i]] if has_mom else [])
+        for t in leaf:
+            require(_dense(t) and t.stride() == params[i].stride(), name,
+                    f"leaf {i}: tensors must be dense with the param's "
+                    "strides")
+    ptrs = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
+        *[t.data_ptr() for t in ts]
+    )
+    p_arr, g_arr, nu_arr = ptrs(params), ptrs(grads), ptrs(nus)
+    mom_arr = ptrs(moms) if has_mom else p_arr
+    numels = (ctypes.c_longlong * n)(*[p.numel() for p in params])
+    n_partials = _num_partials(device)
+    partials = torch.empty(n_partials, dtype=torch.float64, device=device)
+    sumsq = torch.empty((), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = _build.library()
+    with torch.cuda.device(device):
+        status = lib.tbt_rmsprop_tail(
+            ctypes.cast(p_arr, ctypes.c_void_p),
+            ctypes.cast(g_arr, ctypes.c_void_p),
+            ctypes.cast(nu_arr, ctypes.c_void_p),
+            ctypes.cast(mom_arr, ctypes.c_void_p),
+            ctypes.cast(numels, ctypes.c_void_p),
+            n, partials.data_ptr(), n_partials, sumsq.data_ptr(),
+            lr, alpha, 1.0 - alpha, eps, momentum,
+            0.0 if max_norm is None else max_norm,
+            int(max_norm is not None), int(has_mom), stream,
+        )
+    _build.check(status, name)
+    rmsprop_tail.launches += 2  # the norm pass and the update pass
+    return sumsq
+
+
+rmsprop_tail.launches = 0
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int):
+    """optax.linear_schedule evaluated in f32 as the reference evaluates
+    it on device: count -> learning rate (a Python float holding an f32)."""
+
+    def schedule(count: int) -> float:
+        c = np.float32(min(max(count, 0), transition_steps))
+        frac = np.float32(1) - c / np.float32(transition_steps)
+        return float(
+            np.float32(init_value - end_value) * frac + np.float32(end_value)
+        )
+
+    return schedule
+
+
+class FusedTailState(NamedTuple):
+    """`count` is the schedule clock (updates applied so far); `nu` and
+    `mom` are lists aligned with the parameter list (`mom` None when
+    momentum is off). `master` is the reference's f32 master copy under
+    bf16-resident training: always None in the port's f32-only slice."""
+
+    count: int
+    nu: List[torch.Tensor]
+    mom: Optional[List[torch.Tensor]]
+    master: Any = None
+
+
+class FusedRMSpropTail:
+    """The whole optimizer tail as one fused step (--opt_impl pallas):
+    clip to `max_norm` (None = no clip), torch-denominator RMSprop
+    (`decay`, `eps`), momentum trace, `learning_rate(count)` apply."""
+
+    def __init__(self, params, learning_rate, decay: float, eps: float,
+                 momentum: float = 0.0, max_norm: Optional[float] = None,
+                 param_dtype: str = "f32"):
+        if param_dtype != "f32":
+            raise NotImplementedError(
+                "bf16-resident training (f32 master + narrowing cast) is "
+                "not in the port yet: ROADMAP.md Queue 1 item 'precision'"
+            )
+        self.params = list(params)
+        self.schedule = learning_rate
+        self.decay, self.eps = decay, eps
+        self.momentum, self.max_norm = momentum, max_norm
+        with torch.no_grad():
+            self.state = FusedTailState(
+                count=0,
+                nu=[torch.zeros_like(p) for p in self.params],
+                mom=(
+                    [torch.zeros_like(p) for p in self.params]
+                    if momentum else None
+                ),
+            )
+
+    def step(self, grads) -> torch.Tensor:
+        """Apply one update to the parameters in place; returns the
+        gradients' squared global norm (0-d f32, on their device)."""
+        # The kernel pairs elements by position: a gradient whose layout
+        # differs from its parameter's (cuDNN may hand back a conv weight
+        # gradient in another memory format) is copied into the
+        # parameter's layout first.
+        grads = [
+            g if g.stride() == p.stride()
+            else torch.empty_like(p).copy_(g)
+            for p, g in zip(self.params, grads)
+        ]
+        sumsq = rmsprop_tail(
+            self.params, grads, self.state.nu, self.state.mom,
+            lr=self.schedule(self.state.count), alpha=self.decay,
+            eps=self.eps, momentum=self.momentum, max_norm=self.max_norm,
+        )
+        self.state = self.state._replace(count=self.state.count + 1)
+        return sumsq

@@ -1,0 +1,125 @@
+"""Convert weights between the JAX package's params and the port's
+`state_dict`, in both directions.
+
+The JAX side is a nested dict of numpy arrays (flax params, optionally
+under a top-level "params" key); the port's side is a flat state dict
+whose keys are the flax scope paths joined with "." (the port names its
+submodules after the flax scopes). Per leaf:
+
+- Dense kernel [in, out] -> Linear weight [out, in]; biases as they are.
+- Conv kernel HWIO -> Conv2d weight OIHW.
+- The fc after a conv trunk needs no permutation: both packages flatten
+  the trunk output in NHWC order.
+- flax OptimizedLSTMCell (scope head/core/Scan_StackedLSTMStep_0/layer_l):
+  the input kernels ii/if/ig/io and the hidden kernels hi/hf/hg/ho stack
+  in i, f, g, o order into weight_ih_l{l} / weight_hh_l{l}, and the
+  hidden-side biases into bias_hh_l{l} (flax has no input-side bias).
+
+Optimizer trees shaped like the params (RMSprop's nu, the momentum trace)
+convert with the same leaf map. flax's LSTM carry is (c, h); the reference
+and the port keep agent state as (h, c), so state needs no conversion.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_GATES = ("i", "f", "g", "o")
+_LSTM_SCOPE = ("core", "Scan_StackedLSTMStep_0")
+
+
+def _unwrap(tree):
+    if set(tree) == {"params"}:
+        return tree["params"]
+    return tree
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def jax_to_torch(tree) -> Dict[str, torch.Tensor]:
+    """flax params (or a params-shaped optimizer tree) -> state-dict-like
+    {key: tensor} for the port's module."""
+    out = {}
+    lstm = {}
+    for path, leaf in _leaves(_unwrap(tree)):
+        if len(path) >= 5 and path[-5:-3] == _LSTM_SCOPE:
+            # .../core/Scan_StackedLSTMStep_0/layer_<l>/<side><gate>/<kind>
+            prefix = ".".join(path[:-4])
+            layer = int(path[-3].split("_")[1])
+            side, gate = path[-2][0], path[-2][1]
+            lstm.setdefault((prefix, layer), {})[(side, gate, path[-1])] = leaf
+            continue
+        key = ".".join(path[:-1])
+        if path[-1] == "kernel":
+            if leaf.ndim == 4:
+                out[key + ".weight"] = leaf.transpose(3, 2, 0, 1)
+            else:
+                out[key + ".weight"] = leaf.T
+        else:
+            out[key + "." + path[-1]] = leaf
+    for (prefix, layer), parts in lstm.items():
+        out[f"{prefix}.weight_ih_l{layer}"] = np.concatenate(
+            [parts[("i", g, "kernel")] for g in _GATES], axis=1
+        ).T
+        out[f"{prefix}.weight_hh_l{layer}"] = np.concatenate(
+            [parts[("h", g, "kernel")] for g in _GATES], axis=1
+        ).T
+        out[f"{prefix}.bias_hh_l{layer}"] = np.concatenate(
+            [parts[("h", g, "bias")] for g in _GATES]
+        )
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+        for k, v in out.items()
+    }
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
+    """The port's state dict (or a params-aligned {key: tensor} optimizer
+    tree) -> flax params as nested numpy dicts, under "params" when
+    `wrap`."""
+    tree = {}
+    for key, t in state.items():
+        a = t.detach().cpu().numpy()
+        parts = key.split(".")
+        name = parts[-1]
+        if name.startswith(("weight_ih_l", "weight_hh_l", "bias_hh_l")):
+            layer = int(name.rsplit("_l", 1)[1])
+            scope = tuple(parts[:-1]) + (_LSTM_SCOPE[1], f"layer_{layer}")
+            side = "i" if name.startswith("weight_ih") else "h"
+            kind = "bias" if name.startswith("bias") else "kernel"
+            for gate, chunk in zip(_GATES, np.split(a, 4, axis=0)):
+                leaf = chunk if kind == "bias" else chunk.T
+                _set(tree, scope + (side + gate, kind), np.array(leaf))
+            continue
+        if name == "weight":
+            leaf = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            _set(tree, tuple(parts[:-1]) + ("kernel",), np.array(leaf))
+        else:
+            _set(tree, tuple(parts), np.array(a))
+    return {"params": tree} if wrap else tree
+
+
+def load_jax_params(model: torch.nn.Module, tree) -> None:
+    """Copy flax params into the module (strict: every key must match)."""
+    state = jax_to_torch(tree)
+    model.load_state_dict(state, strict=True)
+
+
+def param_list_to_jax(model: torch.nn.Module, tensors, wrap: bool = True):
+    """A list aligned with `model.parameters()` (e.g. RMSprop nu) as a
+    params-shaped JAX tree."""
+    names = [n for n, _ in model.named_parameters()]
+    return torch_to_jax(dict(zip(names, tensors)), wrap=wrap)
