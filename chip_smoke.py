@@ -11,16 +11,21 @@ exits non-zero without printing the final result line:
 2. build: the port's CUDA kernels built from the checkout's sources
    (torchbeast_tpu_torch/ops/_build.py), timed;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, TF32 off, with its median time over CUDA-event
+   the main paths' shapes, TF32 off, with its median time over CUDA-event
    timed runs beside its bound, the plain version's time and, where one
    PyTorch call computes the same function, that call's time;
-4. main path: `monobeast.train` through the port's own parser, deep
-   ResNet + LSTM at full width (84x84x4 frames, 16/32/32 trunk, fc and
-   LSTM 256), T=80, B=32, 3 updates, every kernel switch on; each
-   kernel's launch count must be above 0 and every loss stat finite;
-5. parity: one learner update from the same weights and batch with the
-   kernels and with the plain versions on the card (TF32 off, cuDNN
-   deterministic); params, RMSprop state and loss stats must agree.
+4. main paths: `monobeast.train` through the port's own parser, every
+   kernel switch on, T=80, B=32, 3 updates each, at full width:
+   (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc and LSTM
+   256); (b) the transformer policy (84x84x4 frames, 2 layers, d_model
+   128, 4 heads, memory 64) with --attention_impl pallas. The launch
+   counts are set to 0 before each path and read after it; each kernel
+   the path is meant to launch must show a count above 0, and every loss
+   stat must be finite;
+5. parity: one learner update of each model from the same weights and
+   batch with the kernels and with the plain versions on the card (TF32
+   off, cuDNN deterministic); params, RMSprop state and loss stats must
+   agree.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -43,7 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # The slice's shape and random batch, shared with the port's profiler.
 from torchbeast_tpu_torch.profile_update import (  # noqa: E402
-    B, NUM_ACTIONS, T, random_batch)
+    B, NUM_ACTIONS, T, random_batch, random_cache)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor
 # core) rate, for the bound of each kernel.
@@ -51,6 +56,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 STAGES = ((84, 84, 16), (42, 42, 32), (21, 21, 32))  # pool inputs (H, W, C)
+# The transformer's attention at full width: heads, head dim, memory.
+HEADS, HEAD_DIM, MEMORY = 4, 32, 64
 # The pool kernel adds tied windows in the plain tap-sum's order, so it
 # should agree exactly; the check allows 1 ulp.
 POOL_RTOL = 2.0 ** -22
@@ -296,19 +303,147 @@ def check_opt(ops, dev):
     }
 
 
-# -------------------------------------------------------------- main path
+def attention_inputs(t, seed, dev):
+    """Attention inputs at the full model's B, H, D and M for an unroll
+    of t steps: planted dones (segments and the no-done gate act) and a
+    cache about 70% valid, from numpy's generator."""
+    rng = np.random.default_rng(seed)
+    done = rng.random((t, B)) < 0.05
+    done[min(3, t - 1), 0] = True
+    seg = np.ascontiguousarray(np.cumsum(done, 0).T, dtype=np.int32)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    arrays = (f32(B, t, HEADS, HEAD_DIM), f32(B, MEMORY + t, HEADS, HEAD_DIM),
+              f32(B, MEMORY + t, HEADS, HEAD_DIM), seg,
+              (rng.random((B, MEMORY)) < 0.7).astype(np.float32), seg == 0,
+              0.1 * f32(HEADS, MEMORY + 1))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
-def run_main_path(ops, savedir):
+def check_attention(ops, dev):
+    """Forward and backward kernels against the plain version at the
+    learner shape (T = unroll + 1) and the acting shape (T = 1); times at
+    the learner shape. Returns the two kernel rows."""
+    from torchbeast_tpu_torch.ops import attention
+
+    M = MEMORY
+    err_f = err_b = 0.0
+    for t in (T + 1, 1):
+        xs = attention_inputs(t, seed=t, dev=dev)
+        q, k, v, seg, valid, nodone, bias = xs
+        g = torch.from_numpy(np.random.default_rng(t + 1).standard_normal(
+            q.shape).astype(np.float32)).to(dev)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+        args = lambda ls: (M, ls[0], ls[1], ls[2], seg, valid,  # noqa: E731
+                           nodone, ls[3])
+        out_k = attention.transformer_attention(*args(leaves))
+        grads_k = torch.autograd.grad(out_k, leaves, g)
+        torch.cuda.synchronize()
+        with ops.plain_on_device():
+            out_p = attention.transformer_attention(*args(leaves))
+            grads_p = torch.autograd.grad(out_p, leaves, g)
+        ef, ok = close(out_k.detach(), out_p.detach(), 1e-5, 1e-6)
+        check(ok, f"attention forward T={t}: max |err| {ef}")
+        eb = []
+        for label, a, b in zip(("q", "k_all", "v_all", "rel_bias"), grads_k,
+                               grads_p):
+            e, ok = close(a, b, 1e-4, 1e-5)
+            check(ok, f"attention backward T={t} d{label}: max |err| {e}")
+            eb.append(e)
+        err_f, err_b = max(err_f, ef), max(err_b, *eb)
+        print(f"kernel transformer_attention B={B} T={t} H={HEADS} "
+              f"D={HEAD_DIM} M={M}: forward max_abs_err {ef:.3g} (rtol "
+              f"1e-5, atol 1e-6); backward dq/dk/dv/drel_bias max_abs_err "
+              f"{' / '.join(f'{e:.3g}' for e in eb)} (rtol 1e-4, atol 1e-5)")
+
+    # Timing at the learner shape, inputs as the model gives them.
+    q, k, v, seg, valid, nodone, bias = xs = attention_inputs(T + 1, 5, dev)
+    g = torch.randn_like(q)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: attention.transformer_attention(M, *xs))
+        fwd_plain = time_ms(
+            lambda: attention.transformer_attention_plain(M, *xs))
+        out, lse = attention._launch_forward(M, *xs)
+    bwd_ms = time_ms(lambda: attention.transformer_attention_bwd(
+        M, *xs, out, lse, g))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    out_p = attention.transformer_attention_plain(
+        M, leaves[0], leaves[1], leaves[2], seg, valid, nodone, leaves[3])
+    bwd_plain = time_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                                    retain_graph=True))
+    # Yardstick: SDPA over [B, H, T, K] with the mask and the bias folded
+    # into one precomputed [B, H, T, K] additive mask (which the port never
+    # builds); its backward gives the mask's gradient, not yet reduced to
+    # the bias.
+    _, offsets = attention.band_relative_offsets(T + 1, M, device=dev)
+    visible = attention.attention_mask(M, seg, valid, nodone)
+    add_mask = torch.where(visible[:, None], bias[:, offsets][None],
+                           attention.BIG_NEG).contiguous().requires_grad_()
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    with torch.no_grad():
+        lib_out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                 attn_mask=add_mask)
+        e_lib, _ = close(lib_out.transpose(1, 2), out, 0.0, 0.0)
+        fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=add_mask))
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=add_mask)
+    g_t = g.transpose(1, 2).contiguous()
+    bwd_lib = time_ms(lambda: torch.autograd.grad(
+        lib_out, (sq, sk, sv, add_mask), g_t, retain_graph=True))
+
+    # Bytes: each input read once, each output written once. Operations:
+    # only the band's pairs are needed, M + 1 keys per query row; per pair
+    # the forward does q.k and p.v (4 D flops), the backward those two
+    # recomputed plus dO.v, dS.k and dS.q (10 D flops).
+    pairs = B * HEADS * (T + 1) * (M + 1)
+    qb, kb = 4 * q.numel(), 4 * k.numel()
+    meta = 4 * seg.numel() + 4 * valid.numel() + nodone.numel() + 4 * bias.numel()
+    fwd_bound, fwd_by = bound_ms(qb + 2 * kb + meta + qb,
+                                 4 * HEAD_DIM * pairs)
+    bwd_bound, bwd_by = bound_ms(
+        (qb + 2 * kb + meta + 2 * qb + 4 * lse.numel())  # q k v meta out dO lse
+        + (qb + 2 * kb + 4 * bias.numel()),  # dq dk dv dbias
+        10 * HEAD_DIM * pairs)
+    print(f"kernel transformer_attention vs SDPA with a precomputed additive "
+          f"mask: forward max_abs_err {e_lib:.3g}")
+    rows = []
+    for name, ms, plain, lib, bms, by, err in (
+            ("transformer_attention", fwd_ms, fwd_plain, fwd_lib, fwd_bound,
+             fwd_by, err_f),
+            ("transformer_attention_bwd", bwd_ms, bwd_plain, bwd_lib,
+             bwd_bound, bwd_by, err_b)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "torchbeast_tpu_torch/csrc/attention.cu",
+            "replaces": "torchbeast_tpu/ops/pallas_attention.py:85",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        })
+    return rows
+
+
+# ------------------------------------------------------------- main paths
+
+DEEP_PATH = ("deep+LSTM", ["--model", "deep", "--use_lstm"],
+             ("vtrace_targets", "rmsprop_tail", "pool_bwd"))
+TRANSFORMER_PATH = (
+    "transformer", ["--model", "transformer", "--attention_impl", "pallas"],
+    ("vtrace_targets", "rmsprop_tail", "transformer_attention",
+     "transformer_attention_bwd"))
+
+
+def run_main_path(ops, savedir, path):
+    """Train 3 updates of one path; return its launch counts."""
     from torchbeast_tpu_torch import monobeast
 
+    label, model_args, expected = path
     flags = monobeast.make_parser().parse_args([
-        "--env", "Mock", "--model", "deep", "--use_lstm",
+        "--env", "Mock", *model_args,
         "--num_actors", str(B), "--batch_size", str(B),
         "--unroll_length", str(T), "--vtrace_impl", "pallas",
         "--opt_impl", "pallas", "--serial_envs",
         "--total_steps", str(3 * T * B), "--savedir", savedir,
-        "--xpid", "chip_smoke",
+        "--xpid", "chip_smoke_" + model_args[1],
     ])
     ops.reset_launch_counts()
     t0 = time.time()
@@ -316,13 +451,14 @@ def run_main_path(ops, savedir):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = ops.launch_counts()
-    for name, count in counts.items():
-        check(count > 0, f"main path launched {name} {count} times")
+    for name in expected:
+        check(counts[name] > 0, f"{label} path launched {name} "
+                                f"{counts[name]} times")
     for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
                 "grad_norm"):
         check(key in stats and np.isfinite(stats[key]),
-              f"loss stat {key} = {stats.get(key)}")
-    print(f"main path: deep+LSTM 84x84x4 T={T} B={B}, 3 updates in "
+              f"{label} loss stat {key} = {stats.get(key)}")
+    print(f"main path {label} 84x84x4 T={T} B={B}: 3 updates in "
           f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
           f"{stats['update_ms_median']:.2f} ms; launches {counts}; "
           f"total_loss {stats['total_loss']:.4f}")
@@ -332,41 +468,47 @@ def run_main_path(ops, savedir):
 # ----------------------------------------------------------------- parity
 
 
-def check_update_parity(ops, dev):
+def check_update_parity(ops, dev, label, model_k, state):
+    """One learner update of `model_k` from `state` with the kernels and
+    one of its copy with the plain versions, on the same random batch."""
     from torchbeast_tpu_torch import learner as learner_lib
 
     batch = random_batch(0, dev)
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas")
-    model_k, _ = _param_tree(dev)
     model_p = copy.deepcopy(model_k)
     results = []
     for model, plain in ((model_k, False), (model_p, True)):
         optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
         step = learner_lib.update_body(model, optimizer, hp)
-        state = model.initial_state(B, dev)
         if plain:
             with ops.plain_on_device():
                 stats = step(batch, state)
         else:
             stats = step(batch, state)
         torch.cuda.synchronize()
-        results.append((list(model.parameters()), optimizer.state.nu, stats))
+        results.append((list(model.named_parameters()), optimizer.state.nu,
+                        stats))
     (pk, nk, sk), (pp, npl, sp) = results
-    e = 0.0
-    for a, b in list(zip(pk, pp)) + list(zip(nk, npl)):
-        ei, ok = close(a.detach(), b.detach(), 1e-5, 1e-8)
-        check(ok, f"update parity: params/nu max |err| {ei}")
-        e = max(e, ei)
-    es = 0.0
+    worst, failed = (0.0, ""), []
+    for (name, a), (_, b), na, nb in zip(pk, pp, nk, npl):
+        for what, x, y in (("param", a, b), ("nu", na, nb)):
+            ei, ok = close(x.detach(), y.detach(), 1e-5, 1e-8)
+            worst = max(worst, (ei, f"{what} {name}"))
+            if not ok:
+                failed.append(f"{what} {name} ({ei:.3g})")
+    es, stat_failed = 0.0, []
     for k in sk:
         ei, ok = close(sk[k].float(), sp[k].float(), 1e-5, 1e-6)
-        check(ok, f"update parity: stat {k} {float(sk[k])} vs "
-                  f"{float(sp[k])}")
         es = max(es, ei)
-    print(f"parity: one deep+LSTM update, kernels vs plain on the card: "
-          f"params/nu max_abs_err {e:.3g} (rtol 1e-5, atol 1e-8), stats "
-          f"max_abs_err {es:.3g} (rtol 1e-5, atol 1e-6)")
+        if not ok:
+            stat_failed.append(f"{k} {float(sk[k])} vs {float(sp[k])}")
+    print(f"parity: one {label} update, kernels vs plain on the card: "
+          f"params/nu max_abs_err {worst[0]:.3g} at {worst[1]} (rtol 1e-5, "
+          f"atol 1e-8), stats max_abs_err {es:.3g} (rtol 1e-5, atol 1e-6)")
+    check(not failed, f"{label} update parity: params/nu outside "
+                      f"tolerance: {failed}")
+    check(not stat_failed, f"{label} update parity: stats {stat_failed}")
 
 
 def main():
@@ -396,7 +538,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print("kernel checks: TF32 off for matmul and cuDNN")
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev),
-               check_pool(ops, dev)]
+               check_pool(ops, dev), *check_attention(ops, dev)]
     torch.cuda.empty_cache()
     for k in kernels:
         lib = ("-" if k["library_ms"] is None
@@ -407,15 +549,26 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
-    counts = run_main_path(ops, os.path.join(ROOT, "build", "chip_smoke"))
+    savedir = os.path.join(ROOT, "build", "chip_smoke")
+    by_path = {path[0]: run_main_path(ops, savedir, path)
+               for path in (DEEP_PATH, TRANSFORMER_PATH)}
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    check_update_parity(ops, dev)
+    model, _ = _param_tree(dev)
+    check_update_parity(ops, dev, "deep+LSTM", model,
+                        model.initial_state(B, dev))
+    from torchbeast_tpu_torch.models import create_model
+    torch.manual_seed(0)
+    model = create_model("transformer", NUM_ACTIONS,
+                         attention_impl="pallas").to(dev)
+    check_update_parity(ops, dev, "transformer", model,
+                        random_cache(model, 0, dev))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

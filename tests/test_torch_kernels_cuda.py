@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from torchbeast_tpu_torch import ops
 from torchbeast_tpu_torch.models import create_model
-from torchbeast_tpu_torch.ops import opt, pool, vtrace
+from torchbeast_tpu_torch.ops import attention, opt, pool, vtrace
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +92,55 @@ def test_rmsprop_tail_kernel_matches_plain_version(cuda, scale, max_norm):
         runs.append(sumsqs + p + nu)
     for a, b in zip(*runs):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def attention_inputs(B, T, H, D, M, seed, device):
+    """Random attention inputs with planted dones (segments and the
+    no-done gate matter) and a partly valid cache, made with numpy."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    done = rng.random((T, B)) < 0.05
+    done[min(3, T - 1), 0] = True
+    seg = np.ascontiguousarray(np.cumsum(done, 0).T, dtype=np.int32)
+    return (
+        f32(B, T, H, D), f32(B, M + T, H, D), f32(B, M + T, H, D),
+        torch.from_numpy(seg).to(device),
+        torch.from_numpy((rng.random((B, M)) < 0.7).astype(np.float32)).to(
+            device),
+        torch.from_numpy(seg == 0).to(device),
+        0.1 * f32(H, M + 1),
+    )
+
+
+@pytest.mark.parametrize("T", [81, 1])
+def test_attention_kernels_match_plain_version(cuda, T):
+    """The learner shape (T=81) and the acting shape (T=1), at the full
+    model's B=32, H=4, D=32, M=64; TF32 off for the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = 64
+    q, k, v, seg, valid, nodone, bias = attention_inputs(32, T, 4, 32, M,
+                                                         T, cuda)
+    grad = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(T), device=cuda)
+    leaves = [t.requires_grad_() for t in (q, k, v, bias)]
+    runs = []
+    for plain in (False, True):
+        before = (attention.transformer_attention.launches,
+                  attention.transformer_attention_bwd.launches)
+        if plain:
+            with ops.plain_on_device():
+                out = attention.transformer_attention(M, q, k, v, seg, valid,
+                                                      nodone, bias)
+        else:
+            out = attention.transformer_attention(M, q, k, v, seg, valid,
+                                                  nodone, bias)
+        grads = torch.autograd.grad(out, leaves, grad)
+        after = (attention.transformer_attention.launches,
+                 attention.transformer_attention_bwd.launches)
+        assert after == (before if plain else (before[0] + 1, before[1] + 1))
+        runs.append((out.detach(), grads))
+    (out_k, g_k), (out_p, g_p) = runs
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

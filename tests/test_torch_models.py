@@ -164,7 +164,6 @@ def test_sampled_actions_follow_the_generator():
 
 
 def test_not_ported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_create_model("transformer", A)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_create_model("mlp", A)
+    for name in ("pipelined_transformer", "pipelined_mlp", "mlp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_create_model(name, A)

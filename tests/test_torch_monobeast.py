@@ -39,9 +39,12 @@ def test_parser_matches_the_reference():
         assert ours[flag] == spec, flag
 
 
-def _flags(*extra, tmp_path):
+DEEP = ("--model", "deep", "--use_lstm")
+
+
+def _flags(*extra, tmp_path, model=DEEP):
     return monobeast.make_parser().parse_args([
-        "--disable_cuda", "--env", "Mock", "--model", "deep", "--use_lstm",
+        "--disable_cuda", "--env", "Mock", *model,
         "--num_actors", "4", "--batch_size", "2", "--unroll_length", "4",
         "--total_steps", "48", "--serial_envs",
         "--savedir", str(tmp_path), "--xpid", "tiny", *extra,
@@ -51,12 +54,18 @@ def _flags(*extra, tmp_path):
 @pytest.mark.parametrize("impls", [
     ("pallas", "pallas", "--pipelined_collect"),
     ("associative", "xla", "--no_pipelined_collect"),
+    ("pallas", "pallas", "--pipelined_collect",
+     ("--model", "transformer", "--attention_impl", "pallas")),
 ])
 def test_tiny_run_on_cpu(tmp_path, monkeypatch, impls):
+    """T=4, B=2 (two updates per collect of 4 actors), on the deep model
+    and on the transformer, whose nested KV-cache state the driver slices
+    per update."""
     monkeypatch.setenv("TBT_POOL_PALLAS", "1")
-    vtrace_impl, opt_impl, collect = impls
+    vtrace_impl, opt_impl, collect, *model = impls
     flags = _flags("--vtrace_impl", vtrace_impl, "--opt_impl", opt_impl,
-                   collect, tmp_path=tmp_path)
+                   collect, tmp_path=tmp_path, model=model[0] if model
+                   else DEEP)
     stats = monobeast.train(flags)
     for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
                 "grad_norm", "sps", "update_ms_median"):
@@ -84,12 +93,24 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--remat", "all"], "stage remat"),
     (["--mode", "test"], "checkpoints"),
     (["--trace_path", "t.json"], "telemetry"),
-    (["--model", "transformer"], "transformer"),
+    (["--model", "pipelined_transformer"], "transformer"),
+    (["--sequence_parallel", "2"], "transformer"),
+    (["--num_experts", "4"], "transformer"),
     (["--env", "PongNoFrameskip-v4"], "Atari"),
 ])
 def test_features_outside_the_port_raise(tmp_path, args, item):
     flags = _flags(*args, tmp_path=tmp_path)
     with pytest.raises(NotImplementedError, match=item):
+        monobeast.main(flags)
+
+
+def test_attention_impl_applies_to_the_transformer_only(tmp_path):
+    flags = _flags("--attention_impl", "pallas", tmp_path=tmp_path)
+    with pytest.raises(ValueError, match="--model transformer only"):
+        monobeast.main(flags)
+    flags = _flags(tmp_path=tmp_path, model=("--model", "transformer",
+                                             "--use_lstm"))
+    with pytest.raises(ValueError, match="use_lstm"):
         monobeast.main(flags)
 
 

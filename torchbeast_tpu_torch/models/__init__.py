@@ -1,19 +1,24 @@
 """Model registry (counterpart of torchbeast_tpu/models/__init__.py).
 
-`create_model("shallow"|"deep", ...)`: monobeast's AtariNet and
-polybeast's deep ResNet. Unlike flax, a torch module sizes its fc layer at
-construction, so the frame shape ([H, W, C]) is an argument.
+`create_model("shallow"|"deep"|"transformer", ...)`: monobeast's
+AtariNet, polybeast's deep ResNet and the transformer policy. Unlike flax,
+a torch module sizes its first layer at construction, so the frame shape
+([H, W, C]) is an argument.
 """
 
 from torchbeast_tpu_torch.models.atari_net import AtariNet  # noqa: F401
 from torchbeast_tpu_torch.models.cores import LSTMCore  # noqa: F401
 from torchbeast_tpu_torch.models.resnet import ResNet  # noqa: F401
+from torchbeast_tpu_torch.models.transformer import (  # noqa: F401
+    TransformerNet,
+)
 
 _REGISTRY = {
     "shallow": AtariNet,
     "atari": AtariNet,
     "deep": ResNet,
     "resnet": ResNet,
+    "transformer": TransformerNet,
 }
 
 # Reference families the port does not have yet -> the ROADMAP item that
@@ -21,7 +26,6 @@ _REGISTRY = {
 NOT_PORTED = {
     "mlp": "Atari envs and the mlp model",
     "pipelined_mlp": "the transformer family",
-    "transformer": "the transformer family",
     "pipelined_transformer": "the transformer family",
 }
 
@@ -39,5 +43,10 @@ def create_model(name: str, num_actions: int, use_lstm: bool = False,
         raise ValueError(
             f"Unknown model {name!r}; available: {sorted(_REGISTRY)}"
         ) from None
+    if cls is TransformerNet and use_lstm:
+        raise ValueError(
+            "--use_lstm does not apply to the transformer family (its "
+            "memory is the KV cache); drop the flag"
+        )
     return cls(num_actions=num_actions, use_lstm=use_lstm,
                frame_shape=tuple(frame_shape), **kwargs)

@@ -6,8 +6,10 @@ env step is one `[1, B]` policy forward on the card, and every unroll
 ends in updates of the same module the actors read, so the policy lag is
 zero. The update step runs the hand-written kernels that the reference's
 Pallas switches select: --vtrace_impl pallas (V-trace targets),
---opt_impl pallas (the fused RMSprop tail) and, on the deep model,
-TBT_POOL_PALLAS=1 in the environment (the max-pool backward).
+--opt_impl pallas (the fused RMSprop tail), on the transformer
+--attention_impl pallas (the fused attention, forward and backward; it
+runs in every acting step too) and, on the deep model, TBT_POOL_PALLAS=1
+in the environment (the max-pool backward).
 
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. A flag whose feature the port
@@ -19,6 +21,9 @@ The trainer runs on the first CUDA device. Without one it raises, unless
 
 Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
           --use_lstm --vtrace_impl pallas --opt_impl pallas
+      python -m torchbeast_tpu_torch.monobeast --env Mock \\
+          --model transformer --attention_impl pallas \\
+          --vtrace_impl pallas --opt_impl pallas
 """
 
 import argparse
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
+from torchbeast_tpu_torch import nest
 from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
@@ -85,8 +91,9 @@ def make_parser():
     parser.add_argument("--model", default="shallow",
                         choices=["shallow", "deep", "mlp", "pipelined_mlp",
                                  "transformer", "pipelined_transformer"],
-                        help="Model family: shallow (AtariNet) or deep "
-                             "(IMPALA ResNet); the others " + _LATER)
+                        help="Model family: shallow (AtariNet), deep "
+                             "(IMPALA ResNet) or transformer (KV-cache "
+                             "attention); the others " + _LATER)
     parser.add_argument("--use_lstm", action="store_true",
                         help="Use LSTM in the agent model.")
     parser.add_argument("--precision", default="f32",
@@ -104,7 +111,9 @@ def make_parser():
                         help="Step envs in-process (tests/cheap envs).")
     parser.add_argument("--attention_impl", default="dense",
                         choices=["dense", "pallas"],
-                        help="Transformer attention " + _LATER)
+                        help="Transformer attention body: 'dense' (a "
+                             "materialized mask) or 'pallas' (the CUDA "
+                             "kernels csrc/attention.cu).")
     parser.add_argument("--sequence_parallel", type=int, default=0,
                         help=_LATER)
     parser.add_argument("--pipeline_parallel", type=int, default=0,
@@ -213,7 +222,6 @@ NOT_IN_PORT = {
     "precision": "precision",
     "model_dtype": "precision",
     "factored_opt_state": "precision",
-    "attention_impl": "the transformer family",
     "sequence_parallel": "the transformer family",
     "pipeline_parallel": "the transformer family",
     "pipeline_microbatches": "the transformer family",
@@ -338,6 +346,16 @@ def _trunk_channels(flags):
     return {"trunk_channels": widths}
 
 
+def _attention_impl(flags):
+    impl = getattr(flags, "attention_impl", "dense")
+    if impl == "dense":
+        return {}
+    if flags.model != "transformer":
+        raise ValueError(
+            "--attention_impl applies to --model transformer only")
+    return {"attention_impl": impl}
+
+
 def build_model(flags, num_actions, frame_shape, device):
     """The model on `device`, its initial weights drawn from --seed
     without touching the global RNG state."""
@@ -346,6 +364,7 @@ def build_model(flags, num_actions, frame_shape, device):
         model = create_model(
             flags.model, num_actions=num_actions, use_lstm=flags.use_lstm,
             frame_shape=frame_shape, **_trunk_channels(flags),
+            **_attention_impl(flags),
         )
     return model.to(device)
 
@@ -440,9 +459,11 @@ def train(flags):
                      for k, v in batch.items()},
                     device,
                 )
-                sub_state = tuple(
-                    s[:, i : i + flags.batch_size]
-                    for s in initial_agent_state
+                # Batch is axis 1 of every state leaf (the transformer's
+                # state nests a (k, v, valid) tuple per layer).
+                sub_state = nest.map(
+                    lambda s: s[:, i : i + flags.batch_size],
+                    initial_agent_state,
                 )
                 if device.type == "cuda":
                     t0 = torch.cuda.Event(enable_timing=True)

@@ -1,8 +1,12 @@
-"""Ops of the port: V-trace, losses, pooling and the optimizer tail, each
-kernel beside its plain PyTorch version (counterpart of
-torchbeast_tpu/ops/)."""
+"""Ops of the port: V-trace, losses, pooling, the optimizer tail and the
+transformer's attention, each kernel beside its plain PyTorch version
+(counterpart of torchbeast_tpu/ops/)."""
 
 from torchbeast_tpu_torch.ops._route import plain_on_device  # noqa: F401
+from torchbeast_tpu_torch.ops.attention import (  # noqa: F401
+    transformer_attention,
+    transformer_attention_bwd,
+)
 from torchbeast_tpu_torch.ops.losses import (  # noqa: F401
     compute_baseline_loss,
     compute_entropy_loss,
@@ -14,7 +18,8 @@ from torchbeast_tpu_torch.ops.pool import max_pool2d, pool_bwd  # noqa: F401
 from torchbeast_tpu_torch.ops.vtrace import vtrace_targets  # noqa: F401
 
 # The kernel wrappers, each with its plain integer `launches` counter.
-KERNEL_WRAPPERS = (vtrace_targets, rmsprop_tail, pool_bwd)
+KERNEL_WRAPPERS = (vtrace_targets, rmsprop_tail, pool_bwd,
+                   transformer_attention, transformer_attention_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -48,6 +48,11 @@ SIGNATURES = {
     # eps, momentum, max_norm, clip, has_mom, stream
     "tbt_rmsprop_tail": [_P] * 5 + [_I, _P, _I, _P] + [_F] * 6
     + [_I, _I, _P],
+    # q, k, v, seg, valid, nodone, bias, out, lse, B, T, H, D, M, stream
+    "tbt_attention_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    # q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv,
+    # dbias, delta, ds_diag, B, T, H, D, M, stream
+    "tbt_attention_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 

@@ -1,13 +1,15 @@
 """Where the time of the port's learner update and acting step goes on the
-GPU, at the slice's one configuration: deep ResNet + LSTM, 84x84x4 frames,
-6 actions (MockEnv), T=80, B=32, --vtrace_impl pallas --opt_impl pallas,
-TBT_POOL_PALLAS=1.
+GPU, at one of the port's two configurations, both with 84x84x4 frames,
+6 actions (MockEnv), T=80, B=32, --vtrace_impl pallas --opt_impl pallas:
+deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), or the
+transformer policy at full width with --attention_impl pallas.
 
-    python -m torchbeast_tpu_torch.profile_update
+    python -m torchbeast_tpu_torch.profile_update [deep|transformer]
 
 Prints the card (nvidia-smi name and power limit), then one JSON line:
 the median update time (CUDA events around each update), the median
-acting step time (host clock around one synchronized T=1, B=32 forward),
+acting step time (host clock around one synchronized T=1, B=32 forward;
+the transformer acts from a cache about 70% valid),
 and from a torch.profiler window over UPDATES updates the device time
 per update by kernel name (top entries) and by group (the port's own
 kernels, convolutions, matrix products, the rest). The device's busy
@@ -15,14 +17,15 @@ share is that device time over the unprofiled median update time (the
 profiler itself slows the host's launches down). Weights and batch are
 random, made from SEED. Needs a CUDA device.
 
-T, B, NUM_ACTIONS and random_batch are the slice's shape and batch,
-shared with chip_smoke.py.
+T, B, NUM_ACTIONS, random_batch and random_cache are the configurations'
+shape, batch and transformer state, shared with chip_smoke.py.
 """
 
 import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -42,7 +45,10 @@ UPDATES, WARMUP, SEED, TOP = 10, 3, 0, 15
 # them under convolutions.
 GROUPS = (
     ("port kernels", ("vtrace_targets_kernel", "rmsprop_sumsq_kernel",
-                      "rmsprop_apply_kernel", "pool_bwd_kernel")),
+                      "rmsprop_apply_kernel", "pool_bwd_kernel",
+                      "attention_fwd_kernel", "attention_bwd_dq_kernel",
+                      "attention_bwd_dkdv_kernel",
+                      "attention_dbias_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                      "fprop", "nchw", "nhwc")),
     ("matrix product", ("gemm", "gemv", "cutlass")),
@@ -78,9 +84,25 @@ def random_batch(seed, device):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def main():
+def random_cache(model, seed, device):
+    """A transformer state of random keys and values with about 70% of
+    the cache valid, from numpy's generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    state = []
+    for k, _, valid in model.initial_state(B):
+        state.append(tuple(
+            torch.from_numpy(a).to(device) for a in (
+                rng.standard_normal(k.shape).astype(np.float32),
+                rng.standard_normal(k.shape).astype(np.float32),
+                (rng.random(valid.shape) < 0.7).astype(np.float32))))
+    return tuple(state)
+
+
+def main(model_name="deep"):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
+    if model_name not in ("deep", "transformer"):
+        raise ValueError(f"model {model_name!r}: deep or transformer")
     os.environ["TBT_POOL_PALLAS"] = "1"
     device = torch.device("cuda", 0)
     card = subprocess.run(
@@ -91,13 +113,20 @@ def main():
     print(card)
 
     torch.manual_seed(SEED)
-    model = create_model("deep", NUM_ACTIONS, use_lstm=True).to(device)
+    if model_name == "deep":
+        model = create_model("deep", NUM_ACTIONS, use_lstm=True).to(device)
+        config = {"model": "deep", "use_lstm": True, "pool_kernel": True}
+        state = model.initial_state(B, device)
+    else:
+        model = create_model("transformer", NUM_ACTIONS,
+                             attention_impl="pallas").to(device)
+        config = {"model": "transformer", "attention_impl": "pallas"}
+        state = random_cache(model, SEED, device)
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas")
     optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
     update = learner_lib.update_body(model, optimizer, hp)
     batch = random_batch(SEED, device)
-    state = model.initial_state(B, device)
 
     for _ in range(WARMUP):
         update(batch, state)
@@ -115,7 +144,7 @@ def main():
     act = learner_lib.make_act_step(model, device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     env = {k: v[0].cpu().numpy() for k, v in batch.items()}
-    act_state = model.initial_state(B, device)
+    act_state = state
     act_ms = []
     for i in range(WARMUP + UPDATES):
         t0 = time.perf_counter()
@@ -147,9 +176,8 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
         "card": card,
-        "config": {"model": "deep", "use_lstm": True, "T": T, "B": B,
-                   "frames": [84, 84, 4], "vtrace_impl": "pallas",
-                   "opt_impl": "pallas", "pool_kernel": True},
+        "config": {**config, "T": T, "B": B, "frames": [84, 84, 4],
+                   "vtrace_impl": "pallas", "opt_impl": "pallas"},
         "update_ms_median": statistics.median(update_ms),
         "update_ms_all": update_ms,
         "act_ms_median": statistics.median(act_ms),
@@ -171,4 +199,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

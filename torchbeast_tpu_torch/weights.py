@@ -14,6 +14,13 @@ submodules after the flax scopes). Per leaf:
   the input kernels ii/if/ig/io and the hidden kernels hi/hf/hg/ho stack
   in i, f, g, o order into weight_ih_l{l} / weight_hh_l{l}, and the
   hidden-side biases into bias_hh_l{l} (flax has no input-side bias).
+- The transformer's attention projections are flax DenseGenerals over
+  (H, hd), stored as Linear layers of H*hd: the q/k/v kernel [d, H, hd]
+  becomes the weight [H*hd, d] and its bias [H, hd] the bias [H*hd]; the
+  `out` kernel [H, hd, d] becomes the weight [d, H*hd]. Back to flax, H
+  is the first dimension of the block's `rel_bias` [H, M+1].
+- LayerNorm `scale` is the port's `weight` (the only 1-D weight);
+  `rel_bias` crosses as it is.
 
 Optimizer trees shaped like the params (RMSprop's nu, the momentum trace)
 convert with the same leaf map. flax's LSTM carry is (c, h); the reference
@@ -27,6 +34,8 @@ import torch
 
 _GATES = ("i", "f", "g", "o")
 _LSTM_SCOPE = ("core", "Scan_StackedLSTMStep_0")
+_HEAD_PROJECTIONS = ("q", "k", "v")  # DenseGeneral out to (H, hd)
+_HEAD_MERGE = "out"  # DenseGeneral in from (H, hd)
 
 
 def _unwrap(tree):
@@ -60,8 +69,16 @@ def jax_to_torch(tree) -> Dict[str, torch.Tensor]:
         if path[-1] == "kernel":
             if leaf.ndim == 4:
                 out[key + ".weight"] = leaf.transpose(3, 2, 0, 1)
+            elif leaf.ndim == 3 and path[-2] == _HEAD_MERGE:
+                out[key + ".weight"] = leaf.reshape(-1, leaf.shape[-1]).T
+            elif leaf.ndim == 3:
+                out[key + ".weight"] = leaf.reshape(leaf.shape[0], -1).T
             else:
                 out[key + ".weight"] = leaf.T
+        elif path[-1] == "scale":
+            out[key + ".weight"] = leaf
+        elif path[-1] == "bias":
+            out[key + ".bias"] = leaf.reshape(-1)
         else:
             out[key + "." + path[-1]] = leaf
     for (prefix, layer), parts in lstm.items():
@@ -86,6 +103,15 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def _heads(state, parts):
+    """H of an attention projection's block (its rel_bias [H, M+1]), or
+    None for a key outside the attention projections."""
+    if len(parts) < 2 or parts[-2] not in _HEAD_PROJECTIONS + (_HEAD_MERGE,):
+        return None
+    rel_bias = state.get(".".join(parts[:-2] + ["rel_bias"]))
+    return None if rel_bias is None else rel_bias.shape[0]
+
+
 def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
     """The port's state dict (or a params-aligned {key: tensor} optimizer
     tree) -> flax params as nested numpy dicts, under "params" when
@@ -95,6 +121,7 @@ def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
         a = t.detach().cpu().numpy()
         parts = key.split(".")
         name = parts[-1]
+        heads = _heads(state, parts)
         if name.startswith(("weight_ih_l", "weight_hh_l", "bias_hh_l")):
             layer = int(name.rsplit("_l", 1)[1])
             scope = tuple(parts[:-1]) + (_LSTM_SCOPE[1], f"layer_{layer}")
@@ -104,9 +131,21 @@ def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
                 leaf = chunk if kind == "bias" else chunk.T
                 _set(tree, scope + (side + gate, kind), np.array(leaf))
             continue
-        if name == "weight":
-            leaf = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        if name == "weight" and a.ndim == 1:
+            _set(tree, tuple(parts[:-1]) + ("scale",), np.array(a))
+        elif name == "weight":
+            if a.ndim == 4:
+                leaf = a.transpose(2, 3, 1, 0)
+            elif heads is not None and parts[-2] == _HEAD_MERGE:
+                leaf = a.T.reshape(heads, -1, a.shape[0])
+            elif heads is not None:
+                leaf = a.T.reshape(a.shape[1], heads, -1)
+            else:
+                leaf = a.T
             _set(tree, tuple(parts[:-1]) + ("kernel",), np.array(leaf))
+        elif name == "bias" and heads is not None and (
+                parts[-2] in _HEAD_PROJECTIONS):
+            _set(tree, tuple(parts), np.array(a.reshape(heads, -1)))
         else:
             _set(tree, tuple(parts), np.array(a))
     return {"params": tree} if wrap else tree
