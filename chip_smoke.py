@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -13,15 +13,22 @@ exits non-zero without printing the final result line:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, TF32 off, with its median time over CUDA-event
    timed runs beside its bound, the plain version's time and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time. The pool
+   backward is timed per trunk stage and also checked on ties and on
+   shapes its 16-byte path does not take; the attention forward is timed
+   at the learner shape (T=81) and the acting shape (T=1). With
+   --kernels-only the script stops here and prints the kernels line (to
+   compare two trees' kernels on one card);
 4. main paths: `monobeast.train` through the port's own parser, every
    kernel switch on, T=80, B=32, 3 updates each, at full width:
    (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc and LSTM
    256); (b) the transformer policy (84x84x4 frames, 2 layers, d_model
    128, 4 heads, memory 64) with --attention_impl pallas. The launch
    counts are set to 0 before each path and read after it; each kernel
-   the path is meant to launch must show a count above 0, and every loss
-   stat must be finite;
+   the path is meant to launch must show a count above 0, every pool
+   backward launch must have taken the kernel's 16-byte path (the trunk
+   hands it channels_last tensors, uncopied), and every loss stat must
+   be finite;
 5. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
    off, cuDNN deterministic); params, RMSprop state and loss stats must
@@ -58,9 +65,6 @@ F32_FLOPS_PER_S = 67e12
 STAGES = ((84, 84, 16), (42, 42, 32), (21, 21, 32))  # pool inputs (H, W, C)
 # The transformer's attention at full width: heads, head dim, memory.
 HEADS, HEAD_DIM, MEMORY = 4, 32, 64
-# The pool kernel adds tied windows in the plain tap-sum's order, so it
-# should agree exactly; the check allows 1 ulp.
-POOL_RTOL = 2.0 ** -22
 
 
 class SmokeFailure(RuntimeError):
@@ -158,6 +162,33 @@ def check_vtrace(ops, dev):
     }
 
 
+def nhwc_at_offset(t, offset):
+    """A copy of the channels_last tensor t that starts `offset` floats
+    into its storage (offset 1: not 16-byte aligned)."""
+    N, C, H, W = t.shape
+    buf = torch.empty(offset + t.numel(), device=t.device)
+    out = buf[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
+    out.copy_(t)
+    return out
+
+
+def pool_case(pool, label, x, y, g, vector):
+    """The kernel against its plain version on one input, exactly (it adds
+    tied windows in the plain tap-sum's order); `vector`: whether the
+    launch must take the 16-byte path."""
+    before = pool.pool_bwd.vector_launches
+    got = pool.pool_bwd(x, y, g)
+    torch.cuda.synchronize()
+    took = pool.pool_bwd.vector_launches > before
+    check(took == vector, f"pool_bwd {label}: 16-byte path {took}")
+    want = pool.pool_bwd_plain(x, y, g)
+    e, ok = close(got, want, 0.0, 0.0)
+    check(ok, f"pool_bwd {label}: max |err| {e}")
+    print(f"kernel pool_bwd {label} ({'16-byte' if took else 'scalar'} "
+          f"path): max_abs_err {e:.3g} (exact)")
+    return e
+
+
 def check_pool(ops, dev):
     from torchbeast_tpu_torch.ops import pool
 
@@ -165,6 +196,7 @@ def check_pool(ops, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    stages = []
     for H, W, C in STAGES:
         x = torch.randn(n, H, W, C, generator=gen, device=dev)
         x = x.permute(0, 3, 1, 2)  # channels_last [N, C, H, W]
@@ -174,7 +206,7 @@ def check_pool(ops, dev):
         got = pool.pool_bwd(x, y, g)
         torch.cuda.synchronize()
         want = pool.pool_bwd_plain(x, y, g)
-        e, ok = close(got, want, POOL_RTOL, 0.0)
+        e, ok = close(got, want, 0.0, 0.0)
         check(ok, f"pool_bwd {(n, H, W, C)}: max |err| {e}")
         # Tie-free input: PyTorch's one-tie backward is the same function.
         lib_gx = torch.ops.aten.max_pool2d_with_indices_backward(
@@ -188,33 +220,49 @@ def check_pool(ops, dev):
         nbytes = 4 * (2 * x.numel() + 2 * y.numel())
         bms, _ = bound_ms(nbytes, 9 * x.numel())
         print(f"kernel pool_bwd N={n} {H}x{W}x{C}: max_abs_err {e:.3g} "
-              f"(within 1 ulp); vs torch backward {e_lib:.3g}; ms {ms:.4f} "
-              f"plain {plain:.4f} torch {lib:.4f} bound {bms:.4f}")
+              f"(exact); vs torch backward {e_lib:.3g}; ms {ms:.4f} "
+              f"plain {plain:.4f} torch {lib:.4f} bound {bms:.4f} share of "
+              f"bound {bms / ms:.3f}")
+        stages.append({"shape": [n, H, W, C], "ms": ms, "bound_ms": bms,
+                       "share_of_bound": bms / ms})
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("bound_ms", bms)):
             tot[k] += v
         del x, y, g, idx, got, want, lib_gx
         torch.cuda.empty_cache()
+    print(f"kernel pool_bwd three stages: {tot['ms']:.4f} ms against a "
+          f"bound of {tot['bound_ms']:.4f} ms, share "
+          f"{tot['bound_ms'] / tot['ms']:.3f}")
     # Planted ties: values on a coarse grid tie inside most windows.
     x = (torch.randint(0, 4, (64, 84, 84, 16), generator=gen, device=dev)
          .float().permute(0, 3, 1, 2))
     y = F.max_pool2d(x, 3, 2, 1)
     g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
         memory_format=torch.channels_last)
-    got = pool.pool_bwd(x, y, g)
-    want = pool.pool_bwd_plain(x, y, g)
-    e, ok = close(got, want, POOL_RTOL, 0.0)
-    check(ok, f"pool_bwd with ties: max |err| {e}")
-    err = max(err, e)
-    print(f"kernel pool_bwd ties N=64 84x84x16: max_abs_err {e:.3g} "
-          "(within 1 ulp)")
+    err = max(err, pool_case(pool, "ties N=64 84x84x16", x, y, g, True))
+    # Shapes the 16-byte path does not take: odd H and W with C=3 (ties
+    # planted too), and a C=16 input one float into its storage.
+    x = (torch.randint(0, 4, (64, 21, 21, 3), generator=gen, device=dev)
+         .float().permute(0, 3, 1, 2))
+    y = F.max_pool2d(x, 3, 2, 1)
+    g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    err = max(err, pool_case(pool, "ties N=64 21x21x3", x, y, g, False))
+    x = torch.randn(64, 42, 42, 16, generator=gen, device=dev).permute(
+        0, 3, 1, 2)
+    y = F.max_pool2d(x, 3, 2, 1)
+    g = torch.randn(y.shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    err = max(err, pool_case(pool, "N=64 42x42x16 offset 1",
+                             nhwc_at_offset(x, 1), nhwc_at_offset(y, 1),
+                             nhwc_at_offset(g, 1), False))
     return {
         "name": "pool_bwd", "route": "cuda",
         "source": "torchbeast_tpu_torch/csrc/pool_bwd.cu",
         "replaces": "torchbeast_tpu/ops/pallas_pool.py:54",
         "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"], "bound_by": "bytes",
-        "library_ms": tot["library_ms"],
+        "library_ms": tot["library_ms"], "stages": stages,
     }
 
 
@@ -321,8 +369,9 @@ def attention_inputs(t, seed, dev):
 
 def check_attention(ops, dev):
     """Forward and backward kernels against the plain version at the
-    learner shape (T = unroll + 1) and the acting shape (T = 1); times at
-    the learner shape. Returns the two kernel rows."""
+    learner shape (T = unroll + 1) and the acting shape (T = 1); the
+    forward timed at both, the backward at the learner shape. Returns the
+    three kernel rows."""
     from torchbeast_tpu_torch.ops import attention
 
     M = MEMORY
@@ -355,13 +404,13 @@ def check_attention(ops, dev):
               f"1e-5, atol 1e-6); backward dq/dk/dv/drel_bias max_abs_err "
               f"{' / '.join(f'{e:.3g}' for e in eb)} (rtol 1e-4, atol 1e-5)")
 
-    # Timing at the learner shape, inputs as the model gives them.
+    # Timing of the forward at the learner shape (T = unroll + 1) and the
+    # acting shape (T = 1), and of the backward at the learner shape,
+    # inputs as the model gives them.
+    fwd = {t: time_attention_forward(attention, t, dev) for t in (T + 1, 1)}
     q, k, v, seg, valid, nodone, bias = xs = attention_inputs(T + 1, 5, dev)
     g = torch.randn_like(q)
     with torch.no_grad():
-        fwd_ms = time_ms(lambda: attention.transformer_attention(M, *xs))
-        fwd_plain = time_ms(
-            lambda: attention.transformer_attention_plain(M, *xs))
         out, lse = attention._launch_forward(M, *xs)
     bwd_ms = time_ms(lambda: attention.transformer_attention_bwd(
         M, *xs, out, lse, g))
@@ -370,56 +419,86 @@ def check_attention(ops, dev):
         M, leaves[0], leaves[1], leaves[2], seg, valid, nodone, leaves[3])
     bwd_plain = time_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                     retain_graph=True))
-    # Yardstick: SDPA over [B, H, T, K] with the mask and the bias folded
-    # into one precomputed [B, H, T, K] additive mask (which the port never
-    # builds); its backward gives the mask's gradient, not yet reduced to
-    # the bias.
-    _, offsets = attention.band_relative_offsets(T + 1, M, device=dev)
-    visible = attention.attention_mask(M, seg, valid, nodone)
-    add_mask = torch.where(visible[:, None], bias[:, offsets][None],
-                           attention.BIG_NEG).contiguous().requires_grad_()
+    # Yardstick: SDPA's autograd backward, with the mask's gradient left
+    # as [B, H, T, K], not reduced to the bias.
+    add_mask = sdpa_mask(attention, M, seg, valid, nodone, bias)
+    add_mask.requires_grad_()
     sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    with torch.no_grad():
-        lib_out = F.scaled_dot_product_attention(sq, sk, sv,
-                                                 attn_mask=add_mask)
-        e_lib, _ = close(lib_out.transpose(1, 2), out, 0.0, 0.0)
-        fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=add_mask))
     lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=add_mask)
     g_t = g.transpose(1, 2).contiguous()
     bwd_lib = time_ms(lambda: torch.autograd.grad(
         lib_out, (sq, sk, sv, add_mask), g_t, retain_graph=True))
-
-    # Bytes: each input read once, each output written once. Operations:
-    # only the band's pairs are needed, M + 1 keys per query row; per pair
-    # the forward does q.k and p.v (4 D flops), the backward those two
-    # recomputed plus dO.v, dS.k and dS.q (10 D flops).
-    pairs = B * HEADS * (T + 1) * (M + 1)
+    # Backward: q k v meta out dO lse in, dq dk dv dbias out; per band pair
+    # q.k and p.v recomputed plus dO.v, dS.k and dS.q (10 D flops).
     qb, kb = 4 * q.numel(), 4 * k.numel()
-    meta = 4 * seg.numel() + 4 * valid.numel() + nodone.numel() + 4 * bias.numel()
-    fwd_bound, fwd_by = bound_ms(qb + 2 * kb + meta + qb,
-                                 4 * HEAD_DIM * pairs)
     bwd_bound, bwd_by = bound_ms(
-        (qb + 2 * kb + meta + 2 * qb + 4 * lse.numel())  # q k v meta out dO lse
-        + (qb + 2 * kb + 4 * bias.numel()),  # dq dk dv dbias
-        10 * HEAD_DIM * pairs)
-    print(f"kernel transformer_attention vs SDPA with a precomputed additive "
-          f"mask: forward max_abs_err {e_lib:.3g}")
+        (qb + 2 * kb + meta_bytes(seg, valid, nodone, bias) + 2 * qb
+         + 4 * lse.numel()) + (qb + 2 * kb + 4 * bias.numel()),
+        10 * HEAD_DIM * B * HEADS * (T + 1) * (M + 1))
     rows = []
-    for name, ms, plain, lib, bms, by, err in (
-            ("transformer_attention", fwd_ms, fwd_plain, fwd_lib, fwd_bound,
-             fwd_by, err_f),
-            ("transformer_attention_bwd", bwd_ms, bwd_plain, bwd_lib,
-             bwd_bound, bwd_by, err_b)):
+    for name, t, (ms, plain, lib, bms, by), err in (
+            ("transformer_attention", T + 1, fwd[T + 1], err_f),
+            ("transformer_attention_acting", 1, fwd[1], err_f),
+            ("transformer_attention_bwd", T + 1,
+             (bwd_ms, bwd_plain, bwd_lib, bwd_bound, bwd_by), err_b)):
         rows.append({
             "name": name, "route": "cuda",
             "source": "torchbeast_tpu_torch/csrc/attention.cu",
             "replaces": "torchbeast_tpu/ops/pallas_attention.py:85",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "shape": {"B": B, "T": t, "H": HEADS, "D": HEAD_DIM, "M": M},
         })
+    # The acting row is the same wrapper's forward at T = 1.
+    rows[1]["wrapper"] = "transformer_attention"
     return rows
+
+
+def meta_bytes(seg, valid, nodone, bias):
+    return (4 * seg.numel() + 4 * valid.numel() + nodone.numel()
+            + 4 * bias.numel())
+
+
+def sdpa_mask(attention, M, seg, valid, nodone, bias):
+    """The mask and the bias folded into one precomputed [B, H, T, K]
+    additive mask for SDPA (the port never builds it)."""
+    _, offsets = attention.band_relative_offsets(seg.shape[1], M,
+                                                 device=seg.device)
+    visible = attention.attention_mask(M, seg, valid, nodone)
+    return torch.where(visible[:, None], bias[:, offsets][None],
+                       attention.BIG_NEG).contiguous()
+
+
+def time_attention_forward(attention, t, dev):
+    """(ms, plain_ms, sdpa_ms, bound_ms, bound_by) of the forward kernel at
+    unroll length t; SDPA takes the same inputs with a precomputed
+    additive mask, and its difference from the kernel is printed."""
+    M = MEMORY
+    q, k, v, seg, valid, nodone, bias = xs = attention_inputs(t, 5 + t, dev)
+    add_mask = sdpa_mask(attention, M, seg, valid, nodone, bias)
+    sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        out = attention.transformer_attention(M, *xs)
+        ms = time_ms(lambda: attention.transformer_attention(M, *xs))
+        plain = time_ms(lambda: attention.transformer_attention_plain(M, *xs))
+        lib_out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                 attn_mask=add_mask)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=add_mask))
+    e_lib, _ = close(out, lib_out.transpose(1, 2), 0.0, 0.0)
+    # Bytes: q k v meta in, out and lse out, each once. Operations: only
+    # the band's pairs are needed, M + 1 keys per query row, q.k and p.v
+    # on each (4 D flops).
+    qb, kb = 4 * q.numel(), 4 * k.numel()
+    bms, by = bound_ms(qb + 2 * kb + meta_bytes(seg, valid, nodone, bias)
+                       + qb + 4 * B * HEADS * t,
+                       4 * HEAD_DIM * B * HEADS * t * (M + 1))
+    print(f"kernel transformer_attention forward B={B} T={t} H={HEADS} "
+          f"D={HEAD_DIM} M={M}: ms {ms:.4f} plain {plain:.4f} SDPA {lib:.4f} "
+          f"(max_abs_err vs kernel {e_lib:.3g}) bound {bms:.5f} ({by}), "
+          f"share of bound {bms / ms:.3f}")
+    return ms, plain, lib, bms, by
 
 
 # ------------------------------------------------------------- main paths
@@ -454,6 +533,11 @@ def run_main_path(ops, savedir, path):
     for name in expected:
         check(counts[name] > 0, f"{label} path launched {name} "
                                 f"{counts[name]} times")
+    # The trunk hands the pool backward its tensors as they are (no layout
+    # copy); every launch must have found them channels_last and aligned.
+    vector = ops.pool_bwd.vector_launches
+    check(vector == counts["pool_bwd"], f"{label} path: {vector} of "
+          f"{counts['pool_bwd']} pool_bwd launches took the 16-byte path")
     for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
                 "grad_norm"):
         check(key in stats and np.isfinite(stats[key]),
@@ -511,7 +595,11 @@ def check_update_parity(ops, dev, label, model_k, state):
     check(not stat_failed, f"{label} update parity: stats {stat_failed}")
 
 
-def main():
+def main(argv):
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -547,13 +635,17 @@ def main():
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, library {lib} ms")
 
+    if kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
     savedir = os.path.join(ROOT, "build", "chip_smoke")
     by_path = {path[0]: run_main_path(ops, savedir, path)
                for path in (DEEP_PATH, TRANSFORMER_PATH)}
     for k in kernels:
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        k["launches_by_path"] = {p: c[k.get("wrapper", k["name"])]
+                                 for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -578,4 +670,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

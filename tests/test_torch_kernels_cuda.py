@@ -63,6 +63,71 @@ def test_pool_kernel_matches_plain_version(cuda, ties):
                                rtol=0, atol=0)
 
 
+def _pool_inputs(cuda, shape, ties, seed=0):
+    """x [N, C, H, W] in channels_last memory (values on a coarse grid with
+    ties), its pooled y and a random g, both channels_last."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if ties:
+        x = torch.randint(0, 4, shape, generator=gen, device=cuda).float()
+    else:
+        x = torch.randn(shape, generator=gen, device=cuda)
+    x = x.permute(0, 3, 1, 2)
+    y = F.max_pool2d(x, 3, 2, 1).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(y.shape, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    return x, y, g
+
+
+def _run_pool(x, y, g):
+    """(gx, whether the 16-byte path ran); checks the launch counts."""
+    before = (pool.pool_bwd.launches, pool.pool_bwd.vector_launches)
+    gx = pool.pool_bwd(x, y, g)
+    after = (pool.pool_bwd.launches, pool.pool_bwd.vector_launches)
+    assert after[0] == before[0] + 1
+    return gx, after[1] == before[1] + 1
+
+
+@pytest.mark.parametrize("shape", [(6, 84, 84, 16), (6, 42, 42, 32),
+                                   (6, 21, 21, 32)])
+def test_pool_kernel_matches_plain_version_on_trunk_stages(cuda, shape):
+    """The deep trunk's three pool inputs (N, H, W, C) at a small N, with
+    ties planted: the 16-byte path, exact."""
+    x, y, g = _pool_inputs(cuda, shape, ties=True)
+    got, vectorized = _run_pool(x, y, g)
+    assert vectorized
+    torch.testing.assert_close(got, pool.pool_bwd_plain(x, y, g),
+                               rtol=0, atol=0)
+
+
+def _at_offset(t, offset):
+    """A copy of channels_last t that starts `offset` floats into its
+    storage."""
+    N, C, H, W = t.shape
+    buf = torch.empty(offset + t.numel(), device=t.device)
+    out = buf[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", ["odd_hw_c3", "offset_c16", "nchw_c16"])
+def test_pool_kernel_scalar_path_matches_plain_version(cuda, case):
+    """Inputs the 16-byte path does not take: odd H and W with C=3, a C=16
+    input one float into its storage (not 16-byte aligned), and NCHW
+    strides; all with ties, exact."""
+    if case == "odd_hw_c3":
+        x, y, g = _pool_inputs(cuda, (5, 21, 19, 3), ties=True)
+    else:
+        x, y, g = _pool_inputs(cuda, (5, 42, 41, 16), ties=True)
+        if case == "offset_c16":
+            x, y, g = (_at_offset(t, 1) for t in (x, y, g))
+        else:
+            x, y, g = (t.contiguous() for t in (x, y, g))
+    got, vectorized = _run_pool(x, y, g)
+    assert not vectorized
+    torch.testing.assert_close(got, pool.pool_bwd_plain(x, y, g),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("scale,max_norm", [(1.0, 40.0), (1e-3, 40.0),
                                             (1.0, None)])
 def test_rmsprop_tail_kernel_matches_plain_version(cuda, scale, max_norm):
@@ -144,3 +209,31 @@ def test_attention_kernels_match_plain_version(cuda, T):
     torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-6)
     for a, b in zip(g_k, g_p):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,M,D", [
+    (1, 64, 32), (2, 64, 32), (9, 64, 32), (81, 64, 32),  # the model's M
+    (81, 0, 32), (1, 0, 32),  # no cache
+    (9, 64, 20),  # D % 4 != 0: the scalar copy path
+    (81, 130, 64), (1, 130, 64),  # bands over one chunk, 4 key splits
+])
+def test_attention_forward_matches_plain_version(cuda, T, M, D):
+    """The forward kernel's out and log-sum-exp against the plain version
+    across both launch geometries (acting T <= 4, learner above), TF32
+    off for the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xs = attention_inputs(8, T, 4, D, M, T + M, cuda)
+    before = attention.transformer_attention.launches
+    out, lse = attention._launch_forward(M, *xs)
+    assert attention.transformer_attention.launches == before + 1
+    want = attention.transformer_attention_plain(M, *xs)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    # lse from the plain scores: [B, H, T] log-sum-exp over visible keys.
+    q, k, v, seg, valid, nodone, bias = xs
+    _, offsets = attention.band_relative_offsets(T, M, device=cuda)
+    mask = attention.attention_mask(M, seg, valid, nodone)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    scores = torch.where(mask[:, None], scores + bias[:, offsets][None],
+                         -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
+                               rtol=1e-5, atol=1e-5)

@@ -66,6 +66,27 @@ def test_forward_and_all_ties_backward_match_jax(shape, ties):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "offset"])
+def test_backward_matches_jax_in_any_layout(layout):
+    """The pool's autograd function hands x, y and g to the backward in
+    the layout they come in (the kernel reads strides; no copy), so NCHW
+    memory and a view into its storage give the channels_last result."""
+    x, g = _inputs((2, 21, 19, 3), ties=True, seed=5)
+    _, vjp = jax.vjp(jax_pool.max_pool2d, jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    xt, gt = _nchw(x), _nchw(g)
+    if layout == "nchw":
+        xt, gt = xt.contiguous(), gt.contiguous()
+    elif layout == "offset":
+        buf = torch.zeros(1 + xt.numel())
+        buf[1:] = xt.contiguous().flatten()
+        xt = buf[1:].view(xt.shape)
+    xt.requires_grad_(True)
+    port_pool.max_pool2d(xt).backward(gt)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
 def test_ties_are_all_credited():
     # One 3x3 window of equal values: every one of its positions that no
     # other window reaches gets the full cotangent.

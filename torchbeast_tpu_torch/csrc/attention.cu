@@ -19,43 +19,75 @@
 // row is empty, and a masked key gets weight exactly 0, as the reference's
 // -1e30 score does.
 //
-// Design. Each warp owns one item (a query row in the forward and the dq
-// pass, a key in the dk/dv pass); a block of kWarps warps owns kWarps
-// consecutive items of one (b, h). The block streams the partners its
-// items need (only the band: keys [t0, t_last + M], or rows
-// [j0 - M, j_last]) through shared memory in chunks of 32, one partner per
-// lane: the lane computes its partner's dot products over D, and the
-// warp's sums over partners (p . V, dS . K, ...) broadcast each lane's
-// value with a shuffle while lanes hold the head dims. The forward keeps a
-// running max and sum (online softmax) so no [T, K] tile is ever stored;
-// it writes each row's log-sum-exp, from which the backward recomputes P.
 // Layouts are the model's [B, T, H, D] and [B, K, H, D]: no transposes,
-// and the mask and the bias index are computed in the kernel from seg,
+// and the mask and the bias index are computed in the kernels from seg,
 // cache_valid and no_done (the TPU kernel had the bias expanded to
-// [H, T, K] in HBM for Mosaic's sake).
+// [H, T, K] in HBM for Mosaic's sake). Arithmetic is f32 on the CUDA
+// cores: the forward is 0.09 GFLOP at the learner shape, about 1.3 us at
+// the card's f32 rate, and TF32 tensor cores would not hold the stated
+// tolerance.
+//
+// Forward. A block owns one (b, h) and a tile of TQ query rows. It copies
+// the tile's q rows and its whole band of keys, [t0, t_last + M], of K and
+// V into shared memory once, with 16-byte cp.async (each key row is D
+// contiguous floats at a stride of H * D), and while those fly it puts
+// each key's mask tag (a cache slot's validity, an unroll key's segment)
+// and the bias of the tile's offsets there too, so nothing after the one
+// barrier reads global memory; a band beyond the shared-memory budget
+// (kSmemBudget) is taken in chunks. Each warp owns RW rows and takes the
+// keys their bands need in slots of 32, one key a lane, kSlots slots a
+// pass: the lane forms the RW scores of its key as outer products over D
+// (one K float4 against RW broadcast q float4s), the warp reduces each
+// row's max and sum once a pass (the RW shuffle chains side by side;
+// online softmax across passes, so no [T, K] tile is stored), puts the
+// probabilities in shared memory and sums P . V with lanes over the head
+// dims, one broadcast read of the RW probabilities per key. It writes each
+// row's log-sum-exp, from which the backward recomputes P. Two launch
+// geometries share the kernel:
+// - learner (T > kActingMaxT): RW = 4 rows a warp and up to kMaxRowGroups
+//   warps, so at T = 81 one block of 21 warps holds all rows of a (b, h)
+//   and HBM sees each key once; at M = 64 a warp's band is 68 keys, one
+//   pass;
+// - acting (T <= kActingMaxT, T = 1 when acting), in the spirit of flash
+//   decoding: one row a block, its M + 1 keys split across S warps (up
+//   to kMaxSplits) slot by slot, the warps' partial max, sum and
+//   accumulator merged in shared memory at the end, so no warp idles for
+//   want of a row.
 //
 // Backward, with Delta_t = rowsum(dO_t * O_t) and P from the lse:
 //   dS = P * (dO V^T - Delta),  dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
 //   dV = P^T dO,  d rel_bias[h, o] = sum over b, t of dS[t, t + M - o].
-// Launch 1 (one warp per row) writes dQ, Delta and dS on each row's M + 1
-// band offsets; launch 2 (one warp per key) writes dK and dV; launch 3
-// sums the per-row offsets over b and t in a fixed order. No atomics:
-// every output element has one writer, so the result is deterministic.
+// Each warp owns one item (a query row in the dq pass, a key in the dk/dv
+// pass); a block of kWarps warps owns kWarps consecutive items of one
+// (b, h) and streams the partners its items need (rows [j0 - M, j_last]
+// or keys [t0, t_last + M]) through shared memory in chunks of 32, one
+// partner per lane. Launch 1 (one warp per row) writes dQ, Delta and dS on
+// each row's M + 1 band offsets; launch 2 (one warp per key) writes dK and
+// dV; launch 3 sums the per-row offsets over b and t in a fixed order. No
+// atomics: every output element has one writer, so the result is
+// deterministic.
 //
-// Bound on the H100 at the learner shape (B=32, T=81, H=4, D=32, M=64):
-// the forward moves about 7.4 MB (q, k, v, out) and does 4 D flops per
-// band pair (2.7 M pairs, 0.09 GFLOP), so bytes bound it at about 2.2 us;
-// the backward moves about 15 MB for 2.5x the flops. The simple design
-// here uses no tensor cores (wgmma) and reads each key chunk once per
-// block of 8 rows, so latency and the f32 FMA pipe, not HBM, set its time.
+// Bounds on the H100 (3.35 TB/s, 67 TFLOP/s f32), counting only the band's
+// pairs (M + 1 keys a row): at the learner shape (B=32, T=81, H=4, D=32,
+// M=64) the forward moves about 7.4 MB (q, k, v, out) for 0.09 GFLOP, so
+// bytes bound it at about 2.2 us; at the acting shape (T=1) it moves about
+// 2.2 MB, about 0.65 us; the backward moves about 15 MB for 2.5x the
+// flops, about 4.4 us. None of these kernels reaches its bound. The
+// forward's time is one burst round trip to HBM for the staging plus the
+// shared-memory traffic of the score and P . V loops (by their count about
+// 290 wavefronts a warp at the learner shape), not its flops (PERF.md).
 #include <math.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;   // items per block
-constexpr int kChunk = 32;  // partners per shared-memory chunk (one a lane)
+// Backward: items per block, and partners per shared-memory chunk (one a
+// lane).
+constexpr int kWarps = 8;
+constexpr int kChunk = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Geometry {
@@ -64,12 +96,6 @@ struct Geometry {
 
 __device__ inline float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ inline float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -107,10 +133,115 @@ __device__ inline void stage_rows(float* dst, int ld, const float* src, int b,
 
 // ------------------------------------------------------------- forward
 
-// grid (B*H, ceil(T / kWarps)), kWarps warps; warp w owns query row
-// t = blockIdx.y * kWarps + w. DPL = ceil(D / 32) head dims per lane.
-template <int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int kSlots = 3;                // slots of 32 keys a warp pass
+constexpr int kPassKeys = 32 * kSlots;
+constexpr int kLearnerRows = 4;          // learner geometry: RW rows a warp,
+constexpr int kMaxRowGroups = 24;        // at most this many warps a block
+constexpr int kActingMaxT = 4;           // up to this T, one row a block
+constexpr int kMaxSplits = 4;            // acting: warps sharing a row
+constexpr int kMaxThreads = 32 * kMaxRowGroups;
+constexpr size_t kSmemBudget = 160 * 1024;  // shared memory a block takes
+
+// The launch geometry: TQ query rows a block, in G groups of RW rows (one
+// warp each) times S warps that split each group's keys; KC keys a chunk;
+// shared-memory rows of LD floats; vec: 16-byte copies.
+struct FwdShape {
+  int TQ, G, S, KC, LD;
+  bool vec;
+};
+
+__device__ inline void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy n rows of D floats, `stride` floats apart in global memory, into
+// shared-memory rows of LD floats; all threads of the block take part. The
+// 16-byte path (D % 4 == 0, aligned) is asynchronous and completes at
+// cp_async_wait_all(); the scalar path also zeroes the columns D ..
+// round_up(D, 4) that the float4 dot products read.
+__device__ inline void stage_rows_async(float* dst, int LD, const float* src,
+                                        long long stride, int n, int D,
+                                        bool vec) {
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int cols = vec ? D / 4 : (D + 3) & ~3;
+  auto copy = [&](int r, int c) {
+    if (vec) {
+      cp_async16(dst + r * LD + 4 * c, src + r * stride + 4 * c);
+    } else {
+      dst[r * LD + c] = c < D ? src[r * stride + c] : 0.f;
+    }
+  };
+  if (nthreads >= cols) {
+    const int per = nthreads / cols;  // rows copied per pass
+    if (tid >= per * cols) return;
+    const int c = tid % cols;
+    for (int r = tid / cols; r < n; r += per) copy(r, c);
+  } else {
+    for (int r = 0; r < n; ++r)
+      for (int c = tid; c < cols; c += nthreads) copy(r, c);
+  }
+}
+
+// RW probabilities of one key to and from shared memory, as float4s
+// where RW is a multiple of 4.
+template <int RW>
+__device__ inline void load_p(const float* p, float (&pr)[RW]) {
+  if constexpr (RW % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < RW; r += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + r);
+      pr[r] = t.x; pr[r + 1] = t.y; pr[r + 2] = t.z; pr[r + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RW; ++r) pr[r] = p[r];
+  }
+}
+
+template <int RW>
+__device__ inline void store_p(float* p, const float (&pr)[RW]) {
+  if constexpr (RW % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < RW; r += 4)
+      *reinterpret_cast<float4*>(p + r) =
+          make_float4(pr[r], pr[r + 1], pr[r + 2], pr[r + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < RW; ++r) p[r] = pr[r];
+  }
+}
+
+// Maxima and sums over the warp of R independent values at once, so the
+// R shuffle chains overlap.
+template <int R>
+__device__ inline void warp_max_n(float (&v)[R]) {
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v[r] = fmaxf(v[r], __shfl_xor_sync(kFull, v[r], o));
+  }
+}
+
+template <int R>
+__device__ inline void warp_sum_n(float (&v)[R]) {
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] += __shfl_xor_sync(kFull, v[r], o);
+  }
+}
+
+// grid (B*H, ceil(T / TQ)), G * S warps. Warp w owns rows
+// t0 + (w % G) * RW .. + RW - 1; of each chunk's keys that their bands
+// need, in slots of 32 (one key a lane), it takes slots w / G, w / G + S,
+// ... DPL = ceil(D / 32) head dims per lane.
+template <int RW, int DPL>
+__global__ void __launch_bounds__(kMaxThreads)
     attention_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -119,66 +250,248 @@ __global__ void __launch_bounds__(kWarps * 32)
                          const unsigned char* __restrict__ nodone,
                          const float* __restrict__ bias,
                          float* __restrict__ out, float* __restrict__ lse,
-                         Geometry g, float scale) {
-  extern __shared__ float smem[];
-  const int D = g.D, ld = D + 1;  // padded rows: lanes read distinct banks
-  float* ks = smem;               // [kChunk][ld]
-  float* vs = ks + kChunk * ld;   // [kChunk][ld]
-  float* qs = vs + kChunk * ld;   // [kWarps][D]
-  const int b = blockIdx.x / g.H, h = blockIdx.x % g.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t0 = blockIdx.y * kWarps;
-  const int t = t0 + warp;
-  const bool active = t < g.T;
-  const int t_last = min(t0 + kWarps, g.T) - 1;
+                         Geometry g, FwdShape f, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = f.G * f.S;
+  float* ks = smem;                       // [KC][LD]
+  float* vs = ks + f.KC * f.LD;           // [KC][LD]
+  float* qs = vs + f.KC * f.LD;           // [TQ][LD]
+  float* pw = qs + f.TQ * f.LD;           // [warps][kSlots * 32][RW]
+  float* bw = pw + warps * kPassKeys * RW;  // [KC + TQ] the chunk's bias
+  int* ktag = reinterpret_cast<int*>(bw + f.KC + f.TQ);  // [KC]
+  float* mg = reinterpret_cast<float*>(ktag + f.KC);     // [S][TQ] (S > 1)
+  float* lg = mg + f.S * f.TQ;            // [S][TQ]
+  float* ag = lg + f.S * f.TQ;            // [S][TQ][32 * DPL]
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gi = warp % f.G, si = warp / f.G;
+  const int b = blockIdx.x / g.H, h = blockIdx.x - b * g.H;
+  const int t0 = blockIdx.y * f.TQ;
+  const int t_last = min(t0 + f.TQ, g.T) - 1;
+  const int ta = t0 + gi * RW;                // the warp's first row
+  const int ta_last = min(ta + RW, g.T) - 1;  // < ta: the warp has no row
+  const int D = g.D, D4 = (D + 3) / 4;
+  const long long stride = static_cast<long long>(g.H) * D;  // row to row
+  const float* kb = k + row_of(b, 0, h, g.K, g.H, D);
+  const float* vb = v + row_of(b, 0, h, g.K, g.H, D);
   const int* seg_b = seg + static_cast<long long>(b) * g.T;
   const float* valid_b = valid + static_cast<long long>(b) * g.M;
   const unsigned char* nodone_b = nodone + static_cast<long long>(b) * g.T;
   const float* bias_h = bias + static_cast<long long>(h) * (g.M + 1);
-  float* q_w = qs + warp * D;
-  if (active) {
-    for (int d = lane; d < D; d += 32) q_w[d] = q[row_of(b, t, h, g.T, g.H, D) + d];
+  float* pw_w = pw + warp * kPassKeys * RW;
+
+  bool row_ok[RW], row_nodone[RW];
+  int row_seg[RW];
+  float m[RW], l[RW], acc[RW][DPL];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int t = ta + r;
+    row_ok[r] = t <= ta_last;
+    row_seg[r] = row_ok[r] ? seg_b[t] : 0;
+    row_nodone[r] = row_ok[r] && nodone_b[t] != 0;
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
 
-  float m = -INFINITY, l = 0.f, acc[DPL];
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
   const int j_end = t_last + g.M;  // keys [t0, t_last + M] cover the band
-  for (int c0 = t0; c0 <= j_end; c0 += kChunk) {
-    const int n = min(kChunk, j_end - c0 + 1);
-    __syncthreads();  // the previous chunk is consumed (and q_w staged)
-    stage_rows(ks, ld, k, b, c0, n, h, g.K, g.H, D);
-    stage_rows(vs, ld, v, b, c0, n, h, g.K, g.H, D);
+  for (int c0 = t0; c0 <= j_end; c0 += f.KC) {
+    const int n = min(f.KC, j_end - c0 + 1);
+    // Offset o = t - j + M of row t and key j is bias window entry
+    // o - o_base, in [0, n + t_last - t0).
+    const int o_base = t0 - (c0 + n - 1) + g.M;
+    __syncthreads();  // the previous chunk is consumed
+    stage_rows_async(ks, f.LD, kb + c0 * stride, stride, n, D, f.vec);
+    stage_rows_async(vs, f.LD, vb + c0 * stride, stride, n, D, f.vec);
+    if (c0 == t0)
+      stage_rows_async(qs, f.LD, q + row_of(b, t0, h, g.T, g.H, D), stride,
+                       t_last - t0 + 1, D, f.vec);
+    // While the copies fly: each key's tag (a cache key's validity, an
+    // unroll key's segment) and the bias over the chunk's offsets.
+    for (int i = tid; i < n; i += nthreads) {
+      const int j = c0 + i;
+      ktag[i] = j < g.M ? static_cast<int>(valid_b[j] != 0.f) : seg_b[j - g.M];
+    }
+    for (int i = tid; i < n + t_last - t0; i += nthreads) {
+      const int o = o_base + i;
+      bw[i] = o >= 0 && o <= g.M ? bias_h[o] : 0.f;
+    }
+    cp_async_wait_all();
     __syncthreads();
-    if (!active) continue;
-    const int j = c0 + lane;
-    const bool vis =
-        lane < n && visible(t, j, g, seg_b, valid_b, nodone_b);
-    float s = -INFINITY;
-    if (vis) s = dot(q_w, ks + lane * ld, D) * scale + bias_h[t - j + g.M];
-    const float cmax = warp_max(s);
-    if (cmax == -INFINITY) continue;  // nothing visible in this chunk
-    const float m_new = fmaxf(m, cmax);
-    const float corr = expf(m - m_new);  // 0 on the first visible chunk
-    const float p = vis ? expf(s - m_new) : 0.f;
-    l = l * corr + warp_sum(p);
-    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
-    for (int jj = 0; jj < n; ++jj) {
-      const float pj = __shfl_sync(kFull, p, jj);
-      if (pj == 0.f) continue;  // warp-uniform
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) acc[i] = fmaf(pj, vs[jj * ld + d], acc[i]);
+    if (ta > ta_last) continue;
+    // The warp's keys in this chunk: its rows' bands, [ta, ta_last + M],
+    // in slots of 32; the warps of a row group take every S-th slot, in
+    // passes of kSlots slots.
+    const int kbeg = max(ta, c0), kend = min(ta_last + g.M, c0 + n - 1);
+    for (int u0 = si; kbeg + 32 * u0 <= kend; u0 += kSlots * f.S) {
+      int j0[kSlots];
+      bool live[kSlots];  // warp-uniform
+      float s[kSlots][RW];
+#pragma unroll
+      for (int st = 0; st < kSlots; ++st) {
+        j0[st] = kbeg + 32 * (u0 + st * f.S);
+        live[st] = j0[st] <= kend;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) s[st][r] = 0.f;
+      }
+      // Scores: each lane's key against the RW rows, outer products over D.
+      for (int d4 = 0; d4 < D4; ++d4) {
+        float4 qv[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(qs + (ta - t0 + r) * f.LD +
+                                                   4 * d4);
+#pragma unroll
+        for (int st = 0; st < kSlots; ++st) {
+          if (!live[st]) continue;
+          const int j = min(j0[st] + lane, kend);  // a staged key either way
+          const float4 kv =
+              *reinterpret_cast<const float4*>(ks + (j - c0) * f.LD + 4 * d4);
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            s[st][r] = fmaf(qv[r].x, kv.x, s[st][r]);
+            s[st][r] = fmaf(qv[r].y, kv.y, s[st][r]);
+            s[st][r] = fmaf(qv[r].z, kv.z, s[st][r]);
+            s[st][r] = fmaf(qv[r].w, kv.w, s[st][r]);
+          }
+        }
+      }
+      // Mask and bias: a cache key by its slot's validity and the row's
+      // no-done gate, an unroll key by the segment; band offsets only.
+      float mx[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) mx[r] = -INFINITY;
+#pragma unroll
+      for (int st = 0; st < kSlots; ++st) {
+        const int j = j0[st] + lane;
+        const bool key_in = live[st] && j <= kend;
+        const int tag = key_in ? ktag[j - c0] : 0;
+        const bool is_cache = j < g.M;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const int o = ta + r - j + g.M;
+          const bool vis = key_in && row_ok[r] && o >= 0 && o <= g.M &&
+                           (is_cache ? tag != 0 && row_nodone[r]
+                                     : row_seg[r] == tag);
+          s[st][r] = vis ? s[st][r] * scale + bw[o - o_base] : -INFINITY;
+          mx[r] = fmaxf(mx[r], s[st][r]);
+        }
+      }
+      warp_max_n<RW>(mx);
+      // Online softmax across passes: rescale what earlier ones summed.
+      float sum[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        sum[r] = 0.f;
+        if (mx[r] == -INFINITY) {  // nothing visible to row r in this pass
+          mx[r] = 0.f;             // any finite max: its p are exp(-inf) = 0
+          continue;
+        }
+        const float m_new = fmaxf(m[r], mx[r]);
+        const float corr = expf(m[r] - m_new);  // 0 on the first visible pass
+        l[r] *= corr;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
+        m[r] = mx[r] = m_new;
+      }
+#pragma unroll
+      for (int st = 0; st < kSlots; ++st) {
+        if (!live[st]) continue;
+        float p[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          p[r] = expf(s[st][r] - mx[r]);  // 0 where s is -inf
+          sum[r] += p[r];
+        }
+        store_p<RW>(pw_w + (st * 32 + lane) * RW, p);
+      }
+      warp_sum_n<RW>(sum);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) l[r] += sum[r];
+      __syncwarp();
+      // P . V: lanes over the head dims, one broadcast read of the RW
+      // probabilities of each key.
+#pragma unroll
+      for (int st = 0; st < kSlots; ++st) {
+        if (!live[st]) continue;
+        const int nk = min(32, kend - j0[st] + 1);
+        const float* vrow = vs + (j0[st] - c0) * f.LD;
+        const float* prow = pw_w + st * 32 * RW;
+        for (int kk = 0; kk < nk; ++kk, vrow += f.LD, prow += RW) {
+          float pr[RW];
+          load_p<RW>(prow, pr);
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + 32 * i;
+            if (d < D) {
+              const float vv = vrow[d];
+#pragma unroll
+              for (int r = 0; r < RW; ++r)
+                acc[r][i] = fmaf(pr[r], vv, acc[r][i]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // pw_w is rewritten by the next pass
+    }
+  }
+
+  if (f.S > 1) {
+    // Merge the S warps of each row group: max, rescaled sums.
+    if (ta <= ta_last) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (!row_ok[r]) continue;
+        const int slot = si * f.TQ + ta - t0 + r;
+        if (lane == 0) {
+          mg[slot] = m[r];
+          lg[slot] = l[r];
+        }
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          ag[slot * 32 * DPL + lane + 32 * i] = acc[r][i];
       }
     }
-    m = m_new;
+    __syncthreads();
+    if (si != 0 || ta > ta_last) return;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      if (!row_ok[r]) continue;
+      const int row = ta - t0 + r;
+      float m_tot = -INFINITY;
+      for (int s = 0; s < f.S; ++s) m_tot = fmaxf(m_tot, mg[s * f.TQ + row]);
+      float l_tot = 0.f, a[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) a[i] = 0.f;
+      for (int s = 0; s < f.S; ++s) {
+        const int slot = s * f.TQ + row;
+        const float w = expf(mg[slot] - m_tot);  // 0 for a split with no key
+        l_tot = fmaf(lg[slot], w, l_tot);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          a[i] = fmaf(ag[slot * 32 * DPL + lane + 32 * i], w, a[i]);
+      }
+      m[r] = m_tot;
+      l[r] = l_tot;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] = a[i];
+    }
   }
-  if (!active) return;
-  const long long o_row = row_of(b, t, h, g.T, g.H, D);
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) out[o_row + d] = acc[i] / l;
+  if (ta > ta_last) return;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    if (!row_ok[r]) continue;
+    const int t = ta + r;
+    const long long o_row = row_of(b, t, h, g.T, g.H, D);
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) out[o_row + d] = acc[r][i] / l[r];
+    }
+    if (lane == 0)
+      lse[(static_cast<long long>(b) * g.H + h) * g.T + t] = m[r] + logf(l[r]);
   }
-  if (lane == 0) lse[(static_cast<long long>(b) * g.H + h) * g.T + t] = m + logf(l);
 }
 
 // ------------------------------------------------------------ backward
@@ -383,22 +696,63 @@ __global__ void attention_dbias_kernel(const float* __restrict__ ds_diag,
   }
 }
 
-size_t fwd_smem(int D) {
-  return sizeof(float) * (2 * kChunk * (D + 1) + kWarps * D);
-}
-
 size_t bwd_smem(int D) {
   return sizeof(float) * (2 * kChunk * (D + 1) + 2 * kWarps * D);
 }
 
+template <int RW, int DPL>
+int launch_fwd(const float* q, const float* k, const float* v,
+               const int* seg, const float* valid,
+               const unsigned char* nodone, const float* bias, float* out,
+               float* lse, Geometry g, float scale, cudaStream_t stream) {
+  FwdShape f;
+  if (RW == 1) {  // acting: one row a block, its keys split across warps
+    f.G = 1;
+    f.S = std::min(kMaxSplits, std::max(1, (g.M + 1 + 31) / 32));
+  } else {  // learner: up to kMaxRowGroups warps of RW rows, one tile if T fits
+    f.G = std::min(kMaxRowGroups, (g.T + RW - 1) / RW);
+    f.S = 1;
+  }
+  f.TQ = RW * f.G;
+  f.LD = 32 * DPL + 4;  // LD % 32 == 4: a warp's float4 rows miss no bank
+  f.vec = g.D % 4 == 0 && tbt::aligned16(q) &&
+          tbt::aligned16(k) && tbt::aligned16(v);
+  const int warps = f.G * f.S;
+  // Shared memory in floats: q, the warps' probabilities, the bias window's
+  // TQ extra entries and the merge, then per key of a chunk its K and V
+  // rows, a bias entry and a tag. The whole band [t0, t_last + M] is one
+  // chunk when it fits the budget.
+  size_t fixed = static_cast<size_t>(f.TQ) * f.LD +
+                 static_cast<size_t>(warps) * kPassKeys * RW + f.TQ;
+  if (f.S > 1) fixed += static_cast<size_t>(f.S) * f.TQ * (2 + 32 * DPL);
+  const size_t per_key = 2 * f.LD + 2;
+  const size_t budget = kSmemBudget / sizeof(float);
+  if (fixed + per_key > budget) return static_cast<int>(cudaErrorInvalidValue);
+  f.KC = static_cast<int>(
+      std::min<size_t>(f.TQ + g.M, (budget - fixed) / per_key));
+  const size_t smem = sizeof(float) * (fixed + per_key * f.KC);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_kernel<RW, DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(g.B * g.H, (g.T + f.TQ - 1) / f.TQ);
+  attention_fwd_kernel<RW, DPL><<<grid, 32 * warps, smem, stream>>>(
+      q, k, v, seg, valid, nodone, bias, out, lse, g, f, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DPL>
-void launch_fwd(const float* q, const float* k, const float* v,
-                const int* seg, const float* valid,
-                const unsigned char* nodone, const float* bias, float* out,
-                float* lse, Geometry g, float scale, cudaStream_t stream) {
-  const dim3 grid(g.B * g.H, (g.T + kWarps - 1) / kWarps);
-  attention_fwd_kernel<DPL><<<grid, kWarps * 32, fwd_smem(g.D), stream>>>(
-      q, k, v, seg, valid, nodone, bias, out, lse, g, scale);
+int launch_fwd_for(const float* q, const float* k, const float* v,
+                   const int* seg, const float* valid,
+                   const unsigned char* nodone, const float* bias, float* out,
+                   float* lse, Geometry g, float scale, cudaStream_t stream) {
+  return g.T <= kActingMaxT
+             ? launch_fwd<1, DPL>(q, k, v, seg, valid, nodone, bias, out, lse,
+                                  g, scale, stream)
+             : launch_fwd<kLearnerRows, DPL>(q, k, v, seg, valid, nodone,
+                                             bias, out, lse, g, scale, stream);
 }
 
 template <int DPL>
@@ -426,8 +780,9 @@ Geometry geometry(int B, int T, int H, int D, int M) {
 
 }  // namespace
 
-// D <= 128 (ceil(D / 32) <= 4 dims per lane); the shared memory then
-// stays within the 48 KB a launch may take without opting in.
+// D <= 128 (ceil(D / 32) <= 4 dims per lane). The forward opts in to
+// more than 48 KB of shared memory where its chunks need it (D > 32); the
+// backward stays within 48 KB.
 TBT_API int tbt_attention_fwd(const float* q, const float* k, const float* v,
                               const int* seg, const float* valid,
                               const unsigned char* nodone, const float* bias,
@@ -437,13 +792,12 @@ TBT_API int tbt_attention_fwd(const float* q, const float* k, const float* v,
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 31) / 32) {
-    case 1: launch_fwd<1>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s); break;
-    case 2: launch_fwd<2>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s); break;
-    case 3: launch_fwd<3>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s); break;
-    case 4: launch_fwd<4>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s); break;
+    case 1: return launch_fwd_for<1>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
+    case 2: return launch_fwd_for<2>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
+    case 3: return launch_fwd_for<3>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
+    case 4: return launch_fwd_for<4>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 TBT_API int tbt_attention_bwd(const float* q, const float* k, const float* v,

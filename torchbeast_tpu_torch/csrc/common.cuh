@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define TBT_API extern "C" __attribute__((visibility("default")))
 
@@ -21,6 +22,11 @@ inline int grid_for(long long n, int threads = kThreads,
   if (blocks < 1) blocks = 1;
   if (blocks > cap) blocks = cap;
   return static_cast<int>(blocks);
+}
+
+// Whether a pointer allows 16-byte (float4) accesses.
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Sum a double over the block (blockDim.x a power of two, at most

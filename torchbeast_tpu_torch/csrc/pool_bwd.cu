@@ -7,66 +7,232 @@
 //   gx[n, h, w, c] = sum over output windows (oh, ow) that cover (h, w) of
 //                    g[n, oh, ow, c] * (x[n, h, w, c] == y[n, oh, ow, c])
 //
-// Design: gather form, one thread per input element, no atomics. Window oh
-// covers input rows 2*oh-1 .. 2*oh+1, so row h is covered by
-// oh in [h >> 1, (h + 1) >> 1] (clamped to the output): at most 2 x 2
-// windows, read straight from y and g. The TPU kernel's doubled grid (a 2x
-// upsampled, padded copy of y and of g, built for the TPU's lane layout) is
-// not built: it would write two input-sized arrays the GPU does not need.
-// Tensors are NHWC in memory (PyTorch channels_last), so consecutive
-// threads handle consecutive channels and every access is coalesced.
+// Design: gather form, no atomics. Window oh covers input rows 2*oh - 1 ..
+// 2*oh + 1, so the 2x2 input patch (rows 2*oh, 2*oh + 1; columns 2*ow,
+// 2*ow + 1) of output position (oh, ow) is covered by windows (oh..oh+1,
+// ow..ow+1) and by no other: the even row and column by one window, the
+// odd ones by two. A thread owns one output column ow and a group of V
+// channels (V = 4: one 16-byte float4; V = 1: one float) and walks a
+// strip of output rows downwards, writing each row's 2x2 input patch. y
+// and g of the row below are loaded once and carried in registers to the
+// next row, so each thread reads every x element of its strip once and
+// each y and g element at most twice (its own column and, for the
+// neighbouring thread, as column ow + 1, which the L1 serves). Blocks are
+// (channel groups, output columns) over a grid of (image, strip of rows),
+// so no thread divides a 64-bit index: offsets are products of the
+// coordinates and the tensors' strides.
 //
-// Windows are visited from the highest (oh, ow) down, the order in which
-// the plain tap-sum (ops/pool.py::pool_bwd_plain, and the reference's
+// The 16-byte path needs C % 4 == 0, channels contiguous (stride 1),
+// every other stride a multiple of 4 floats and 16-byte aligned pointers;
+// the deep trunk's channels_last activations (C = 16 or 32) take it. Any
+// other shape or layout (odd C, a view into its storage, NCHW strides)
+// takes the scalar path of the same kernel; odd H and W only mask the last
+// row and column. The TPU kernel's doubled grid (a 2x upsampled, padded
+// copy of y and of g, built for the TPU's lane layout) is not built.
+//
+// Windows are added from the highest (oh, ow) down, the order in which the
+// plain tap-sum (ops/pool.py::pool_bwd_plain, and the reference's
 // ops/pool.py::_bwd) adds its taps, so the two agree bit for bit.
 //
-// Bound on the H100: bytes. x and gx are input-sized, y and g output-sized,
-// f32: at the deep trunk's stage 1 (N=2592, 84x84x16 -> 42x42x16) that is
-// 2.93 GB, about 0.87 ms at 3.35 TB/s.
+// Bound on the H100 (3.35 TB/s): bytes. x and gx are input-sized, y and g
+// output-sized, f32: at the deep trunk's stage 1 (N=2592, 84x84x16 ->
+// 42x42x16) that is 2.93 GB, about 0.87 ms; the three stages together
+// 1.42 ms. With 16-byte accesses and no index division the kernel is a
+// stream: it moves those bytes at about three quarters of the peak rate
+// (PERF.md).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-__global__ void pool_bwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y,
-                                const float* __restrict__ g,
-                                float* __restrict__ gx, int N, int H, int W,
-                                int C, int Ho, int Wo) {
-  const long long total = static_cast<long long>(N) * H * W * C;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       idx < total; idx += stride) {
-    const int c = static_cast<int>(idx % C);
-    long long r = idx / C;
-    const int w = static_cast<int>(r % W);
-    r /= W;
-    const int h = static_cast<int>(r % H);
-    const long long n = r / H;
-    const float xv = x[idx];
-    const int oh_lo = h >> 1;
-    const int oh_hi = min((h + 1) >> 1, Ho - 1);
-    const int ow_lo = w >> 1;
-    const int ow_hi = min((w + 1) >> 1, Wo - 1);
-    float acc = 0.f;
-    for (int oh = oh_hi; oh >= oh_lo; --oh) {
-      for (int ow = ow_hi; ow >= ow_lo; --ow) {
-        const long long o = ((n * Ho + oh) * Wo + ow) * C + c;
-        if (xv == y[o]) acc += g[o];
+// Rows of output per thread strip (the launch balances the strips).
+constexpr int kMaxStripRows = 8;
+
+// Element strides of a 4-D tensor indexed (n, c, h, w).
+struct Layout {
+  long long n, c, h, w;
+};
+
+template <int V>
+struct Pack {
+  float v[V];
+};
+
+template <int V>
+__device__ inline Pack<V> load(const float* p) {
+  Pack<V> r;
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
+  } else {
+    r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int V>
+__device__ inline void store(float* p, const Pack<V>& r) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  } else {
+    *p = r.v[0];
+  }
+}
+
+// acc += g where x == y, channel by channel.
+template <int V>
+__device__ inline void credit(Pack<V>& acc, const Pack<V>& x,
+                              const Pack<V>& y, const Pack<V>& g) {
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (x.v[i] == y.v[i]) acc.v[i] += g.v[i];
+}
+
+template <int V>
+__device__ inline Pack<V> zeros() {
+  Pack<V> r;
+#pragma unroll
+  for (int i = 0; i < V; ++i) r.v[i] = 0.f;
+  return r;
+}
+
+// grid (N * strips, ceil(Wo / blockDim.y), ceil(C / V / blockDim.x)),
+// block (channel groups, output columns).
+template <int V>
+__global__ void __launch_bounds__(tbt::kThreads)
+    pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ g, float* __restrict__ gx,
+                    Layout lx, Layout ly, Layout lg, Layout lgx, int H, int W,
+                    int C, int Ho, int Wo, int strips, int strip_rows) {
+  const int c = (blockIdx.z * blockDim.x + threadIdx.x) * V;
+  const int ow = blockIdx.y * blockDim.y + threadIdx.y;
+  if (c >= C || ow >= Wo) return;
+  const int n = blockIdx.x / strips;
+  const int oh0 = (blockIdx.x - n * strips) * strip_rows;
+  const int oh_end = min(oh0 + strip_rows, Ho);
+  if (oh0 >= oh_end) return;
+
+  const float* xb = x + n * lx.n + c * lx.c;
+  const float* yb = y + n * ly.n + c * ly.c;
+  const float* gb = g + n * lg.n + c * lg.c;
+  float* gxb = gx + n * lgx.n + c * lgx.c;
+  const int w0 = 2 * ow, w1 = 2 * ow + 1;
+  const bool has_w1 = w1 < W;        // W odd: the last column has no w1
+  const bool has_ow1 = ow + 1 < Wo;  // window ow + 1 covers column w1
+  const long long yw0 = ow * ly.w, yw1 = (ow + 1) * ly.w;
+  const long long gw0 = ow * lg.w, gw1 = (ow + 1) * lg.w;
+
+  // y and g of windows (oh, ow) and (oh, ow + 1); the row below is loaded
+  // each step and carried to the next.
+  Pack<V> y00 = load<V>(yb + oh0 * ly.h + yw0);
+  Pack<V> g00 = load<V>(gb + oh0 * lg.h + gw0);
+  Pack<V> y01 = y00, g01 = zeros<V>();
+  if (has_ow1) {
+    y01 = load<V>(yb + oh0 * ly.h + yw1);
+    g01 = load<V>(gb + oh0 * lg.h + gw1);
+  }
+  for (int oh = oh0; oh < oh_end; ++oh) {
+    const bool has_oh1 = oh + 1 < Ho;  // window oh + 1 covers row h1
+    Pack<V> y10 = y00, g10 = zeros<V>(), y11 = y00, g11 = zeros<V>();
+    if (has_oh1) {
+      y10 = load<V>(yb + (oh + 1) * ly.h + yw0);
+      g10 = load<V>(gb + (oh + 1) * lg.h + gw0);
+      if (has_ow1) {
+        y11 = load<V>(yb + (oh + 1) * ly.h + yw1);
+        g11 = load<V>(gb + (oh + 1) * lg.h + gw1);
       }
     }
-    gx[idx] = acc;
+    const int h0 = 2 * oh, h1 = 2 * oh + 1;
+    const bool has_h1 = h1 < H;  // H odd: the last strip row has no h1
+    {
+      // Row h0 is covered by window row oh only.
+      const float* xr = xb + h0 * lx.h;
+      float* gr = gxb + h0 * lgx.h;
+      const Pack<V> x00 = load<V>(xr + w0 * lx.w);
+      Pack<V> a = zeros<V>();
+      credit(a, x00, y00, g00);
+      store<V>(gr + w0 * lgx.w, a);
+      if (has_w1) {
+        const Pack<V> x01 = load<V>(xr + w1 * lx.w);
+        a = zeros<V>();
+        if (has_ow1) credit(a, x01, y01, g01);
+        credit(a, x01, y00, g00);
+        store<V>(gr + w1 * lgx.w, a);
+      }
+    }
+    if (has_h1) {
+      // Row h1 is covered by window rows oh + 1 (if any), then oh.
+      const float* xr = xb + h1 * lx.h;
+      float* gr = gxb + h1 * lgx.h;
+      const Pack<V> x10 = load<V>(xr + w0 * lx.w);
+      Pack<V> a = zeros<V>();
+      if (has_oh1) credit(a, x10, y10, g10);
+      credit(a, x10, y00, g00);
+      store<V>(gr + w0 * lgx.w, a);
+      if (has_w1) {
+        const Pack<V> x11 = load<V>(xr + w1 * lx.w);
+        a = zeros<V>();
+        if (has_oh1) {
+          if (has_ow1) credit(a, x11, y11, g11);
+          credit(a, x11, y10, g10);
+        }
+        if (has_ow1) credit(a, x11, y01, g01);
+        credit(a, x11, y00, g00);
+        store<V>(gr + w1 * lgx.w, a);
+      }
+    }
+    y00 = y10; g00 = g10; y01 = y11; g01 = g11;
   }
+}
+
+// Whether a tensor can be read 4 channels at a time with 16-byte accesses.
+bool vector_layout(const void* p, const Layout& l) {
+  return tbt::aligned16(p) && l.c == 1 && l.n % 4 == 0 && l.h % 4 == 0 &&
+         l.w % 4 == 0;
+}
+
+template <int V>
+int launch(const float* x, const float* y, const float* g, float* gx,
+           const Layout* l, int N, int H, int W, int C, int Ho, int Wo,
+           cudaStream_t stream) {
+  const int groups = (C + V - 1) / V;
+  const int bx = std::min(groups, 32);
+  const int by = std::max(1, std::min(Wo, tbt::kThreads / bx));
+  // Balanced strips of at most kMaxStripRows output rows.
+  const int strips = (Ho + kMaxStripRows - 1) / kMaxStripRows;
+  const int strip_rows = (Ho + strips - 1) / strips;
+  const long long blocks_x = static_cast<long long>(N) * strips;
+  if (blocks_x > 0x7fffffffLL || (Wo + by - 1) / by > 65535 ||
+      (groups + bx - 1) / bx > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks_x), (Wo + by - 1) / by,
+                  (groups + bx - 1) / bx);
+  pool_bwd_kernel<V><<<grid, dim3(bx, by), 0, stream>>>(
+      x, y, g, gx, l[0], l[1], l[2], l[3], H, W, C, Ho, Wo, strips,
+      strip_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// strides: 16 element strides, (n, c, h, w) of x, y, g and gx in turn.
+// *vectorized is set to 1 when the 16-byte path ran, 0 for the scalar one.
 TBT_API int tbt_pool_bwd(const float* x, const float* y, const float* g,
-                         float* gx, int N, int H, int W, int C, int Ho, int Wo,
+                         float* gx, const long long* strides, int N, int H,
+                         int W, int C, int Ho, int Wo, int* vectorized,
                          void* stream) {
-  const long long total = static_cast<long long>(N) * H * W * C;
-  pool_bwd_kernel<<<tbt::grid_for(total), tbt::kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, y, g, gx, N, H, W,
-                                                         C, Ho, Wo);
-  return static_cast<int>(cudaGetLastError());
+  Layout l[4];
+  for (int i = 0; i < 4; ++i)
+    l[i] = Layout{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2],
+                  strides[4 * i + 3]};
+  const bool vec = C % 4 == 0 && vector_layout(x, l[0]) &&
+                   vector_layout(y, l[1]) && vector_layout(g, l[2]) &&
+                   vector_layout(gx, l[3]);
+  *vectorized = vec ? 1 : 0;
+  if (N == 0 || H == 0 || W == 0 || C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch<4>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s)
+             : launch<1>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s);
 }

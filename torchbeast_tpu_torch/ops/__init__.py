@@ -25,6 +25,7 @@ KERNEL_WRAPPERS = (vtrace_targets, rmsprop_tail, pool_bwd,
 def reset_launch_counts() -> None:
     for wrapper in KERNEL_WRAPPERS:
         wrapper.launches = 0
+    pool_bwd.vector_launches = 0
 
 
 def launch_counts() -> dict:

@@ -41,8 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # a, deltas, pgrho, rewards, discounts, values, boot, vs, pg, T, B, stream
     "tbt_vtrace_targets": [_P] * 9 + [_I, _I, _P],
-    # x, y, g, gx, N, H, W, C, Ho, Wo, stream
-    "tbt_pool_bwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, y, g, gx, strides (host array of 16), N, H, W, C, Ho, Wo,
+    # vectorized (host int out), stream
+    "tbt_pool_bwd": [_P] * 5 + [_I] * 6 + [_P, _P],
     # params, grads, nus, moms (host arrays of device pointers), numels,
     # n_leaves, partials, n_partials, sumsq, lr, alpha, one_minus_alpha,
     # eps, momentum, max_norm, clip, has_mom, stream

@@ -19,6 +19,7 @@ like SelectAndScatter, credits one position; ties are measure-zero for
 conv outputs.
 """
 
+import ctypes
 import os
 
 import torch
@@ -68,15 +69,16 @@ def pool_bwd_plain(x, y, g):
     return gx
 
 
-def _channels_last(t) -> bool:
-    return t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
-
-
 def pool_bwd(x, y, g):
     """Gradient of the 3x3/2 pad-1 max-pool with respect to x, all ties
     credited. x: [N, C, H, W] pool input, y: its pooled output, g: the
-    cotangent of y, all f32. A CUDA tensor launches csrc/pool_bwd.cu (all
-    three channels_last); a CPU tensor takes `pool_bwd_plain`."""
+    cotangent of y, all f32, in any memory layout. A CUDA tensor launches
+    csrc/pool_bwd.cu, which reads the strides as they are and returns gx
+    in channels_last; a CPU tensor takes `pool_bwd_plain`.
+
+    `pool_bwd.vector_launches` counts the launches that took the kernel's
+    16-byte path (C % 4 == 0, channels contiguous, 16-byte aligned), a
+    subset of `pool_bwd.launches`."""
     name = "pool_bwd"
     require(x.dim() == 4, name, f"x must be 4-D, got {tuple(x.shape)}")
     N, C, H, W = x.shape
@@ -88,43 +90,41 @@ def pool_bwd(x, y, g):
         require(t.device == x.device, name, "inputs on two devices")
     if not use_kernel(x, name):
         return pool_bwd_plain(x, y, g)
-    for t in (x, y, g):
-        require(_channels_last(t), name,
-                "inputs must be contiguous in channels_last format")
     gx = torch.empty_like(x, memory_format=torch.channels_last)
+    strides = (ctypes.c_longlong * 16)(
+        *(s for t in (x, y, g, gx) for s in t.stride()))
+    vectorized = ctypes.c_int(0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _build.library()
     with torch.cuda.device(x.device):
         status = lib.tbt_pool_bwd(
             x.data_ptr(), y.data_ptr(), g.data_ptr(), gx.data_ptr(),
-            N, H, W, C, out[2], out[3], stream,
+            ctypes.cast(strides, ctypes.c_void_p), N, H, W, C, out[2],
+            out[3], ctypes.byref(vectorized), stream,
         )
     _build.check(status, name)
     pool_bwd.launches += 1
+    pool_bwd.vector_launches += vectorized.value
     return gx
 
 
 pool_bwd.launches = 0
+pool_bwd.vector_launches = 0
 
 
 class _AllTiesMaxPool(torch.autograd.Function):
-    """F.max_pool2d forward, `pool_bwd` backward."""
+    """F.max_pool2d forward, `pool_bwd` backward; x, y and g go to the
+    kernel in the layout they have (no copy)."""
 
     @staticmethod
     def forward(ctx, x):
         y = F.max_pool2d(x, WINDOW, STRIDE, PAD)
-        if x.is_cuda:
-            # The kernel reads NHWC memory.
-            x = x.contiguous(memory_format=torch.channels_last)
-            y = y.contiguous(memory_format=torch.channels_last)
         ctx.save_for_backward(x, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        if g.is_cuda:
-            g = g.contiguous(memory_format=torch.channels_last)
         return pool_bwd(x, y, g)
 
 

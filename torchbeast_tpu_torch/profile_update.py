@@ -11,8 +11,9 @@ the median update time (CUDA events around each update), the median
 acting step time (host clock around one synchronized T=1, B=32 forward;
 the transformer acts from a cache about 70% valid),
 and from a torch.profiler window over UPDATES updates the device time
-per update by kernel name (top entries) and by group (the port's own
-kernels, convolutions, matrix products, the rest). The device's busy
+per update by kernel name (top entries, and every one of the port's own
+kernels with its time per call) and by group (the port's own kernels,
+convolutions, matrix products, the rest). The device's busy
 share is that device time over the unprofiled median update time (the
 profiler itself slows the host's launches down). Weights and batch are
 random, made from SEED. Needs a CUDA device.
@@ -194,6 +195,13 @@ def main(model_name="deep"):
             {"name": n[:120], "ms_per_update": us / 1e3 / UPDATES,
              "calls_per_update": c / UPDATES}
             for n, (us, c) in top
+        ],
+        # Every launch of the port's own kernels, however small.
+        "port_kernels": [
+            {"name": n[:120], "ms_per_update": us / 1e3 / UPDATES,
+             "calls_per_update": c / UPDATES, "ms_per_call": us / 1e3 / c}
+            for n, (us, c) in sorted(kernels.items())
+            if _group(n) == "port kernels"
         ],
     }))
 
