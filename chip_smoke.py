@@ -15,8 +15,13 @@ exits non-zero without printing the final result line:
    timed runs beside its bound, the plain version's time and, where one
    PyTorch call computes the same function, that call's time. The pool
    backward is timed per trunk stage and also checked on ties and on
-   shapes its 16-byte path does not take; the attention forward is timed
-   at the learner shape (T=81) and the acting shape (T=1). With
+   shapes its 16-byte path does not take; the RMSprop tail is checked and
+   timed on both models' parameter trees; the attention forward is timed
+   at the learner shape (T=81) and the acting shape (T=1); the attention
+   backward is also checked at a shape beyond one block of its kernel
+   (T=300, D=64) and must give identical bits on two calls; the device
+   kernels of one call of the tail and of the backward are counted with
+   torch.profiler. With
    --kernels-only the script stops here and prints the kernels line (to
    compare two trees' kernels on one card);
 4. main paths: `monobeast.train` through the port's own parser, every
@@ -266,19 +271,47 @@ def check_pool(ops, dev):
     }
 
 
-def _param_tree(dev):
+def _param_tree(dev, name="deep"):
+    """A model of the slice at full width, random from seed 0, and a copy
+    of its parameters."""
     from torchbeast_tpu_torch.models import create_model
 
     torch.manual_seed(0)
-    model = create_model("deep", NUM_ACTIONS, use_lstm=True).to(dev)
+    if name == "deep":
+        model = create_model("deep", NUM_ACTIONS, use_lstm=True)
+    else:
+        model = create_model("transformer", NUM_ACTIONS,
+                             attention_impl="pallas")
+    model = model.to(dev)
     return model, [p.detach().clone() for p in model.parameters()]
 
 
-def check_opt(ops, dev):
+def kernels_per_call(fn, calls=5):
+    """The device kernels one call of fn() launches, by torch.profiler over
+    `calls` calls, after a first profiled window that is thrown away (the
+    first window after start-up can miss events): (count, names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _window in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _call in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(names) / calls, sorted(set(n[:60] for n in names))
+
+
+def check_opt(ops, dev, tree):
+    """The tail against its plain version on one model's parameter tree
+    (clip active, clip inactive, momentum), timed there beside its bound
+    and clip_grad_norm_ + RMSprop(foreach=True)."""
     from torchbeast_tpu_torch.ops import opt
 
-    model, params0 = _param_tree(dev)
+    model, params0 = _param_tree(dev, tree)
     n_params = sum(p.numel() for p in params0)
+    ragged = sum(p.numel() % 4 != 0 for p in params0)
     g_cpu = torch.Generator(device="cpu").manual_seed(1)
     hyper = dict(alpha=0.99, eps=0.01, max_norm=40.0)
     err = 0.0
@@ -314,20 +347,22 @@ def check_opt(ops, dev):
         e = 0.0
         for a, b in pairs:
             ei, ok = close(a, b, 1e-6, 1e-6)
-            check(ok, f"rmsprop_tail ({label}): max |err| {ei}")
+            check(ok, f"rmsprop_tail {tree} ({label}): max |err| {ei}")
             e = max(e, ei)
         err = max(err, e)
-        print(f"kernel rmsprop_tail {label} (|g| {gnorm:.3g}, {steps} "
-              f"steps, {len(params0)} leaves, {n_params} params): "
-              f"max_abs_err {e:.3g} (rtol 1e-6, atol 1e-6)")
+        print(f"kernel rmsprop_tail {tree} {label} (|g| {gnorm:.3g}, "
+              f"{steps} steps, {len(params0)} leaves, {ragged} of them "
+              f"not a multiple of 4, {n_params} params): max_abs_err "
+              f"{e:.3g} (rtol 1e-6, atol 1e-6)")
     pk = [p.clone() for p in params0]
     nk = [torch.zeros_like(p) for p in params0]
     grads = [torch.randn_like(p) for p in params0]
-    ms = time_ms(lambda: opt.rmsprop_tail(pk, grads, nk, None, lr=1e-9,
-                                          momentum=0.0, **hyper))
+    step = lambda: opt.rmsprop_tail(pk, grads, nk, None, lr=1e-9,  # noqa
+                                    momentum=0.0, **hyper)
+    ms = time_ms(step)
+    per_call, names = kernels_per_call(step)
     with ops.plain_on_device():
-        plain = time_ms(lambda: opt.rmsprop_tail(
-            pk, grads, nk, None, lr=1e-9, momentum=0.0, **hyper))
+        plain = time_ms(step)
     # Yardstick: clip_grad_norm_ + torch.optim.RMSprop(foreach=True).
     for p, g in zip(model.parameters(), grads):
         p.grad = g
@@ -340,49 +375,64 @@ def check_opt(ops, dev):
         rms.step()
 
     lib = time_ms(library_step)
-    # Norm pass reads g; update reads g, nu, p and writes nu, p.
-    bms, by = bound_ms(4 * 6 * n_params, 12 * n_params)
+    # Bytes, each input read once and each output written once: g, nu, p
+    # in and nu, p out (20 B a parameter; the timed call has no momentum,
+    # which would add mom in and out, 28 B).
+    bms, by = bound_ms(20 * n_params, 12 * n_params)
+    print(f"kernel rmsprop_tail {tree} ({n_params} params): ms {ms:.4f} "
+          f"bound {bms:.5f} ({by}), share of bound {bms / ms:.3f}; "
+          f"{per_call} device kernels a call {names}")
     return {
-        "name": "rmsprop_tail", "route": "cuda",
+        "name": "rmsprop_tail" + ("" if tree == "deep" else "_" + tree),
+        "wrapper": "rmsprop_tail", "route": "cuda",
         "source": "torchbeast_tpu_torch/csrc/rmsprop_tail.cu",
         "replaces": "torchbeast_tpu/ops/pallas_opt.py:78",
         "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "params": n_params, "kernels_per_call": per_call,
     }
 
 
-def attention_inputs(t, seed, dev):
-    """Attention inputs at the full model's B, H, D and M for an unroll
-    of t steps: planted dones (segments and the no-done gate act) and a
-    cache about 70% valid, from numpy's generator."""
+def attention_inputs(t, seed, dev, b=B, d=HEAD_DIM, m=MEMORY):
+    """Attention inputs for an unroll of t steps, by default at the full
+    model's B, H, D and M: planted dones (segments and the no-done gate
+    act) and a cache about 70% valid, from numpy's generator."""
     rng = np.random.default_rng(seed)
-    done = rng.random((t, B)) < 0.05
+    done = rng.random((t, b)) < 0.05
     done[min(3, t - 1), 0] = True
     seg = np.ascontiguousarray(np.cumsum(done, 0).T, dtype=np.int32)
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    arrays = (f32(B, t, HEADS, HEAD_DIM), f32(B, MEMORY + t, HEADS, HEAD_DIM),
-              f32(B, MEMORY + t, HEADS, HEAD_DIM), seg,
-              (rng.random((B, MEMORY)) < 0.7).astype(np.float32), seg == 0,
-              0.1 * f32(HEADS, MEMORY + 1))
+    arrays = (f32(b, t, HEADS, d), f32(b, m + t, HEADS, d),
+              f32(b, m + t, HEADS, d), seg,
+              (rng.random((b, m)) < 0.7).astype(np.float32), seg == 0,
+              0.1 * f32(HEADS, m + 1))
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
+# Shapes of the attention checks (B, T, D, M): the learner's, the acting
+# step's, and one whose rows and band exceed one block of the backward
+# (row tiles and key chunks).
+ATTENTION_CHECKS = ((B, T + 1, HEAD_DIM, MEMORY), (B, 1, HEAD_DIM, MEMORY),
+                    (8, 300, 64, MEMORY))
+
+
 def check_attention(ops, dev):
-    """Forward and backward kernels against the plain version at the
-    learner shape (T = unroll + 1) and the acting shape (T = 1); the
-    forward timed at both, the backward at the learner shape. Returns the
-    three kernel rows."""
+    """Forward and backward kernels against the plain version at
+    ATTENTION_CHECKS; the backward run twice on the same inputs must agree
+    bit for bit. The forward is timed at the learner shape (T = unroll +
+    1) and the acting shape (T = 1), the backward at the learner shape.
+    Returns the three kernel rows."""
     from torchbeast_tpu_torch.ops import attention
 
     M = MEMORY
     err_f = err_b = 0.0
-    for t in (T + 1, 1):
-        xs = attention_inputs(t, seed=t, dev=dev)
+    for b, t, d, m in ATTENTION_CHECKS:
+        xs = attention_inputs(t, seed=t, dev=dev, b=b, d=d, m=m)
         q, k, v, seg, valid, nodone, bias = xs
         g = torch.from_numpy(np.random.default_rng(t + 1).standard_normal(
             q.shape).astype(np.float32)).to(dev)
         leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
-        args = lambda ls: (M, ls[0], ls[1], ls[2], seg, valid,  # noqa: E731
+        args = lambda ls: (m, ls[0], ls[1], ls[2], seg, valid,  # noqa: E731
                            nodone, ls[3])
         out_k = attention.transformer_attention(*args(leaves))
         grads_k = torch.autograd.grad(out_k, leaves, g)
@@ -393,16 +443,23 @@ def check_attention(ops, dev):
         ef, ok = close(out_k.detach(), out_p.detach(), 1e-5, 1e-6)
         check(ok, f"attention forward T={t}: max |err| {ef}")
         eb = []
-        for label, a, b in zip(("q", "k_all", "v_all", "rel_bias"), grads_k,
-                               grads_p):
-            e, ok = close(a, b, 1e-4, 1e-5)
+        for label, a, b_ in zip(("q", "k_all", "v_all", "rel_bias"),
+                                grads_k, grads_p):
+            e, ok = close(a, b_, 1e-4, 1e-5)
             check(ok, f"attention backward T={t} d{label}: max |err| {e}")
             eb.append(e)
+        with torch.no_grad():
+            out, lse = attention._launch_forward(m, *xs)
+        again = [attention.transformer_attention_bwd(m, *xs, out, lse, g)
+                 for _ in range(2)]
+        check(all(torch.equal(a, b_) for a, b_ in zip(*again)),
+              f"attention backward T={t}: two calls differ")
         err_f, err_b = max(err_f, ef), max(err_b, *eb)
-        print(f"kernel transformer_attention B={B} T={t} H={HEADS} "
-              f"D={HEAD_DIM} M={M}: forward max_abs_err {ef:.3g} (rtol "
+        print(f"kernel transformer_attention B={b} T={t} H={HEADS} "
+              f"D={d} M={m}: forward max_abs_err {ef:.3g} (rtol "
               f"1e-5, atol 1e-6); backward dq/dk/dv/drel_bias max_abs_err "
-              f"{' / '.join(f'{e:.3g}' for e in eb)} (rtol 1e-4, atol 1e-5)")
+              f"{' / '.join(f'{e:.3g}' for e in eb)} (rtol 1e-4, atol "
+              f"1e-5), two calls bitwise equal")
 
     # Timing of the forward at the learner shape (T = unroll + 1) and the
     # acting shape (T = 1), and of the backward at the learner shape,
@@ -412,8 +469,12 @@ def check_attention(ops, dev):
     g = torch.randn_like(q)
     with torch.no_grad():
         out, lse = attention._launch_forward(M, *xs)
-    bwd_ms = time_ms(lambda: attention.transformer_attention_bwd(
-        M, *xs, out, lse, g))
+    bwd = lambda: attention.transformer_attention_bwd(  # noqa: E731
+        M, *xs, out, lse, g)
+    bwd_ms = time_ms(bwd)
+    per_call, names = kernels_per_call(bwd)
+    print(f"kernel transformer_attention_bwd B={B} T={T + 1} H={HEADS} "
+          f"D={HEAD_DIM} M={M}: {per_call} device kernels a call {names}")
     leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
     out_p = attention.transformer_attention_plain(
         M, leaves[0], leaves[1], leaves[2], seg, valid, nodone, leaves[3])
@@ -452,6 +513,7 @@ def check_attention(ops, dev):
         })
     # The acting row is the same wrapper's forward at T = 1.
     rows[1]["wrapper"] = "transformer_attention"
+    rows[2]["kernels_per_call"] = per_call
     return rows
 
 
@@ -625,8 +687,9 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("kernel checks: TF32 off for matmul and cuDNN")
-    kernels = [check_vtrace(ops, dev), check_opt(ops, dev),
-               check_pool(ops, dev), *check_attention(ops, dev)]
+    kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
+               check_opt(ops, dev, "transformer"), check_pool(ops, dev),
+               *check_attention(ops, dev)]
     torch.cuda.empty_cache()
     for k in kernels:
         lib = ("-" if k["library_ms"] is None
@@ -655,10 +718,7 @@ def main(argv):
     model, _ = _param_tree(dev)
     check_update_parity(ops, dev, "deep+LSTM", model,
                         model.initial_state(B, dev))
-    from torchbeast_tpu_torch.models import create_model
-    torch.manual_seed(0)
-    model = create_model("transformer", NUM_ACTIONS,
-                         attention_impl="pallas").to(dev)
+    model, _ = _param_tree(dev, "transformer")
     check_update_parity(ops, dev, "transformer", model,
                         random_cache(model, 0, dev))
 

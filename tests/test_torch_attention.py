@@ -125,6 +125,20 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
         attention.transformer_attention_bwd(3, *xs, out, out, out)
 
 
+def test_backward_tickets_are_zeroed_once_and_grow_with_heads():
+    """The backward kernel's per-head ticket counters: zeros, one tensor
+    per device reused while it holds H counters, a larger one after."""
+    cpu = torch.device("cpu")
+    attention._tickets.pop(cpu, None)
+    first = attention._bwd_tickets(cpu, 4)
+    assert first.dtype == torch.int32 and first.tolist() == [0] * 4
+    assert attention._bwd_tickets(cpu, 2) is first
+    grown = attention._bwd_tickets(cpu, 6)
+    assert grown.numel() == 6 and not grown.any()
+    assert attention._bwd_tickets(cpu, 4) is grown
+    attention._tickets.pop(cpu)
+
+
 @pytest.mark.parametrize("t", [1, 7])
 def test_segment_ids_from_done(t):
     done = np.random.default_rng(t).random((t, 3)) < 0.4

@@ -153,8 +153,41 @@ def test_rmsprop_tail_kernel_matches_plain_version(cuda, scale, max_norm):
             else:
                 before = opt.rmsprop_tail.launches
                 sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
-                assert opt.rmsprop_tail.launches == before + 2
+                assert opt.rmsprop_tail.launches == before + 1
         runs.append(sumsqs + p + nu)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_rmsprop_tail_kernel_matches_plain_version_on_transformer_tree(cuda):
+    """The transformer's 4,012,047 parameters, momentum 0.9, clip active,
+    three steps; some leaves' lengths are not a multiple of 4 (the policy
+    bias has 6), so their ends take the scalar path."""
+    torch.manual_seed(0)
+    params0 = [p.detach() for p in create_model(
+        "transformer", 6, attention_impl="pallas").to(cuda).parameters()]
+    assert sum(p.numel() for p in params0) == 4_012_047
+    assert any(p.numel() % 4 for p in params0)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    grads = [[torch.randn(p.shape, generator=gen, device=cuda)
+              for p in params0] for _ in range(3)]
+    runs = []
+    for plain in (False, True):
+        p = [t.clone() for t in params0]
+        nu = [torch.zeros_like(t) for t in p]
+        mom = [torch.zeros_like(t) for t in p]
+        sumsqs = []
+        for gs in grads:
+            kw = dict(lr=4.8e-4, alpha=0.99, eps=0.01, momentum=0.9,
+                      max_norm=40.0)
+            if plain:
+                with ops.plain_on_device():
+                    sumsqs.append(opt.rmsprop_tail(p, gs, nu, mom, **kw))
+            else:
+                before = opt.rmsprop_tail.launches
+                sumsqs.append(opt.rmsprop_tail(p, gs, nu, mom, **kw))
+                assert opt.rmsprop_tail.launches == before + 1
+        runs.append(sumsqs + p + nu + mom)
     for a, b in zip(*runs):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
@@ -237,3 +270,49 @@ def test_attention_forward_matches_plain_version(cuda, T, M, D):
                          -torch.inf)
     torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
                                rtol=1e-5, atol=1e-5)
+
+
+def _backward_leaves(T, M, D, B=8):
+    """Attention inputs as leaves that take gradients, and a cotangent."""
+    xs = attention_inputs(B, T, 4, D, M, T + M + D, torch.device("cuda", 0))
+    g = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        xs[0].shape).astype(np.float32)).cuda()
+    return xs, g
+
+
+@pytest.mark.parametrize("T,M,D", [
+    (1, 64, 32), (2, 64, 32), (9, 64, 32), (81, 64, 32),  # the model's M
+    (81, 0, 32), (1, 0, 32),  # no cache
+    (9, 64, 20),  # D % 4 != 0: the scalar copy path
+    (81, 130, 64), (1, 130, 64),  # bands over one chunk of keys
+    (300, 64, 64),  # rows over one tile: dK and dV gathered across tiles
+])
+def test_attention_backward_matches_plain_version(cuda, T, M, D):
+    """The backward kernel (one launch) against autograd through the plain
+    version, on the forward test's shapes and one beyond a block's rows;
+    TF32 off for the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xs, g = _backward_leaves(T, M, D)
+    q, k, v, seg, valid, nodone, bias = xs
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = attention.transformer_attention_plain(
+        M, leaves[0], leaves[1], leaves[2], seg, valid, nodone, leaves[3])
+    want = torch.autograd.grad(out, leaves, g)
+    out, lse = attention._launch_forward(M, *xs)
+    before = attention.transformer_attention_bwd.launches
+    got = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    assert attention.transformer_attention_bwd.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,M,D", [(81, 64, 32), (300, 64, 64)])
+def test_attention_backward_is_deterministic(cuda, T, M, D):
+    """Two backward calls on the same inputs agree bit for bit (no atomic
+    decides an order of summation)."""
+    xs, g = _backward_leaves(T, M, D, B=32)
+    out, lse = attention._launch_forward(M, *xs)
+    first = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    second = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

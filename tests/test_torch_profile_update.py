@@ -20,6 +20,12 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
      " int, float*, Hyper)", "port kernels"),
     ("(anonymous namespace)::pool_bwd_kernel(float const*, float*)",
      "port kernels"),
+    ("(anonymous namespace)::rmsprop_tail_kernel(LeafTable, double*, "
+     "float*, Hyper)", "port kernels"),
+    ("void (anonymous namespace)::attention_bwd_kernel<1, 8>(float const*, "
+     "float const*, BwdShape, float)", "port kernels"),
+    ("void (anonymous namespace)::attention_fwd_kernel<4, 1>(float const*, "
+     "FwdShape, float)", "port kernels"),
     # cuDNN convolutions: Hopper xmma kernels carry their direction.
     ("sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc_"
      "tilesize128x128x16_warpgroupsize1x1x1", "convolution"),

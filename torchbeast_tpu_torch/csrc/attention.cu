@@ -57,25 +57,34 @@
 // Backward, with Delta_t = rowsum(dO_t * O_t) and P from the lse:
 //   dS = P * (dO V^T - Delta),  dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
 //   dV = P^T dO,  d rel_bias[h, o] = sum over b, t of dS[t, t + M - o].
-// Each warp owns one item (a query row in the dq pass, a key in the dk/dv
-// pass); a block of kWarps warps owns kWarps consecutive items of one
-// (b, h) and streams the partners its items need (rows [j0 - M, j_last]
-// or keys [t0, t_last + M]) through shared memory in chunks of 32, one
-// partner per lane. Launch 1 (one warp per row) writes dQ, Delta and dS on
-// each row's M + 1 band offsets; launch 2 (one warp per key) writes dK and
-// dV; launch 3 sums the per-row offsets over b and t in a fixed order. No
-// atomics: every output element has one writer, so the result is
-// deterministic.
+// One launch, one block per (b, h) (128 blocks at the learner shape, one
+// an SM). The block copies its q, dO and O rows and the K and V rows of
+// their band into shared memory once, with 16-byte cp.async as the
+// forward does. Pass 1, warps over rows (4 rows a warp, lanes over keys,
+// as in the forward's score loop), forms q . k and dO . v once per band
+// pair and writes P and dS into [key][row] tiles in shared memory, then
+// sums dQ with lanes over D. After one barrier, pass 2, warps over keys
+// (8 at a time, lanes over D), sums dK and dV from the tiles: no pair is
+// computed twice and nothing is staged twice. The block sums the dS tile
+// along each band offset in order of t into one [M + 1] partial per
+// (b, h); the last block of each head to finish (a ticket counter that it
+// resets) adds the B partials in order of b into d rel_bias. No atomic
+// decides an order: every output element has one writer and a fixed order
+// of summation, so two calls give identical bits. Where a (b, h)'s rows
+// and band exceed the shared-memory budget (kBwdSmemBudget), the same
+// block walks row tiles and key chunks, and gathers dK and dV in global
+// memory (it is their only writer).
 //
 // Bounds on the H100 (3.35 TB/s, 67 TFLOP/s f32), counting only the band's
 // pairs (M + 1 keys a row): at the learner shape (B=32, T=81, H=4, D=32,
 // M=64) the forward moves about 7.4 MB (q, k, v, out) for 0.09 GFLOP, so
 // bytes bound it at about 2.2 us; at the acting shape (T=1) it moves about
-// 2.2 MB, about 0.65 us; the backward moves about 15 MB for 2.5x the
-// flops, about 4.4 us. None of these kernels reaches its bound. The
-// forward's time is one burst round trip to HBM for the staging plus the
-// shared-memory traffic of the score and P . V loops (by their count about
-// 290 wavefronts a warp at the learner shape), not its flops (PERF.md).
+// 2.2 MB, about 0.65 us; the backward moves about 15 MB for 0.21 GFLOP
+// (10 D flops a pair), about 4.4 us. None of these kernels reaches its
+// bound: the forward's time is one burst round trip to HBM for the
+// staging plus the shared-memory traffic of the score and P . V loops (by
+// their count about 290 wavefronts a warp at the learner shape), not its
+// flops; the backward's measured times are in PERF.md.
 #include <math.h>
 
 #include <algorithm>
@@ -84,51 +93,15 @@
 
 namespace {
 
-// Backward: items per block, and partners per shared-memory chunk (one a
-// lane).
-constexpr int kWarps = 8;
-constexpr int kChunk = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Geometry {
   int B, T, H, D, M, K;
 };
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // Offset of element (b, n, h, 0) of a [B, N, H, D] tensor.
 __device__ inline long long row_of(int b, int n, int h, int N, int H, int D) {
   return ((static_cast<long long>(b) * N + n) * H + h) * D;
-}
-
-// Whether query t of batch row b sees key j, inside the band or not.
-__device__ inline bool visible(int t, int j, const Geometry& g,
-                               const int* seg_b, const float* valid_b,
-                               const unsigned char* nodone_b) {
-  const int o = t - j + g.M;
-  if (o < 0 || o > g.M) return false;
-  if (j < g.M) return valid_b[j] != 0.f && nodone_b[t] != 0;
-  return seg_b[t] == seg_b[j - g.M];
-}
-
-// dot(a, b) over D floats in shared memory, in order.
-__device__ inline float dot(const float* a, const float* b, int D) {
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-// Copy rows [n0, n0 + n) of (b, h) of a [B, N, H, D] tensor into shared
-// memory with row stride ld; all threads of the block take part.
-__device__ inline void stage_rows(float* dst, int ld, const float* src, int b,
-                                  int n0, int n, int h, int N, int H, int D) {
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = src[row_of(b, n0 + r, h, N, H, D) + d];
-  }
 }
 
 // ------------------------------------------------------------- forward
@@ -496,208 +469,394 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ------------------------------------------------------------ backward
 
-// Launch 1. grid (B*H, ceil(T / kWarps)); warp w owns query row t. Writes
-// dq[t], delta[b, h, t] and ds_diag[b, h, t, o] for o in [0, M] (0 where
-// masked), each exactly once.
-template <int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_dq_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const int* __restrict__ seg,
-                            const float* __restrict__ valid,
-                            const unsigned char* __restrict__ nodone,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ out,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ dout,
-                            float* __restrict__ dq, float* __restrict__ delta,
-                            float* __restrict__ ds_diag, Geometry g,
-                            float scale) {
-  extern __shared__ float smem[];
-  const int D = g.D, ld = D + 1;
-  float* ks = smem;               // [kChunk][ld]
-  float* vs = ks + kChunk * ld;   // [kChunk][ld]
-  float* qs = vs + kChunk * ld;   // [kWarps][D]
-  float* dos = qs + kWarps * D;   // [kWarps][D]
-  const int b = blockIdx.x / g.H, h = blockIdx.x % g.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t0 = blockIdx.y * kWarps;
-  const int t = t0 + warp;
-  const bool active = t < g.T;
-  const int t_last = min(t0 + kWarps, g.T) - 1;
-  const int* seg_b = seg + static_cast<long long>(b) * g.T;
-  const float* valid_b = valid + static_cast<long long>(b) * g.M;
-  const unsigned char* nodone_b = nodone + static_cast<long long>(b) * g.T;
-  const float* bias_h = bias + static_cast<long long>(h) * (g.M + 1);
-  const long long bht = (static_cast<long long>(b) * g.H + h) * g.T + t;
-  float* q_w = qs + warp * D;
-  float* do_w = dos + warp * D;
-  float delta_t = 0.f, lse_t = 0.f;
-  if (active) {
-    const long long r = row_of(b, t, h, g.T, g.H, D);
-    float part = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      q_w[d] = q[r + d];
-      do_w[d] = dout[r + d];
-      part = fmaf(dout[r + d], out[r + d], part);
-    }
-    delta_t = warp_sum(part);
-    lse_t = lse[bht];
-    if (lane == 0) delta[bht] = delta_t;
-  }
+constexpr int kBwdRows = 4;       // pass 1: rows a warp
+constexpr int kBwdMinWarps = 4;   // a block has at least this many warps
+constexpr size_t kBwdSmemBudget = 200 * 1024;
 
-  float acc[DPL];
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  const int j_end = t_last + g.M;
-  for (int c0 = t0; c0 <= j_end; c0 += kChunk) {
-    const int n = min(kChunk, j_end - c0 + 1);
-    __syncthreads();
-    stage_rows(ks, ld, k, b, c0, n, h, g.K, g.H, D);
-    stage_rows(vs, ld, v, b, c0, n, h, g.K, g.H, D);
-    __syncthreads();
-    if (!active) continue;
-    const int j = c0 + lane;
-    const int o = t - j + g.M;
-    float ds = 0.f;
-    if (lane < n && o >= 0 && o <= g.M) {
-      if (visible(t, j, g, seg_b, valid_b, nodone_b)) {
-        const float s =
-            dot(q_w, ks + lane * ld, D) * scale + bias_h[o];
-        const float p = expf(s - lse_t);
-        ds = p * (dot(do_w, vs + lane * ld, D) - delta_t);
-      }
-      ds_diag[bht * (g.M + 1) + o] = ds;
-    }
-    for (int jj = 0; jj < n; ++jj) {
-      const float dsj = __shfl_sync(kFull, ds, jj);
-      if (dsj == 0.f) continue;  // warp-uniform
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) acc[i] = fmaf(dsj, ks[jj * ld + d], acc[i]);
-      }
-    }
-  }
-  if (!active) return;
-  const long long r = row_of(b, t, h, g.T, g.H, D);
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) dq[r + d] = acc[i] * scale;
-  }
+// Most warps a block, so that the accumulators stay in registers: 21 row
+// groups (84 rows, the learner's T = 81 in one tile) with up to 32 head
+// dims, 16 up to 64, 8 above.
+template <int DPL>
+__host__ __device__ constexpr int bwd_max_warps() {
+  return DPL == 1 ? 21 : DPL == 2 ? 16 : 8;
 }
 
-// Launch 2. grid (B*H, ceil(K / kWarps)); warp w owns key j and sums over
-// the rows t in [j - M, j] that see it. Writes dk[j] and dv[j].
+// Pass 2: keys a warp sums at once (its accumulators, 2 * KW * DPL).
 template <int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_dkdv_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const int* __restrict__ seg,
-                              const float* __restrict__ valid,
-                              const unsigned char* __restrict__ nodone,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              const float* __restrict__ dout,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              Geometry g, float scale) {
-  extern __shared__ float smem[];
-  const int D = g.D, ld = D + 1;
-  float* qs = smem;               // [kChunk][ld]
-  float* dos = qs + kChunk * ld;  // [kChunk][ld]
-  float* ks = dos + kChunk * ld;  // [kWarps][D]
-  float* vs = ks + kWarps * D;    // [kWarps][D]
-  const int b = blockIdx.x / g.H, h = blockIdx.x % g.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int j0 = blockIdx.y * kWarps;
-  const int j = j0 + warp;
-  const bool active = j < g.K;
-  const int j_last = min(j0 + kWarps, g.K) - 1;
+__host__ __device__ constexpr int bwd_keys_per_warp() {
+  return DPL <= 2 ? 8 : 4;
+}
+
+// The launch geometry: row tiles of TR rows (TR / 4 warps hold them in
+// pass 1; NW warps a block); key chunks of KC keys, KCP of them in the
+// tiles (a multiple of 8); shared-memory rows of LD floats; vec: 16-byte
+// copies; accumulate: more than one row tile, so dK and dV gather in
+// global memory.
+struct BwdShape {
+  int TR, NW, KC, KCP, LD;
+  bool vec, accumulate;
+};
+
+// grid (B*H): block (b, h) owns every row and key of its (b, h). For each
+// row tile [t0, t_last] and chunk of the keys its band needs:
+// - pass 1: warp w owns rows ta = t0 + 4 w .. ta + 3 and takes the keys
+//   of their bands in slots of 32 (one key a lane, kSlots slots a pass):
+//   q . k and dO . v as outer products over D, P = exp(s - lse) and
+//   dS = P (dO . v - Delta), written into the [key][row] tiles pt and dt;
+//   then dQ += dS K with lanes over D from the warp's own dS entries;
+// - pass 2 (after one barrier): warps take the chunk's keys KW at a time,
+//   lanes over D, and sum dK = dS^T q and dV = P^T dO over the rows;
+// - the bias partial: thread o sums the dS tile along offset o in order
+//   of t into partials[b, h, o].
+// The last block of head h to finish (a ticket counter, reset by that
+// block) sums the B partials of h in order of b into dbias[h]. Every
+// output element has one writer and a fixed order of summation.
+template <int DPL, int KW>
+__global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
+    attention_bwd_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ seg,
+                         const float* __restrict__ valid,
+                         const unsigned char* __restrict__ nodone,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ out,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, float* __restrict__ dbias,
+                         double* __restrict__ partials,
+                         int* __restrict__ tickets, Geometry g, BwdShape f,
+                         float scale) {
+  constexpr int RW = kBwdRows;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool last_block;
+  float* qs = smem;                    // [TR][LD]
+  float* dos = qs + f.TR * f.LD;       // [TR][LD]
+  float* os = dos + f.TR * f.LD;       // [TR][LD] the forward's out
+  float* ks = os + f.TR * f.LD;        // [KCP][LD]
+  float* vs = ks + f.KCP * f.LD;       // [KCP][LD]
+  float* pt = vs + f.KCP * f.LD;       // [KCP][TR] P
+  float* dt = pt + f.KCP * f.TR;       // [KCP][TR] dS
+  float* bw = dt + f.KCP * f.TR;       // [KCP + TR] the chunk's bias
+  int* ktag = reinterpret_cast<int*>(bw + f.KCP + f.TR);  // [KCP]
+  // Per row of the tile: its lse, Delta, segment and no-done gate (kept
+  // here, not in registers, which pass 1 needs for its accumulators).
+  float* rlse = reinterpret_cast<float*>(ktag + f.KCP);  // [TR]
+  float* rdelta = rlse + f.TR;                            // [TR]
+  int* rseg = reinterpret_cast<int*>(rdelta + f.TR);      // [TR]
+  int* rgate = rseg + f.TR;                               // [TR]
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / g.H, h = blockIdx.x - b * g.H;
+  const int D = g.D, D4 = (D + 3) / 4, W = g.M + 1;
+  const long long stride = static_cast<long long>(g.H) * D;  // row to row
+  const float* kb = k + row_of(b, 0, h, g.K, g.H, D);
+  const float* vb = v + row_of(b, 0, h, g.K, g.H, D);
   const int* seg_b = seg + static_cast<long long>(b) * g.T;
   const float* valid_b = valid + static_cast<long long>(b) * g.M;
   const unsigned char* nodone_b = nodone + static_cast<long long>(b) * g.T;
-  const float* bias_h = bias + static_cast<long long>(h) * (g.M + 1);
-  const long long bh_t = (static_cast<long long>(b) * g.H + h) * g.T;
-  float* k_w = ks + warp * D;
-  float* v_w = vs + warp * D;
-  if (active) {
-    const long long r = row_of(b, j, h, g.K, g.H, D);
-    for (int d = lane; d < D; d += 32) {
-      k_w[d] = k[r + d];
-      v_w[d] = v[r + d];
+  const float* bias_h = bias + static_cast<long long>(h) * W;
+  const float* lse_bh = lse + (static_cast<long long>(b) * g.H + h) * g.T;
+  double* part = partials + (static_cast<long long>(b) * g.H + h) * W;
+
+  // Zero what the block gathers into: its bias partial and, with more
+  // than one row tile, its dK and dV rows. The first chunk's barrier
+  // orders these stores before any reader.
+  for (int o = tid; o < W; o += nthreads) part[o] = 0.0;
+  if (f.accumulate) {
+    for (int i = tid; i < g.K * D; i += nthreads) {
+      const int j = i / D, d = i - j * D;
+      dk[row_of(b, j, h, g.K, g.H, D) + d] = 0.f;
+      dv[row_of(b, j, h, g.K, g.H, D) + d] = 0.f;
     }
   }
 
-  float acc_k[DPL], acc_v[DPL];
-  for (int i = 0; i < DPL; ++i) acc_k[i] = acc_v[i] = 0.f;
-  const int t_begin = max(0, j0 - g.M), t_end = min(g.T - 1, j_last);
-  for (int c0 = t_begin; c0 <= t_end; c0 += kChunk) {
-    const int n = min(kChunk, t_end - c0 + 1);
-    __syncthreads();
-    stage_rows(qs, ld, q, b, c0, n, h, g.T, g.H, D);
-    stage_rows(dos, ld, dout, b, c0, n, h, g.T, g.H, D);
-    __syncthreads();
-    if (!active) continue;
-    const int t = c0 + lane;
-    float p = 0.f, ds = 0.f;
-    if (lane < n && visible(t, j, g, seg_b, valid_b, nodone_b)) {
-      const float s =
-          dot(qs + lane * ld, k_w, D) * scale + bias_h[t - j + g.M];
-      p = expf(s - lse[bh_t + t]);
-      ds = p * (dot(dos + lane * ld, v_w, D) - delta[bh_t + t]);
+  for (int t0 = 0; t0 < g.T; t0 += f.TR) {
+    const int t_last = min(t0 + f.TR, g.T) - 1;
+    const int rows = t_last - t0 + 1;
+    const int ta = t0 + RW * warp;  // the warp's first row in pass 1
+    const bool has_rows = RW * warp < f.TR && ta <= t_last;  // warp-uniform
+    const int ta_last = min(ta + RW, g.T) - 1;
+    const int rel = ta - t0;  // the warp's first tile row (column in pt, dt)
+    float acc_q[RW][DPL];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc_q[r][i] = 0.f;
+
+    const int j_end = t_last + g.M;  // keys [t0, t_last + M] cover the band
+    for (int c0 = t0; c0 <= j_end; c0 += f.KC) {
+      const int n = min(f.KC, j_end - c0 + 1);
+      // Offset o = t - j + M of row t and key j is bias window entry
+      // o - o_base, in [0, n + rows - 1).
+      const int o_base = t0 - (c0 + n - 1) + g.M;
+      __syncthreads();  // the previous chunk (or row tile) is consumed
+      stage_rows_async(ks, f.LD, kb + c0 * stride, stride, n, D, f.vec);
+      stage_rows_async(vs, f.LD, vb + c0 * stride, stride, n, D, f.vec);
+      if (c0 == t0) {
+        const long long r0 = row_of(b, t0, h, g.T, g.H, D);
+        stage_rows_async(qs, f.LD, q + r0, stride, rows, D, f.vec);
+        stage_rows_async(dos, f.LD, dout + r0, stride, rows, D, f.vec);
+        stage_rows_async(os, f.LD, out + r0, stride, rows, D, f.vec);
+        // Rows past T read as zeros in pass 2.
+        for (int i = tid; i < (f.TR - rows) * f.LD; i += nthreads)
+          qs[rows * f.LD + i] = dos[rows * f.LD + i] = 0.f;
+        for (int i = tid; i < f.TR; i += nthreads) {
+          const bool ok = i < rows;
+          rlse[i] = ok ? lse_bh[t0 + i] : 0.f;
+          rseg[i] = ok ? seg_b[t0 + i] : 0;
+          rgate[i] = ok && nodone_b[t0 + i] != 0;
+        }
+      }
+      // While the copies fly: the key tags, the bias window, and zeros in
+      // the tiles (pass 1 writes only the pairs its warps visit).
+      for (int i = tid; i < n; i += nthreads) {
+        const int j = c0 + i;
+        ktag[i] = j < g.M ? static_cast<int>(valid_b[j] != 0.f) : seg_b[j - g.M];
+      }
+      for (int i = tid; i < n + rows - 1; i += nthreads) {
+        const int o = o_base + i;
+        bw[i] = o >= 0 && o <= g.M ? bias_h[o] : 0.f;
+      }
+      float4* tiles4 = reinterpret_cast<float4*>(pt);
+      for (int i = tid; i < f.KCP * f.TR / 2; i += nthreads)
+        tiles4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      cp_async_wait_all();
+      __syncthreads();
+
+      // Delta_t = rowsum(dO_t * O_t), summed in the order in which pass 1
+      // sums dO . v, so that a row whose only visible key is its own
+      // (P = 1, O = v) gets dS exactly 0, as the plain version does.
+      if (c0 == t0 && has_rows) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float dl = 0.f;
+          for (int d4 = 0; d4 < D4; ++d4) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                dos + (rel + r) * f.LD + 4 * d4);
+            const float4 o = *reinterpret_cast<const float4*>(
+                os + (rel + r) * f.LD + 4 * d4);
+            dl = fmaf(a.x, o.x, dl);
+            dl = fmaf(a.y, o.y, dl);
+            dl = fmaf(a.z, o.z, dl);
+            dl = fmaf(a.w, o.w, dl);
+          }
+          // O past T is not staged.
+          if (lane == 0) rdelta[rel + r] = ta + r <= ta_last ? dl : 0.f;
+        }
+        __syncwarp();
+      }
+
+      // Pass 1: warps over rows.
+      if (has_rows) {
+        const int kbeg = max(ta, c0), kend = min(ta_last + g.M, c0 + n - 1);
+        for (int u0 = 0; kbeg + 32 * u0 <= kend; u0 += kSlots) {
+          int j0[kSlots];
+          bool live[kSlots];  // warp-uniform
+          float s[kSlots][RW], dp[kSlots][RW];
+#pragma unroll
+          for (int st = 0; st < kSlots; ++st) {
+            j0[st] = kbeg + 32 * (u0 + st);
+            live[st] = j0[st] <= kend;
+#pragma unroll
+            for (int r = 0; r < RW; ++r) s[st][r] = dp[st][r] = 0.f;
+          }
+          // q . k, then dO . v: each lane's key against the RW rows.
+          for (int d4 = 0; d4 < D4; ++d4) {
+            float4 qv[RW];
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+              qv[r] = *reinterpret_cast<const float4*>(qs + (rel + r) * f.LD +
+                                                       4 * d4);
+#pragma unroll
+            for (int st = 0; st < kSlots; ++st) {
+              if (!live[st]) continue;
+              const int j = min(j0[st] + lane, kend);  // a staged key
+              const float4 kv = *reinterpret_cast<const float4*>(
+                  ks + (j - c0) * f.LD + 4 * d4);
+#pragma unroll
+              for (int r = 0; r < RW; ++r) {
+                s[st][r] = fmaf(qv[r].x, kv.x, s[st][r]);
+                s[st][r] = fmaf(qv[r].y, kv.y, s[st][r]);
+                s[st][r] = fmaf(qv[r].z, kv.z, s[st][r]);
+                s[st][r] = fmaf(qv[r].w, kv.w, s[st][r]);
+              }
+            }
+          }
+          for (int d4 = 0; d4 < D4; ++d4) {
+            float4 ov[RW];
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+              ov[r] = *reinterpret_cast<const float4*>(dos + (rel + r) * f.LD +
+                                                       4 * d4);
+#pragma unroll
+            for (int st = 0; st < kSlots; ++st) {
+              if (!live[st]) continue;
+              const int j = min(j0[st] + lane, kend);
+              const float4 vv = *reinterpret_cast<const float4*>(
+                  vs + (j - c0) * f.LD + 4 * d4);
+#pragma unroll
+              for (int r = 0; r < RW; ++r) {
+                dp[st][r] = fmaf(ov[r].x, vv.x, dp[st][r]);
+                dp[st][r] = fmaf(ov[r].y, vv.y, dp[st][r]);
+                dp[st][r] = fmaf(ov[r].z, vv.z, dp[st][r]);
+                dp[st][r] = fmaf(ov[r].w, vv.w, dp[st][r]);
+              }
+            }
+          }
+          // P and dS of each visible pair (0 elsewhere), into the tiles.
+#pragma unroll
+          for (int st = 0; st < kSlots; ++st) {
+            const int j = j0[st] + lane;
+            if (!live[st] || j > kend) continue;
+            const int tag = ktag[j - c0];
+            const bool is_cache = j < g.M;
+            float p[RW], ds[RW];
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+              const int o = ta + r - j + g.M;
+              const bool vis = ta + r <= ta_last && o >= 0 && o <= g.M &&
+                               (is_cache ? tag != 0 && rgate[rel + r] != 0
+                                         : rseg[rel + r] == tag);
+              p[r] = vis ? expf(s[st][r] * scale + bw[o - o_base] -
+                                rlse[rel + r])
+                         : 0.f;
+              ds[r] = vis ? p[r] * (dp[st][r] - rdelta[rel + r]) : 0.f;
+            }
+            store_p<RW>(pt + (j - c0) * f.TR + rel, p);
+            store_p<RW>(dt + (j - c0) * f.TR + rel, ds);
+          }
+          __syncwarp();
+          // dQ += dS K: lanes over the head dims, one broadcast read of
+          // the RW dS entries of each key.
+#pragma unroll
+          for (int st = 0; st < kSlots; ++st) {
+            if (!live[st]) continue;
+            const int nk = min(32, kend - j0[st] + 1);
+            const float* krow = ks + (j0[st] - c0) * f.LD;
+            const float* drow = dt + (j0[st] - c0) * f.TR + rel;
+            for (int kk = 0; kk < nk; ++kk, krow += f.LD, drow += f.TR) {
+              float dsr[RW];
+              load_p<RW>(drow, dsr);
+#pragma unroll
+              for (int i = 0; i < DPL; ++i) {
+                const int d = lane + 32 * i;
+                if (d < D) {
+                  const float kv = krow[d];
+#pragma unroll
+                  for (int r = 0; r < RW; ++r)
+                    acc_q[r][i] = fmaf(dsr[r], kv, acc_q[r][i]);
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // Pass 2: warps over keys, KW at a time, lanes over the head dims.
+      const int groups = (n + KW - 1) / KW;
+      for (int grp = warp; grp < groups; grp += f.NW) {
+        const int jg = c0 + grp * KW;  // the group's first key
+        const int r_lo = (max(t0, jg - g.M) - t0) & ~3;
+        const int r_hi = min(t_last, jg + KW - 1) - t0;
+        float acc_k[KW][DPL], acc_v[KW][DPL];
+#pragma unroll
+        for (int kk = 0; kk < KW; ++kk)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc_k[kk][i] = acc_v[kk][i] = 0.f;
+        for (int r4 = r_lo; r4 <= r_hi; r4 += 4) {
+          float qv[4][DPL], ov[4][DPL];
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) {
+              const int d = lane + 32 * i;
+              qv[x][i] = d < D ? qs[(r4 + x) * f.LD + d] : 0.f;
+              ov[x][i] = d < D ? dos[(r4 + x) * f.LD + d] : 0.f;
+            }
+#pragma unroll
+          for (int kk = 0; kk < KW; ++kk) {
+            const int cell = (jg - c0 + kk) * f.TR + r4;
+            const float4 p4 = *reinterpret_cast<const float4*>(pt + cell);
+            const float4 d4 = *reinterpret_cast<const float4*>(dt + cell);
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) {
+              acc_v[kk][i] = fmaf(p4.x, ov[0][i], acc_v[kk][i]);
+              acc_v[kk][i] = fmaf(p4.y, ov[1][i], acc_v[kk][i]);
+              acc_v[kk][i] = fmaf(p4.z, ov[2][i], acc_v[kk][i]);
+              acc_v[kk][i] = fmaf(p4.w, ov[3][i], acc_v[kk][i]);
+              acc_k[kk][i] = fmaf(d4.x, qv[0][i], acc_k[kk][i]);
+              acc_k[kk][i] = fmaf(d4.y, qv[1][i], acc_k[kk][i]);
+              acc_k[kk][i] = fmaf(d4.z, qv[2][i], acc_k[kk][i]);
+              acc_k[kk][i] = fmaf(d4.w, qv[3][i], acc_k[kk][i]);
+            }
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < KW; ++kk) {
+          const int j = jg + kk;
+          if (j >= c0 + n) break;
+          const long long r = row_of(b, j, h, g.K, g.H, D);
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + 32 * i;
+            if (d >= D) continue;
+            if (f.accumulate) {
+              dk[r + d] += acc_k[kk][i] * scale;
+              dv[r + d] += acc_v[kk][i];
+            } else {
+              dk[r + d] = acc_k[kk][i] * scale;
+              dv[r + d] = acc_v[kk][i];
+            }
+          }
+        }
+      }
+
+      // The bias partial: the offsets this chunk and row tile touch, each
+      // summed along its diagonal of the dS tile in order of t.
+      const int o_lo = max(0, o_base), o_hi = min(g.M, t_last - c0 + g.M);
+      for (int o = o_lo + tid; o <= o_hi; o += nthreads) {
+        const int tb = max(t0, c0 - g.M + o);
+        const int te = min(t_last, c0 + n - 1 - g.M + o);
+        double acc = 0.0;
+        for (int t = tb; t <= te; ++t)
+          acc += dt[(t + g.M - o - c0) * f.TR + (t - t0)];
+        part[o] += acc;
+      }
     }
-    for (int tt = 0; tt < n; ++tt) {
-      const float pt = __shfl_sync(kFull, p, tt);
-      const float dst = __shfl_sync(kFull, ds, tt);
-      if (pt == 0.f) continue;  // warp-uniform; ds is 0 where p is
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) {
-          acc_v[i] = fmaf(pt, dos[tt * ld + d], acc_v[i]);
-          acc_k[i] = fmaf(dst, qs[tt * ld + d], acc_k[i]);
+
+    if (has_rows) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (ta + r > ta_last) continue;
+        const long long o_row = row_of(b, ta + r, h, g.T, g.H, D);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) dq[o_row + d] = acc_q[r][i] * scale;
         }
       }
     }
   }
-  if (!active) return;
-  const long long r = row_of(b, j, h, g.K, g.H, D);
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) {
-      dk[r + d] = acc_k[i] * scale;
-      dv[r + d] = acc_v[i];
-    }
-  }
-}
 
-// Launch 3. grid (ceil((M + 1) / 32), H), block (32, 32): x over offsets,
-// y strides over the B*T rows; partial sums in f64, combined over y in
-// order.
-__global__ void attention_dbias_kernel(const float* __restrict__ ds_diag,
-                                       float* __restrict__ dbias,
-                                       Geometry g) {
-  __shared__ double part[32][33];
-  const int o = blockIdx.x * 32 + threadIdx.x, h = blockIdx.y;
-  const int W = g.M + 1;
-  double s = 0.0;
-  if (o < W) {
-    for (int r = threadIdx.y; r < g.B * g.T; r += 32) {
-      const int b = r / g.T, t = r - b * g.T;
-      s += ds_diag[((static_cast<long long>(b) * g.H + h) * g.T + t) * W + o];
-    }
-  }
-  part[threadIdx.y][threadIdx.x] = s;
+  // d rel_bias: the last block of head h sums the B partials in order of
+  // b. Each thread's partial stores are fenced before the ticket is taken.
+  __threadfence();
   __syncthreads();
-  if (threadIdx.y == 0 && o < W) {
-    double tot = 0.0;
-    for (int y = 0; y < 32; ++y) tot += part[y][threadIdx.x];
-    dbias[h * W + o] = static_cast<float>(tot);
+  if (tid == 0) last_block = atomicAdd(tickets + h, 1) == g.B - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  for (int o = tid; o < W; o += nthreads) {
+    double acc = 0.0;
+#pragma unroll 8
+    for (int bb = 0; bb < g.B; ++bb)
+      acc += __ldcg(partials + (static_cast<long long>(bb) * g.H + h) * W + o);
+    dbias[static_cast<long long>(h) * W + o] = static_cast<float>(acc);
   }
-}
-
-size_t bwd_smem(int D) {
-  return sizeof(float) * (2 * kChunk * (D + 1) + 2 * kWarps * D);
+  if (tid == 0) tickets[h] = 0;  // ready for the next call
 }
 
 template <int RW, int DPL>
@@ -756,22 +915,48 @@ int launch_fwd_for(const float* q, const float* k, const float* v,
 }
 
 template <int DPL>
-void launch_bwd(const float* q, const float* k, const float* v,
-                const int* seg, const float* valid,
-                const unsigned char* nodone, const float* bias,
-                const float* out, const float* lse, const float* dout,
-                float* dq, float* dk, float* dv, float* delta,
-                float* ds_diag, Geometry g, float scale,
-                cudaStream_t stream) {
-  const dim3 rows(g.B * g.H, (g.T + kWarps - 1) / kWarps);
-  attention_bwd_dq_kernel<DPL><<<rows, kWarps * 32, bwd_smem(g.D), stream>>>(
-      q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, delta, ds_diag,
-      g, scale);
-  const dim3 keys(g.B * g.H, (g.K + kWarps - 1) / kWarps);
-  attention_bwd_dkdv_kernel<DPL>
-      <<<keys, kWarps * 32, bwd_smem(g.D), stream>>>(
-          q, k, v, seg, valid, nodone, bias, lse, delta, dout, dk, dv, g,
-          scale);
+int launch_bwd(const float* q, const float* k, const float* v,
+               const int* seg, const float* valid,
+               const unsigned char* nodone, const float* bias,
+               const float* out, const float* lse, const float* dout,
+               float* dq, float* dk, float* dv, float* dbias,
+               double* partials, int* tickets, Geometry g, float scale,
+               cudaStream_t stream) {
+  constexpr int KW = bwd_keys_per_warp<DPL>();
+  BwdShape f;
+  const int row_groups =
+      std::min(bwd_max_warps<DPL>(), (g.T + kBwdRows - 1) / kBwdRows);
+  f.TR = kBwdRows * row_groups;
+  f.NW = std::max(row_groups, kBwdMinWarps);
+  f.LD = 32 * DPL + 4;  // LD % 32 == 4: a warp's float4 rows miss no bank
+  f.vec = g.D % 4 == 0 && tbt::aligned16(q) && tbt::aligned16(k) &&
+          tbt::aligned16(v) && tbt::aligned16(dout);
+  f.accumulate = g.T > f.TR;
+  // Shared memory in floats: q, dO and O of a row tile, the bias window's
+  // TR extra entries and four values a row, then per key of a chunk its K and V rows, its column
+  // of the P and dS tiles, a bias entry and a tag; 8 keys of slack round
+  // the chunk's tiles up to whole key groups. The whole band
+  // [t0, t_last + M] is one chunk when it fits the budget.
+  const size_t fixed = 3 * static_cast<size_t>(f.TR) * f.LD + 5 * f.TR;
+  const size_t per_key = 2 * static_cast<size_t>(f.LD) + 2 * f.TR + 2;
+  const size_t budget = kBwdSmemBudget / sizeof(float);
+  if (fixed + 9 * per_key > budget)
+    return static_cast<int>(cudaErrorInvalidValue);
+  f.KC = static_cast<int>(std::min<size_t>(f.TR + g.M,
+                                           (budget - fixed) / per_key - 8));
+  f.KCP = (f.KC + 7) & ~7;
+  const size_t smem = sizeof(float) * (fixed + per_key * f.KCP);
+  auto kernel = attention_bwd_kernel<DPL, KW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<g.B * g.H, 32 * f.NW, smem, stream>>>(
+      q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias,
+      partials, tickets, g, f, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Geometry geometry(int B, int T, int H, int D, int M) {
@@ -780,9 +965,8 @@ Geometry geometry(int B, int T, int H, int D, int M) {
 
 }  // namespace
 
-// D <= 128 (ceil(D / 32) <= 4 dims per lane). The forward opts in to
-// more than 48 KB of shared memory where its chunks need it (D > 32); the
-// backward stays within 48 KB.
+// D <= 128 (ceil(D / 32) <= 4 dims per lane). Both kernels opt in to more
+// than 48 KB of shared memory where their chunks need it.
 TBT_API int tbt_attention_fwd(const float* q, const float* k, const float* v,
                               const int* seg, const float* valid,
                               const unsigned char* nodone, const float* bias,
@@ -800,27 +984,25 @@ TBT_API int tbt_attention_fwd(const float* q, const float* k, const float* v,
   }
 }
 
+// One launch. partials: [B, H, M + 1] f64 scratch; tickets: [H] ints,
+// zero before the first call and left zero by every call (calls that
+// share them must not overlap).
 TBT_API int tbt_attention_bwd(const float* q, const float* k, const float* v,
                               const int* seg, const float* valid,
                               const unsigned char* nodone, const float* bias,
                               const float* out, const float* lse,
                               const float* dout, float* dq, float* dk,
-                              float* dv, float* dbias, float* delta,
-                              float* ds_diag, int B, int T, int H, int D,
+                              float* dv, float* dbias, double* partials,
+                              int* tickets, int B, int T, int H, int D,
                               int M, void* stream) {
   const Geometry g = geometry(B, T, H, D, M);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 31) / 32) {
-    case 1: launch_bwd<1>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, delta, ds_diag, g, scale, s); break;
-    case 2: launch_bwd<2>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, delta, ds_diag, g, scale, s); break;
-    case 3: launch_bwd<3>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, delta, ds_diag, g, scale, s); break;
-    case 4: launch_bwd<4>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, delta, ds_diag, g, scale, s); break;
+    case 1: return launch_bwd<1>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
+    case 2: return launch_bwd<2>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
+    case 3: return launch_bwd<3>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
+    case 4: return launch_bwd<4>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + 1 + 31) / 32, H);
-  attention_dbias_kernel<<<grid, dim3(32, 32), 0, s>>>(ds_diag, dbias, g);
-  return static_cast<int>(cudaGetLastError());
 }

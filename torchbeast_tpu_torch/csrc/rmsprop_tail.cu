@@ -1,4 +1,4 @@
-// The learner's optimizer tail over every parameter leaf in two launches:
+// The learner's optimizer tail over every parameter leaf in one launch:
 // global-norm clip -> torch-RMSprop second moment -> optional momentum
 // trace -> learning-rate apply, updating params, nu and mom IN PLACE.
 //
@@ -8,43 +8,64 @@
 // wrapper hands the kernel the live parameter, nu and mom tensors and they
 // are overwritten in place, so no parameter-sized output is allocated.
 //
-//   launch 1  partial sums of g^2 (f64) over all leaves, one per block
-//   launch 2  every block finishes the norm from the partials (the same
-//             fixed order in every block, no atomics; block 0 also writes
-//             the squared norm out, the learner's grad_norm stat), then
-//             per element:
-//               g    = g * (max_norm / |g|)      only when |g| >= max_norm
-//               nu   = alpha * nu + ((1 - alpha) * g) * g
-//               upd  = g / (sqrt(nu) + eps)
-//               upd  = momentum * mom + upd;  mom = upd   (momentum > 0)
-//               p    = p - lr * upd
+//   pass 1  each block's partial sum of g^2 (f64) over its share of the
+//           leaves; then a grid-wide barrier
+//   pass 2  every block finishes the norm from the partials once (the
+//           same fixed order in every block, no atomics; block 0 also
+//           writes the squared norm out, the learner's grad_norm stat),
+//           then per element:
+//             g    = g * (max_norm / |g|)      only when |g| >= max_norm
+//             nu   = alpha * nu + ((1 - alpha) * g) * g
+//             upd  = g / (sqrt(nu) + eps)
+//             upd  = momentum * mom + upd;  mom = upd   (momentum > 0)
+//             p    = p - lr * upd
 //
-// Design: the leaves ride in one table passed by value as a kernel
-// parameter (multi-tensor apply, at most kMaxLeaves pointers per role), so
-// the whole tree is two launches where the JAX kernel takes one per leaf
-// (about 48 for the deep ResNet with an LSTM). Each thread walks a
-// grid-stride range of the concatenated element space and advances a leaf
-// cursor as it crosses leaf boundaries.
+// Design. The leaves ride in one table passed by value as a kernel
+// parameter (multi-tensor apply, at most kMaxLeaves pointers per role).
+// Each leaf is cut into units of 4 elements, numbered across the leaves
+// (the table holds each leaf's first unit), and the grid is persistent:
+// cooperative, at most the blocks the card holds at once, so the grid-wide
+// barrier (cooperative_groups grid sync) is safe and the whole tree is one
+// launch. A thread takes units tid, tid + S, tid + 2 S, ... (S the grid's
+// threads) of the numbering, so every block's share differs by at most one
+// unit; it finds its first unit's leaf by a binary search once a pass and
+// then only steps its leaf cursor forward. A unit is one 16-byte float4
+// access of g, nu, p (and mom) where the leaf's pointers are 16-byte
+// aligned; a leaf's ragged end (its last numel % 4 elements, e.g. the
+// 6-element policy bias) and any unaligned leaf take scalar accesses.
+// Pass 2 reads g again from the 50 MB L2, where pass 1 left it (6.5 MB for
+// the deep model's tree, 16 MB for the transformer's).
 //
-// Bound on the H100: bytes. 1.62 M f32 params: the norm pass reads g
-// (6.5 MB); the update reads g, nu, p and writes nu, p (32 MB, plus 8 MB
-// with momentum): about 12 us at 3.35 TB/s.
+// Bound on the H100 (3.35 TB/s): bytes, counting each input read once and
+// each output written once: g, nu, p in and nu, p out, 20 B a parameter
+// (28 B with momentum). 1,617,367 params (the deep model with its LSTM):
+// 32.3 MB, 9.66 us; 4,012,047 (the transformer): 80.2 MB, 24.0 us.
+// Measured times beside these are in PERF.md.
 //
 // Arithmetic uses the round-to-nearest intrinsics so no multiply-add is
 // contracted: the update repeats the plain PyTorch version
 // (ops/opt.py::rmsprop_tail_plain) operation for operation.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLeaves = 64;
+constexpr int kTailThreads = 256;
+constexpr int kTailBlocksPerSm = 4;  // the grid: at most this many an SM
+constexpr unsigned kFull = 0xffffffffu;
 
 struct LeafTable {
   float* param[kMaxLeaves];
   const float* grad[kMaxLeaves];
   float* nu[kMaxLeaves];
   float* mom[kMaxLeaves];
-  long long offset[kMaxLeaves + 1];  // prefix sums of the leaves' numel
+  long long numel[kMaxLeaves];
+  long long unit0[kMaxLeaves + 1];  // each leaf's first unit of 4 elements
+  unsigned long long vec;           // bit l: leaf l takes float4 accesses
   int n;
 };
 
@@ -53,44 +74,87 @@ struct Hyper {
   int clip, has_mom;
 };
 
-// The leaf holding global element i: the last l with offset[l] <= i.
-__device__ inline int find_leaf(const LeafTable& t, long long i) {
+// The leaf holding unit u: the last l with unit0[l] <= u.
+__device__ inline int find_leaf(const LeafTable& t, long long u) {
   int lo = 0, hi = t.n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (t.offset[mid] <= i) lo = mid; else hi = mid - 1;
+    if (t.unit0[mid] <= u) lo = mid; else hi = mid - 1;
   }
   return lo;
 }
 
-__global__ void rmsprop_sumsq_kernel(const LeafTable t,
-                                     double* __restrict__ partials) {
-  __shared__ double scratch[tbt::kThreads];
-  const long long total = t.offset[t.n];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// Sum of a double over the block in a fixed order (shuffles within each
+// warp, then the warps' totals in order); every thread gets the total.
+__device__ inline double block_total(double v, double* warp_totals) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) warp_totals[warp] = v;
+  __syncthreads();
   double s = 0.0;
-  if (i < total) {
-    int leaf = find_leaf(t, i);
-    for (; i < total; i += stride) {
-      while (i >= t.offset[leaf + 1]) ++leaf;
-      const double v = t.grad[leaf][i - t.offset[leaf]];
-      s += v * v;
-    }
-  }
-  const double block_total = tbt::block_sum(s, scratch);
-  if (threadIdx.x == 0) partials[blockIdx.x] = block_total;
+  for (int w = 0; w < warps; ++w) s += warp_totals[w];
+  __syncthreads();  // warp_totals is reused by the next call
+  return s;
 }
 
-__global__ void rmsprop_apply_kernel(const LeafTable t,
-                                     const double* __restrict__ partials,
-                                     int n_partials,
-                                     float* __restrict__ sumsq_out,
-                                     const Hyper h) {
-  __shared__ double scratch[tbt::kThreads];
+// The update of one element, in the plain version's order.
+__device__ inline void update_one(float g, float& nu, float& p, float& mom,
+                                  float scale, bool rescale, const Hyper& h) {
+  if (rescale) g = __fmul_rn(g, scale);
+  nu = __fadd_rn(__fmul_rn(h.alpha, nu),
+                 __fmul_rn(__fmul_rn(h.one_minus_alpha, g), g));
+  float upd = __fdiv_rn(g, __fadd_rn(__fsqrt_rn(nu), h.eps));
+  if (h.has_mom) {
+    upd = __fadd_rn(__fmul_rn(h.momentum, mom), upd);
+    mom = upd;
+  }
+  p = __fsub_rn(p, __fmul_rn(h.lr, upd));
+}
+
+// Visit this thread's units: f(leaf, first element, elements in the unit
+// (1..4), whether the unit takes one float4 access).
+template <typename F>
+__device__ inline void for_each_unit(const LeafTable& t, F f) {
+  const long long units = t.unit0[t.n];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (u >= units) return;
+  int leaf = find_leaf(t, u);
+  for (; u < units; u += stride) {
+    while (u >= t.unit0[leaf + 1]) ++leaf;
+    const long long e = 4 * (u - t.unit0[leaf]);
+    const int n = static_cast<int>(min(4LL, t.numel[leaf] - e));
+    f(leaf, e, n, n == 4 && ((t.vec >> leaf) & 1ULL));
+  }
+}
+
+__global__ void __launch_bounds__(kTailThreads, kTailBlocksPerSm)
+    rmsprop_tail_kernel(const LeafTable t, double* __restrict__ partials,
+                        float* __restrict__ sumsq_out, const Hyper h) {
+  __shared__ double warp_totals[kTailThreads / 32];
+  // Pass 1: this block's share of sum(g^2), in f64.
   double s = 0.0;
-  for (int k = threadIdx.x; k < n_partials; k += blockDim.x) s += partials[k];
-  const float sumsq = static_cast<float>(tbt::block_sum(s, scratch));
+  for_each_unit(t, [&](int leaf, long long e, int n, bool vec) {
+    const float* g = t.grad[leaf] + e;
+    if (vec) {
+      const float4 v = *reinterpret_cast<const float4*>(g);
+      s += static_cast<double>(v.x) * v.x;
+      s += static_cast<double>(v.y) * v.y;
+      s += static_cast<double>(v.z) * v.z;
+      s += static_cast<double>(v.w) * v.w;
+    } else {
+      for (int k = 0; k < n; ++k) s += static_cast<double>(g[k]) * g[k];
+    }
+  });
+  s = block_total(s, warp_totals);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  cg::this_grid().sync();
+
+  // Every block sums the partials in the same order.
+  double tot = 0.0;
+  for (int k = threadIdx.x; k < gridDim.x; k += blockDim.x)
+    tot += __ldcg(partials + k);
+  const float sumsq = static_cast<float>(block_total(tot, warp_totals));
   if (blockIdx.x == 0 && threadIdx.x == 0) *sumsq_out = sumsq;
   float scale = 1.f;
   bool rescale = false;
@@ -101,30 +165,42 @@ __global__ void rmsprop_apply_kernel(const LeafTable t,
       rescale = true;
     }
   }
-  const long long total = t.offset[t.n];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int leaf = find_leaf(t, i);
-  for (; i < total; i += stride) {
-    while (i >= t.offset[leaf + 1]) ++leaf;
-    const long long j = i - t.offset[leaf];
-    float g = t.grad[leaf][j];
-    if (rescale) g = __fmul_rn(g, scale);
-    const float nu = __fadd_rn(__fmul_rn(h.alpha, t.nu[leaf][j]),
-                               __fmul_rn(__fmul_rn(h.one_minus_alpha, g), g));
-    float upd = __fdiv_rn(g, __fadd_rn(__fsqrt_rn(nu), h.eps));
-    if (h.has_mom) {
-      upd = __fadd_rn(__fmul_rn(h.momentum, t.mom[leaf][j]), upd);
-      t.mom[leaf][j] = upd;
+
+  // Pass 2: the update.
+  for_each_unit(t, [&](int leaf, long long e, int n, bool vec) {
+    const float* g = t.grad[leaf] + e;
+    float* nu = t.nu[leaf] + e;
+    float* p = t.param[leaf] + e;
+    float* mom = h.has_mom ? t.mom[leaf] + e : nullptr;
+    if (vec) {
+      const float4 gv = *reinterpret_cast<const float4*>(g);
+      float4 nv = *reinterpret_cast<const float4*>(nu);
+      float4 pv = *reinterpret_cast<const float4*>(p);
+      float4 mv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mom) mv = *reinterpret_cast<const float4*>(mom);
+      update_one(gv.x, nv.x, pv.x, mv.x, scale, rescale, h);
+      update_one(gv.y, nv.y, pv.y, mv.y, scale, rescale, h);
+      update_one(gv.z, nv.z, pv.z, mv.z, scale, rescale, h);
+      update_one(gv.w, nv.w, pv.w, mv.w, scale, rescale, h);
+      *reinterpret_cast<float4*>(nu) = nv;
+      *reinterpret_cast<float4*>(p) = pv;
+      if (mom) *reinterpret_cast<float4*>(mom) = mv;
+    } else {
+      for (int k = 0; k < n; ++k) {
+        float nk = nu[k], pk = p[k], mk = mom ? mom[k] : 0.f;
+        update_one(g[k], nk, pk, mk, scale, rescale, h);
+        nu[k] = nk;
+        p[k] = pk;
+        if (mom) mom[k] = mk;
+      }
     }
-    t.nu[leaf][j] = nu;
-    t.param[leaf][j] = __fsub_rn(t.param[leaf][j], __fmul_rn(h.lr, upd));
-  }
+  });
 }
 
 }  // namespace
 
+// partials: n_partials doubles of scratch; the grid takes at most that
+// many blocks (the wrapper gives kTailBlocksPerSm per SM).
 TBT_API int tbt_rmsprop_tail(void* const* params, void* const* grads,
                              void* const* nus, void* const* moms,
                              const long long* numels, int n_leaves,
@@ -133,27 +209,50 @@ TBT_API int tbt_rmsprop_tail(void* const* params, void* const* grads,
                              float alpha, float one_minus_alpha, float eps,
                              float momentum, float max_norm, int clip,
                              int has_mom, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_partials < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LeafTable t;
   t.n = n_leaves;
-  t.offset[0] = 0;
+  t.unit0[0] = 0;
+  t.vec = 0;
   for (int l = 0; l < n_leaves; ++l) {
     t.param[l] = static_cast<float*>(params[l]);
     t.grad[l] = static_cast<const float*>(grads[l]);
     t.nu[l] = static_cast<float*>(nus[l]);
     t.mom[l] = has_mom ? static_cast<float*>(moms[l]) : nullptr;
-    t.offset[l + 1] = t.offset[l] + numels[l];
+    t.numel[l] = numels[l];
+    t.unit0[l + 1] = t.unit0[l] + (numels[l] + 3) / 4;
+    const bool aligned = tbt::aligned16(t.param[l]) &&
+                         tbt::aligned16(t.grad[l]) &&
+                         tbt::aligned16(t.nu[l]) &&
+                         (!has_mom || tbt::aligned16(t.mom[l]));
+    if (aligned) t.vec |= 1ULL << l;
   }
   const Hyper h{lr, alpha, one_minus_alpha, eps, momentum, max_norm, clip,
                 has_mom};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rmsprop_sumsq_kernel<<<n_partials, tbt::kThreads, 0, s>>>(t, partials);
-  cudaError_t err = cudaGetLastError();
+  // The grid: no more blocks than the card holds at once (the grid-wide
+  // barrier needs them all resident), than the partials, or than the work.
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rmsprop_tail_kernel, kTailThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = tbt::grid_for(t.offset[n_leaves]);
-  rmsprop_apply_kernel<<<blocks, tbt::kThreads, 0, s>>>(t, partials,
-                                                        n_partials, sumsq, h);
+  long long blocks = static_cast<long long>(sms) *
+                     (per_sm < kTailBlocksPerSm ? per_sm : kTailBlocksPerSm);
+  if (blocks > n_partials) blocks = n_partials;
+  const long long need = (t.unit0[n_leaves] + kTailThreads - 1) / kTailThreads;
+  if (blocks > need) blocks = need > 0 ? need : 1;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  void* args[] = {&t, &partials, &sumsq, const_cast<Hyper*>(&h)};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(rmsprop_tail_kernel),
+      dim3(static_cast<unsigned>(blocks)), dim3(kTailThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ SIGNATURES = {
     # q, k, v, seg, valid, nodone, bias, out, lse, B, T, H, D, M, stream
     "tbt_attention_fwd": [_P] * 9 + [_I] * 5 + [_P],
     # q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv,
-    # dbias, delta, ds_diag, B, T, H, D, M, stream
+    # dbias, partials, tickets, B, T, H, D, M, stream
     "tbt_attention_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 

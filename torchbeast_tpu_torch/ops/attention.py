@@ -11,7 +11,7 @@ indexes the learned bias rel_bias [H, M + 1].
 
 `transformer_attention` is the `--attention_impl pallas` path. On CUDA
 tensors its forward launches the hand-written kernel
-`csrc/attention.cu::tbt_attention_fwd` and its backward the kernels of
+`csrc/attention.cu::tbt_attention_fwd` and its backward the kernel of
 `tbt_attention_bwd`; on CPU tensors it runs `transformer_attention_plain`
 through autograd. Gradients flow to q, k_all, v_all and rel_bias only, as
 in the reference's custom VJP.
@@ -190,12 +190,26 @@ def _launch_forward(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
     return out, lse
 
 
+_tickets = {}
+
+
+def _bwd_tickets(device, H):
+    """The backward kernel's per-head ticket counters on `device`: zeroed
+    once here, and left zero by every call, so no call needs a memset.
+    Calls that share them must not overlap (one stream per device)."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < H:
+        t = _tickets[device] = torch.zeros(H, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
                               no_done, rel_bias, out, lse, grad_out):
-    """(dq, dk_all, dv_all, drel_bias) from the backward kernels, given
-    the forward's out and lse and the cotangent of out. CUDA tensors only:
-    on the CPU the gradient comes from autograd through the plain
-    version."""
+    """(dq, dk_all, dv_all, drel_bias) from the backward kernel (one
+    launch), given the forward's out and lse and the cotangent of out.
+    CUDA tensors only: on the CPU the gradient comes from autograd through
+    the plain version."""
     name = "transformer_attention_bwd"
     require(q.is_cuda, name, "the backward kernel takes CUDA tensors")
     B, T, H, D = q.shape
@@ -206,12 +220,11 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
     dk = torch.empty_like(k_all)
     dv = torch.empty_like(v_all)
     dbias = torch.empty_like(rel_bias)
-    # Scratch: each row's rowsum(dO * O), and dS of every (b, h, t) on
-    # each of the M + 1 band offsets, reduced over b and t into dbias in
-    # a fixed order (no atomics).
-    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    ds_diag = torch.empty(B, H, T, M + 1, dtype=torch.float32,
-                          device=q.device)
+    # Scratch: each (b, h)'s bias gradient over the M + 1 band offsets,
+    # summed over b into dbias in a fixed order by the kernel.
+    partials = torch.empty(B, H, M + 1, dtype=torch.float64,
+                           device=q.device)
+    tickets = _bwd_tickets(q.device, H)
     lib = _build.library()
     with torch.cuda.device(q.device):
         status = lib.tbt_attention_bwd(
@@ -219,8 +232,8 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
             seg.data_ptr(), cache_valid.data_ptr(), no_done.data_ptr(),
             rel_bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
             grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), delta.data_ptr(),
-            ds_diag.data_ptr(), B, T, H, D, M, _stream(q),
+            dv.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
+            tickets.data_ptr(), B, T, H, D, M, _stream(q),
         )
     _build.check(status, name)
     transformer_attention_bwd.launches += 1
@@ -231,7 +244,7 @@ transformer_attention_bwd.launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward kernel, backward kernels; no gradient for the metadata."""
+    """Forward kernel, backward kernel; no gradient for the metadata."""
 
     @staticmethod
     def forward(ctx, memory_len, q, k_all, v_all, seg, cache_valid, no_done,

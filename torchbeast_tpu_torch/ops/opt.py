@@ -3,8 +3,9 @@ torchbeast_tpu/ops/pallas_opt.py.
 
 Global-norm clip -> torch-RMSprop second moment -> optional momentum
 trace -> learning-rate apply, over every parameter leaf at once. A CUDA
-tensor runs the hand-written kernel `csrc/rmsprop_tail.cu` (two launches
-per update for the whole tree); a CPU tensor runs `rmsprop_tail_plain`.
+tensor runs the hand-written kernel `csrc/rmsprop_tail.cu` (one
+cooperative launch per update for the whole tree); a CPU tensor runs
+`rmsprop_tail_plain`.
 
 Unlike the JAX transform, which returns new arrays, the port updates the
 parameters, `nu` and `mom` IN PLACE: no parameter-sized output is
@@ -24,6 +25,7 @@ from torchbeast_tpu_torch.ops import _build
 from torchbeast_tpu_torch.ops._route import require, use_kernel
 
 MAX_LEAVES = 64  # kMaxLeaves in csrc/rmsprop_tail.cu
+BLOCKS_PER_SM = 4  # kTailBlocksPerSm: the persistent grid's blocks an SM
 
 
 def _sumsq(grads):
@@ -73,11 +75,12 @@ _sm_count = {}
 
 
 def _num_partials(device) -> int:
-    """Blocks of the norm pass: two per SM."""
+    """The most blocks the kernel's persistent grid may take, one f64
+    partial of the norm each: BLOCKS_PER_SM per SM."""
     if device not in _sm_count:
         props = torch.cuda.get_device_properties(device)
         _sm_count[device] = props.multi_processor_count
-    return 2 * _sm_count[device]
+    return BLOCKS_PER_SM * _sm_count[device]
 
 
 def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
@@ -143,7 +146,7 @@ def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
             int(max_norm is not None), int(has_mom), stream,
         )
     _build.check(status, name)
-    rmsprop_tail.launches += 2  # the norm pass and the update pass
+    rmsprop_tail.launches += 1  # one cooperative launch, both passes
     return sumsq
 
 

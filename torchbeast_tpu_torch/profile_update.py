@@ -39,17 +39,16 @@ T, B = 80, 32
 NUM_ACTIONS = 6  # MockEnv
 UPDATES, WARMUP, SEED, TOP = 10, 3, 0, 15
 
-# Substrings of device kernel names -> group, tried in order. cuDNN's
+# Substrings of device kernel names -> group, tried in order. The port's
+# kernels are csrc/'s vtrace_targets_kernel, rmsprop_*, pool_bwd_kernel
+# and attention_* (the port runs no library attention kernel). cuDNN's
 # convolutions carry a direction (fprop/dgrad/wgrad) or "conv" in their
 # names, or run inside cudnn:: (its layout conversions too); cuBLAS's
 # Hopper products are sm90_xmma_gemm_*, so a bare "xmma" key would file
 # them under convolutions.
 GROUPS = (
-    ("port kernels", ("vtrace_targets_kernel", "rmsprop_sumsq_kernel",
-                      "rmsprop_apply_kernel", "pool_bwd_kernel",
-                      "attention_fwd_kernel", "attention_bwd_dq_kernel",
-                      "attention_bwd_dkdv_kernel",
-                      "attention_dbias_kernel")),
+    ("port kernels", ("vtrace_targets_kernel", "rmsprop_",
+                      "pool_bwd_kernel", "attention_")),
     ("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                      "fprop", "nchw", "nhwc")),
     ("matrix product", ("gemm", "gemv", "cutlass")),
