@@ -100,10 +100,10 @@ def test_pool_kernel_matches_plain_version_on_trunk_stages(cuda, shape):
 
 
 def _at_offset(t, offset):
-    """A copy of channels_last t that starts `offset` floats into its
+    """A copy of channels_last t that starts `offset` elements into its
     storage."""
     N, C, H, W = t.shape
-    buf = torch.empty(offset + t.numel(), device=t.device)
+    buf = torch.empty(offset + t.numel(), device=t.device, dtype=t.dtype)
     out = buf[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
     out.copy_(t)
     return out
@@ -316,3 +316,238 @@ def test_attention_backward_is_deterministic(cuda, T, M, D):
     second = attention.transformer_attention_bwd(M, *xs, out, lse, g)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ bf16
+#
+# The bf16 variants (--precision bf16_compute / bf16_train) against their
+# plain versions in bf16 on the card. One bf16 ulp is 2**-7 of a value's
+# binade at most, so "within 1 ulp" is rtol BF16_ULP.
+
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16_ulps(a, b):
+    """max |a - b| in units of b's bf16 ulp (2**(exponent - 7))."""
+    a, b = a.double(), b.double()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("shape,ties", [
+    ((6, 84, 84, 16), True), ((6, 42, 42, 32), True), ((6, 21, 21, 32), True),
+    ((64, 84, 84, 16), False)])
+def test_pool_bf16_kernel_matches_plain_version(cuda, shape, ties):
+    """The trunk stages in bf16: the 16-byte path (8 channels a thread),
+    every sum rounded to bf16 in the plain version's order, exact."""
+    x, y, g = (t.to(torch.bfloat16) for t in _pool_inputs(cuda, shape, ties))
+    y = F.max_pool2d(x, 3, 2, 1).contiguous(memory_format=torch.channels_last)
+    before = pool.pool_bwd.bf16_launches
+    got, vectorized = _run_pool(x, y, g)
+    assert vectorized and pool.pool_bwd.bf16_launches == before + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, pool.pool_bwd_plain(x, y, g),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["odd_hw_c3", "offset_c16", "c12"])
+def test_pool_bf16_kernel_scalar_path_matches_plain_version(cuda, case):
+    """bf16 inputs the 16-byte path does not take: C=3 with odd H and W,
+    an input one element into its storage, and C=12 (not a multiple of
+    8); all with ties, exact."""
+    shape = {"odd_hw_c3": (5, 21, 19, 3), "offset_c16": (5, 42, 41, 16),
+             "c12": (5, 21, 21, 12)}[case]
+    x, y, g = (t.to(torch.bfloat16)
+               for t in _pool_inputs(cuda, shape, ties=True))
+    y = F.max_pool2d(x, 3, 2, 1).contiguous(memory_format=torch.channels_last)
+    if case == "offset_c16":
+        x, y, g = (_at_offset(t, 1) for t in (x, y, g))
+    got, vectorized = _run_pool(x, y, g)
+    assert not vectorized
+    torch.testing.assert_close(got, pool.pool_bwd_plain(x, y, g),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tree,momentum,scale", [
+    ("deep", 0.0, 1.0), ("deep", 0.0, 1e-3), ("transformer", 0.9, 1.0)])
+def test_rmsprop_tail_bf16_kernel_matches_plain_version(cuda, tree, momentum,
+                                                        scale):
+    """bf16_train: bf16 params and grads, bf16 nu, f32 master and mom;
+    three steps. The norm within rtol 1e-6; the master within rtol 1e-6,
+    atol 4e-6, and nu and the params within 1 bf16 ulp or atol 4e-6 (a
+    one-ulp difference of bf16 nu, where two f32 values straddle a
+    rounding boundary, moves the next update by up to 2**-8 of itself);
+    mom within one bf16 ulp of its largest entry; the kernel's params are
+    bf16(master) bit for bit."""
+    torch.manual_seed(0)
+    model = (create_model("deep", 6, use_lstm=True) if tree == "deep"
+             else create_model("transformer", 6, attention_impl="pallas"))
+    params0 = [p.detach().to(cuda, torch.bfloat16) for p in
+               model.to(memory_format=torch.channels_last).parameters()]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    grads = [[(scale * torch.randn(p.shape, generator=gen, device=cuda))
+              .to(torch.bfloat16).contiguous(memory_format=(
+                  torch.channels_last if p.dim() == 4
+                  else torch.contiguous_format))
+              for p in params0] for _ in range(3)]
+    runs = []
+    for plain in (False, True):
+        p = [t.clone() for t in params0]
+        master = [t.float() for t in p]
+        nu = [torch.zeros_like(t) for t in p]
+        mom = [torch.zeros_like(t, dtype=torch.float32) for t in p]
+        sumsqs = []
+        for step, gs in enumerate(grads):
+            kw = dict(lr=4.8e-4 * (1 - step / 10), alpha=0.99, eps=0.01,
+                      momentum=momentum, max_norm=40.0, masters=master)
+            if plain:
+                with ops.plain_on_device():
+                    sumsqs.append(opt.rmsprop_tail(p, gs, nu, mom, **kw))
+            else:
+                before = (opt.rmsprop_tail.launches,
+                          opt.rmsprop_tail.bf16_launches)
+                sumsqs.append(opt.rmsprop_tail(p, gs, nu, mom, **kw))
+                assert (opt.rmsprop_tail.launches,
+                        opt.rmsprop_tail.bf16_launches) == (
+                            before[0] + 1, before[1] + 1)
+        runs.append((sumsqs, p, master, nu, mom))
+    (sk, pk, mk, nk, momk), (sp, pp, mp, npl, momp) = runs
+    for a, b in zip(sk, sp):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for a, b in zip(mk, mp):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=4e-6)
+    for a, b in zip(momk if momentum else [], momp):
+        assert float((a - b).abs().max()) <= BF16_ULP * float(b.abs().max())
+    for a, b in zip(pk + nk, pp + npl):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=BF16_ULP,
+                                   atol=4e-6)
+    for a, m in zip(pk, mk):
+        assert torch.equal(a, m.to(torch.bfloat16))
+
+
+def _bf16_attention(xs, bias_bf16=True):
+    q, k, v, seg, valid, nodone, bias = xs
+    cast = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    return (cast(q), cast(k), cast(v), seg, valid, nodone,
+            cast(bias) if bias_bf16 else bias)
+
+
+@pytest.mark.parametrize("T,M,D,bias_bf16", [
+    (81, 64, 32, True), (1, 64, 32, True), (81, 64, 32, False),
+    (9, 64, 20, True), (81, 130, 64, True), (1, 130, 64, False)])
+def test_attention_bf16_forward_matches_plain_version(cuda, T, M, D,
+                                                      bias_bf16):
+    """bf16 q, k, v (rel_bias bf16 or f32): out within 1 bf16 ulp of the
+    plain version's (both round an f32 result), lse within 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xs = _bf16_attention(attention_inputs(8, T, 4, D, M, T + M, cuda),
+                         bias_bf16)
+    before = attention.transformer_attention.bf16_launches
+    out, lse = attention._launch_forward(M, *xs)
+    assert attention.transformer_attention.bf16_launches == before + 1
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want = attention.transformer_attention_plain(M, *xs)
+    print(f"bf16 forward T={T} M={M} D={D}: {_bf16_ulps(out, want)} ulp")
+    torch.testing.assert_close(out.float(), want.float(), rtol=BF16_ULP,
+                               atol=1e-6)
+    q, k, v, seg, valid, nodone, bias = xs
+    _, offsets = attention.band_relative_offsets(T, M, device=cuda)
+    mask = attention.attention_mask(M, seg, valid, nodone)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    scores = torch.where(mask[:, None],
+                         scores + bias.float()[:, offsets][None], -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
+                               rtol=1e-5, atol=1e-5)
+
+
+# bf16 backward against autograd through the plain version: both narrow
+# an f32 gradient, but the kernel's Delta = rowsum(dO * O) reads the bf16
+# out of the forward and the plain version's its f32 out, so each
+# gradient may differ by more than an ulp: max |err| <= BF16_BWD_TOL *
+# max |gradient|.
+BF16_BWD_TOL = 1e-2
+
+
+@pytest.mark.parametrize("T,M,D,bias_bf16", [
+    (81, 64, 32, True), (1, 64, 32, True), (81, 64, 32, False),
+    (9, 64, 20, True), (300, 64, 64, True)])
+def test_attention_bf16_backward_matches_plain_version(cuda, T, M, D,
+                                                       bias_bf16):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xs, g = _backward_leaves(T, M, D)
+    xs = _bf16_attention(xs, bias_bf16)
+    g = g.to(torch.bfloat16)
+    q, k, v, seg, valid, nodone, bias = xs
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = attention.transformer_attention_plain(
+        M, leaves[0], leaves[1], leaves[2], seg, valid, nodone, leaves[3])
+    want = torch.autograd.grad(out, leaves, g)
+    out, lse = attention._launch_forward(M, *xs)
+    before = attention.transformer_attention_bwd.bf16_launches
+    got = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    assert attention.transformer_attention_bwd.bf16_launches == before + 1
+    for label, a, b in zip(("dq", "dk", "dv", "drel_bias"), got, want):
+        assert a.dtype == b.dtype
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        print(f"bf16 backward T={T} M={M} D={D} {label}: max |err| {err:.3g}"
+              f" of max {scale:.3g}")
+        assert err <= BF16_BWD_TOL * scale, label
+
+
+@pytest.mark.parametrize("T,M,D", [(81, 64, 32), (300, 64, 64)])
+def test_attention_bf16_backward_is_deterministic(cuda, T, M, D):
+    xs, g = _backward_leaves(T, M, D, B=32)
+    xs = _bf16_attention(xs)
+    g = g.to(torch.bfloat16)
+    out, lse = attention._launch_forward(M, *xs)
+    first = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    second = attention.transformer_attention_bwd(M, *xs, out, lse, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_rmsprop_tail_f32_params_bf16_nu_kernel_matches_plain_version(cuda):
+    """The tail's third instance: f32 params and grads with bf16 nu (the
+    reference learner's opt_state_dtype="bf16" alone), deep tree, clip
+    active, three steps. The norm within rtol 1e-6; params within rtol
+    1e-6, atol 4e-6 and nu within 1 bf16 ulp or atol 4e-6, for the reason
+    the bf16_train test gives; one bf16 launch a call."""
+    torch.manual_seed(0)
+    params0 = [p.detach() for p in create_model(
+        "deep", 6, use_lstm=True).to(cuda).to(
+            memory_format=torch.channels_last).parameters()]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    grads = [[torch.randn_like(p).copy_(torch.randn(
+        p.shape, generator=gen, device=cuda)) for p in params0]
+        for _ in range(3)]
+    runs = []
+    for plain in (False, True):
+        p = [t.clone() for t in params0]
+        nu = [torch.zeros_like(t, dtype=torch.bfloat16) for t in p]
+        sumsqs = []
+        for step, gs in enumerate(grads):
+            kw = dict(lr=4.8e-4 * (1 - step / 10), alpha=0.99, eps=0.01,
+                      max_norm=40.0)
+            if plain:
+                with ops.plain_on_device():
+                    sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+            else:
+                before = (opt.rmsprop_tail.launches,
+                          opt.rmsprop_tail.bf16_launches)
+                sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+                assert (opt.rmsprop_tail.launches,
+                        opt.rmsprop_tail.bf16_launches) == (
+                            before[0] + 1, before[1] + 1)
+        runs.append((sumsqs, p, nu))
+    (sk, pk, nk), (sp, pp, npl) = runs
+    for a, b in zip(sk, sp):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for a, b in zip(pk, pp):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=4e-6)
+    for a, b in zip(nk, npl):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=BF16_ULP,
+                                   atol=4e-6)

@@ -165,11 +165,25 @@ def test_entropy_anneal_follows_the_update_count():
 
 
 def test_not_ported_options_raise():
+    # The precision options build their optimizer state.
     params = [torch.nn.Parameter(torch.zeros(2))]
-    for kw in ({"opt_state_dtype": "bf16"}, {"param_dtype": "bf16"},
-               {"opt_factored": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_learner.make_optimizer(port_learner.HParams(**kw), params)
+    opt = port_learner.make_optimizer(
+        port_learner.HParams(opt_state_dtype="bf16"), params)
+    assert opt.state.nu[0].dtype == torch.bfloat16
+    assert opt.state.master is None
+    resident = [torch.nn.Parameter(torch.zeros(2, dtype=torch.bfloat16))]
+    opt = port_learner.make_optimizer(
+        port_learner.HParams(param_dtype="bf16"), resident)
+    assert opt.state.master[0].dtype == torch.float32
+    assert opt.state.nu[0].dtype == torch.float32
+    # The factored state needs each parameter's JAX leaves.
+    with pytest.raises(ValueError, match="jax_layouts"):
+        port_learner.make_optimizer(
+            port_learner.HParams(opt_factored=True), params)
+    opt = port_learner.make_optimizer(
+        port_learner.HParams(opt_factored=True), params,
+        layouts=[(lambda t: [t], lambda vs: vs[0])])
+    assert opt.step([torch.ones(2)]).shape == ()
     with pytest.raises(NotImplementedError, match="IMPACT"):
         port_learner.compute_loss(
             None, {}, (), port_learner.HParams(loss="impact"))

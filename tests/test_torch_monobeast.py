@@ -84,7 +84,7 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--precision", "bf16_train"], "precision"),
+    (["--checkpoint_interval_s", "60"], "checkpoints"),
     (["--loss", "impact"], "IMPACT"),
     (["--device_split", "auto"], "serving"),
     (["--num_learner_devices", "2"], "data parallel"),

@@ -226,6 +226,21 @@ def test_cpu_tail_launches_no_kernel_and_checks_inputs():
     with pytest.raises(ValueError, match="mom"):
         port_opt.rmsprop_tail(p, g, nu, None, lr=0.1, alpha=0.9, eps=0.01,
                               momentum=0.5)
-    with pytest.raises(NotImplementedError, match="precision"):
-        port_opt.FusedRMSpropTail(p, lambda c: 0.1, 0.9, 0.01,
-                                  param_dtype="bf16")
+    # bf16-resident params build with an f32 master beside them, and the
+    # tail refuses bf16 params without one.
+    pb = [t.to(torch.bfloat16) for t in p]
+    tail = port_opt.FusedRMSpropTail(pb, lambda c: 0.1, 0.9, 0.01,
+                                     param_dtype="bf16", state_dtype="bf16")
+    assert [m.dtype for m in tail.state.master] == [torch.float32] * 2
+    assert all(torch.equal(m, q.float())
+               for m, q in zip(tail.state.master, pb))
+    assert [n.dtype for n in tail.state.nu] == [torch.bfloat16] * 2
+    with pytest.raises(ValueError, match="master"):
+        port_opt.rmsprop_tail(pb, [t.to(torch.bfloat16) for t in g], nu,
+                              None, lr=0.1, alpha=0.9, eps=0.01)
+    # bf16 params with f32 nu: no policy pairs them, and the kernel has no
+    # instance for them.
+    with pytest.raises(ValueError, match="bf16 nu"):
+        port_opt.rmsprop_tail(pb, [t.to(torch.bfloat16) for t in g], nu,
+                              None, lr=0.1, alpha=0.9, eps=0.01,
+                              masters=[t.float() for t in pb])

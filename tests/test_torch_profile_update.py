@@ -41,6 +41,11 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
     ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_warpgroup",
      "matrix product"),
     ("ampere_sgemm_128x64_tn", "matrix product"),
+    ("nvjet_tst_64x64_64x13_2x4_h_bz_bias_TNT", "matrix product"),
+    ("void (anonymous namespace)::pool_bwd_kernel<__nv_bfloat16, 8>("
+     "__nv_bfloat16 const*)", "port kernels"),
+    ("_ZN17cutlass__5x_cudnn6KernelINS_4conv6kernel23ImplicitGemm",
+     "convolution"),
     ("void gemv2T_kernel_val<int, int, float, float, float, float, 128>",
      "matrix product"),
     ("void at::native::multi_tensor_apply_kernel<TensorListMetadata<2>>",

@@ -19,6 +19,15 @@
 // row is empty, and a masked key gets weight exactly 0, as the reference's
 // -1e30 score does.
 //
+// Storage: q, k, v, out, dO and dq, dk, dv are f32, or bf16 under the bf16
+// precision policies; rel_bias and its gradient f32 or bf16 on their own;
+// lse f32. bf16 rows are widened to f32 as they are staged into shared
+// memory (so every loop below reads f32 and its shared-memory tiles are
+// the f32 ones), all arithmetic is f32, as the reference's kernel widens
+// q, k and v, and outputs are narrowed on their one write, rounding to
+// nearest even. The backward's dK and dV, where they gather across row
+// tiles, gather in an f32 scratch and are narrowed once at the end.
+//
 // Layouts are the model's [B, T, H, D] and [B, K, H, D]: no transposes,
 // and the mask and the bias index are computed in the kernels from seg,
 // cache_valid and no_done (the TPU kernel had the bias expanded to
@@ -88,10 +97,14 @@
 #include <math.h>
 
 #include <algorithm>
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using tbt::bf16;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -133,21 +146,29 @@ __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Copy n rows of D floats, `stride` floats apart in global memory, into
-// shared-memory rows of LD floats; all threads of the block take part. The
-// 16-byte path (D % 4 == 0, aligned) is asynchronous and completes at
-// cp_async_wait_all(); the scalar path also zeroes the columns D ..
+// Copy n rows of D elements, `stride` elements apart in global memory,
+// into shared-memory rows of LD floats; all threads of the block take part.
+// The 4-wide path (D % 4 == 0, aligned) of f32 is a 16-byte cp.async that
+// completes at cp_async_wait_all(); of bf16, an 8-byte load widened into
+// one float4 store. The scalar path also zeroes the columns D ..
 // round_up(D, 4) that the float4 dot products read.
-__device__ inline void stage_rows_async(float* dst, int LD, const float* src,
+template <typename T>
+__device__ inline void stage_rows_async(float* dst, int LD, const T* src,
                                         long long stride, int n, int D,
                                         bool vec) {
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const int cols = vec ? D / 4 : (D + 3) & ~3;
   auto copy = [&](int r, int c) {
     if (vec) {
-      cp_async16(dst + r * LD + 4 * c, src + r * stride + 4 * c);
+      if constexpr (std::is_same<T, float>::value) {
+        cp_async16(dst + r * LD + 4 * c, src + r * stride + 4 * c);
+      } else {
+        float v[4];
+        tbt::load4(src + r * stride + 4 * c, v);
+        tbt::store4(dst + r * LD + 4 * c, v);
+      }
     } else {
-      dst[r * LD + c] = c < D ? src[r * stride + c] : 0.f;
+      dst[r * LD + c] = c < D ? tbt::to_float(src[r * stride + c]) : 0.f;
     }
   };
   if (nthreads >= cols) {
@@ -213,16 +234,16 @@ __device__ inline void warp_sum_n(float (&v)[R]) {
 // t0 + (w % G) * RW .. + RW - 1; of each chunk's keys that their bands
 // need, in slots of 32 (one key a lane), it takes slots w / G, w / G + S,
 // ... DPL = ceil(D / 32) head dims per lane.
-template <int RW, int DPL>
+template <typename T, typename BT, int RW, int DPL>
 __global__ void __launch_bounds__(kMaxThreads)
-    attention_fwd_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
+    attention_fwd_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const int* __restrict__ seg,
                          const float* __restrict__ valid,
                          const unsigned char* __restrict__ nodone,
-                         const float* __restrict__ bias,
-                         float* __restrict__ out, float* __restrict__ lse,
+                         const BT* __restrict__ bias,
+                         T* __restrict__ out, float* __restrict__ lse,
                          Geometry g, FwdShape f, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int warps = f.G * f.S;
@@ -245,12 +266,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int ta_last = min(ta + RW, g.T) - 1;  // < ta: the warp has no row
   const int D = g.D, D4 = (D + 3) / 4;
   const long long stride = static_cast<long long>(g.H) * D;  // row to row
-  const float* kb = k + row_of(b, 0, h, g.K, g.H, D);
-  const float* vb = v + row_of(b, 0, h, g.K, g.H, D);
+  const T* kb = k + row_of(b, 0, h, g.K, g.H, D);
+  const T* vb = v + row_of(b, 0, h, g.K, g.H, D);
   const int* seg_b = seg + static_cast<long long>(b) * g.T;
   const float* valid_b = valid + static_cast<long long>(b) * g.M;
   const unsigned char* nodone_b = nodone + static_cast<long long>(b) * g.T;
-  const float* bias_h = bias + static_cast<long long>(h) * (g.M + 1);
+  const BT* bias_h = bias + static_cast<long long>(h) * (g.M + 1);
   float* pw_w = pw + warp * kPassKeys * RW;
 
   bool row_ok[RW], row_nodone[RW];
@@ -288,7 +309,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     for (int i = tid; i < n + t_last - t0; i += nthreads) {
       const int o = o_base + i;
-      bw[i] = o >= 0 && o <= g.M ? bias_h[o] : 0.f;
+      bw[i] = o >= 0 && o <= g.M ? tbt::to_float(bias_h[o]) : 0.f;
     }
     cp_async_wait_all();
     __syncthreads();
@@ -460,7 +481,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) out[o_row + d] = acc[r][i] / l[r];
+      if (d < D) out[o_row + d] = tbt::from_float<T>(acc[r][i] / l[r]);
     }
     if (lane == 0)
       lse[(static_cast<long long>(b) * g.H + h) * g.T + t] = m[r] + logf(l[r]);
@@ -510,25 +531,30 @@ struct BwdShape {
 //   of t into partials[b, h, o].
 // The last block of head h to finish (a ticket counter, reset by that
 // block) sums the B partials of h in order of b into dbias[h]. Every
-// output element has one writer and a fixed order of summation.
-template <int DPL, int KW>
+// output element has one writer and a fixed order of summation. With more
+// than one row tile, dK and dV gather in f32: in dk and dv themselves for
+// f32, in `work` ([2][B][K][H][D] f32) for bf16, narrowed into dk and dv
+// at the end.
+template <typename T, typename BT, int DPL, int KW>
 __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
-    attention_bwd_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
+    attention_bwd_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const int* __restrict__ seg,
                          const float* __restrict__ valid,
                          const unsigned char* __restrict__ nodone,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ out,
+                         const BT* __restrict__ bias,
+                         const T* __restrict__ out,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dout,
-                         float* __restrict__ dq, float* __restrict__ dk,
-                         float* __restrict__ dv, float* __restrict__ dbias,
+                         const T* __restrict__ dout,
+                         T* __restrict__ dq, T* __restrict__ dk,
+                         T* __restrict__ dv, BT* __restrict__ dbias,
                          double* __restrict__ partials,
-                         int* __restrict__ tickets, Geometry g, BwdShape f,
+                         int* __restrict__ tickets,
+                         float* __restrict__ work, Geometry g, BwdShape f,
                          float scale) {
   constexpr int RW = kBwdRows;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   __shared__ bool last_block;
   float* qs = smem;                    // [TR][LD]
@@ -551,14 +577,18 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
   const int b = blockIdx.x / g.H, h = blockIdx.x - b * g.H;
   const int D = g.D, D4 = (D + 3) / 4, W = g.M + 1;
   const long long stride = static_cast<long long>(g.H) * D;  // row to row
-  const float* kb = k + row_of(b, 0, h, g.K, g.H, D);
-  const float* vb = v + row_of(b, 0, h, g.K, g.H, D);
+  const T* kb = k + row_of(b, 0, h, g.K, g.H, D);
+  const T* vb = v + row_of(b, 0, h, g.K, g.H, D);
   const int* seg_b = seg + static_cast<long long>(b) * g.T;
   const float* valid_b = valid + static_cast<long long>(b) * g.M;
   const unsigned char* nodone_b = nodone + static_cast<long long>(b) * g.T;
-  const float* bias_h = bias + static_cast<long long>(h) * W;
+  const BT* bias_h = bias + static_cast<long long>(h) * W;
   const float* lse_bh = lse + (static_cast<long long>(b) * g.H + h) * g.T;
   double* part = partials + (static_cast<long long>(b) * g.H + h) * W;
+  // bf16: where dK and dV gather across row tiles, in f32.
+  float* const wk = work;
+  float* const wv =
+      kF32 ? nullptr : work + static_cast<long long>(g.B) * g.K * g.H * D;
 
   // Zero what the block gathers into: its bias partial and, with more
   // than one row tile, its dK and dV rows. The first chunk's barrier
@@ -567,8 +597,14 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
   if (f.accumulate) {
     for (int i = tid; i < g.K * D; i += nthreads) {
       const int j = i / D, d = i - j * D;
-      dk[row_of(b, j, h, g.K, g.H, D) + d] = 0.f;
-      dv[row_of(b, j, h, g.K, g.H, D) + d] = 0.f;
+      const long long r = row_of(b, j, h, g.K, g.H, D) + d;
+      if constexpr (kF32) {
+        dk[r] = 0.f;
+        dv[r] = 0.f;
+      } else {
+        wk[r] = 0.f;
+        wv[r] = 0.f;
+      }
     }
   }
 
@@ -617,7 +653,7 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
       }
       for (int i = tid; i < n + rows - 1; i += nthreads) {
         const int o = o_base + i;
-        bw[i] = o >= 0 && o <= g.M ? bias_h[o] : 0.f;
+        bw[i] = o >= 0 && o <= g.M ? tbt::to_float(bias_h[o]) : 0.f;
       }
       float4* tiles4 = reinterpret_cast<float4*>(pt);
       for (int i = tid; i < f.KCP * f.TR / 2; i += nthreads)
@@ -804,11 +840,16 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
             const int d = lane + 32 * i;
             if (d >= D) continue;
             if (f.accumulate) {
-              dk[r + d] += acc_k[kk][i] * scale;
-              dv[r + d] += acc_v[kk][i];
+              if constexpr (kF32) {
+                dk[r + d] += acc_k[kk][i] * scale;
+                dv[r + d] += acc_v[kk][i];
+              } else {
+                wk[r + d] += acc_k[kk][i] * scale;
+                wv[r + d] += acc_v[kk][i];
+              }
             } else {
-              dk[r + d] = acc_k[kk][i] * scale;
-              dv[r + d] = acc_v[kk][i];
+              dk[r + d] = tbt::from_float<T>(acc_k[kk][i] * scale);
+              dv[r + d] = tbt::from_float<T>(acc_v[kk][i]);
             }
           }
         }
@@ -835,8 +876,21 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           const int d = lane + 32 * i;
-          if (d < D) dq[o_row + d] = acc_q[r][i] * scale;
+          if (d < D) dq[o_row + d] = tbt::from_float<T>(acc_q[r][i] * scale);
         }
+      }
+    }
+  }
+
+  if constexpr (!kF32) {
+    // bf16: narrow the gathered dK and dV once (this block wrote them).
+    if (f.accumulate) {
+      __syncthreads();
+      for (int i = tid; i < g.K * D; i += nthreads) {
+        const int j = i / D, d = i - j * D;
+        const long long r = row_of(b, j, h, g.K, g.H, D) + d;
+        dk[r] = tbt::from_float<T>(wk[r]);
+        dv[r] = tbt::from_float<T>(wv[r]);
       }
     }
   }
@@ -854,16 +908,41 @@ __global__ void __launch_bounds__(32 * bwd_max_warps<DPL>())
 #pragma unroll 8
     for (int bb = 0; bb < g.B; ++bb)
       acc += __ldcg(partials + (static_cast<long long>(bb) * g.H + h) * W + o);
-    dbias[static_cast<long long>(h) * W + o] = static_cast<float>(acc);
+    dbias[static_cast<long long>(h) * W + o] =
+        tbt::from_float<BT>(static_cast<float>(acc));
   }
   if (tid == 0) tickets[h] = 0;  // ready for the next call
 }
 
-template <int RW, int DPL>
-int launch_fwd(const float* q, const float* k, const float* v,
-               const int* seg, const float* valid,
-               const unsigned char* nodone, const float* bias, float* out,
-               float* lse, Geometry g, float scale, cudaStream_t stream) {
+// Pointers of one call, typed by the wrapper's dtypes.
+struct Args {
+  const void *q, *k, *v;
+  const int* seg;
+  const float* valid;
+  const unsigned char* nodone;
+  const void* bias;
+  const void* out;
+  const float* lse;
+  const void* dout;
+  void *dq, *dk, *dv, *dbias;
+  double* partials;
+  int* tickets;
+  float* work;
+  float* lse_out;
+};
+
+// Whether rows of D elements of T can be moved 4 at a time (D % 4 == 0 and
+// every pointer aligned for a 4-element access).
+template <typename T>
+bool vec_rows(int D, std::initializer_list<const void*> ptrs) {
+  if (D % 4 != 0) return false;
+  for (const void* p : ptrs)
+    if (!tbt::aligned(p, 4 * sizeof(T))) return false;
+  return true;
+}
+
+template <typename T, typename BT, int RW, int DPL>
+int launch_fwd(const Args& a, Geometry g, float scale, cudaStream_t stream) {
   FwdShape f;
   if (RW == 1) {  // acting: one row a block, its keys split across warps
     f.G = 1;
@@ -874,8 +953,7 @@ int launch_fwd(const float* q, const float* k, const float* v,
   }
   f.TQ = RW * f.G;
   f.LD = 32 * DPL + 4;  // LD % 32 == 4: a warp's float4 rows miss no bank
-  f.vec = g.D % 4 == 0 && tbt::aligned16(q) &&
-          tbt::aligned16(k) && tbt::aligned16(v);
+  f.vec = vec_rows<T>(g.D, {a.q, a.k, a.v});
   const int warps = f.G * f.S;
   // Shared memory in floats: q, the warps' probabilities, the bias window's
   // TQ extra entries and the merge, then per key of a chunk its K and V
@@ -890,38 +968,32 @@ int launch_fwd(const float* q, const float* k, const float* v,
   f.KC = static_cast<int>(
       std::min<size_t>(f.TQ + g.M, (budget - fixed) / per_key));
   const size_t smem = sizeof(float) * (fixed + per_key * f.KC);
+  auto kernel = attention_fwd_kernel<T, BT, RW, DPL>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<RW, DPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(g.B * g.H, (g.T + f.TQ - 1) / f.TQ);
-  attention_fwd_kernel<RW, DPL><<<grid, 32 * warps, smem, stream>>>(
-      q, k, v, seg, valid, nodone, bias, out, lse, g, f, scale);
+  kernel<<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.seg, a.valid, a.nodone,
+      static_cast<const BT*>(a.bias),
+      static_cast<T*>(const_cast<void*>(a.out)), a.lse_out, g, f, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPL>
-int launch_fwd_for(const float* q, const float* k, const float* v,
-                   const int* seg, const float* valid,
-                   const unsigned char* nodone, const float* bias, float* out,
-                   float* lse, Geometry g, float scale, cudaStream_t stream) {
+template <typename T, typename BT, int DPL>
+int launch_fwd_for(const Args& a, Geometry g, float scale,
+                   cudaStream_t stream) {
   return g.T <= kActingMaxT
-             ? launch_fwd<1, DPL>(q, k, v, seg, valid, nodone, bias, out, lse,
-                                  g, scale, stream)
-             : launch_fwd<kLearnerRows, DPL>(q, k, v, seg, valid, nodone,
-                                             bias, out, lse, g, scale, stream);
+             ? launch_fwd<T, BT, 1, DPL>(a, g, scale, stream)
+             : launch_fwd<T, BT, kLearnerRows, DPL>(a, g, scale, stream);
 }
 
-template <int DPL>
-int launch_bwd(const float* q, const float* k, const float* v,
-               const int* seg, const float* valid,
-               const unsigned char* nodone, const float* bias,
-               const float* out, const float* lse, const float* dout,
-               float* dq, float* dk, float* dv, float* dbias,
-               double* partials, int* tickets, Geometry g, float scale,
-               cudaStream_t stream) {
+template <typename T, typename BT, int DPL>
+int launch_bwd(const Args& a, Geometry g, float scale, cudaStream_t stream) {
   constexpr int KW = bwd_keys_per_warp<DPL>();
   BwdShape f;
   const int row_groups =
@@ -929,13 +1001,16 @@ int launch_bwd(const float* q, const float* k, const float* v,
   f.TR = kBwdRows * row_groups;
   f.NW = std::max(row_groups, kBwdMinWarps);
   f.LD = 32 * DPL + 4;  // LD % 32 == 4: a warp's float4 rows miss no bank
-  f.vec = g.D % 4 == 0 && tbt::aligned16(q) && tbt::aligned16(k) &&
-          tbt::aligned16(v) && tbt::aligned16(dout);
+  f.vec = vec_rows<T>(g.D, {a.q, a.k, a.v, a.dout, a.out});
   f.accumulate = g.T > f.TR;
-  // Shared memory in floats: q, dO and O of a row tile, the bias window's
-  // TR extra entries and four values a row, then per key of a chunk its K and V rows, its column
-  // of the P and dS tiles, a bias entry and a tag; 8 keys of slack round
-  // the chunk's tiles up to whole key groups. The whole band
+  if (f.accumulate && !std::is_same<T, float>::value && a.work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Shared memory in floats (bf16 rows are staged widened, so the tiles
+  // are the same for both types): q, dO and O of a row tile, the bias
+  // window's TR extra entries and four values a row, then per key of a
+  // chunk its K and V rows, its column of the P and dS tiles, a bias entry
+  // and a tag; 8 keys of slack round the chunk's tiles up to whole key
+  // groups. The whole band
   // [t0, t_last + M] is one chunk when it fits the budget.
   const size_t fixed = 3 * static_cast<size_t>(f.TR) * f.LD + 5 * f.TR;
   const size_t per_key = 2 * static_cast<size_t>(f.LD) + 2 * f.TR + 2;
@@ -946,7 +1021,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                                            (budget - fixed) / per_key - 8));
   f.KCP = (f.KC + 7) & ~7;
   const size_t smem = sizeof(float) * (fixed + per_key * f.KCP);
-  auto kernel = attention_bwd_kernel<DPL, KW>;
+  auto kernel = attention_bwd_kernel<T, BT, DPL, KW>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -954,8 +1029,13 @@ int launch_bwd(const float* q, const float* k, const float* v,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<g.B * g.H, 32 * f.NW, smem, stream>>>(
-      q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias,
-      partials, tickets, g, f, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.seg, a.valid, a.nodone,
+      static_cast<const BT*>(a.bias), static_cast<const T*>(a.out), a.lse,
+      static_cast<const T*>(a.dout), static_cast<T*>(a.dq),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<BT*>(a.dbias), a.partials, a.tickets, a.work, g, f,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -963,46 +1043,82 @@ Geometry geometry(int B, int T, int H, int D, int M) {
   return Geometry{B, T, H, D, M, M + T};
 }
 
-}  // namespace
-
-// D <= 128 (ceil(D / 32) <= 4 dims per lane). Both kernels opt in to more
-// than 48 KB of shared memory where their chunks need it.
-TBT_API int tbt_attention_fwd(const float* q, const float* k, const float* v,
-                              const int* seg, const float* valid,
-                              const unsigned char* nodone, const float* bias,
-                              float* out, float* lse, int B, int T, int H,
-                              int D, int M, void* stream) {
-  const Geometry g = geometry(B, T, H, D, M);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 31) / 32) {
-    case 1: return launch_fwd_for<1>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
-    case 2: return launch_fwd_for<2>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
-    case 3: return launch_fwd_for<3>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
-    case 4: return launch_fwd_for<4>(q, k, v, seg, valid, nodone, bias, out, lse, g, scale, s);
+// DPL = ceil(D / 32) head dims per lane, 1 to 4, as a template argument.
+template <typename T, typename BT, template <typename, typename, int> class L>
+int by_dpl(const Args& a, Geometry g, cudaStream_t s) {
+  const float scale = 1.f / sqrtf(static_cast<float>(g.D));
+  switch ((g.D + 31) / 32) {
+    case 1: return L<T, BT, 1>::run(a, g, scale, s);
+    case 2: return L<T, BT, 2>::run(a, g, scale, s);
+    case 3: return L<T, BT, 3>::run(a, g, scale, s);
+    case 4: return L<T, BT, 4>::run(a, g, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The storage types a call may take: q's (f32 or bf16), and rel_bias's
+// (f32, or bf16 with bf16 q).
+template <template <typename, typename, int> class L>
+int by_types(const Args& a, Geometry g, int is_bf16, int bias_bf16,
+             cudaStream_t s) {
+  if (!is_bf16 && !bias_bf16) return by_dpl<float, float, L>(a, g, s);
+  if (is_bf16 && bias_bf16) return by_dpl<bf16, bf16, L>(a, g, s);
+  if (is_bf16) return by_dpl<bf16, float, L>(a, g, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, typename BT, int DPL>
+struct Fwd {
+  static int run(const Args& a, Geometry g, float scale, cudaStream_t s) {
+    return launch_fwd_for<T, BT, DPL>(a, g, scale, s);
+  }
+};
+
+template <typename T, typename BT, int DPL>
+struct Bwd {
+  static int run(const Args& a, Geometry g, float scale, cudaStream_t s) {
+    return launch_bwd<T, BT, DPL>(a, g, scale, s);
+  }
+};
+
+}  // namespace
+
+// D <= 128 (ceil(D / 32) <= 4 dims per lane). Both kernels opt in to more
+// than 48 KB of shared memory where their chunks need it. is_bf16: q, k, v
+// and out are bf16 (else f32); bias_bf16: rel_bias is bf16 (else f32).
+TBT_API int tbt_attention_fwd(const void* q, const void* k, const void* v,
+                              const int* seg, const float* valid,
+                              const unsigned char* nodone, const void* bias,
+                              void* out, float* lse, int B, int T, int H,
+                              int D, int M, int is_bf16, int bias_bf16,
+                              void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.seg = seg; a.valid = valid;
+  a.nodone = nodone; a.bias = bias; a.out = out; a.lse_out = lse;
+  return by_types<Fwd>(a, geometry(B, T, H, D, M), is_bf16, bias_bf16,
+                       static_cast<cudaStream_t>(stream));
+}
+
 // One launch. partials: [B, H, M + 1] f64 scratch; tickets: [H] ints,
 // zero before the first call and left zero by every call (calls that
-// share them must not overlap).
-TBT_API int tbt_attention_bwd(const float* q, const float* k, const float* v,
+// share them must not overlap); work: [2, B, M + T, H, D] f32 scratch, for
+// bf16 only (dK and dV gather there across row tiles; unused, and may be
+// null, for f32). is_bf16: q, k, v, out, dout, dq, dk and dv are bf16 (else
+// f32); bias_bf16: rel_bias and dbias are bf16 (else f32).
+TBT_API int tbt_attention_bwd(const void* q, const void* k, const void* v,
                               const int* seg, const float* valid,
-                              const unsigned char* nodone, const float* bias,
-                              const float* out, const float* lse,
-                              const float* dout, float* dq, float* dk,
-                              float* dv, float* dbias, double* partials,
-                              int* tickets, int B, int T, int H, int D,
-                              int M, void* stream) {
-  const Geometry g = geometry(B, T, H, D, M);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 31) / 32) {
-    case 1: return launch_bwd<1>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
-    case 2: return launch_bwd<2>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
-    case 3: return launch_bwd<3>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
-    case 4: return launch_bwd<4>(q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv, dbias, partials, tickets, g, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                              const unsigned char* nodone, const void* bias,
+                              const void* out, const float* lse,
+                              const void* dout, void* dq, void* dk,
+                              void* dv, void* dbias, double* partials,
+                              int* tickets, float* work, int B, int T,
+                              int H, int D, int M, int is_bf16,
+                              int bias_bf16, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.seg = seg; a.valid = valid;
+  a.nodone = nodone; a.bias = bias; a.out = out; a.lse = lse;
+  a.dout = dout; a.dq = dq; a.dk = dk; a.dv = dv; a.dbias = dbias;
+  a.partials = partials; a.tickets = tickets; a.work = work;
+  return by_types<Bwd>(a, geometry(B, T, H, D, M), is_bf16, bias_bf16,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -22,29 +22,38 @@
 // so no thread divides a 64-bit index: offsets are products of the
 // coordinates and the tensors' strides.
 //
-// The 16-byte path needs C % 4 == 0, channels contiguous (stride 1),
-// every other stride a multiple of 4 floats and 16-byte aligned pointers;
-// the deep trunk's channels_last activations (C = 16 or 32) take it. Any
-// other shape or layout (odd C, a view into its storage, NCHW strides)
-// takes the scalar path of the same kernel; odd H and W only mask the last
-// row and column. The TPU kernel's doubled grid (a 2x upsampled, padded
-// copy of y and of g, built for the TPU's lane layout) is not built.
+// Storage: f32, or bf16 under the bf16 precision policies (the reference's
+// kernel runs in x.dtype). The 16-byte path carries V = 4 f32 or V = 8
+// bf16 channels a thread; it needs C % V == 0, channels contiguous (stride
+// 1), every other stride a multiple of V elements and 16-byte aligned
+// pointers; the deep trunk's channels_last activations (C = 16 or 32) take
+// it. Any other shape or layout (odd C, a view into its storage, NCHW
+// strides) takes the scalar path of the same kernel; odd H and W only mask
+// the last row and column. The TPU kernel's doubled grid (a 2x upsampled,
+// padded copy of y and of g, built for the TPU's lane layout) is not built.
 //
 // Windows are added from the highest (oh, ow) down, the order in which the
 // plain tap-sum (ops/pool.py::pool_bwd_plain, and the reference's
-// ops/pool.py::_bwd) adds its taps, so the two agree bit for bit.
+// ops/pool.py::_bwd and pallas_pool.py::_kernel) adds its taps, so the two
+// agree bit for bit. In bf16 the sum is kept in f32 registers but rounded
+// to bf16 after every add, as the reference's bf16 accumulator is: the
+// comparisons are exact (y is a max of x) and each sum of two bf16 values
+// rounds once.
 //
 // Bound on the H100 (3.35 TB/s): bytes. x and gx are input-sized, y and g
 // output-sized, f32: at the deep trunk's stage 1 (N=2592, 84x84x16 ->
 // 42x42x16) that is 2.93 GB, about 0.87 ms; the three stages together
-// 1.42 ms. With 16-byte accesses and no index division the kernel is a
-// stream: it moves those bytes at about three quarters of the peak rate
-// (PERF.md).
+// 1.42 ms, half of that in bf16. With 16-byte accesses and no index
+// division the kernel is a stream: in f32 it moves those bytes at about
+// three quarters of the peak rate (PERF.md).
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using tbt::bf16;
 
 // Rows of output per thread strip (the launch balances the strips).
 constexpr int kMaxStripRows = 8;
@@ -59,6 +68,8 @@ struct Pack {
   float v[V];
 };
 
+// V consecutive channels, widened to f32: one 16-byte access for V = 4
+// f32 or V = 8 bf16, one element for V = 1.
 template <int V>
 __device__ inline Pack<V> load(const float* p) {
   Pack<V> r;
@@ -67,6 +78,25 @@ __device__ inline Pack<V> load(const float* p) {
     r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
   } else {
     r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int V>
+__device__ inline Pack<V> load(const bf16* p) {
+  Pack<V> r;
+  if constexpr (V == 8) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      r.v[2 * i] = f.x;
+      r.v[2 * i + 1] = f.y;
+    }
+  } else {
+    r.v[0] = __bfloat162float(__ldg(p));
   }
   return r;
 }
@@ -81,13 +111,37 @@ __device__ inline void store(float* p, const Pack<V>& r) {
   }
 }
 
-// acc += g where x == y, channel by channel.
 template <int V>
+__device__ inline void store(bf16* p, const Pack<V>& r) {
+  if constexpr (V == 8) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b =
+          __floats2bfloat162_rn(r.v[2 * i], r.v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *p = __float2bfloat16_rn(r.v[0]);
+  }
+}
+
+// acc += g where x == y, channel by channel; T = bf16 rounds each sum to
+// bf16 (the values stay exact bf16 values in f32 registers).
+template <typename T, int V>
 __device__ inline void credit(Pack<V>& acc, const Pack<V>& x,
                               const Pack<V>& y, const Pack<V>& g) {
 #pragma unroll
-  for (int i = 0; i < V; ++i)
-    if (x.v[i] == y.v[i]) acc.v[i] += g.v[i];
+  for (int i = 0; i < V; ++i) {
+    if (x.v[i] == y.v[i]) {
+      if constexpr (std::is_same<T, bf16>::value) {
+        acc.v[i] = __bfloat162float(__float2bfloat16_rn(acc.v[i] + g.v[i]));
+      } else {
+        acc.v[i] += g.v[i];
+      }
+    }
+  }
 }
 
 template <int V>
@@ -100,10 +154,10 @@ __device__ inline Pack<V> zeros() {
 
 // grid (N * strips, ceil(Wo / blockDim.y), ceil(C / V / blockDim.x)),
 // block (channel groups, output columns).
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(tbt::kThreads)
-    pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ g, float* __restrict__ gx,
+    pool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                    const T* __restrict__ g, T* __restrict__ gx,
                     Layout lx, Layout ly, Layout lg, Layout lgx, int H, int W,
                     int C, int Ho, int Wo, int strips, int strip_rows) {
   const int c = (blockIdx.z * blockDim.x + threadIdx.x) * V;
@@ -114,10 +168,10 @@ __global__ void __launch_bounds__(tbt::kThreads)
   const int oh_end = min(oh0 + strip_rows, Ho);
   if (oh0 >= oh_end) return;
 
-  const float* xb = x + n * lx.n + c * lx.c;
-  const float* yb = y + n * ly.n + c * ly.c;
-  const float* gb = g + n * lg.n + c * lg.c;
-  float* gxb = gx + n * lgx.n + c * lgx.c;
+  const T* xb = x + n * lx.n + c * lx.c;
+  const T* yb = y + n * ly.n + c * ly.c;
+  const T* gb = g + n * lg.n + c * lg.c;
+  T* gxb = gx + n * lgx.n + c * lgx.c;
   const int w0 = 2 * ow, w1 = 2 * ow + 1;
   const bool has_w1 = w1 < W;        // W odd: the last column has no w1
   const bool has_ow1 = ow + 1 < Wo;  // window ow + 1 covers column w1
@@ -148,38 +202,38 @@ __global__ void __launch_bounds__(tbt::kThreads)
     const bool has_h1 = h1 < H;  // H odd: the last strip row has no h1
     {
       // Row h0 is covered by window row oh only.
-      const float* xr = xb + h0 * lx.h;
-      float* gr = gxb + h0 * lgx.h;
+      const T* xr = xb + h0 * lx.h;
+      T* gr = gxb + h0 * lgx.h;
       const Pack<V> x00 = load<V>(xr + w0 * lx.w);
       Pack<V> a = zeros<V>();
-      credit(a, x00, y00, g00);
+      credit<T>(a, x00, y00, g00);
       store<V>(gr + w0 * lgx.w, a);
       if (has_w1) {
         const Pack<V> x01 = load<V>(xr + w1 * lx.w);
         a = zeros<V>();
-        if (has_ow1) credit(a, x01, y01, g01);
-        credit(a, x01, y00, g00);
+        if (has_ow1) credit<T>(a, x01, y01, g01);
+        credit<T>(a, x01, y00, g00);
         store<V>(gr + w1 * lgx.w, a);
       }
     }
     if (has_h1) {
       // Row h1 is covered by window rows oh + 1 (if any), then oh.
-      const float* xr = xb + h1 * lx.h;
-      float* gr = gxb + h1 * lgx.h;
+      const T* xr = xb + h1 * lx.h;
+      T* gr = gxb + h1 * lgx.h;
       const Pack<V> x10 = load<V>(xr + w0 * lx.w);
       Pack<V> a = zeros<V>();
-      if (has_oh1) credit(a, x10, y10, g10);
-      credit(a, x10, y00, g00);
+      if (has_oh1) credit<T>(a, x10, y10, g10);
+      credit<T>(a, x10, y00, g00);
       store<V>(gr + w0 * lgx.w, a);
       if (has_w1) {
         const Pack<V> x11 = load<V>(xr + w1 * lx.w);
         a = zeros<V>();
         if (has_oh1) {
-          if (has_ow1) credit(a, x11, y11, g11);
-          credit(a, x11, y10, g10);
+          if (has_ow1) credit<T>(a, x11, y11, g11);
+          credit<T>(a, x11, y10, g10);
         }
-        if (has_ow1) credit(a, x11, y01, g01);
-        credit(a, x11, y00, g00);
+        if (has_ow1) credit<T>(a, x11, y01, g01);
+        credit<T>(a, x11, y00, g00);
         store<V>(gr + w1 * lgx.w, a);
       }
     }
@@ -187,14 +241,14 @@ __global__ void __launch_bounds__(tbt::kThreads)
   }
 }
 
-// Whether a tensor can be read 4 channels at a time with 16-byte accesses.
-bool vector_layout(const void* p, const Layout& l) {
-  return tbt::aligned16(p) && l.c == 1 && l.n % 4 == 0 && l.h % 4 == 0 &&
-         l.w % 4 == 0;
+// Whether a tensor can be read V channels at a time with 16-byte accesses.
+bool vector_layout(const void* p, const Layout& l, int V) {
+  return tbt::aligned16(p) && l.c == 1 && l.n % V == 0 && l.h % V == 0 &&
+         l.w % V == 0;
 }
 
-template <int V>
-int launch(const float* x, const float* y, const float* g, float* gx,
+template <typename T, int V>
+int launch(const void* x, const void* y, const void* g, void* gx,
            const Layout* l, int N, int H, int W, int C, int Ho, int Wo,
            cudaStream_t stream) {
   const int groups = (C + V - 1) / V;
@@ -209,30 +263,36 @@ int launch(const float* x, const float* y, const float* g, float* gx,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks_x), (Wo + by - 1) / by,
                   (groups + bx - 1) / bx);
-  pool_bwd_kernel<V><<<grid, dim3(bx, by), 0, stream>>>(
-      x, y, g, gx, l[0], l[1], l[2], l[3], H, W, C, Ho, Wo, strips,
-      strip_rows);
+  pool_bwd_kernel<T, V><<<grid, dim3(bx, by), 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(g), static_cast<T*>(gx), l[0], l[1], l[2], l[3],
+      H, W, C, Ho, Wo, strips, strip_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides: 16 element strides, (n, c, h, w) of x, y, g and gx in turn.
-// *vectorized is set to 1 when the 16-byte path ran, 0 for the scalar one.
-TBT_API int tbt_pool_bwd(const float* x, const float* y, const float* g,
-                         float* gx, const long long* strides, int N, int H,
-                         int W, int C, int Ho, int Wo, int* vectorized,
-                         void* stream) {
+// is_bf16: all four tensors are bf16 (else f32). *vectorized is set to 1
+// when the 16-byte path ran, 0 for the scalar one.
+TBT_API int tbt_pool_bwd(const void* x, const void* y, const void* g,
+                         void* gx, const long long* strides, int N, int H,
+                         int W, int C, int Ho, int Wo, int is_bf16,
+                         int* vectorized, void* stream) {
   Layout l[4];
   for (int i = 0; i < 4; ++i)
     l[i] = Layout{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2],
                   strides[4 * i + 3]};
-  const bool vec = C % 4 == 0 && vector_layout(x, l[0]) &&
-                   vector_layout(y, l[1]) && vector_layout(g, l[2]) &&
-                   vector_layout(gx, l[3]);
+  const int V = is_bf16 ? 8 : 4;  // channels in 16 bytes
+  const bool vec = C % V == 0 && vector_layout(x, l[0], V) &&
+                   vector_layout(y, l[1], V) && vector_layout(g, l[2], V) &&
+                   vector_layout(gx, l[3], V);
   *vectorized = vec ? 1 : 0;
   if (N == 0 || H == 0 || W == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<4>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s)
-             : launch<1>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s);
+  if (is_bf16)
+    return vec ? launch<bf16, 8>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s)
+               : launch<bf16, 1>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s);
+  return vec ? launch<float, 4>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s)
+             : launch<float, 1>(x, y, g, gx, l, N, H, W, C, Ho, Wo, s);
 }

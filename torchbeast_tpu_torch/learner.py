@@ -16,7 +16,7 @@ the module's parameters in place. It returns its stats as device tensors,
 so the driver reads them one update late without a sync per update.
 """
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,9 +28,8 @@ from torchbeast_tpu_torch.types import AgentOutput
 
 class HParams(NamedTuple):
     """Learner hyperparameters, the reference's fields and defaults. The
-    port takes opt_state_dtype/param_dtype "f32", opt_factored False,
-    loss "vtrace" and replay_reuse 1 only; make_optimizer and
-    compute_loss raise for the others."""
+    port takes loss "vtrace" and replay_reuse 1 only; compute_loss raises
+    for the others."""
 
     discounting: float = 0.99
     baseline_cost: float = 0.5
@@ -65,19 +64,60 @@ def updates_horizon(hp: HParams) -> int:
 
 
 class RMSpropChain(FusedRMSpropTail):
-    """--opt_impl xla: the torch form of the reference's optax chain,
-    clip_by_global_norm -> torch-denominator RMSprop -> momentum trace ->
-    scale_by_learning_rate, one op at a time in optax's order. State,
-    construction and interface (`step` returns the squared global norm)
-    are FusedRMSpropTail's; only `step`'s body differs.
+    """--opt_impl xla: the torch form of the reference's optax chain
+    (torchbeast_tpu/learner.py make_optimizer), one op at a time in its
+    order. State, construction and interface (`step` returns the squared
+    global norm) are FusedRMSpropTail's; only `step`'s body differs.
 
-    The momentum trace comes before the LR, as in torch.optim.RMSprop and
-    the reference's Pallas tail. (optax.rmsprop, which the reference's
-    chain uses on optax >= 0.2.4, applies the LR first; the two agree
-    while the LR holds still and drift apart as it decays.)"""
+    - Clip: the gradients widened to f32, their global norm, and
+      `where(norm < max_norm, g, (g / norm) * max_norm)` (optax's
+      clip_by_global_norm, and _clip_by_global_norm_f32 for bf16 grads).
+    - RMSprop, as each branch of the reference's _rmsprop_torch:
+      with f32 state it is optax.rmsprop (eps outside the sqrt):
+      nu = (1 - decay) g^2 + decay nu, u = (1 / (sqrt(nu) + eps)) g, then
+      the LR, then the momentum trace; with compact state (`state_dtype`
+      bf16) it is _scale_by_rms_torch: nu = decay nu + (1 - decay) g^2 in
+      f32, u = g / (sqrt(nu) + eps), nu stored narrowed, then the trace,
+      then the LR. The two orders agree while the LR holds still.
+    - Factored (`factored`, --factored_opt_state): the reference's
+      _scale_by_factored_rms_torch on each JAX leaf in its own layout
+      (`layouts`, from weights.jax_layouts, required: a conv weight's
+      OIHW axes are not the reference's HWIO ones): a leaf of 2 or more
+      dims keeps f32 EMAs of the mean of g^2 over its last axis (row) and
+      its second-last (col) and divides by
+      sqrt((row / mean(row)) x col) + eps; a vector keeps the full nu.
+      The composed order: then the trace, then the LR. `state.nu` holds,
+      per tensor, one (row, col, nu) triple per JAX leaf.
+    - Apply: params += u; bf16 params (the reference's
+      _bf16_resident_params) add u to the f32 master and become
+      bf16(master), one narrowing cast per leaf."""
+
+    def __init__(self, params, learning_rate, decay: float, eps: float,
+                 momentum: float = 0.0, max_norm: Optional[float] = None,
+                 param_dtype: str = "f32", state_dtype=None,
+                 factored: bool = False, layouts=None):
+        super().__init__(params, learning_rate, decay, eps,
+                         momentum=momentum, max_norm=max_norm,
+                         param_dtype=param_dtype, state_dtype=state_dtype)
+        # optax.rmsprop applies the LR before the trace; the composed
+        # chain of compact or factored state after it.
+        self.lr_first = (not factored
+                         and self.state.nu[0].dtype == torch.float32)
+        self.layouts = None
+        if factored:
+            if layouts is None or len(layouts) != len(self.params):
+                raise ValueError(
+                    "the factored second moment needs each parameter's "
+                    "JAX leaves: pass layouts=weights.jax_layouts(model)")
+            self.layouts = layouts
+            self.state = self.state._replace(nu=[
+                [_factored_leaf(v) for v in views(p)]
+                for p, (views, _) in zip(self.params, self.layouts)
+            ])
 
     def step(self, grads) -> torch.Tensor:
         lr = self.schedule(self.state.count)
+        st = self.state
         with torch.no_grad():
             grads = [g.float() for g in grads]
             sumsq = torch.stack([torch.sum(g * g) for g in grads]).sum()
@@ -88,43 +128,101 @@ class RMSpropChain(FusedRMSpropTail):
                     torch.where(trigger, g, (g / g_norm) * self.max_norm)
                     for g in grads
                 ]
-            for i, (p, g, nu) in enumerate(
-                zip(self.params, grads, self.state.nu)
-            ):
-                nu.copy_((1.0 - self.decay) * (g * g) + self.decay * nu)
-                upd = g / (torch.sqrt(nu) + self.eps)
-                if self.momentum:
-                    mom = self.state.mom[i]
-                    mom.copy_(upd + self.momentum * mom)
-                    upd = mom
-                p.add_(upd * -lr)
-        self.state = self.state._replace(count=self.state.count + 1)
+            for i, (p, g, nu) in enumerate(zip(self.params, grads, st.nu)):
+                if self.lr_first:
+                    nu.copy_((1.0 - self.decay) * (g * g) + self.decay * nu)
+                    upd = (1.0 / (torch.sqrt(nu) + self.eps)) * g
+                    upd = upd * -lr
+                    upd = self._trace(i, upd)
+                elif self.layouts is not None:
+                    views, join = self.layouts[i]
+                    upd = join([self._factored(leaf, v) for leaf, v in
+                                zip(nu, views(g))])
+                    upd = self._trace(i, upd) * -lr
+                else:
+                    nu_f = self.decay * nu.float() + (1.0 - self.decay) * (
+                        g * g)
+                    upd = g / (torch.sqrt(nu_f) + self.eps)
+                    nu.copy_(nu_f)
+                    upd = self._trace(i, upd) * -lr
+                if st.master is None:
+                    p.add_(upd)
+                else:
+                    st.master[i].add_(upd)
+                    p.copy_(st.master[i])
+        self.state = st._replace(count=st.count + 1)
         return sumsq
 
+    def _factored(self, leaf, g):
+        """One JAX leaf's factored scaling; updates its (row, col, nu)."""
+        row, col, nu = leaf
+        g2 = g * g
+        d = self.decay
+        if g.dim() >= 2:
+            row.copy_(d * row + (1.0 - d) * g2.mean(dim=-1))
+            col.copy_(d * col + (1.0 - d) * g2.mean(dim=-2))
+            scale = torch.clamp(row.mean(dim=-1, keepdim=True), min=1e-30)
+            v_hat = (row / scale)[..., None] * col[..., None, :]
+            return g / (torch.sqrt(v_hat) + self.eps)
+        nu.copy_(d * nu + (1.0 - d) * g2)
+        return g / (torch.sqrt(nu) + self.eps)
 
-def make_optimizer(hp: HParams, params):
+    def _trace(self, i, upd):
+        """optax.trace: mom = upd + momentum * mom, the new update."""
+        if not self.momentum:
+            return upd
+        mom = self.state.mom[i]
+        mom.copy_(upd + self.momentum * mom)
+        return mom
+
+
+def _factored_leaf(v):
+    """Zero (row, col, nu) of one JAX leaf's factored second moment: row
+    and col EMAs for 2+ dims, the full nu for vectors and scalars, an
+    empty placeholder for the other side."""
+    z = lambda shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
+                                  device=v.device)
+    if v.dim() >= 2:
+        return (z(v.shape[:-1]), z(v.shape[:-2] + v.shape[-1:]), z((0,)))
+    return (z((0,)), z((0,)), z(v.shape))
+
+
+def make_optimizer(hp: HParams, params, layouts=None):
     """torch.optim.RMSprop semantics + grad clip + linear LR decay over
-    `params` (a list of the module's parameters, updated in place)."""
-    if hp.opt_state_dtype != "f32" or hp.param_dtype != "f32":
-        raise NotImplementedError(
-            "bf16 optimizer state / bf16-resident params are not in the "
-            "port yet: ROADMAP.md Queue 1 item 'precision'"
+    `params` (a list of the module's parameters, updated in place; cast
+    to the policy's resident dtype first). hp.opt_state_dtype "bf16"
+    stores the second moment half-width, hp.param_dtype "bf16" keeps an
+    f32 master of bf16-resident params, as the reference's make_optimizer
+    does; hp.opt_factored takes the factored second moment over each
+    JAX leaf of `layouts` (weights.jax_layouts(model); see
+    RMSpropChain)."""
+    if hp.opt_state_dtype not in ("f32", "bf16"):
+        raise ValueError(
+            f"opt_state_dtype must be 'f32' or 'bf16', got "
+            f"{hp.opt_state_dtype!r}"
         )
-    if hp.opt_factored:
-        raise NotImplementedError(
-            "--factored_opt_state is not in the port yet: ROADMAP.md "
-            "Queue 1 item 'precision'"
+    if hp.param_dtype not in ("f32", "bf16"):
+        raise ValueError(
+            f"param_dtype must be 'f32' or 'bf16', got {hp.param_dtype!r}"
         )
     if hp.opt_impl not in ("xla", "pallas"):
         raise ValueError(
             f"opt_impl must be 'xla' or 'pallas', got {hp.opt_impl!r}"
         )
+    if hp.opt_factored and hp.opt_impl == "pallas":
+        raise ValueError(
+            "--opt_impl pallas does not compose with "
+            "--factored_opt_state (the fused tail implements the "
+            "exact elementwise torch-RMSprop only)"
+        )
     schedule = linear_schedule(hp.learning_rate, 0.0, updates_horizon(hp))
-    cls = FusedRMSpropTail if hp.opt_impl == "pallas" else RMSpropChain
-    return cls(
-        params, schedule, decay=hp.rmsprop_alpha, eps=hp.rmsprop_eps,
-        momentum=hp.rmsprop_momentum, max_norm=hp.grad_norm_clipping,
-    )
+    kw = dict(decay=hp.rmsprop_alpha, eps=hp.rmsprop_eps,
+              momentum=hp.rmsprop_momentum, max_norm=hp.grad_norm_clipping,
+              param_dtype=hp.param_dtype, state_dtype=hp.opt_state_dtype)
+    if hp.opt_impl == "pallas":
+        return FusedRMSpropTail(params, schedule, **kw)
+    return RMSpropChain(params, schedule, factored=hp.opt_factored,
+                        layouts=layouts, **kw)
 
 
 def entropy_schedule(hp: HParams):

@@ -3,8 +3,12 @@
 `create_model("shallow"|"deep"|"transformer", ...)`: monobeast's
 AtariNet, polybeast's deep ResNet and the transformer policy. Unlike flax,
 a torch module sizes its first layer at construction, so the frame shape
-([H, W, C]) is an argument.
+([H, W, C]) is an argument. `dtype` (the trunk's compute dtype) and
+`head_dtype` (the core's and heads') come from the precision policy
+(torchbeast_tpu_torch/precision.py).
 """
+
+import torch
 
 from torchbeast_tpu_torch.models.atari_net import AtariNet  # noqa: F401
 from torchbeast_tpu_torch.models.cores import LSTMCore  # noqa: F401
@@ -31,7 +35,8 @@ NOT_PORTED = {
 
 
 def create_model(name: str, num_actions: int, use_lstm: bool = False,
-                 frame_shape=(84, 84, 4), **kwargs):
+                 frame_shape=(84, 84, 4), dtype=torch.float32,
+                 head_dtype=torch.float32, **kwargs):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"--model {name} is not in the port yet: ROADMAP.md Queue 1 "
@@ -49,4 +54,5 @@ def create_model(name: str, num_actions: int, use_lstm: bool = False,
             "memory is the KV cache); drop the flag"
         )
     return cls(num_actions=num_actions, use_lstm=use_lstm,
-               frame_shape=tuple(frame_shape), **kwargs)
+               frame_shape=tuple(frame_shape), dtype=dtype,
+               head_dtype=head_dtype, **kwargs)

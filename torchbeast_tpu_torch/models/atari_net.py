@@ -6,7 +6,10 @@ and the one-hot last action join the core input; the optional LSTM has 2
 layers of width 512 + A + 1. Frames are read as NHWC (channels_last) and
 the conv output is flattened in NHWC order, as the reference flattens.
 Submodule names follow the reference's flax scopes (Conv_0, Dense_0,
-head.policy, ...).
+head.policy, ...). `dtype` is the convs' and fc's compute dtype,
+`head_dtype` the core's and heads' (torchbeast_tpu_torch/precision.py):
+the fc output, the clipped reward and the one-hot action join the core
+input in `head_dtype`, as in the reference.
 """
 
 from typing import Tuple
@@ -19,6 +22,7 @@ from torchbeast_tpu_torch.models.cores import (
     RecurrentPolicyHead,
     lstm_initial_state,
 )
+from torchbeast_tpu_torch.models.layers import conv2d, linear
 
 
 def _valid(n: int, k: int, s: int) -> int:
@@ -27,11 +31,13 @@ def _valid(n: int, k: int, s: int) -> int:
 
 class AtariNet(nn.Module):
     def __init__(self, num_actions: int, use_lstm: bool = False,
-                 frame_shape=(84, 84, 4)):
+                 frame_shape=(84, 84, 4), dtype=torch.float32,
+                 head_dtype=torch.float32):
         super().__init__()
         H, W, C = frame_shape
         self.num_actions = num_actions
         self.use_lstm = use_lstm
+        self.dtype, self.head_dtype = dtype, head_dtype
         self.Conv_0 = nn.Conv2d(C, 32, 8, 4)
         self.Conv_1 = nn.Conv2d(32, 64, 4, 2)
         self.Conv_2 = nn.Conv2d(64, 64, 3, 1)
@@ -41,6 +47,7 @@ class AtariNet(nn.Module):
         self.head = RecurrentPolicyHead(
             self.core_output_size, num_actions, use_lstm,
             hidden_size=self.core_output_size, num_layers=2,
+            dtype=head_dtype,
         )
         self.to(memory_format=torch.channels_last)
 
@@ -54,18 +61,17 @@ class AtariNet(nn.Module):
         frame = inputs["frame"]
         T, B = frame.shape[:2]
         x = frame.reshape((T * B,) + tuple(frame.shape[2:]))
-        x = x.permute(0, 3, 1, 2).float() / 255.0
-        x = F.relu(self.Conv_0(x))
-        x = F.relu(self.Conv_1(x))
-        x = F.relu(self.Conv_2(x))
+        x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0
+        for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
+            x = F.relu(conv2d(conv, x, self.dtype))
         x = x.permute(0, 2, 3, 1).reshape(T * B, -1)  # NHWC flatten
-        x = F.relu(self.Dense_0(x))
+        x = F.relu(linear(self.Dense_0, x, self.dtype)).to(self.head_dtype)
         one_hot_last_action = F.one_hot(
             inputs["last_action"].reshape(T * B).long(), self.num_actions
-        ).float()
+        ).to(self.head_dtype)
         clipped_reward = torch.clamp(
             inputs["reward"].float(), -1, 1
-        ).reshape(T * B, 1)
+        ).reshape(T * B, 1).to(self.head_dtype)
         core_input = torch.cat(
             [x, clipped_reward, one_hot_last_action], dim=-1
         )

@@ -2,7 +2,8 @@
 torchbeast_tpu/models/cores.py).
 
 Core state layout matches the reference: a tuple `(h, c)`, each
-`[num_layers, B, hidden_size]`.
+`[num_layers, B, hidden_size]`, f32 at the module boundary whatever the
+compute dtype.
 """
 
 import math
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchbeast_tpu_torch.models.layers import linear
 from torchbeast_tpu_torch.types import AgentOutput
 
 
@@ -27,15 +29,21 @@ class LSTMCore(nn.Module):
     the same gradient and take twice the reference's bias step, so there
     is none.
 
+    `dtype` is the compute dtype (--precision bf16_train: bf16). Input,
+    carry, done mask and weights are cast to it, as the reference casts
+    its scanned carry; the new state is upcast to f32, the core output
+    stays in `dtype`.
+
     forward(core_input [T, B, D], notdone [T, B], (h, c)) ->
         (core_output [T, B, H], (h, c))
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1):
+                 num_layers: int = 1, dtype=torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.dtype = dtype
         bound = 1.0 / math.sqrt(hidden_size)
         for layer in range(num_layers):
             d = input_size if layer == 0 else hidden_size
@@ -48,15 +56,16 @@ class LSTMCore(nn.Module):
                 nn.init.uniform_(p, -bound, bound)
                 self.register_parameter(name, p)
 
-    def _layer(self, name: str, layer: int):
-        return getattr(self, f"{name}_l{layer}")
-
     def forward(self, core_input, notdone, core_state):
-        h, c = core_state
+        core_input = core_input.to(self.dtype)
+        notdone = notdone.to(self.dtype)
+        h, c = (s.to(self.dtype) for s in core_state)
         hs = list(h.unbind(0))
         cs = list(c.unbind(0))
+        # Every weight in the compute dtype, once for all steps.
+        w = {name: p.to(self.dtype) for name, p in self.named_parameters()}
         # Layer 0's input projection for every step in one product.
-        x_proj = F.linear(core_input, self._layer("weight_ih", 0))
+        x_proj = F.linear(core_input, w["weight_ih_l0"])
         outputs = []
         for t in range(core_input.shape[0]):
             nd = notdone[t].unsqueeze(-1)
@@ -65,11 +74,10 @@ class LSTMCore(nn.Module):
                 h_l = hs[layer] * nd
                 c_l = cs[layer] * nd
                 gates = F.linear(
-                    h_l, self._layer("weight_hh", layer),
-                    self._layer("bias_hh", layer),
+                    h_l, w[f"weight_hh_l{layer}"], w[f"bias_hh_l{layer}"],
                 ) + (
                     x_proj[t] if layer == 0
-                    else F.linear(y, self._layer("weight_ih", layer))
+                    else F.linear(y, w[f"weight_ih_l{layer}"])
                 )
                 i, f, g, o = gates.chunk(4, dim=-1)
                 c_l = torch.sigmoid(f) * c_l + torch.sigmoid(i) * torch.tanh(g)
@@ -77,7 +85,8 @@ class LSTMCore(nn.Module):
                 hs[layer], cs[layer] = h_l, c_l
                 y = h_l
             outputs.append(y)
-        return torch.stack(outputs), (torch.stack(hs), torch.stack(cs))
+        return torch.stack(outputs), (torch.stack(hs).float(),
+                                      torch.stack(cs).float())
 
 
 def lstm_initial_state(use_lstm: bool, num_layers: int, hidden_size: int,
@@ -96,16 +105,18 @@ class RecurrentPolicyHead(nn.Module):
     """Optional LSTM core + policy/baseline heads + action selection, the
     shared tail of every model family. Takes `[T*B, D]` core inputs and
     the `[T, B]` done mask; returns (AgentOutput with `[T, B, ...]`
-    fields, new core state). Logits and baseline are f32 at the head
-    boundary."""
+    fields, new core state). `dtype` is the head's compute dtype (the
+    core and the policy/baseline projections); logits and baseline are
+    f32 at the head boundary under every policy."""
 
     def __init__(self, input_size: int, num_actions: int, use_lstm: bool,
-                 hidden_size: int, num_layers: int):
+                 hidden_size: int, num_layers: int, dtype=torch.float32):
         super().__init__()
         self.num_actions = num_actions
         self.use_lstm = use_lstm
+        self.dtype = dtype
         if use_lstm:
-            self.core = LSTMCore(input_size, hidden_size, num_layers)
+            self.core = LSTMCore(input_size, hidden_size, num_layers, dtype)
             out = hidden_size
         else:
             out = input_size
@@ -114,6 +125,7 @@ class RecurrentPolicyHead(nn.Module):
 
     def forward(self, core_input, done, core_state, T, B, sample_action,
                 generator=None):
+        core_input = core_input.to(self.dtype)
         if self.use_lstm:
             notdone = 1.0 - done.float()
             core_output, core_state = self.core(
@@ -123,8 +135,8 @@ class RecurrentPolicyHead(nn.Module):
         else:
             core_output = core_input
             core_state = ()
-        policy_logits = self.policy(core_output).float()
-        baseline = self.baseline(core_output).float()
+        policy_logits = linear(self.policy, core_output, self.dtype).float()
+        baseline = linear(self.baseline, core_output, self.dtype).float()
         if sample_action:
             action = torch.multinomial(
                 F.softmax(policy_logits, dim=-1), 1, generator=generator

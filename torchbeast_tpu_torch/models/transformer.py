@@ -30,6 +30,13 @@ extras, block_{i}.{LayerNorm_0, q, k, v, rel_bias, out, LayerNorm_1,
 Dense_0, Dense_1}, LayerNorm_0, head), which is what weights.py maps
 between. flax's LayerNorm has epsilon 1e-6 and its gelu is the tanh
 approximation; both are set so here.
+
+Precision, as the reference's: `dtype` (the trunk's compute dtype) is
+the frame Dense's, q/k/v/out's and the MLP's; the residual stream, the
+LayerNorms (which promote, carrying no dtype of their own) and the
+`extras` Dense stay f32; the cache is cast to k's dtype before the
+concat, and the new k and v are returned as f32. `head_dtype` is the
+policy head's.
 """
 
 from typing import Tuple
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchbeast_tpu_torch.models.cores import RecurrentPolicyHead
+from torchbeast_tpu_torch.models.layers import layer_norm, linear
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -56,11 +64,12 @@ class _Block(nn.Module):
     DenseGenerals over (H, hd), stored as Linear layers of H*hd."""
 
     def __init__(self, d_model: int, num_heads: int, memory_len: int,
-                 attention_impl: str):
+                 attention_impl: str, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.memory_len = memory_len
         self.attention_impl = attention_impl
+        self.dtype = dtype
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
@@ -81,24 +90,26 @@ class _Block(nn.Module):
         B, T, d = x.shape
         H = self.num_heads
         hd = d // H
-        h = self.LayerNorm_0(x)
-        q = self.q(h).view(B, T, H, hd)
-        k = self.k(h).view(B, T, H, hd)
-        v = self.v(h).view(B, T, H, hd)
-        k_all = torch.cat([k_cache, k], dim=1)
-        v_all = torch.cat([v_cache, v], dim=1)
+        dtype = self.dtype
+        h = layer_norm(self.LayerNorm_0, x)
+        q = linear(self.q, h, dtype).view(B, T, H, hd)
+        k = linear(self.k, h, dtype).view(B, T, H, hd)
+        v = linear(self.v, h, dtype).view(B, T, H, hd)
+        k_all = torch.cat([k_cache.to(k.dtype), k], dim=1)
+        v_all = torch.cat([v_cache.to(v.dtype), v], dim=1)
         if self.attention_impl == "pallas":
             attended = transformer_attention(
-                self.memory_len, q, k_all, v_all, seg, cache_valid, no_done,
-                self.rel_bias,
+                self.memory_len, q, k_all, v_all, seg, cache_valid.float(),
+                no_done, self.rel_bias,
             )
         else:
             attended = dense_transformer_attend(q, k_all, v_all, mask,
                                                 offsets, self.rel_bias)
-        x = x + self.out(attended.reshape(B, T, d))
-        h = self.LayerNorm_1(x)
-        h = F.gelu(self.Dense_0(h), approximate="tanh")
-        return x + self.Dense_1(h), k, v
+        x = x + linear(self.out, attended.reshape(B, T, d), dtype).float()
+        h = layer_norm(self.LayerNorm_1, x)
+        h = F.gelu(linear(self.Dense_0, h, dtype), approximate="tanh")
+        x = x + linear(self.Dense_1, h, dtype).float()
+        return x, k.float(), v.float()
 
 
 class TransformerNet(nn.Module):
@@ -110,7 +121,8 @@ class TransformerNet(nn.Module):
     def __init__(self, num_actions: int, use_lstm: bool = False,
                  frame_shape=(84, 84, 4), num_layers: int = 2,
                  d_model: int = 128, num_heads: int = 4,
-                 memory_len: int = 64, attention_impl: str = "dense"):
+                 memory_len: int = 64, attention_impl: str = "dense",
+                 dtype=torch.float32, head_dtype=torch.float32):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
@@ -126,6 +138,7 @@ class TransformerNet(nn.Module):
         self.num_heads = num_heads
         self.memory_len = memory_len
         self.attention_impl = attention_impl
+        self.dtype = dtype
         frame_size = 1
         for n in frame_shape:
             frame_size *= n
@@ -133,11 +146,11 @@ class TransformerNet(nn.Module):
         self.extras = nn.Linear(1 + num_actions, d_model)
         for layer in range(num_layers):
             setattr(self, f"block_{layer}", _Block(
-                d_model, num_heads, memory_len, attention_impl))
+                d_model, num_heads, memory_len, attention_impl, dtype))
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.head = RecurrentPolicyHead(
             d_model, num_actions, use_lstm=False, hidden_size=d_model,
-            num_layers=1,
+            num_layers=1, dtype=head_dtype,
         )
 
     def forward(self, inputs, core_state, sample_action: bool = True,
@@ -148,12 +161,15 @@ class TransformerNet(nn.Module):
         device = frame.device
 
         # HWC flatten per (t, b), as the reference flattens.
-        x = self.Dense_0(frame.reshape(T * B, -1).float() / 255.0)
+        x = linear(self.Dense_0,
+                   frame.reshape(T * B, -1).to(self.dtype) / 255.0,
+                   self.dtype)
         one_hot = F.one_hot(inputs["last_action"].reshape(T * B).long(),
                             self.num_actions).float()
         reward = torch.clamp(inputs["reward"].float(), -1, 1).reshape(
             T * B, 1)
-        x = x + self.extras(torch.cat([reward, one_hot], dim=-1))
+        x = x.float() + linear(self.extras,
+                               torch.cat([reward, one_hot], dim=-1))
         x = x.reshape(T, B, self.d_model).transpose(0, 1).contiguous()
 
         done = inputs["done"]
@@ -189,7 +205,7 @@ class TransformerNet(nn.Module):
             new_state.append((k_roll.transpose(0, 1),
                               v_roll.transpose(0, 1), valid_roll.t()))
 
-        x = self.LayerNorm_0(x)
+        x = layer_norm(self.LayerNorm_0, x)
         core_output = x.transpose(0, 1).reshape(T * B, self.d_model)
         out, _ = self.head(core_output, done, (), T, B, sample_action,
                            generator)

@@ -9,7 +9,9 @@ Pallas switches select: --vtrace_impl pallas (V-trace targets),
 --opt_impl pallas (the fused RMSprop tail), on the transformer
 --attention_impl pallas (the fused attention, forward and backward; it
 runs in every acting step too) and, on the deep model, TBT_POOL_PALLAS=1
-in the environment (the max-pool backward).
+in the environment (the max-pool backward). --precision bf16_compute and
+bf16_train (and the deprecated --model_dtype bfloat16) run the bf16
+variants of those kernels (torchbeast_tpu_torch/precision.py).
 
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. A flag whose feature the port
@@ -23,7 +25,7 @@ Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
           --use_lstm --vtrace_impl pallas --opt_impl pallas
       python -m torchbeast_tpu_torch.monobeast --env Mock \\
           --model transformer --attention_impl pallas \\
-          --vtrace_impl pallas --opt_impl pallas
+          --vtrace_impl pallas --opt_impl pallas --precision bf16_train
 """
 
 import argparse
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch import nest
+from torchbeast_tpu_torch import nest, precision, weights
 from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
@@ -98,12 +100,21 @@ def make_parser():
                         help="Use LSTM in the agent model.")
     parser.add_argument("--precision", default="f32",
                         choices=["f32", "bf16_compute", "bf16_train"],
-                        help="Precision policy; bf16_* " + _LATER)
+                        help="Precision policy (torchbeast_tpu_torch/"
+                             "precision.py): f32 everywhere; bf16_compute "
+                             "runs the trunk in bfloat16; bf16_train also "
+                             "the core and heads, with bf16-resident "
+                             "params (f32 master), a bf16 RMSprop second "
+                             "moment and a bf16 staged batch.")
     parser.add_argument("--model_dtype", default=None,
                         choices=["float32", "bfloat16"],
-                        help="Deprecated precision alias " + _LATER)
+                        help="Deprecated alias: bfloat16 maps to "
+                             "--precision bf16_compute (with a warning); "
+                             "conflicts with --precision bf16_train.")
     parser.add_argument("--factored_opt_state", action="store_true",
-                        help="Factored RMSprop second moment " + _LATER)
+                        help="Factored RMSprop second moment (row/col "
+                             "EMAs per matrix; an approximation; --opt_impl "
+                             "xla only).")
     parser.add_argument("--trunk_channels", default="",
                         help="Deep-trunk widths as a comma list (e.g. "
                              "32,64,64). Default: 16/32/32.")
@@ -219,9 +230,6 @@ def make_parser():
 # item that brings it. Each must stay at its parser default.
 NOT_IN_PORT = {
     "mode": "checkpoints",
-    "precision": "precision",
-    "model_dtype": "precision",
-    "factored_opt_state": "precision",
     "sequence_parallel": "the transformer family",
     "pipeline_parallel": "the transformer family",
     "pipeline_microbatches": "the transformer family",
@@ -280,6 +288,7 @@ def select_device(flags) -> torch.device:
 
 
 def hparams_from_flags(flags) -> learner_lib.HParams:
+    policy = precision.resolve_flags(flags)
     return learner_lib.HParams(
         discounting=flags.discounting,
         baseline_cost=flags.baseline_cost,
@@ -295,6 +304,9 @@ def hparams_from_flags(flags) -> learner_lib.HParams:
         unroll_length=flags.unroll_length,
         batch_size=flags.batch_size,
         vtrace_impl=getattr(flags, "vtrace_impl", "associative"),
+        opt_state_dtype=policy.opt_state_dtype,
+        param_dtype=policy.param_dtype,
+        opt_factored=getattr(flags, "factored_opt_state", False),
         opt_impl=getattr(flags, "opt_impl", "xla"),
         loss=getattr(flags, "loss", "vtrace"),
         impact_clip=getattr(flags, "impact_clip", 0.2),
@@ -358,22 +370,28 @@ def _attention_impl(flags):
 
 def build_model(flags, num_actions, frame_shape, device):
     """The model on `device`, its initial weights drawn from --seed
-    without touching the global RNG state."""
+    without touching the global RNG state, computing in the precision
+    policy's dtypes, its params cast to the policy's resident dtype (the
+    optimizer is built after, from the cast params)."""
+    policy = precision.resolve_flags(flags)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(flags.seed)
         model = create_model(
             flags.model, num_actions=num_actions, use_lstm=flags.use_lstm,
-            frame_shape=frame_shape, **_trunk_channels(flags),
+            frame_shape=frame_shape, dtype=policy.compute_dtype,
+            head_dtype=policy.head_dtype, **_trunk_channels(flags),
             **_attention_impl(flags),
         )
-    return model.to(device)
+    return precision.cast_params(model.to(device), policy)
 
 
-def to_device(batch, device):
-    """numpy [T+1, B, ...] batch -> tensors on `device`."""
+def to_device(batch, device, batch_dtype=None):
+    """numpy [T+1, B, ...] batch -> tensors on `device`, float32 leaves
+    cast to `batch_dtype` on the host first (precision.cast_batch)."""
+    host = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     return {
-        k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-        for k, v in batch.items()
+        k: v.to(device, non_blocking=True)
+        for k, v in precision.cast_batch(host, batch_dtype).items()
     }
 
 
@@ -397,11 +415,14 @@ def train(flags):
     )
 
     hp = hparams_from_flags(flags)
+    batch_dtype = precision.resolve_flags(flags).batch_dtype
     num_actions, frame_shape = _probe_env(flags)
     B = flags.num_actors
     T = flags.unroll_length
     model = build_model(flags, num_actions, frame_shape, device)
-    optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
+    optimizer = learner_lib.make_optimizer(
+        hp, list(model.parameters()),
+        layouts=weights.jax_layouts(model) if hp.opt_factored else None)
     update_step = learner_lib.update_body(model, optimizer, hp)
     act_step = learner_lib.make_act_step(model, device)
     generator = torch.Generator(device=device)
@@ -457,14 +478,14 @@ def train(flags):
                 sub = to_device(
                     {k: v[:, i : i + flags.batch_size]
                      for k, v in batch.items()},
-                    device,
+                    device, batch_dtype,
                 )
                 # Batch is axis 1 of every state leaf (the transformer's
                 # state nests a (k, v, valid) tuple per layer).
-                sub_state = nest.map(
+                sub_state = precision.cast_batch(nest.map(
                     lambda s: s[:, i : i + flags.batch_size],
                     initial_agent_state,
-                )
+                ), batch_dtype)
                 if device.type == "cuda":
                     t0 = torch.cuda.Event(enable_timing=True)
                     t1 = torch.cuda.Event(enable_timing=True)

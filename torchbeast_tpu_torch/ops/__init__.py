@@ -22,11 +22,23 @@ KERNEL_WRAPPERS = (vtrace_targets, rmsprop_tail, pool_bwd,
                    transformer_attention, transformer_attention_bwd)
 
 
+# Of those, the wrappers with a bf16 variant, each also counting the
+# launches of that variant in `bf16_launches`.
+BF16_WRAPPERS = (rmsprop_tail, pool_bwd, transformer_attention,
+                 transformer_attention_bwd)
+
+
 def reset_launch_counts() -> None:
     for wrapper in KERNEL_WRAPPERS:
         wrapper.launches = 0
+    for wrapper in BF16_WRAPPERS:
+        wrapper.bf16_launches = 0
     pool_bwd.vector_launches = 0
 
 
 def launch_counts() -> dict:
     return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def bf16_launch_counts() -> dict:
+    return {w.__name__: w.bf16_launches for w in BF16_WRAPPERS}

@@ -41,19 +41,22 @@ _F = ctypes.c_float
 SIGNATURES = {
     # a, deltas, pgrho, rewards, discounts, values, boot, vs, pg, T, B, stream
     "tbt_vtrace_targets": [_P] * 9 + [_I, _I, _P],
-    # x, y, g, gx, strides (host array of 16), N, H, W, C, Ho, Wo,
+    # x, y, g, gx, strides (host array of 16), N, H, W, C, Ho, Wo, bf16,
     # vectorized (host int out), stream
-    "tbt_pool_bwd": [_P] * 5 + [_I] * 6 + [_P, _P],
-    # params, grads, nus, moms (host arrays of device pointers), numels,
-    # n_leaves, partials, n_partials, sumsq, lr, alpha, one_minus_alpha,
-    # eps, momentum, max_norm, clip, has_mom, stream
-    "tbt_rmsprop_tail": [_P] * 5 + [_I, _P, _I, _P] + [_F] * 6
-    + [_I, _I, _P],
-    # q, k, v, seg, valid, nodone, bias, out, lse, B, T, H, D, M, stream
-    "tbt_attention_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "tbt_pool_bwd": [_P] * 5 + [_I] * 7 + [_P, _P],
+    # params, grads, nus, moms, masters (host arrays of device pointers),
+    # numels, n_leaves, partials, n_partials, sumsq, lr, alpha,
+    # one_minus_alpha, eps, momentum, max_norm, clip, has_mom, param_bf16,
+    # nu_bf16, stream
+    "tbt_rmsprop_tail": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 6
+    + [_I] * 4 + [_P],
+    # q, k, v, seg, valid, nodone, bias, out, lse, B, T, H, D, M, bf16,
+    # bias_bf16, stream
+    "tbt_attention_fwd": [_P] * 9 + [_I] * 7 + [_P],
     # q, k, v, seg, valid, nodone, bias, out, lse, dout, dq, dk, dv,
-    # dbias, partials, tickets, B, T, H, D, M, stream
-    "tbt_attention_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    # dbias, partials, tickets, work, B, T, H, D, M, bf16, bias_bf16,
+    # stream
+    "tbt_attention_bwd": [_P] * 17 + [_I] * 7 + [_P],
 }
 
 

@@ -15,6 +15,11 @@ tensors its forward launches the hand-written kernel
 `tbt_attention_bwd`; on CPU tensors it runs `transformer_attention_plain`
 through autograd. Gradients flow to q, k_all, v_all and rel_bias only, as
 in the reference's custom VJP.
+
+Precision: q, k_all and v_all are f32 or bf16 (the trunk's dtype), and
+rel_bias f32 or q's dtype. Both versions widen the inputs, compute in
+f32 and narrow the output to q's dtype, as the reference's kernel does;
+the gradients come back in their inputs' dtypes.
 """
 
 import torch
@@ -32,6 +37,8 @@ MAX_SCORE_TILE_BYTES = 6 * 1024 * 1024
 
 # The kernels keep ceil(D / 32) head dims per lane in registers.
 MAX_HEAD_DIM = 128
+
+STORAGE = (torch.float32, torch.bfloat16)  # of q, k, v (and rel_bias)
 
 
 def segment_ids_from_done(done):
@@ -63,8 +70,11 @@ def roll_kv_cache(k_cache, v_cache, valid, k_new, v_new, seg, no_done):
     M = k_cache.shape[1]
     seq_valid = seg == seg[:, -1:]
     old_valid = (valid != 0) & no_done[:, -1:]
-    k_cat = torch.cat([k_cache, k_new], dim=1)
-    v_cat = torch.cat([v_cache, v_new], dim=1)
+    # A cache of another dtype joins the new keys in the promoted type, as
+    # the reference's concatenate promotes it.
+    dtype = torch.promote_types(k_cache.dtype, k_new.dtype)
+    k_cat = torch.cat([k_cache.to(dtype), k_new.to(dtype)], dim=1)
+    v_cat = torch.cat([v_cache.to(dtype), v_new.to(dtype)], dim=1)
     valid_cat = torch.cat([old_valid, seq_valid], dim=1)
     return (k_cat[:, -M:], v_cat[:, -M:],
             valid_cat[:, -M:].to(torch.float32))
@@ -114,12 +124,14 @@ def transformer_attention_plain(memory_len, q, k_all, v_all, seg,
                                 cache_valid, no_done, rel_bias):
     """The plain PyTorch version of the kernel (the reference's
     `pallas_attention._reference`): `attention_mask`, then the dense
-    body."""
+    body, on the inputs widened to f32; the output is narrowed to q's
+    dtype. Its autograd is the plain backward."""
     _, offsets = band_relative_offsets(q.shape[1], memory_len,
                                        device=q.device)
     mask = attention_mask(memory_len, seg, cache_valid, no_done)
-    return dense_transformer_attend(q, k_all, v_all, mask, offsets,
-                                    rel_bias)
+    out = dense_transformer_attend(q.float(), k_all.float(), v_all.float(),
+                                   mask, offsets, rel_bias.float())
+    return out.to(q.dtype)
 
 
 def _check(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
@@ -128,6 +140,9 @@ def _check(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
     name = "transformer_attention"
     require(q.dim() == 4, name, f"q must be [B, T, H, D], got "
             f"{tuple(q.shape)}")
+    require(q.dtype in STORAGE, name, f"q dtype {q.dtype}: f32 or bf16")
+    require(rel_bias.dtype in (torch.float32, q.dtype), name,
+            f"rel_bias dtype {rel_bias.dtype}: f32 or q's {q.dtype}")
     B, T, H, D = q.shape
     M = memory_len
     K = M + T
@@ -144,7 +159,7 @@ def _check(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
         ("seg", seg, (B, T), torch.int32),
         ("cache_valid", cache_valid, (B, M), torch.float32),
         ("no_done", no_done, (B, T), torch.bool),
-        ("rel_bias", rel_bias, (H, M + 1), torch.float32),
+        ("rel_bias", rel_bias, (H, M + 1), rel_bias.dtype),
     ):
         require(tuple(t.shape) == shape, name,
                 f"{label} {tuple(t.shape)} must be {shape}")
@@ -153,10 +168,8 @@ def _check(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
 
 
 def _kernel_inputs(name, tensors, D):
-    """What the kernels take beyond `_check`: f32 q (so k and v), a head
-    dim of at most MAX_HEAD_DIM, contiguous tensors."""
-    require(tensors[0].dtype == torch.float32, name,
-            "the kernel takes f32 q, k, v")
+    """What the kernels take beyond `_check`: a head dim of at most
+    MAX_HEAD_DIM, contiguous tensors."""
     require(1 <= D <= MAX_HEAD_DIM, name,
             f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
     for t in tensors:
@@ -183,11 +196,16 @@ def _launch_forward(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
             q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
             seg.data_ptr(), cache_valid.data_ptr(), no_done.data_ptr(),
             rel_bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, T, H, D, memory_len, _stream(q),
+            B, T, H, D, memory_len, _bf16(q), _bf16(rel_bias), _stream(q),
         )
     _build.check(status, name)
     transformer_attention.launches += 1
+    transformer_attention.bf16_launches += _bf16(q)
     return out, lse
+
+
+def _bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 _tickets = {}
@@ -209,21 +227,29 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
     """(dq, dk_all, dv_all, drel_bias) from the backward kernel (one
     launch), given the forward's out and lse and the cotangent of out.
     CUDA tensors only: on the CPU the gradient comes from autograd through
-    the plain version."""
+    the plain version. out and grad_out have q's dtype, lse is f32; the
+    gradients come in their inputs' dtypes."""
     name = "transformer_attention_bwd"
     require(q.is_cuda, name, "the backward kernel takes CUDA tensors")
     B, T, H, D = q.shape
     M = memory_len
     _kernel_inputs(name, (q, k_all, v_all, seg, cache_valid, no_done,
                           rel_bias, out, lse, grad_out), D)
+    for label, t, dtype in (("out", out, q.dtype), ("lse", lse, torch.float32),
+                            ("grad_out", grad_out, q.dtype)):
+        require(t.dtype == dtype, name, f"{label} dtype {t.dtype} != {dtype}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k_all)
     dv = torch.empty_like(v_all)
     dbias = torch.empty_like(rel_bias)
     # Scratch: each (b, h)'s bias gradient over the M + 1 band offsets,
-    # summed over b into dbias in a fixed order by the kernel.
+    # summed over b into dbias in a fixed order by the kernel; for bf16,
+    # f32 room where dK and dV gather across row tiles (untouched when
+    # one tile holds every row).
     partials = torch.empty(B, H, M + 1, dtype=torch.float64,
                            device=q.device)
+    work = (torch.empty((2,) + tuple(k_all.shape), dtype=torch.float32,
+                        device=q.device) if _bf16(q) else None)
     tickets = _bwd_tickets(q.device, H)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -233,14 +259,17 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
             rel_bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
             grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
-            tickets.data_ptr(), B, T, H, D, M, _stream(q),
+            tickets.data_ptr(), 0 if work is None else work.data_ptr(),
+            B, T, H, D, M, _bf16(q), _bf16(rel_bias), _stream(q),
         )
     _build.check(status, name)
     transformer_attention_bwd.launches += 1
+    transformer_attention_bwd.bf16_launches += _bf16(q)
     return dq, dk, dv, dbias
 
 
 transformer_attention_bwd.launches = 0
+transformer_attention_bwd.bf16_launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -267,8 +296,9 @@ def transformer_attention(memory_len, q, k_all, v_all, seg, cache_valid,
                           no_done, rel_bias):
     """Fused attention of the transformer policy: [B, T, H, D] out.
 
-    q [B, T, H, D], k_all/v_all [B, M+T, H, D] f32; seg [B, T] int32;
-    cache_valid [B, M] f32; no_done [B, T] bool; rel_bias [H, M+1] f32.
+    q [B, T, H, D], k_all/v_all [B, M+T, H, D] f32 or bf16 (one dtype);
+    seg [B, T] int32; cache_valid [B, M] f32; no_done [B, T] bool;
+    rel_bias [H, M+1] f32 or q's dtype. The output has q's dtype.
     A CUDA tensor launches csrc/attention.cu (forward, and backward when
     a gradient is taken; inputs contiguous, D <= 128); a CPU tensor runs
     `transformer_attention_plain` through autograd. Raises ValueError for
@@ -283,3 +313,4 @@ def transformer_attention(memory_len, q, k_all, v_all, seg, cache_valid,
 
 
 transformer_attention.launches = 0
+transformer_attention.bf16_launches = 0

@@ -17,6 +17,11 @@ Tie semantics of the first two: every input position that ties at its
 window's max is credited (a valid subgradient). PyTorch's own backward,
 like SelectAndScatter, credits one position; ties are measure-zero for
 conv outputs.
+
+Tensors are f32 or, under the bf16 precision policies, bf16. In bf16 the
+gradient is summed as the reference's kernel sums it: taps added in
+(kh, kw) order into zeros, rounded to bf16 after every add; the tap
+comparisons are exact (y is a max of x).
 """
 
 import ctypes
@@ -51,7 +56,8 @@ def pool_bwd_plain(x, y, g):
     """The plain PyTorch version of the kernel: the all-ties tap-sum. For
     each of the 9 taps, place y (fill +inf) and g (fill 0) onto the input
     grid and credit g where x equals the window max; taps are added in
-    the reference's (kh, kw) order."""
+    the reference's (kh, kw) order, each add rounded to the tensors'
+    dtype."""
     H, W = x.shape[2:]
     Ho, Wo = y.shape[2:]
     gx = torch.zeros_like(x)
@@ -72,21 +78,25 @@ def pool_bwd_plain(x, y, g):
 def pool_bwd(x, y, g):
     """Gradient of the 3x3/2 pad-1 max-pool with respect to x, all ties
     credited. x: [N, C, H, W] pool input, y: its pooled output, g: the
-    cotangent of y, all f32, in any memory layout. A CUDA tensor launches
-    csrc/pool_bwd.cu, which reads the strides as they are and returns gx
-    in channels_last; a CPU tensor takes `pool_bwd_plain`.
+    cotangent of y, all f32 or all bf16, in any memory layout. A CUDA
+    tensor launches csrc/pool_bwd.cu, which reads the strides as they are
+    and returns gx in channels_last; a CPU tensor takes `pool_bwd_plain`.
 
     `pool_bwd.vector_launches` counts the launches that took the kernel's
-    16-byte path (C % 4 == 0, channels contiguous, 16-byte aligned), a
-    subset of `pool_bwd.launches`."""
+    16-byte path (4 f32 or 8 bf16 channels a thread: C a multiple of
+    that, channels contiguous, 16-byte aligned), a subset of
+    `pool_bwd.launches`; `pool_bwd.bf16_launches` counts the bf16
+    ones."""
     name = "pool_bwd"
     require(x.dim() == 4, name, f"x must be 4-D, got {tuple(x.shape)}")
     N, C, H, W = x.shape
     out = (N, C, pooled_size(H), pooled_size(W))
     require(tuple(y.shape) == out and tuple(g.shape) == out, name,
             f"y {tuple(y.shape)} and g {tuple(g.shape)} must be {out}")
+    require(x.dtype in (torch.float32, torch.bfloat16), name,
+            f"dtype {x.dtype}: f32 or bf16")
     for t in (x, y, g):
-        require(t.dtype == torch.float32, name, f"dtype {t.dtype} != f32")
+        require(t.dtype == x.dtype, name, f"dtype {t.dtype} != {x.dtype}")
         require(t.device == x.device, name, "inputs on two devices")
     if not use_kernel(x, name):
         return pool_bwd_plain(x, y, g)
@@ -100,16 +110,19 @@ def pool_bwd(x, y, g):
         status = lib.tbt_pool_bwd(
             x.data_ptr(), y.data_ptr(), g.data_ptr(), gx.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), N, H, W, C, out[2],
-            out[3], ctypes.byref(vectorized), stream,
+            out[3], int(x.dtype == torch.bfloat16),
+            ctypes.byref(vectorized), stream,
         )
     _build.check(status, name)
     pool_bwd.launches += 1
     pool_bwd.vector_launches += vectorized.value
+    pool_bwd.bf16_launches += int(x.dtype == torch.bfloat16)
     return gx
 
 
 pool_bwd.launches = 0
 pool_bwd.vector_launches = 0
+pool_bwd.bf16_launches = 0
 
 
 class _AllTiesMaxPool(torch.autograd.Function):

@@ -2,9 +2,12 @@
 GPU, at one of the port's two configurations, both with 84x84x4 frames,
 6 actions (MockEnv), T=80, B=32, --vtrace_impl pallas --opt_impl pallas:
 deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), or the
-transformer policy at full width with --attention_impl pallas.
+transformer policy at full width with --attention_impl pallas; at the
+precision policy --precision (default f32; bf16_train casts the params,
+the batch and the agent state as the driver does).
 
     python -m torchbeast_tpu_torch.profile_update [deep|transformer]
+        [--precision f32|bf16_compute|bf16_train]
 
 Prints the card (nvidia-smi name and power limit), then one JSON line:
 the median update time (CUDA events around each update), the median
@@ -22,17 +25,18 @@ T, B, NUM_ACTIONS, random_batch and random_cache are the configurations'
 shape, batch and transformer state, shared with chip_smoke.py.
 """
 
+import argparse
 import json
 import os
 import statistics
 import subprocess
-import sys
 import time
 
 import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
+from torchbeast_tpu_torch import precision
 from torchbeast_tpu_torch.models import create_model
 
 T, B = 80, 32
@@ -45,13 +49,13 @@ UPDATES, WARMUP, SEED, TOP = 10, 3, 0, 15
 # convolutions carry a direction (fprop/dgrad/wgrad) or "conv" in their
 # names, or run inside cudnn:: (its layout conversions too); cuBLAS's
 # Hopper products are sm90_xmma_gemm_*, so a bare "xmma" key would file
-# them under convolutions.
+# them under convolutions, and its bf16 ones nvjet_*.
 GROUPS = (
     ("port kernels", ("vtrace_targets_kernel", "rmsprop_",
                       "pool_bwd_kernel", "attention_")),
     ("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                      "fprop", "nchw", "nhwc")),
-    ("matrix product", ("gemm", "gemv", "cutlass")),
+    ("matrix product", ("gemm", "gemv", "cutlass", "nvjet")),
 )
 
 
@@ -98,7 +102,7 @@ def random_cache(model, seed, device):
     return tuple(state)
 
 
-def main(model_name="deep"):
+def main(model_name="deep", policy="f32"):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
     if model_name not in ("deep", "transformer"):
@@ -112,21 +116,32 @@ def main(model_name="deep"):
     ).stdout.strip().splitlines()[0]
     print(card)
 
+    pol = precision.get(policy)
+    dtypes = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype)
     torch.manual_seed(SEED)
     if model_name == "deep":
-        model = create_model("deep", NUM_ACTIONS, use_lstm=True).to(device)
+        model = create_model("deep", NUM_ACTIONS, use_lstm=True, **dtypes)
         config = {"model": "deep", "use_lstm": True, "pool_kernel": True}
-        state = model.initial_state(B, device)
     else:
         model = create_model("transformer", NUM_ACTIONS,
-                             attention_impl="pallas").to(device)
+                             attention_impl="pallas", **dtypes)
         config = {"model": "transformer", "attention_impl": "pallas"}
+    model = precision.cast_params(model.to(device), pol)
+    if model_name == "deep":
+        state = model.initial_state(B, device)
+    else:
         state = random_cache(model, SEED, device)
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
-                             vtrace_impl="pallas", opt_impl="pallas")
+                             vtrace_impl="pallas", opt_impl="pallas",
+                             param_dtype=pol.param_dtype,
+                             opt_state_dtype=pol.opt_state_dtype)
     optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
     update = learner_lib.update_body(model, optimizer, hp)
-    batch = random_batch(SEED, device)
+    # The acting step takes the f32 batch and state, as the driver does;
+    # the update the staged ones, cast by the policy.
+    host_batch, act_state = random_batch(SEED, device), state
+    batch = precision.cast_batch(host_batch, pol.batch_dtype)
+    state = precision.cast_batch(state, pol.batch_dtype)
 
     for _ in range(WARMUP):
         update(batch, state)
@@ -143,8 +158,7 @@ def main(model_name="deep"):
 
     act = learner_lib.make_act_step(model, device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    env = {k: v[0].cpu().numpy() for k, v in batch.items()}
-    act_state = state
+    env = {k: v[0].cpu().numpy() for k, v in host_batch.items()}
     act_ms = []
     for i in range(WARMUP + UPDATES):
         t0 = time.perf_counter()
@@ -177,7 +191,8 @@ def main(model_name="deep"):
     print(json.dumps({
         "card": card,
         "config": {**config, "T": T, "B": B, "frames": [84, 84, 4],
-                   "vtrace_impl": "pallas", "opt_impl": "pallas"},
+                   "vtrace_impl": "pallas", "opt_impl": "pallas",
+                   "precision": policy},
         "update_ms_median": statistics.median(update_ms),
         "update_ms_all": update_ms,
         "act_ms_median": statistics.median(act_ms),
@@ -205,5 +220,15 @@ def main(model_name="deep"):
     }))
 
 
+def cli():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("model", nargs="?", default="deep",
+                        choices=["deep", "transformer"])
+    parser.add_argument("--precision", default="f32",
+                        choices=precision.CHOICES)
+    args = parser.parse_args()
+    main(args.model, args.precision)
+
+
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    cli()

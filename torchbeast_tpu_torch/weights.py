@@ -22,12 +22,23 @@ submodules after the flax scopes). Per leaf:
 - LayerNorm `scale` is the port's `weight` (the only 1-D weight);
   `rel_bias` crosses as it is.
 
-Optimizer trees shaped like the params (RMSprop's nu, the momentum trace)
-convert with the same leaf map. flax's LSTM carry is (c, h); the reference
-and the port keep agent state as (h, c), so state needs no conversion.
+Optimizer trees shaped like the params (RMSprop's nu, the momentum trace,
+the f32 master) convert with the same leaf map. flax's LSTM carry is
+(c, h); the reference and the port keep agent state as (h, c), so state
+needs no conversion.
+
+Dtypes: JAX leaves of any float dtype (bf16 ones as ml_dtypes arrays)
+come across as f32 tensors, which `load_state_dict` copies into the
+module's params of the policy's dtype (bf16 values exactly); bf16 tensors
+go back to JAX as f32 numpy arrays, also exactly (numpy has no bf16 of
+its own).
+
+`jax_layouts` gives, per port parameter, its views in the JAX leaves'
+layout, which the factored RMSprop (--factored_opt_state) needs: it
+factors each JAX leaf over its last two axes.
 """
 
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -118,7 +129,8 @@ def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
     `wrap`."""
     tree = {}
     for key, t in state.items():
-        a = t.detach().cpu().numpy()
+        t = t.detach()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
         parts = key.split(".")
         name = parts[-1]
         heads = _heads(state, parts)
@@ -162,3 +174,83 @@ def param_list_to_jax(model: torch.nn.Module, tensors, wrap: bool = True):
     params-shaped JAX tree."""
     names = [n for n, _ in model.named_parameters()]
     return torch_to_jax(dict(zip(names, tensors)), wrap=wrap)
+
+
+def param_list_from_jax(model: torch.nn.Module, tree, like=None):
+    """A params-shaped JAX tree (e.g. RMSprop nu) -> a list aligned with
+    `model.parameters()`, each tensor in its parameter's layout and in
+    the dtype of `like`'s entry (default: its parameter's)."""
+    state = jax_to_torch(tree)
+    out = []
+    for i, (name, p) in enumerate(model.named_parameters()):
+        dtype = (p if like is None else like[i]).dtype
+        out.append(torch.empty_like(p, dtype=dtype).copy_(state[name]))
+    return out
+
+
+def optimizer_state_to_jax(model: torch.nn.Module, state, wrap: bool = True):
+    """The optimizer's per-leaf state (FusedTailState: nu, mom, master) as
+    params-shaped JAX trees: {"nu": ..., "mom": ... or None, "master": ...
+    or None}, so one update can be compared state for state."""
+    return {
+        key: (None if getattr(state, key) is None
+              else param_list_to_jax(model, getattr(state, key), wrap))
+        for key in ("nu", "mom", "master")
+    }
+
+
+def load_optimizer_state(model: torch.nn.Module, optimizer, nu=None,
+                         mom=None, master=None) -> None:
+    """Copy params-shaped JAX trees into the optimizer's state lists (in
+    their own dtypes): the reference's ScaleByRmsState/FusedTailState nu,
+    its TraceState/momentum trace and its f32 master."""
+    for key, tree in (("nu", nu), ("mom", mom), ("master", master)):
+        if tree is None:
+            continue
+        dest = getattr(optimizer.state, key)
+        with torch.no_grad():
+            for d, src in zip(dest, param_list_from_jax(model, tree, dest)):
+                d.copy_(src)
+
+
+# A port tensor -> its JAX leaves' views (values in the JAX layout), and
+# those leaves (same layout) -> one port tensor.
+Layout = Tuple[Callable[[torch.Tensor], List[torch.Tensor]],
+               Callable[[List[torch.Tensor]], torch.Tensor]]
+
+
+def _layout(name: str, shape, heads) -> Layout:
+    parts = name.split(".")
+    last = parts[-1]
+    if last.startswith(("weight_ih_l", "weight_hh_l")):
+        # [4H, D] -> four gate kernels [D, H]
+        return (lambda t: [c.t() for c in t.chunk(4, 0)],
+                lambda vs: torch.cat([v.t() for v in vs], 0))
+    if last.startswith("bias_hh_l"):
+        return (lambda t: list(t.chunk(4, 0)), lambda vs: torch.cat(vs))
+    if last == "weight" and len(shape) == 4:  # OIHW <-> HWIO
+        return (lambda t: [t.permute(2, 3, 1, 0)],
+                lambda vs: vs[0].permute(3, 2, 0, 1))
+    if last == "weight" and len(shape) == 2 and heads is not None:
+        if parts[-2] == _HEAD_MERGE:  # [d, H*hd] <-> [H, hd, d]
+            return (lambda t: [t.t().reshape(heads, -1, t.shape[0])],
+                    lambda vs: vs[0].reshape(-1, vs[0].shape[-1]).t())
+        # [H*hd, d] <-> [d, H, hd]
+        return (lambda t: [t.t().reshape(t.shape[1], heads, -1)],
+                lambda vs: vs[0].reshape(vs[0].shape[0], -1).t())
+    if last == "weight" and len(shape) == 2:  # Linear [out, in] <-> [in, out]
+        return (lambda t: [t.t()], lambda vs: vs[0].t())
+    if last == "bias" and heads is not None and parts[-2] in _HEAD_PROJECTIONS:
+        return (lambda t: [t.reshape(heads, -1)],
+                lambda vs: vs[0].reshape(-1))
+    return (lambda t: [t], lambda vs: vs[0])
+
+
+def jax_layouts(model: torch.nn.Module) -> List[Layout]:
+    """Per parameter of `model` (in `model.parameters()` order): (views,
+    join), where views(t) gives t's values as the reference's leaves (one,
+    or an LSTM weight's four gates) in their JAX layout and join(leaves)
+    puts such leaves back into one tensor of the port's layout."""
+    named = dict(model.named_parameters())
+    return [_layout(n, tuple(p.shape), _heads(named, n.split(".")))
+            for n, p in named.items()]
