@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --vtrace-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -15,7 +15,9 @@ exits non-zero without printing the final result line:
    timed runs beside its bound, the plain version's time and, where one
    PyTorch call computes the same function, that call's time. The pool
    backward is timed per trunk stage and also checked on ties and on
-   shapes its 16-byte path does not take; the RMSprop tail is checked and
+   shapes its 16-byte path does not take; V-trace must equal its plain
+   version bit for bit, at ragged shapes and unaligned inputs too, and is
+   timed beside an empty launch; the RMSprop tail is checked and
    timed on both models' parameter trees; the attention forward is timed
    at the learner shape (T=81) and the acting shape (T=1); the attention
    backward is also checked at a shape beyond one block of its kernel
@@ -26,6 +28,7 @@ exits non-zero without printing the final result line:
    bf16 variant against the plain version in bf16, checked, timed and
    counted the same way. With --kernels-only the script stops here and
    prints the kernels line (to compare two trees' kernels on one card);
+   with --vtrace-only it does so after V-trace's row;
 4. main paths: `monobeast.train` through the port's own parser, every
    kernel switch on, T=80, B=32, 3 updates each, at full width:
    (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc and LSTM
@@ -155,43 +158,77 @@ def card_line():
 # ---------------------------------------------------------------- kernels
 
 
+# V-trace checks ([T, ...] shapes): the main path's, a long unroll beyond
+# the kernel's ring of chunks, ragged T (1, 81: a partial chunk) against
+# ragged B (7, 33: the 4-byte copy path; 100: a partial last block), and
+# trailing dims flattened into B.
+VTRACE_SHAPES = ((T, B), (4000, 128), *((t, b) for t in (1, 81)
+                                         for b in (7, 33, 100)),
+                 (T + 1, B, 3))
+
+
+def vtrace_inputs(shape, seed, dev, offset=0):
+    """The kernel's seven inputs at [T, ...] `shape`, each starting
+    `offset` floats into its own storage (1: not 16-byte aligned)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
+    n = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    disc = 0.99 * (r(*shape) > 0.05).float()
+    cs = r(*shape)
+    xs = (disc * cs, n(*shape), r(*shape), n(*shape), disc, n(*shape),
+          n(*shape[1:]))
+    out = []
+    for x in xs:
+        buf = torch.empty(offset + x.numel(), device=dev)
+        out.append(buf[offset:].view(x.shape))
+        out[-1].copy_(x)
+    return tuple(out)
+
+
 def check_vtrace(ops, dev):
+    """The kernel against its plain version, bit for bit, at
+    VTRACE_SHAPES and at the main path's shape with unaligned inputs;
+    timed at the main path's shape beside an empty launch (the launch
+    floor its time is read against)."""
     from torchbeast_tpu_torch.ops import vtrace
 
-    def inputs(t, b, seed):
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        r = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
-        n = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-        disc = 0.99 * (r(t, b) > 0.05).float()
-        cs = r(t, b)
-        xs = (disc * cs, n(t, b), r(t, b), n(t, b), disc, n(t, b), n(b))
-        return tuple(x.to(dev).contiguous() for x in xs)
-
+    cases = [(shape, 0) for shape in VTRACE_SHAPES] + [((T, B), 1)]
     err = 0.0
-    for t, b in ((T, B), (4000, 128)):
-        xs = inputs(t, b, seed=t)
+    for i, (shape, offset) in enumerate(cases):
+        xs = vtrace_inputs(shape, i, dev, offset)
         got = vtrace.vtrace_targets(*xs)
         torch.cuda.synchronize()
         want = vtrace.vtrace_targets_plain(*xs)
-        e = 0.0
         for g_, w_ in zip(got, want):
-            ei, ok = close(g_, w_, 1e-6, 1e-6)
-            check(ok, f"vtrace T={t} B={b}: max |err| {ei}")
-            e = max(e, ei)
-        err = max(err, e)
-        print(f"kernel vtrace_targets T={t} B={b}: max_abs_err {e:.3g} "
-              "(rtol 1e-6, atol 1e-6)")
-    xs = inputs(T, B, seed=T)
+            err = max(err, close(g_, w_, 0.0, 0.0)[0])
+            check(torch.equal(g_, w_), f"vtrace {shape} offset {offset}: "
+                  f"kernel differs from plain, max |err| {err}")
+    print(f"kernel vtrace_targets: bit for bit equal to plain at "
+          f"{', '.join(str(s) for s, _ in cases)} (the last one 4 bytes "
+          "into its storage)")
+    xs = vtrace_inputs((T, B), 0, dev)
     ms = time_ms(lambda: vtrace.vtrace_targets(*xs))
+    floor = time_ms(lambda: torch.cuda._sleep(0))
     plain = time_ms(lambda: vtrace.vtrace_targets_plain(*xs))
+    # The same shape through the kernel's 4-byte copies (unaligned), and
+    # a long unroll.
+    xs_4 = vtrace_inputs((T, B), 0, dev, offset=1)
+    ms_4 = time_ms(lambda: vtrace.vtrace_targets(*xs_4))
+    xs_long = vtrace_inputs((4000, 128), 0, dev)
+    ms_long = time_ms(lambda: vtrace.vtrace_targets(*xs_long))
     nbytes = 4 * (8 * T * B + B)  # 6 [T,B] + boot in, 2 [T,B] out
     bms, by = bound_ms(nbytes, 10 * T * B)
+    print(f"kernel vtrace_targets T={T} B={B}: ms {ms:.4f}, empty launch "
+          f"{floor:.4f}, plain {plain:.4f}, bound {bms:.7f} ({by}); "
+          f"4-byte copies {ms_4:.4f}; T=4000 B=128 {ms_long:.4f}")
     return {
         "name": "vtrace_targets", "route": "cuda",
         "source": "torchbeast_tpu_torch/csrc/vtrace.cu",
         "replaces": "torchbeast_tpu/ops/pallas_vtrace.py:34",
         "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "launch_floor_ms": floor, "ms_4_byte_copies": ms_4,
+        "ms_T4000_B128": ms_long,
     }
 
 
@@ -845,7 +882,8 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
 
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
-    if argv and not kernels_only:
+    vtrace_only = argv == ["--vtrace-only"]
+    if argv and not (kernels_only or vtrace_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -876,6 +914,9 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("kernel checks: TF32 off for matmul and cuDNN")
+    if vtrace_only:
+        print(json.dumps({"kernels": [check_vtrace(ops, dev)]}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),

@@ -29,19 +29,43 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("T,B", [(80, 32), (4000, 128)])
-def test_vtrace_kernel_matches_plain_version(cuda, T, B):
-    rng = np.random.default_rng(T)
-    xs = [torch.from_numpy(rng.standard_normal((T, B)).astype(np.float32))
-          for _ in range(6)]
-    xs.append(torch.from_numpy(rng.standard_normal(B).astype(np.float32)))
-    xs = [x.to(cuda) for x in xs]
+def _vtrace_inputs(cuda, shape, offset=0):
+    """The seven inputs at [T, ...] `shape`, each starting `offset` floats
+    into its own storage (1: not 16-byte aligned)."""
+    rng = np.random.default_rng(shape[0] * 1000 + int(np.prod(shape[1:])))
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(6)]
+    arrays.append(rng.standard_normal(shape[1:]).astype(np.float32))
+    xs = []
+    for a in arrays:
+        buf = torch.empty(offset + a.size, device=cuda)
+        xs.append(buf[offset:].view(a.shape))
+        xs[-1].copy_(torch.from_numpy(a))
+    return xs
+
+
+# The main path's shape, a long unroll, ragged T (1, 81) against ragged B
+# (7, 33: the 4-byte copies; 100: a partial last block of columns), and
+# trailing dims flattened into B.
+@pytest.mark.parametrize("shape", [
+    (80, 32), (4000, 128), (1, 7), (1, 33), (1, 100), (81, 7), (81, 33),
+    (81, 100), (81, 32, 3)])
+def test_vtrace_kernel_matches_plain_version(cuda, shape):
+    xs = _vtrace_inputs(cuda, shape)
     before = vtrace.vtrace_targets.launches
     got = vtrace.vtrace_targets(*xs)
     assert vtrace.vtrace_targets.launches == before + 1
     want = vtrace.vtrace_targets_plain(*xs)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        assert torch.equal(g, w)
+
+
+def test_vtrace_kernel_takes_unaligned_inputs(cuda):
+    xs = _vtrace_inputs(cuda, (80, 32), offset=1)
+    got = vtrace.vtrace_targets(*xs)
+    want = vtrace.vtrace_targets_plain(*xs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("ties", [False, True])

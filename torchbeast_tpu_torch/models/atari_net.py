@@ -22,7 +22,7 @@ from torchbeast_tpu_torch.models.cores import (
     RecurrentPolicyHead,
     lstm_initial_state,
 )
-from torchbeast_tpu_torch.models.layers import conv2d, linear
+from torchbeast_tpu_torch.models.layers import Conv, Dense, conv2d, linear
 
 
 def _valid(n: int, k: int, s: int) -> int:
@@ -38,12 +38,12 @@ class AtariNet(nn.Module):
         self.num_actions = num_actions
         self.use_lstm = use_lstm
         self.dtype, self.head_dtype = dtype, head_dtype
-        self.Conv_0 = nn.Conv2d(C, 32, 8, 4)
-        self.Conv_1 = nn.Conv2d(32, 64, 4, 2)
-        self.Conv_2 = nn.Conv2d(64, 64, 3, 1)
+        self.Conv_0 = Conv(C, 32, 8, 4)
+        self.Conv_1 = Conv(32, 64, 4, 2)
+        self.Conv_2 = Conv(64, 64, 3, 1)
         for k, s in ((8, 4), (4, 2), (3, 1)):
             H, W = _valid(H, k, s), _valid(W, k, s)
-        self.Dense_0 = nn.Linear(H * W * 64, 512)
+        self.Dense_0 = Dense(H * W * 64, 512)
         self.head = RecurrentPolicyHead(
             self.core_output_size, num_actions, use_lstm,
             hidden_size=self.core_output_size, num_layers=2,

@@ -6,14 +6,14 @@ Core state layout matches the reference: a tuple `(h, c)`, each
 compute dtype.
 """
 
-import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchbeast_tpu_torch.models.layers import linear
+from torchbeast_tpu_torch.models import init
+from torchbeast_tpu_torch.models.layers import Dense, linear
 from torchbeast_tpu_torch.types import AgentOutput
 
 
@@ -44,7 +44,6 @@ class LSTMCore(nn.Module):
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
-        bound = 1.0 / math.sqrt(hidden_size)
         for layer in range(num_layers):
             d = input_size if layer == 0 else hidden_size
             for name, shape in (
@@ -52,9 +51,18 @@ class LSTMCore(nn.Module):
                 (f"weight_hh_l{layer}", (4 * hidden_size, hidden_size)),
                 (f"bias_hh_l{layer}", (4 * hidden_size,)),
             ):
-                p = nn.Parameter(torch.empty(shape))
-                nn.init.uniform_(p, -bound, bound)
-                self.register_parameter(name, p)
+                self.register_parameter(name, nn.Parameter(torch.empty(shape)))
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """flax's OptimizedLSTMCell defaults: lecun_normal input kernels
+        (each gate's fan_in is the layer's input width D), an orthogonal
+        recurrent kernel per gate, zero biases."""
+        for layer in range(self.num_layers):
+            w_ih = getattr(self, f"weight_ih_l{layer}")
+            init.lecun_normal_(w_ih, w_ih.shape[1])
+            init.orthogonal_gates_(getattr(self, f"weight_hh_l{layer}"))
+            nn.init.zeros_(getattr(self, f"bias_hh_l{layer}"))
 
     def forward(self, core_input, notdone, core_state):
         core_input = core_input.to(self.dtype)
@@ -120,8 +128,8 @@ class RecurrentPolicyHead(nn.Module):
             out = hidden_size
         else:
             out = input_size
-        self.policy = nn.Linear(out, num_actions)
-        self.baseline = nn.Linear(out, 1)
+        self.policy = Dense(out, num_actions)
+        self.baseline = Dense(out, 1)
 
     def forward(self, core_input, done, core_state, T, B, sample_action,
                 generator=None):

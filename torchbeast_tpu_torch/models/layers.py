@@ -6,11 +6,35 @@ with `dtype=None` (flax's LayerNorm, or a Dense without a dtype) it
 promotes them all to their common type. The port writes those casts out
 at each layer, so that every op runs in the reference's dtype, rather
 than leaving the choice to torch.autocast's own op lists.
+
+`Dense` and `Conv` are nn.Linear and nn.Conv2d whose fresh weights are
+drawn as flax's Dense and Conv draw theirs (models/init.py).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torchbeast_tpu_torch.models import init
+
+
+class Dense(nn.Linear):
+    """nn.Linear drawn as flax's Dense (and DenseGeneral, stored as a
+    Linear over the flattened axes): lecun_normal with fan_in = the input
+    features, zero bias."""
+
+    def reset_parameters(self):
+        init.lecun_normal_(self.weight, self.in_features)
+        nn.init.zeros_(self.bias)
+
+
+class Conv(nn.Conv2d):
+    """nn.Conv2d drawn as flax's Conv: lecun_normal with fan_in =
+    kh * kw * C_in, zero bias."""
+
+    def reset_parameters(self):
+        init.lecun_normal_(self.weight, self.weight[0].numel())
+        nn.init.zeros_(self.bias)
 
 
 def _promoted(x, *params):

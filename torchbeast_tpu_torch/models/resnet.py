@@ -34,7 +34,7 @@ from torchbeast_tpu_torch.models.cores import (
     RecurrentPolicyHead,
     lstm_initial_state,
 )
-from torchbeast_tpu_torch.models.layers import conv2d, linear
+from torchbeast_tpu_torch.models.layers import Conv, Dense, conv2d, linear
 from torchbeast_tpu_torch.ops.pool import max_pool2d, pooled_size
 
 
@@ -49,14 +49,14 @@ class ResNetBase(nn.Module):
         self.dtype, self.out_dtype = dtype, out_dtype
         in_ch = C
         for i, ch in enumerate(self.channels):
-            setattr(self, f"feat_conv_{i}", nn.Conv2d(in_ch, ch, 3, 1, 1))
+            setattr(self, f"feat_conv_{i}", Conv(in_ch, ch, 3, 1, 1))
             for j in range(2):
                 for k in (1, 2):
                     setattr(self, f"res_{i}_{j}_conv{k}",
-                            nn.Conv2d(ch, ch, 3, 1, 1))
+                            Conv(ch, ch, 3, 1, 1))
             in_ch = ch
             H, W = pooled_size(H), pooled_size(W)
-        self.fc = nn.Linear(H * W * in_ch, 256)
+        self.fc = Dense(H * W * in_ch, 256)
 
     def forward(self, frames):
         N = frames.shape[0]

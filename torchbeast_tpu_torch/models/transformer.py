@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchbeast_tpu_torch.models.cores import RecurrentPolicyHead
-from torchbeast_tpu_torch.models.layers import layer_norm, linear
+from torchbeast_tpu_torch.models.layers import Dense, layer_norm, linear
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -71,14 +71,14 @@ class _Block(nn.Module):
         self.attention_impl = attention_impl
         self.dtype = dtype
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.q = nn.Linear(d_model, d_model)
-        self.k = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
+        self.q = Dense(d_model, d_model)
+        self.k = Dense(d_model, d_model)
+        self.v = Dense(d_model, d_model)
         self.rel_bias = nn.Parameter(torch.zeros(num_heads, memory_len + 1))
-        self.out = nn.Linear(d_model, d_model)
+        self.out = Dense(d_model, d_model)
         self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.Dense_0 = nn.Linear(d_model, 4 * d_model)
-        self.Dense_1 = nn.Linear(4 * d_model, d_model)
+        self.Dense_0 = Dense(d_model, 4 * d_model)
+        self.Dense_1 = Dense(4 * d_model, d_model)
 
     def forward(self, x, k_cache, v_cache, mask, offsets, seg, cache_valid,
                 no_done):
@@ -142,8 +142,8 @@ class TransformerNet(nn.Module):
         frame_size = 1
         for n in frame_shape:
             frame_size *= n
-        self.Dense_0 = nn.Linear(frame_size, d_model)
-        self.extras = nn.Linear(1 + num_actions, d_model)
+        self.Dense_0 = Dense(frame_size, d_model)
+        self.extras = Dense(1 + num_actions, d_model)
         for layer in range(num_layers):
             setattr(self, f"block_{layer}", _Block(
                 d_model, num_heads, memory_len, attention_impl, dtype))

@@ -118,9 +118,11 @@ def vtrace_targets(a, deltas, clipped_pg_rhos, rewards, discounts, values,
 
     a = discounts * cs; deltas = clipped_rhos * (r + disc * V_{t+1} - V).
     Every [T, ...] input is f32 and contiguous with one shape, and
-    bootstrap_value is [...]. A CUDA tensor launches csrc/vtrace.cu (one
-    thread per column of the flattened [T, B]); a CPU tensor takes
-    `vtrace_targets_plain`.
+    bootstrap_value is [...]. A CUDA tensor launches csrc/vtrace.cu (the
+    trailing dims flattened into B; a block takes 32 columns: one warp
+    stages chunks of rows of the six inputs in shared memory, one runs the
+    chain on them, a lane a column, two write the outputs); a CPU tensor
+    takes `vtrace_targets_plain`.
     """
     name = "vtrace_targets"
     seq = (a, deltas, clipped_pg_rhos, rewards, discounts, values)
