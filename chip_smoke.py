@@ -41,6 +41,22 @@ exits non-zero without printing the final result line:
    every pool backward launch must have taken the kernel's 16-byte path
    (the trunk hands it channels_last tensors, uncopied), and every loss
    stat must be finite;
+   Then the async driver, `polybeast.train` through its own parser with
+   16 Mock env servers (processes of their own on 127.0.0.1 ports), the
+   Python actor pool, two inference threads on the state table, deep +
+   LSTM at T=80, B=32, the same kernel switches: (e) three updates, each
+   launching V-trace and the tail at least once and the pool backward at
+   least three times, every pool launch on the 16-byte path, finite
+   losses, a checkpoint written; it prints SPS (over the run, and from
+   the second batch's arrival to the last one's), the median update interval
+   on the default stream that acting shares, the mean inference batch
+   and the medians of one acting forward's host time, its reply's copy
+   and an actor's request round trip; (f) the same xpid to 10240 steps: it
+   must resume from the checkpoint and run on; (g) `--mode test` on that
+   checkpoint: one greedy Mock episode must return 200.0; (h) a deep +
+   LSTM train state on the card (bf16_train with --opt_impl pallas, f32
+   with xla) saved and loaded into a fresh model and optimizer: params,
+   nu and the master bitwise equal;
 5. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
    off, cuDNN deterministic), at f32, bf16_compute and bf16_train;
@@ -53,9 +69,13 @@ It imports nothing of JAX or of the JAX package.
 """
 
 import copy
+import csv
+import importlib.util
 import json
+import logging
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,7 +89,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # The slice's shape and random batch, shared with the port's profiler.
 from torchbeast_tpu_torch.profile_update import (  # noqa: E402
-    B, NUM_ACTIONS, T, random_batch, random_cache)
+    B, NUM_ACTIONS, T, polybeast_argv, random_batch, random_cache)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, and the rate
 # of operations on the operands' type: f32 outside the tensor cores, bf16
@@ -753,6 +773,8 @@ def run_main_path(ops, savedir, path):
         "--total_steps", str(3 * T * B), "--savedir", savedir,
         "--xpid", f"chip_smoke_{model_args[1]}_{policy}",
     ])
+    # A checkpoint left by an earlier run of this script would resume.
+    shutil.rmtree(os.path.join(savedir, flags.xpid), ignore_errors=True)
     ops.reset_launch_counts()
     t0 = time.time()
     stats = monobeast.train(flags)
@@ -780,6 +802,181 @@ def run_main_path(ops, savedir, path):
           f"{stats['update_ms_median']:.2f} ms; launches {counts}; bf16 "
           f"launches {bf16}; total_loss {stats['total_loss']:.4f}")
     return counts, bf16
+
+
+# -------------------------------------------------------------- polybeast
+
+POLY_LABEL = "polybeast deep+LSTM"
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_polybeast(ops, savedir):
+    """The async driver on the card, through its own parser: 16 Mock env
+    servers (spawned processes), deep + LSTM at T=80, B=32, the three
+    main-path kernels on. (1) three updates: every kernel launched at
+    least once per update, every pool launch on the 16-byte path, finite
+    losses, a checkpoint; (2) the same xpid again to 10240 steps: it
+    resumes from the checkpoint and runs on; (3) --mode test on that
+    checkpoint: one greedy Mock episode returns 200.0. Returns the launch
+    counts of (1) and (2)."""
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    xpid = "chip_smoke_polybeast"
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    base = polybeast_argv(savedir, xpid)
+    parse = polybeast.make_parser().parse_args
+    lines = _Lines()
+    logging.getLogger("torchbeast_tpu_torch").addHandler(lines)
+    logging.getLogger("torchbeast_tpu_torch").setLevel(logging.INFO)
+    by_path = {}
+    try:
+        runs = []
+        for label, steps in ((POLY_LABEL, 3 * T * B),
+                             (POLY_LABEL + " resume", 4 * T * B)):
+            lines.lines.clear()
+            ops.reset_launch_counts()
+            t0 = time.time()
+            stats = polybeast.train(parse(base + ["--total_steps",
+                                                  str(steps)]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+            by_path[label] = (counts, bf16)
+            updates = stats["updates"]
+            check(updates >= 1, f"{label}: no update ran")
+            for name, per_update in (("vtrace_targets", 1),
+                                     ("rmsprop_tail", 1), ("pool_bwd", 3)):
+                check(counts[name] >= per_update * updates,
+                      f"{label}: {counts[name]} {name} launches in "
+                      f"{updates} updates")
+            vector = ops.pool_bwd.vector_launches
+            check(vector == counts["pool_bwd"], f"{label}: {vector} of "
+                  f"{counts['pool_bwd']} pool_bwd launches took the 16-byte "
+                  "path")
+            for key in ("total_loss", "pg_loss", "baseline_loss",
+                        "entropy_loss", "grad_norm"):
+                check(key in stats and np.isfinite(stats[key]),
+                      f"{label} loss stat {key} = {stats.get(key)}")
+            check(stats["health"] == "HEALTHY",
+                  f"{label}: health {stats['health']}")
+            ckpt = os.path.join(savedir, xpid, "model.ckpt")
+            check(os.path.exists(ckpt), f"{label}: no {ckpt}")
+            print(f"{label} 84x84x4 T={T} B={B}, 16 env servers: "
+                  f"{updates} updates to step {stats['step']} in "
+                  f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
+                  "interval on the shared stream "
+                  f"{stats['update_interval_ms_median']:.2f} ms; mean "
+                  f"inference batch {stats['inference_batch_mean']:.2f}; "
+                  f"launches {counts}; per update "
+                  f"{ {k: round(v / updates, 2) for k, v in counts.items()} }"
+                  f"; total_loss {stats['total_loss']:.4f}")
+            if not runs:
+                # The first polybeast run of the process: the registry's
+                # series hold this run only.
+                reg = telemetry.get_registry()
+                p50 = {name: 1000 * reg.histogram(name).percentile(0.5)
+                       for name in ("inference.dispatch_s",
+                                    "inference.reply_s",
+                                    "actor.request_rtt_s")}
+                print(f"{label}: SPS from the second batch to the last "
+                      f"{_steady_sps(os.path.join(savedir, xpid, 'logs.csv'))}"
+                      f"; medians: one acting forward's host time "
+                      f"{p50['inference.dispatch_s']:.2f} ms, its reply's "
+                      f"copy {p50['inference.reply_s']:.2f} ms, an actor's "
+                      f"request round trip {p50['actor.request_rtt_s']:.2f}"
+                      " ms")
+            runs.append((stats, lines.lines[:]))
+        (first, _), (second, logged) = runs
+        resumed = [m for m in logged if m.startswith(
+            "Resuming preempted job")]
+        check(resumed, "the second run did not resume")
+        check(f"'step': {first['step']}" in resumed[0],
+              f"the second run resumed from {resumed[0][:200]}")
+        check(first["step"] >= 3 * T * B and second["step"] > first["step"],
+              f"steps {first['step']} then {second['step']}")
+        returns = polybeast.main(parse(base + ["--mode", "test",
+                                               "--num_test_episodes", "1"]))
+        check(returns == [200.0], f"--mode test returned {returns}")
+        print(f"polybeast resume: from step {first['step']} to "
+              f"{second['step']} ({second['updates']} updates); --mode test "
+              f"on its checkpoint returned {returns}")
+    finally:
+        logging.getLogger("torchbeast_tpu_torch").removeHandler(lines)
+    return by_path
+
+
+def _steady_sps(logs_csv):
+    """Env frames per second from the second batch's arrival to the last
+    one's, leaving out the env servers' start-up and the first rollouts:
+    the learner logs an update's row when it has launched the next
+    update, so each row but the last is stamped when a batch came in.
+    None below three rows."""
+    with open(logs_csv) as f:
+        rows = [r for r in csv.DictReader(f) if r.get("step")]
+    if len(rows) < 3:
+        return None
+    first, last = rows[0], rows[-2]
+    dt = float(last["_time"]) - float(first["_time"])
+    return (int(last["step"]) - int(first["step"])) / dt if dt > 0 else None
+
+
+def check_checkpoint_round_trip(dev):
+    """A deep + LSTM train state on the card, saved and loaded into a
+    fresh model and optimizer: params, nu and master bitwise equal, the
+    count restored; bf16_train with --opt_impl pallas and f32 with xla."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import monobeast
+    from torchbeast_tpu_torch.utils import checkpoint
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "round_trip.ckpt")
+    for policy, opt_impl in (("bf16_train", "pallas"), ("f32", "xla")):
+        states = []
+        for seed in (0, 1):
+            flags = monobeast.make_parser().parse_args([
+                "--env", "Mock", "--model", "deep", "--use_lstm",
+                "--precision", policy, "--opt_impl", opt_impl,
+                "--seed", str(seed)])
+            model = monobeast.build_model(flags, NUM_ACTIONS, (84, 84, 4),
+                                          dev)
+            optimizer = learner_lib.make_optimizer(
+                monobeast.hparams_from_flags(flags),
+                list(model.parameters()))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            with torch.no_grad():
+                for t in [*optimizer.state.nu,
+                          *(optimizer.state.master or [])]:
+                    t.copy_(torch.rand(t.shape, device=dev, generator=gen))
+            optimizer.state = optimizer.state._replace(count=5 + seed)
+            states.append((model, optimizer))
+        (m0, o0), (m1, o1) = states
+        t0 = time.time()
+        checkpoint.save_train_state(path, m0, o0, step=T * B)
+        t1 = time.time()
+        step = checkpoint.load_train_state(path, m1, o1)["step"]
+        t2 = time.time()
+        check(step == T * B and o1.state.count == 5,
+              f"round trip: step {step}, count {o1.state.count}")
+        pairs = [*zip(m0.parameters(), m1.parameters()),
+                 *zip(o0.state.nu, o1.state.nu),
+                 *zip(o0.state.master or [], o1.state.master or [])]
+        check(all(a.dtype == b.dtype and b.is_cuda and torch.equal(a, b)
+                  for a, b in pairs),
+              f"{policy} {opt_impl}: a leaf differs after the round trip")
+        print(f"checkpoint round trip {policy} --opt_impl {opt_impl} on the "
+              f"card: {len(pairs)} tensors bitwise equal, "
+              f"{os.path.getsize(path)} bytes, save {t1 - t0:.2f} s, load "
+              f"{t2 - t1:.2f} s")
+    print("msgpack importable on this machine: "
+          f"{importlib.util.find_spec('msgpack') is not None} (the port "
+          "does not use it)")
 
 
 # ----------------------------------------------------------------- parity
@@ -938,6 +1135,8 @@ def main(argv):
         = tf32
     savedir = os.path.join(ROOT, "build", "chip_smoke")
     by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
+    by_path.update(run_polybeast(ops, savedir))
+    check_checkpoint_round_trip(dev)
     for k in kernels:
         # A bf16 row counts its variant's launches; an f32 row the rest.
         wrapper = k.get("wrapper", k["name"])

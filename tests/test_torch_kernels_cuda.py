@@ -575,3 +575,96 @@ def test_rmsprop_tail_f32_params_bf16_nu_kernel_matches_plain_version(cuda):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.float(), rtol=BF16_ULP,
                                    atol=4e-6)
+
+
+def _table_pair(cuda):
+    """The same deep + LSTM state table on the card and on the CPU, the
+    acting forward greedy."""
+    import copy
+
+    from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+
+    model = create_model("deep", 6, use_lstm=True)
+    tables = []
+    for m, device in ((copy.deepcopy(model).to(cuda), cuda),
+                      (model, torch.device("cpu"))):
+
+        def act(ctx, env, state, m=m):
+            out, new_state = m(env, state, sample_action=False)
+            return {"action": out.action.to(torch.int32),
+                    "policy_logits": out.policy_logits}, new_state
+
+        tables.append(DeviceStateTable(
+            m.initial_state(1, device), 5, act, batch_dim=1,
+            input_filter=lambda e: {k: e[k] for k in (
+                "frame", "reward", "done", "last_action")}))
+    return tables
+
+
+def test_state_table_on_the_card_matches_the_cpu_table(cuda):
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu, cpu = _table_pair(cuda)
+        rng = np.random.default_rng(0)
+        for slots, advance in (([0, 3, 5, 5], [1, 1, 0, 0]),
+                               ([3, 1, 5, 5], [1, 0, 0, 0]),
+                               ([4, 0, 2, 3], [1, 1, 1, 1])):
+            n = len(slots)
+            env = {"frame": rng.integers(0, 256, (1, n, 84, 84, 4),
+                                         dtype=np.uint8),
+                   "reward": rng.standard_normal((1, n)).astype(np.float32),
+                   "done": rng.random((1, n)) < 0.3,
+                   "last_action": rng.integers(0, 6, (1, n), dtype=np.int32)}
+            got = gpu.fetch(gpu.step(np.asarray(slots), np.asarray(advance,
+                                                                   bool), env),
+                            n)
+            want = cpu.fetch(cpu.step(np.asarray(slots), np.asarray(advance,
+                                                                    bool), env),
+                             n)
+            np.testing.assert_array_equal(got["action"], want["action"])
+            np.testing.assert_allclose(got["policy_logits"],
+                                       want["policy_logits"], rtol=1e-4,
+                                       atol=1e-5)
+            for s in range(5):
+                for g, w in zip(gpu.read_slot(s), cpu.read_slot(s)):
+                    np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(cuda, tmp_path):
+    from torchbeast_tpu_torch import learner
+    from torchbeast_tpu_torch.utils import checkpoint
+
+    for param_dtype, opt_impl in (("bf16", "pallas"), ("f32", "xla")):
+        models = []
+        for seed in (0, 1):
+            torch.manual_seed(seed)
+            model = create_model("deep", 6, use_lstm=True).to(cuda)
+            if param_dtype == "bf16":
+                for p in model.parameters():
+                    p.data = p.data.to(torch.bfloat16)
+            hp = learner.HParams(opt_impl=opt_impl, param_dtype=param_dtype,
+                                 opt_state_dtype=param_dtype)
+            optimizer = learner.make_optimizer(hp, list(model.parameters()))
+            with torch.no_grad():
+                for t in [*optimizer.state.nu, *(optimizer.state.master or [])]:
+                    t.copy_(torch.rand(t.shape, device=cuda))
+            optimizer.state = optimizer.state._replace(count=5)
+            models.append((model, optimizer))
+        (m0, o0), (m1, o1) = models
+        path = str(tmp_path / f"{opt_impl}.ckpt")
+        checkpoint.save_train_state(path, m0, o0, step=9)
+        assert checkpoint.load_train_state(path, m1, o1)["step"] == 9
+        assert o1.state.count == 5
+        for group in ("nu", "master"):
+            for a, b in zip(getattr(o0.state, group) or [],
+                            getattr(o1.state, group) or []):
+                assert a.device == b.device and a.dtype == b.dtype
+                assert torch.equal(a, b)
+        for a, b in zip(m0.parameters(), m1.parameters()):
+            assert b.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b)

@@ -3,6 +3,7 @@ with the JAX driver, a tiny CPU run of the slice's configuration, the
 no-silent-CPU rule, the not-yet-ported flags, and import purity (the
 port loads neither jax nor the JAX package)."""
 
+import logging
 import os
 import subprocess
 import sys
@@ -84,14 +85,14 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--checkpoint_interval_s", "60"], "checkpoints"),
+    (["--profile_dir", "prof"], "telemetry"),
     (["--loss", "impact"], "IMPACT"),
     (["--device_split", "auto"], "serving"),
     (["--num_learner_devices", "2"], "data parallel"),
     (["--overlap_collect"], "overlap"),
     (["--superstep_k", "2"], "overlap"),
     (["--remat", "all"], "stage remat"),
-    (["--mode", "test"], "checkpoints"),
+    (["--telemetry_port", "9100"], "telemetry"),
     (["--trace_path", "t.json"], "telemetry"),
     (["--model", "pipelined_transformer"], "transformer"),
     (["--sequence_parallel", "2"], "transformer"),
@@ -117,6 +118,41 @@ def test_attention_impl_applies_to_the_transformer_only(tmp_path):
 def test_no_telemetry_is_accepted(tmp_path):
     flags = _flags("--no_telemetry", tmp_path=tmp_path)
     monobeast.check_flags(flags)
+
+
+def test_checkpoints_periodic_final_resume_and_test_mode(tmp_path, caplog):
+    """--checkpoint_interval_s 0 writes one checkpoint per collect and
+    one at exit; a second run with the same xpid resumes from it; --mode
+    test plays greedy episodes from it (Mock: 200 steps of reward 1),
+    from {savedir}/latest/ when --xpid is unset, and from the random init
+    when there is no checkpoint."""
+    flags = _flags("--checkpoint_interval_s", "0", tmp_path=tmp_path)
+    with caplog.at_level(logging.INFO):
+        monobeast.train(flags)
+    # Three collects of 4 actors x T=4, then the final one.
+    assert caplog.text.count("Saved checkpoint") == 4
+    assert os.path.exists(tmp_path / "tiny" / "model.ckpt")
+    flags = _flags(tmp_path=tmp_path)
+    flags.total_steps = 64
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        stats = monobeast.train(flags)
+    assert "Resuming preempted job" in caplog.text
+    assert stats["step"] == 64
+    test = _flags("--mode", "test", "--num_test_episodes", "1",
+                  tmp_path=tmp_path)
+    assert monobeast.main(test) == [200.0]
+    # Without --xpid: the FileWriter's `latest` link to the last run.
+    test.xpid = None
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        assert monobeast.test(test) == [200.0]
+    assert "latest/model.ckpt" in caplog.text
+    test.savedir = str(tmp_path / "empty")
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        assert monobeast.test(test) == [200.0]
+    assert "testing random init" in caplog.text
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -31,6 +31,7 @@ Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
 import argparse
 import functools
 import logging
+import os
 import statistics
 import time
 
@@ -43,12 +44,18 @@ from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
 from torchbeast_tpu_torch.models import create_model
+from torchbeast_tpu_torch.resilience import LearnerWatchdog, PipelineHealth
 from torchbeast_tpu_torch.rollout import (
     PipelinedRolloutCollector,
     RolloutCollector,
     to_host,
 )
-from torchbeast_tpu_torch.utils import FileWriter
+from torchbeast_tpu_torch.utils import FileWriter, install_preemption_handler
+from torchbeast_tpu_torch.utils.checkpoint import (
+    load_params,
+    load_train_state,
+    save_train_state,
+)
 
 log = logging.getLogger("torchbeast_tpu_torch.monobeast")
 
@@ -73,7 +80,8 @@ def make_parser():
                              "(Atari ids: " + _LATER + ").")
     parser.add_argument("--mode", default="train",
                         choices=["train", "test"],
-                        help="test: " + _LATER)
+                        help="test: greedy episodes from the run's "
+                             "checkpoint.")
     parser.add_argument("--xpid", default=None, help="Experiment id.")
     parser.add_argument("--savedir", default="~/logs/torchbeast_tpu",
                         help="Root dir for experiment data.")
@@ -177,10 +185,13 @@ def make_parser():
                         help="Respawn budget for crashed process-pool "
                              "env workers (0 = fail fast).")
     parser.add_argument("--checkpoint_interval_s", type=int, default=600,
-                        help="Checkpoints " + _LATER)
+                        help="Seconds between checkpoints (one more is "
+                             "written at exit).")
     parser.add_argument("--learner_stall_timeout_s", type=float,
                         default=300.0,
-                        help="Learner stall watchdog " + _LATER)
+                        help="No update within this many seconds degrades "
+                             "health and dumps the thread stacks; 0 "
+                             "disables the watchdog.")
     parser.add_argument("--entropy_cost", type=float, default=0.0006)
     parser.add_argument("--entropy_cost_final", type=float, default=None,
                         help="Linearly anneal the entropy cost to this "
@@ -205,7 +216,7 @@ def make_parser():
                         help="RMSProp epsilon.")
     parser.add_argument("--grad_norm_clipping", type=float, default=40.0)
     parser.add_argument("--num_test_episodes", type=int, default=10,
-                        help=_LATER)
+                        help="Episodes of --mode test.")
     parser.add_argument("--profile_dir", default=None, help=_LATER)
     parser.add_argument("--telemetry", dest="telemetry",
                         action="store_true", default=True,
@@ -229,7 +240,6 @@ def make_parser():
 # Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
 # item that brings it. Each must stay at its parser default.
 NOT_IN_PORT = {
-    "mode": "checkpoints",
     "sequence_parallel": "the transformer family",
     "pipeline_parallel": "the transformer family",
     "pipeline_microbatches": "the transformer family",
@@ -247,13 +257,10 @@ NOT_IN_PORT = {
     "hbm_budget_gb": "stage remat",
     "overlap_collect": "overlap and supersteps",
     "superstep_k": "overlap and supersteps",
-    "checkpoint_interval_s": "checkpoints",
-    "learner_stall_timeout_s": "telemetry",
     "loss": "IMPACT",
     "impact_clip": "IMPACT",
     "replay_reuse": "IMPACT",
     "target_refresh_updates": "IMPACT",
-    "num_test_episodes": "checkpoints",
     "profile_dir": "telemetry",
     "telemetry_port": "telemetry",
     "telemetry_host": "telemetry",
@@ -396,7 +403,10 @@ def to_device(batch, device, batch_dtype=None):
 
 
 def train(flags):
-    """Train; returns the last flushed stats, plus the run's "sps" and
+    """Train, resuming from {savedir}/{xpid}/model.ckpt when it exists
+    and checkpointing there every --checkpoint_interval_s and at exit
+    (also on KeyboardInterrupt, which SIGTERM becomes under cli()).
+    Returns the last flushed stats, plus this run's "sps" and
     "update_ms_median" (the median time of one update: CUDA events on the
     card, the host clock on the CPU)."""
     check_flags(flags)
@@ -413,6 +423,7 @@ def train(flags):
     plogger = FileWriter(
         xpid=flags.xpid, xp_args=vars(flags), rootdir=flags.savedir
     )
+    checkpoint_path = _checkpoint_path(flags, flags.xpid)
 
     hp = hparams_from_flags(flags)
     batch_dtype = precision.resolve_flags(flags).batch_dtype
@@ -423,6 +434,12 @@ def train(flags):
     optimizer = learner_lib.make_optimizer(
         hp, list(model.parameters()),
         layouts=weights.jax_layouts(model) if hp.opt_factored else None)
+    step = 0
+    stats = {}
+    if os.path.exists(checkpoint_path):
+        restored = load_train_state(checkpoint_path, model, optimizer)
+        step, stats = restored["step"], restored["stats"]
+        log.info("Resuming preempted job, current stats:\n%s", stats)
     update_step = learner_lib.update_body(model, optimizer, hp)
     act_step = learner_lib.make_act_step(model, device)
     generator = torch.Generator(device=device)
@@ -431,10 +448,15 @@ def train(flags):
     log.info("Training on %s", device)
 
     pool = _make_pool(flags, B)
-    step = 0
-    stats = {}
+    # The sync trainer has no monitor thread: the watchdog makes a wedged
+    # collect (dead env worker, hung device) visible as DEGRADED health
+    # and a thread-stack dump.
+    watchdog = LearnerWatchdog(flags.learner_stall_timeout_s,
+                               health=PipelineHealth()).start()
     update_ms = []
     pending = None  # (timers and device stats of one collect, step)
+    start_time = time.time()
+    start_step = step
     try:
 
         def policy(env_output, agent_state):
@@ -469,7 +491,7 @@ def train(flags):
             plogger.log(out)
             return out
 
-        start_time = last_log_time = time.time()
+        start_time = last_log_time = last_checkpoint_time = time.time()
         last_log_step = step
         while step < flags.total_steps:
             batch, initial_agent_state = collector.collect()
@@ -497,6 +519,7 @@ def train(flags):
                     device_stats.append(update_step(sub, sub_state))
                     t1 = time.perf_counter()
                 timers.append((t0, t1))
+                watchdog.ping()
                 step += T * flags.batch_size
             if pending is not None:
                 stats = flush_stats(pending)
@@ -513,18 +536,34 @@ def train(flags):
                     f"Return {stats['mean_episode_return']:.1f}."
                     if "mean_episode_return" in stats else "",
                 )
-        if pending is not None:
-            stats = flush_stats(pending)
-            pending = None
-        elapsed = time.time() - start_time
+            if now - last_checkpoint_time > flags.checkpoint_interval_s:
+                save_train_state(checkpoint_path, model, optimizer,
+                                 step=step, flags=vars(flags), stats=stats)
+                last_checkpoint_time = now
+        successful = True
+    except KeyboardInterrupt:
+        log.info("Interrupted; saving final checkpoint.")
         successful = True
     except BaseException:
         successful = False
         raise
     finally:
+        watchdog.stop()
+        # Flush the one-collect-delayed stats so the final checkpoint and
+        # the return value are current even on interrupt (guarded: a
+        # device error may surface here instead of at launch).
+        if pending is not None:
+            try:
+                stats = flush_stats(pending)
+            except Exception:
+                log.exception("Could not flush final stats")
+            pending = None
+        elapsed = time.time() - start_time
+        save_train_state(checkpoint_path, model, optimizer, step=step,
+                         flags=vars(flags), stats=stats)
         plogger.close(successful=successful)
         pool.close()
-    stats["sps"] = step / elapsed if elapsed > 0 else 0.0
+    stats["sps"] = (step - start_step) / elapsed if elapsed > 0 else 0.0
     stats["update_ms_median"] = (
         statistics.median(update_ms) if update_ms else 0.0
     )
@@ -532,12 +571,68 @@ def train(flags):
     return stats
 
 
+def _checkpoint_path(flags, xpid):
+    return os.path.join(os.path.expanduser(flags.savedir), xpid,
+                        "model.ckpt")
+
+
+def test(flags):
+    """Greedy evaluation episodes (sample_action=False) from the params
+    of the run's checkpoint ({savedir}/{xpid}/model.ckpt, or
+    {savedir}/latest/ when --xpid is unset; either driver's, of any
+    --opt_impl). Without a checkpoint it warns and tests the random init.
+    Returns the episodes' returns."""
+    check_flags(flags)
+    device = select_device(flags)
+    checkpoint_path = _checkpoint_path(flags, flags.xpid or "latest")
+    num_actions, frame_shape = _probe_env(flags)
+    model = build_model(flags, num_actions, frame_shape, device)
+    if os.path.exists(checkpoint_path):
+        load_params(checkpoint_path, model)
+        log.info("Loaded checkpoint from %s", checkpoint_path)
+    else:
+        log.warning("No checkpoint at %s; testing random init.",
+                    checkpoint_path)
+
+    # Same seed contract as training: --env_seed pins the eval env's
+    # draw stream so repeated evaluations of a checkpoint reproduce.
+    env = Environment(
+        create_env(flags.env, seed=getattr(flags, "env_seed", None))
+    )
+    returns = []
+    observation = env.initial()
+    agent_state = model.initial_state(1, device)
+    with torch.no_grad():
+        while len(returns) < flags.num_test_episodes:
+            inputs = {
+                k: torch.as_tensor(np.asarray(observation[k])[None, None])
+                .to(device)
+                for k in learner_lib.MODEL_INPUT_KEYS
+            }
+            out, agent_state = model(inputs, agent_state,
+                                     sample_action=False)
+            observation = env.step(int(out.action[0, 0]))
+            if observation["done"]:
+                returns.append(float(observation["episode_return"]))
+                log.info("Episode ended after %d steps. Return: %.1f",
+                         int(observation["episode_step"]), returns[-1])
+    env.close()
+    log.info(
+        "Average returns over %i episodes: %.1f",
+        len(returns), sum(returns) / len(returns),
+    )
+    return returns
+
+
 def main(flags):
     _configure_logging()
-    return train(flags)  # --mode test raises in check_flags
+    if flags.mode == "train":
+        return train(flags)
+    return test(flags)
 
 
 def cli():
+    install_preemption_handler()  # SIGTERM -> clean checkpointed exit
     main(make_parser().parse_args())
 
 

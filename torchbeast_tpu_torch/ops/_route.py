@@ -13,6 +13,7 @@ functions on its own device threads.
 """
 
 import contextlib
+import threading
 
 import torch
 
@@ -40,6 +41,20 @@ def plain_on_device():
         yield
     finally:
         _switch["plain"] = prev
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, **more) -> None:
+    """Add one to `wrapper.launches`, and each `more` amount to the
+    counter of that name, under one lock: the async driver's inference
+    threads and its learner launch kernels concurrently, and `+=` on an
+    attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
+        for name, n in more.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 def require(cond: bool, name: str, what: str) -> None:

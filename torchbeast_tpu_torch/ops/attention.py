@@ -26,7 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from torchbeast_tpu_torch.ops import _build
-from torchbeast_tpu_torch.ops._route import require, use_kernel
+from torchbeast_tpu_torch.ops._route import (
+    count_launch,
+    require,
+    use_kernel,
+)
 
 BIG_NEG = -1e30
 
@@ -199,8 +203,7 @@ def _launch_forward(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
             B, T, H, D, memory_len, _bf16(q), _bf16(rel_bias), _stream(q),
         )
     _build.check(status, name)
-    transformer_attention.launches += 1
-    transformer_attention.bf16_launches += _bf16(q)
+    count_launch(transformer_attention, bf16_launches=_bf16(q))
     return out, lse
 
 
@@ -263,8 +266,7 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
             B, T, H, D, M, _bf16(q), _bf16(rel_bias), _stream(q),
         )
     _build.check(status, name)
-    transformer_attention_bwd.launches += 1
-    transformer_attention_bwd.bf16_launches += _bf16(q)
+    count_launch(transformer_attention_bwd, bf16_launches=_bf16(q))
     return dq, dk, dv, dbias
 
 

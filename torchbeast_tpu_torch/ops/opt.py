@@ -26,7 +26,11 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch.ops import _build
-from torchbeast_tpu_torch.ops._route import require, use_kernel
+from torchbeast_tpu_torch.ops._route import (
+    count_launch,
+    require,
+    use_kernel,
+)
 
 MAX_LEAVES = 64  # kMaxLeaves in csrc/rmsprop_tail.cu
 BLOCKS_PER_SM = 4  # kTailBlocksPerSm: the persistent grid's blocks an SM
@@ -173,8 +177,9 @@ def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
             int(nu_dtype == torch.bfloat16), stream,
         )
     _build.check(status, name)
-    rmsprop_tail.launches += 1  # one cooperative launch, both passes
-    rmsprop_tail.bf16_launches += int(bf16_params or nu_dtype != p_dtype)
+    # One cooperative launch, both passes.
+    count_launch(rmsprop_tail,
+                 bf16_launches=int(bf16_params or nu_dtype != p_dtype))
     return sumsq
 
 

@@ -31,7 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from torchbeast_tpu_torch.ops import _build
-from torchbeast_tpu_torch.ops._route import require, use_kernel
+from torchbeast_tpu_torch.ops._route import (
+    count_launch,
+    require,
+    use_kernel,
+)
 
 WINDOW, STRIDE, PAD = 3, 2, 1
 
@@ -114,9 +118,8 @@ def pool_bwd(x, y, g):
             ctypes.byref(vectorized), stream,
         )
     _build.check(status, name)
-    pool_bwd.launches += 1
-    pool_bwd.vector_launches += vectorized.value
-    pool_bwd.bf16_launches += int(x.dtype == torch.bfloat16)
+    count_launch(pool_bwd, vector_launches=vectorized.value,
+                 bf16_launches=int(x.dtype == torch.bfloat16))
     return gx
 
 

@@ -26,7 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from torchbeast_tpu_torch.ops import _build
-from torchbeast_tpu_torch.ops._route import require, use_kernel
+from torchbeast_tpu_torch.ops._route import (
+    count_launch,
+    require,
+    use_kernel,
+)
 
 VTraceFromLogitsReturns = collections.namedtuple(
     "VTraceFromLogitsReturns",
@@ -159,7 +163,7 @@ def vtrace_targets(a, deltas, clipped_pg_rhos, rewards, discounts, values,
                 T, B, stream,
             )
         _build.check(status, name)
-        vtrace_targets.launches += 1
+        count_launch(vtrace_targets)
         return vs, pg
 
 

@@ -1,0 +1,856 @@
+"""Scalable async IMPALA learner on one GPU (the port of
+torchbeast_tpu/polybeast.py).
+
+The runtime is the reference's Python one: env servers in processes of
+their own (polybeast_env.py), an ActorPool of socket actor loops feeding
+a DynamicBatcher, whose inference threads run a bucket-padded acting
+forward on the card through the device-resident state table
+(runtime/state_table.py) for recurrent models; completed rollouts flow
+through a BatchingQueue (backpressure) and a prefetcher that stages them
+on the card into the learner thread, which runs the port's update step
+(learner.update_body) with the hand-written kernels that --vtrace_impl
+pallas, --opt_impl pallas and TBT_POOL_PALLAS=1 select.
+
+The port's update changes the learner's parameters in place, so acting
+reads a separate copy of the model: after each update the learner copies
+its parameters into it under the state lock, on the stream of the update
+(the reference rebinds its `infer_params` there). Every acting forward
+runs under the same lock, so no forward sees a half-copied update. All
+threads launch on the device's default stream.
+
+Checkpoints are the reference's own files (utils/checkpoint.py): one
+every --checkpoint_interval_s and one at exit, also on SIGTERM under
+cli(); a run resumes from {savedir}/{xpid}/model.ckpt when it exists,
+whichever package wrote it. `--mode test` runs monobeast's greedy test.
+
+The parser takes every flag of the reference with the same name, type,
+default and choices, plus --disable_cuda. A flag whose feature the port
+does not have yet still parses; set away from its default it raises
+NotImplementedError naming the ROADMAP.md item that brings it.
+
+Run:  python -m torchbeast_tpu_torch.polybeast --env Mock --use_lstm \\
+          --num_servers 16 --batch_size 32 --vtrace_impl pallas \\
+          --opt_impl pallas
+"""
+
+import argparse
+import copy
+import logging
+import os
+import queue as stdlib_queue
+import statistics
+import threading
+import time
+
+import numpy as np
+import torch
+
+from torchbeast_tpu_torch import learner as learner_lib
+from torchbeast_tpu_torch import nest, polybeast_env, precision, telemetry
+from torchbeast_tpu_torch import monobeast, weights
+from torchbeast_tpu_torch.resilience import (
+    InferenceSupervisor,
+    LearnerWatchdog,
+    PipelineHealth,
+)
+from torchbeast_tpu_torch.runtime import wire
+from torchbeast_tpu_torch.runtime.actor_pool import ActorPool
+from torchbeast_tpu_torch.runtime.inference import (
+    default_buckets,
+    inference_loop,
+    to_device,
+    to_host,
+)
+from torchbeast_tpu_torch.runtime.queues import (
+    BatchingQueue,
+    DevicePrefetcher,
+    DynamicBatcher,
+)
+from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+from torchbeast_tpu_torch.utils import (
+    FileWriter,
+    Timings,
+    install_preemption_handler,
+)
+from torchbeast_tpu_torch.utils.checkpoint import (
+    load_train_state,
+    save_train_state,
+)
+
+log = logging.getLogger("torchbeast_tpu_torch.polybeast")
+
+_LATER = "(not in the port yet; see ROADMAP.md)"
+
+
+def _configure_logging():
+    """Called from main(), not at import."""
+    logging.basicConfig(
+        format=(
+            "[%(levelname)s:%(process)d %(module)s:%(lineno)d "
+            "%(asctime)s] %(message)s"
+        ),
+        level=logging.INFO,
+    )
+
+
+def make_parser():
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--pipes_basename", default="unix:/tmp/torchbeast_tpu",
+                        help="Env-server addresses: unix:/path, "
+                             "host:baseport or shm:/path.")
+    # beastlint: disable=FLAG-PARITY  poly derives the default from --num_servers; mono has no servers
+    parser.add_argument("--num_actors", type=int, default=None,
+                        help="Actor loops (default: one per server).")
+    parser.add_argument("--num_servers", type=int, default=4)
+    parser.add_argument("--env", type=str, default="PongNoFrameskip-v4",
+                        help="Mock, Counting, Catch or Memory[-L<n>] "
+                             "(Atari ids: " + _LATER + ").")
+    parser.add_argument("--mode", default="train", choices=["train", "test"],
+                        help="test: greedy episodes from the run's "
+                             "checkpoint (monobeast's test).")
+    parser.add_argument("--num_test_episodes", type=int, default=10)
+    parser.add_argument("--xpid", default=None)
+    parser.add_argument("--start_servers", dest="start_servers",
+                        action="store_true", default=True,
+                        help="Spawn local env servers (the combined "
+                             "launcher mode).")
+    parser.add_argument("--no_start_servers", dest="start_servers",
+                        action="store_false",
+                        help="Connect to externally launched servers.")
+    parser.add_argument("--savedir", default="~/logs/torchbeast_tpu")
+    parser.add_argument("--total_steps", type=int, default=100000)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--vtrace_impl", default="associative",
+                        choices=["sequential", "associative", "pallas"],
+                        help="V-trace recursion: a log-depth scan (the "
+                             "default), a loop over t, or the CUDA "
+                             "kernel csrc/vtrace.cu ('pallas').")
+    parser.add_argument("--unroll_length", type=int, default=80)
+    # beastlint: disable=FLAG-PARITY  paper defaults differ: polybeast trains the deep IMPALA net, monobeast the shallow one
+    parser.add_argument("--model", default="deep",
+                        choices=["shallow", "deep", "mlp", "pipelined_mlp",
+                                 "transformer", "pipelined_transformer"],
+                        help="shallow (AtariNet), deep (IMPALA ResNet) or "
+                             "transformer; the others " + _LATER)
+    parser.add_argument("--use_lstm", action="store_true")
+    parser.add_argument("--precision", default="f32",
+                        choices=["f32", "bf16_compute", "bf16_train"],
+                        help="Precision policy (torchbeast_tpu_torch/"
+                             "precision.py).")
+    parser.add_argument("--model_dtype", default=None,
+                        choices=["float32", "bfloat16"],
+                        help="Deprecated alias of --precision "
+                             "bf16_compute.")
+    parser.add_argument("--factored_opt_state", action="store_true",
+                        help="Factored RMSprop second moment (--opt_impl "
+                             "xla only).")
+    parser.add_argument("--trunk_channels", default="",
+                        help="Deep-trunk widths as a comma list.")
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--env_seed", type=int, default=None,
+                        help="Base seed for stochastic envs (server i "
+                             "seeds from env_seed + i*1000).")
+    parser.add_argument("--num_inference_threads", type=int, default=2)
+    parser.add_argument("--native_runtime", dest="native_runtime",
+                        action="store_true", default=None,
+                        help="Require the C++ runtime " + _LATER + ". By "
+                             "default the port runs the Python pool.")
+    parser.add_argument("--no_native_runtime", dest="native_runtime",
+                        action="store_false",
+                        help="The Python queues, batcher and actor pool "
+                             "(what the port always runs).")
+    parser.add_argument("--native_server", action="store_true",
+                        help="The C++ env server " + _LATER)
+    parser.add_argument("--max_server_restarts", type=int, default=10,
+                        help="Respawn budget for dead env servers.")
+    parser.add_argument("--sequence_parallel", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--sp_strategy", default="ring",
+                        choices=["ring", "ulysses"], help=_LATER)
+    parser.add_argument("--ring_schedule", default="contiguous",
+                        choices=["contiguous", "zigzag"], help=_LATER)
+    parser.add_argument("--pipeline_parallel", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--pipeline_microbatches", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--num_experts", type=int, default=0, help=_LATER)
+    parser.add_argument("--expert_parallel", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--transformer_remat", action="store_true",
+                        help=_LATER)
+    parser.add_argument("--remat", default=None, help=_LATER)
+    parser.add_argument("--hbm_budget_gb", type=float, default=0.0,
+                        help=_LATER)
+    parser.add_argument("--opt_impl", default="xla",
+                        choices=["xla", "pallas"],
+                        help="Optimizer tail: 'xla' runs the torch form of "
+                             "the reference's optax chain; 'pallas' the "
+                             "fused CUDA kernel csrc/rmsprop_tail.cu.")
+    parser.add_argument("--tensor_parallel", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--device_split", default="", help=_LATER)
+    parser.add_argument("--admission_depth_factor", type=int, default=4,
+                        help=_LATER)
+    parser.add_argument("--continuous_batching", dest="continuous_batching",
+                        action="store_true", default=True,
+                        help="Native runtime only; the Python batcher "
+                             "ignores it.")
+    parser.add_argument("--no_continuous_batching",
+                        dest="continuous_batching", action="store_false",
+                        help="Native runtime only.")
+    parser.add_argument("--num_learner_devices", type=int, default=1,
+                        help="Data-parallel learner; > 1 " + _LATER)
+    parser.add_argument("--coordinator_address", default=None, help=_LATER)
+    parser.add_argument("--fleet", default=None, help=_LATER)
+    parser.add_argument("--min_live_hosts", type=int, default=1,
+                        help=_LATER)
+    parser.add_argument("--device_agent_state", dest="device_agent_state",
+                        action="store_true", default=True,
+                        help="Keep recurrent agent state in the "
+                             "device-resident slot table (default).")
+    parser.add_argument("--no_device_agent_state",
+                        dest="device_agent_state", action="store_false",
+                        help="Agent state rides every inference request "
+                             "and reply.")
+    parser.add_argument("--prewarm_inference", action="store_true",
+                        help="Run every inference bucket once before "
+                             "actors connect.")
+    parser.add_argument("--max_inference_batch_size", type=int, default=64)
+    parser.add_argument("--inference_timeout_ms", type=float, default=100)
+    parser.add_argument("--request_deadline_ms", type=float, default=0.0,
+                        help="Admission control " + _LATER)
+    parser.add_argument("--replica_refresh_updates", type=int, default=0,
+                        help="Policy replicas " + _LATER)
+    parser.add_argument("--max_policy_lag", type=int, default=20,
+                        help="Replica staleness budget; no effect without "
+                             "replicas.")
+    parser.add_argument("--max_frame_bytes", type=int,
+                        default=wire.DEFAULT_MAX_FRAME_BYTES,
+                        help="Reject wire frames longer than this before "
+                             "allocating.")
+    parser.add_argument("--superstep_k", type=int, default=1,
+                        help="K updates per dispatch; > 1 " + _LATER)
+    parser.add_argument("--max_learner_queue_size", type=int, default=None,
+                        help="Backpressure bound (default: batch_size).")
+    parser.add_argument("--actor_connect_timeout_s", type=float,
+                        default=600.0,
+                        help="Per-attempt actor connect deadline.")
+    parser.add_argument("--max_actor_reconnects", type=int, default=3,
+                        help="Reconnects per actor (with jittered "
+                             "backoff) on env-server transport failure.")
+    parser.add_argument("--min_live_actors", type=int, default=1,
+                        help="Below this many live actor loops the run "
+                             "checkpoints and exits (health HALTED).")
+    parser.add_argument("--inference_restart_budget", type=int, default=3,
+                        help="Rebuilds of a poisoned state table before "
+                             "the pipeline halts.")
+    parser.add_argument("--learner_stall_timeout_s", type=float,
+                        default=300.0,
+                        help="No update within this many seconds degrades "
+                             "health and dumps diagnostics; 0 disables.")
+    parser.add_argument("--chaos_plan", default=None, help=_LATER)
+    parser.add_argument("--checkpoint_interval_s", type=int, default=600)
+    parser.add_argument("--telemetry", dest="telemetry",
+                        action="store_true", default=True,
+                        help="Metrics in the process registry (default); "
+                             "the port exports none yet.")
+    parser.add_argument("--no_telemetry", dest="telemetry",
+                        action="store_false",
+                        help="Turn the registry's instruments off.")
+    parser.add_argument("--telemetry_port", type=int, default=0,
+                        help=_LATER)
+    parser.add_argument("--telemetry_host", default="127.0.0.1",
+                        help=_LATER)
+    parser.add_argument("--trace_path", default=None, help=_LATER)
+    parser.add_argument("--entropy_cost", type=float, default=0.0006)
+    parser.add_argument("--entropy_cost_final", type=float, default=None,
+                        help="Linearly anneal the entropy cost to this "
+                             "over total_steps.")
+    parser.add_argument("--baseline_cost", type=float, default=0.5)
+    parser.add_argument("--discounting", type=float, default=0.99)
+    parser.add_argument("--reward_clipping", default="abs_one",
+                        choices=["abs_one", "none"])
+    parser.add_argument("--loss", default="vtrace",
+                        choices=["vtrace", "impact"],
+                        help="Objective; impact " + _LATER)
+    parser.add_argument("--impact_clip", type=float, default=0.2,
+                        help=_LATER)
+    parser.add_argument("--replay_reuse", type=int, default=1, help=_LATER)
+    parser.add_argument("--target_refresh_updates", type=int, default=8,
+                        help=_LATER)
+    parser.add_argument("--learning_rate", type=float, default=4.8e-4)
+    parser.add_argument("--alpha", type=float, default=0.99)
+    parser.add_argument("--momentum", type=float, default=0.0)
+    parser.add_argument("--epsilon", type=float, default=0.01)
+    parser.add_argument("--grad_norm_clipping", type=float, default=40.0)
+    parser.add_argument("--profile_dir", default=None, help=_LATER)
+    parser.add_argument("--disable_cuda", action="store_true",
+                        help="Run on the CPU (the port's only flag the "
+                             "reference lacks; without it and without a "
+                             "CUDA device the trainer raises).")
+    return parser
+
+
+# Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
+# item that brings it. Each must stay at its parser default.
+NOT_IN_PORT = {
+    "native_server": "native runtime",
+    "sequence_parallel": "the transformer family",
+    "sp_strategy": "the transformer family",
+    "ring_schedule": "the transformer family",
+    "pipeline_parallel": "the transformer family",
+    "pipeline_microbatches": "the transformer family",
+    "num_experts": "the transformer family",
+    "expert_parallel": "the transformer family",
+    "transformer_remat": "stage remat",
+    "remat": "stage remat",
+    "hbm_budget_gb": "stage remat",
+    "tensor_parallel": "data parallel and the fleet",
+    "num_learner_devices": "data parallel and the fleet",
+    "coordinator_address": "data parallel and the fleet",
+    "fleet": "data parallel and the fleet",
+    "min_live_hosts": "data parallel and the fleet",
+    "device_split": "serving",
+    "admission_depth_factor": "serving",
+    "request_deadline_ms": "serving",
+    "replica_refresh_updates": "serving",
+    "superstep_k": "overlap and supersteps",
+    "chaos_plan": "resilience",
+    "telemetry_port": "telemetry",
+    "telemetry_host": "telemetry",
+    "trace_path": "telemetry",
+    "profile_dir": "telemetry",
+    "loss": "IMPACT",
+    "impact_clip": "IMPACT",
+    "replay_reuse": "IMPACT",
+    "target_refresh_updates": "IMPACT",
+}
+
+
+def check_flags(flags) -> None:
+    """Raise NotImplementedError for a flag set to a feature the port
+    does not have yet. --native_runtime: at its default (None, "auto")
+    the port runs the Python pool, as the reference does without its
+    C++ extension; asked for explicitly it raises."""
+    if getattr(flags, "native_runtime", None) is True:
+        raise NotImplementedError(
+            "--native_runtime is not in the port yet: ROADMAP.md Queue 1 "
+            "item 'native runtime'"
+        )
+    defaults = make_parser().parse_args([])
+    for dest, item in NOT_IN_PORT.items():
+        value = getattr(flags, dest, getattr(defaults, dest))
+        if value != getattr(defaults, dest):
+            raise NotImplementedError(
+                f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
+                f"Queue 1 item '{item}'"
+            )
+
+
+def _probe_env_via_server(flags, address, timeout_s: float = 60.0):
+    """(num_actions, frame shape) from a running env server, or from a
+    local probe when none answers in time (the local env id is the
+    same)."""
+    from torchbeast_tpu_torch.runtime import transport as transport_lib
+
+    deadline = time.monotonic() + timeout_s
+    last_error = None
+    while time.monotonic() < deadline:
+        stream = None
+        try:
+            stream = transport_lib.connect_transport(
+                address, timeout_s=min(5.0, timeout_s),
+                recv_timeout_s=5.0,
+            )
+            step = stream.recv()
+            if not isinstance(step, dict) or step.get("type") == "error":
+                last_error = RuntimeError(f"server replied {step!r:.200}")
+                step = None  # drop transport-buffer views before close
+                break
+            if "num_actions" not in step:
+                last_error = KeyError(
+                    "server does not advertise num_actions"
+                )
+                step = None
+                break
+            frame_shape = tuple(np.asarray(step["frame"]).shape)
+            num_actions = int(step["num_actions"])
+            step = None
+            return num_actions, frame_shape
+        except (OSError, TimeoutError) as e:  # not up yet: retry
+            last_error = e
+            time.sleep(0.2)
+        except wire.WireError as e:
+            last_error = e
+            break
+        finally:
+            if stream is not None:
+                stream.close()
+    log.warning(
+        "Could not probe env spec from %s (%s); probing locally.",
+        address, last_error,
+    )
+    return monobeast._probe_env(flags)
+
+
+def _counter_values(reg, names):
+    return {name: reg.counter(name).value() for name in names}
+
+
+def train(flags):
+    """Train; returns the last flushed stats, plus "sps" (env frames per
+    second of this run), "update_interval_ms_median" (between CUDA
+    events recorded before and after each update on the default stream,
+    which the acting forwards share, so their kernels in between count
+    too; the host clock on the CPU), "updates", "inference_batch_mean"
+    (rows per acting forward) and the health summary."""
+    check_flags(flags)
+    device = monobeast.select_device(flags)
+    if flags.native_runtime is None:
+        log.info("The native runtime is not in the port yet (ROADMAP.md "
+                 "Queue 1 item 'native runtime'); using the Python pool.")
+    if flags.xpid is None:
+        flags.xpid = "polybeast-tpu-torch-%s" % time.strftime(
+            "%Y%m%d-%H%M%S")
+    plogger = FileWriter(
+        xpid=flags.xpid, xp_args=vars(flags), rootdir=flags.savedir
+    )
+    telemetry_on = bool(getattr(flags, "telemetry", True))
+    telemetry.set_enabled(telemetry_on)
+    reg = telemetry.get_registry()
+    health = PipelineHealth(registry=reg)
+    checkpoint_path = monobeast._checkpoint_path(flags, flags.xpid)
+    num_actors = flags.num_actors or flags.num_servers
+    addresses = [
+        polybeast_env.server_address(flags.pipes_basename,
+                                     i % flags.num_servers)
+        for i in range(num_actors)
+    ]
+    T, B = flags.unroll_length, flags.batch_size
+
+    # Any failure from the instant the server group exists until the main
+    # try/finally below takes over must not leak the spawned processes.
+    server_procs = []
+    server_supervisor = None
+    try:
+        if flags.start_servers:
+            server_supervisor = polybeast_env.ServerSupervisor(
+                flags, env_seed=flags.env_seed,
+                max_restarts=flags.max_server_restarts,
+            )
+            server_procs = server_supervisor.processes
+            server_supervisor.start_watch()
+            time.sleep(0.5)
+        elif flags.env_seed is not None:
+            log.warning(
+                "--env_seed has no effect with --no_start_servers: pass "
+                "it to each polybeast_env launch instead."
+            )
+
+        hp = monobeast.hparams_from_flags(flags)
+        policy = precision.resolve_flags(flags)
+        num_actions, frame_shape = _probe_env_via_server(flags, addresses[0])
+        model = monobeast.build_model(flags, num_actions, frame_shape, device)
+        optimizer = learner_lib.make_optimizer(
+            hp, list(model.parameters()),
+            layouts=weights.jax_layouts(model) if hp.opt_factored else None)
+        step, stats = 0, {}
+        if os.path.exists(checkpoint_path):
+            restored = load_train_state(checkpoint_path, model, optimizer)
+            step, stats = restored["step"], restored["stats"]
+            log.info("Resuming preempted job, current stats:\n%s", stats)
+        update_step = learner_lib.update_body(model, optimizer, hp)
+
+        # The acting copy: inference never reads the learner's params,
+        # which the update changes in place.
+        act_model = copy.deepcopy(model).requires_grad_(False)
+        act_params = list(act_model.parameters())
+        learn_params = list(model.parameters())
+        generator = torch.Generator(device=device)
+        generator.manual_seed(flags.seed)
+
+        state = {"step": step, "stats": dict(stats)}
+        learner_done = threading.Event()
+        # Guards state, the acting copy's params and the generator: every
+        # acting forward launches under it, and the learner copies new
+        # params in under it.
+        state_lock = threading.Lock()
+        # Serializes an update (params changed in place) against a
+        # checkpoint's read of params and optimizer state.
+        update_lock = threading.Lock()
+
+        learner_queue = BatchingQueue(
+            batch_dim=1, minimum_batch_size=B, maximum_batch_size=B,
+            maximum_queue_size=flags.max_learner_queue_size or B,
+            check_inputs=True, telemetry_name="learner_queue",
+        )
+        inference_batcher = DynamicBatcher(
+            batch_dim=1, minimum_batch_size=1,
+            maximum_batch_size=flags.max_inference_batch_size,
+            timeout_ms=flags.inference_timeout_ms,
+            telemetry_name="inference",
+        )
+        model_keys = learner_lib.MODEL_INPUT_KEYS
+
+        def _act(env_d, agent_state):
+            """One acting forward on [1, n] inputs on the card; outputs as
+            the wire carries them (int32 actions, f32 logits/baseline)."""
+            inputs = {k: env_d[k][0] for k in model_keys}
+            with state_lock, torch.no_grad():
+                out, new_state = learner_lib.act_body(
+                    act_model, inputs, agent_state, generator)
+            outputs = {
+                "action": out.action[None].to(torch.int32),
+                "policy_logits": out.policy_logits[None].float(),
+                "baseline": out.baseline[None].float(),
+            }
+            return outputs, new_state
+
+        def act_fn(env_outputs, agent_state, batch_size):
+            """The path without the state table (agent state rides each
+            request): host nests in, tensors out (the inference loop
+            brings them back in one copy)."""
+            env_d = to_device({k: env_outputs[k] for k in model_keys},
+                              device)
+            state_d = to_device(agent_state, device)
+            return _act(env_d, state_d)
+
+        state_table = None
+        initial_state = act_model.initial_state(1, device)
+        stateful_acting = flags.device_agent_state and bool(
+            nest.flatten(initial_state))
+        if stateful_acting:
+            state_table = DeviceStateTable(
+                initial_state, num_slots=num_actors,
+                act_fn=lambda ctx, env_d, s: _act(env_d, s),
+                batch_dim=1,
+                input_filter=lambda env: {k: env[k] for k in model_keys},
+            )
+        log.info("Acting path: agent_state=%s",
+                 "device_table" if state_table is not None else "host")
+
+        if flags.prewarm_inference:
+            t0 = time.time()
+            buckets = default_buckets(flags.max_inference_batch_size)
+            for b in buckets:
+                dummy = _dummy_env_outputs(b, frame_shape)
+                if state_table is not None:
+                    # All-trash slots, advance=False: no real slot moves.
+                    state_table.step(
+                        np.full(b, state_table.trash_slot, np.int64),
+                        np.zeros(b, bool), dummy)
+                else:
+                    act_fn(dummy,
+                           to_host(act_model.initial_state(b, device)), b)
+            log.info("Prewarmed %d inference buckets in %.1fs",
+                     len(buckets), time.time() - t0)
+
+        def _serve_loop():
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            inference_loop(
+                inference_batcher,
+                act_fn,
+                flags.max_inference_batch_size,
+                lock=None,
+                pipelined=flags.num_inference_threads == 1,
+                state_table=state_table,
+            )
+
+        infer_supervisor = InferenceSupervisor(
+            _serve_loop,
+            num_threads=flags.num_inference_threads,
+            state_table=state_table,
+            restart_budget=flags.inference_restart_budget,
+            health=health,
+            registry=reg,
+        )
+        actors = ActorPool(
+            unroll_length=T,
+            learner_queue=learner_queue,
+            inference_batcher=inference_batcher,
+            env_server_addresses=addresses,
+            initial_agent_state=to_host(initial_state),
+            max_reconnects=flags.max_actor_reconnects,
+            connect_timeout_s=flags.actor_connect_timeout_s,
+            max_frame_bytes=flags.max_frame_bytes,
+            state_table=state_table,
+        )
+        actor_thread = threading.Thread(
+            target=actors.run, daemon=True, name="actorpool"
+        )
+
+        def _stall_diagnostics():
+            return {
+                "learner_queue": learner_queue.size(),
+                "inference_batcher": inference_batcher.size(),
+                "live_actors": actors.live_actors(),
+            }
+
+        watchdog = LearnerWatchdog(
+            flags.learner_stall_timeout_s, health=health,
+            dump_fn=_stall_diagnostics, registry=reg,
+        )
+        timings = Timings(
+            registry=reg if telemetry_on else None, prefix="learner."
+        )
+
+        def _place(item):
+            """Stage one learner batch on the card (pinned host memory,
+            float leaves cast to the policy's batch dtype)."""
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            host = {
+                "batch": item["batch"],
+                "initial_agent_state": item["initial_agent_state"],
+            }
+            staged = to_device(host, device)
+            return (
+                precision.cast_batch(staged["batch"], policy.batch_dtype),
+                precision.cast_batch(staged["initial_agent_state"],
+                                     policy.batch_dtype),
+            )
+
+        prefetcher = DevicePrefetcher(
+            learner_queue, _place, depth=2, telemetry_name="prefetch",
+        )
+        update_interval_ms = []
+        learner_errors = []
+        counters = ("inference.batches", "inference.rows")
+        counts_at_start = _counter_values(reg, counters)
+
+        def learner_loop():
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            try:
+                _learner_loop_body()
+            except BaseException as e:
+                learner_errors.append(e)
+                raise
+            finally:
+                learner_done.set()
+
+        def _learner_loop_body():
+            # One-update-delayed stats fetch: the previous update's stats
+            # come to the host after the current one is launched, so the
+            # host never waits for the card between updates.
+            pending = None  # (device stats, step after, timer)
+
+            def flush(entry):
+                device_stats, at_step, timer = entry
+                keys = list(device_stats)
+                row = torch.stack(
+                    [device_stats[k].float() for k in keys]).cpu().numpy()
+                update_interval_ms.append(
+                    timer[0].elapsed_time(timer[1]) if device.type == "cuda"
+                    else 1000 * (timer[1] - timer[0]))
+                s = learner_lib.episode_stat_postprocess(
+                    dict(zip(keys, row)))
+                s["step"] = at_step
+                s["learner_queue_size"] = learner_queue.size()
+                with state_lock:
+                    state["stats"] = s
+                plogger.log(s)
+
+            while True:
+                timings.reset()
+                try:
+                    batch, initial_agent_state = prefetcher.get(timeout=1.0)
+                except stdlib_queue.Empty:
+                    if not prefetcher.is_alive():
+                        break
+                    continue
+                timings.time("dequeue")
+                with update_lock:
+                    if device.type == "cuda":
+                        t0 = torch.cuda.Event(enable_timing=True)
+                        t1 = torch.cuda.Event(enable_timing=True)
+                        t0.record()
+                        train_stats = update_step(batch, initial_agent_state)
+                        t1.record()
+                    else:
+                        t0 = time.perf_counter()
+                        train_stats = update_step(batch, initial_agent_state)
+                        t1 = time.perf_counter()
+                    with state_lock:
+                        # Publish: the acting copy takes the new params
+                        # (bf16_train: the bf16 resident ones), queued
+                        # on the stream after the update.
+                        with torch.no_grad():
+                            torch._foreach_copy_(act_params, learn_params)
+                        state["step"] += T * B
+                        now_step = state["step"]
+                watchdog.ping()
+                if pending is not None:
+                    flush(pending)
+                pending = (train_stats, now_step, (t0, t1))
+                timings.time("learn")
+                if now_step >= flags.total_steps:
+                    break
+            if pending is not None:
+                flush(pending)
+
+        learner_thread = threading.Thread(
+            target=learner_loop, daemon=True, name="learner"
+        )
+    except BaseException:
+        if server_supervisor is not None:
+            server_supervisor.stop()  # before terminate: no resurrect-mid-reap
+        polybeast_env.reap_group(server_procs)
+        raise
+
+    def checkpoint():
+        with update_lock:
+            with state_lock:
+                at_step, at_stats = state["step"], dict(state["stats"])
+            save_train_state(checkpoint_path, model, optimizer,
+                             step=at_step, flags=vars(flags),
+                             stats=at_stats)
+
+    # From the first thread start on, this try/finally owns all cleanup.
+    start_time = time.time()
+    start_step = state["step"]
+    successful = False
+    try:
+        infer_supervisor.start()
+        actor_thread.start()
+        prefetcher.start()
+        learner_thread.start()
+        watchdog.start()
+
+        num_live_floor = max(1, min(flags.min_live_actors, num_actors))
+        degraded_dead = 0
+        last_checkpoint = time.time()
+        last_step, last_time = state["step"], time.time()
+        while not learner_done.is_set():
+            # A finished learner or a halt cuts the 5 s tick short.
+            tick_end = time.time() + 5
+            while (time.time() < tick_end and not health.is_halted
+                   and not learner_done.wait(timeout=0.25)):
+                pass
+            if learner_done.is_set():
+                break
+            live = actors.live_actors()
+            dead = num_actors - live
+            if dead > degraded_dead and actors.errors:
+                degraded_dead = dead
+                health.degrade(
+                    f"{dead}/{num_actors} actors retired "
+                    f"(last error: {actors.errors[-1]})",
+                    key="actor_attrition", sticky=True,
+                )
+            if live < num_live_floor:
+                health.halt(f"live actors {live} below --min_live_actors "
+                            f"{num_live_floor}")
+            if (not actor_thread.is_alive() and live > 0
+                    and not health.is_halted and not learner_done.is_set()):
+                raise RuntimeError("Actor pool exited unexpectedly")
+            if infer_supervisor.errors:
+                raise RuntimeError(
+                    "Inference thread failed"
+                ) from infer_supervisor.errors[0]
+            if health.is_halted:
+                log.error(
+                    "Pipeline HALTED (%s); checkpointing and exiting "
+                    "cleanly.",
+                    "; ".join(r for _, r in health.reasons()[-3:]),
+                )
+                break
+            with state_lock:
+                now_step = state["step"]
+                stats_now = dict(state["stats"])
+            now = time.time()
+            sps = (now_step - last_step) / (now - last_time)
+            last_step, last_time = now_step, now
+            means = timings.means()
+            log.info(
+                "Step %d @ %.1f SPS. Inference batcher size: %d. "
+                "Learner queue size: %d. Loss %.4f. "
+                "[dequeue %.0fms learn %.0fms] %s",
+                now_step, sps, inference_batcher.size(),
+                learner_queue.size(),
+                stats_now.get("total_loss", float("nan")),
+                1000 * means.get("dequeue", 0.0),
+                1000 * means.get("learn", 0.0),
+                f"Return {stats_now['mean_episode_return']:.1f}."
+                if "mean_episode_return" in stats_now else "",
+            )
+            if now - last_checkpoint > flags.checkpoint_interval_s:
+                checkpoint()
+                last_checkpoint = now
+        if learner_errors:
+            raise RuntimeError("Learner thread failed") from learner_errors[0]
+        successful = True
+    except KeyboardInterrupt:
+        log.info("Interrupted; saving final checkpoint.")
+        successful = True
+    finally:
+        watchdog.stop()
+        # Shutdown in the reference's order: close batcher + queue, join
+        # the actors, then the threads.
+        for closer in (inference_batcher, learner_queue):
+            try:
+                closer.close()
+            except RuntimeError:
+                pass
+        actor_thread.join(timeout=10)
+        prefetcher.close()
+        prefetcher.join(timeout=10)
+        learner_thread.join(timeout=10)
+        infer_supervisor.join(timeout=10)
+        elapsed = time.time() - start_time
+        checkpoint()
+        plogger.close(successful=successful)
+        if server_supervisor is not None:
+            server_supervisor.stop()  # before terminate: no resurrect-mid-reap
+        polybeast_env.reap_group(server_procs)
+    log.info(
+        "Learning finished after %d steps (health %s).",
+        state["step"], health.state_name,
+    )
+    stats = dict(state["stats"])
+    stats["sps"] = (state["step"] - start_step) / elapsed if elapsed else 0.0
+    stats["update_interval_ms_median"] = (
+        statistics.median(update_interval_ms) if update_interval_ms
+        else 0.0)
+    stats["updates"] = len(update_interval_ms)
+    counts = _counter_values(reg, counters)
+    batches = counts["inference.batches"] - counts_at_start[
+        "inference.batches"]
+    rows = counts["inference.rows"] - counts_at_start["inference.rows"]
+    stats["inference_batch_mean"] = rows / batches if batches else 0.0
+    stats["server_restarts"] = (
+        server_supervisor.restarts if server_supervisor is not None else 0
+    )
+    stats["health"] = health.state_name
+    stats["health_reasons"] = health.reasons()
+    stats["actor_reconnects"] = int(actors.reconnect_count())
+    stats["inference_restarts"] = infer_supervisor.restarts
+    return stats
+
+
+def _dummy_env_outputs(batch_size, frame_shape):
+    """Zero env outputs [1, batch_size, ...] (the prewarm's input)."""
+    return {
+        "frame": np.zeros((1, batch_size) + tuple(frame_shape), np.uint8),
+        "reward": np.zeros((1, batch_size), np.float32),
+        "done": np.ones((1, batch_size), bool),
+        "last_action": np.zeros((1, batch_size), np.int32),
+    }
+
+
+def main(flags):
+    _configure_logging()
+    if flags.mode == "test":
+        check_flags(flags)
+        return monobeast.test(flags)
+    return train(flags)
+
+
+def cli():
+    install_preemption_handler()  # SIGTERM -> clean checkpointed exit
+    main(make_parser().parse_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -4,9 +4,11 @@ GPU, at one of the port's two configurations, both with 84x84x4 frames,
 deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), or the
 transformer policy at full width with --attention_impl pallas; at the
 precision policy --precision (default f32; bf16_train casts the params,
-the batch and the agent state as the driver does).
+the batch and the agent state as the driver does). `polybeast` traces
+the async driver instead (see polybeast_trace).
 
-    python -m torchbeast_tpu_torch.profile_update [deep|transformer]
+    python -m torchbeast_tpu_torch.profile_update
+        [deep|transformer|polybeast]
         [--precision f32|bf16_compute|bf16_train]
 
 Prints the card (nvidia-smi name and power limit), then one JSON line:
@@ -16,20 +18,26 @@ the transformer acts from a cache about 70% valid),
 and from a torch.profiler window over UPDATES updates the device time
 per update by kernel name (top entries, and every one of the port's own
 kernels with its time per call) and by group (the port's own kernels,
-convolutions, matrix products, the rest). The device's busy
-share is that device time over the unprofiled median update time (the
-profiler itself slows the host's launches down). Weights and batch are
-random, made from SEED. Needs a CUDA device.
+convolutions, matrix products, the rest), with the medians of
+update_windows over the profiled updates. The device's busy share is
+that device time over the unprofiled median update time (the profiler
+itself slows the host's launches down). Weights and batch are random,
+made from SEED. Needs a CUDA device.
 
-T, B, NUM_ACTIONS, random_batch and random_cache are the configurations'
-shape, batch and transformer state, shared with chip_smoke.py.
+T, B, NUM_ACTIONS, random_batch, random_cache and polybeast_argv are the
+configurations' shape, batch, transformer state and polybeast flags,
+shared with chip_smoke.py.
 """
 
 import argparse
+import bisect
 import json
 import os
+import shutil
 import statistics
 import subprocess
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -42,6 +50,10 @@ from torchbeast_tpu_torch.models import create_model
 T, B = 80, 32
 NUM_ACTIONS = 6  # MockEnv
 UPDATES, WARMUP, SEED, TOP = 10, 3, 0, 15
+TRACE_UPDATES = 8  # polybeast_trace's run; three of them traced
+# update_windows: the kernel that ends an update, and the name mark of a
+# kernel that only the backward pass launches.
+TAIL, BACKWARD, TOP_GAPS = "rmsprop_tail", "_bwd", 5
 
 # Substrings of device kernel names -> group, tried in order. The port's
 # kernels are csrc/'s vtrace_targets_kernel, rmsprop_*, pool_bwd_kernel
@@ -102,19 +114,256 @@ def random_cache(model, seed, device):
     return tuple(state)
 
 
-def main(model_name="deep", policy="f32"):
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_update needs a CUDA device")
-    if model_name not in ("deep", "transformer"):
-        raise ValueError(f"model {model_name!r}: deep or transformer")
-    os.environ["TBT_POOL_PALLAS"] = "1"
-    device = torch.device("cuda", 0)
+def polybeast_argv(savedir, xpid):
+    """The polybeast deep + LSTM path's flags: 16 Mock env servers on
+    free 127.0.0.1 ports, T=80, B=32, the three deep kernels, two
+    inference threads. Without --total_steps."""
+    from torchbeast_tpu_torch import polybeast_env
+
+    return ["--env", "Mock", "--model", "deep", "--use_lstm",
+            "--num_servers", "16", "--batch_size", str(B),
+            "--unroll_length", str(T), "--vtrace_impl", "pallas",
+            "--opt_impl", "pallas", "--no_native_runtime",
+            "--num_inference_threads", "2",
+            "--max_inference_batch_size", "32", "--savedir", savedir,
+            "--xpid", xpid,
+            "--pipes_basename", polybeast_env.free_tcp_basename(16)]
+
+
+def _card():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    return card
+
+
+def _union_ms(spans, lo, hi):
+    """Milliseconds of [lo, hi] covered by the (start, end) spans, in
+    microseconds."""
+    clipped = sorted((max(a, lo), min(b, hi)) for a, b in spans
+                     if b > lo and a < hi)
+    total, reach = 0.0, lo
+    for a, b in clipped:
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total / 1e3
+
+
+def update_windows(events):
+    """One learner update interval of a trace per window: from the end of
+    one update's last kernel (TAIL, the RMSprop tail) on the card to the
+    end of the next. `events` are a chrome trace's traceEvents:
+    device kernels, copies and sets carry the correlation id of the CUDA
+    API call that launched them, and that call's event carries the
+    launching thread (tid). Threads have roles: "learner" launched the
+    tail, "backward" launched a kernel named with BACKWARD (autograd
+    runs the backward pass on a thread of its own), "other" are the rest
+    (polybeast's acting forwards and staging copies).
+
+    Per window: its length; the card's busy time (union of every kernel,
+    copy and set); per role the kernels launched, their device time,
+    the copies and the threads; and the learner thread's API calls
+    between the two tails' launches: their number, time inside the API,
+    the median and the sum of the gaps between one call and the next,
+    the TOP_GAPS longest gaps (with the kernels or calls before and
+    after each) and the TOP_GAPS longest calls."""
+    api, launched = {}, {}
+    for ev in events:
+        corr = (ev.get("args") or {}).get("correlation")
+        if corr is None:
+            continue
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver"):
+            api[corr] = ev
+        elif ev.get("cat") == "kernel":
+            launched[corr] = ev.get("name", "")
+    device = [ev for ev in events
+              if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    tails = sorted((ev for ev in device if ev.get("cat") == "kernel"
+                    and TAIL in ev.get("name", "")),
+                   key=lambda ev: ev["ts"])
+    if len(tails) < 2:
+        raise ValueError(f"{len(tails)} {TAIL} kernels among the "
+                         f"trace's {len(device)} device events and "
+                         f"{len(api)} API calls: no whole update")
+
+    def launch(ev):
+        return api.get((ev.get("args") or {}).get("correlation"))
+
+    tail_api = [launch(ev) for ev in tails]
+    tids = {ev["tid"] for ev in tail_api if ev is not None}
+    if len(tids) != 1:
+        raise ValueError(f"the tail was launched from threads {tids}")
+    learner = tids.pop()
+    backward = {launch(ev)["tid"] for ev in device
+                if BACKWARD in ev.get("name", "")
+                and launch(ev) is not None} - {learner}
+
+    def role(ev):
+        call = launch(ev)
+        if call is None:
+            return "unattributed"
+        return ("learner" if call["tid"] == learner else
+                "backward" if call["tid"] in backward else "other")
+
+    learner_api = sorted((ev for ev in api.values()
+                          if ev["tid"] == learner), key=lambda ev: ev["ts"])
+    starts = [ev["ts"] for ev in learner_api]
+    windows = []
+    for (a, b), (ca, cb) in zip(zip(tails, tails[1:]),
+                                zip(tail_api, tail_api[1:])):
+        lo, hi = a["ts"] + a["dur"], b["ts"] + b["dur"]
+        inside = [ev for ev in device if ev["ts"] < hi
+                  and ev["ts"] + ev["dur"] > lo]
+        window = {
+            "ms": (hi - lo) / 1e3,
+            "device_busy_ms": _union_ms(
+                [(ev["ts"], ev["ts"] + ev["dur"]) for ev in inside], lo, hi),
+        }
+        for who in ("learner", "backward", "other", "unattributed"):
+            mine = [ev for ev in inside if role(ev) == who]
+            kernels = [ev for ev in mine if ev.get("cat") == "kernel"]
+            window[f"{who}_kernels"] = len(kernels)
+            window[f"{who}_kernel_ms"] = sum(ev["dur"] for ev in kernels) / 1e3
+            window[f"{who}_copies"] = len(mine) - len(kernels)
+            window[f"{who}_threads"] = len({launch(ev)["tid"] for ev in mine
+                                            if launch(ev) is not None})
+        calls = learner_api[bisect.bisect_right(starts, ca["ts"]):
+                            bisect.bisect_right(starts, cb["ts"])]
+        gaps = [((y["ts"] - (x["ts"] + x["dur"])) / 1e3, x, y)
+                for x, y in zip(calls, calls[1:])]
+
+        def what(call):
+            corr = call["args"]["correlation"]
+            return launched.get(corr, call.get("name", ""))[:80]
+
+        window.update({
+            "learner_api_calls": len(calls),
+            "learner_api_ms": sum(ev["dur"] for ev in calls) / 1e3,
+            "learner_api_gap_ms_median": (
+                statistics.median(g[0] for g in gaps) if gaps else None),
+            "learner_api_gap_ms_sum": sum(g[0] for g in gaps),
+            "learner_longest_gaps": [
+                [g, what(x), what(y)] for g, x, y in sorted(
+                    gaps, key=lambda g: -g[0])[:TOP_GAPS]],
+            "learner_longest_calls": [
+                [ev["dur"] / 1e3, what(ev)] for ev in sorted(
+                    calls, key=lambda ev: -ev["dur"])[:TOP_GAPS]],
+        })
+        windows.append(window)
+    return windows
+
+
+def median_window(windows):
+    """The median of each numeric entry of update_windows' windows."""
+    return {k: statistics.median(w[k] for w in windows) for k in windows[0]
+            if all(isinstance(w[k], (int, float)) for w in windows)}
+
+
+def _windows_of(prof):
+    """update_windows of a finished torch.profiler run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return update_windows(json.load(f)["traceEvents"])
+
+
+def _logged_updates(path):
+    """Rows in a FileWriter's logs.csv (one per flushed update)."""
+    try:
+        with open(path) as f:
+            return max(sum(1 for _ in f) - 1, 0)
+    except FileNotFoundError:
+        return 0
+
+
+def polybeast_trace(policy="f32"):
+    """The async driver at polybeast_argv's flags for TRACE_UPDATES
+    updates, with a torch.profiler window (CUDA activity: device work and
+    CUDA API calls, no CPU ops) over three flushed updates from the
+    second: every kernel of the process is traced, whichever thread
+    launched it. Prints the card and one JSON line: the run's own stats,
+    and update_windows of the trace (the profiler slows every launch
+    down, so the traced updates are slower than the run's others)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    card = _card()
+    os.environ["TBT_POOL_PALLAS"] = "1"
+    savedir = tempfile.mkdtemp(prefix="polybeast_trace")
+    logs = os.path.join(savedir, "trace", "logs.csv")
+    flags = polybeast.make_parser().parse_args(
+        polybeast_argv(savedir, "trace") + [
+            "--precision", policy,
+            "--total_steps", str(TRACE_UPDATES * T * B)])
+    # The profiler runs on this (the main) thread, where torch registered
+    # its tracing client; the driver runs on another.
+    result = {}
+
+    def run():
+        try:
+            result["stats"] = polybeast.train(flags)
+        except BaseException as e:  # noqa: BLE001  re-raised below
+            result["error"] = e
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        pass  # the tracer's set-up, before the window
+    driver = threading.Thread(target=run, name="driver")
+    driver.start()
+    try:
+        while _logged_updates(logs) < 2 and driver.is_alive():
+            time.sleep(0.05)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            end = _logged_updates(logs) + 3
+            while _logged_updates(logs) < end and driver.is_alive():
+                time.sleep(0.05)
+        windows = _windows_of(prof)
+        driver.join()
+        if "error" in result:
+            raise result["error"]
+        stats = result["stats"]
+        reg = telemetry.get_registry()
+
+        def p50_ms(name):
+            return 1000 * reg.histogram(name).percentile(0.5)
+
+        print(json.dumps({
+            "card": card,
+            "config": {"driver": "polybeast", **{
+                k: getattr(flags, k) for k in (
+                    "env", "model", "use_lstm", "num_servers", "batch_size",
+                    "unroll_length", "vtrace_impl", "opt_impl",
+                    "num_inference_threads", "max_inference_batch_size",
+                    "precision")}},
+            "updates": stats["updates"],
+            "sps": stats["sps"],
+            "update_interval_ms_median": stats["update_interval_ms_median"],
+            "inference_batch_mean": stats["inference_batch_mean"],
+            "act_dispatch_ms_p50": p50_ms("inference.dispatch_s"),
+            "reply_ms_p50": p50_ms("inference.reply_s"),
+            "request_rtt_ms_p50": p50_ms("actor.request_rtt_s"),
+            "traced_windows": windows,
+        }))
+    finally:
+        driver.join()
+        shutil.rmtree(savedir, ignore_errors=True)
+
+
+def main(model_name="deep", policy="f32"):
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_update needs a CUDA device")
+    if model_name == "polybeast":
+        return polybeast_trace(policy)
+    if model_name not in ("deep", "transformer"):
+        raise ValueError(f"model {model_name!r}: deep, transformer or "
+                         "polybeast")
+    os.environ["TBT_POOL_PALLAS"] = "1"
+    device = torch.device("cuda", 0)
+    card = _card()
 
     pol = precision.get(policy)
     dtypes = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype)
@@ -175,6 +424,13 @@ def main(model_name="deep", policy="f32"):
         for _ in range(UPDATES):
             update(batch, state)
         torch.cuda.synchronize()
+    # The same updates under the tracing that polybeast_trace uses (device
+    # and CUDA API activity only), cut into update_windows.
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        for _ in range(UPDATES):
+            update(batch, state)
+        torch.cuda.synchronize()
+    windows = _windows_of(trace)
 
     kernels = {}
     for evt in prof.events():
@@ -205,6 +461,11 @@ def main(model_name="deep", policy="f32"):
         "launches_per_update": sum(v[1] for v in kernels.values())
         / UPDATES,
         "ms_per_update_by_group": groups,
+        # The profiled updates cut at their tails, as polybeast's are
+        # (the same instrument, so the two can be set side by side).
+        "traced_windows_median": median_window(windows),
+        "traced_window_longest_gaps": [w["learner_longest_gaps"][:2]
+                                       for w in windows],
         "top_kernels": [
             {"name": n[:120], "ms_per_update": us / 1e3 / UPDATES,
              "calls_per_update": c / UPDATES}
@@ -223,7 +484,7 @@ def main(model_name="deep", policy="f32"):
 def cli():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="deep",
-                        choices=["deep", "transformer"])
+                        choices=["deep", "transformer", "polybeast"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
     args = parser.parse_args()
