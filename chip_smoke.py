@@ -29,35 +29,52 @@ exits non-zero without printing the final result line:
    counted the same way. With --kernels-only the script stops here and
    prints the kernels line (to compare two trees' kernels on one card);
    with --vtrace-only it does so after V-trace's row;
-4. main paths: `monobeast.train` through the port's own parser, every
-   kernel switch on, T=80, B=32, 3 updates each, at full width:
-   (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc and LSTM
-   256); (b) the transformer policy (84x84x4 frames, 2 layers, d_model
-   128, 4 heads, memory 64) with --attention_impl pallas; (c), (d) the
-   same two at --precision bf16_train. The launch counts are set to 0
-   before each path and read after it; each kernel the path is meant to
-   launch must show a count above 0 (at bf16_train, every launch of a
-   kernel with a bf16 variant must be a bf16 launch, counted apart),
-   every pool backward launch must have taken the kernel's 16-byte path
-   (the trunk hands it channels_last tensors, uncopied), and every loss
-   stat must be finite;
+4. graphs (TF32 off, cuDNN deterministic): the learner's CUDA graph
+   (learner.make_update_dispatch) at K=1 and K=4, two dispatches against
+   2K eager updates of a copy on the same batches, with the LR decay and
+   the entropy anneal moving: deep + LSTM at f32 and at bf16_train and
+   the transformer at f32; params, nu, the master and every stat must be
+   bitwise equal and the device count read 2K; one replay, profiled,
+   must make one cudaGraphLaunch and run K times the port kernels of one
+   eager update (V-trace 1, the tail 1, pool_bwd 3; attention 2 + 2),
+   and the host's API calls per dispatch are printed beside one eager
+   update's. The acting graphs: monobeast's step at B=32 for five chained
+   steps, and polybeast's state-table step at each bucket of
+   --max_inference_batch_size 32 against an eager twin, from the same
+   generator state: actions, logits, baseline and states bitwise;
+5. main paths: `monobeast.train` through the port's own parser, every
+   kernel switch on, T=80, B=32, each dispatch one CUDA graph, at full
+   width: (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc
+   and LSTM 256); (b) the transformer policy (84x84x4 frames, 2 layers,
+   d_model 128, 4 heads, memory 64) with --attention_impl pallas; (c),
+   (d) the same two at --precision bf16_train, 3 updates each; (e) deep + LSTM with 128 actors, --superstep_k 4 and
+   --overlap_collect: three dispatches of 4 updates. The launch counts
+   are set to 0 before each path and read after it; each kernel the
+   path is meant to launch must show at least one launch per update (at
+   bf16_train, every launch of a kernel with a bf16 variant must be a
+   bf16 launch, counted apart), every pool backward launch must have
+   taken the kernel's 16-byte path (the trunk hands it channels_last
+   tensors, uncopied), and every loss stat must be finite;
    Then the async driver, `polybeast.train` through its own parser with
    16 Mock env servers (processes of their own on 127.0.0.1 ports), the
-   Python actor pool, two inference threads on the state table, deep +
-   LSTM at T=80, B=32, the same kernel switches: (e) three updates, each
-   launching V-trace and the tail at least once and the pool backward at
-   least three times, every pool launch on the 16-byte path, finite
-   losses, a checkpoint written; it prints SPS (over the run, and from
-   the second batch's arrival to the last one's), the median update interval
-   on the default stream that acting shares, the mean inference batch
-   and the medians of one acting forward's host time, its reply's copy
-   and an actor's request round trip; (f) the same xpid to 10240 steps: it
-   must resume from the checkpoint and run on; (g) `--mode test` on that
-   checkpoint: one greedy Mock episode must return 200.0; (h) a deep +
-   LSTM train state on the card (bf16_train with --opt_impl pallas, f32
-   with xla) saved and loaded into a fresh model and optimizer: params,
-   nu and the master bitwise equal;
-5. parity: one learner update of each model from the same weights and
+   Python actor pool, two inference threads on the state table (one
+   graph per bucket), deep + LSTM at T=80, B=32, the same kernel
+   switches: (f) three updates, each launching V-trace and the tail at
+   least once and the pool backward at least three times, every pool
+   launch on the 16-byte path, finite losses, a checkpoint written; it
+   prints SPS (over the run, and from the second batch's arrival to the
+   last one's), the median update interval on the default stream that
+   acting shares, the mean inference batch and the medians of one acting
+   forward's host time, its reply's copy, an actor's request round trip
+   and the learner's wait for a batch; (g) the same xpid for one more
+   update: it must resume from the checkpoint and run on; (h) `--mode
+   test` on that checkpoint: one greedy Mock episode must return 200.0;
+   (i) the same three with --superstep_k 2 (two dispatches of 2 updates,
+   then one more after the resume); (j) a deep + LSTM train state on the
+   card (bf16_train with --opt_impl pallas, f32 with xla) saved and
+   loaded into a fresh model and optimizer: params, nu and the master
+   bitwise equal;
+6. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
    off, cuDNN deterministic), at f32, bf16_compute and bf16_train;
    params, RMSprop state and loss stats must agree, at the tolerances
@@ -455,8 +472,9 @@ def check_opt(ops, dev, tree, policy="f32"):
             p, master, nu, mom = fresh(momentum)
             sums = []
             for step, gs in enumerate(grads):
-                kw = dict(lr=4.8e-4 * (1 - step / 10), momentum=momentum,
-                          masters=master, **hyper)
+                # The rate in device memory, where the learner puts it.
+                lr = torch.tensor(4.8e-4 * (1 - step / 10), device=dev)
+                kw = dict(lr=lr, momentum=momentum, masters=master, **hyper)
                 if plain:
                     with ops.plain_on_device():
                         sums.append(opt.rmsprop_tail(p, gs, nu, mom, **kw))
@@ -493,7 +511,8 @@ def check_opt(ops, dev, tree, policy="f32"):
               + f" ({tol_text})")
     p, master, nu, _ = fresh(0.0)
     grads = [torch.randn_like(t) for t in p]
-    step = lambda: opt.rmsprop_tail(p, grads, nu, None, lr=1e-9,  # noqa
+    lr = torch.tensor(1e-9, device=dev)
+    step = lambda: opt.rmsprop_tail(p, grads, nu, None, lr=lr,  # noqa
                                     momentum=0.0, masters=master, **hyper)
     ms = time_ms(step)
     per_call, names = kernels_per_call(step)
@@ -747,31 +766,39 @@ TRANSFORMER_KERNELS = ("vtrace_targets", "rmsprop_tail",
                        "transformer_attention", "transformer_attention_bwd")
 DEEP_ARGS = ["--model", "deep", "--use_lstm"]
 TRANSFORMER_ARGS = ["--model", "transformer", "--attention_impl", "pallas"]
-# (label, flags, the kernels the path must launch, its precision policy).
-# At bf16_train every kernel but V-trace (which the reference keeps in
-# f32) must launch its bf16 variant.
+# (label, flags, the kernels the path must launch, its precision policy,
+# its updates). At bf16_train every kernel but V-trace (which the
+# reference keeps in f32) must launch its bf16 variant. The last path
+# runs 128 actors: 4 learner sub-batches a collect, one K=4 superstep
+# dispatch, with acting one dispatch behind (--overlap_collect).
+SUPERSTEP_ARGS = ["--num_actors", str(4 * B), "--superstep_k", "4",
+                  "--overlap_collect"]
 PATHS = (
-    ("deep+LSTM", DEEP_ARGS, DEEP_KERNELS, "f32"),
-    ("transformer", TRANSFORMER_ARGS, TRANSFORMER_KERNELS, "f32"),
-    ("deep+LSTM bf16_train", DEEP_ARGS, DEEP_KERNELS, "bf16_train"),
+    ("deep+LSTM", DEEP_ARGS, DEEP_KERNELS, "f32", 3),
+    ("transformer", TRANSFORMER_ARGS, TRANSFORMER_KERNELS, "f32", 3),
+    ("deep+LSTM bf16_train", DEEP_ARGS, DEEP_KERNELS, "bf16_train", 3),
     ("transformer bf16_train", TRANSFORMER_ARGS, TRANSFORMER_KERNELS,
-     "bf16_train"),
+     "bf16_train", 3),
+    ("deep+LSTM superstep_k 4 overlap_collect",
+     DEEP_ARGS + SUPERSTEP_ARGS, DEEP_KERNELS, "f32", 12),
 )
 
 
 def run_main_path(ops, savedir, path):
-    """Train 3 updates of one path; return its launch counts, all and
-    bf16."""
+    """Train one path's updates; return its launch counts, all and
+    bf16. Every dispatch replays a CUDA graph; each replay adds the port
+    kernels its capture counted, so the counts are launches on the
+    card."""
     from torchbeast_tpu_torch import monobeast
 
-    label, model_args, expected, policy = path
+    label, model_args, expected, policy, updates = path
     flags = monobeast.make_parser().parse_args([
-        "--env", "Mock", *model_args,
-        "--num_actors", str(B), "--batch_size", str(B),
+        "--env", "Mock", "--num_actors", str(B), *model_args,
+        "--batch_size", str(B),
         "--unroll_length", str(T), "--vtrace_impl", "pallas",
         "--opt_impl", "pallas", "--serial_envs", "--precision", policy,
-        "--total_steps", str(3 * T * B), "--savedir", savedir,
-        "--xpid", f"chip_smoke_{model_args[1]}_{policy}",
+        "--total_steps", str(updates * T * B), "--savedir", savedir,
+        "--xpid", "chip_smoke_" + re.sub(r"\W+", "_", label),
     ])
     # A checkpoint left by an earlier run of this script would resume.
     shutil.rmtree(os.path.join(savedir, flags.xpid), ignore_errors=True)
@@ -782,8 +809,9 @@ def run_main_path(ops, savedir, path):
     wall = time.time() - t0
     counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
     for name in expected:
-        check(counts[name] > 0, f"{label} path launched {name} "
-                                f"{counts[name]} times")
+        check(counts[name] >= updates, f"{label} path launched {name} "
+                                       f"{counts[name]} times in {updates} "
+                                       "updates")
         if name in bf16:
             want = counts[name] if policy == "bf16_train" else 0
             check(bf16[name] == want, f"{label} path: {bf16[name]} of "
@@ -797,7 +825,7 @@ def run_main_path(ops, savedir, path):
                 "grad_norm"):
         check(key in stats and np.isfinite(stats[key]),
               f"{label} loss stat {key} = {stats.get(key)}")
-    print(f"main path {label} 84x84x4 T={T} B={B}: 3 updates in "
+    print(f"main path {label} 84x84x4 T={T} B={B}: {updates} updates in "
           f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
           f"{stats['update_ms_median']:.2f} ms; launches {counts}; bf16 "
           f"launches {bf16}; total_loss {stats['total_loss']:.4f}")
@@ -807,6 +835,10 @@ def run_main_path(ops, savedir, path):
 # -------------------------------------------------------------- polybeast
 
 POLY_LABEL = "polybeast deep+LSTM"
+# The medians a polybeast run prints: one acting forward's host time, its
+# reply's copy, an actor's request round trip, the learner's wait.
+P50_SERIES = ("inference.dispatch_s", "inference.reply_s",
+              "actor.request_rtt_s", "learner.dequeue")
 
 
 class _Lines(logging.Handler):
@@ -818,20 +850,25 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_polybeast(ops, savedir):
+def run_polybeast(ops, savedir, k=1):
     """The async driver on the card, through its own parser: 16 Mock env
     servers (spawned processes), deep + LSTM at T=80, B=32, the three
-    main-path kernels on. (1) three updates: every kernel launched at
-    least once per update, every pool launch on the 16-byte path, finite
-    losses, a checkpoint; (2) the same xpid again to 10240 steps: it
-    resumes from the checkpoint and runs on; (3) --mode test on that
-    checkpoint: one greedy Mock episode returns 200.0. Returns the launch
-    counts of (1) and (2)."""
+    main-path kernels on, `k` updates a dispatch (--superstep_k). (1)
+    three dispatches (two at k > 1): every kernel launched at least once
+    per update, every pool launch on the 16-byte path, finite losses, a
+    checkpoint; (2) the same xpid again for one more dispatch: it resumes
+    from the checkpoint and runs on; (3) --mode test on that checkpoint:
+    one greedy Mock episode returns 200.0. Returns the launch counts of
+    (1) and (2)."""
     from torchbeast_tpu_torch import polybeast, telemetry
+    from torchbeast_tpu_torch.telemetry.metrics import (
+        percentiles_from_buckets)
 
-    xpid = "chip_smoke_polybeast"
+    xpid = f"chip_smoke_polybeast_k{k}"
+    label = POLY_LABEL + ("" if k == 1 else f" superstep_k {k}")
     shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
-    base = polybeast_argv(savedir, xpid)
+    base = polybeast_argv(savedir, xpid) + ["--superstep_k", str(k)]
+    dispatches = 3 if k == 1 else 2
     parse = polybeast.make_parser().parse_args
     lines = _Lines()
     logging.getLogger("torchbeast_tpu_torch").addHandler(lines)
@@ -839,8 +876,12 @@ def run_polybeast(ops, savedir):
     by_path = {}
     try:
         runs = []
-        for label, steps in ((POLY_LABEL, 3 * T * B),
-                             (POLY_LABEL + " resume", 4 * T * B)):
+        reg = telemetry.get_registry()
+        before = {name: dict(reg.histogram(name).merged().buckets)
+                  for name in P50_SERIES}
+        for label, steps in ((label, dispatches * k * T * B),
+                             (label + " resume",
+                              (dispatches + 1) * k * T * B)):
             lines.lines.clear()
             ops.reset_launch_counts()
             t0 = time.time()
@@ -854,9 +895,9 @@ def run_polybeast(ops, savedir):
             check(updates >= 1, f"{label}: no update ran")
             for name, per_update in (("vtrace_targets", 1),
                                      ("rmsprop_tail", 1), ("pool_bwd", 3)):
-                check(counts[name] >= per_update * updates,
+                check(counts[name] >= per_update * updates * k,
                       f"{label}: {counts[name]} {name} launches in "
-                      f"{updates} updates")
+                      f"{updates} dispatches of {k}")
             vector = ops.pool_bwd.vector_launches
             check(vector == counts["pool_bwd"], f"{label}: {vector} of "
                   f"{counts['pool_bwd']} pool_bwd launches took the 16-byte "
@@ -870,7 +911,7 @@ def run_polybeast(ops, savedir):
             ckpt = os.path.join(savedir, xpid, "model.ckpt")
             check(os.path.exists(ckpt), f"{label}: no {ckpt}")
             print(f"{label} 84x84x4 T={T} B={B}, 16 env servers: "
-                  f"{updates} updates to step {stats['step']} in "
+                  f"{updates} dispatches of {k} to step {stats['step']} in "
                   f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
                   "interval on the shared stream "
                   f"{stats['update_interval_ms_median']:.2f} ms; mean "
@@ -879,20 +920,20 @@ def run_polybeast(ops, savedir):
                   f"{ {k: round(v / updates, 2) for k, v in counts.items()} }"
                   f"; total_loss {stats['total_loss']:.4f}")
             if not runs:
-                # The first polybeast run of the process: the registry's
-                # series hold this run only.
-                reg = telemetry.get_registry()
-                p50 = {name: 1000 * reg.histogram(name).percentile(0.5)
-                       for name in ("inference.dispatch_s",
-                                    "inference.reply_s",
-                                    "actor.request_rtt_s")}
+                # This run's own samples: the registry's series are the
+                # process's.
+                p50 = {name: 1000 * percentiles_from_buckets({
+                    i: n - before[name].get(i, 0) for i, n in
+                    reg.histogram(name).merged().buckets.items()}, [0.5])[0]
+                    for name in P50_SERIES}
                 print(f"{label}: SPS from the second batch to the last "
                       f"{_steady_sps(os.path.join(savedir, xpid, 'logs.csv'))}"
                       f"; medians: one acting forward's host time "
                       f"{p50['inference.dispatch_s']:.2f} ms, its reply's "
                       f"copy {p50['inference.reply_s']:.2f} ms, an actor's "
                       f"request round trip {p50['actor.request_rtt_s']:.2f}"
-                      " ms")
+                      f" ms, the learner's wait for a batch "
+                      f"{p50['learner.dequeue']:.2f} ms")
             runs.append((stats, lines.lines[:]))
         (first, _), (second, logged) = runs
         resumed = [m for m in logged if m.startswith(
@@ -900,7 +941,8 @@ def run_polybeast(ops, savedir):
         check(resumed, "the second run did not resume")
         check(f"'step': {first['step']}" in resumed[0],
               f"the second run resumed from {resumed[0][:200]}")
-        check(first["step"] >= 3 * T * B and second["step"] > first["step"],
+        check(first["step"] >= dispatches * k * T * B
+              and second["step"] > first["step"],
               f"steps {first['step']} then {second['step']}")
         returns = polybeast.main(parse(base + ["--mode", "test",
                                                "--num_test_episodes", "1"]))
@@ -977,6 +1019,193 @@ def check_checkpoint_round_trip(dev):
     print("msgpack importable on this machine: "
           f"{importlib.util.find_spec('msgpack') is not None} (the port "
           "does not use it)")
+
+
+# ----------------------------------------------------------------- graphs
+
+# Device kernel name marks of the port's kernels, by wrapper.
+KERNEL_MARKS = {"vtrace_targets": "vtrace_targets_kernel",
+                "rmsprop_tail": "rmsprop_tail_kernel",
+                "pool_bwd": "pool_bwd_kernel",
+                "transformer_attention": "attention_fwd_kernel",
+                "transformer_attention_bwd": "attention_bwd_kernel"}
+
+
+def profile_call(fn):
+    """(the host's CUDA API calls of one fn() by name, without the
+    synchronize that ends the window; the device kernels it ran by
+    wrapper), by torch.profiler. The first window after start-up can
+    miss events, so the second of two windows counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchbeast_tpu_torch.profile_update import api_calls
+
+    for _window in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "chip_smoke", "call_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    calls = {k: v for k, v in api_calls(events).items()
+             if "ynchronize" not in k}
+    names = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    kernels = {w: sum(mark in n for n in names)
+               for w, mark in KERNEL_MARKS.items()}
+    return calls, kernels
+
+
+def check_graph_update(dev, label, model_name, policy, k):
+    """Two dispatches of the learner's CUDA graph (learner.
+    make_update_dispatch: K updates a replay) against 2K eager updates
+    (update_body) of a copy from the same state, on the same batches,
+    with the LR decay and the entropy anneal moving every update: TF32
+    off and cuDNN deterministic, params, nu, the master and every stat
+    must be bitwise equal, and the device count must read 2K. One
+    replay, profiled: the host's API calls and the port kernels it ran,
+    K times the eager update's."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import nest, precision
+
+    pol = precision.get(policy)
+    model_g, _ = _param_tree(dev, model_name, policy)
+    model_e = copy.deepcopy(model_g)
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas",
+                             param_dtype=pol.param_dtype,
+                             opt_state_dtype=pol.opt_state_dtype,
+                             total_steps=20 * T * B,
+                             entropy_cost_final=1e-4)
+    opt_g = learner_lib.make_optimizer(hp, list(model_g.parameters()))
+    opt_e = learner_lib.make_optimizer(hp, list(model_e.parameters()))
+    state = (model_g.initial_state(B, dev) if model_name == "deep"
+             else random_cache(model_g, 0, dev))
+    state = precision.cast_batch(state, pol.batch_dtype)
+    batches = [precision.cast_batch(random_batch(i, dev), pol.batch_dtype)
+               for i in range(2 * k)]
+    eager = learner_lib.update_body(model_e, opt_e, hp)
+    want = [eager(b, state) for b in batches]
+    dispatch = learner_lib.make_update_dispatch(model_g, opt_g, hp, k)
+
+    def inputs(d):
+        group = batches[d * k:(d + 1) * k]
+        if k == 1:
+            return group[0], state
+        return ({key: torch.stack([b[key] for b in group])
+                 for key in group[0]},
+                nest.map(lambda s: torch.stack([s] * k), state))
+
+    got = [dispatch(*inputs(d)) for d in range(2)]
+    torch.cuda.synchronize()
+    check(opt_g.state.count == 2 * k and int(opt_g.device_count) == 2 * k,
+          f"{label} K={k}: counts {opt_g.state.count} (host), "
+          f"{int(opt_g.device_count)} (device)")
+    st_g, st_e = opt_g.state, opt_e.state
+    pairs = [*zip(model_g.parameters(), model_e.parameters()),
+             *zip(st_g.nu, st_e.nu),
+             *zip(st_g.master or [], st_e.master or [])]
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    stats_differ = [
+        key for key in want[0]
+        if not torch.equal(torch.stack([g[key].reshape(-1) for g in got])
+                           .reshape(-1),
+                           torch.stack([w[key].float() for w in want]))]
+    check(differ == 0 and not stats_differ,
+          f"{label} K={k}: {differ} of {len(pairs)} tensors and stats "
+          f"{stats_differ} differ between the graph and the eager updates")
+    eager_calls, eager_kernels = profile_call(lambda: eager(batches[0], state))
+    calls, kernels = profile_call(lambda: dispatch(*inputs(0)))
+    for w, n in eager_kernels.items():
+        check(kernels[w] == k * n,
+              f"{label} K={k}: one replay ran {kernels[w]} {w} kernels, "
+              f"one eager update {n}")
+    check(calls.get("cudaGraphLaunch", 0) == 1,
+          f"{label} K={k}: {calls.get('cudaGraphLaunch', 0)} graph launches "
+          "in one dispatch")
+    print(f"graph update {label} K={k}: 2 dispatches bitwise equal to "
+          f"{2 * k} eager updates ({len(pairs)} tensors, {len(want[0])} "
+          f"stats; TF32 off, cuDNN deterministic); one dispatch: "
+          f"{sum(calls.values())} host API calls {calls}, against "
+          f"{sum(eager_calls.values())} for one eager update; port kernels "
+          f"per replay { {w: n for w, n in kernels.items() if n} }")
+
+
+def check_graph_acting(dev):
+    """Acting graphs against eager forwards from the same generator
+    state, bitwise: monobeast's step (learner.make_act_step) at B=32 for
+    five chained steps (actions, logits, baseline and the LSTM state),
+    and polybeast's state-table step at each bucket of
+    --max_inference_batch_size 32 (the captured table against an eager
+    twin on the same weights; the outputs, then every slot's state)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.runtime.inference import (
+        default_buckets, pad_advance, pad_slots)
+    from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+
+    model, _ = _param_tree(dev, "deep", "f32")
+    gens = [torch.Generator(device=dev).manual_seed(5) for _ in range(2)]
+    act = learner_lib.make_act_step(model, dev, gens[0])
+    host = {k: v[0].cpu().numpy() for k, v in random_batch(1, dev).items()}
+    s_g = s_e = model.initial_state(B, dev)
+    for i in range(5):
+        out_g, s_g = act(host, s_g)
+        with torch.no_grad():
+            out_e, s_e = learner_lib.act_body(
+                model, {k: torch.as_tensor(host[k]).to(dev)
+                        for k in learner_lib.MODEL_INPUT_KEYS}, s_e, gens[1])
+        same = [torch.equal(a, b) for a, b in (*zip(out_g, out_e),
+                                               *zip(s_g, s_e))]
+        check(all(same), f"monobeast acting graph step {i}: {same} "
+              "(action, logits, baseline, h, c) equal to the eager step")
+    calls, _ = profile_call(lambda: act(host, s_g)[0].action.cpu())
+    print(f"graph acting monobeast deep+LSTM B={B}: 5 chained steps bitwise "
+          f"equal to eager (actions, logits, baseline, state); one step "
+          f"{sum(calls.values())} host API calls {calls}")
+
+    slots, buckets = 40, default_buckets(32)
+    gens = [torch.Generator(device=dev).manual_seed(6) for _ in range(2)]
+    tables = []
+    for gen in gens:
+        def act_fn(ctx, env, state, gen=gen):
+            out, new_state = learner_lib.act_body(
+                model, {k: env[k][0] for k in learner_lib.MODEL_INPUT_KEYS},
+                state, gen)
+            return {"action": out.action[None].to(torch.int32),
+                    "policy_logits": out.policy_logits[None],
+                    "baseline": out.baseline[None]}, new_state
+        tables.append(DeviceStateTable(model.initial_state(1, dev), slots,
+                                       act_fn, batch_dim=1))
+    captured, eager_table = tables
+    rng = np.random.default_rng(2)
+
+    def env(n):
+        return {"frame": rng.integers(0, 256, (1, n, 84, 84, 4), np.uint8),
+                "reward": rng.standard_normal((1, n)).astype(np.float32),
+                "done": rng.random((1, n)) < 0.1,
+                "last_action": rng.integers(0, NUM_ACTIONS, (1, n)).astype(
+                    np.int32)}
+
+    captured.capture(buckets, env, gens[0])
+    for b in buckets:
+        n = max(1, b - 1) if b > 2 else b  # padded rows at most buckets
+        ids = pad_slots(rng.choice(slots, n, replace=False), b,
+                        captured.trash_slot)
+        advance = pad_advance(rng.random(n) < 0.8, b)
+        e = {k: np.concatenate([v, np.repeat(v[:, -1:], b - n, 1)], 1)
+             for k, v in env(n).items()}
+        got = captured.fetch(captured.step(ids, advance, e), n)
+        want = eager_table.fetch(eager_table.step(ids, advance, e), n)
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              f"polybeast acting graph at bucket {b}: outputs differ")
+    for slot in range(slots):
+        check(all(np.array_equal(a, c) for a, c in zip(
+            captured.read_slot(slot), eager_table.read_slot(slot))),
+            f"polybeast acting graph: slot {slot}'s state differs")
+    print(f"graph acting polybeast state table deep+LSTM: buckets {buckets} "
+          f"bitwise equal to the eager table (actions, logits, baseline; "
+          f"all {slots} slots' states)")
 
 
 # ----------------------------------------------------------------- parity
@@ -1131,11 +1360,28 @@ def main(argv):
     if kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
+    # Graph against eager, bitwise: the learner's dispatch at K=1 and K=4,
+    # the acting steps of both drivers.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for k in (1, 4):
+        for label, model_name, policy in (
+                ("deep+LSTM", "deep", "f32"),
+                ("deep+LSTM bf16_train", "deep", "bf16_train"),
+                ("transformer", "transformer", "f32")):
+            check_graph_update(dev, label, model_name, policy, k)
+            torch.cuda.empty_cache()
+    check_graph_acting(dev)
+    torch.backends.cudnn.deterministic = False
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
+
     savedir = os.path.join(ROOT, "build", "chip_smoke")
     by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
     by_path.update(run_polybeast(ops, savedir))
+    by_path.update(run_polybeast(ops, savedir, k=2))
     check_checkpoint_round_trip(dev)
     for k in kernels:
         # A bf16 row counts its variant's launches; an f32 row the rest.

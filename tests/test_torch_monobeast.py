@@ -89,8 +89,6 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--loss", "impact"], "IMPACT"),
     (["--device_split", "auto"], "serving"),
     (["--num_learner_devices", "2"], "data parallel"),
-    (["--overlap_collect"], "overlap"),
-    (["--superstep_k", "2"], "overlap"),
     (["--remat", "all"], "stage remat"),
     (["--telemetry_port", "9100"], "telemetry"),
     (["--trace_path", "t.json"], "telemetry"),

@@ -168,8 +168,9 @@ def test_momentum_matches_torch_rmsprop():
     names, params, grads = _tree()
     ours = _to_port(names, params)
     theirs = [p.clone().requires_grad_(True) for p in ours]
-    tail = port_opt.FusedRMSpropTail(ours, lambda count: LR, decay=DECAY,
-                                     eps=EPS, momentum=0.9)
+    tail = port_opt.FusedRMSpropTail(
+        ours, port_opt.linear_schedule(LR, LR, HORIZON), decay=DECAY,
+        eps=EPS, momentum=0.9)
     rms = torch.optim.RMSprop(theirs, lr=LR, alpha=DECAY, eps=EPS,
                               momentum=0.9)
     for g in grads:
@@ -190,7 +191,8 @@ def test_step_returns_squared_global_norm(port_impl):
     names, params, grads = _tree()
     cls = (port_opt.FusedRMSpropTail if port_impl == "pallas"
            else port_learner.RMSpropChain)
-    opt = cls(_to_port(names, params), lambda count: LR, decay=DECAY,
+    opt = cls(_to_port(names, params),
+              port_opt.linear_schedule(LR, LR, HORIZON), decay=DECAY,
               eps=EPS, max_norm=40.0)
     g = _to_port(names, grads[0])
     want = sum(float(np.square(t.numpy().astype(np.float64)).sum())
@@ -229,8 +231,8 @@ def test_cpu_tail_launches_no_kernel_and_checks_inputs():
     # bf16-resident params build with an f32 master beside them, and the
     # tail refuses bf16 params without one.
     pb = [t.to(torch.bfloat16) for t in p]
-    tail = port_opt.FusedRMSpropTail(pb, lambda c: 0.1, 0.9, 0.01,
-                                     param_dtype="bf16", state_dtype="bf16")
+    tail = port_opt.FusedRMSpropTail(pb, port_opt.linear_schedule(
+        0.1, 0.1, 1), 0.9, 0.01, param_dtype="bf16", state_dtype="bf16")
     assert [m.dtype for m in tail.state.master] == [torch.float32] * 2
     assert all(torch.equal(m, q.float())
                for m, q in zip(tail.state.master, pb))

@@ -20,6 +20,10 @@
 //             upd  = momentum * mom + upd;  mom = upd   (momentum > 0)
 //             w    = w - lr * upd
 //
+// The learning rate is read from device memory (`lr`, one f32 the learner
+// computes from its device-resident update count), not passed by value, so
+// a launch captured in a CUDA graph applies each replay's own rate.
+//
 // Storage types, as in the reference's --precision policies: the params
 // (and so their gradients) are f32 or bf16, nu f32 or bf16 (bf16 when the
 // params are), mom always f32. With f32 params, w is the param itself.
@@ -97,7 +101,8 @@ struct LeafTable : MasterColumn<PT> {
 };
 
 struct Hyper {
-  float lr, alpha, one_minus_alpha, eps, momentum, max_norm;
+  const float* lr;  // device memory: this update's learning rate
+  float alpha, one_minus_alpha, eps, momentum, max_norm;
   int clip, has_mom;
 };
 
@@ -127,7 +132,8 @@ __device__ inline double block_total(double v, double* warp_totals) {
 
 // The update of one element, in the plain version's order.
 __device__ inline void update_one(float g, float& nu, float& w, float& mom,
-                                  float scale, bool rescale, const Hyper& h) {
+                                  float scale, bool rescale, float lr,
+                                  const Hyper& h) {
   if (rescale) g = __fmul_rn(g, scale);
   nu = __fadd_rn(__fmul_rn(h.alpha, nu),
                  __fmul_rn(__fmul_rn(h.one_minus_alpha, g), g));
@@ -136,7 +142,7 @@ __device__ inline void update_one(float g, float& nu, float& w, float& mom,
     upd = __fadd_rn(__fmul_rn(h.momentum, mom), upd);
     mom = upd;
   }
-  w = __fsub_rn(w, __fmul_rn(h.lr, upd));
+  w = __fsub_rn(w, __fmul_rn(lr, upd));
 }
 
 // Visit this thread's units: f(leaf, first element, elements in the unit
@@ -201,6 +207,7 @@ __global__ void __launch_bounds__(kTailThreads, kTailBlocksPerSm)
   }
 
   // Pass 2: the update.
+  const float lr = __ldg(h.lr);
   for_each_unit(t, [&](int leaf, long long e, int n, bool vec) {
     const PT* g = t.grad[leaf] + e;
     NT* nu = t.nu[leaf] + e;
@@ -217,10 +224,10 @@ __global__ void __launch_bounds__(kTailThreads, kTailBlocksPerSm)
       // Four calls, not a loop over k: nvcc unswitches such a loop on
       // `rescale` and then computes the four square roots one after the
       // other (1.5% slower on an H100).
-      update_one(gv[0], nv[0], wv[0], mv[0], scale, rescale, h);
-      update_one(gv[1], nv[1], wv[1], mv[1], scale, rescale, h);
-      update_one(gv[2], nv[2], wv[2], mv[2], scale, rescale, h);
-      update_one(gv[3], nv[3], wv[3], mv[3], scale, rescale, h);
+      update_one(gv[0], nv[0], wv[0], mv[0], scale, rescale, lr, h);
+      update_one(gv[1], nv[1], wv[1], mv[1], scale, rescale, lr, h);
+      update_one(gv[2], nv[2], wv[2], mv[2], scale, rescale, lr, h);
+      update_one(gv[3], nv[3], wv[3], mv[3], scale, rescale, lr, h);
       tbt::store4(nu, nv);
       tbt::store4(p, wv);
       if constexpr (kMaster) tbt::store4(mst, wv);
@@ -230,7 +237,8 @@ __global__ void __launch_bounds__(kTailThreads, kTailBlocksPerSm)
         float nk = tbt::to_float(nu[k]);
         float wk = kMaster ? mst[k] : tbt::to_float(p[k]);
         float mk = mom ? mom[k] : 0.f;
-        update_one(tbt::to_float(g[k]), nk, wk, mk, scale, rescale, h);
+        update_one(tbt::to_float(g[k]), nk, wk, mk, scale, rescale, lr,
+                   h);
         nu[k] = tbt::from_float<NT>(nk);
         p[k] = tbt::from_float<PT>(wk);
         if (kMaster) mst[k] = wk;
@@ -285,6 +293,8 @@ int launch(void* const* params, void* const* grads, void* const* nus,
   const long long need = (t.unit0[n_leaves] + kTailThreads - 1) / kTailThreads;
   if (blocks > need) blocks = need > 0 ? need : 1;
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // Stream capture records this launch as a cooperative kernel node (CUDA
+  // 12.8), so the learner's CUDA graph replays it as it is.
   void* args[] = {&t, &partials, &sumsq, const_cast<Hyper*>(&h)};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
@@ -307,7 +317,7 @@ TBT_API int tbt_rmsprop_tail(void* const* params, void* const* grads,
                              void* const* nus, void* const* moms,
                              void* const* masters, const long long* numels,
                              int n_leaves, double* partials, int n_partials,
-                             float* sumsq, float lr, float alpha,
+                             float* sumsq, const float* lr, float alpha,
                              float one_minus_alpha, float eps,
                              float momentum, float max_norm, int clip,
                              int has_mom, int param_bf16, int nu_bf16,

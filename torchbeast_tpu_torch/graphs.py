@@ -1,0 +1,234 @@
+"""CUDA graphs: how the port dispatches its learner updates and acting
+forwards on the card.
+
+The reference runs every update, every K-update superstep and every
+acting step as one jitted XLA dispatch. The port's counterpart is one
+captured `torch.cuda.CUDAGraph` per dispatch shape: its inputs are static
+device buffers that each call fills (from pinned host memory or the
+device), then one replay launches every kernel of the step, the port's
+hand kernels included. On the CPU nothing here runs: the same step
+functions run eagerly.
+
+Capture rules, kept by both classes:
+
+- Warm-up first: a few eager runs on a side stream before the capture
+  (cuBLAS and cuDNN set themselves up, every kernel is built). What they
+  change is undone: a warm-up update applies updates, so CapturedUpdate
+  restores the optimizer's state; a warm-up acting step draws from the
+  generator, whose state CapturedAct puts back (and callers pass acting
+  inputs that make a warm-up step harmless: trash slots, a state the
+  first call overwrites).
+- A capture launches nothing, but the port's launch counters
+  (`ops.launch_counts()`) tick in the wrappers' Python, which runs only
+  at capture. Each graph records what its capture counted, puts the
+  counters back, and adds that much per replay, so the counters still
+  count launches on the card.
+- Outputs of a replay live in the graph's static memory, which the next
+  replay overwrites: each call returns clones, made on the stream right
+  after the replay.
+- A capture in a process whose other threads launch CUDA work fails, so
+  the drivers capture before their threads start. A failed capture or
+  replay raises; nothing falls back to the eager step on the card.
+"""
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from torchbeast_tpu_torch import nest
+from torchbeast_tpu_torch import ops
+
+WARMUP_RUNS = 2  # eager runs on a side stream before each capture
+
+
+class _LaunchDelta:
+    """The port's kernel launches one capture counted, re-added on each
+    replay."""
+
+    def __init__(self):
+        self._before = ops.read_launch_counters()
+        self.amounts = []
+
+    def captured(self):
+        after = ops.read_launch_counters()
+        self.amounts = [
+            (wrapper, name, a - b) for (wrapper, name), a, b in
+            zip(ops.launch_counters(), after, self._before) if a != b
+        ]
+        # The capture itself launched nothing.
+        ops.add_counts([(w, name, -n) for w, name, n in self.amounts])
+
+    def replayed(self):
+        ops.add_counts(self.amounts)
+
+    def per_replay(self) -> dict:
+        """{wrapper name: launches} of the plain launch counters."""
+        return {w.__name__: n for w, name, n in self.amounts
+                if name == "launches"}
+
+
+def _warm_up(fn: Callable[[], Any], runs: int) -> None:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(runs):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def _capture(fn: Callable[[], Any], generator=None):
+    """(graph, static outputs of fn, its launch delta). Each graph is
+    captured on a stream of its own: cuBLAS keeps one workspace per
+    stream, and a graph bakes in the workspace of the stream it was
+    captured on, so two graphs captured on one stream would share it and
+    could not replay concurrently (the learner's and the acting graph do,
+    under --overlap_collect)."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    delta = _LaunchDelta()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        out = fn()
+    delta.captured()
+    return graph, out, delta
+
+
+def _fill(static, value, name: str, pinned=None) -> None:
+    """Copy one input leaf into its static device buffer. Host leaves go
+    through pinned memory (`pinned`, or a fresh pinned copy the caching
+    host allocator keeps until the copy has run), so the copy does not
+    wait for the stream's earlier work."""
+    if value is static:
+        return
+    if isinstance(value, np.ndarray) or np.isscalar(value):
+        value = torch.from_numpy(np.asarray(value))
+    if tuple(value.shape) != tuple(static.shape):
+        raise ValueError(
+            f"{name}: input of shape {tuple(value.shape)} for a graph "
+            f"captured at {tuple(static.shape)}")
+    if value.dtype != static.dtype:
+        raise ValueError(
+            f"{name}: input of dtype {value.dtype} for a graph captured "
+            f"with {static.dtype}")
+    if value.device.type == "cpu":
+        if pinned is not None:
+            pinned.copy_(value)
+            value = pinned
+        elif not value.is_pinned():
+            value = value.pin_memory()
+    static.copy_(value, non_blocking=True)
+
+
+class CapturedUpdate:
+    """A learner dispatch as one CUDA graph: `step(batch, state)` (the
+    update step, or the K-update superstep over [K, ...] inputs) captured
+    once over static input buffers of the dispatch's shape.
+
+    `capture(batch, state)` takes example inputs (their values feed the
+    warm-up, which `optimizer` and the params then forget); the first call
+    captures from its own inputs when `capture` was not called. Each call
+    copies its inputs into the static buffers and replays; it returns the
+    dispatch's stats, each an f32 tensor (0-d, or [K] for a superstep),
+    copied out of the graph's memory. The optimizer's host count advances
+    by `k` per call, as its device count does inside the graph."""
+
+    def __init__(self, step: Callable, optimizer, k: int = 1):
+        self.k = k
+        self._step = step
+        self._optimizer = optimizer
+        self._graph = None
+        self.launches_per_replay = {}
+
+    def _state_tensors(self):
+        """Everything an update writes: the params (the optimizer holds
+        the model's), its moments and masters, and its device count."""
+        st = self._optimizer.state
+        return (list(self._optimizer.params)
+                + nest.flatten((st.nu, st.mom, st.master))
+                + [self._optimizer.device_count])
+
+    def capture(self, batch, initial_agent_state) -> None:
+        device = self._optimizer.device_count.device
+        put = lambda x: torch.as_tensor(x).to(device).clone()  # noqa: E731
+        self._batch = nest.map(put, batch)
+        self._state = nest.map(put, initial_agent_state)
+        self._keys = None
+
+        def packed():
+            stats = self._step(self._batch, self._state)
+            self._keys = list(stats)
+            return torch.stack([stats[key].float() for key in self._keys],
+                               -1)
+
+        tensors = self._state_tensors()
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in tensors]
+        count = self._optimizer.state.count
+        _warm_up(packed, WARMUP_RUNS)
+        self._graph, self._packed, self._delta = _capture(packed)
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        self._optimizer.set_count(count)
+        self.launches_per_replay = self._delta.per_replay()
+
+    def __call__(self, batch, initial_agent_state):
+        if self._graph is None:
+            self.capture(batch, initial_agent_state)
+        for what, static, value in (("batch", self._batch, batch),
+                                    ("initial_agent_state", self._state,
+                                     initial_agent_state)):
+            leaves = nest.flatten(static)
+            values = nest.flatten(value)
+            if len(values) != len(leaves):
+                raise ValueError(f"{what}: {len(values)} leaves for a graph "
+                                 f"captured with {len(leaves)}")
+            for s, v in zip(leaves, values):
+                _fill(s, v, what)
+        self._graph.replay()
+        row = self._packed.clone()
+        self._optimizer.advance_host_count(self.k)
+        self._delta.replayed()
+        return {key: row[..., j] for j, key in enumerate(self._keys)}
+
+
+class CapturedAct:
+    """An acting step as one CUDA graph: `fn(inputs)` captured over static
+    device buffers shaped like `example` (a nest of tensors or numpy
+    arrays). Each call copies its inputs in (host leaves through pinned
+    buffers of the graph's own, device leaves on the device; a leaf that
+    IS the static buffer is left as it is), replays, and returns clones of
+    fn's outputs. Sampling draws from `generator`, registered with the
+    graph: a replay draws the numbers an eager call would draw from the
+    generator's state, and advances it as far."""
+
+    def __init__(self, fn: Callable[[Any], Any], example, device,
+                 generator: Optional[torch.Generator] = None):
+        device = torch.device(device)
+        self.inputs = nest.map(
+            lambda x: torch.as_tensor(x).to(device).clone(), example)
+        leaves = nest.flatten(self.inputs)
+        self._pinned = [torch.empty_like(t, device="cpu").pin_memory()
+                        for t in leaves]
+        self._copied = None  # event after the last host->device copies
+        rng = generator.get_state() if generator is not None else None
+        run = lambda: fn(self.inputs)  # noqa: E731
+        with torch.no_grad():
+            _warm_up(run, WARMUP_RUNS)
+            self._graph, self._out, self._delta = _capture(run, generator)
+        if generator is not None:
+            generator.set_state(rng)
+
+    def __call__(self, inputs):
+        # The pinned buffers are rewritten only once their last copy ran.
+        if self._copied is not None:
+            self._copied.synchronize()
+        for static, pinned, value in zip(nest.flatten(self.inputs),
+                                         self._pinned, nest.flatten(inputs)):
+            _fill(static, value, "acting input", pinned)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+        self._graph.replay()
+        self._delta.replayed()
+        return nest.map(lambda t: t.clone(), self._out)

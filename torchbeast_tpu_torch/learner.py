@@ -8,12 +8,17 @@ rewards to [-1, 1]; discounts = ~done * gamma; V-trace; pg + baseline_cost
 a global norm of 40; torch-semantics RMSprop (eps outside the sqrt); the
 learning rate decays linearly to zero over the run's updates.
 
-Where the reference builds one jitted XLA program, the port runs eagerly:
-the update step launches the model's forward and backward, the V-trace
+Where the reference builds one jitted XLA program, the port's update step
+is PyTorch code: it launches the model's forward and backward, the V-trace
 kernel (--vtrace_impl pallas) and the optimizer tail (--opt_impl pallas:
 the fused kernel; xla: the torch form of the optax chain), and updates
-the module's parameters in place. It returns its stats as device tensors,
-so the driver reads them one update late without a sync per update.
+the module's parameters in place. The drivers dispatch it through
+make_update_dispatch: on the card as one captured CUDA graph per update or
+per K-update superstep (graphs.py), on the CPU eagerly. The schedules
+(the LR decay and the entropy anneal) read the optimizer's update count
+on the device, so a replay applies its own update's values. The step
+returns its stats as device tensors, so the driver reads them one
+dispatch late without a sync per update.
 """
 
 from typing import Any, Dict, NamedTuple, Optional
@@ -21,8 +26,13 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from torchbeast_tpu_torch import graphs, nest
 from torchbeast_tpu_torch.ops import compute_entropy_loss, vtrace_policy_losses
-from torchbeast_tpu_torch.ops.opt import FusedRMSpropTail, linear_schedule
+from torchbeast_tpu_torch.ops.opt import (
+    FusedRMSpropTail,
+    f32_constants,
+    linear_schedule,
+)
 from torchbeast_tpu_torch.types import AgentOutput
 
 
@@ -116,8 +126,8 @@ class RMSpropChain(FusedRMSpropTail):
             ])
 
     def step(self, grads) -> torch.Tensor:
-        lr = self.schedule(self.state.count)
         st = self.state
+        lr = self.tick()
         with torch.no_grad():
             grads = [g.float() for g in grads]
             sumsq = torch.stack([torch.sum(g * g) for g in grads]).sum()
@@ -150,7 +160,6 @@ class RMSpropChain(FusedRMSpropTail):
                 else:
                     st.master[i].add_(upd)
                     p.copy_(st.master[i])
-        self.state = st._replace(count=st.count + 1)
         return sumsq
 
     def _factored(self, leaf, g):
@@ -225,24 +234,38 @@ def make_optimizer(hp: HParams, params, layouts=None):
                         layouts=layouts, **kw)
 
 
+class EntropySchedule:
+    """The entropy anneal (hp.entropy_cost_final set): the cost moves
+    linearly from hp.entropy_cost to entropy_cost_final over the run's
+    updates, reading the optimizer's update count, the LR schedule's
+    clock, in f32 as the reference does. Called with an optimizer state it
+    returns the cost as a Python float holding an f32; `on_device(count)`
+    computes the same bits from the device count."""
+
+    def __init__(self, hp: HParams):
+        self.total = np.float32(updates_horizon(hp))
+        self.start = np.float32(hp.entropy_cost)
+        self.span = np.float32(hp.entropy_cost_final - hp.entropy_cost)
+        self._consts = {}
+
+    def __call__(self, opt_state) -> float:
+        frac = min(np.float32(opt_state.count) / self.total, np.float32(1.0))
+        return float(self.start + frac * self.span)
+
+    def on_device(self, count: torch.Tensor) -> torch.Tensor:
+        one, total, start, span = f32_constants(
+            self._consts, count.device, 1.0, self.total, self.start,
+            self.span)
+        frac = torch.minimum(count.float() / total, one)
+        return start + frac * span
+
+
 def entropy_schedule(hp: HParams):
-    """optimizer state -> entropy cost for this update (None = the
-    constant hp.entropy_cost). The anneal reads the optimizer's update
-    count, the LR schedule's clock, in f32 as the reference does."""
+    """The entropy anneal of `hp` (an EntropySchedule), or None for the
+    constant hp.entropy_cost."""
     if hp.entropy_cost_final is None:
-        return lambda opt_state: None
-    total_updates = np.float32(updates_horizon(hp))
-
-    def entropy_cost_at(opt_state):
-        frac = min(np.float32(opt_state.count) / total_updates,
-                   np.float32(1.0))
-        return float(
-            np.float32(hp.entropy_cost) + frac * np.float32(
-                hp.entropy_cost_final - hp.entropy_cost
-            )
-        )
-
-    return entropy_cost_at
+        return None
+    return EntropySchedule(hp)
 
 
 def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
@@ -310,7 +333,7 @@ def update_body(model, optimizer, hp: HParams):
     parameters (and its own state) in place. `optimizer` must have been
     built over `list(model.parameters())`.
     """
-    entropy_cost_at = entropy_schedule(hp)
+    anneal = entropy_schedule(hp)
     params = list(model.parameters())
     if len(params) != len(optimizer.params) or any(
         p is not q for p, q in zip(params, optimizer.params)
@@ -318,7 +341,10 @@ def update_body(model, optimizer, hp: HParams):
         raise ValueError("the optimizer must hold model.parameters()")
 
     def update_step(batch, initial_agent_state):
-        ecost = entropy_cost_at(optimizer.state)
+        # The anneal reads the device count (before this update ticks it),
+        # so a captured update computes each replay's own cost.
+        ecost = (None if anneal is None
+                 else anneal.on_device(optimizer.device_count))
         total_loss, stats = compute_loss(
             model, batch, initial_agent_state, hp, entropy_cost=ecost
         )
@@ -329,6 +355,92 @@ def update_body(model, optimizer, hp: HParams):
         return stats
 
     return update_step
+
+
+def superstep_body(model, optimizer, hp: HParams):
+    """The K-update superstep (the port of the reference's
+    superstep_body):
+
+    (batches [K, T+1, B, ...], initial_agent_states [K, ...]) -> stats
+
+    K applications of the exact update_body, in order (the reference's
+    lax.scan becomes a loop), so one dispatch performs K parameter
+    updates; the optimizer's count, the clock of the LR decay and the
+    entropy anneal, ticks once per update, not once per dispatch. Each
+    stat comes back stacked [K]: the host reads them once per K updates.
+    """
+    step = update_body(model, optimizer, hp)
+
+    def superstep(batches, initial_agent_states):
+        per_update = [
+            step(nest.map(lambda v: v[i], batches),
+                 nest.map(lambda s: s[i], initial_agent_states))
+            for i in range(nest.front(batches).shape[0])
+        ]
+        return {key: torch.stack([s[key] for s in per_update])
+                for key in per_update[0]}
+
+    return superstep
+
+
+def make_update_superstep(model, optimizer, hp: HParams, k: int):
+    """The K-update superstep (see superstep_body) over inputs stacked
+    [K, ...]. Each staged stack is read by exactly one dispatch (the
+    reference's donate_batch / consume_staged_inputs rule): the drivers
+    release a stack's host arena slot once that dispatch's stats are on
+    the host."""
+    if k < 1:
+        raise ValueError(f"superstep k must be >= 1, got {k}")
+    body = superstep_body(model, optimizer, hp)
+
+    def superstep(batches, initial_agent_states):
+        got = nest.front(batches).shape[0]
+        if got != k:
+            raise ValueError(f"a K={k} superstep got a stack of {got}")
+        return body(batches, initial_agent_states)
+
+    return superstep
+
+
+def make_update_dispatch(model, optimizer, hp: HParams, k: int = 1):
+    """The drivers' learner dispatch: (batch, initial_agent_state) ->
+    stats of `k` updates. k=1 takes [T+1, B, ...] inputs (update_body),
+    k>1 [K, T+1, B, ...] inputs with [K] stats (make_update_superstep).
+    On a CUDA device it is one CUDA graph per dispatch
+    (graphs.CapturedUpdate: captured at the first call, or by its
+    `capture` method from example inputs), with every stat an f32 tensor;
+    on the CPU the eager step."""
+    step = (update_body(model, optimizer, hp) if k == 1
+            else make_update_superstep(model, optimizer, hp, k))
+    if optimizer.device_count.device.type == "cuda":
+        return graphs.CapturedUpdate(step, optimizer, k)
+    return step
+
+
+def stack_superstep_columns(batch, initial_agent_state, k: int,
+                            columns: int, offset: int = 0,
+                            batch_dim: int = 1):
+    """Host-side superstep staging for the sync driver (a copy of the
+    reference's): slice `k` consecutive `columns`-wide groups out of a
+    wide [T+1, B_total, ...] unroll batch (from column `offset`) and stack
+    them into the [K, T+1, columns, ...] superstep layout (states [K, ...]
+    likewise). numpy leaves become fresh numpy stacks, tensor leaves fresh
+    tensors on their device: the staged stack aliases nothing the
+    collector still owns."""
+
+    def stack(v):
+        head = (slice(None),) * batch_dim
+        parts = [v[head + (slice(offset + j * columns,
+                                 offset + (j + 1) * columns),)]
+                 for j in range(k)]
+        if torch.is_tensor(v):
+            return torch.stack(parts)
+        return np.stack([np.asarray(p) for p in parts])
+
+    return (
+        {key: stack(v) for key, v in batch.items()},
+        nest.map(stack, initial_agent_state),
+    )
 
 
 def act_body(model, env_output, agent_state, generator=None,
@@ -344,19 +456,49 @@ def act_body(model, env_output, agent_state, generator=None,
 MODEL_INPUT_KEYS = ("frame", "reward", "done", "last_action")
 
 
-def make_act_step(model, device):
-    """(generator, env_output {key: [B, ...] numpy}, agent_state) ->
+def make_act_step(model, device, generator=None):
+    """(env_output {key: [B, ...] numpy}, agent_state) ->
     (AgentOutput [B, ...] on `device`, new agent state on `device`).
     Sampled actions draw from `generator` (a torch.Generator on
-    `device`)."""
+    `device`).
+
+    On a CUDA device the step is one CUDA graph (graphs.CapturedAct),
+    captured at the first call for that call's B. The new state it
+    returns is the graph's static state buffer, which the next call
+    overwrites in place: a caller that keeps a state across calls clones
+    it, and passing the returned state back skips its copy. On the CPU
+    the step runs eagerly."""
+    device = torch.device(device)
 
     @torch.no_grad()
-    def act_step(generator, env_output, agent_state):
+    def eager(env_output, agent_state):
         inputs = {
             k: torch.as_tensor(env_output[k]).to(device, non_blocking=True)
             for k in MODEL_INPUT_KEYS
         }
         return act_body(model, inputs, agent_state, generator)
+
+    if device.type != "cuda":
+        return eager
+
+    captured = []
+
+    def graph_step(static):
+        out, new_state = act_body(model, static["env"], static["state"],
+                                  generator)
+        for dst, src in zip(nest.flatten(static["state"]),
+                            nest.flatten(new_state)):
+            dst.copy_(src)
+        return out
+
+    def act_step(env_output, agent_state):
+        inputs = {"env": {k: env_output[k] for k in MODEL_INPUT_KEYS},
+                  "state": agent_state}
+        if not captured:
+            captured.append(graphs.CapturedAct(graph_step, inputs, device,
+                                               generator))
+        graph = captured[0]
+        return graph(inputs), graph.inputs["state"]
 
     return act_step
 

@@ -29,6 +29,8 @@ Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
 """
 
 import argparse
+import contextlib
+import copy
 import functools
 import logging
 import os
@@ -166,7 +168,11 @@ def make_parser():
                              "the reference's optax chain; 'pallas' the "
                              "fused CUDA kernel csrc/rmsprop_tail.cu.")
     parser.add_argument("--overlap_collect", action="store_true",
-                        help="Lag-1 acting behind the learner " + _LATER)
+                        help="Act on params that are one dispatched "
+                             "unroll-batch behind the learner head, so the "
+                             "update chain (on its own CUDA stream) hides "
+                             "behind env stepping. Default off = zero "
+                             "policy lag.")
     parser.add_argument("--pipelined_collect", dest="pipelined_collect",
                         action="store_true", default=True,
                         help="Lag-1 pipelined rollout collection "
@@ -176,7 +182,9 @@ def make_parser():
                         action="store_false",
                         help="Synchronous collection.")
     parser.add_argument("--superstep_k", type=int, default=1,
-                        help="K updates per dispatch; > 1 " + _LATER)
+                        help="K learner updates per dispatch (one CUDA "
+                             "graph); must divide num_actors / "
+                             "batch_size.")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--env_seed", type=int, default=None,
                         help="Base seed for stochastic envs; env i draws "
@@ -255,8 +263,6 @@ NOT_IN_PORT = {
     "transformer_remat": "stage remat",
     "remat": "stage remat",
     "hbm_budget_gb": "stage remat",
-    "overlap_collect": "overlap and supersteps",
-    "superstep_k": "overlap and supersteps",
     "loss": "IMPACT",
     "impact_clip": "IMPACT",
     "replay_reuse": "IMPACT",
@@ -394,12 +400,34 @@ def build_model(flags, num_actions, frame_shape, device):
 
 def to_device(batch, device, batch_dtype=None):
     """numpy [T+1, B, ...] batch -> tensors on `device`, float32 leaves
-    cast to `batch_dtype` on the host first (precision.cast_batch)."""
-    host = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-    return {
-        k: v.to(device, non_blocking=True)
-        for k, v in precision.cast_batch(host, batch_dtype).items()
-    }
+    cast to `batch_dtype` on the host first (precision.cast_batch). On the
+    card each leaf goes through pinned memory, so the copy is queued on
+    the current stream without waiting for its earlier work."""
+    host = precision.cast_batch(
+        {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in batch.items()}, batch_dtype)
+    if device.type == "cpu":
+        return host
+    return {k: v.pin_memory().to(device, non_blocking=True)
+            for k, v in host.items()}
+
+
+def check_superstep(flags) -> int:
+    """--superstep_k, checked as the reference checks it: K must divide
+    the learner sub-batches of a collect."""
+    k = getattr(flags, "superstep_k", 1)
+    if k < 1:
+        raise ValueError(f"--superstep_k must be >= 1, got {k}")
+    if (flags.num_actors // flags.batch_size) % k != 0:
+        # Each collect's sub-batches must split into whole supersteps:
+        # a fixed-K dispatch cannot take a partial group, and carrying
+        # sub-batches across collects would change the policy lag.
+        raise ValueError(
+            f"--superstep_k {k} must divide the "
+            f"{flags.num_actors // flags.batch_size} learner sub-batches "
+            "per collect (num_actors / batch_size)"
+        )
+    return k
 
 
 def train(flags):
@@ -407,14 +435,25 @@ def train(flags):
     and checkpointing there every --checkpoint_interval_s and at exit
     (also on KeyboardInterrupt, which SIGTERM becomes under cli()).
     Returns the last flushed stats, plus this run's "sps" and
-    "update_ms_median" (the median time of one update: CUDA events on the
-    card, the host clock on the CPU)."""
+    "update_ms_median" (the median time of one update: CUDA events around
+    each dispatch of inputs already staged on the card, the host clock on
+    the CPU, divided by the dispatch's --superstep_k updates).
+
+    On the card each learner dispatch (one update, or --superstep_k of
+    them) and each acting step replays one captured CUDA graph
+    (learner.make_update_dispatch, learner.make_act_step). With
+    --overlap_collect the updates run on a learner stream and acting
+    reads its own copy of the params, which takes the chain head
+    dispatched before each collect (policy lag 1); without it acting
+    reads the learner's params after each collect's updates (lag 0)."""
     check_flags(flags)
     if flags.num_actors % flags.batch_size != 0:
         raise ValueError(
             "num_actors must be a multiple of batch_size in the sync trainer "
             f"(got {flags.num_actors} vs {flags.batch_size})"
         )
+    K = check_superstep(flags)
+    overlap = bool(getattr(flags, "overlap_collect", False))
     device = select_device(flags)
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
@@ -440,12 +479,21 @@ def train(flags):
         restored = load_train_state(checkpoint_path, model, optimizer)
         step, stats = restored["step"], restored["stats"]
         log.info("Resuming preempted job, current stats:\n%s", stats)
-    update_step = learner_lib.update_body(model, optimizer, hp)
-    act_step = learner_lib.make_act_step(model, device)
+    dispatch = learner_lib.make_update_dispatch(model, optimizer, hp, K)
+    # Lag 0: acting reads the learner's params, updated in place on the
+    # same stream. Lag 1: its own copy, refreshed after each collect.
+    act_model = (copy.deepcopy(model).requires_grad_(False) if overlap
+                 else model)
+    act_params, learn_params = (list(act_model.parameters()),
+                                list(model.parameters()))
+    learner_stream = (torch.cuda.Stream(device)
+                      if overlap and device.type == "cuda" else None)
     generator = torch.Generator(device=device)
     generator.manual_seed(flags.seed + 2)
+    act_step = learner_lib.make_act_step(act_model, device, generator)
     pipelined = getattr(flags, "pipelined_collect", True)
-    log.info("Training on %s", device)
+    log.info("Training on %s (superstep_k %d, overlap_collect %s)", device,
+             K, overlap)
 
     pool = _make_pool(flags, B)
     # The sync trainer has no monitor thread: the watchdog makes a wedged
@@ -454,13 +502,14 @@ def train(flags):
     watchdog = LearnerWatchdog(flags.learner_stall_timeout_s,
                                health=PipelineHealth()).start()
     update_ms = []
-    pending = None  # (timers and device stats of one collect, step)
+    pending = None  # (timers, device stats, step, done event) of a collect
+    head = None  # --overlap_collect: event after the last dispatch
     start_time = time.time()
     start_step = step
     try:
 
         def policy(env_output, agent_state):
-            out, new_state = act_step(generator, env_output, agent_state)
+            out, new_state = act_step(env_output, agent_state)
             # The lag-1 collector copies outputs to the host itself.
             return (out if pipelined else to_host(out)), new_state
 
@@ -472,7 +521,9 @@ def train(flags):
         )
 
         def flush_stats(entry):
-            timers, device_stats, at_step = entry
+            timers, device_stats, at_step, done = entry
+            if done is not None:
+                done.synchronize()
             keys = list(device_stats[0])
             # One device -> host copy for every update of the collect.
             rows = torch.stack([
@@ -480,10 +531,9 @@ def train(flags):
                 for s in device_stats
             ]).cpu().numpy()
             for t in timers:
-                update_ms.append(
+                update_ms.append((
                     t[0].elapsed_time(t[1]) if device.type == "cuda"
-                    else 1000 * (t[1] - t[0])
-                )
+                    else 1000 * (t[1] - t[0])) / K)
             out = learner_lib.episode_stat_postprocess(
                 {k: rows[:, j] for j, k in enumerate(keys)}
             )
@@ -491,39 +541,71 @@ def train(flags):
             plogger.log(out)
             return out
 
+        def adopt_head():
+            """--overlap_collect: acting takes the chain head dispatched
+            before the collect that just ended; it had that whole collect
+            to finish, so acting does not wait on it, and the updates
+            dispatched next hide behind the next collect the same way."""
+            if head is not None:
+                torch.cuda.current_stream(device).wait_event(head)
+            with torch.no_grad():
+                torch._foreach_copy_(act_params, learn_params)
+
+        def dispatch_timed(sub, sub_state):
+            if device.type != "cuda":
+                t0 = time.perf_counter()
+                out = dispatch(sub, sub_state)
+                return out, (t0, time.perf_counter())
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = dispatch(sub, sub_state)
+            t1.record()
+            return out, (t0, t1)
+
         start_time = last_log_time = last_checkpoint_time = time.time()
         last_log_step = step
         while step < flags.total_steps:
             batch, initial_agent_state = collector.collect()
+            if overlap:
+                adopt_head()
             device_stats, timers = [], []
-            for i in range(0, B, flags.batch_size):
-                sub = to_device(
-                    {k: v[:, i : i + flags.batch_size]
-                     for k, v in batch.items()},
-                    device, batch_dtype,
-                )
-                # Batch is axis 1 of every state leaf (the transformer's
-                # state nests a (k, v, valid) tuple per layer).
-                sub_state = precision.cast_batch(nest.map(
-                    lambda s: s[:, i : i + flags.batch_size],
-                    initial_agent_state,
-                ), batch_dtype)
+            with _on_stream(learner_stream, initial_agent_state):
+                # Split the [T+1, num_actors] unroll into learner batches
+                # of batch_size columns; with supersteps, K consecutive
+                # sub-batches stack into one [K, T+1, batch_size] dispatch,
+                # applied in the order the per-update loop would.
+                group = K * flags.batch_size
+                for i in range(0, B, group):
+                    if K > 1:
+                        sub, sub_state = learner_lib.stack_superstep_columns(
+                            batch, initial_agent_state, K, flags.batch_size,
+                            offset=i)
+                    else:
+                        sub = {k: v[:, i : i + flags.batch_size]
+                               for k, v in batch.items()}
+                        # Batch is axis 1 of every state leaf (the
+                        # transformer's state nests a (k, v, valid) tuple
+                        # per layer).
+                        sub_state = nest.map(
+                            lambda s: s[:, i : i + flags.batch_size],
+                            initial_agent_state)
+                    stats_k, timer = dispatch_timed(
+                        to_device(sub, device, batch_dtype),
+                        precision.cast_batch(sub_state, batch_dtype))
+                    device_stats.append(stats_k)
+                    timers.append(timer)
+                    watchdog.ping()
+                    step += K * T * flags.batch_size
+                done = None
                 if device.type == "cuda":
-                    t0 = torch.cuda.Event(enable_timing=True)
-                    t1 = torch.cuda.Event(enable_timing=True)
-                    t0.record()
-                    device_stats.append(update_step(sub, sub_state))
-                    t1.record()
-                else:
-                    t0 = time.perf_counter()
-                    device_stats.append(update_step(sub, sub_state))
-                    t1 = time.perf_counter()
-                timers.append((t0, t1))
-                watchdog.ping()
-                step += T * flags.batch_size
+                    done = torch.cuda.Event()
+                    done.record()
+                    if overlap:
+                        head = done
             if pending is not None:
                 stats = flush_stats(pending)
-            pending = (timers, device_stats, step)
+            pending = (timers, device_stats, step, done)
 
             now = time.time()
             if now - last_log_time > 5:
@@ -537,6 +619,7 @@ def train(flags):
                     if "mean_episode_return" in stats else "",
                 )
             if now - last_checkpoint_time > flags.checkpoint_interval_s:
+                _synchronize(device)
                 save_train_state(checkpoint_path, model, optimizer,
                                  step=step, flags=vars(flags), stats=stats)
                 last_checkpoint_time = now
@@ -559,6 +642,7 @@ def train(flags):
                 log.exception("Could not flush final stats")
             pending = None
         elapsed = time.time() - start_time
+        _synchronize(device)
         save_train_state(checkpoint_path, model, optimizer, step=step,
                          flags=vars(flags), stats=stats)
         plogger.close(successful=successful)
@@ -569,6 +653,28 @@ def train(flags):
     )
     log.info("Learning finished after %d steps.", step)
     return stats
+
+
+@contextlib.contextmanager
+def _on_stream(stream, inputs):
+    """Run the learner's dispatches on `stream` (None: the current one),
+    after the work already queued on the current stream; `inputs`
+    (tensors made there) stay allocated until `stream` has read them."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    for t in nest.flatten(inputs):
+        t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        yield
+
+
+def _synchronize(device):
+    """Wait for every stream of the card (a checkpoint reads the params
+    and optimizer state the learner stream writes)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _checkpoint_path(flags, xpid):

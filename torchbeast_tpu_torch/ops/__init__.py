@@ -2,7 +2,10 @@
 transformer's attention, each kernel beside its plain PyTorch version
 (counterpart of torchbeast_tpu/ops/)."""
 
-from torchbeast_tpu_torch.ops._route import plain_on_device  # noqa: F401
+from torchbeast_tpu_torch.ops._route import (  # noqa: F401
+    add_counts,
+    plain_on_device,
+)
 from torchbeast_tpu_torch.ops.attention import (  # noqa: F401
     transformer_attention,
     transformer_attention_bwd,
@@ -42,3 +45,15 @@ def launch_counts() -> dict:
 
 def bf16_launch_counts() -> dict:
     return {w.__name__: w.bf16_launches for w in BF16_WRAPPERS}
+
+
+def launch_counters() -> list:
+    """Every launch counter: (wrapper, attribute name) pairs."""
+    return ([(w, "launches") for w in KERNEL_WRAPPERS]
+            + [(w, "bf16_launches") for w in BF16_WRAPPERS]
+            + [(pool_bwd, "vector_launches")])
+
+
+def read_launch_counters() -> list:
+    """The values of launch_counters(), in their order."""
+    return [getattr(w, name) for w, name in launch_counters()]

@@ -45,10 +45,10 @@ SIGNATURES = {
     # vectorized (host int out), stream
     "tbt_pool_bwd": [_P] * 5 + [_I] * 7 + [_P, _P],
     # params, grads, nus, moms, masters (host arrays of device pointers),
-    # numels, n_leaves, partials, n_partials, sumsq, lr, alpha,
-    # one_minus_alpha, eps, momentum, max_norm, clip, has_mom, param_bf16,
-    # nu_bf16, stream
-    "tbt_rmsprop_tail": [_P] * 6 + [_I, _P, _I, _P] + [_F] * 6
+    # numels, n_leaves, partials, n_partials, sumsq, lr (device f32),
+    # alpha, one_minus_alpha, eps, momentum, max_norm, clip, has_mom,
+    # param_bf16, nu_bf16, stream
+    "tbt_rmsprop_tail": [_P] * 6 + [_I, _P, _I, _P, _P] + [_F] * 5
     + [_I] * 4 + [_P],
     # q, k, v, seg, valid, nodone, bias, out, lse, B, T, H, D, M, bf16,
     # bias_bf16, stream

@@ -57,6 +57,15 @@ def count_launch(wrapper, **more) -> None:
             setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
+def add_counts(amounts) -> None:
+    """Add each `n` of `amounts` ((wrapper, attribute name, n) triples) to
+    that counter, under the same lock: a CUDA graph replay launches the
+    kernels that its capture counted once, and adds them per replay."""
+    with _count_lock:
+        for wrapper, name, n in amounts:
+            setattr(wrapper, name, getattr(wrapper, name) + n)
+
+
 def require(cond: bool, name: str, what: str) -> None:
     """Input check of a kernel wrapper."""
     if not cond:

@@ -48,8 +48,9 @@ def rmsprop_tail_plain(params, grads, nus, moms, *, lr, alpha, eps,
                        momentum, max_norm, masters=None):
     """The plain PyTorch version of the kernel, in place, one elementary
     f32 operation at a time in the kernel's order: bf16 values are widened
-    first and narrowed (to nearest even) when written back. Returns the
-    gradients' squared global norm, a 0-d f32 tensor."""
+    first and narrowed (to nearest even) when written back. `lr` is a 0-d
+    f32 tensor, read where the kernel reads it. Returns the gradients'
+    squared global norm, a 0-d f32 tensor."""
     with torch.no_grad():
         sumsq = _sumsq(grads)
         scale = None
@@ -96,7 +97,7 @@ def _num_partials(device) -> int:
     return BLOCKS_PER_SM * _sm_count[device]
 
 
-def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
+def rmsprop_tail(params, grads, nus, moms, *, lr, alpha: float,
                  eps: float, momentum: float = 0.0,
                  max_norm: Optional[float] = None, masters=None):
     """Apply one update in place. `params`, `grads`, `nus` (and `moms`
@@ -104,7 +105,10 @@ def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
     equal-length lists; leaf i of each has one shape and one dense
     layout. Params and grads share one dtype, f32 or bf16; nus are all
     f32 or all bf16 (bf16 when the params are); moms and masters are f32.
-    bf16 params need their f32 masters; f32 params take none. `lr` is this update's learning rate,
+    bf16 params need their f32 masters; f32 params take none. `lr` is this
+    update's learning rate: a 0-d f32 tensor on the params' device, which
+    the kernel reads from device memory (so a captured launch reads each
+    replay's rate), or a number, copied to such a tensor first.
     `max_norm` None for no clipping. Returns the squared global norm of
     `grads` (before clipping), a 0-d f32 tensor on their device."""
     name = "rmsprop_tail"
@@ -129,6 +133,8 @@ def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
     roles += ((moms, torch.float32),) if has_mom else ()
     roles += ((masters, torch.float32),) if bf16_params else ()
     device = params[0].device
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
+    require(lr.dim() == 0, name, "lr must be a scalar")
     for i in range(n):
         for tensors, dtype in roles:
             t = tensors[i]
@@ -171,7 +177,7 @@ def rmsprop_tail(params, grads, nus, moms, *, lr: float, alpha: float,
             ctypes.cast(mst_arr, ctypes.c_void_p),
             ctypes.cast(numels, ctypes.c_void_p),
             n, partials.data_ptr(), n_partials, sumsq.data_ptr(),
-            lr, alpha, 1.0 - alpha, eps, momentum,
+            lr.data_ptr(), alpha, 1.0 - alpha, eps, momentum,
             0.0 if max_norm is None else max_norm,
             int(max_norm is not None), int(has_mom), int(bf16_params),
             int(nu_dtype == torch.bfloat16), stream,
@@ -187,23 +193,58 @@ rmsprop_tail.launches = 0
 rmsprop_tail.bf16_launches = 0  # launches with bf16 params or nu
 
 
-def linear_schedule(init_value: float, end_value: float,
-                    transition_steps: int):
+class LinearSchedule:
     """optax.linear_schedule evaluated in f32 as the reference evaluates
-    it on device: count -> learning rate (a Python float holding an f32)."""
+    it on device. Called with a host count it returns a Python float
+    holding an f32; `on_device(count)` computes the same bits from a 0-d
+    integer tensor with the same f32 operations on the tensor's device, so
+    a CUDA graph that advances the count in place replays each update's
+    own rate."""
 
-    def schedule(count: int) -> float:
-        c = np.float32(min(max(count, 0), transition_steps))
-        frac = np.float32(1) - c / np.float32(transition_steps)
+    def __init__(self, init_value: float, end_value: float,
+                 transition_steps: int):
+        self.init_value, self.end_value = init_value, end_value
+        self.transition_steps = transition_steps
+        self._consts = {}
+
+    def __call__(self, count: int) -> float:
+        c = np.float32(min(max(count, 0), self.transition_steps))
+        frac = np.float32(1) - c / np.float32(self.transition_steps)
         return float(
-            np.float32(init_value - end_value) * frac + np.float32(end_value)
+            np.float32(self.init_value - self.end_value) * frac
+            + np.float32(self.end_value)
         )
 
-    return schedule
+    def on_device(self, count: torch.Tensor) -> torch.Tensor:
+        """The rate at `count` as a 0-d f32 tensor on its device. Every
+        operand is a tensor on that device: a Python number as the
+        divisor would let PyTorch multiply by its reciprocal instead."""
+        one, steps, span, end = f32_constants(
+            self._consts, count.device, 1.0, self.transition_steps,
+            self.init_value - self.end_value, self.end_value)
+        c = count.clamp(0, self.transition_steps).float()
+        return span * (one - c / steps) + end
+
+
+def f32_constants(cache, device, *values):
+    """0-d f32 tensors of `values` on `device`, made once per device."""
+    if device not in cache:
+        cache[device] = tuple(
+            torch.tensor(np.float32(v), device=device) for v in values)
+    return cache[device]
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> LinearSchedule:
+    """count -> learning rate, as optax.linear_schedule (see
+    LinearSchedule)."""
+    return LinearSchedule(init_value, end_value, transition_steps)
 
 
 class FusedTailState(NamedTuple):
-    """`count` is the schedule clock (updates applied so far); `nu` and
+    """`count` is the schedule clock (updates applied so far) as the host
+    keeps it; the optimizer's `device_count` holds the same number on the
+    device, where the update reads it. `nu` and
     `mom` are lists aligned with the parameter list (`mom` None when
     momentum is off). `master` holds the f32 master copy of bf16-resident
     params (--precision bf16_train), None when the params are f32."""
@@ -230,7 +271,15 @@ class FusedRMSpropTail:
     (`decay`, `eps`, nu stored as `state_dtype`), momentum trace,
     `learning_rate(count)` apply. `param_dtype` "bf16": the params are
     bf16-resident (cast before the optimizer is built) and the state
-    holds their f32 master."""
+    holds their f32 master.
+
+    The update count lives twice: `state.count` on the host (checkpoints
+    write it) and `device_count`, a 0-d int64 tensor on the params'
+    device, from which each step computes its rate
+    (`learning_rate.on_device`) and which it advances in place. A step
+    advances both; a captured CUDA graph of steps advances the device
+    count on each replay, and its caller adds the steps to the host count
+    (`advance_host_count`) without reading the device back."""
 
     def __init__(self, params, learning_rate, decay: float, eps: float,
                  momentum: float = 0.0, max_norm: Optional[float] = None,
@@ -265,6 +314,27 @@ class FusedRMSpropTail:
                     if param_dtype == "bf16" else None
                 ),
             )
+            self.device_count = torch.zeros(
+                (), dtype=torch.int64, device=self.params[0].device)
+
+    def set_count(self, count: int) -> None:
+        """Set the schedule clock on the host and the device (resume)."""
+        self.state = self.state._replace(count=int(count))
+        with torch.no_grad():
+            self.device_count.fill_(int(count))
+
+    def advance_host_count(self, n: int) -> None:
+        """Add `n` updates that ran on the device to the host count."""
+        self.state = self.state._replace(count=self.state.count + n)
+
+    def tick(self) -> torch.Tensor:
+        """This update's learning rate from the device count, which then
+        advances by one (on the device and on the host)."""
+        lr = self.schedule.on_device(self.device_count)
+        with torch.no_grad():
+            self.device_count.add_(1)
+        self.advance_host_count(1)
+        return lr
 
     def step(self, grads) -> torch.Tensor:
         """Apply one update to the parameters in place; returns the
@@ -278,11 +348,9 @@ class FusedRMSpropTail:
             else torch.empty_like(p).copy_(g)
             for p, g in zip(self.params, grads)
         ]
-        sumsq = rmsprop_tail(
-            self.params, grads, self.state.nu, self.state.mom,
-            lr=self.schedule(self.state.count), alpha=self.decay,
-            eps=self.eps, momentum=self.momentum, max_norm=self.max_norm,
-            masters=self.state.master,
+        st = self.state
+        return rmsprop_tail(
+            self.params, grads, st.nu, st.mom, lr=self.tick(),
+            alpha=self.decay, eps=self.eps, momentum=self.momentum,
+            max_norm=self.max_norm, masters=st.master,
         )
-        self.state = self.state._replace(count=self.state.count + 1)
-        return sumsq

@@ -7,16 +7,24 @@ a DynamicBatcher, whose inference threads run a bucket-padded acting
 forward on the card through the device-resident state table
 (runtime/state_table.py) for recurrent models; completed rollouts flow
 through a BatchingQueue (backpressure) and a prefetcher that stages them
-on the card into the learner thread, which runs the port's update step
-(learner.update_body) with the hand-written kernels that --vtrace_impl
-pallas, --opt_impl pallas and TBT_POOL_PALLAS=1 select.
+on the card (on a copy stream of its own) into the learner thread, which
+runs the port's update step (learner.make_update_dispatch: one update, or
+--superstep_k of them over a [K, T+1, B] stack that a BatchArena
+assembles) with the hand-written kernels that --vtrace_impl pallas,
+--opt_impl pallas and TBT_POOL_PALLAS=1 select.
+
+On the card every learner dispatch and every acting forward replays one
+captured CUDA graph: the learner's, and one per inference bucket (the
+state table's whole step, or the forward alone without the table), all
+captured before the first thread starts, since a capture fails while
+another thread launches CUDA work.
 
 The port's update changes the learner's parameters in place, so acting
-reads a separate copy of the model: after each update the learner copies
-its parameters into it under the state lock, on the stream of the update
-(the reference rebinds its `infer_params` there). Every acting forward
-runs under the same lock, so no forward sees a half-copied update. All
-threads launch on the device's default stream.
+reads a separate copy of the model: after each dispatch the learner
+copies its parameters into it under the state lock, on the stream of the
+update (the reference rebinds its `infer_params` there). Every acting
+forward runs under the same lock, so no forward sees a half-copied
+update. The learner and acting launch on the device's default stream.
 
 Checkpoints are the reference's own files (utils/checkpoint.py): one
 every --checkpoint_interval_s and one at exit, also on SIGTERM under
@@ -34,6 +42,7 @@ Run:  python -m torchbeast_tpu_torch.polybeast --env Mock --use_lstm \\
 """
 
 import argparse
+import contextlib
 import copy
 import logging
 import os
@@ -45,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from torchbeast_tpu_torch import graphs
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch import nest, polybeast_env, precision, telemetry
 from torchbeast_tpu_torch import monobeast, weights
@@ -62,6 +72,7 @@ from torchbeast_tpu_torch.runtime.inference import (
     to_host,
 )
 from torchbeast_tpu_torch.runtime.queues import (
+    BatchArena,
     BatchingQueue,
     DevicePrefetcher,
     DynamicBatcher,
@@ -229,7 +240,8 @@ def make_parser():
                         help="Reject wire frames longer than this before "
                              "allocating.")
     parser.add_argument("--superstep_k", type=int, default=1,
-                        help="K updates per dispatch; > 1 " + _LATER)
+                        help="K learner updates per dispatch (one CUDA "
+                             "graph) over a [K, T+1, B] arena stack.")
     parser.add_argument("--max_learner_queue_size", type=int, default=None,
                         help="Backpressure bound (default: batch_size).")
     parser.add_argument("--actor_connect_timeout_s", type=float,
@@ -314,7 +326,6 @@ NOT_IN_PORT = {
     "admission_depth_factor": "serving",
     "request_deadline_ms": "serving",
     "replica_refresh_updates": "serving",
-    "superstep_k": "overlap and supersteps",
     "chaos_plan": "resilience",
     "telemetry_port": "telemetry",
     "telemetry_host": "telemetry",
@@ -405,6 +416,9 @@ def train(flags):
     too; the host clock on the CPU), "updates", "inference_batch_mean"
     (rows per acting forward) and the health summary."""
     check_flags(flags)
+    superstep_k = getattr(flags, "superstep_k", 1)
+    if superstep_k < 1:
+        raise ValueError(f"--superstep_k must be >= 1, got {superstep_k}")
     device = monobeast.select_device(flags)
     if flags.native_runtime is None:
         log.info("The native runtime is not in the port yet (ROADMAP.md "
@@ -459,7 +473,8 @@ def train(flags):
             restored = load_train_state(checkpoint_path, model, optimizer)
             step, stats = restored["step"], restored["stats"]
             log.info("Resuming preempted job, current stats:\n%s", stats)
-        update_step = learner_lib.update_body(model, optimizer, hp)
+        dispatch = learner_lib.make_update_dispatch(model, optimizer, hp,
+                                                   superstep_k)
 
         # The acting copy: inference never reads the learner's params,
         # which the update changes in place.
@@ -492,11 +507,11 @@ def train(flags):
         )
         model_keys = learner_lib.MODEL_INPUT_KEYS
 
-        def _act(env_d, agent_state):
+        def _forward(env_d, agent_state):
             """One acting forward on [1, n] inputs on the card; outputs as
             the wire carries them (int32 actions, f32 logits/baseline)."""
             inputs = {k: env_d[k][0] for k in model_keys}
-            with state_lock, torch.no_grad():
+            with torch.no_grad():
                 out, new_state = learner_lib.act_body(
                     act_model, inputs, agent_state, generator)
             outputs = {
@@ -506,14 +521,26 @@ def train(flags):
             }
             return outputs, new_state
 
+        def _act(env_d, agent_state):
+            with state_lock:
+                return _forward(env_d, agent_state)
+
+        # The path without the state table on the card: one graph per
+        # bucket of the forward alone (agent state in and out through
+        # static buffers), captured below.
+        act_graphs = {}
+
         def act_fn(env_outputs, agent_state, batch_size):
             """The path without the state table (agent state rides each
             request): host nests in, tensors out (the inference loop
             brings them back in one copy)."""
-            env_d = to_device({k: env_outputs[k] for k in model_keys},
-                              device)
-            state_d = to_device(agent_state, device)
-            return _act(env_d, state_d)
+            env = {k: env_outputs[k] for k in model_keys}
+            if act_graphs:
+                with state_lock:
+                    return act_graphs[batch_size](
+                        {"env": env, "state": agent_state})
+            return _act(to_device(env, device),
+                        to_device(agent_state, device))
 
         state_table = None
         initial_state = act_model.initial_state(1, device)
@@ -529,9 +556,30 @@ def train(flags):
         log.info("Acting path: agent_state=%s",
                  "device_table" if state_table is not None else "host")
 
-        if flags.prewarm_inference:
+        buckets = default_buckets(flags.max_inference_batch_size)
+        if device.type == "cuda":
             t0 = time.time()
-            buckets = default_buckets(flags.max_inference_batch_size)
+            # Every graph is captured here, before the first thread starts.
+            dispatch.capture(*_dummy_learner_inputs(
+                T, B, superstep_k, frame_shape, num_actions,
+                to_host(model.initial_state(B, device)), policy.batch_dtype))
+            if state_table is not None:
+                state_table.capture(
+                    buckets, lambda b: _dummy_env_outputs(b, frame_shape),
+                    generator, replay_lock=state_lock)
+            else:
+                for b in buckets:
+                    act_graphs[b] = graphs.CapturedAct(
+                        lambda static: _forward(static["env"],
+                                                static["state"]),
+                        {"env": _dummy_env_outputs(b, frame_shape),
+                         "state": to_host(act_model.initial_state(b,
+                                                                  device))},
+                        device, generator)
+            log.info("Captured the learner's and %d acting CUDA graphs in "
+                     "%.1fs", len(buckets), time.time() - t0)
+        elif flags.prewarm_inference:
+            t0 = time.time()
             for b in buckets:
                 dummy = _dummy_env_outputs(b, frame_shape)
                 if state_table is not None:
@@ -595,24 +643,61 @@ def train(flags):
             registry=reg if telemetry_on else None, prefix="learner."
         )
 
+        copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
         def _place(item):
-            """Stage one learner batch on the card (pinned host memory,
-            float leaves cast to the policy's batch dtype)."""
-            if device.type == "cuda":
-                torch.cuda.set_device(device)
+            """Stage one learner batch (or a [K, ...] arena stack) on the
+            card: pinned host memory, copied on the prefetcher's own
+            stream, float leaves cast to the policy's batch dtype there.
+            Returns (batch, state, event after the copy) for
+            _take_staged."""
             host = {
                 "batch": item["batch"],
                 "initial_agent_state": item["initial_agent_state"],
             }
-            staged = to_device(host, device)
-            return (
-                precision.cast_batch(staged["batch"], policy.batch_dtype),
-                precision.cast_batch(staged["initial_agent_state"],
-                                     policy.batch_dtype),
-            )
+            copied = None
+            if copy_stream is not None:
+                torch.cuda.set_device(device)
+            with (torch.cuda.stream(copy_stream) if copy_stream is not None
+                  else contextlib.nullcontext()):
+                staged = to_device(host, device)
+                batch = precision.cast_batch(staged["batch"],
+                                             policy.batch_dtype)
+                agent_state = precision.cast_batch(
+                    staged["initial_agent_state"], policy.batch_dtype)
+                if copy_stream is not None:
+                    copied = torch.cuda.Event()
+                    copied.record(copy_stream)
+            return batch, agent_state, copied
 
+        def _take_staged(staged):
+            """The learner's side of _place: its stream waits for the
+            copy, and the staged tensors stay allocated until that stream
+            has read them."""
+            batch, agent_state, copied = staged
+            if copied is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(copied)
+                for t in nest.flatten((batch, agent_state)):
+                    t.record_stream(stream)
+            return batch, agent_state
+
+        # Superstep mode: rollouts drain straight into [K, T+1, B, ...]
+        # host arena stacks and the prefetcher stages one K-batch copy a
+        # dispatch. A slot is released at its dispatch's stats flush, so
+        # the pool is the prefetch depth + a filling slot + the two
+        # dispatched-unflushed supersteps.
+        prefetch_depth = 2
+        arena = None
+        if superstep_k > 1:
+            arena = BatchArena(
+                k=superstep_k, rows=B, batch_dim=1,
+                pool=prefetch_depth + 3, telemetry_name="learner_queue",
+            )
         prefetcher = DevicePrefetcher(
-            learner_queue, _place, depth=2, telemetry_name="prefetch",
+            learner_queue, _place, depth=prefetch_depth,
+            telemetry_name="prefetch", arena=arena,
         )
         update_interval_ms = []
         learner_errors = []
@@ -634,13 +719,19 @@ def train(flags):
             # One-update-delayed stats fetch: the previous update's stats
             # come to the host after the current one is launched, so the
             # host never waits for the card between updates.
-            pending = None  # (device stats, step after, timer)
+            # Under supersteps each dispatch carries K updates and [K]
+            # stats, so this one delayed sync covers K updates.
+            pending = None  # (device stats, step after, timer, release)
 
             def flush(entry):
-                device_stats, at_step, timer = entry
+                device_stats, at_step, timer, release = entry
                 keys = list(device_stats)
                 row = torch.stack(
                     [device_stats[k].float() for k in keys]).cpu().numpy()
+                if release is not None:
+                    # The stats arrived, so the dispatch that read the
+                    # arena stack is done: its slot may be rewritten.
+                    release()
                 update_interval_ms.append(
                     timer[0].elapsed_time(timer[1]) if device.type == "cuda"
                     else 1000 * (timer[1] - timer[0]))
@@ -655,22 +746,26 @@ def train(flags):
             while True:
                 timings.reset()
                 try:
-                    batch, initial_agent_state = prefetcher.get(timeout=1.0)
+                    staged = prefetcher.get(timeout=1.0)
                 except stdlib_queue.Empty:
                     if not prefetcher.is_alive():
                         break
                     continue
+                release = None
+                if arena is not None:
+                    staged, release = staged
+                batch, initial_agent_state = _take_staged(staged)
                 timings.time("dequeue")
                 with update_lock:
                     if device.type == "cuda":
                         t0 = torch.cuda.Event(enable_timing=True)
                         t1 = torch.cuda.Event(enable_timing=True)
                         t0.record()
-                        train_stats = update_step(batch, initial_agent_state)
+                        train_stats = dispatch(batch, initial_agent_state)
                         t1.record()
                     else:
                         t0 = time.perf_counter()
-                        train_stats = update_step(batch, initial_agent_state)
+                        train_stats = dispatch(batch, initial_agent_state)
                         t1 = time.perf_counter()
                     with state_lock:
                         # Publish: the acting copy takes the new params
@@ -678,12 +773,12 @@ def train(flags):
                         # on the stream after the update.
                         with torch.no_grad():
                             torch._foreach_copy_(act_params, learn_params)
-                        state["step"] += T * B
+                        state["step"] += superstep_k * T * B
                         now_step = state["step"]
                 watchdog.ping()
                 if pending is not None:
                     flush(pending)
-                pending = (train_stats, now_step, (t0, t1))
+                pending = (train_stats, now_step, (t0, t1), release)
                 timings.time("learn")
                 if now_step >= flags.total_steps:
                     break
@@ -827,6 +922,28 @@ def train(flags):
     stats["actor_reconnects"] = int(actors.reconnect_count())
     stats["inference_restarts"] = infer_supervisor.restarts
     return stats
+
+
+def _dummy_learner_inputs(T, B, k, frame_shape, num_actions, agent_state,
+                          batch_dtype):
+    """Zero learner inputs of one dispatch, as the prefetcher stages them
+    (the wire's dtypes, float leaves cast to `batch_dtype`): a [T+1, B]
+    batch and `agent_state` (a host state nest at B), stacked [K, ...]
+    when k > 1. The learner graph's capture takes them."""
+    env = _dummy_env_outputs(B, frame_shape)
+    batch = {key: np.repeat(v, T + 1, axis=0) for key, v in env.items()}
+    batch.update({
+        "episode_return": np.zeros((T + 1, B), np.float32),
+        "episode_step": np.zeros((T + 1, B), np.int32),
+        "action": np.zeros((T + 1, B), np.int32),
+        "policy_logits": np.zeros((T + 1, B, num_actions), np.float32),
+        "baseline": np.zeros((T + 1, B), np.float32),
+    })
+    tree = (batch, agent_state)
+    if k > 1:
+        tree = nest.map(lambda v: np.stack([v] * k), tree)
+    tree = nest.map(lambda v: torch.from_numpy(np.asarray(v)), tree)
+    return tuple(precision.cast_batch(t, batch_dtype) for t in tree)
 
 
 def _dummy_env_outputs(batch_size, frame_shape):

@@ -9,14 +9,20 @@ the async driver instead (see polybeast_trace).
 
     python -m torchbeast_tpu_torch.profile_update
         [deep|transformer|polybeast]
-        [--precision f32|bf16_compute|bf16_train]
+        [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
 
-Prints the card (nvidia-smi name and power limit), then one JSON line:
-the median update time (CUDA events around each update), the median
-acting step time (host clock around one synchronized T=1, B=32 forward;
-the transformer acts from a cache about 70% valid),
-and from a torch.profiler window over UPDATES updates the device time
-per update by kernel name (top entries, and every one of the port's own
+The update and the acting step run as the drivers run them on the card:
+one captured CUDA graph per learner dispatch of K updates
+(learner.make_update_dispatch) and per acting step
+(learner.make_act_step). Prints the card (nvidia-smi name and power
+limit), then one JSON line: the median update time (CUDA events around
+each dispatch, over its K updates), the median acting step time (host
+clock around one T=1, B=32 forward and the copy of its actions to the
+host; the transformer acts from a cache about 70% valid), the eager
+step's update and acting times in the same process for comparison, and
+from a torch.profiler window over UPDATES dispatches the host's CUDA API
+calls per dispatch by name (a graph replay is one), the device time per
+update by kernel name (top entries, and every one of the port's own
 kernels with its time per call) and by group (the port's own kernels,
 convolutions, matrix products, the rest), with the medians of
 update_windows over the profiled updates. The device's busy share is
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch import precision
+from torchbeast_tpu_torch import nest, precision
 from torchbeast_tpu_torch.models import create_model
 
 T, B = 80, 32
@@ -264,12 +270,13 @@ def median_window(windows):
 
 
 def _windows_of(prof):
-    """update_windows of a finished torch.profiler run."""
+    """(update_windows, traceEvents) of a finished torch.profiler run."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return update_windows(json.load(f)["traceEvents"])
+            events = json.load(f)["traceEvents"]
+    return update_windows(events), events
 
 
 def _logged_updates(path):
@@ -281,14 +288,27 @@ def _logged_updates(path):
         return 0
 
 
-def polybeast_trace(policy="f32"):
+def api_calls(events, tid=None):
+    """{CUDA runtime/driver API call name: count} in a chrome trace's
+    events, of thread `tid` (None: every thread)."""
+    out = {}
+    for ev in events:
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and (
+                tid is None or ev.get("tid") == tid):
+            out[ev.get("name", "")] = out.get(ev.get("name", ""), 0) + 1
+    return out
+
+
+def polybeast_trace(policy="f32", superstep_k=1):
     """The async driver at polybeast_argv's flags for TRACE_UPDATES
     updates, with a torch.profiler window (CUDA activity: device work and
     CUDA API calls, no CPU ops) over three flushed updates from the
     second: every kernel of the process is traced, whichever thread
-    launched it. Prints the card and one JSON line: the run's own stats,
-    and update_windows of the trace (the profiler slows every launch
-    down, so the traced updates are slower than the run's others)."""
+    launched it. Prints the card and one JSON line: the run's own stats
+    (with the medians of the learner's wait for its next batch and of
+    one acting forward's host time), and update_windows of the trace
+    (the profiler slows every launch down, so the traced updates are
+    slower than the run's others)."""
     from torch.profiler import ProfilerActivity, profile
     from torchbeast_tpu_torch import polybeast, telemetry
 
@@ -298,8 +318,8 @@ def polybeast_trace(policy="f32"):
     logs = os.path.join(savedir, "trace", "logs.csv")
     flags = polybeast.make_parser().parse_args(
         polybeast_argv(savedir, "trace") + [
-            "--precision", policy,
-            "--total_steps", str(TRACE_UPDATES * T * B)])
+            "--precision", policy, "--superstep_k", str(superstep_k),
+            "--total_steps", str(TRACE_UPDATES * superstep_k * T * B)])
     # The profiler runs on this (the main) thread, where torch registered
     # its tracing client; the driver runs on another.
     result = {}
@@ -321,7 +341,7 @@ def polybeast_trace(policy="f32"):
             end = _logged_updates(logs) + 3
             while _logged_updates(logs) < end and driver.is_alive():
                 time.sleep(0.05)
-        windows = _windows_of(prof)
+        windows, _ = _windows_of(prof)
         driver.join()
         if "error" in result:
             raise result["error"]
@@ -342,6 +362,7 @@ def polybeast_trace(policy="f32"):
             "updates": stats["updates"],
             "sps": stats["sps"],
             "update_interval_ms_median": stats["update_interval_ms_median"],
+            "learner_wait_ms_p50": p50_ms("learner.dequeue"),
             "inference_batch_mean": stats["inference_batch_mean"],
             "act_dispatch_ms_p50": p50_ms("inference.dispatch_s"),
             "reply_ms_p50": p50_ms("inference.reply_s"),
@@ -353,11 +374,11 @@ def polybeast_trace(policy="f32"):
         shutil.rmtree(savedir, ignore_errors=True)
 
 
-def main(model_name="deep", policy="f32"):
+def main(model_name="deep", policy="f32", superstep_k=1):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
     if model_name == "polybeast":
-        return polybeast_trace(policy)
+        return polybeast_trace(policy, superstep_k)
     if model_name not in ("deep", "transformer"):
         raise ValueError(f"model {model_name!r}: deep, transformer or "
                          "polybeast")
@@ -385,36 +406,58 @@ def main(model_name="deep", policy="f32"):
                              param_dtype=pol.param_dtype,
                              opt_state_dtype=pol.opt_state_dtype)
     optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
-    update = learner_lib.update_body(model, optimizer, hp)
+    K = superstep_k
+    update = learner_lib.make_update_dispatch(model, optimizer, hp, K)
+    eager_update = learner_lib.update_body(model, optimizer, hp)
     # The acting step takes the f32 batch and state, as the driver does;
     # the update the staged ones, cast by the policy.
     host_batch, act_state = random_batch(SEED, device), state
     batch = precision.cast_batch(host_batch, pol.batch_dtype)
     state = precision.cast_batch(state, pol.batch_dtype)
+    eager_args = (batch, state)
+    if K > 1:
+        batch = {k: torch.stack([v] * K) for k, v in batch.items()}
+        state = nest.map(lambda s: torch.stack([s] * K), state)
 
-    for _ in range(WARMUP):
-        update(batch, state)
-    torch.cuda.synchronize()
-    update_ms = []
-    for _ in range(UPDATES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        update(batch, state)
-        end.record()
+    def timed(fn, args, per):
+        for _ in range(WARMUP):
+            fn(*args)
         torch.cuda.synchronize()
-        update_ms.append(start.elapsed_time(end))
+        out = []
+        for _ in range(UPDATES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / per)
+        return out
 
-    act = learner_lib.make_act_step(model, device)
+    update_ms = timed(update, (batch, state), K)
+    eager_update_ms = timed(eager_update, eager_args, 1)
+
     gen = torch.Generator(device=device).manual_seed(SEED)
     env = {k: v[0].cpu().numpy() for k, v in host_batch.items()}
-    act_ms = []
-    for i in range(WARMUP + UPDATES):
-        t0 = time.perf_counter()
-        out, act_state = act(gen, env, act_state)
-        out.action.cpu()
-        if i >= WARMUP:
-            act_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def act_times(act, act_state):
+        ms = []
+        for i in range(WARMUP + UPDATES):
+            t0 = time.perf_counter()
+            out, act_state = act(env, act_state)
+            out.action.cpu()
+            if i >= WARMUP:
+                ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    act_ms = act_times(learner_lib.make_act_step(model, device, gen),
+                       act_state)
+    with torch.no_grad():
+        eager_act_ms = act_times(
+            lambda e, s: learner_lib.act_body(
+                model, {k: torch.as_tensor(e[k]).to(device)
+                        for k in learner_lib.MODEL_INPUT_KEYS}, s, gen),
+            act_state)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,7 +473,10 @@ def main(model_name="deep", policy="f32"):
         for _ in range(UPDATES):
             update(batch, state)
         torch.cuda.synchronize()
-    windows = _windows_of(trace)
+    windows, events = _windows_of(trace)
+    calls = api_calls(events, threading.get_native_id())
+    if not calls:  # the trace names threads by another id
+        calls = api_calls(events)
 
     kernels = {}
     for evt in prof.events():
@@ -442,24 +488,32 @@ def main(model_name="deep", policy="f32"):
     groups = {}
     for name, (us, _) in kernels.items():
         g = _group(name)
-        groups[g] = groups.get(g, 0.0) + us / 1e3 / UPDATES
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / (UPDATES * K)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
+    n = UPDATES * K  # updates profiled
     print(json.dumps({
         "card": card,
         "config": {**config, "T": T, "B": B, "frames": [84, 84, 4],
                    "vtrace_impl": "pallas", "opt_impl": "pallas",
-                   "precision": policy},
+                   "precision": policy, "superstep_k": K,
+                   "dispatch": "CUDA graph"},
         "update_ms_median": statistics.median(update_ms),
         "update_ms_all": update_ms,
+        "eager_update_ms_median": statistics.median(eager_update_ms),
         "act_ms_median": statistics.median(act_ms),
-        "profiled_updates": UPDATES,
-        "device_ms_per_update": device_us / 1e3 / UPDATES,
+        "eager_act_ms_median": statistics.median(eager_act_ms),
+        "profiled_updates": n,
+        # The host's CUDA API calls per dispatch (of K updates): a graph
+        # replay is one cudaGraphLaunch, each input copy one call.
+        "host_api_calls_per_dispatch": sum(calls.values()) / UPDATES,
+        "host_api_calls_by_name_per_dispatch": {
+            k: v / UPDATES for k, v in sorted(calls.items())},
+        "device_ms_per_update": device_us / 1e3 / n,
         # The profiler slows the host's launches down, so the busy share
         # divides the profiled device time by the unprofiled update time.
-        "device_busy_share": device_us / 1e3 / UPDATES
+        "device_busy_share": device_us / 1e3 / n
         / statistics.median(update_ms),
-        "launches_per_update": sum(v[1] for v in kernels.values())
-        / UPDATES,
+        "kernels_per_update": sum(v[1] for v in kernels.values()) / n,
         "ms_per_update_by_group": groups,
         # The profiled updates cut at their tails, as polybeast's are
         # (the same instrument, so the two can be set side by side).
@@ -467,16 +521,16 @@ def main(model_name="deep", policy="f32"):
         "traced_window_longest_gaps": [w["learner_longest_gaps"][:2]
                                        for w in windows],
         "top_kernels": [
-            {"name": n[:120], "ms_per_update": us / 1e3 / UPDATES,
-             "calls_per_update": c / UPDATES}
-            for n, (us, c) in top
+            {"name": name[:120], "ms_per_update": us / 1e3 / n,
+             "calls_per_update": c / n}
+            for name, (us, c) in top
         ],
         # Every launch of the port's own kernels, however small.
         "port_kernels": [
-            {"name": n[:120], "ms_per_update": us / 1e3 / UPDATES,
-             "calls_per_update": c / UPDATES, "ms_per_call": us / 1e3 / c}
-            for n, (us, c) in sorted(kernels.items())
-            if _group(n) == "port kernels"
+            {"name": name[:120], "ms_per_update": us / 1e3 / n,
+             "calls_per_update": c / n, "ms_per_call": us / 1e3 / c}
+            for name, (us, c) in sorted(kernels.items())
+            if _group(name) == "port kernels"
         ],
     }))
 
@@ -487,8 +541,10 @@ def cli():
                         choices=["deep", "transformer", "polybeast"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
+    parser.add_argument("--superstep_k", type=int, default=1,
+                        help="Learner updates per dispatch (one graph).")
     args = parser.parse_args()
-    main(args.model, args.precision)
+    main(args.model, args.precision, args.superstep_k)
 
 
 if __name__ == "__main__":

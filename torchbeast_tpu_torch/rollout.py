@@ -8,7 +8,9 @@ the reference:
 - pairing: the agent output at slot i was computed from the env output at
   slot i-1;
 - agent-state carry: `initial_agent_state` returned with a rollout is the
-  recurrent state entering its first policy call.
+  recurrent state entering its first policy call. It is a copy: the
+  acting step on the card (a CUDA graph) writes each new state into the
+  same static buffers, which the next step overwrites.
 
 Two schedules over the same data flow:
 - `RolloutCollector`: the policy returns host (numpy) outputs every step.
@@ -35,6 +37,12 @@ def to_host(x):
     return nest.map(
         lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) else t, x
     )
+
+
+def _kept(state):
+    """A copy of an agent state that outlives the next policy call."""
+    return nest.map(
+        lambda t: t.clone() if torch.is_tensor(t) else np.array(t), state)
 
 
 def _build_batch(
@@ -72,7 +80,7 @@ class RolloutCollector:
         The batch carries the env fields (frame, reward, done,
         episode_return, episode_step, last_action) and the behavior
         agent's (action, policy_logits, baseline)."""
-        initial_agent_state = self._agent_state
+        initial_agent_state = _kept(self._agent_state)
         env_steps = [self._pending_env]
         agent_steps = [self._pending_agent]
         for _ in range(self._unroll_length):
@@ -107,7 +115,7 @@ class PipelinedRolloutCollector:
     def collect(self) -> Tuple[Dict[str, np.ndarray], Any]:
         """One unroll; the same contract and results as RolloutCollector.
         `initial_agent_state` stays on the device."""
-        initial_agent_state = self._agent_state
+        initial_agent_state = _kept(self._agent_state)
         env_steps = [self._pending_env]
         agent_steps: List[AgentOutput] = [self._pending_agent]
         for _ in range(self._unroll_length):

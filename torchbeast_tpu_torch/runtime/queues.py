@@ -21,11 +21,14 @@ test surface):
   a timeout — the TPU-side consumer pads to a bucket size before running
   XLA (see runtime/inference.py) because variable shapes would recompile.
 
-The port's copy of torchbeast_tpu/runtime/queues.py, without BatchArena,
-DevicePrefetcher's superstep mode and BatchingQueue.dequeue_item (the
-arena's intake): they serve --superstep_k > 1 and --replay_reuse > 1,
-which the port's drivers refuse until ROADMAP.md Queue 1 items 'overlap
-and supersteps' and 'IMPACT' port those flags.
+- BatchArena (with BatchingQueue.dequeue_item, its intake, and
+  DevicePrefetcher's superstep mode): host staging of [K, T+1, B, ...]
+  stacks for --superstep_k.
+
+The port's copy of torchbeast_tpu/runtime/queues.py. BatchArena comes
+without its replay bookkeeping (--replay_reuse), which ROADMAP.md Queue 1
+item 'IMPACT' brings, and without its float_dtype cast: numpy has no
+bfloat16, so the port casts a staged batch on the card.
 """
 
 import collections
@@ -231,6 +234,28 @@ class BatchingQueue:
         payloads = [it[1] for it in items]
         return _concat_nests(inputs, self._batch_dim), payloads
 
+    # beastlint: hot
+    def dequeue_item(self) -> Tuple[Any, int]:
+        """One raw (inputs, rows) item in FIFO order, blocking until an
+        item arrives; StopIteration once the queue is closed. The
+        BatchArena's intake: assembly happens by write-through column
+        copy straight into the arena, so this path skips dequeue_many's
+        min-batch wait and its list-of-nests + np.concatenate."""
+        t_wait = time.perf_counter() if self._tm is not None else 0.0
+        with self._not_empty:
+            while not self._deque:
+                if self._closed:
+                    raise StopIteration
+                self._not_empty.wait()
+            inputs, _payload, rows = self._deque.popleft()
+            if self._tm is not None:
+                self._tm.depth.set(len(self._deque))
+                self._tm.dequeue_wait_s.observe(
+                    time.perf_counter() - t_wait
+                )
+            self._not_full.notify_all()
+        return inputs, rows
+
     def __iter__(self):
         return self
 
@@ -240,6 +265,191 @@ class BatchingQueue:
         except StopIteration:
             raise StopIteration from None
         return batch
+
+
+class _ArenaSlot:
+    """One preallocated arena: per-leaf [K, ...] numpy arrays + a
+    free/busy latch. Released (reusable) only via its release()."""
+
+    __slots__ = ("arrays", "free")
+
+    def __init__(self):
+        self.arrays = None  # lazily allocated from the first item
+        self.free = True
+
+
+class BatchArena:
+    """Host staging for K-batch supersteps: rollout items drain from a
+    BatchingQueue straight into preallocated contiguous per-leaf
+    [K, T+1, B, ...] numpy arenas (write-through column copy — no
+    per-batch list-of-nests + np.stack/np.concatenate), yielding one
+    stacked nest per K assembled batches. Values are bit-identical to
+    the concat+stack path they replace (pure copies).
+
+    Slot-reuse fence: device placement may read host memory
+    asynchronously, so a filled arena is handed out with a `release`
+    callable and is NOT rewritten until release() is called. Callers
+    release once the consuming update's completion is PROVEN — the
+    drivers do it when that superstep's stats arrive on the host (the
+    stats are outputs of the same dispatch that read the stack). `pool`
+    slots cycle; if none frees within `grow_timeout_s` the arena
+    allocates a fresh slot (logged) so a consumer that forgets to
+    release degrades to allocation, never to deadlock or corruption.
+
+    Item contract: each dequeued item is a nest whose leaves have
+    `rows` columns along `batch_dim`; items must tile the B-column
+    batches exactly (an item straddling a batch boundary raises —
+    ActorPool rollouts are one column each, so the learner queue always
+    tiles). All items must share one nest structure/dtype set.
+
+    The port's copy leaves out the reference's replay bookkeeping
+    (`replay_reuse`, `uses_left`, `outstanding`: --replay_reuse re-serves
+    a slot K' times), which ROADMAP.md Queue 1 item 'IMPACT' brings, and
+    its `float_dtype` cast (numpy has no bfloat16; the port casts a
+    staged batch on the card).
+    """
+
+    def __init__(
+        self,
+        k: int,
+        rows: int,
+        batch_dim: int = 1,
+        pool: int = 5,
+        grow_timeout_s: float = 5.0,
+        telemetry_name: Optional[str] = None,
+    ):
+        if k < 1:
+            raise ValueError(f"superstep k must be >= 1, got {k}")
+        if rows < 1:
+            raise ValueError(f"arena rows must be >= 1, got {rows}")
+        if pool < 2:
+            # One slot filling + at least one staged/consumed: fewer
+            # would force a grow on every superstep.
+            raise ValueError(f"arena pool must be >= 2, got {pool}")
+        self._k = k
+        self._rows = rows
+        self._batch_dim = batch_dim
+        self._grow_timeout_s = grow_timeout_s
+        self._slots = [_ArenaSlot() for _ in range(pool)]
+        self._free = threading.Condition(threading.Lock())
+        self._template = None  # nest structure of the first item
+        self._tm_assemble = self._tm_batch_size = None
+        self._tm_occupancy = None
+        if telemetry_name:
+            reg = telemetry.get_registry()
+            self._tm_assemble = reg.histogram(
+                f"{telemetry_name}.assemble_s"
+            )
+            self._tm_batch_size = reg.histogram(
+                f"{telemetry_name}.batch_size"
+            )
+            self._tm_occupancy = reg.gauge(
+                f"{telemetry_name}.occupancy"
+            )
+
+    def _set_occupancy(self):
+        # Caller holds self._free.
+        if self._tm_occupancy is not None:
+            self._tm_occupancy.set(
+                sum(1 for slot in self._slots if not slot.free)
+            )
+
+    def _acquire_slot(self) -> _ArenaSlot:
+        deadline = time.monotonic() + self._grow_timeout_s
+        with self._free:
+            while True:
+                for slot in self._slots:
+                    if slot.free:
+                        slot.free = False
+                        self._set_occupancy()
+                        return slot
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._free.wait(timeout=remaining)
+        # Consumer is holding every slot (or never releasing): growing
+        # is always safe — the held slots stay untouched.
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "BatchArena: no slot released within %.1fs; growing the "
+            "pool to %d (a consumer is not calling release())",
+            self._grow_timeout_s, len(self._slots) + 1,
+        )
+        slot = _ArenaSlot()
+        slot.free = False
+        with self._free:
+            self._slots.append(slot)
+            self._set_occupancy()
+        return slot
+
+    def _release_fn(self, slot: _ArenaSlot):
+        def release():
+            with self._free:
+                slot.free = True
+                self._set_occupancy()
+                self._free.notify()
+
+        return release
+
+    def _allocate(self, slot: _ArenaSlot, item_leaves: List[np.ndarray]):
+        bd = self._batch_dim
+        arrays = []
+        for leaf in item_leaves:
+            shape = list(leaf.shape)
+            shape[bd] = self._rows
+            arrays.append(np.empty([self._k] + shape, leaf.dtype))
+        slot.arrays = arrays
+
+    # beastlint: hot
+    def assemble_from(self, queue: "BatchingQueue"):
+        """Fill the next free arena with K batches of `rows` columns
+        drained from `queue`; returns (stacked_nest, release). Raises
+        StopIteration when the queue closes — a partially filled arena
+        is dropped (a fixed-K superstep cannot consume it) and its slot
+        released."""
+        t0 = time.perf_counter() if self._tm_assemble is not None else 0.0
+        slot = self._acquire_slot()
+        bd = self._batch_dim
+        batch_idx, col = 0, 0
+        try:
+            while batch_idx < self._k:
+                inputs, rows = queue.dequeue_item()
+                leaves = [np.asarray(a) for a in nest.flatten(inputs)]
+                if self._template is None:
+                    self._template = inputs
+                if slot.arrays is None:
+                    self._allocate(slot, leaves)
+                if col + rows > self._rows:
+                    raise ValueError(
+                        f"arena item with {rows} rows straddles the "
+                        f"{self._rows}-column batch boundary at column "
+                        f"{col} (items must tile batches exactly)"
+                    )
+                idx = (batch_idx,) + (slice(None),) * bd
+                for arena, leaf in zip(slot.arrays, leaves):
+                    arena[idx + (slice(col, col + rows),)] = leaf
+                col += rows
+                if col == self._rows:
+                    if self._tm_batch_size is not None:
+                        self._tm_batch_size.observe(col)
+                    batch_idx, col = batch_idx + 1, 0
+        except BaseException:
+            dropped = batch_idx * self._rows + col
+            if dropped:
+                import logging
+
+                logging.getLogger(__name__).info(
+                    "BatchArena: dropping %d assembled rows (source "
+                    "closed mid-superstep)", dropped,
+                )
+            self._release_fn(slot)()
+            raise
+        if self._tm_assemble is not None:
+            self._tm_assemble.observe(time.perf_counter() - t0)
+        return nest.pack_as(self._template, slot.arrays), self._release_fn(
+            slot
+        )
 
 
 class _Promise:
@@ -354,6 +564,15 @@ class DevicePrefetcher:
     `is_alive()` is False. A `place_fn`/source error is logged, recorded
     on `.error`, and ends the stream the same way.
 
+    Superstep mode (`arena` set): `source` must be a BatchingQueue; the
+    staging thread drains raw items through the BatchArena into
+    [K, ...] stacked nests and stages ONE K-batch transfer per
+    superstep — riding behind the previous superstep's compute exactly
+    like the single-batch double buffer. `get()` then returns
+    `(place_fn(stacked), release)` pairs; the consumer MUST call
+    release() once the superstep's completion is proven (its stats
+    arrived on host) so the arena slot can be rewritten (see
+    BatchArena's fence contract).
     """
 
     def __init__(
@@ -362,11 +581,13 @@ class DevicePrefetcher:
         place_fn: Callable[[Any], Any],
         depth: int = 2,
         telemetry_name: Optional[str] = None,
+        arena: Optional[BatchArena] = None,
     ):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._source = source
         self._place = place_fn
+        self._arena = arena
         # Staging-time series: place_fn (device_put / shard placement)
         # dispatch latency + staged-buffer occupancy.
         self._tm_stage = self._tm_depth = None
@@ -385,18 +606,33 @@ class DevicePrefetcher:
         self._thread.start()
         return self
 
+    def _items(self):
+        """Source iteration: plain items, or (stacked, release) pairs
+        assembled through the arena in superstep mode."""
+        if self._arena is None:
+            for item in self._source:
+                yield item, None
+            return
+        while True:
+            try:
+                yield self._arena.assemble_from(self._source)
+            except StopIteration:
+                return
+
     # beastlint: hot
     def _run(self):
         import logging
 
         try:
-            for item in self._source:
+            for item, release in self._items():
                 if self._tm_stage is not None:
                     t0 = time.perf_counter()
                     staged = self._place(item)
                     self._tm_stage.observe(time.perf_counter() - t0)
                 else:
                     staged = self._place(item)
+                if release is not None:
+                    staged = (staged, release)
                 while not self._stop.is_set():
                     try:
                         self._q.put(staged, timeout=1.0)

@@ -20,12 +20,22 @@ Contract, as the reference's:
   calling thread's current stream. The table is updated in place, so a
   step that raises after it began may have written some rows: the table
   is then POISONED, every further call raises StateTablePoisonedError,
-  and `rebuild()` (the inference supervisor's recovery) makes a fresh
-  table with every slot at the initial state.
+  and `rebuild()` (the inference supervisor's recovery) puts every slot
+  back at the initial state, in the same tensors.
+
+On the card the driver calls `capture` before its threads start: one
+CUDA graph per bucket size holds the whole step (the slot gather, the
+acting forward with its sampling, the merge and the scatter), reading
+the slot ids, advance flags and env inputs from static buffers that each
+step fills from pinned host memory. The graphs address the table's
+tensors, which is why it never moves. Once captured, every step replays
+the graph of its size (under the caller's `replay_lock` too), and a size
+without one raises.
 """
 
 # beastlint: hot-module — the table step runs once per acting batch.
 
+import contextlib
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -33,7 +43,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import nest
+from torchbeast_tpu_torch import graphs, nest
 from torchbeast_tpu_torch import telemetry
 from torchbeast_tpu_torch.runtime.errors import (  # noqa: F401
     StateTablePoisonedError,
@@ -92,7 +102,12 @@ class DeviceStateTable:
         # Host copy: the actor pool hands it to rollouts as the boundary
         # state of freshly connected actors.
         self.initial_state_host = to_host(self._initial)
-        self._table = self._fresh_table()
+        # The table's tensors for its whole life (captured graphs address
+        # them); `_table` is they, or None while poisoned.
+        self._rows = self._fresh_table()
+        self._table = self._rows
+        self._graphs = {}  # batch size -> graphs.CapturedAct
+        self._replay_lock = contextlib.nullcontext()
 
     def _fresh_table(self):
         """A new [.., num_slots+1, ..] table (+1: the trash slot), every
@@ -130,8 +145,11 @@ class DeviceStateTable:
         batch re-prime through their retry path; the others continue
         their unroll against a reset slot (a bounded glitch, like an
         episode boundary)."""
-        with self._lock:
-            self._table = self._fresh_table()
+        with self._lock, torch.no_grad():
+            for leaf, fresh in zip(nest.flatten(self._rows),
+                                   nest.flatten(self._fresh_table())):
+                leaf.copy_(fresh)
+            self._table = self._rows
 
     def _require_alive(self):
         if self._table is None:
@@ -153,40 +171,97 @@ class DeviceStateTable:
         for leaf, value in zip(nest.flatten(table), nest.flatten(values)):
             leaf.index_copy_(self.batch_dim, ids, value.to(leaf.dtype))
 
-    def step(self, slots, advance, env_outputs, context=None):
-        """One acting step over already-padded inputs.
-
-        slots: [n] int ids (padding rows = trash_slot), advance: [n]
-        bool, env_outputs: a numpy env nest padded to n along batch_dim.
-        Returns the outputs nest on the card (fetch with `fetch`).
-        `context` overrides the table's context_fn for this step.
-        """
-        if self._input_filter is not None:
-            env_outputs = self._input_filter(env_outputs)
-        ctx = context
-        if ctx is None and self._context_fn is not None:
-            ctx = self._context_fn()
-        ids = self._ids(slots)
-        advance_d = to_device(np.asarray(advance, bool).reshape(-1),
-                              self.device)
-        env_d = to_device(env_outputs, self.device)
+    def _advance(self, table, ids, advance_d, env_d, ctx):
+        """Gather, act, merge and scatter on the card; the outputs."""
         bd = self.batch_dim
+        state = self._gather(table, ids)
+        outputs, new_state = self._act_fn(ctx, env_d, state)
 
         def merge(new, old):
             shape = [1] * new.dim()
             shape[bd] = advance_d.shape[0]
             return torch.where(advance_d.reshape(shape), new, old)
 
+        merged = [merge(new, old) for new, old in zip(
+            nest.flatten(new_state), nest.flatten(state))]
+        self._scatter(table, ids, merged)
+        return outputs
+
+    def capture(self, sizes, env_example: Callable[[int], Any],
+                generator=None, replay_lock=None) -> None:
+        """Capture one CUDA graph of the whole step for each batch size in
+        `sizes`, before any other thread launches CUDA work.
+        `env_example(n)` gives env outputs padded to n; the warm-up runs
+        put every row on the trash slot with advance False, so no real
+        slot moves. `generator` is the one act_fn samples from;
+        `replay_lock` is held around each replay, as act_fn holds it
+        around its eager forward."""
+        ctx = self._context_fn() if self._context_fn is not None else None
+        if replay_lock is not None:
+            self._replay_lock = replay_lock
+        for n in sizes:
+            env = env_example(n)
+            if self._input_filter is not None:
+                env = self._input_filter(env)
+            example = {"ids": np.full(n, self.trash_slot, np.int64),
+                       "advance": np.zeros(n, bool), "env": env}
+
+            def run(static):
+                return self._advance(self._rows, static["ids"],
+                                     static["advance"], static["env"], ctx)
+
+            with self._lock, torch.no_grad():
+                self._require_alive()
+                self._graphs[n] = graphs.CapturedAct(
+                    run, example, self.device, generator)
+
+    def step(self, slots, advance, env_outputs, context=None):
+        """One acting step over already-padded inputs.
+
+        slots: [n] int ids (padding rows = trash_slot), advance: [n]
+        bool, env_outputs: a numpy env nest padded to n along batch_dim.
+        Returns the outputs nest on the card (fetch with `fetch`).
+        `context` overrides the table's context_fn for this step (not
+        for a captured step, whose context is bound at capture).
+        """
+        if self._input_filter is not None:
+            env_outputs = self._input_filter(env_outputs)
+        slots = np.asarray(slots, np.int64).reshape(-1)
+        advance = np.asarray(advance, bool).reshape(-1)
+        if self._graphs:
+            return self._replay(slots, advance, env_outputs, context)
+        ctx = context
+        if ctx is None and self._context_fn is not None:
+            ctx = self._context_fn()
+        ids = to_device(slots, self.device)
+        advance_d = to_device(advance, self.device)
+        env_d = to_device(env_outputs, self.device)
+
         with self._lock, torch.no_grad():
             self._require_alive()
             # Poisoned until the scatter is through: a raise on the way
             # leaves the table None.
             table, self._table = self._table, None
-            state = self._gather(table, ids)
-            outputs, new_state = self._act_fn(ctx, env_d, state)
-            merged = [merge(new, old) for new, old in zip(
-                nest.flatten(new_state), nest.flatten(state))]
-            self._scatter(table, ids, merged)
+            outputs = self._advance(table, ids, advance_d, env_d, ctx)
+            self._table = table
+        self._tm_dispatches.inc()
+        return outputs
+
+    def _replay(self, slots, advance, env_outputs, context):
+        n = slots.shape[0]
+        graph = self._graphs.get(n)
+        if graph is None:
+            raise ValueError(
+                f"no captured acting graph for a batch of {n} (captured: "
+                f"{sorted(self._graphs)})")
+        if context is not None:
+            raise ValueError("a captured table step binds its context at "
+                             "capture")
+        with self._lock, self._replay_lock, torch.no_grad():
+            self._require_alive()
+            table, self._table = self._table, None
+            outputs = graph({"ids": slots, "advance": advance,
+                             "env": env_outputs})
             self._table = table
         self._tm_dispatches.inc()
         return outputs

@@ -265,7 +265,8 @@ def _load_state(model, optimizer, tree) -> None:
         _copy_list(model, st.mom, trace)
     if master is not None:
         _copy_list(model, st.master, master)
-    optimizer.state = st._replace(count=int(np.asarray(count)))
+    # The schedule clock, on the host and on the device.
+    optimizer.set_count(int(np.asarray(count)))
 
 
 def save_train_state(path: str, model, optimizer, *, step: int,
