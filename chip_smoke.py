@@ -9,7 +9,10 @@ exits non-zero without printing the final result line:
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: the port's CUDA kernels built from the checkout's sources
-   (torchbeast_tpu_torch/ops/_build.py), timed;
+   (torchbeast_tpu_torch/ops/_build.py) and, at the same time, its C++
+   runtime core (runtime/native_build.py, from csrc/native/ with the host
+   C++ compiler; the Python include path and whether Python.h is in it
+   printed first), each timed; a core that does not build fails the run;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, TF32 off, with its median time over CUDA-event
    timed runs beside its bound, the plain version's time and, where one
@@ -69,8 +72,13 @@ exits non-zero without printing the final result line:
    and the learner's wait for a batch; (g) the same xpid for one more
    update: it must resume from the checkpoint and run on; (h) `--mode
    test` on that checkpoint: one greedy Mock episode must return 200.0;
-   (i) the same three with --superstep_k 2 (two dispatches of 2 updates,
-   then one more after the resume); (j) a deep + LSTM train state on the
+   (i) the same three on the port's C++ runtime core (--native_runtime in
+   place of --no_native_runtime, so the run differs in the pool alone;
+   the resume adds --native_server): the log must name the native
+   runtime and the pool must be the core's ActorPool, with the same
+   launch checks and the same printed line; (j) the Python pool's three
+   with --superstep_k 2 (two dispatches of 2 updates, then one more
+   after the resume); (k) a deep + LSTM train state on the
    card (bf16_train with --opt_impl pallas, f32 with xla) saved and
    loaded into a fresh model and optimizer: params, nu and the master
    bitwise equal;
@@ -850,12 +858,15 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_polybeast(ops, savedir, k=1):
+def run_polybeast(ops, savedir, k=1, native=False):
     """The async driver on the card, through its own parser: 16 Mock env
     servers (spawned processes), deep + LSTM at T=80, B=32, the three
-    main-path kernels on, `k` updates a dispatch (--superstep_k). (1)
-    three dispatches (two at k > 1): every kernel launched at least once
-    per update, every pool launch on the 16-byte path, finite losses, a
+    main-path kernels on, `k` updates a dispatch (--superstep_k), the
+    Python pool (--no_native_runtime) or, with `native`, the port's C++
+    core (--native_runtime; the resume adds --native_server). (1) three
+    dispatches (two at k > 1): every kernel launched at least once per
+    update, every pool launch on the 16-byte path, finite losses,
+    HEALTHY, the runtime asked for (its log line and its pool's class), a
     checkpoint; (2) the same xpid again for one more dispatch: it resumes
     from the checkpoint and runs on; (3) --mode test on that checkpoint:
     one greedy Mock episode returns 200.0. Returns the launch counts of
@@ -864,10 +875,17 @@ def run_polybeast(ops, savedir, k=1):
     from torchbeast_tpu_torch.telemetry.metrics import (
         percentiles_from_buckets)
 
-    xpid = f"chip_smoke_polybeast_k{k}"
-    label = POLY_LABEL + ("" if k == 1 else f" superstep_k {k}")
+    xpid = f"chip_smoke_polybeast_k{k}" + ("_native" if native else "")
+    label = (POLY_LABEL + (" native runtime" if native else "")
+             + ("" if k == 1 else f" superstep_k {k}"))
     shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
     base = polybeast_argv(savedir, xpid) + ["--superstep_k", str(k)]
+    if native:
+        base[base.index("--no_native_runtime")] = "--native_runtime"
+    phase = label
+    runtime, pool = (("native", "_tbt_core_torch.ActorPool") if native
+                     else ("python", "torchbeast_tpu_torch.runtime."
+                           "actor_pool.ActorPool"))
     dispatches = 3 if k == 1 else 2
     parse = polybeast.make_parser().parse_args
     lines = _Lines()
@@ -879,14 +897,15 @@ def run_polybeast(ops, savedir, k=1):
         reg = telemetry.get_registry()
         before = {name: dict(reg.histogram(name).merged().buckets)
                   for name in P50_SERIES}
-        for label, steps in ((label, dispatches * k * T * B),
-                             (label + " resume",
-                              (dispatches + 1) * k * T * B)):
+        for label, steps, extra in (
+                (label, dispatches * k * T * B, []),
+                (label + " resume", (dispatches + 1) * k * T * B,
+                 ["--native_server"] if native else [])):
             lines.lines.clear()
             ops.reset_launch_counts()
             t0 = time.time()
-            stats = polybeast.train(parse(base + ["--total_steps",
-                                                  str(steps)]))
+            stats = polybeast.train(parse(base + extra + [
+                "--total_steps", str(steps)]))
             torch.cuda.synchronize()
             wall = time.time() - t0
             counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
@@ -908,6 +927,14 @@ def run_polybeast(ops, savedir, k=1):
                       f"{label} loss stat {key} = {stats.get(key)}")
             check(stats["health"] == "HEALTHY",
                   f"{label}: health {stats['health']}")
+            check(stats["runtime"] == runtime and stats["actor_pool"] == pool,
+                  f"{label}: runtime {stats['runtime']}, pool "
+                  f"{stats['actor_pool']}")
+            if native:
+                used = [m for m in lines.lines
+                        if m.startswith("Using the native (C++) runtime")]
+                check(used, f"{label}: the log does not name the native "
+                            "runtime")
             ckpt = os.path.join(savedir, xpid, "model.ckpt")
             check(os.path.exists(ckpt), f"{label}: no {ckpt}")
             print(f"{label} 84x84x4 T={T} B={B}, 16 env servers: "
@@ -947,7 +974,7 @@ def run_polybeast(ops, savedir, k=1):
         returns = polybeast.main(parse(base + ["--mode", "test",
                                                "--num_test_episodes", "1"]))
         check(returns == [200.0], f"--mode test returned {returns}")
-        print(f"polybeast resume: from step {first['step']} to "
+        print(f"{phase}: resumed from step {first['step']} to "
               f"{second['step']} ({second['updates']} updates); --mode test "
               f"on its checkpoint returned {returns}")
     finally:
@@ -1324,10 +1351,38 @@ def main(argv):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    import sysconfig
+    import threading
+
+    from torchbeast_tpu_torch.runtime import native_build
+
+    include = sysconfig.get_paths()["include"]
+    print(f"python include {include}: Python.h "
+          f"{'present' if os.path.isfile(os.path.join(include, 'Python.h')) else 'MISSING'}")
+    # The runtime core compiles with the host C++ compiler while nvcc
+    # builds the kernels.
+    core_build = {}
+
+    def build_core():
+        t = time.time()
+        try:
+            core_build["path"] = native_build.build()
+        except BaseException as e:  # noqa: BLE001  re-raised below
+            core_build["error"] = e
+        core_build["s"] = time.time() - t
+
+    core_thread = threading.Thread(target=build_core)
+    core_thread.start()
     t0 = time.time()
     path = _build.build()
     _build.library()
     print(f"build: {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
+    core_thread.join()
+    if "error" in core_build:
+        raise core_build["error"]
+    native_build.load()
+    print(f"build: {os.path.relpath(core_build['path'], ROOT)} (the runtime "
+          f"core) in {core_build['s']:.1f} s")
     entry = ""
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -1381,6 +1436,7 @@ def main(argv):
     savedir = os.path.join(ROOT, "build", "chip_smoke")
     by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
     by_path.update(run_polybeast(ops, savedir))
+    by_path.update(run_polybeast(ops, savedir, native=True))
     by_path.update(run_polybeast(ops, savedir, k=2))
     check_checkpoint_round_trip(dev)
     for k in kernels:

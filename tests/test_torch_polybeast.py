@@ -42,8 +42,31 @@ def test_env_server_parser_matches_the_reference():
     assert _actions(polybeast_env.make_parser()) == \
         _actions(jax_env.make_parser())
     flags = polybeast_env.make_parser().parse_args(["--native_server"])
-    with pytest.raises(NotImplementedError, match="native runtime"):
-        polybeast_env.main(flags)
+    assert flags.native_server
+    # --native_server: a fresh server interpreter serves through the
+    # port's C++ EnvServer, which advertises the env as the Python one.
+    from torchbeast_tpu_torch.runtime import transport
+
+    address = polybeast_env.free_tcp_basename(1)
+    proc = polybeast_env.ServerProcess("Mock", address, native=True)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                stream = transport.connect_transport(
+                    address, timeout_s=5.0, recv_timeout_s=30.0)
+                break
+            except OSError:
+                assert proc.is_alive() and time.monotonic() < deadline
+                time.sleep(0.2)
+        try:
+            step = stream.recv()
+            assert step["type"] == "step" and int(step["num_actions"]) == 6
+            assert np.asarray(step["frame"]).shape == (84, 84, 4)
+        finally:
+            stream.close()
+    finally:
+        polybeast_env.reap_group([proc])
 
 
 def _args(tmp_path, *extra, model=("--model", "deep", "--use_lstm")):
@@ -181,15 +204,31 @@ def test_features_outside_the_port_raise(tmp_path, dest):
         polybeast.main(flags)
 
 
-def test_native_runtime_only_when_asked_for(tmp_path):
-    """--native_runtime raises; the default (auto) and --no_native_runtime
-    run the Python pool; the native runtime's own knobs are accepted."""
+def test_native_runtime_only_when_asked_for(tmp_path, monkeypatch):
+    """The reference's tri-state: --native_runtime and the default (auto)
+    take the port's C++ core, --no_native_runtime the Python pool; when
+    the core cannot be built, --native_runtime raises with the reason
+    and auto falls back to the Python pool. The native runtime's knobs
+    are accepted."""
+    from torchbeast_tpu_torch.runtime import native
+
     parser = polybeast.make_parser()
-    with pytest.raises(NotImplementedError, match="native runtime"):
-        polybeast.check_flags(parser.parse_args(["--native_runtime"]))
-    for argv in ([], ["--no_native_runtime"], ["--no_continuous_batching"],
+    for argv in ([], ["--native_runtime"], ["--no_native_runtime"],
+                 ["--native_server"], ["--no_continuous_batching"],
                  ["--max_policy_lag", "3"]):
         polybeast.check_flags(parser.parse_args(argv))
+    core = native.import_native()
+    assert core is not None, native.gap_reason()
+    assert polybeast.select_runtime(parser.parse_args([])) is core
+    assert polybeast.select_runtime(
+        parser.parse_args(["--native_runtime"])) is core
+    assert polybeast.select_runtime(
+        parser.parse_args(["--no_native_runtime"])) is None
+    monkeypatch.setattr(native, "import_native", lambda: None)
+    monkeypatch.setattr(native, "_error", "no compiler here")
+    with pytest.raises(RuntimeError, match="no compiler here"):
+        polybeast.select_runtime(parser.parse_args(["--native_runtime"]))
+    assert polybeast.select_runtime(parser.parse_args([])) is None
 
 
 def test_driver_and_env_servers_import_no_jax():

@@ -1,9 +1,9 @@
 """Scalable async IMPALA learner on one GPU (the port of
 torchbeast_tpu/polybeast.py).
 
-The runtime is the reference's Python one: env servers in processes of
-their own (polybeast_env.py), an ActorPool of socket actor loops feeding
-a DynamicBatcher, whose inference threads run a bucket-padded acting
+The runtime is the reference's: env servers in processes of their own
+(polybeast_env.py), an ActorPool of socket actor loops feeding a
+DynamicBatcher, whose inference threads run a bucket-padded acting
 forward on the card through the device-resident state table
 (runtime/state_table.py) for recurrent models; completed rollouts flow
 through a BatchingQueue (backpressure) and a prefetcher that stages them
@@ -12,6 +12,16 @@ runs the port's update step (learner.make_update_dispatch: one update, or
 --superstep_k of them over a [K, T+1, B] stack that a BatchArena
 assembles) with the hand-written kernels that --vtrace_impl pallas,
 --opt_impl pallas and TBT_POOL_PALLAS=1 select.
+
+The queue, the batcher and the actor pool are the port's C++ core
+(runtime/native.py, built at first use from csrc/native/: the actor
+loops, the batcher and the queue run GIL-free in C++ threads), or their
+Python versions (runtime/queues.py, runtime/actor_pool.py), as the
+reference's tri-state picks: --native_runtime requires the core and
+raises when it cannot be built, --no_native_runtime takes the Python
+pool, and the default takes the core and falls back to the Python pool,
+logging why, when it cannot be built. --native_server serves the envs
+with the core's C++ env server.
 
 On the card every learner dispatch and every acting forward replays one
 captured CUDA graph: the learner's, and one per inference bucket (the
@@ -63,7 +73,7 @@ from torchbeast_tpu_torch.resilience import (
     LearnerWatchdog,
     PipelineHealth,
 )
-from torchbeast_tpu_torch.runtime import wire
+from torchbeast_tpu_torch.runtime import native, wire
 from torchbeast_tpu_torch.runtime.actor_pool import ActorPool
 from torchbeast_tpu_torch.runtime.inference import (
     default_buckets,
@@ -162,16 +172,26 @@ def make_parser():
                         help="Base seed for stochastic envs (server i "
                              "seeds from env_seed + i*1000).")
     parser.add_argument("--num_inference_threads", type=int, default=2)
+    # Tri-state: None (default) = native-first with a logged fallback to
+    # the Python pool when the core cannot be built; True = the core is
+    # required (a run asking for it never reports Python-pool numbers);
+    # False = the Python pool.
     parser.add_argument("--native_runtime", dest="native_runtime",
                         action="store_true", default=None,
-                        help="Require the C++ runtime " + _LATER + ". By "
-                             "default the port runs the Python pool.")
+                        help="Require the C++ queues, batcher and actor "
+                             "pool (the port's core, built at first use "
+                             "from torchbeast_tpu_torch/csrc/native/); a "
+                             "core that cannot be built is an error. The "
+                             "default (neither flag) takes the core and "
+                             "falls back to the Python pool, logging "
+                             "why, when it cannot be built.")
     parser.add_argument("--no_native_runtime", dest="native_runtime",
                         action="store_false",
                         help="The Python queues, batcher and actor pool "
-                             "(what the port always runs).")
+                             "(the semantic reference).")
     parser.add_argument("--native_server", action="store_true",
-                        help="The C++ env server " + _LATER)
+                        help="Serve environments with the core's C++ "
+                             "EnvServer (combined-launcher mode only).")
     parser.add_argument("--max_server_restarts", type=int, default=10,
                         help="Respawn budget for dead env servers.")
     parser.add_argument("--sequence_parallel", type=int, default=0,
@@ -306,7 +326,6 @@ def make_parser():
 # Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
 # item that brings it. Each must stay at its parser default.
 NOT_IN_PORT = {
-    "native_server": "native runtime",
     "sequence_parallel": "the transformer family",
     "sp_strategy": "the transformer family",
     "ring_schedule": "the transformer family",
@@ -340,14 +359,7 @@ NOT_IN_PORT = {
 
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet. --native_runtime: at its default (None, "auto")
-    the port runs the Python pool, as the reference does without its
-    C++ extension; asked for explicitly it raises."""
-    if getattr(flags, "native_runtime", None) is True:
-        raise NotImplementedError(
-            "--native_runtime is not in the port yet: ROADMAP.md Queue 1 "
-            "item 'native runtime'"
-        )
+    does not have yet."""
     defaults = make_parser().parse_args([])
     for dest, item in NOT_IN_PORT.items():
         value = getattr(flags, dest, getattr(defaults, dest))
@@ -408,21 +420,46 @@ def _counter_values(reg, names):
     return {name: reg.counter(name).value() for name in names}
 
 
+def select_runtime(flags):
+    """The port's core for --native_runtime (and auto), else None: the
+    reference's tri-state. An explicit --native_runtime, or
+    --native_server, raises with the builder's message when the core
+    cannot be built; auto logs it and takes the Python pool."""
+    pref = getattr(flags, "native_runtime", None)
+    if getattr(flags, "native_server", False):
+        native.require("--native_server")
+    if pref is False:
+        log.info("Using the Python runtime (--no_native_runtime).")
+        return None
+    if pref is True:
+        core = native.require("--native_runtime")
+    else:
+        core = native.import_native()
+        reason = native.gap_reason(core)
+        if reason is not None:
+            log.warning("Native runtime unavailable (%s); falling back to "
+                        "the Python pool.", reason)
+            return None
+    log.info("Using the native (C++) runtime: %s", core.__file__)
+    return core
+
+
 def train(flags):
     """Train; returns the last flushed stats, plus "sps" (env frames per
     second of this run), "update_interval_ms_median" (between CUDA
     events recorded before and after each update on the default stream,
     which the acting forwards share, so their kernels in between count
     too; the host clock on the CPU), "updates", "inference_batch_mean"
-    (rows per acting forward) and the health summary."""
+    (rows per acting forward), "runtime" ("native" or "python"),
+    "actor_pool" (the pool's class) and the health summary."""
     check_flags(flags)
     superstep_k = getattr(flags, "superstep_k", 1)
     if superstep_k < 1:
         raise ValueError(f"--superstep_k must be >= 1, got {superstep_k}")
     device = monobeast.select_device(flags)
-    if flags.native_runtime is None:
-        log.info("The native runtime is not in the port yet (ROADMAP.md "
-                 "Queue 1 item 'native runtime'); using the Python pool.")
+    # Before the env servers start: with --native_server each of them
+    # loads the core, which is then built once, here.
+    core = select_runtime(flags)
     if flags.xpid is None:
         flags.xpid = "polybeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S")
@@ -494,16 +531,26 @@ def train(flags):
         # checkpoint's read of params and optimizer state.
         update_lock = threading.Lock()
 
-        learner_queue = BatchingQueue(
+        # The core's classes take no telemetry_name: NativeTelemetryFolder
+        # folds their series in (below), and the inference loop observes
+        # the batch sizes of a batcher without instruments.
+        if core is not None:
+            queue_cls, batcher_cls = core.BatchingQueue, core.DynamicBatcher
+            queue_tm = {}
+            batcher_tm = {"continuous": flags.continuous_batching}
+        else:
+            queue_cls, batcher_cls = BatchingQueue, DynamicBatcher
+            queue_tm = {"telemetry_name": "learner_queue"}
+            batcher_tm = {"telemetry_name": "inference"}
+        learner_queue = queue_cls(
             batch_dim=1, minimum_batch_size=B, maximum_batch_size=B,
             maximum_queue_size=flags.max_learner_queue_size or B,
-            check_inputs=True, telemetry_name="learner_queue",
+            check_inputs=True, **queue_tm,
         )
-        inference_batcher = DynamicBatcher(
+        inference_batcher = batcher_cls(
             batch_dim=1, minimum_batch_size=1,
             maximum_batch_size=flags.max_inference_batch_size,
-            timeout_ms=flags.inference_timeout_ms,
-            telemetry_name="inference",
+            timeout_ms=flags.inference_timeout_ms, **batcher_tm,
         )
         model_keys = learner_lib.MODEL_INPUT_KEYS
 
@@ -613,7 +660,12 @@ def train(flags):
             health=health,
             registry=reg,
         )
-        actors = ActorPool(
+        pool_kwargs = {}
+        if state_table is not None:
+            # The C++ pool calls reset / initial_state_host / read_slot
+            # on the table under the GIL, as the Python pool does.
+            pool_kwargs["state_table"] = state_table
+        actors = (core.ActorPool if core is not None else ActorPool)(
             unroll_length=T,
             learner_queue=learner_queue,
             inference_batcher=inference_batcher,
@@ -622,8 +674,16 @@ def train(flags):
             max_reconnects=flags.max_actor_reconnects,
             connect_timeout_s=flags.actor_connect_timeout_s,
             max_frame_bytes=flags.max_frame_bytes,
-            state_table=state_table,
+            **pool_kwargs,
         )
+        # The core has no registry access: its per-request stamps and
+        # wire / step / queue counters fold into the Python runtime's
+        # series at each monitor tick and once at shutdown.
+        native_fold = (
+            native.NativeTelemetryFolder(reg, pool=actors,
+                                         batcher=inference_batcher,
+                                         queue=learner_queue).tick
+            if core is not None and telemetry_on else lambda: None)
         actor_thread = threading.Thread(
             target=actors.run, daemon=True, name="actorpool"
         )
@@ -825,6 +885,7 @@ def train(flags):
                 pass
             if learner_done.is_set():
                 break
+            native_fold()
             live = actors.live_actors()
             dead = num_actors - live
             if dead > degraded_dead and actors.errors:
@@ -894,6 +955,7 @@ def train(flags):
         learner_thread.join(timeout=10)
         infer_supervisor.join(timeout=10)
         elapsed = time.time() - start_time
+        native_fold()
         checkpoint()
         plogger.close(successful=successful)
         if server_supervisor is not None:
@@ -917,6 +979,8 @@ def train(flags):
     stats["server_restarts"] = (
         server_supervisor.restarts if server_supervisor is not None else 0
     )
+    stats["runtime"] = "native" if core is not None else "python"
+    stats["actor_pool"] = f"{type(actors).__module__}.{type(actors).__name__}"
     stats["health"] = health.state_name
     stats["health_reasons"] = health.reasons()
     stats["actor_reconnects"] = int(actors.reconnect_count())

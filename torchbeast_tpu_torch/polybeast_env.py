@@ -5,10 +5,13 @@ framed-socket protocol.
 
 Run:  python -m torchbeast_tpu_torch.polybeast_env --num_servers 4 --env Mock
 
-The port's copy of torchbeast_tpu/polybeast_env.py, with one change: each
+The port's copy of torchbeast_tpu/polybeast_env.py, with two changes: each
 server is a fresh interpreter (`ServerProcess`) instead of a spawn-context
 multiprocessing child, which would import the parent's main module again
-(the learner driver, and with it torch and the kernel wrappers).
+(the learner driver, and with it torch and the kernel wrappers); and the
+C++ server of `--native_server` (the port's core, runtime/native.py) runs
+on a thread of its own, so SIGTERM reaches the main thread, which stops
+it.
 """
 
 import argparse
@@ -66,13 +69,11 @@ def make_parser():
                              "with their reconnect budget). 0 disables "
                              "restarts.")
     parser.add_argument("--native_server", action="store_true",
-                        help="Serve with the C++ EnvServer (not in the "
-                             "port yet; see ROADMAP.md).")
+                        help="Serve with the C++ EnvServer (the port's "
+                             "core, built at first use): socket I/O and "
+                             "wire codec run GIL-free, the GIL is taken "
+                             "only around env calls.")
     return parser
-
-
-_NATIVE = ("--native_server is not in the port yet: ROADMAP.md Queue 1 "
-           "item 'native runtime'")
 
 
 def server_address(pipes_basename: str, index: int) -> str:
@@ -152,10 +153,11 @@ def _serve(env_name: str, address: str, native: bool = False,
         def env_init():
             return create_env(env_name, seed=seed_base + next(counter))
     if native:
-        raise NotImplementedError(_NATIVE)
-    from torchbeast_tpu_torch.runtime.env_server import EnvServer
+        server = native_env_server(env_init, address)
+    else:
+        from torchbeast_tpu_torch.runtime.env_server import EnvServer
 
-    server = EnvServer(env_init, address)
+        server = EnvServer(env_init, address)
     try:
         server.run()
     except KeyboardInterrupt:
@@ -165,6 +167,36 @@ def _serve(env_name: str, address: str, native: bool = False,
         # unlink sweep — the difference between a preempted shm server
         # and a /dev/shm leak.
         server.stop()
+
+
+class _NativeServer:
+    """The core's EnvServer behind the Python server's run()/stop(): its
+    blocking run() goes to a thread, so the main thread stays in the
+    interpreter, where SIGTERM's KeyboardInterrupt can reach it."""
+
+    def __init__(self, server):
+        self._server = server
+        self._thread = threading.Thread(target=server.run, daemon=True,
+                                        name="native-env-server")
+
+    def run(self):
+        self._thread.start()
+        while self._thread.is_alive():
+            self._thread.join(0.5)
+
+    def stop(self):
+        self._server.stop()
+        if self._thread.is_alive():
+            self._thread.join(5)
+
+
+def native_env_server(env_init, address):
+    """The core's EnvServer on `address`; raises when the core cannot be
+    built."""
+    from torchbeast_tpu_torch.runtime import native
+
+    core = native.require("--native_server")
+    return _NativeServer(core.EnvServer(env_init, address))
 
 
 # The body of a server process: it imports this module and what _serve
@@ -398,7 +430,10 @@ class ServerSupervisor:
 def main(flags):
     _configure_logging()
     if flags.native_server:
-        raise NotImplementedError(_NATIVE)
+        # Built once here, before the servers start and import it.
+        from torchbeast_tpu_torch.runtime import native
+
+        native.require("--native_server")
     # SIGTERM must run the finally below: Python's default handler kills
     # the process without atexit/finally, orphaning the daemonic server
     # children (ppid 1, still serving their ports) — exactly what

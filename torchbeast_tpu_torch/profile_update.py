@@ -5,11 +5,14 @@ deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), or the
 transformer policy at full width with --attention_impl pallas; at the
 precision policy --precision (default f32; bf16_train casts the params,
 the batch and the agent state as the driver does). `polybeast` traces
-the async driver instead (see polybeast_trace).
+the async driver instead (see polybeast_trace), on the Python pool or,
+with --native_runtime, on the port's C++ runtime core, with
+--num_inference_threads inference threads (default 2).
 
     python -m torchbeast_tpu_torch.profile_update
         [deep|transformer|polybeast]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
+        [--native_runtime] [--num_inference_threads N]
 
 The update and the acting step run as the drivers run them on the card:
 one captured CUDA graph per learner dispatch of K updates
@@ -37,6 +40,7 @@ shared with chip_smoke.py.
 
 import argparse
 import bisect
+import faulthandler
 import json
 import os
 import shutil
@@ -57,6 +61,10 @@ T, B = 80, 32
 NUM_ACTIONS = 6  # MockEnv
 UPDATES, WARMUP, SEED, TOP = 10, 3, 0, 15
 TRACE_UPDATES = 8  # polybeast_trace's run; three of them traced
+# A polybeast_trace run that has not finished by then dumps every
+# thread's stack and ends the process (a healthy one takes 40-120 s on
+# the card, the kernels' build included).
+STALL_S = 300
 # update_windows: the kernel that ends an update, and the name mark of a
 # kernel that only the backward pass launches.
 TAIL, BACKWARD, TOP_GAPS = "rmsprop_tail", "_bwd", 5
@@ -299,7 +307,8 @@ def api_calls(events, tid=None):
     return out
 
 
-def polybeast_trace(policy="f32", superstep_k=1):
+def polybeast_trace(policy="f32", superstep_k=1, native_runtime=False,
+                    num_inference_threads=2):
     """The async driver at polybeast_argv's flags for TRACE_UPDATES
     updates, with a torch.profiler window (CUDA activity: device work and
     CUDA API calls, no CPU ops) over three flushed updates from the
@@ -308,7 +317,8 @@ def polybeast_trace(policy="f32", superstep_k=1):
     (with the medians of the learner's wait for its next batch and of
     one acting forward's host time), and update_windows of the trace
     (the profiler slows every launch down, so the traced updates are
-    slower than the run's others)."""
+    slower than the run's others). A run past STALL_S dumps every
+    thread's stack to stderr and exits."""
     from torch.profiler import ProfilerActivity, profile
     from torchbeast_tpu_torch import polybeast, telemetry
 
@@ -316,8 +326,13 @@ def polybeast_trace(policy="f32", superstep_k=1):
     os.environ["TBT_POOL_PALLAS"] = "1"
     savedir = tempfile.mkdtemp(prefix="polybeast_trace")
     logs = os.path.join(savedir, "trace", "logs.csv")
+    argv = polybeast_argv(savedir, "trace")
+    argv[argv.index("--num_inference_threads") + 1] = str(
+        num_inference_threads)
+    if native_runtime:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
     flags = polybeast.make_parser().parse_args(
-        polybeast_argv(savedir, "trace") + [
+        argv + [
             "--precision", policy, "--superstep_k", str(superstep_k),
             "--total_steps", str(TRACE_UPDATES * superstep_k * T * B)])
     # The profiler runs on this (the main) thread, where torch registered
@@ -330,6 +345,7 @@ def polybeast_trace(policy="f32", superstep_k=1):
         except BaseException as e:  # noqa: BLE001  re-raised below
             result["error"] = e
 
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
     with profile(activities=[ProfilerActivity.CUDA]):
         pass  # the tracer's set-up, before the window
     driver = threading.Thread(target=run, name="driver")
@@ -358,7 +374,8 @@ def polybeast_trace(policy="f32", superstep_k=1):
                     "env", "model", "use_lstm", "num_servers", "batch_size",
                     "unroll_length", "vtrace_impl", "opt_impl",
                     "num_inference_threads", "max_inference_batch_size",
-                    "precision")}},
+                    "precision", "native_runtime")}},
+            "actor_pool": stats["actor_pool"],
             "updates": stats["updates"],
             "sps": stats["sps"],
             "update_interval_ms_median": stats["update_interval_ms_median"],
@@ -371,14 +388,20 @@ def polybeast_trace(policy="f32", superstep_k=1):
         }))
     finally:
         driver.join()
+        faulthandler.cancel_dump_traceback_later()
         shutil.rmtree(savedir, ignore_errors=True)
 
 
-def main(model_name="deep", policy="f32", superstep_k=1):
+def main(model_name="deep", policy="f32", superstep_k=1,
+         native_runtime=False, num_inference_threads=2):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
     if model_name == "polybeast":
-        return polybeast_trace(policy, superstep_k)
+        return polybeast_trace(policy, superstep_k, native_runtime,
+                               num_inference_threads)
+    if native_runtime or num_inference_threads != 2:
+        raise ValueError("--native_runtime and --num_inference_threads "
+                         "are polybeast's")
     if model_name not in ("deep", "transformer"):
         raise ValueError(f"model {model_name!r}: deep, transformer or "
                          "polybeast")
@@ -543,8 +566,14 @@ def cli():
                         choices=precision.CHOICES)
     parser.add_argument("--superstep_k", type=int, default=1,
                         help="Learner updates per dispatch (one graph).")
+    parser.add_argument("--native_runtime", action="store_true",
+                        help="polybeast on the port's C++ runtime core "
+                             "(default: the Python pool).")
+    parser.add_argument("--num_inference_threads", type=int, default=2,
+                        help="polybeast's inference threads.")
     args = parser.parse_args()
-    main(args.model, args.precision, args.superstep_k)
+    main(args.model, args.precision, args.superstep_k, args.native_runtime,
+         args.num_inference_threads)
 
 
 if __name__ == "__main__":
