@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --vtrace-only]
+    python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -44,7 +44,10 @@ exits non-zero without printing the final result line:
    update's. The acting graphs: monobeast's step at B=32 for five chained
    steps, and polybeast's state-table step at each bucket of
    --max_inference_batch_size 32 against an eager twin, from the same
-   generator state: actions, logits, baseline and states bitwise;
+   generator state: actions, logits, baseline and states bitwise; and
+   the state table's replica graphs (one per bucket, bound to a replica
+   params buffer, captured beside the central ones) against an eager
+   twin, bitwise, before and after one snapshot refresh;
 5. main paths: `monobeast.train` through the port's own parser, every
    kernel switch on, T=80, B=32, each dispatch one CUDA graph, at full
    width: (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc
@@ -81,7 +84,25 @@ exits non-zero without printing the final result line:
    after the resume); (k) a deep + LSTM train state on the
    card (bf16_train with --opt_impl pallas, f32 with xla) saved and
    loaded into a fresh model and optimizer: params, nu and the master
-   bitwise equal;
+   bitwise equal; (l) the serving tier and the chaos harness: polybeast
+   deep + LSTM (the same flags, env servers on shm rings) with
+   --request_deadline_ms 300 --replica_refresh_updates 1
+   --max_policy_lag 20 and chaos_run.build_plan's plan (one env-server
+   SIGKILL, one transport sever, a 3 s learner stall, one state-table
+   poison, each after the first batch) over 7 updates, on the Python pool
+   and on the core with --native_server, each through chaos_run.run_one
+   and held by chaos_run's own checks: every fault injected, recovery
+   counters equal to the injected counts, resubmitted == shed + expired
+   > 0, no live child and no segment of the run's own left in /dev/shm;
+   replica requests served with a policy_lag within the budget; every
+   telemetry.jsonl line valid, the last with the reference's serving,
+   chaos and recovery series; the launch and loss checks of (f). It
+   prints SPS, the p50 and p99 of an inference request's wait, of the
+   serving queue delay and of the replica forward's host time, and the
+   seconds from each fault's injection to its recovery (the respawn, the
+   reconnect, the first update after the stall, the rebuild). With
+   --serving-only the script runs only the replica graph check and (l),
+   after the builds;
 6. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
    off, cuDNN deterministic), at f32, bf16_compute and bf16_train;
@@ -982,6 +1003,245 @@ def run_polybeast(ops, savedir, k=1, native=False):
     return by_path
 
 
+# The reference's series a polybeast line carries with the serving tier
+# and a chaos plan armed (its final line on the Python runtime).
+CHAOS_SERIES = {
+    "counters": ("serving.admitted", "serving.shed", "serving.expired",
+                 "serving.resubmitted", "serving.replica_requests",
+                 "serving.central_requests", "serving.snapshots_published",
+                 "chaos.env_server_sigkill.injected",
+                 "chaos.transport_sever.injected",
+                 "chaos.learner_stall.injected",
+                 "chaos.state_table_poison.injected",
+                 "recovery.server_restarts", "recovery.actor_reconnects",
+                 "recovery.inference_restarts", "recovery.table_rebuilds",
+                 "learner.updates", "slo.rtt_breaches"),
+    "gauges": ("serving.queue_delay_p99_s", "serving.slo_ratio",
+               "serving.snapshot_lag", "actor.live", "health.state",
+               "acting.bytes_per_step_up"),
+    "histograms": ("serving.queue_delay_s", "serving.policy_lag",
+                   "actor.request_rtt_s", "inference.request_wait_s",
+                   "learner.update_dispatch_s"),
+}
+CHAOS_UPDATES = 7  # build_plan's first fault, at 0.15 of the run, lands
+#                    after the first batch: 0.15 * 7 > 1 update
+# Each fault's recovery counter and how far past the injection it must
+# move: a SIGKILL's server respawn, a sever's reconnect, the first update
+# dispatched after a stall, a poison's table rebuild.
+RECOVERY = {"env_server_sigkill": "recovery.server_restarts",
+            "transport_sever": "recovery.actor_reconnects",
+            "learner_stall": "learner.updates",
+            "state_table_poison": "recovery.table_rebuilds"}
+
+
+class _CounterTimes:
+    """Samples counters on a thread of its own every 10 ms and keeps the
+    times at which each first passed each of its values."""
+
+    def __init__(self, reg, names):
+        self._counters = {n: reg.counter(n) for n in names}
+        self.times = {n: [] for n in names}  # (value, first seen at)
+        self._stop = None
+        self._thread = None
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            now = time.monotonic()
+            for name, counter in self._counters.items():
+                value = counter.value()
+                seen = self.times[name]
+                if not seen or value > seen[-1][0]:
+                    seen.append((value, now))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+    def first(self, name, above, after):
+        """When `name` first read more than `above`, not before `after`."""
+        for value, at in self.times[name]:
+            if value > above and at >= after:
+                return at
+        return None
+
+    def value_at(self, name, at, default):
+        """The value `name` read last before `at` (a recovery within the
+        injection's own 10 ms sample reads as 0 s, not as none)."""
+        value = default
+        for v, seen in self.times[name]:
+            if seen < at:
+                value = v
+        return value
+
+
+def run_polybeast_chaos(ops, savedir, native):
+    """5l. polybeast deep + LSTM at f32, T=80, B=32, 16 Mock env servers
+    on shm rings, the kernel switches, with the serving tier
+    (--request_deadline_ms 300, --replica_refresh_updates 1,
+    --max_policy_lag 20) and chaos_run.build_plan's plan (one SIGKILL,
+    one sever, a 3 s learner stall, one poison, each after the first
+    batch), on the Python pool or on the core with --native_server,
+    through chaos_run.run_one and held by chaos_run's own checks; plus
+    the replica path, the telemetry lines and the kernels. Recovery is
+    timed from the registry's counters, sampled every 10 ms; on the core
+    the reconnect count reaches the registry at the monitor's 5 s fold,
+    so there the sever's time is an upper bound. Returns the launch
+    counts."""
+    from torchbeast_tpu_torch import chaos_run, telemetry
+    from torchbeast_tpu_torch.telemetry.metrics import (
+        percentiles_from_buckets)
+
+    label = ("polybeast deep+LSTM serving + chaos"
+             + (" native runtime" if native else ""))
+    xpid = "chip_smoke_chaos" + ("_native" if native else "")
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    args = chaos_run.parse_args([
+        "--scale", "1", "--num_servers", "16", "--num_actors", "16",
+        "--total_steps", str(CHAOS_UPDATES * T * B), "--stall_s", "3",
+        "--request_deadline_ms", "300", "--replica_refresh_updates", "1",
+        "--max_policy_lag", "20"] + (["--native"] if native else []))
+    plan_dict = chaos_run.build_plan(args)
+    plan_counts = {}
+    for fault in plan_dict["faults"]:
+        check(fault["at_step"] >= T * B, f"{label}: {fault} fires before "
+              "the first batch")
+        plan_counts[fault["kind"]] = plan_counts.get(fault["kind"], 0) + 1
+    plan_path = os.path.join(savedir, f"{xpid}_plan.json")
+    os.makedirs(savedir, exist_ok=True)
+    with open(plan_path, "w") as f:
+        json.dump(plan_dict, f)
+    argv = polybeast_argv(savedir, xpid)
+    argv[argv.index("--pipes_basename") + 1] = \
+        f"shm:{savedir}/pipes-{xpid}"
+    if native:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
+        argv.append("--native_server")
+    argv += ["--total_steps", str(args.total_steps),
+             "--request_deadline_ms", "300", "--replica_refresh_updates",
+             "1", "--max_policy_lag", "20", "--chaos_plan", plan_path,
+             "--checkpoint_interval_s", "100000",
+             "--learner_stall_timeout_s", "60"]
+
+    reg = telemetry.get_registry()
+    hist = ("inference.request_wait_s", "replica.request_wait_s",
+            "serving.queue_delay_s", "replica.dispatch_s",
+            "serving.policy_lag")
+    before = {name: dict(reg.histogram(name).merged().buckets)
+              for name in hist}
+    watched = [f"chaos.{kind}.injected" for kind in RECOVERY] + \
+        sorted(set(RECOVERY.values()))
+    at_start = {name: reg.counter(name).value() for name in watched}
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with _CounterTimes(reg, watched) as times:
+        run = chaos_run.run_one(args, savedir, xpid, plan_path, argv=argv)
+    torch.cuda.synchronize()
+    phase_s = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    stats = run["stats"]
+
+    # chaos_run's own checks: completion, exact recovery accounting, the
+    # shed audit, no leaked process or segment.
+    expected = chaos_run.expected_counters(plan_counts, 1)
+    serving, shed_failures = chaos_run.check_shedding(run, plan_counts, 300)
+    failures = (chaos_run.check_completion(run, args.total_steps)
+                + chaos_run.check_recovery(run, plan_counts, expected)
+                + shed_failures + chaos_run.check_leaks(run))
+    check(not failures, f"{label}: {failures}")
+    check(run["chaos"]["pending"] == [] and run["chaos"]["abandoned"] == [],
+          f"{label}: chaos summary {run['chaos']}")
+    check(serving["shed"] + serving["expired"] > 0, f"{label}: no shed")
+    counters = run["counters"]
+    check(counters.get("serving.replica_requests", 0) > 0,
+          f"{label}: no replica request served")
+    lag = {i: n - before["serving.policy_lag"].get(i, 0) for i, n in
+           reg.histogram("serving.policy_lag").merged().buckets.items()}
+    check(sum(lag.values()) > 0 and
+          percentiles_from_buckets(lag, [0.0])[0] <= 20,
+          f"{label}: no replica reply stamped a policy_lag within 20")
+
+    lines = telemetry.read_jsonl(os.path.join(savedir, xpid,
+                                              "telemetry.jsonl"))
+    check(lines, f"{label}: no telemetry.jsonl lines")
+    for line in lines:
+        errors = telemetry.validate_snapshot(line)
+        check(not errors, f"{label}: telemetry line invalid: {errors}")
+    last = lines[-1]
+    missing = [(kind, name) for kind, names in CHAOS_SERIES.items()
+               for name in names if name not in last[kind]]
+    check(not missing, f"{label}: the last telemetry line lacks {missing}")
+    check(last.get("chaos") == run["chaos"] and "slo" in last
+          and last.get("acting_path", {}).get("agent_state")
+          == "device_table", f"{label}: statics {sorted(last)}")
+
+    updates = stats["updates"]
+    for name, per_update in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                             ("pool_bwd", 3)):
+        check(counts[name] >= per_update * updates,
+              f"{label}: {counts[name]} {name} launches in {updates} "
+              "updates")
+    vector = ops.pool_bwd.vector_launches
+    check(vector == counts["pool_bwd"], f"{label}: {vector} of "
+          f"{counts['pool_bwd']} pool_bwd launches took the 16-byte path")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(key in stats and np.isfinite(stats[key]),
+              f"{label} loss stat {key} = {stats.get(key)}")
+
+    def pct(q, *names):
+        """This run's percentile of the named series together, in ms."""
+        delta = {}
+        for name in names:
+            for i, n in reg.histogram(name).merged().buckets.items():
+                delta[i] = delta.get(i, 0) + n - before[name].get(i, 0)
+        return 1000 * percentiles_from_buckets(delta, [q])[0]
+
+    # The Python runtime keeps the replica batcher's waits apart
+    # (replica.*); the core's fold credits both batchers to inference.*.
+    wait = ("inference.request_wait_s", "replica.request_wait_s")
+
+    recover = {}
+    for kind, counter in RECOVERY.items():
+        injected = times.first(f"chaos.{kind}.injected",
+                               at_start[f"chaos.{kind}.injected"], 0)
+        back = None
+        if injected is not None:
+            # A stall's recovery is the first update dispatched after
+            # its window, not one already in flight when it began.
+            after = injected + (3.0 if kind == "learner_stall" else 0.0)
+            back = times.first(counter, times.value_at(
+                counter, after, at_start[counter]), after)
+        recover[kind] = (None if back is None
+                         else round(back - injected, 3))
+    print(f"{label} 84x84x4 T={T} B={B}, 16 env servers on shm rings: "
+          f"{updates} updates to step {stats['step']} in {phase_s:.1f} s "
+          f"(the phase); SPS {stats['sps']:.1f}; injected "
+          f"{run['chaos']['injected']}; recovery counters "
+          f"{ {k: int(counters.get(k, 0)) for k in expected} } (expected "
+          f"{expected}); serving {serving}; replica requests "
+          f"{int(counters.get('serving.replica_requests', 0))}, central "
+          f"{int(counters.get('serving.central_requests', 0))}; health "
+          f"{stats['health']}")
+    print(f"{label}: an inference request's wait (central and replica) "
+          f"p50 {pct(0.5, *wait):.2f} ms p99 {pct(0.99, *wait):.2f} ms; "
+          f"serving queue delay p50 {pct(0.5, 'serving.queue_delay_s'):.2f}"
+          f" ms p99 {pct(0.99, 'serving.queue_delay_s'):.2f} ms; replica "
+          f"forward host p50 {pct(0.5, 'replica.dispatch_s'):.2f} ms p99 "
+          f"{pct(0.99, 'replica.dispatch_s'):.2f} ms; seconds from "
+          f"injection to recovery {recover}; launches {counts}; "
+          f"telemetry lines {len(lines)}")
+    return {label: (counts, bf16)}
+
+
 def _steady_sps(logs_csv):
     """Env frames per second from the second batch's arrival to the last
     one's, leaving out the env servers' start-up and the first rollouts:
@@ -1058,29 +1318,38 @@ KERNEL_MARKS = {"vtrace_targets": "vtrace_targets_kernel",
                 "transformer_attention_bwd": "attention_bwd_kernel"}
 
 
-def profile_call(fn):
+def profile_call(fn, windows=3):
     """(the host's CUDA API calls of one fn() by name, without the
     synchronize that ends the window; the device kernels it ran by
     wrapper), by torch.profiler. The first window after start-up can
-    miss events, so the second of two windows counts."""
+    miss events, so it is not counted. CUPTI can also drop a kernel's
+    record from a later window (seen with the tail's cooperative launch
+    inside a graph replay: 0 of 1 and 3 of 4 recorded, the replay's
+    results bitwise right), and fn() runs the same kernels every time,
+    so each wrapper's count is the most that one of `windows` windows
+    recorded; the API calls are the last window's."""
     from torch.profiler import ProfilerActivity, profile
     from torchbeast_tpu_torch.profile_update import api_calls
 
-    for _window in range(2):
+    path = os.path.join(ROOT, "build", "chip_smoke", "call_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    kernels = dict.fromkeys(KERNEL_MARKS, 0)
+    for window in range(windows + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    path = os.path.join(ROOT, "build", "chip_smoke", "call_trace.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+        if window == 0:
+            continue
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [ev.get("name", "") for ev in events
+                 if ev.get("cat") == "kernel"]
+        for w, mark in KERNEL_MARKS.items():
+            kernels[w] = max(kernels[w], sum(mark in n for n in names))
     calls = {k: v for k, v in api_calls(events).items()
              if "ynchronize" not in k}
-    names = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
-    kernels = {w: sum(mark in n for n in names)
-               for w, mark in KERNEL_MARKS.items()}
     return calls, kernels
 
 
@@ -1235,6 +1504,98 @@ def check_graph_acting(dev):
           f"all {slots} slots' states)")
 
 
+def check_graph_replica(dev):
+    """The state table's replica graphs (one per bucket of
+    --max_inference_batch_size 32, bound to a replica params buffer and
+    captured beside the central graphs) against an eager twin table with
+    its own buffer, from the same generator state: at each bucket, the
+    outputs and then every slot's state bitwise, before and after one
+    snapshot refresh (a new version the buffers load before acting)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.runtime.inference import (
+        default_buckets, pad_advance, pad_slots)
+    from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+    from torchbeast_tpu_torch.serving import PolicySnapshotStore
+    from torchbeast_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    model, _ = _param_tree(dev, "deep", "f32")
+    store = PolicySnapshotStore(1, registry=MetricsRegistry())
+    store.note_update(0)
+    store.publish(0, list(model.parameters()))
+    slots, buckets = 40, default_buckets(32)
+    gens = [torch.Generator(device=dev).manual_seed(8) for _ in range(2)]
+    central_gen = torch.Generator(device=dev).manual_seed(9)
+
+    def forward(acting_model, gen):
+        def act(env, state):
+            out, new_state = learner_lib.act_body(
+                acting_model,
+                {k: env[k][0] for k in learner_lib.MODEL_INPUT_KEYS},
+                state, gen)
+            return {"action": out.action[None].to(torch.int32),
+                    "policy_logits": out.policy_logits[None],
+                    "baseline": out.baseline[None]}, new_state
+        return act
+
+    tables = []
+    for gen in gens:
+        replica = copy.deepcopy(model).requires_grad_(False)
+        central = forward(model, central_gen)
+        table = DeviceStateTable(
+            model.initial_state(1, dev), slots,
+            lambda ctx, env, state, central=central: central(env, state),
+            batch_dim=1)
+        table.bind_context(forward(replica, gen),
+                           list(replica.parameters()))
+        tables.append(table)
+    captured, eager_table = tables
+    rng = np.random.default_rng(4)
+
+    def env(n):
+        return {"frame": rng.integers(0, 256, (1, n, 84, 84, 4), np.uint8),
+                "reward": rng.standard_normal((1, n)).astype(np.float32),
+                "done": rng.random((1, n)) < 0.1,
+                "last_action": rng.integers(0, NUM_ACTIONS, (1, n)).astype(
+                    np.int32)}
+
+    t0 = time.time()
+    captured.capture(buckets, env, central_gen)
+    captured.capture_context(buckets, env, gens[0])
+    capture_s = time.time() - t0
+    for version in (0, 1):
+        if version:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(0.01 * torch.randn_like(p))
+            store.note_update(1)
+            store.publish(1, list(model.parameters()))
+        context = store.latest()
+        check(context[0] == version, f"snapshot version {context[0]}")
+        for b in buckets:
+            n = max(1, b - 1) if b > 2 else b
+            ids = pad_slots(rng.choice(slots, n, replace=False), b,
+                            captured.trash_slot)
+            advance = pad_advance(rng.random(n) < 0.8, b)
+            e = {k: np.concatenate([v, np.repeat(v[:, -1:], b - n, 1)], 1)
+                 for k, v in env(n).items()}
+            got = captured.fetch(captured.step(ids, advance, e, context), n)
+            want = eager_table.fetch(
+                eager_table.step(ids, advance, e, context), n)
+            check(all(np.array_equal(got[k], want[k]) for k in want),
+                  f"replica graph at bucket {b}, snapshot {version}: "
+                  "outputs differ from the eager twin")
+            check(captured.context_version == version,
+                  f"replica buffer holds {captured.context_version}")
+        for slot in range(slots):
+            check(all(np.array_equal(a, c) for a, c in zip(
+                captured.read_slot(slot), eager_table.read_slot(slot))),
+                f"replica graph, snapshot {version}: slot {slot} differs")
+    print(f"graph acting replica state table deep+LSTM: buckets {buckets} "
+          f"captured beside the central graphs in {capture_s:.1f} s, bitwise "
+          f"equal to the eager twin before and after a snapshot refresh "
+          f"(actions, logits, baseline; all {slots} slots' states)")
+
+
 # ----------------------------------------------------------------- parity
 
 # bf16 parity (bf16_compute, bf16_train): the bf16 forward and backward of
@@ -1336,7 +1697,8 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     vtrace_only = argv == ["--vtrace-only"]
-    if argv and not (kernels_only or vtrace_only):
+    serving_only = argv == ["--serving-only"]
+    if argv and not (kernels_only or vtrace_only or serving_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1395,6 +1757,17 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("kernel checks: TF32 off for matmul and cuDNN")
+    savedir = os.path.join(ROOT, "build", "chip_smoke")
+    if serving_only:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        check_graph_replica(dev)
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        for native in (False, True):
+            run_polybeast_chaos(ops, savedir, native)
+        return 0
     if vtrace_only:
         print(json.dumps({"kernels": [check_vtrace(ops, dev)]}))
         return 0
@@ -1429,15 +1802,17 @@ def main(argv):
             check_graph_update(dev, label, model_name, policy, k)
             torch.cuda.empty_cache()
     check_graph_acting(dev)
+    check_graph_replica(dev)
     torch.backends.cudnn.deterministic = False
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
 
-    savedir = os.path.join(ROOT, "build", "chip_smoke")
     by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
     by_path.update(run_polybeast(ops, savedir))
     by_path.update(run_polybeast(ops, savedir, native=True))
     by_path.update(run_polybeast(ops, savedir, k=2))
+    for native in (False, True):
+        by_path.update(run_polybeast_chaos(ops, savedir, native))
     check_checkpoint_round_trip(dev)
     for k in kernels:
         # A bf16 row counts its variant's launches; an f32 row the rest.

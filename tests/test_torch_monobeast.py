@@ -85,13 +85,13 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--profile_dir", "prof"], "telemetry"),
+    (["--replay_reuse", "2"], "IMPACT"),
     (["--loss", "impact"], "IMPACT"),
-    (["--device_split", "auto"], "serving"),
+    (["--device_split", "auto"], "data parallel and the fleet"),
     (["--num_learner_devices", "2"], "data parallel"),
     (["--remat", "all"], "stage remat"),
-    (["--telemetry_port", "9100"], "telemetry"),
-    (["--trace_path", "t.json"], "telemetry"),
+    (["--hbm_budget_gb", "1"], "stage remat"),
+    (["--fleet", "host=0/2,coord=127.0.0.1:1"], "data parallel"),
     (["--model", "pipelined_transformer"], "transformer"),
     (["--sequence_parallel", "2"], "transformer"),
     (["--num_experts", "4"], "transformer"),
@@ -165,8 +165,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'torchbeast_tpu')]\n"
         "print(len(names), bad)\n"
+        "missing = [m for m in NEW if m not in names]\n"
+        "assert not missing, missing\n"
         "assert not bad, bad\n"
-    )
+    ).replace("NEW", repr([
+        # The telemetry exporters, the serving tier and the chaos
+        # harness, walked like every other module.
+        "torchbeast_tpu_torch.telemetry.export",
+        "torchbeast_tpu_torch.telemetry.driver",
+        "torchbeast_tpu_torch.telemetry.__main__",
+        "torchbeast_tpu_torch.serving",
+        "torchbeast_tpu_torch.serving.admission",
+        "torchbeast_tpu_torch.serving.snapshot",
+        "torchbeast_tpu_torch.serving.replica",
+        "torchbeast_tpu_torch.resilience.chaos",
+        "torchbeast_tpu_torch.chaos_run",
+    ]))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
         text=True, timeout=120,

@@ -767,11 +767,18 @@ def test_native_pool_shm_end_to_end(core):
     assert 0 <= tele["ring_recheck_wakeups"] <= tele["ring_doorbell_waits"]
 
 
-def _shm_segments():
+def _shm_segments(pids=None):
+    """The ring segments in /dev/shm created by the processes `pids`, or
+    by any process (None); the port's and the core's ring names carry
+    their creator's pid. Other processes on the machine, such as other
+    test workers, create and remove segments meanwhile."""
+    from torchbeast_tpu_torch.runtime.transport import segment_owner_pid
+
     if not os.path.isdir("/dev/shm"):
         return set()
-    return {n for n in os.listdir("/dev/shm")
-            if n.startswith(("psm_", "tbtring_"))}
+    owners = {n: segment_owner_pid(n) for n in os.listdir("/dev/shm")}
+    return {n for n, pid in owners.items()
+            if pid is not None and (pids is None or pid in pids)}
 
 
 def _serve_counting_shm_child(path):
@@ -793,17 +800,26 @@ def _spawn_counting_server_proc(path):
 def test_native_shm_crash_reconnect_and_sweep(core):
     """SIGKILL the env server mid-ring: the C++ actor revives its
     connection against the restarted server, and the teardown sweep
-    leaves /dev/shm clean (the dead owner never unlinks)."""
+    leaves none of the test's own segments in /dev/shm (the dead owner
+    never unlinks): those of the two servers, which create the rings,
+    and of this process."""
+    pids = {os.getpid()}
+    # Every named segment now: a server's pid may be a dead process's
+    # whose segment is still there.
     before = _shm_segments()
     path = os.path.join(tempfile.mkdtemp(), "native_shm_crash")
     proc = _spawn_counting_server_proc(path)
+    pids.add(proc.pid)
     pool = _Pool(core, "native", f"shm:{path}", max_reconnects=3)
     try:
         pool.take(1)  # a rollout through the first connection
+        # The first connection's rings are the server's, by name.
+        assert _shm_segments({proc.pid})
         proc.kill()
         proc.join(10)
         os.unlink(path)  # the dead server's socket file lingers
         proc = _spawn_counting_server_proc(path)
+        pids.add(proc.pid)
         pool.take(3)
         assert pool.pool.first_error_message() is None
         assert pool.pool.reconnect_count() >= 1
@@ -811,7 +827,7 @@ def test_native_shm_crash_reconnect_and_sweep(core):
         pool.close()
         proc.kill()
         proc.join(10)
-    leaked = _shm_segments() - before
+    leaked = _shm_segments(pids) - before
     assert leaked == set(), f"leaked /dev/shm segments: {leaked}"
 
 

@@ -21,12 +21,13 @@ returns its stats as device tensors, so the driver reads them one
 dispatch late without a sync per update.
 """
 
+import time
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import graphs, nest
+from torchbeast_tpu_torch import graphs, nest, telemetry
 from torchbeast_tpu_torch.ops import compute_entropy_loss, vtrace_policy_losses
 from torchbeast_tpu_torch.ops.opt import (
     FusedRMSpropTail,
@@ -415,6 +416,48 @@ def make_update_dispatch(model, optimizer, hp: HParams, k: int = 1):
     if optimizer.device_count.device.type == "cuda":
         return graphs.CapturedUpdate(step, optimizer, k)
     return step
+
+
+def instrument_update_step(update_step, registry=None, superstep_k=1):
+    """Wrap a dispatch (make_update_dispatch's) with the reference's
+    learner-side telemetry (torchbeast_tpu/learner.py
+    `instrument_update_step`):
+
+    - learner.update_dispatch_s: host time to hand the update to the
+      card (a graph replay; on the CPU the eager update itself);
+    - learner.batch_bytes: bytes of the batch + initial agent state per
+      dispatch;
+    - learner.updates: +superstep_k per dispatch;
+    - learner.superstep_k (gauge) and learner.updates_per_dispatch;
+    - learner.host_syncs: the drivers call `wrapped.count_host_sync()`
+      per stats fetch (once per K updates under supersteps).
+
+    Not here: the reference's learner.hbm_bytes_per_update gauge, read
+    from XLA's cost analysis (ROADMAP.md Queue 1 item 'stage remat').
+    """
+    reg = registry if registry is not None else telemetry.get_registry()
+    h_dispatch = reg.histogram("learner.update_dispatch_s")
+    h_per_dispatch = reg.histogram("learner.updates_per_dispatch")
+    c_bytes = reg.counter("learner.batch_bytes")
+    c_updates = reg.counter("learner.updates")
+    c_host_syncs = reg.counter("learner.host_syncs")
+    reg.gauge("learner.superstep_k").set(superstep_k)
+
+    def wrapped(batch, initial_agent_state):
+        nbytes = sum(
+            int(t.numel() * t.element_size()) if torch.is_tensor(t)
+            else int(getattr(t, "nbytes", 0))
+            for t in nest.flatten((batch, initial_agent_state)))
+        t0 = time.perf_counter()
+        out = update_step(batch, initial_agent_state)
+        h_dispatch.observe(time.perf_counter() - t0)
+        c_bytes.inc(nbytes)
+        c_updates.inc(superstep_k)
+        h_per_dispatch.observe(superstep_k)
+        return out
+
+    wrapped.count_host_sync = lambda: c_host_syncs.inc()
+    return wrapped
 
 
 def stack_superstep_columns(batch, initial_agent_state, k: int,

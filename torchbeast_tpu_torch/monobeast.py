@@ -21,6 +21,17 @@ raises NotImplementedError naming the ROADMAP.md item that brings it.
 The trainer runs on the first CUDA device. Without one it raises, unless
 --disable_cuda asks for the CPU.
 
+Telemetry is the reference's (telemetry/driver.py): the registry's
+series land in {xpid}/telemetry.jsonl on the 5 s log cadence and at
+exit, under the reference's names; --telemetry_port serves them as
+Prometheus text, --trace_path writes the tracer's spans, and
+--profile_dir a torch.profiler trace (utils/prof.DeviceTrace). Its lines
+lack what the port has no feature for yet: the `learner.remat_plan`
+static (ROADMAP.md Queue 1 item 'stage remat') and the
+`learner.hbm_bytes_per_update` gauge, which the reference reads from
+XLA's cost analysis. `learner.mesh_shape` is the single-device update's
+{"data": 1, "model": 1}.
+
 Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
           --use_lstm --vtrace_impl pallas --opt_impl pallas
       python -m torchbeast_tpu_torch.monobeast --env Mock \\
@@ -41,7 +52,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch import nest, precision, weights
+from torchbeast_tpu_torch import nest, precision, telemetry, weights
 from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
@@ -52,7 +63,12 @@ from torchbeast_tpu_torch.rollout import (
     RolloutCollector,
     to_host,
 )
-from torchbeast_tpu_torch.utils import FileWriter, install_preemption_handler
+from torchbeast_tpu_torch.utils import (
+    FileWriter,
+    Timings,
+    install_preemption_handler,
+)
+from torchbeast_tpu_torch.utils.prof import DeviceTrace
 from torchbeast_tpu_torch.utils.checkpoint import (
     load_params,
     load_train_state,
@@ -225,19 +241,10 @@ def make_parser():
     parser.add_argument("--grad_norm_clipping", type=float, default=40.0)
     parser.add_argument("--num_test_episodes", type=int, default=10,
                         help="Episodes of --mode test.")
-    parser.add_argument("--profile_dir", default=None, help=_LATER)
-    parser.add_argument("--telemetry", dest="telemetry",
-                        action="store_true", default=True,
-                        help="Telemetry series " + _LATER + "; the port "
-                             "emits none.")
-    parser.add_argument("--no_telemetry", dest="telemetry",
-                        action="store_false",
-                        help="Accepted: the port emits no telemetry.")
-    parser.add_argument("--telemetry_port", type=int, default=0,
-                        help=_LATER)
-    parser.add_argument("--telemetry_host", default="127.0.0.1",
-                        help=_LATER)
-    parser.add_argument("--trace_path", default=None, help=_LATER)
+    parser.add_argument("--profile_dir", default=None,
+                        help="If set, capture a torch.profiler trace "
+                             "here (trace.json).")
+    telemetry.add_arguments(parser)
     parser.add_argument("--disable_cuda", action="store_true",
                         help="Run on the CPU (the port's only flag the "
                              "reference lacks; without it and without a "
@@ -257,7 +264,7 @@ NOT_IN_PORT = {
     "sp_strategy": "the transformer family",
     "ring_schedule": "the transformer family",
     "num_learner_devices": "data parallel and the fleet",
-    "device_split": "serving",
+    "device_split": "data parallel and the fleet",
     "fleet": "data parallel and the fleet",
     "min_live_hosts": "data parallel and the fleet",
     "transformer_remat": "stage remat",
@@ -267,10 +274,6 @@ NOT_IN_PORT = {
     "impact_clip": "IMPACT",
     "replay_reuse": "IMPACT",
     "target_refresh_updates": "IMPACT",
-    "profile_dir": "telemetry",
-    "telemetry_port": "telemetry",
-    "telemetry_host": "telemetry",
-    "trace_path": "telemetry",
 }
 
 
@@ -463,6 +466,13 @@ def train(flags):
         xpid=flags.xpid, xp_args=vars(flags), rootdir=flags.savedir
     )
     checkpoint_path = _checkpoint_path(flags, flags.xpid)
+    # Telemetry: stage latencies, the learner batch-size distribution and
+    # the dispatch queue's occupancy land in {xpid}/telemetry.jsonl on
+    # the 5 s log cadence.
+    tele = telemetry.DriverTelemetry(
+        flags, plogger.paths["telemetry"], driver="monobeast")
+    reg = tele.registry
+    tele.set_static("learner.mesh_shape", {"data": 1, "model": 1})
 
     hp = hparams_from_flags(flags)
     batch_dtype = precision.resolve_flags(flags).batch_dtype
@@ -479,7 +489,9 @@ def train(flags):
         restored = load_train_state(checkpoint_path, model, optimizer)
         step, stats = restored["step"], restored["stats"]
         log.info("Resuming preempted job, current stats:\n%s", stats)
-    dispatch = learner_lib.make_update_dispatch(model, optimizer, hp, K)
+    dispatch = learner_lib.instrument_update_step(
+        learner_lib.make_update_dispatch(model, optimizer, hp, K),
+        registry=reg, superstep_k=K)
     # Lag 0: acting reads the learner's params, updated in place on the
     # same stream. Lag 1: its own copy, refreshed after each collect.
     act_model = (copy.deepcopy(model).requires_grad_(False) if overlap
@@ -500,12 +512,23 @@ def train(flags):
     # collect (dead env worker, hung device) visible as DEGRADED health
     # and a thread-stack dump.
     watchdog = LearnerWatchdog(flags.learner_stall_timeout_s,
-                               health=PipelineHealth()).start()
+                               health=PipelineHealth(registry=reg),
+                               registry=reg).start()
+    timings = Timings(registry=reg if tele.enabled else None,
+                      prefix="driver.")
+    h_batch_size = reg.histogram("learner.batch_size")
+    g_dispatch_q = reg.gauge("dispatch_queue.depth")
+    g_sps = reg.gauge("learner.sps")
+    g_env_sps = reg.gauge("learner.env_sps")
+    g_learn_sps = reg.gauge("learner.learn_sps")
+    # Each collected frame is learned from once (no --replay_reuse).
+    reg.gauge("learner.sample_reuse").set(1)
     update_ms = []
     pending = None  # (timers, device stats, step, done event) of a collect
     head = None  # --overlap_collect: event after the last dispatch
     start_time = time.time()
     start_step = step
+    device_trace = None
     try:
 
         def policy(env_output, agent_state):
@@ -530,6 +553,7 @@ def train(flags):
                 torch.stack([s[k].float() for k in keys])
                 for s in device_stats
             ]).cpu().numpy()
+            dispatch.count_host_sync()
             for t in timers:
                 update_ms.append((
                     t[0].elapsed_time(t[1]) if device.type == "cuda"
@@ -565,8 +589,11 @@ def train(flags):
 
         start_time = last_log_time = last_checkpoint_time = time.time()
         last_log_step = step
+        device_trace = DeviceTrace(flags.profile_dir)
         while step < flags.total_steps:
+            timings.reset()
             batch, initial_agent_state = collector.collect()
+            timings.time("collect")
             if overlap:
                 adopt_head()
             device_stats, timers = [], []
@@ -595,6 +622,7 @@ def train(flags):
                         precision.cast_batch(sub_state, batch_dtype))
                     device_stats.append(stats_k)
                     timers.append(timer)
+                    h_batch_size.observe(flags.batch_size)
                     watchdog.ping()
                     step += K * T * flags.batch_size
                 done = None
@@ -606,11 +634,18 @@ def train(flags):
             if pending is not None:
                 stats = flush_stats(pending)
             pending = (timers, device_stats, step, done)
+            timings.time("learn")
 
             now = time.time()
             if now - last_log_time > 5:
                 sps = (step - last_log_step) / (now - last_log_time)
                 last_log_time, last_log_step = now, step
+                g_sps.set(sps)
+                g_env_sps.set(sps)
+                g_learn_sps.set(sps)
+                # Dispatched-unflushed updates at this instant.
+                g_dispatch_q.set(len(pending[0]) * K if pending else 0)
+                tele.write(extra={"step": step})
                 log.info(
                     "Steps %d @ %.1f SPS. Loss %s. %s", step, sps,
                     f"{stats['total_loss']:.4f}"
@@ -641,10 +676,14 @@ def train(flags):
             except Exception:
                 log.exception("Could not flush final stats")
             pending = None
+        g_dispatch_q.set(0)  # everything flushed (or abandoned) now
         elapsed = time.time() - start_time
         _synchronize(device)
+        if device_trace is not None:
+            device_trace.stop()
         save_train_state(checkpoint_path, model, optimizer, step=step,
                          flags=vars(flags), stats=stats)
+        tele.shutdown(step=step)
         plogger.close(successful=successful)
         pool.close()
     stats["sps"] = (step - start_step) / elapsed if elapsed > 0 else 0.0

@@ -38,8 +38,28 @@ update. The learner and acting launch on the device's default stream.
 
 Checkpoints are the reference's own files (utils/checkpoint.py): one
 every --checkpoint_interval_s and one at exit, also on SIGTERM under
-cli(); a run resumes from {savedir}/{xpid}/model.ckpt when it exists,
+cli() (and under train() when a --chaos_plan plans `preempt_sigterm`);
+a run resumes from {savedir}/{xpid}/model.ckpt when it exists,
 whichever package wrote it. `--mode test` runs monobeast's greedy test.
+
+Telemetry is the reference's (telemetry/driver.py): {xpid}/telemetry.jsonl
+on every monitor tick and at exit, --telemetry_port, --trace_path and
+--profile_dir (a torch.profiler trace). On the native runtime the core's
+series fold into the registry from a tick callback
+(runtime/native.NativeTelemetryFolder). The lines lack the reference's
+`learner.remat_plan` static and `learner.hbm_bytes_per_update` gauge
+(ROADMAP.md Queue 1 item 'stage remat').
+
+The serving tier (serving/) on both runtimes: --request_deadline_ms arms
+the admission gate (the Python AdmissionController on the Python
+batcher, the core's own gate under --native_runtime), whose sheds the
+actors re-submit; --replica_refresh_updates N publishes a bf16 snapshot
+of the acting params every N updates, which a replica serving thread
+answers requests from through the state table's replica graphs, stamping
+each reply's policy_lag, behind a router (the core's ReplicaRouter under
+--native_runtime, serving/replica.ReplicaRouter otherwise) that falls
+back to the central path past --max_policy_lag. --chaos_plan arms the
+fault injector (resilience/chaos.py) on either runtime.
 
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. A flag whose feature the port
@@ -57,6 +77,7 @@ import copy
 import logging
 import os
 import queue as stdlib_queue
+import signal
 import statistics
 import threading
 import time
@@ -69,6 +90,8 @@ from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch import nest, polybeast_env, precision, telemetry
 from torchbeast_tpu_torch import monobeast, weights
 from torchbeast_tpu_torch.resilience import (
+    ChaosController,
+    FaultPlan,
     InferenceSupervisor,
     LearnerWatchdog,
     PipelineHealth,
@@ -88,6 +111,12 @@ from torchbeast_tpu_torch.runtime.queues import (
     DynamicBatcher,
 )
 from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+from torchbeast_tpu_torch.serving import (
+    AdmissionController,
+    PolicySnapshotStore,
+    ReplicaRouter,
+    ReplicaServingHooks,
+)
 from torchbeast_tpu_torch.utils import (
     FileWriter,
     Timings,
@@ -97,6 +126,7 @@ from torchbeast_tpu_torch.utils.checkpoint import (
     load_train_state,
     save_train_state,
 )
+from torchbeast_tpu_torch.utils.prof import DeviceTrace
 
 log = logging.getLogger("torchbeast_tpu_torch.polybeast")
 
@@ -221,7 +251,12 @@ def make_parser():
                         help=_LATER)
     parser.add_argument("--device_split", default="", help=_LATER)
     parser.add_argument("--admission_depth_factor", type=int, default=4,
-                        help=_LATER)
+                        help="Admission-gate queue-depth bound as a "
+                             "multiple of --max_inference_batch_size: "
+                             "with --request_deadline_ms armed, requests "
+                             "arriving while the serving queue already "
+                             "holds factor * max_batch pending rows are "
+                             "shed.")
     parser.add_argument("--continuous_batching", dest="continuous_batching",
                         action="store_true", default=True,
                         help="Native runtime only; the Python batcher "
@@ -249,12 +284,23 @@ def make_parser():
     parser.add_argument("--max_inference_batch_size", type=int, default=64)
     parser.add_argument("--inference_timeout_ms", type=float, default=100)
     parser.add_argument("--request_deadline_ms", type=float, default=0.0,
-                        help="Admission control " + _LATER)
+                        help="Arm the admission gate (serving/"
+                             "admission.py): requests that would queue "
+                             "past this deadline, or arrive while the "
+                             "queue is at its depth bound, are shed "
+                             "with a typed ShedError the actor "
+                             "re-submits after backoff. The same number "
+                             "is the SLO target of the telemetry `slo` "
+                             "block. 0 = no admission control.")
     parser.add_argument("--replica_refresh_updates", type=int, default=0,
-                        help="Policy replicas " + _LATER)
+                        help="Serve acting requests from versioned bf16 "
+                             "policy snapshots published every N "
+                             "updates (serving/), recording each "
+                             "request's policy_lag into the rollout. "
+                             "0 = central serving only.")
     parser.add_argument("--max_policy_lag", type=int, default=20,
-                        help="Replica staleness budget; no effect without "
-                             "replicas.")
+                        help="Replica staleness budget: past it the "
+                             "replica degrades to the central path.")
     parser.add_argument("--max_frame_bytes", type=int,
                         default=wire.DEFAULT_MAX_FRAME_BYTES,
                         help="Reject wire frames longer than this before "
@@ -280,20 +326,14 @@ def make_parser():
                         default=300.0,
                         help="No update within this many seconds degrades "
                              "health and dumps diagnostics; 0 disables.")
-    parser.add_argument("--chaos_plan", default=None, help=_LATER)
+    parser.add_argument("--chaos_plan", default=None,
+                        help="Arm a deterministic fault-injection plan "
+                             "(JSON, resilience/chaos.py). Injected "
+                             "faults are counted in telemetry so "
+                             "recovery can be asserted exactly "
+                             "(python -m torchbeast_tpu_torch.chaos_run).")
     parser.add_argument("--checkpoint_interval_s", type=int, default=600)
-    parser.add_argument("--telemetry", dest="telemetry",
-                        action="store_true", default=True,
-                        help="Metrics in the process registry (default); "
-                             "the port exports none yet.")
-    parser.add_argument("--no_telemetry", dest="telemetry",
-                        action="store_false",
-                        help="Turn the registry's instruments off.")
-    parser.add_argument("--telemetry_port", type=int, default=0,
-                        help=_LATER)
-    parser.add_argument("--telemetry_host", default="127.0.0.1",
-                        help=_LATER)
-    parser.add_argument("--trace_path", default=None, help=_LATER)
+    telemetry.add_arguments(parser)
     parser.add_argument("--entropy_cost", type=float, default=0.0006)
     parser.add_argument("--entropy_cost_final", type=float, default=None,
                         help="Linearly anneal the entropy cost to this "
@@ -315,7 +355,9 @@ def make_parser():
     parser.add_argument("--momentum", type=float, default=0.0)
     parser.add_argument("--epsilon", type=float, default=0.01)
     parser.add_argument("--grad_norm_clipping", type=float, default=40.0)
-    parser.add_argument("--profile_dir", default=None, help=_LATER)
+    parser.add_argument("--profile_dir", default=None,
+                        help="If set, capture a torch.profiler trace "
+                             "here (trace.json).")
     parser.add_argument("--disable_cuda", action="store_true",
                         help="Run on the CPU (the port's only flag the "
                              "reference lacks; without it and without a "
@@ -341,15 +383,7 @@ NOT_IN_PORT = {
     "coordinator_address": "data parallel and the fleet",
     "fleet": "data parallel and the fleet",
     "min_live_hosts": "data parallel and the fleet",
-    "device_split": "serving",
-    "admission_depth_factor": "serving",
-    "request_deadline_ms": "serving",
-    "replica_refresh_updates": "serving",
-    "chaos_plan": "resilience",
-    "telemetry_port": "telemetry",
-    "telemetry_host": "telemetry",
-    "trace_path": "telemetry",
-    "profile_dir": "telemetry",
+    "device_split": "data parallel and the fleet",
     "loss": "IMPACT",
     "impact_clip": "IMPACT",
     "replay_reuse": "IMPACT",
@@ -451,11 +485,15 @@ def train(flags):
     which the acting forwards share, so their kernels in between count
     too; the host clock on the CPU), "updates", "inference_batch_mean"
     (rows per acting forward), "runtime" ("native" or "python"),
-    "actor_pool" (the pool's class) and the health summary."""
+    "actor_pool" (the pool's class), the health summary and, under
+    --chaos_plan, the injector's summary ("chaos")."""
     check_flags(flags)
     superstep_k = getattr(flags, "superstep_k", 1)
     if superstep_k < 1:
         raise ValueError(f"--superstep_k must be >= 1, got {superstep_k}")
+    if flags.admission_depth_factor < 1:
+        raise ValueError("--admission_depth_factor must be >= 1, got "
+                         f"{flags.admission_depth_factor}")
     device = monobeast.select_device(flags)
     # Before the env servers start: with --native_server each of them
     # loads the core, which is then built once, here.
@@ -466,10 +504,22 @@ def train(flags):
     plogger = FileWriter(
         xpid=flags.xpid, xp_args=vars(flags), rootdir=flags.savedir
     )
-    telemetry_on = bool(getattr(flags, "telemetry", True))
-    telemetry.set_enabled(telemetry_on)
-    reg = telemetry.get_registry()
+    # Telemetry: one process-wide registry every runtime stage writes
+    # into; snapshots append to {xpid}/telemetry.jsonl on the monitor
+    # cadence.
+    tele = telemetry.DriverTelemetry(
+        flags, plogger.paths["telemetry"], driver="polybeast")
+    telemetry_on = tele.enabled
+    reg = tele.registry
+    # One host, one device: the reference's single-host statics.
+    tele.set_static("host_rank", 0)
+    tele.set_static("fleet_size", 1)
+    tele.set_static("learner.mesh_shape", {"data": 1, "model": 1})
     health = PipelineHealth(registry=reg)
+    chaos = None
+    if flags.chaos_plan:
+        chaos = ChaosController(FaultPlan.from_json(flags.chaos_plan),
+                                registry=reg)
     checkpoint_path = monobeast._checkpoint_path(flags, flags.xpid)
     num_actors = flags.num_actors or flags.num_servers
     addresses = [
@@ -491,6 +541,8 @@ def train(flags):
             )
             server_procs = server_supervisor.processes
             server_supervisor.start_watch()
+            if chaos is not None:
+                chaos.attach_servers(server_supervisor)
             time.sleep(0.5)
         elif flags.env_seed is not None:
             log.warning(
@@ -512,6 +564,8 @@ def train(flags):
             log.info("Resuming preempted job, current stats:\n%s", stats)
         dispatch = learner_lib.make_update_dispatch(model, optimizer, hp,
                                                    superstep_k)
+        update = learner_lib.instrument_update_step(
+            dispatch, registry=reg, superstep_k=superstep_k)
 
         # The acting copy: inference never reads the learner's params,
         # which the update changes in place.
@@ -531,17 +585,40 @@ def train(flags):
         # checkpoint's read of params and optimizer state.
         update_lock = threading.Lock()
 
+        # Admission control + deadline-aware load shedding on the
+        # central inference path (serving/admission.py), armed by
+        # --request_deadline_ms. The depth bound is
+        # --admission_depth_factor x the max batch.
+        deadline_ms = flags.request_deadline_ms or 0.0
+        shed_depth = (flags.admission_depth_factor
+                      * flags.max_inference_batch_size
+                      if deadline_ms > 0 else None)
+        slo_target_s = deadline_ms / 1000.0 if deadline_ms > 0 else None
+        admission = None
+        if deadline_ms > 0 and core is None:
+            admission = AdmissionController(
+                deadline_ms=deadline_ms, max_queue_depth=shed_depth,
+                registry=reg)
         # The core's classes take no telemetry_name: NativeTelemetryFolder
         # folds their series in (below), and the inference loop observes
-        # the batch sizes of a batcher without instruments.
+        # the batch sizes of a batcher without instruments. The core's
+        # batcher gates admission in C++ (actor threads never touch
+        # Python on a shed); its counters fold into serving.* too.
         if core is not None:
             queue_cls, batcher_cls = core.BatchingQueue, core.DynamicBatcher
             queue_tm = {}
             batcher_tm = {"continuous": flags.continuous_batching}
+            if deadline_ms > 0:
+                batcher_tm.update({
+                    "request_deadline_ms": deadline_ms,
+                    "shed_max_queue_depth": shed_depth,
+                    "slo_target_ms": deadline_ms,
+                })
         else:
             queue_cls, batcher_cls = BatchingQueue, DynamicBatcher
             queue_tm = {"telemetry_name": "learner_queue"}
-            batcher_tm = {"telemetry_name": "inference"}
+            batcher_tm = {"telemetry_name": "inference",
+                          "admission": admission}
         learner_queue = queue_cls(
             batch_dim=1, minimum_batch_size=B, maximum_batch_size=B,
             maximum_queue_size=flags.max_learner_queue_size or B,
@@ -554,19 +631,23 @@ def train(flags):
         )
         model_keys = learner_lib.MODEL_INPUT_KEYS
 
-        def _forward(env_d, agent_state):
-            """One acting forward on [1, n] inputs on the card; outputs as
-            the wire carries them (int32 actions, f32 logits/baseline)."""
+        def _forward_with(acting_model, gen, env_d, agent_state):
+            """One acting forward of `acting_model` on [1, n] inputs on
+            the card, sampling from `gen`; outputs as the wire carries
+            them (int32 actions, f32 logits/baseline)."""
             inputs = {k: env_d[k][0] for k in model_keys}
             with torch.no_grad():
                 out, new_state = learner_lib.act_body(
-                    act_model, inputs, agent_state, generator)
+                    acting_model, inputs, agent_state, gen)
             outputs = {
                 "action": out.action[None].to(torch.int32),
                 "policy_logits": out.policy_logits[None].float(),
                 "baseline": out.baseline[None].float(),
             }
             return outputs, new_state
+
+        def _forward(env_d, agent_state):
+            return _forward_with(act_model, generator, env_d, agent_state)
 
         def _act(env_d, agent_state):
             with state_lock:
@@ -589,6 +670,55 @@ def train(flags):
             return _act(to_device(env, device),
                         to_device(agent_state, device))
 
+        # Snapshotted policy replicas (serving/): the learner publishes
+        # a bf16 snapshot of the acting params every
+        # --replica_refresh_updates updates; a replica serving thread
+        # answers from the latest one through its own params buffer
+        # (the replica model, allocated once), loaded when a batch
+        # brings a version it does not hold yet, and samples from a
+        # generator of its own.
+        # (The reference relaxes the default to every 10 updates under
+        # --loss impact, which the port does not have yet.)
+        refresh_updates = flags.replica_refresh_updates
+        snapshot_store = replica_hooks = replica_model = None
+        if refresh_updates > 0:
+            snapshot_store = PolicySnapshotStore(refresh_updates,
+                                                 registry=reg)
+            # Version 0 = the initial params, published before serving
+            # starts so the replica path is never empty-handed.
+            snapshot_store.note_update(0)
+            snapshot_store.publish(0, act_params)
+            replica_hooks = ReplicaServingHooks(
+                snapshot_store, max_policy_lag=flags.max_policy_lag,
+                rng_seed=flags.seed + 7919, health=health, batch_dim=1,
+                registry=reg, device=device)
+            replica_model = copy.deepcopy(act_model).requires_grad_(False)
+
+        def _replica_forward(env_d, agent_state):
+            return _forward_with(replica_model, replica_hooks.generator,
+                                 env_d, agent_state)
+
+        replica_act_graphs = {}
+        replica_loaded = [None]  # the version the replica model holds
+
+        def _replica_act_fn(env_outputs, agent_state, batch_size, ctx):
+            """The replica twin of act_fn (stateless models; the state
+            table loads a stateful model's context itself)."""
+            env = {k: env_outputs[k] for k in model_keys}
+            version, params = ctx
+            with state_lock:
+                if replica_loaded[0] != version:
+                    with torch.no_grad():
+                        torch._foreach_copy_(
+                            list(replica_model.parameters()),
+                            nest.flatten(params))
+                    replica_loaded[0] = version
+                if replica_act_graphs:
+                    return replica_act_graphs[batch_size](
+                        {"env": env, "state": agent_state})
+                return _replica_forward(to_device(env, device),
+                                        to_device(agent_state, device))
+
         state_table = None
         initial_state = act_model.initial_state(1, device)
         stateful_acting = flags.device_agent_state and bool(
@@ -600,8 +730,43 @@ def train(flags):
                 batch_dim=1,
                 input_filter=lambda env: {k: env[k] for k in model_keys},
             )
-        log.info("Acting path: agent_state=%s",
-                 "device_table" if state_table is not None else "host")
+            if replica_model is not None:
+                state_table.bind_context(
+                    _replica_forward, list(replica_model.parameters()))
+
+        # The chaos learner_stall gate (the shared-chip overload model):
+        # consulted at the learner's dispatch and in every serving loop;
+        # None when chaos is unarmed.
+        throttle = chaos.throttle if chaos is not None else None
+        if chaos is not None:
+            chaos.attach_state_table(state_table)
+
+            def _chaos_step():
+                with state_lock:
+                    return state["step"]
+
+            chaos.set_step_fn(_chaos_step)
+
+        # Per-env-step wire accounting of the acting path: gauges and a
+        # static `acting_path` block on every telemetry line.
+        env_up = (int(np.prod(frame_shape)) + 4 + 1 + 4 + 4 + 4)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in nest.flatten(initial_state))
+        out_down = 4 + 4 * num_actions + 4  # action, logits, baseline
+        if state_table is not None:
+            bytes_up, bytes_down = env_up + 4 + 1, out_down
+        else:
+            bytes_up = env_up + state_bytes
+            bytes_down = out_down + state_bytes
+        acting_mode = "device_table" if state_table is not None else "host"
+        reg.gauge("acting.bytes_per_step_up").set(bytes_up)
+        reg.gauge("acting.bytes_per_step_down").set(bytes_down)
+        tele.set_static("acting_path", {
+            "agent_state": acting_mode,
+            "bytes_per_step_up": bytes_up,
+            "bytes_per_step_down": bytes_down,
+        })
+        log.info("Acting path: agent_state=%s", acting_mode)
 
         buckets = default_buckets(flags.max_inference_batch_size)
         if device.type == "cuda":
@@ -609,22 +774,36 @@ def train(flags):
             # Every graph is captured here, before the first thread starts.
             dispatch.capture(*_dummy_learner_inputs(
                 T, B, superstep_k, frame_shape, num_actions,
-                to_host(model.initial_state(B, device)), policy.batch_dtype))
+                to_host(model.initial_state(B, device)), policy.batch_dtype,
+                policy_lag=replica_model is not None))
+            n_graphs = len(buckets)
             if state_table is not None:
                 state_table.capture(
                     buckets, lambda b: _dummy_env_outputs(b, frame_shape),
                     generator, replay_lock=state_lock)
+                if replica_model is not None:
+                    state_table.capture_context(
+                        buckets,
+                        lambda b: _dummy_env_outputs(b, frame_shape),
+                        replica_hooks.generator)
+                    n_graphs += len(buckets)
             else:
-                for b in buckets:
-                    act_graphs[b] = graphs.CapturedAct(
-                        lambda static: _forward(static["env"],
-                                                static["state"]),
-                        {"env": _dummy_env_outputs(b, frame_shape),
-                         "state": to_host(act_model.initial_state(b,
-                                                                  device))},
-                        device, generator)
+                acting = [(act_graphs, _forward, generator)]
+                if replica_model is not None:
+                    acting.append((replica_act_graphs, _replica_forward,
+                                   replica_hooks.generator))
+                for into, forward, gen in acting:
+                    for b in buckets:
+                        into[b] = graphs.CapturedAct(
+                            lambda static, f=forward: f(static["env"],
+                                                        static["state"]),
+                            {"env": _dummy_env_outputs(b, frame_shape),
+                             "state": to_host(act_model.initial_state(
+                                 b, device))},
+                            device, gen)
+                n_graphs = len(buckets) * len(acting)
             log.info("Captured the learner's and %d acting CUDA graphs in "
-                     "%.1fs", len(buckets), time.time() - t0)
+                     "%.1fs", n_graphs, time.time() - t0)
         elif flags.prewarm_inference:
             t0 = time.time()
             for b in buckets:
@@ -640,6 +819,42 @@ def train(flags):
             log.info("Prewarmed %d inference buckets in %.1fs",
                      len(buckets), time.time() - t0)
 
+        # The replica serving tier: its batcher, the router in front of
+        # both batchers, and its serving loop.
+        replica_batcher = replica_router = None
+        loop_hooks = replica_hooks
+        if replica_hooks is not None:
+            if core is not None:
+                # The core's ReplicaRouter answers replica-first with
+                # central fallback, gated by a flag the hooks push (per
+                # served batch and per monitor tick) instead of a GIL
+                # round trip per request; a degraded replica sees no
+                # batches, so only the tick can re-arm it.
+                replica_batcher = core.DynamicBatcher(
+                    batch_dim=1, minimum_batch_size=1,
+                    maximum_batch_size=flags.max_inference_batch_size,
+                    timeout_ms=flags.inference_timeout_ms, **batcher_tm)
+                replica_router = core.ReplicaRouter(
+                    central=inference_batcher, replica=replica_batcher)
+                replica_router.set_serving(replica_hooks.serving_ok())
+                tele.add_tick_callback(
+                    lambda: replica_router.set_serving(
+                        replica_hooks.serving_ok()))
+                loop_hooks = _FlagSyncHooks(replica_hooks, replica_router)
+            else:
+                replica_batcher = DynamicBatcher(
+                    batch_dim=1, minimum_batch_size=1,
+                    maximum_batch_size=flags.max_inference_batch_size,
+                    timeout_ms=flags.inference_timeout_ms,
+                    telemetry_name="replica", admission=admission)
+                replica_router = ReplicaRouter(
+                    inference_batcher, replica_batcher, replica_hooks,
+                    registry=reg)
+            log.info("Replica serving armed: refresh every %d updates, "
+                     "max policy lag %d (%s routing)", refresh_updates,
+                     flags.max_policy_lag,
+                     "native" if core is not None else "python")
+
         def _serve_loop():
             if device.type == "cuda":
                 torch.cuda.set_device(device)
@@ -650,8 +865,27 @@ def train(flags):
                 lock=None,
                 pipelined=flags.num_inference_threads == 1,
                 state_table=state_table,
+                throttle_fn=throttle,
             )
 
+        def _replica_loop():
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            inference_loop(
+                replica_batcher,
+                None if state_table is not None else _replica_act_fn,
+                flags.max_inference_batch_size,
+                lock=None,
+                pipelined=False,
+                state_table=state_table,
+                serving_hooks=loop_hooks,
+                throttle_fn=throttle,
+                telemetry_prefix="replica",
+            )
+
+        # Replica loops ride the same supervisor: they share the state
+        # table, so poison recovery rebuilds once and restarts every
+        # serving thread under one budget.
         infer_supervisor = InferenceSupervisor(
             _serve_loop,
             num_threads=flags.num_inference_threads,
@@ -659,16 +893,37 @@ def train(flags):
             restart_budget=flags.inference_restart_budget,
             health=health,
             registry=reg,
+            extra_loop_fns=([_replica_loop] if replica_hooks is not None
+                            else None),
         )
+        serving_frontend = (replica_router if replica_router is not None
+                            else inference_batcher)
         pool_kwargs = {}
         if state_table is not None:
             # The C++ pool calls reset / initial_state_host / read_slot
             # on the table under the GIL, as the Python pool does.
             pool_kwargs["state_table"] = state_table
+        if core is None:
+            # SLO breach accounting lives actor-side in the Python pool
+            # (the core counts breaches batcher-side).
+            pool_kwargs["slo_target_s"] = slo_target_s
+        if replica_hooks is not None:
+            # Rollouts mixing replica and central replies stay
+            # well-formed: a missing policy_lag leaf is zeros.
+            pool_kwargs["record_policy_lag"] = True
+        # Chaos interposition on either runtime: the Python pool wraps
+        # each fresh transport in a FaultingTransport; the core builds
+        # its FaultHooks, which the controller drives through the pool's
+        # chaos_* methods.
+        if chaos is not None:
+            if core is not None:
+                pool_kwargs["fault_hooks"] = True
+            else:
+                pool_kwargs["transport_wrap"] = chaos.wrap_transport
         actors = (core.ActorPool if core is not None else ActorPool)(
             unroll_length=T,
             learner_queue=learner_queue,
-            inference_batcher=inference_batcher,
+            inference_batcher=serving_frontend,
             env_server_addresses=addresses,
             initial_agent_state=to_host(initial_state),
             max_reconnects=flags.max_actor_reconnects,
@@ -676,14 +931,35 @@ def train(flags):
             max_frame_bytes=flags.max_frame_bytes,
             **pool_kwargs,
         )
-        # The core has no registry access: its per-request stamps and
-        # wire / step / queue counters fold into the Python runtime's
-        # series at each monitor tick and once at shutdown.
-        native_fold = (
-            native.NativeTelemetryFolder(reg, pool=actors,
-                                         batcher=inference_batcher,
-                                         queue=learner_queue).tick
-            if core is not None and telemetry_on else lambda: None)
+        if chaos is not None and core is not None:
+            chaos.attach_native_pool(actors)
+        if core is not None and telemetry_on:
+            # The core has no registry access: its per-request stamps
+            # and wire / step / queue / admission counters fold into the
+            # Python runtime's series on every exported line, the final
+            # one included.
+            tele.add_tick_callback(native.NativeTelemetryFolder(
+                reg, pool=actors, batcher=inference_batcher,
+                queue=learner_queue, slo_target_s=slo_target_s,
+                replica_batcher=replica_batcher,
+                replica_router=replica_router).tick)
+        if telemetry_on:
+            # Fresh liveness gauges and the per-connection SLO block on
+            # every exported line: the p99 of actor.request_rtt_s
+            # against the admission gate's deadline, and the breaches.
+            g_live = reg.gauge("actor.live")
+            tele.add_tick_callback(lambda: g_live.set(actors.live_actors()))
+            h_rtt = reg.histogram("actor.request_rtt_s")
+            c_breach = reg.counter("slo.rtt_breaches")
+
+            def _slo_tick():
+                tele.set_static("slo", {
+                    "target_s": slo_target_s,
+                    "p99_s": round(h_rtt.percentile(0.99), 6),
+                    "breaches": int(c_breach.value()),
+                })
+
+            tele.add_tick_callback(_slo_tick)
         actor_thread = threading.Thread(
             target=actors.run, daemon=True, name="actorpool"
         )
@@ -761,6 +1037,7 @@ def train(flags):
         )
         update_interval_ms = []
         learner_errors = []
+        updates_done = [0]  # the snapshot store's version clock
         counters = ("inference.batches", "inference.rows")
         counts_at_start = _counter_values(reg, counters)
 
@@ -788,6 +1065,7 @@ def train(flags):
                 keys = list(device_stats)
                 row = torch.stack(
                     [device_stats[k].float() for k in keys]).cpu().numpy()
+                update.count_host_sync()
                 if release is not None:
                     # The stats arrived, so the dispatch that read the
                     # arena stack is done: its slot may be rewritten.
@@ -816,16 +1094,20 @@ def train(flags):
                     staged, release = staged
                 batch, initial_agent_state = _take_staged(staged)
                 timings.time("dequeue")
+                if throttle is not None:
+                    # The chaos learner_stall gate: the busy-card stall
+                    # at the dispatch site (no-op outside a window).
+                    throttle()
                 with update_lock:
                     if device.type == "cuda":
                         t0 = torch.cuda.Event(enable_timing=True)
                         t1 = torch.cuda.Event(enable_timing=True)
                         t0.record()
-                        train_stats = dispatch(batch, initial_agent_state)
+                        train_stats = update(batch, initial_agent_state)
                         t1.record()
                     else:
                         t0 = time.perf_counter()
-                        train_stats = dispatch(batch, initial_agent_state)
+                        train_stats = update(batch, initial_agent_state)
                         t1 = time.perf_counter()
                     with state_lock:
                         # Publish: the acting copy takes the new params
@@ -835,6 +1117,15 @@ def train(flags):
                             torch._foreach_copy_(act_params, learn_params)
                         state["step"] += superstep_k * T * B
                         now_step = state["step"]
+                        updates_done[0] += superstep_k
+                        # A versioned snapshot when one is due (a
+                        # dropped refresh stays due): its bf16 cast is
+                        # queued behind the copy above.
+                        if (snapshot_store is not None
+                                and snapshot_store.note_update(
+                                    updates_done[0])):
+                            snapshot_store.publish(updates_done[0],
+                                                   act_params)
                 watchdog.ping()
                 if pending is not None:
                     flush(pending)
@@ -862,16 +1153,30 @@ def train(flags):
                              step=at_step, flags=vars(flags),
                              stats=at_stats)
 
+    # A planned preempt_sigterm takes the checkpoint-and-exit path under
+    # train() too, as it does under cli(): SIGTERM raises
+    # KeyboardInterrupt in the main thread for this run.
+    restore_sigterm = None
+    if chaos is not None and any(
+            f.kind == "preempt_sigterm" for f in chaos.plan.faults):
+        previous = signal.getsignal(signal.SIGTERM)
+        if install_preemption_handler():
+            restore_sigterm = previous
+
     # From the first thread start on, this try/finally owns all cleanup.
     start_time = time.time()
     start_step = state["step"]
     successful = False
+    device_trace = None
     try:
         infer_supervisor.start()
         actor_thread.start()
         prefetcher.start()
         learner_thread.start()
         watchdog.start()
+        if chaos is not None:
+            chaos.start()
+        device_trace = DeviceTrace(flags.profile_dir)
 
         num_live_floor = max(1, min(flags.min_live_actors, num_actors))
         degraded_dead = 0
@@ -885,7 +1190,6 @@ def train(flags):
                 pass
             if learner_done.is_set():
                 break
-            native_fold()
             live = actors.live_actors()
             dead = num_actors - live
             if dead > degraded_dead and actors.errors:
@@ -918,6 +1222,16 @@ def train(flags):
             now = time.time()
             sps = (now_step - last_step) / (now - last_time)
             last_step, last_time = now_step, now
+            if telemetry_on:
+                # Set here, not in the queues: the core's queues carry
+                # no instruments. Every frame is learned from once.
+                reg.gauge("learner.sps").set(sps)
+                reg.gauge("learner.env_sps").set(sps)
+                reg.gauge("learner.learn_sps").set(sps)
+                reg.gauge("learner.sample_reuse").set(1)
+                reg.gauge("learner_queue.depth").set(learner_queue.size())
+                reg.gauge("inference.depth").set(inference_batcher.size())
+                tele.write(extra={"step": now_step})
             means = timings.means()
             log.info(
                 "Step %d @ %.1f SPS. Inference batcher size: %d. "
@@ -941,10 +1255,20 @@ def train(flags):
         log.info("Interrupted; saving final checkpoint.")
         successful = True
     finally:
+        if chaos is not None:
+            chaos.stop()
+            # The final telemetry line carries the injection ledger the
+            # chaos harness audits recovery counters against.
+            tele.set_static("chaos", chaos.summary())
         watchdog.stop()
-        # Shutdown in the reference's order: close batcher + queue, join
-        # the actors, then the threads.
-        for closer in (inference_batcher, learner_queue):
+        if device_trace is not None:
+            device_trace.stop()
+        # Shutdown in the reference's order: close the batchers + queue,
+        # join the actors, then the threads.
+        closers = [inference_batcher, learner_queue]
+        if replica_batcher is not None:
+            closers.insert(1, replica_batcher)
+        for closer in closers:
             try:
                 closer.close()
             except RuntimeError:
@@ -955,12 +1279,16 @@ def train(flags):
         learner_thread.join(timeout=10)
         infer_supervisor.join(timeout=10)
         elapsed = time.time() - start_time
-        native_fold()
         checkpoint()
+        # The last line; its tick callbacks fold the core's series in
+        # once more before the stats below read the registry.
+        tele.shutdown(step=state["step"])
         plogger.close(successful=successful)
         if server_supervisor is not None:
             server_supervisor.stop()  # before terminate: no resurrect-mid-reap
         polybeast_env.reap_group(server_procs)
+        if restore_sigterm is not None:
+            signal.signal(signal.SIGTERM, restore_sigterm)
     log.info(
         "Learning finished after %d steps (health %s).",
         state["step"], health.state_name,
@@ -985,15 +1313,34 @@ def train(flags):
     stats["health_reasons"] = health.reasons()
     stats["actor_reconnects"] = int(actors.reconnect_count())
     stats["inference_restarts"] = infer_supervisor.restarts
+    if chaos is not None:
+        stats["chaos"] = chaos.summary()
     return stats
 
 
+class _FlagSyncHooks:
+    """The native replica loop's hooks: every begin_batch pushes the lag
+    gate's verdict to the core's ReplicaRouter before picking the
+    snapshot, so the C++ routing decision trails the lag budget by one
+    batch at most."""
+
+    def __init__(self, hooks, router):
+        self._hooks = hooks
+        self._router = router
+
+    def begin_batch(self):
+        self._router.set_serving(self._hooks.serving_ok())
+        return self._hooks.begin_batch()
+
+
 def _dummy_learner_inputs(T, B, k, frame_shape, num_actions, agent_state,
-                          batch_dtype):
+                          batch_dtype, policy_lag=False):
     """Zero learner inputs of one dispatch, as the prefetcher stages them
     (the wire's dtypes, float leaves cast to `batch_dtype`): a [T+1, B]
     batch and `agent_state` (a host state nest at B), stacked [K, ...]
-    when k > 1. The learner graph's capture takes them."""
+    when k > 1. With `policy_lag` the batch carries the int32 leaf the
+    pool records under replica serving (the update does not read it).
+    The learner graph's capture takes them."""
     env = _dummy_env_outputs(B, frame_shape)
     batch = {key: np.repeat(v, T + 1, axis=0) for key, v in env.items()}
     batch.update({
@@ -1003,6 +1350,8 @@ def _dummy_learner_inputs(T, B, k, frame_shape, num_actions, agent_state,
         "policy_logits": np.zeros((T + 1, B, num_actions), np.float32),
         "baseline": np.zeros((T + 1, B), np.float32),
     })
+    if policy_lag:
+        batch["policy_lag"] = np.zeros((T + 1, B), np.int32)
     tree = (batch, agent_state)
     if k > 1:
         tree = nest.map(lambda v: np.stack([v] * k), tree)

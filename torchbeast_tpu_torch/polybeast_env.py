@@ -206,6 +206,9 @@ _SERVE = ("import json, sys\n"
           "_serve(*json.loads(sys.argv[1]))\n")
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LIVE = weakref.WeakSet()  # servers started by this process, not yet reaped
+# The pid of every server this process started, in order (the leak
+# checks of chaos_run.py count the ring segments those pids created).
+SPAWNED_PIDS = []
 
 
 class ServerProcess:
@@ -226,6 +229,7 @@ class ServerProcess:
         )
         self.pid = self._popen.pid
         _LIVE.add(self)
+        SPAWNED_PIDS.append(self.pid)
 
     @property
     def exitcode(self):

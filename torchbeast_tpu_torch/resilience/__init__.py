@@ -1,5 +1,5 @@
-"""Recovery machinery of the async driver (the parts of
-torchbeast_tpu/resilience/ that its default path runs):
+"""Recovery machinery of the async driver (the port's copy of
+torchbeast_tpu/resilience/):
 
 - `backoff`:    exponential backoff with decorrelated jitter + deadline,
                 for the actor reconnect loop and env-server respawn.
@@ -7,14 +7,22 @@ torchbeast_tpu/resilience/ that its default path runs):
                 (HEALTHY/DEGRADED/HALTED), the inference-thread
                 supervisor that rebuilds a poisoned state table under a
                 bounded budget, and the learner stall watchdog.
-
-The chaos harness (`--chaos_plan`) is not in the port yet: ROADMAP.md
-Queue 1 item 'resilience'.
+- `chaos`:      deterministic, seeded fault injection (`FaultPlan`,
+                JSON-loadable via `--chaos_plan`), every injected fault
+                counted in telemetry so recovery can be asserted
+                exactly (`python -m torchbeast_tpu_torch.chaos_run`).
 """
 
 from torchbeast_tpu_torch.resilience.backoff import (  # noqa: F401
     Backoff,
     BackoffDeadline,
+)
+from torchbeast_tpu_torch.resilience.chaos import (  # noqa: F401
+    FAULT_KINDS,
+    ChaosController,
+    FaultingTransport,
+    FaultPlan,
+    FaultSpec,
 )
 from torchbeast_tpu_torch.resilience.supervisor import (  # noqa: F401
     InferenceSupervisor,

@@ -174,6 +174,16 @@ class InferenceSupervisor:
     closes); the supervisor owns the threads so the driver never touches
     raw inference threads again.
 
+    The port adds a watcher: a table poisoned outside a serving step (a
+    direct call, or the chaos harness's injection) is met by the next
+    serving step only, and when every actor is at an unroll boundary
+    (held by the learner queue's backpressure) the actors' own table
+    calls fail instead, no request reaches a serving thread, and the
+    actors retire on their retry budgets. So a watcher thread polls the
+    table and rebuilds it under the same budget and counters, once per
+    poison event, as a serving thread would (the reference waits for a
+    serving thread).
+
     Telemetry: `recovery.table_rebuilds` and
     `recovery.inference_restarts` each count ONE per poison event
     (sibling threads re-entering after a rebuild don't re-count), which
@@ -214,6 +224,7 @@ class InferenceSupervisor:
         # `errors` property.
         self._errors: List[BaseException] = []  # guarded-by: self._lock
         self._threads: List[threading.Thread] = []
+        self._watcher: Optional[threading.Thread] = None
 
     @property
     def errors(self) -> List[BaseException]:
@@ -235,6 +246,20 @@ class InferenceSupervisor:
         ]
         for t in self._threads:
             t.start()
+        if self._table is not None:
+            self._watcher = threading.Thread(
+                target=self._watch, daemon=True, name=f"{self._name}-watch")
+            self._watcher.start()
+
+    def _watch(self, interval_s: float = 0.05) -> None:
+        """Rebuild a table poisoned while no serving thread steps it;
+        ends with the last serving thread."""
+        while self.alive_count() > 0:
+            time.sleep(interval_s)
+            if getattr(self._table, "poisoned", False):
+                with self._lock:
+                    gen = self._recovery_gen
+                self._recover(-1, gen)
 
     def alive_count(self) -> int:
         return sum(1 for t in self._threads if t.is_alive())
@@ -242,6 +267,8 @@ class InferenceSupervisor:
     def join(self, timeout: Optional[float] = None) -> None:
         for t in self._threads:
             t.join(timeout=timeout)
+        if self._watcher is not None:
+            self._watcher.join(timeout=timeout)
 
     @staticmethod
     def _is_poison_error(e: BaseException) -> bool:
@@ -320,9 +347,10 @@ class InferenceSupervisor:
                 key="state_table_poison",
             )
         log.warning(
-            "Inference thread %d: state table poisoned; rebuilt from "
-            "initial state and restarting (restart %d/%d)",
-            index, n, self._budget,
+            "%s: state table poisoned; rebuilt from initial state and "
+            "restarting (restart %d/%d)",
+            f"Inference thread {index}" if index >= 0 else "Table watcher",
+            n, self._budget,
         )
         return True
 

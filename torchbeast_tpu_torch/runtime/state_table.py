@@ -31,6 +31,18 @@ step fills from pinned host memory. The graphs address the table's
 tensors, which is why it never moves. Once captured, every step replays
 the graph of its size (under the caller's `replay_lock` too), and a size
 without one raises.
+
+Replica serving (serving/replica.py) steps the same rows with another
+set of params: `bind_context(act_fn, params)` names a params buffer,
+allocated once, and the acting function that reads it; a step given a
+`context` = (version, params tree) first copies the tree into the
+buffer when the buffer holds another version, then acts. On the card
+`capture_context` captures that step as a second set of graphs, one per
+bucket, bound to the buffer and to the same rows, before any thread
+starts; a poison and `rebuild` leave both sets valid, since `rebuild`
+writes into the same storage. The copy and the replay run under one
+hold of the table lock (and the replay lock), so no poison lands between
+them.
 """
 
 # beastlint: hot-module — the table step runs once per acting batch.
@@ -108,6 +120,12 @@ class DeviceStateTable:
         self._table = self._rows
         self._graphs = {}  # batch size -> graphs.CapturedAct
         self._replay_lock = contextlib.nullcontext()
+        # Replica serving: the acting function over the params buffer,
+        # the buffer, the snapshot version it holds and its graphs.
+        self._context_act_fn = None
+        self._context_params = None
+        self._context_version = None  # guarded-by: self._lock
+        self._context_graphs = {}  # batch size -> graphs.CapturedAct
 
     def _fresh_table(self):
         """A new [.., num_slots+1, ..] table (+1: the trash slot), every
@@ -171,11 +189,12 @@ class DeviceStateTable:
         for leaf, value in zip(nest.flatten(table), nest.flatten(values)):
             leaf.index_copy_(self.batch_dim, ids, value.to(leaf.dtype))
 
-    def _advance(self, table, ids, advance_d, env_d, ctx):
-        """Gather, act, merge and scatter on the card; the outputs."""
+    def _advance(self, table, ids, advance_d, env_d, act):
+        """Gather, `act(env_d, state)`, merge and scatter on the card;
+        the outputs."""
         bd = self.batch_dim
         state = self._gather(table, ids)
-        outputs, new_state = self._act_fn(ctx, env_d, state)
+        outputs, new_state = act(env_d, state)
 
         def merge(new, old):
             shape = [1] * new.dim()
@@ -207,13 +226,71 @@ class DeviceStateTable:
                        "advance": np.zeros(n, bool), "env": env}
 
             def run(static):
-                return self._advance(self._rows, static["ids"],
-                                     static["advance"], static["env"], ctx)
+                return self._advance(
+                    self._rows, static["ids"], static["advance"],
+                    static["env"],
+                    lambda env_d, state: self._act_fn(ctx, env_d, state))
 
             with self._lock, torch.no_grad():
                 self._require_alive()
                 self._graphs[n] = graphs.CapturedAct(
                     run, example, self.device, generator)
+
+    def bind_context(self, act_fn: Callable, params) -> None:
+        """Arm replica steps: `act_fn(env_outputs, agent_state)` acts
+        with the params in `params` (a list of tensors on the table's
+        device, allocated once), which each step's context is copied
+        into."""
+        self._context_act_fn = act_fn
+        self._context_params = list(params)
+
+    def capture_context(self, sizes, env_example: Callable[[int], Any],
+                        generator=None) -> None:
+        """Capture the replica step (bind_context's act_fn over the
+        params buffer, on the table's rows) as one CUDA graph per batch
+        size, as `capture` does for the central step; `generator` is the
+        one the replica act_fn samples from. A failed capture raises."""
+        if self._context_act_fn is None:
+            raise ValueError("capture_context needs bind_context first")
+        for n in sizes:
+            env = env_example(n)
+            if self._input_filter is not None:
+                env = self._input_filter(env)
+            example = {"ids": np.full(n, self.trash_slot, np.int64),
+                       "advance": np.zeros(n, bool), "env": env}
+
+            def run(static):
+                return self._advance(self._rows, static["ids"],
+                                     static["advance"], static["env"],
+                                     self._context_act_fn)
+
+            with self._lock, torch.no_grad():
+                self._require_alive()
+                self._context_graphs[n] = graphs.CapturedAct(
+                    run, example, self.device, generator)
+
+    # beastlint: holds self._lock
+    def _load_context(self, context) -> None:
+        """Copy a (version, params tree) context into the params
+        buffer unless the buffer holds that version already. Called
+        under the table lock."""
+        version, params = context
+        if version == self._context_version:
+            return
+        values = nest.flatten(params)
+        if len(values) != len(self._context_params):
+            raise ValueError(
+                f"context has {len(values)} params, the buffer "
+                f"{len(self._context_params)}")
+        self._context_version = None  # until the copy is queued
+        torch._foreach_copy_(self._context_params, values)
+        self._context_version = version
+
+    @property
+    def context_version(self):
+        """The snapshot version the replica params buffer holds."""
+        with self._lock:
+            return self._context_version
 
     def step(self, slots, advance, env_outputs, context=None):
         """One acting step over already-padded inputs.
@@ -221,44 +298,60 @@ class DeviceStateTable:
         slots: [n] int ids (padding rows = trash_slot), advance: [n]
         bool, env_outputs: a numpy env nest padded to n along batch_dim.
         Returns the outputs nest on the card (fetch with `fetch`).
-        `context` overrides the table's context_fn for this step (not
-        for a captured step, whose context is bound at capture).
+        With `bind_context`, a `context` = (version, params tree) makes
+        this a replica step over those params; without it, `context`
+        overrides the table's context_fn for an eager step (a captured
+        central step binds its context at capture).
         """
         if self._input_filter is not None:
             env_outputs = self._input_filter(env_outputs)
         slots = np.asarray(slots, np.int64).reshape(-1)
         advance = np.asarray(advance, bool).reshape(-1)
-        if self._graphs:
-            return self._replay(slots, advance, env_outputs, context)
-        ctx = context
-        if ctx is None and self._context_fn is not None:
-            ctx = self._context_fn()
+        replica = context is not None and self._context_act_fn is not None
+        if self._graphs or self._context_graphs:
+            # Captured: every step replays, a size or kind without its
+            # graph raises.
+            graph_set = self._context_graphs if replica else self._graphs
+            return self._replay(graph_set, slots, advance, env_outputs,
+                                context, replica)
+        if replica:
+            act = self._context_act_fn
+        else:
+            ctx = context
+            if ctx is None and self._context_fn is not None:
+                ctx = self._context_fn()
+            act = lambda env_d, state: self._act_fn(ctx, env_d, state)  # noqa: E731
         ids = to_device(slots, self.device)
         advance_d = to_device(advance, self.device)
         env_d = to_device(env_outputs, self.device)
 
         with self._lock, torch.no_grad():
             self._require_alive()
+            if replica:
+                self._load_context(context)
             # Poisoned until the scatter is through: a raise on the way
             # leaves the table None.
             table, self._table = self._table, None
-            outputs = self._advance(table, ids, advance_d, env_d, ctx)
+            outputs = self._advance(table, ids, advance_d, env_d, act)
             self._table = table
         self._tm_dispatches.inc()
         return outputs
 
-    def _replay(self, slots, advance, env_outputs, context):
+    def _replay(self, graph_set, slots, advance, env_outputs, context,
+                replica):
         n = slots.shape[0]
-        graph = self._graphs.get(n)
+        graph = graph_set.get(n)
         if graph is None:
             raise ValueError(
-                f"no captured acting graph for a batch of {n} (captured: "
-                f"{sorted(self._graphs)})")
-        if context is not None:
+                f"no captured {'replica' if replica else 'acting'} graph "
+                f"for a batch of {n} (captured: {sorted(graph_set)})")
+        if context is not None and not replica:
             raise ValueError("a captured table step binds its context at "
                              "capture")
         with self._lock, self._replay_lock, torch.no_grad():
             self._require_alive()
+            if replica:
+                self._load_context(context)
             table, self._table = self._table, None
             outputs = graph({"ids": slots, "advance": advance,
                              "env": env_outputs})

@@ -36,6 +36,9 @@ The port's copy of torchbeast_tpu/runtime/transport.py.
 # connection, so LOCK-DISCIPLINE has nothing to guard.)
 
 import logging
+import os
+import re
+import secrets
 import socket
 import struct
 import time
@@ -200,6 +203,19 @@ def _tracker(action: str, shm) -> None:
         log.debug("resource_tracker %s failed", action, exc_info=True)
 
 
+_OWNED_SEGMENT = re.compile(r"^(?:psm|tbtring)_(\d+)_")
+
+
+def segment_owner_pid(name: str) -> Optional[int]:
+    """The pid of the process that created a ring segment, read from its
+    name: the port's rings are "psm_<pid>_<hex>" (ShmRing.create) and
+    the C++ core's "tbtring_<pid>_<n>" (csrc/native/shm.h); None for
+    any other name. Leak checks use it to count only the segments of
+    the processes they started."""
+    match = _OWNED_SEGMENT.match(name)
+    return int(match.group(1)) if match else None
+
+
 def unlink_segment(name: str) -> bool:
     """Best-effort unlink of a SharedMemory segment by name — the crash
     sweep for segments whose owner died without cleanup (a SIGKILL'd
@@ -300,9 +316,17 @@ class ShmRing:
     def create(cls, capacity: int) -> "ShmRing":
         from multiprocessing import shared_memory
 
-        shm = shared_memory.SharedMemory(
-            create=True, size=cls.HEADER_BYTES + capacity
-        )
+        # Named after the creating process (segment_owner_pid), as the
+        # C++ core names its rings; a name clash draws again.
+        while True:
+            try:
+                shm = shared_memory.SharedMemory(
+                    name=f"psm_{os.getpid()}_{secrets.token_hex(4)}",
+                    create=True, size=cls.HEADER_BYTES + capacity,
+                )
+                break
+            except FileExistsError:
+                continue
         ring = cls(shm, capacity, owner=True)
         ring._u64[cls._HEAD] = 0
         ring._u64[cls._TAIL] = 0

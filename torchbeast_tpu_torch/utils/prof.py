@@ -16,9 +16,12 @@ latencies ("dequeue", "learn", "collect") become `learner.dequeue`
 etc. in the exported snapshot — the stage-latency (p50/p95) series the
 acceptance criteria name.
 
-The port's copy of torchbeast_tpu/utils/prof.py.
+The port's copy of torchbeast_tpu/utils/prof.py, plus `DeviceTrace`:
+the drivers' --profile_dir, where the reference starts jax.profiler.
 """
 
+import logging
+import os
 import timeit
 from typing import Dict, Optional
 
@@ -81,3 +84,49 @@ class Timings:
             [f"{prefix}Mean duration of {len(means)} events "
              f"(total {1000 * total:.1f}ms):"] + rows
         )
+
+
+class DeviceTrace:
+    """--profile_dir: a torch.profiler trace of the run (host and, on the
+    card, CUDA activity), written at `stop()` as Chrome trace-event JSON
+    to {profile_dir}/trace.json, which profile_update.py's
+    `update_windows` reads. A failure to start or to write degrades to a
+    logged warning: profiling never aborts the run."""
+
+    def __init__(self, profile_dir: Optional[str]):
+        self.path = None
+        self._prof = None
+        if not profile_dir:
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            os.makedirs(os.path.expanduser(profile_dir), exist_ok=True)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+            self.path = os.path.join(os.path.expanduser(profile_dir),
+                                     "trace.json")
+        except Exception:  # noqa: BLE001
+            self._prof = None
+            logging.getLogger(__name__).exception(
+                "Could not start the profiler for %s", profile_dir)
+
+    def stop(self) -> Optional[str]:
+        """Stop tracing and write the trace; its path, or None."""
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return None
+        try:
+            prof.stop()
+            prof.export_chrome_trace(self.path)
+            logging.getLogger(__name__).info("Wrote a device trace to %s",
+                                             self.path)
+            return self.path
+        except Exception:  # noqa: BLE001
+            logging.getLogger(__name__).exception(
+                "Could not write the trace to %s", self.path)
+            return None
