@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only]
+    python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
+                           | --impact-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -47,7 +48,14 @@ exits non-zero without printing the final result line:
    generator state: actions, logits, baseline and states bitwise; and
    the state table's replica graphs (one per bucket, bound to a replica
    params buffer, captured beside the central ones) against an eager
-   twin, bitwise, before and after one snapshot refresh;
+   twin, bitwise, before and after one snapshot refresh. --loss impact:
+   the deep + LSTM IMPACT update graph at K=1 and K=4 the same way, each
+   batch carrying a lagged target network's outputs, one profiled
+   replay running V-trace 1, the tail 1 and pool_bwd 3 kernels an
+   update as one eager update does, with the target forward's graph and
+   the update's timed; and the target forward's own graph (bound to the
+   target params buffer) against an eager twin, bitwise, before and
+   after one refresh;
 5. main paths: `monobeast.train` through the port's own parser, every
    kernel switch on, T=80, B=32, each dispatch one CUDA graph, at full
    width: (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc
@@ -102,12 +110,26 @@ exits non-zero without printing the final result line:
    seconds from each fault's injection to its recovery (the respawn, the
    reconnect, the first update after the stall, the rebuild). With
    --serving-only the script runs only the replica graph check and (l),
-   after the builds;
+   after the builds; (m) monobeast deep + LSTM with --loss impact
+   --replay_reuse 2 --target_refresh_updates 2 for 3 collects (6
+   updates): the launches per update as above, one target forward per
+   fresh batch, learner.target.snapshots_published at the reference's
+   cadence, 3*T*B env frames and twice that learned from; (n) polybeast
+   deep + LSTM with --loss impact --replay_reuse 2 on the Python pool
+   and on the core with --native_server: 4 updates from 2 batches with
+   the launch checks, one target forward a dispatch, replicas armed by
+   the impact default (a refresh every 10 updates), then a resume from
+   the checkpoint; it prints SPS, learn SPS and the median update
+   interval; (o) monobeast --model mlp --use_lstm on 84x84x4 Mock
+   frames, 2 updates, V-trace and the tail launched. With --impact-only
+   the script runs only this slice's phases 4, 5 (m)-(o) and 6, after
+   the builds;
 6. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
-   off, cuDNN deterministic), at f32, bf16_compute and bf16_train;
-   params, RMSprop state and loss stats must agree, at the tolerances
-   printed.
+   off, cuDNN deterministic), at f32, bf16_compute and bf16_train, and
+   the deep + LSTM IMPACT update (a lagged target's outputs on the
+   batch) at f32 and bf16_train; params, RMSprop state and loss stats
+   must agree, at the tolerances printed.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -802,6 +824,12 @@ TRANSFORMER_ARGS = ["--model", "transformer", "--attention_impl", "pallas"]
 # dispatch, with acting one dispatch behind (--overlap_collect).
 SUPERSTEP_ARGS = ["--num_actors", str(4 * B), "--superstep_k", "4",
                   "--overlap_collect"]
+# (m) IMPACT: 3 collects, each staged batch dispatched twice (6 updates),
+# the target refreshed every 2 updates; (o) the mlp model, whose path
+# has no pool.
+IMPACT_ARGS = DEEP_ARGS + ["--loss", "impact", "--replay_reuse", "2",
+                           "--target_refresh_updates", "2"]
+MLP_ARGS = ["--model", "mlp", "--use_lstm"]
 PATHS = (
     ("deep+LSTM", DEEP_ARGS, DEEP_KERNELS, "f32", 3),
     ("transformer", TRANSFORMER_ARGS, TRANSFORMER_KERNELS, "f32", 3),
@@ -810,7 +838,46 @@ PATHS = (
      "bf16_train", 3),
     ("deep+LSTM superstep_k 4 overlap_collect",
      DEEP_ARGS + SUPERSTEP_ARGS, DEEP_KERNELS, "f32", 12),
+    ("deep+LSTM impact replay_reuse 2", IMPACT_ARGS, DEEP_KERNELS, "f32", 6),
+    ("mlp+LSTM", MLP_ARGS, ("vtrace_targets", "rmsprop_tail"), "f32", 2),
 )
+
+
+def time_impact_update(dev):
+    """The deep + LSTM IMPACT update's two graphs at the training
+    settings (TF32 as PyTorch defaults it, cuDNN free to choose): one
+    target forward and one update, each timed over CUDA-event runs, and
+    the target's share of the two."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    model, _ = _param_tree(dev, "deep", "f32")
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas",
+                             loss="impact")
+    opt = learner_lib.make_optimizer(hp, list(model.parameters()))
+    dispatch = learner_lib.make_update_dispatch(model, opt, hp)
+    forward = learner_lib.make_target_forward(lagged_target(model))
+    state = model.initial_state(B, dev)
+    batch = impact_batch(forward, random_batch(0, dev), state)
+    update_ms = time_ms(lambda: dispatch(batch, state))
+    target_ms = time_ms(lambda: forward(batch, state))
+    print(f"IMPACT update deep+LSTM, training settings (TF32 "
+          f"{torch.backends.cudnn.allow_tf32} for cuDNN): target forward "
+          f"graph {target_ms:.3f} ms, update graph {update_ms:.3f} ms; "
+          f"the target's share of the two "
+          f"{target_ms / (target_ms + update_ms):.3f}")
+
+
+def target_published(updates_per_group, groups, refresh):
+    """learner.target.snapshots_published of the reference's cadence:
+    version 0, then a publish at the end of each group of updates when
+    `refresh` or more have passed since the last one."""
+    published, last, version = 1, 0, 0
+    for _ in range(groups):
+        version += updates_per_group
+        if version - last >= refresh:
+            published, last = published + 1, version
+    return published
 
 
 def run_main_path(ops, savedir, path):
@@ -818,29 +885,56 @@ def run_main_path(ops, savedir, path):
     bf16. Every dispatch replays a CUDA graph; each replay adds the port
     kernels its capture counted, so the counts are launches on the
     card."""
-    from torchbeast_tpu_torch import monobeast
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import monobeast, telemetry
 
     label, model_args, expected, policy, updates = path
-    flags = monobeast.make_parser().parse_args([
+    parse = monobeast.make_parser().parse_args
+    reuse = parse(model_args).replay_reuse
+    flags = parse([
         "--env", "Mock", "--num_actors", str(B), *model_args,
         "--batch_size", str(B),
         "--unroll_length", str(T), "--vtrace_impl", "pallas",
         "--opt_impl", "pallas", "--serial_envs", "--precision", policy,
-        "--total_steps", str(updates * T * B), "--savedir", savedir,
+        "--total_steps", str(updates * T * B // reuse), "--savedir", savedir,
         "--xpid", "chip_smoke_" + re.sub(r"\W+", "_", label),
     ])
     # A checkpoint left by an earlier run of this script would resume.
     shutil.rmtree(os.path.join(savedir, flags.xpid), ignore_errors=True)
+    published = telemetry.get_registry().counter(
+        "learner.target.snapshots_published")
+    published_before = published.value()
     ops.reset_launch_counts()
+    learner_lib.TargetNetwork.forwards = 0
     t0 = time.time()
     stats = monobeast.train(flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    forwards = learner_lib.TargetNetwork.forwards
+    check(stats["updates"] == updates and stats["step"] == updates * T * B
+          // reuse, f"{label}: {stats['updates']} updates over "
+          f"{stats['step']} env frames")
+    if flags.loss == "impact":
+        # One fresh batch a collect (num_actors = batch_size): one target
+        # forward each, a refresh due between reuse groups.
+        fresh = updates // reuse
+        check(forwards == fresh, f"{label}: {forwards} target forwards for "
+                                 f"{fresh} fresh batches")
+        want = target_published(reuse, fresh, flags.target_refresh_updates)
+        got = published.value() - published_before
+        check(got == want, f"{label}: {got} target snapshots published, "
+                           f"the reference's cadence gives {want}")
+        print(f"main path {label}: {fresh} target forwards, {int(got)} "
+              f"target versions, {stats['step']} env frames, "
+              f"{stats['updates'] * T * B} frames learned from; learn SPS "
+              f"{stats['learn_sps']:.1f}")
     for name in expected:
-        check(counts[name] >= updates, f"{label} path launched {name} "
-                                       f"{counts[name]} times in {updates} "
-                                       "updates")
+        # The deep trunk's backward pools three times an update.
+        per_update = 3 if name == "pool_bwd" else 1
+        check(counts[name] >= per_update * updates,
+              f"{label} path launched {name} {counts[name]} times in "
+              f"{updates} updates")
         if name in bf16:
             want = counts[name] if policy == "bf16_train" else 0
             check(bf16[name] == want, f"{label} path: {bf16[name]} of "
@@ -1000,6 +1094,98 @@ def run_polybeast(ops, savedir, k=1, native=False):
               f"on its checkpoint returned {returns}")
     finally:
         logging.getLogger("torchbeast_tpu_torch").removeHandler(lines)
+    return by_path
+
+
+def run_polybeast_impact(ops, savedir, native):
+    """(n) polybeast deep + LSTM with --loss impact --replay_reuse 2 on
+    the Python pool, or on the core with --native_runtime
+    --native_server: (1) two batches, each handed out twice (4 updates),
+    every update launching V-trace and the tail at least once and the
+    pool backward at least three times, one target forward a dispatch,
+    replicas armed by the impact default (a refresh every 10 updates,
+    without --replica_refresh_updates), finite losses, HEALTHY, a
+    checkpoint; (2) the same xpid for one more batch: it resumes from
+    the checkpoint and runs its 2 updates. Prints SPS, learn SPS and the
+    median update interval. Returns the launch counts of (1) and (2)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    xpid = "chip_smoke_polybeast_impact" + ("_native" if native else "")
+    label = (POLY_LABEL + " impact replay_reuse 2"
+             + (" native runtime" if native else ""))
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    base = polybeast_argv(savedir, xpid) + ["--loss", "impact",
+                                            "--replay_reuse", "2"]
+    if native:
+        base[base.index("--no_native_runtime")] = "--native_runtime"
+        base.append("--native_server")
+    runtime = "native" if native else "python"
+    parse = polybeast.make_parser().parse_args
+    reg = telemetry.get_registry()
+    replica_published = reg.counter("serving.snapshots_published")
+    lines = _Lines()
+    logging.getLogger("torchbeast_tpu_torch").addHandler(lines)
+    logging.getLogger("torchbeast_tpu_torch").setLevel(logging.INFO)
+    by_path, runs = {}, []
+    try:
+        for run_label, batches, want_updates in ((label, 2, 4),
+                                                 (label + " resume", 3, 2)):
+            lines.lines.clear()
+            before = replica_published.value()
+            ops.reset_launch_counts()
+            learner_lib.TargetNetwork.forwards = 0
+            t0 = time.time()
+            stats = polybeast.train(parse(base + [
+                "--total_steps", str(batches * T * B)]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+            by_path[run_label] = (counts, bf16)
+            updates = stats["updates"]
+            check(updates == want_updates and stats["step"] == batches * T
+                  * B, f"{run_label}: {updates} updates to step "
+                  f"{stats['step']}")
+            for name, per_update in (("vtrace_targets", 1),
+                                     ("rmsprop_tail", 1), ("pool_bwd", 3)):
+                check(counts[name] >= per_update * updates,
+                      f"{run_label}: {counts[name]} {name} launches in "
+                      f"{updates} updates")
+            check(ops.pool_bwd.vector_launches == counts["pool_bwd"],
+                  f"{run_label}: pool_bwd launches off the 16-byte path")
+            forwards = learner_lib.TargetNetwork.forwards
+            check(forwards == updates, f"{run_label}: {forwards} target "
+                                       f"forwards in {updates} dispatches")
+            for key in ("total_loss", "pg_loss", "baseline_loss",
+                        "entropy_loss", "grad_norm"):
+                check(key in stats and np.isfinite(stats[key]),
+                      f"{run_label} loss stat {key} = {stats.get(key)}")
+            check(stats["health"] == "HEALTHY" and stats["runtime"] ==
+                  runtime, f"{run_label}: health {stats['health']}, "
+                  f"runtime {stats['runtime']}")
+            armed = [m for m in lines.lines if m.startswith(
+                "Replica serving armed: refresh every 10 updates")]
+            check(armed and replica_published.value() > before,
+                  f"{run_label}: replicas not armed by the impact default")
+            check(os.path.exists(os.path.join(savedir, xpid, "model.ckpt")),
+                  f"{run_label}: no checkpoint")
+            print(f"{run_label} 84x84x4 T={T} B={B}, 16 env servers: "
+                  f"{updates} updates to step {stats['step']} in {wall:.1f} "
+                  f"s; SPS {stats['sps']:.1f}; learn SPS "
+                  f"{stats['learn_sps']:.1f}; median update interval on the "
+                  f"shared stream {stats['update_interval_ms_median']:.2f} "
+                  f"ms; {forwards} target forwards; replicas armed ("
+                  f"{int(replica_published.value() - before)} snapshots); "
+                  f"launches {counts}; total_loss {stats['total_loss']:.4f}")
+            runs.append((stats, lines.lines[:]))
+    finally:
+        logging.getLogger("torchbeast_tpu_torch").removeHandler(lines)
+    (first, _), (second, logged) = runs
+    resumed = [m for m in logged if m.startswith("Resuming preempted job")]
+    check(resumed and f"'step': {first['step']}" in resumed[0],
+          f"{label}: the second run did not resume from step "
+          f"{first['step']}")
+    print(f"{label}: resumed from step {first['step']} to {second['step']}")
     return by_path
 
 
@@ -1353,7 +1539,29 @@ def profile_call(fn, windows=3):
     return calls, kernels
 
 
-def check_graph_update(dev, label, model_name, policy, k):
+def lagged_target(model, seed=1, scale=0.01):
+    """A copy of `model` whose params moved by `scale` of a standard
+    normal from seed `seed`: a target network lagging the learner."""
+    target = copy.deepcopy(model).requires_grad_(False)
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for p in target.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=gen,
+                                       device=p.device).to(p.dtype))
+    return target
+
+
+def impact_batch(target_forward, batch, state):
+    """`batch` with the IMPACT target outputs of `target_forward`."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    logits, baseline = target_forward(batch, state)
+    return {**batch, learner_lib.TARGET_LOGITS_KEY: logits,
+            learner_lib.TARGET_BASELINE_KEY: baseline}
+
+
+def check_graph_update(dev, label, model_name, policy, k, impact=False):
     """Two dispatches of the learner's CUDA graph (learner.
     make_update_dispatch: K updates a replay) against 2K eager updates
     (update_body) of a copy from the same state, on the same batches,
@@ -1361,7 +1569,9 @@ def check_graph_update(dev, label, model_name, policy, k):
     off and cuDNN deterministic, params, nu, the master and every stat
     must be bitwise equal, and the device count must read 2K. One
     replay, profiled: the host's API calls and the port kernels it ran,
-    K times the eager update's."""
+    K times the eager update's. With `impact`, --loss impact: each batch
+    carries the outputs of a lagged target network (the same for both),
+    and the target forward's graph and the update's are timed."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import nest, precision
 
@@ -1373,7 +1583,8 @@ def check_graph_update(dev, label, model_name, policy, k):
                              param_dtype=pol.param_dtype,
                              opt_state_dtype=pol.opt_state_dtype,
                              total_steps=20 * T * B,
-                             entropy_cost_final=1e-4)
+                             entropy_cost_final=1e-4,
+                             loss="impact" if impact else "vtrace")
     opt_g = learner_lib.make_optimizer(hp, list(model_g.parameters()))
     opt_e = learner_lib.make_optimizer(hp, list(model_e.parameters()))
     state = (model_g.initial_state(B, dev) if model_name == "deep"
@@ -1381,6 +1592,11 @@ def check_graph_update(dev, label, model_name, policy, k):
     state = precision.cast_batch(state, pol.batch_dtype)
     batches = [precision.cast_batch(random_batch(i, dev), pol.batch_dtype)
                for i in range(2 * k)]
+    if impact:
+        label += " impact"
+        target = lagged_target(model_g)
+        target_eager = learner_lib.target_forward_body(target)
+        batches = [impact_batch(target_eager, b, state) for b in batches]
     eager = learner_lib.update_body(model_e, opt_e, hp)
     want = [eager(b, state) for b in batches]
     dispatch = learner_lib.make_update_dispatch(model_g, opt_g, hp, k)
@@ -1426,6 +1642,60 @@ def check_graph_update(dev, label, model_name, policy, k):
           f"{sum(calls.values())} host API calls {calls}, against "
           f"{sum(eager_calls.values())} for one eager update; port kernels "
           f"per replay { {w: n for w, n in kernels.items() if n} }")
+    if impact:
+        for w, n in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                     ("pool_bwd", 3)):
+            check(eager_kernels[w] == n,
+                  f"{label}: one eager update ran {eager_kernels[w]} {w} "
+                  f"kernels, not {n}")
+        graph_forward = learner_lib.make_target_forward(target, k)
+        stacked = inputs(0)
+        update_ms = time_ms(lambda: dispatch(*stacked)) / k
+        target_ms = time_ms(lambda: graph_forward(*stacked)) / k
+        print(f"graph update {label} K={k}, per update: target forward "
+              f"graph {target_ms:.3f} ms, update graph {update_ms:.3f} "
+              f"ms; the target's share of the two "
+              f"{target_ms / (target_ms + update_ms):.3f}")
+
+
+def check_graph_target(dev):
+    """The IMPACT target network's forward (learner.TargetNetwork: a CUDA
+    graph of its own, bound to its params buffer) against an eager twin
+    on the same params, bitwise, on two batches at version 0 and again
+    after one refresh (the learner's params moved, then published as
+    version 8 and loaded into the buffer). Each forward is one replay."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    model, _ = _param_tree(dev, "deep", "f32")
+    target = learner_lib.TargetNetwork(model, 8, registry=MetricsRegistry())
+    twin = copy.deepcopy(model).requires_grad_(False)
+    eager = learner_lib.target_forward_body(twin)
+    state = model.initial_state(B, dev)
+    forwards = learner_lib.TargetNetwork.forwards
+    for version in (0, 8):
+        if version:
+            moved = lagged_target(model, seed=2)
+            with torch.no_grad():
+                torch._foreach_copy_(list(model.parameters()),
+                                     list(moved.parameters()))
+                torch._foreach_copy_(list(twin.parameters()),
+                                     list(moved.parameters()))
+            check(not target.maybe_refresh(version - 1, model.parameters())
+                  and target.maybe_refresh(version, model.parameters()),
+                  "the target refresh was not due at 8 updates")
+        for seed in (0, 1):
+            batch = random_batch(seed, dev)
+            got = target.outputs(batch, state)
+            want = eager(batch, state)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"target forward graph at version {version}, batch "
+                  f"{seed}: outputs differ from the eager twin")
+    n = learner_lib.TargetNetwork.forwards - forwards
+    check(n == 4, f"{n} target forwards counted for 4")
+    print("graph target forward deep+LSTM: bitwise equal to its eager twin "
+          "on 2 batches at version 0 and after a refresh to version 8 "
+          f"(logits {tuple(got[0].shape)}, baseline {tuple(got[1].shape)})")
 
 
 def check_graph_acting(dev):
@@ -1619,10 +1889,12 @@ def _norm_rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
+def check_update_parity(ops, dev, label, model_k, state, policy="f32",
+                        impact=False):
     """One learner update of `model_k` from `state` with the kernels and
     one of its copy with the plain versions, on the same random batch, at
-    the precision `policy`."""
+    the precision `policy`; with `impact` under --loss impact, the batch
+    carrying a lagged target network's outputs."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import precision
 
@@ -1632,7 +1904,11 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas",
                              param_dtype=pol.param_dtype,
-                             opt_state_dtype=pol.opt_state_dtype)
+                             opt_state_dtype=pol.opt_state_dtype,
+                             loss="impact" if impact else "vtrace")
+    if impact:
+        batch = impact_batch(learner_lib.target_forward_body(
+            lagged_target(model_k)), batch, state)
     model_p = copy.deepcopy(model_k)
     start = [p.detach().to(torch.float32, copy=True)
              for p in model_k.parameters()]
@@ -1685,6 +1961,8 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
             stat_failed.append(f"{k} {float(sk[k])} vs {float(sp[k])}")
     what = ("weights' change/nu norm-relative" if bf16
             else "params/nu max_abs")
+    if impact:
+        label += " impact"
     print(f"parity: one {label} update at {policy}, kernels vs plain on the "
           f"card: {what} err {worst[0]:.3g} at {worst[1]} ({tol}), stats "
           f"max_abs_err {es:.3g} (rtol {stol}, atol {atol_stats})")
@@ -1694,11 +1972,40 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32"):
                            f"{stat_failed}")
 
 
+def run_impact_phases(ops, dev, savedir, tf32):
+    """--impact-only: this slice's phases alone, after the builds: the
+    IMPACT update graphs and the target forward's graph (phase 4), paths
+    (m), (n) and (o) (phase 5), and the IMPACT update parity (phase 6)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for k in (1, 4):
+        check_graph_update(dev, "deep+LSTM", "deep", "f32", k, impact=True)
+        torch.cuda.empty_cache()
+    check_graph_target(dev)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    for path in PATHS[-2:]:
+        run_main_path(ops, savedir, path)
+    time_impact_update(dev)
+    for native in (False, True):
+        run_polybeast_impact(ops, savedir, native)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    for policy in ("f32", "bf16_train"):
+        model, _ = _param_tree(dev, "deep", policy)
+        check_update_parity(ops, dev, "deep+LSTM", model,
+                            model.initial_state(B, dev), policy, impact=True)
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     vtrace_only = argv == ["--vtrace-only"]
     serving_only = argv == ["--serving-only"]
-    if argv and not (kernels_only or vtrace_only or serving_only):
+    impact_only = argv == ["--impact-only"]
+    if argv and not (kernels_only or vtrace_only or serving_only
+                     or impact_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1771,6 +2078,9 @@ def main(argv):
     if vtrace_only:
         print(json.dumps({"kernels": [check_vtrace(ops, dev)]}))
         return 0
+    if impact_only:
+        run_impact_phases(ops, dev, savedir, tf32)
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -1801,6 +2111,9 @@ def main(argv):
                 ("transformer", "transformer", "f32")):
             check_graph_update(dev, label, model_name, policy, k)
             torch.cuda.empty_cache()
+        check_graph_update(dev, "deep+LSTM", "deep", "f32", k, impact=True)
+        torch.cuda.empty_cache()
+    check_graph_target(dev)
     check_graph_acting(dev)
     check_graph_replica(dev)
     torch.backends.cudnn.deterministic = False
@@ -1808,9 +2121,12 @@ def main(argv):
         = tf32
 
     by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
+    time_impact_update(dev)
     by_path.update(run_polybeast(ops, savedir))
     by_path.update(run_polybeast(ops, savedir, native=True))
     by_path.update(run_polybeast(ops, savedir, k=2))
+    for native in (False, True):
+        by_path.update(run_polybeast_impact(ops, savedir, native))
     for native in (False, True):
         by_path.update(run_polybeast_chaos(ops, savedir, native))
     check_checkpoint_round_trip(dev)
@@ -1834,6 +2150,10 @@ def main(argv):
         model, _ = _param_tree(dev, "transformer", policy)
         check_update_parity(ops, dev, "transformer", model,
                             random_cache(model, 0, dev), policy)
+    for policy in ("f32", "bf16_train"):
+        model, _ = _param_tree(dev, "deep", policy)
+        check_update_parity(ops, dev, "deep+LSTM", model,
+                            model.initial_state(B, dev), policy, impact=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,11 @@ def _selftest(tmp_path, *extra):
     return out
 
 
-# Slow: each selftest is two polybeast runs of 2400 steps with the shallow
-# model on 84x84 frames (the port has no mlp model yet), about 55-60 s
-# alone on the CPU. The quick lane keeps in-process chaos runs that
-# assert the exact counts on both runtimes (tests/test_torch_telemetry.py).
+# Slow: each selftest is two polybeast runs of 2400 steps with the
+# reference's mlp model + LSTM on 84x84 frames, 22-27 s on the CPU over
+# three timed runs of both cases, above the 20 s a quick-lane test may
+# take. The quick lane keeps in-process chaos runs that assert the exact
+# counts on both runtimes (tests/test_torch_telemetry.py).
 @pytest.mark.slow
 @pytest.mark.parametrize("runtime", ["python", "native"])
 def test_chaos_run_selftest(tmp_path, runtime):

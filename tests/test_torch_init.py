@@ -4,8 +4,9 @@ against flax's default initialisers, which the JAX package's models keep.
 Each family is built at a small width in both packages from fixed seeds:
 the shallow AtariNet with its 2-layer LSTM (36x36x4 frames, so the fc
 sees a 1x1x64 map; the LSTM's width, 512 + A + 1, is fixed), the deep
-ResNet with its LSTM (trunk 4/8/8, LSTM 16, 16x16x4 frames) and the
-transformer (2 layers, d_model 32, 4 heads, memory 4, 8x8x1 frames). The
+ResNet with its LSTM (trunk 4/8/8, LSTM 16, 16x16x4 frames), the
+transformer (2 layers, d_model 32, 4 heads, memory 4, 8x8x1 frames) and
+the MLP with its LSTM (hidden 32/16, 6x6x2 frames). The
 port's state dict is carried to the JAX layout by weights.py, so every
 leaf of either package is read the same way and held to the same
 analytic init:
@@ -48,6 +49,7 @@ FAMILIES = {
              (16, 16, 4)),
     "transformer": (dict(num_layers=2, d_model=32, num_heads=4,
                          memory_len=4), False, (8, 8, 1)),
+    "mlp": (dict(hidden_sizes=(32, 16)), True, (6, 6, 2)),
 }
 _LSTM_SCOPE = "Scan_StackedLSTMStep_0"
 # A DenseGeneral kernel whose last two axes are outputs (H, hd).

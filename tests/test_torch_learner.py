@@ -184,6 +184,3 @@ def test_not_ported_options_raise():
         port_learner.HParams(opt_factored=True), params,
         layouts=[(lambda t: [t], lambda vs: vs[0])])
     assert opt.step([torch.ones(2)]).shape == ()
-    with pytest.raises(NotImplementedError, match="IMPACT"):
-        port_learner.compute_loss(
-            None, {}, (), port_learner.HParams(loss="impact"))

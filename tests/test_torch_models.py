@@ -25,7 +25,7 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
 
 T, B, A = 3, 2, 6
 CONFIGS = [("shallow", False), ("shallow", True), ("deep", False),
-           ("deep", True)]
+           ("deep", True), ("mlp", False), ("mlp", True)]
 
 
 def _inputs(seed=0):
@@ -120,7 +120,7 @@ def test_parameter_gradients_match_jax(name, use_lstm):
 
 
 @pytest.mark.parametrize("name,use_lstm", [("shallow", True),
-                                           ("deep", True)])
+                                           ("deep", True), ("mlp", True)])
 def test_converter_round_trip(name, use_lstm):
     params = _jax_run(name, use_lstm)[0]
     model = _port_model(name, use_lstm, params)
@@ -164,6 +164,6 @@ def test_sampled_actions_follow_the_generator():
 
 
 def test_not_ported_families_raise():
-    for name in ("pipelined_transformer", "pipelined_mlp", "mlp"):
+    for name in ("pipelined_transformer", "pipelined_mlp"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_create_model(name, A)

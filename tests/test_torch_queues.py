@@ -1,8 +1,8 @@
 """The port's superstep staging (torchbeast_tpu_torch/runtime/queues.py):
 BatchingQueue.dequeue_item, BatchArena and DevicePrefetcher's superstep
 mode, as the reference's tests/test_queues.py holds the JAX package's
-(TestBatchArena without its replay cases, which the port's arena leaves
-to ROADMAP.md item 'IMPACT', and TestDevicePrefetcherSuperstepMode), and
+(TestBatchArena without its replay cases, which tests/test_torch_replay.py
+holds, and TestDevicePrefetcherSuperstepMode), and
 the port's arena against the reference's on the same items: the stacks
 must be equal element for element (both are pure copies)."""
 

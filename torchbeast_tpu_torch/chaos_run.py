@@ -30,9 +30,8 @@ too):
     so segments of other processes on the machine, which come and go
     meanwhile, are not counted.
 
-The port has no `--model mlp` yet (ROADMAP.md Queue 1 item 'Atari envs
-and the mlp model'), so the harness runs the shallow model with the
-LSTM core. It runs on the card, and on the CPU only with --disable_cuda.
+Both legs run the reference's model, `--model mlp --use_lstm`. The
+harness runs on the card, and on the CPU only with --disable_cuda.
 The reference's --scheduler_pressure mode is not here: the verdict's
 ring block records its level as 0.
 
@@ -141,7 +140,7 @@ def build_plan(args) -> dict:
 def make_argv(args, savedir, xpid, chaos_plan_path=None):
     argv = [
         "--env", args.env,
-        "--model", "shallow",
+        "--model", "mlp",
         "--use_lstm",  # the state table only exists for recurrent models
         "--num_servers", str(args.num_servers),
         "--num_actors", str(args.num_actors),

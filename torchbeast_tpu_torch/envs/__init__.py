@@ -2,7 +2,10 @@
 
 `create_env(name, ...)` builds the dependency-free envs: "Mock" and
 "Counting" (test envs), "Catch" and "Memory"/"Memory-L<n>" (learnable
-tasks). The gymnasium Atari stack and MiniAtari are not in the port yet.
+tasks). Any other id goes to the gymnasium Atari stack
+(envs/atari.create_atari_env): "tbt/MiniAtari-v0", the dependency-free
+cabinet, or a real Atari id, which needs ale_py. gymnasium is imported
+on that branch only.
 """
 
 from torchbeast_tpu_torch.envs.environment import Environment  # noqa: F401
@@ -35,8 +38,6 @@ def create_env(name: str, seed=None, **kwargs):
     memory_length = parse_memory_id(name)
     if memory_length is not None:
         return MemoryChainEnv(length=memory_length, seed=seed, **kwargs)
-    raise NotImplementedError(
-        f"--env {name!r}: the port has Mock, Counting, Catch and Memory; "
-        "the Atari and MiniAtari envs come with ROADMAP.md Queue 1 item "
-        "'Atari envs and the mlp model'"
-    )
+    from torchbeast_tpu_torch.envs.atari import create_atari_env
+
+    return create_atari_env(name, seed=seed, **kwargs)

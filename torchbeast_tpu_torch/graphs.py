@@ -9,7 +9,13 @@ device), then one replay launches every kernel of the step, the port's
 hand kernels included. On the CPU nothing here runs: the same step
 functions run eagerly.
 
-Capture rules, kept by both classes:
+CapturedAct is a CapturedForward with pinned host buffers; a plain
+CapturedForward holds the IMPACT target network's forward
+(learner.TargetNetwork): a graph of its own, bound to the target params
+buffer, whose outputs reach the update graph's static inputs by
+device-to-device copies.
+
+Capture rules, kept by every class:
 
 - Warm-up first: a few eager runs on a side stream before the capture
   (cuBLAS and cuDNN set themselves up, every kernel is built). What they
@@ -193,25 +199,26 @@ class CapturedUpdate:
         return {key: row[..., j] for j, key in enumerate(self._keys)}
 
 
-class CapturedAct:
-    """An acting step as one CUDA graph: `fn(inputs)` captured over static
+class CapturedForward:
+    """A forward as one CUDA graph: `fn(inputs)` captured over static
     device buffers shaped like `example` (a nest of tensors or numpy
-    arrays). Each call copies its inputs in (host leaves through pinned
-    buffers of the graph's own, device leaves on the device; a leaf that
-    IS the static buffer is left as it is), replays, and returns clones of
-    fn's outputs. Sampling draws from `generator`, registered with the
-    graph: a replay draws the numbers an eager call would draw from the
+    arrays), reading whatever parameters fn closes over (a caller may
+    load new values into those same tensors between calls: the IMPACT
+    target network's buffer). Each call copies its inputs in (device
+    leaves on the device, host leaves through pinned copies; a leaf that
+    IS the static buffer is left as it is), replays on the current
+    stream, and returns clones of fn's outputs, so nothing crosses to the
+    host. Sampling draws from `generator`, registered with the graph: a
+    replay draws the numbers an eager call would draw from the
     generator's state, and advances it as far."""
+
+    _what = "graph input"
 
     def __init__(self, fn: Callable[[Any], Any], example, device,
                  generator: Optional[torch.Generator] = None):
         device = torch.device(device)
         self.inputs = nest.map(
             lambda x: torch.as_tensor(x).to(device).clone(), example)
-        leaves = nest.flatten(self.inputs)
-        self._pinned = [torch.empty_like(t, device="cpu").pin_memory()
-                        for t in leaves]
-        self._copied = None  # event after the last host->device copies
         rng = generator.get_state() if generator is not None else None
         run = lambda: fn(self.inputs)  # noqa: E731
         with torch.no_grad():
@@ -220,15 +227,40 @@ class CapturedAct:
         if generator is not None:
             generator.set_state(rng)
 
+    def _load(self, statics, values):
+        for static, value in zip(statics, values):
+            _fill(static, value, self._what)
+
     def __call__(self, inputs):
-        # The pinned buffers are rewritten only once their last copy ran.
-        if self._copied is not None:
-            self._copied.synchronize()
-        for static, pinned, value in zip(nest.flatten(self.inputs),
-                                         self._pinned, nest.flatten(inputs)):
-            _fill(static, value, "acting input", pinned)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+        statics = nest.flatten(self.inputs)
+        values = nest.flatten(inputs)
+        if len(values) != len(statics):
+            raise ValueError(f"{len(values)} input leaves for a graph "
+                             f"captured with {len(statics)}")
+        self._load(statics, values)
         self._graph.replay()
         self._delta.replayed()
         return nest.map(lambda t: t.clone(), self._out)
+
+
+class CapturedAct(CapturedForward):
+    """An acting step as one CUDA graph (a CapturedForward whose host
+    leaves go through pinned buffers of the graph's own, each rewritten
+    only once its last copy ran)."""
+
+    _what = "acting input"
+
+    def __init__(self, fn: Callable[[Any], Any], example, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(fn, example, device, generator)
+        self._pinned = [torch.empty_like(t, device="cpu").pin_memory()
+                        for t in nest.flatten(self.inputs)]
+        self._copied = None  # event after the last host->device copies
+
+    def _load(self, statics, values):
+        if self._copied is not None:
+            self._copied.synchronize()
+        for static, pinned, value in zip(statics, self._pinned, values):
+            _fill(static, value, self._what, pinned)
+        self._copied = torch.cuda.Event()
+        self._copied.record()

@@ -3,7 +3,9 @@ torchbeast_tpu/learner.py).
 
 Algorithm as in the reference: forward the [T+1, B] batch; bootstrap
 from the last baseline; time-shift batch[1:] against outputs[:-1]; clip
-rewards to [-1, 1]; discounts = ~done * gamma; V-trace; pg + baseline_cost
+rewards to [-1, 1]; discounts = ~done * gamma; V-trace (or, under --loss
+impact, the IMPACT surrogate against the target network's outputs that
+TargetNetwork merges into the batch); pg + baseline_cost
 * baseline + entropy_cost * entropy losses, sum-reduced; gradient clip to
 a global norm of 40; torch-semantics RMSprop (eps outside the sqrt); the
 learning rate decays linearly to zero over the run's updates.
@@ -21,6 +23,8 @@ returns its stats as device tensors, so the driver reads them one
 dispatch late without a sync per update.
 """
 
+import copy
+import threading
 import time
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -28,19 +32,25 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import graphs, nest, telemetry
-from torchbeast_tpu_torch.ops import compute_entropy_loss, vtrace_policy_losses
+from torchbeast_tpu_torch.ops import (
+    compute_entropy_loss,
+    impact_policy_losses,
+    vtrace_policy_losses,
+)
 from torchbeast_tpu_torch.ops.opt import (
     FusedRMSpropTail,
     f32_constants,
     linear_schedule,
 )
+from torchbeast_tpu_torch.serving.snapshot import PolicySnapshotStore
 from torchbeast_tpu_torch.types import AgentOutput
 
 
 class HParams(NamedTuple):
-    """Learner hyperparameters, the reference's fields and defaults. The
-    port takes loss "vtrace" and replay_reuse 1 only; compute_loss raises
-    for the others."""
+    """Learner hyperparameters, the reference's fields and defaults: loss
+    "vtrace" (IMPALA) or "impact" (the clipped target-network surrogate,
+    ops/impact.py, clip impact_clip), and replay_reuse K', the updates
+    each staged batch feeds (the drivers dispatch it K' times)."""
 
     discounting: float = 0.99
     baseline_cost: float = 0.5
@@ -269,15 +279,149 @@ def entropy_schedule(hp: HParams):
     return EntropySchedule(hp)
 
 
+# Batch keys of --loss impact: the target network's forward outputs,
+# [T+1, B, ...] like the learner's (slot T gives the target's bootstrap
+# value), merged in by TargetNetwork.merge and popped by compute_loss.
+TARGET_LOGITS_KEY = "impact_target_logits"
+TARGET_BASELINE_KEY = "impact_target_baseline"
+
+
+def target_forward_body(model, superstep_k: int = 1):
+    """The target network's forward, eager: (batch, initial_agent_state)
+    -> (policy_logits, baseline), both [T+1, B, ...] f32 without
+    gradient; with superstep_k > 1 over [K, ...] stacks, one forward per
+    K slice (the reference's vmap), stacked [K, T+1, B, ...]."""
+
+    @torch.no_grad()
+    def forward(batch, initial_agent_state):
+        out, _ = model(batch, initial_agent_state, sample_action=False)
+        return out.policy_logits.float(), out.baseline.float()
+
+    if superstep_k == 1:
+        return forward
+
+    @torch.no_grad()
+    def stacked(batches, initial_agent_states):
+        outs = [forward(nest.map(lambda v: v[i], batches),
+                        nest.map(lambda s: s[i], initial_agent_states))
+                for i in range(superstep_k)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    return stacked
+
+
+def make_target_forward(model, superstep_k: int = 1):
+    """The target network's forward of `model` (the reference's
+    make_target_forward, with the params the module's own):
+
+        (batch, initial_agent_state) -> (target_policy_logits,
+                                         target_baseline)
+
+    On a CUDA device one CUDA graph (graphs.CapturedForward over the
+    model's input keys and the state), captured at the first call and
+    replayed on the caller's stream; its outputs are device tensors. On
+    the CPU the eager forward (target_forward_body)."""
+    body = target_forward_body(model, superstep_k)
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        return body
+    captured = []
+
+    def forward(batch, initial_agent_state):
+        inputs = {"batch": {k: batch[k] for k in MODEL_INPUT_KEYS},
+                  "state": initial_agent_state}
+        if not captured:
+            captured.append(graphs.CapturedForward(
+                lambda static: body(static["batch"], static["state"]),
+                inputs, device))
+        return captured[0](inputs)
+
+    return forward
+
+
+class TargetNetwork:
+    """The IMPACT target network (--loss impact) of a learner `model`.
+
+    - The params buffer: a second instance of the model, which the
+      target forward (make_target_forward: a CUDA graph of its own on the
+      card) reads.
+    - Versions: a PolicySnapshotStore under the "learner.target"
+      namespace with cast_bf16=False (a full-precision copy, so the
+      forward equals one of the exact stamped params), version 0 the
+      model's params at construction, published before any update;
+      `maybe_refresh(updates_done, params)` stamps a new version every
+      `refresh_updates` updates (the store's due rule).
+    - `merge(batch, state)` puts the forward's outputs of the latest
+      version on the batch under TARGET_LOGITS_KEY / TARGET_BASELINE_KEY
+      (device tensors: on the card they reach the update graph's static
+      buffers by device-to-device copies). A version newer than the one
+      in the buffer is copied in first, under the lock the forward runs
+      under.
+
+    `TargetNetwork.forwards` counts the forwards of every instance in the
+    process (chip_smoke.py reads it)."""
+
+    forwards = 0
+
+    def __init__(self, model, refresh_updates: int, superstep_k: int = 1,
+                 registry=None):
+        self.model = copy.deepcopy(model).requires_grad_(False)
+        self._params = list(self.model.parameters())
+        self.store = PolicySnapshotStore(
+            refresh_updates, registry=registry, namespace="learner.target",
+            cast_bf16=False)
+        self._forward = make_target_forward(self.model, superstep_k)
+        self._lock = threading.Lock()
+        self._loaded = None  # guarded-by: self._lock
+        self.store.publish(0, list(model.parameters()))
+
+    def maybe_refresh(self, updates_done: int, params) -> bool:
+        """Advance the store's head to `updates_done`; publish `params`
+        (a copy) when a refresh is due. True when one was published."""
+        if self.store.note_update(updates_done):
+            return self.store.publish(updates_done, list(params))
+        return False
+
+    def _run(self, batch, initial_agent_state):
+        version, params = self.store.latest()
+        with self._lock:
+            if self._loaded != version:
+                with torch.no_grad():
+                    torch._foreach_copy_(self._params, nest.flatten(params))
+                self._loaded = version
+            return self._forward(batch, initial_agent_state)
+
+    def capture(self, batch, initial_agent_state) -> None:
+        """Run the forward once on example inputs, uncounted: on the card
+        this captures its graph, which must happen before other threads
+        launch CUDA work."""
+        self._run(batch, initial_agent_state)
+
+    def outputs(self, batch, initial_agent_state):
+        """(target logits, target baseline) of the latest version."""
+        out = self._run(batch, initial_agent_state)
+        TargetNetwork.forwards += 1
+        return out
+
+    def merge(self, batch, initial_agent_state):
+        """A new batch dict: `batch` plus the target outputs."""
+        logits, baseline = self.outputs(batch, initial_agent_state)
+        return {**batch, TARGET_LOGITS_KEY: logits,
+                TARGET_BASELINE_KEY: baseline}
+
+
 def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
                  hp: HParams, entropy_cost=None):
     """Forward the full [T+1, B] batch and build the IMPALA loss.
     Returns (total_loss, stats), stats as 0-d device tensors."""
-    if hp.loss != "vtrace":
-        raise NotImplementedError(
-            "--loss impact is not in the port yet: ROADMAP.md Queue 1 "
-            "item 'IMPACT'"
-        )
+    # --loss impact: the target network's outputs ride the batch (merged
+    # in by TargetNetwork.merge), popped from a shallow copy so the model
+    # forward sees the stock batch and the caller's dict (a captured
+    # graph's static batch) keeps its keys.
+    batch = dict(batch)
+    target_net_logits_full = batch.pop(TARGET_LOGITS_KEY, None)
+    target_net_baseline_full = batch.pop(TARGET_BASELINE_KEY, None)
     learner_outputs, _ = model(batch, initial_agent_state,
                                sample_action=False)
     bootstrap_value = learner_outputs.baseline[-1]
@@ -294,16 +438,39 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
         rewards = torch.clamp(rewards, -1.0, 1.0)
     discounts = (~done).float() * hp.discounting
 
-    pg_loss, baseline_loss = vtrace_policy_losses(
-        behavior_policy_logits=behavior_logits,
-        target_policy_logits=target_logits,
-        actions=actions,
-        discounts=discounts,
-        rewards=rewards,
-        values=values,
-        bootstrap_value=bootstrap_value,
-        scan_impl=hp.vtrace_impl,
-    )
+    if hp.loss == "impact":
+        if target_net_logits_full is None:
+            raise ValueError(
+                "--loss impact requires the target network's outputs on "
+                "the batch (TargetNetwork.merge puts them there)"
+            )
+        pg_loss, baseline_loss = impact_policy_losses(
+            behavior_policy_logits=behavior_logits,
+            target_net_policy_logits=target_net_logits_full[:-1],
+            learner_policy_logits=target_logits,
+            actions=actions,
+            discounts=discounts,
+            rewards=rewards,
+            target_net_values=target_net_baseline_full[:-1],
+            values=values,
+            target_net_bootstrap_value=target_net_baseline_full[-1],
+            clip_epsilon=hp.impact_clip,
+            scan_impl=hp.vtrace_impl,
+        )
+    elif hp.loss == "vtrace":
+        pg_loss, baseline_loss = vtrace_policy_losses(
+            behavior_policy_logits=behavior_logits,
+            target_policy_logits=target_logits,
+            actions=actions,
+            discounts=discounts,
+            rewards=rewards,
+            values=values,
+            bootstrap_value=bootstrap_value,
+            scan_impl=hp.vtrace_impl,
+        )
+    else:
+        raise ValueError(f"loss must be 'vtrace' or 'impact', got "
+                         f"{hp.loss!r}")
     baseline_loss = hp.baseline_cost * baseline_loss
     if entropy_cost is None:
         entropy_cost = hp.entropy_cost

@@ -1,7 +1,8 @@
 """Model registry (counterpart of torchbeast_tpu/models/__init__.py).
 
-`create_model("shallow"|"deep"|"transformer", ...)`: monobeast's
-AtariNet, polybeast's deep ResNet and the transformer policy. Unlike flax,
+`create_model("shallow"|"deep"|"mlp"|"transformer", ...)`: monobeast's
+AtariNet, polybeast's deep ResNet, the MLP policy and the transformer
+policy. Unlike flax,
 a torch module sizes its first layer at construction, so the frame shape
 ([H, W, C]) is an argument. `dtype` (the trunk's compute dtype) and
 `head_dtype` (the core's and heads') come from the precision policy
@@ -12,6 +13,7 @@ import torch
 
 from torchbeast_tpu_torch.models.atari_net import AtariNet  # noqa: F401
 from torchbeast_tpu_torch.models.cores import LSTMCore  # noqa: F401
+from torchbeast_tpu_torch.models.mlp import MLPNet  # noqa: F401
 from torchbeast_tpu_torch.models.resnet import ResNet  # noqa: F401
 from torchbeast_tpu_torch.models.transformer import (  # noqa: F401
     TransformerNet,
@@ -22,13 +24,13 @@ _REGISTRY = {
     "atari": AtariNet,
     "deep": ResNet,
     "resnet": ResNet,
+    "mlp": MLPNet,
     "transformer": TransformerNet,
 }
 
 # Reference families the port does not have yet -> the ROADMAP item that
 # brings each.
 NOT_PORTED = {
-    "mlp": "Atari envs and the mlp model",
     "pipelined_mlp": "the transformer family",
     "pipelined_transformer": "the transformer family",
 }

@@ -13,6 +13,12 @@ in the environment (the max-pool backward). --precision bf16_compute and
 bf16_train (and the deprecated --model_dtype bfloat16) run the bf16
 variants of those kernels (torchbeast_tpu_torch/precision.py).
 
+--loss impact trains the IMPACT surrogate (ops/impact.py) against a
+target network (learner.TargetNetwork) refreshed every
+--target_refresh_updates updates, and --replay_reuse K' dispatches each
+learner batch K' times. --model mlp and --env tbt/MiniAtari-v0 (or a
+real Atari id, with ale_py) need gymnasium only on the Atari branch.
+
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. A flag whose feature the port
 does not have yet still parses; set to anything but its default it
@@ -94,8 +100,9 @@ _LATER = "(not in the port yet; see ROADMAP.md)"
 def make_parser():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", type=str, default="PongNoFrameskip-v4",
-                        help="Mock, Counting, Catch or Memory[-L<n>] "
-                             "(Atari ids: " + _LATER + ").")
+                        help="Mock, Counting, Catch, Memory[-L<n>], "
+                             "tbt/MiniAtari-v0 or a gymnasium Atari id "
+                             "(needs ale_py).")
     parser.add_argument("--mode", default="train",
                         choices=["train", "test"],
                         help="test: greedy episodes from the run's "
@@ -120,8 +127,9 @@ def make_parser():
                         choices=["shallow", "deep", "mlp", "pipelined_mlp",
                                  "transformer", "pipelined_transformer"],
                         help="Model family: shallow (AtariNet), deep "
-                             "(IMPALA ResNet) or transformer (KV-cache "
-                             "attention); the others " + _LATER)
+                             "(IMPALA ResNet), mlp or transformer "
+                             "(KV-cache attention); the pipelined ones "
+                             + _LATER)
     parser.add_argument("--use_lstm", action="store_true",
                         help="Use LSTM in the agent model.")
     parser.add_argument("--precision", default="f32",
@@ -226,12 +234,20 @@ def make_parser():
                         choices=["abs_one", "none"])
     parser.add_argument("--loss", default="vtrace",
                         choices=["vtrace", "impact"],
-                        help="Objective; impact " + _LATER)
+                        help="Objective family: IMPALA V-trace (the "
+                             "default) or the IMPACT clipped "
+                             "target-network surrogate (ops/impact.py), "
+                             "lag-tolerant, for --replay_reuse.")
     parser.add_argument("--impact_clip", type=float, default=0.2,
-                        help=_LATER)
-    parser.add_argument("--replay_reuse", type=int, default=1, help=_LATER)
+                        help="IMPACT surrogate clip epsilon "
+                             "(--loss impact).")
+    parser.add_argument("--replay_reuse", type=int, default=1,
+                        help="Consume each collected batch K' times "
+                             "(--loss impact; 1 = on-policy). The "
+                             "schedule clock scales with it.")
     parser.add_argument("--target_refresh_updates", type=int, default=8,
-                        help=_LATER)
+                        help="Refresh the IMPACT target network every "
+                             "N optimizer updates (--loss impact).")
     parser.add_argument("--learning_rate", type=float, default=4.8e-4)
     parser.add_argument("--alpha", type=float, default=0.99,
                         help="RMSProp smoothing constant.")
@@ -270,10 +286,6 @@ NOT_IN_PORT = {
     "transformer_remat": "stage remat",
     "remat": "stage remat",
     "hbm_budget_gb": "stage remat",
-    "loss": "IMPACT",
-    "impact_clip": "IMPACT",
-    "replay_reuse": "IMPACT",
-    "target_refresh_updates": "IMPACT",
 }
 
 
@@ -437,10 +449,19 @@ def train(flags):
     """Train, resuming from {savedir}/{xpid}/model.ckpt when it exists
     and checkpointing there every --checkpoint_interval_s and at exit
     (also on KeyboardInterrupt, which SIGTERM becomes under cli()).
-    Returns the last flushed stats, plus this run's "sps" and
-    "update_ms_median" (the median time of one update: CUDA events around
-    each dispatch of inputs already staged on the card, the host clock on
-    the CPU, divided by the dispatch's --superstep_k updates).
+    Returns the last flushed stats, plus this run's "sps" (env frames),
+    "learn_sps" (frames learned from), "updates" (optimizer updates) and
+    "update_ms_median" (the median time
+    of one update: CUDA events around each dispatch of inputs already
+    staged on the card, the host clock on the CPU, divided by the
+    dispatch's --superstep_k updates).
+
+    --loss impact adds the target network (learner.TargetNetwork): its
+    forward runs once per fresh learner batch (one CUDA graph replay on
+    the card), and a refresh is due between reuse groups only, so every
+    batch trains against one target version. --replay_reuse K'
+    dispatches each staged batch K' times; env frames advance on the
+    first pass only.
 
     On the card each learner dispatch (one update, or --superstep_k of
     them) and each acting step replays one captured CUDA graph
@@ -506,6 +527,21 @@ def train(flags):
     pipelined = getattr(flags, "pipelined_collect", True)
     log.info("Training on %s (superstep_k %d, overlap_collect %s)", device,
              K, overlap)
+    # --replay_reuse K': every staged batch is dispatched K' times
+    # (IMPACT's sample reuse); env frames advance on its first pass only.
+    reuse = hp.replay_reuse
+    # The IMPACT target network (--loss impact): a full-precision copy of
+    # the params stamped every --target_refresh_updates updates under the
+    # "learner.target" namespace, version 0 (the init params) before any
+    # update, so the first batches train at ratio 1.
+    target = None
+    if hp.loss == "impact":
+        target = learner_lib.TargetNetwork(
+            model, max(1, flags.target_refresh_updates or 1),
+            superstep_k=K, registry=reg)
+        log.info("IMPACT loss: target network refresh every %d updates, "
+                 "replay reuse %d", target.store.refresh_updates, reuse)
+    updates_done = 0  # the target store's version clock, in updates
 
     pool = _make_pool(flags, B)
     # The sync trainer has no monitor thread: the watchdog makes a wedged
@@ -521,8 +557,9 @@ def train(flags):
     g_sps = reg.gauge("learner.sps")
     g_env_sps = reg.gauge("learner.env_sps")
     g_learn_sps = reg.gauge("learner.learn_sps")
-    # Each collected frame is learned from once (no --replay_reuse).
-    reg.gauge("learner.sample_reuse").set(1)
+    # env_sps counts unique env frames, learn_sps frames consumed by
+    # updates: env_sps x --replay_reuse in steady state.
+    reg.gauge("learner.sample_reuse").set(reuse)
     update_ms = []
     pending = None  # (timers, device stats, step, done event) of a collect
     head = None  # --overlap_collect: event after the last dispatch
@@ -589,6 +626,8 @@ def train(flags):
 
         start_time = last_log_time = last_checkpoint_time = time.time()
         last_log_step = step
+        learn_step = step * reuse  # on resume: the split is not saved
+        last_log_learn_step = learn_step
         device_trace = DeviceTrace(flags.profile_dir)
         while step < flags.total_steps:
             timings.reset()
@@ -617,14 +656,26 @@ def train(flags):
                         sub_state = nest.map(
                             lambda s: s[:, i : i + flags.batch_size],
                             initial_agent_state)
-                    stats_k, timer = dispatch_timed(
-                        to_device(sub, device, batch_dtype),
-                        precision.cast_batch(sub_state, batch_dtype))
-                    device_stats.append(stats_k)
-                    timers.append(timer)
-                    h_batch_size.observe(flags.batch_size)
-                    watchdog.ping()
-                    step += K * T * flags.batch_size
+                    sub = to_device(sub, device, batch_dtype)
+                    sub_state = precision.cast_batch(sub_state, batch_dtype)
+                    if target is not None:
+                        # Once per fresh batch: its K' passes train
+                        # against one target version.
+                        sub = target.merge(sub, sub_state)
+                    for r in range(reuse):
+                        stats_k, timer = dispatch_timed(sub, sub_state)
+                        device_stats.append(stats_k)
+                        timers.append(timer)
+                        for _ in range(K):
+                            h_batch_size.observe(flags.batch_size)
+                        watchdog.ping()
+                        updates_done += K
+                        if r == 0:
+                            step += K * T * flags.batch_size
+                        learn_step += K * T * flags.batch_size
+                    if target is not None:
+                        # Between reuse groups only.
+                        target.maybe_refresh(updates_done, learn_params)
                 done = None
                 if device.type == "cuda":
                     done = torch.cuda.Event()
@@ -639,10 +690,13 @@ def train(flags):
             now = time.time()
             if now - last_log_time > 5:
                 sps = (step - last_log_step) / (now - last_log_time)
+                learn_sps = (learn_step - last_log_learn_step) / (
+                    now - last_log_time)
                 last_log_time, last_log_step = now, step
+                last_log_learn_step = learn_step
                 g_sps.set(sps)
                 g_env_sps.set(sps)
-                g_learn_sps.set(sps)
+                g_learn_sps.set(learn_sps)
                 # Dispatched-unflushed updates at this instant.
                 g_dispatch_q.set(len(pending[0]) * K if pending else 0)
                 tele.write(extra={"step": step})
@@ -690,6 +744,10 @@ def train(flags):
     stats["update_ms_median"] = (
         statistics.median(update_ms) if update_ms else 0.0
     )
+    stats["updates"] = updates_done
+    # Frames learned from: env frames x --replay_reuse.
+    stats["learn_sps"] = (updates_done * T * flags.batch_size / elapsed
+                          if elapsed > 0 else 0.0)
     log.info("Learning finished after %d steps.", step)
     return stats
 

@@ -1,6 +1,6 @@
-"""Ops of the port: V-trace, losses, pooling, the optimizer tail and the
-transformer's attention, each kernel beside its plain PyTorch version
-(counterpart of torchbeast_tpu/ops/)."""
+"""Ops of the port: V-trace, losses (IMPALA's and IMPACT's), pooling, the
+optimizer tail and the transformer's attention, each kernel beside its
+plain PyTorch version (counterpart of torchbeast_tpu/ops/)."""
 
 from torchbeast_tpu_torch.ops._route import (  # noqa: F401
     add_counts,
@@ -9,6 +9,9 @@ from torchbeast_tpu_torch.ops._route import (  # noqa: F401
 from torchbeast_tpu_torch.ops.attention import (  # noqa: F401
     transformer_attention,
     transformer_attention_bwd,
+)
+from torchbeast_tpu_torch.ops.impact import (  # noqa: F401
+    impact_policy_losses,
 )
 from torchbeast_tpu_torch.ops.losses import (  # noqa: F401
     compute_baseline_loss,

@@ -61,6 +61,18 @@ each reply's policy_lag, behind a router (the core's ReplicaRouter under
 back to the central path past --max_policy_lag. --chaos_plan arms the
 fault injector (resilience/chaos.py) on either runtime.
 
+--loss impact trains the IMPACT surrogate (ops/impact.py) against a
+target network (learner.TargetNetwork: a second model instance, its
+forward one CUDA graph of its own on the card), whose outputs join each
+dispatch's batch; the target runs per dispatch, so replay handouts see
+the current target, and is refreshed after a dispatch when
+--target_refresh_updates are due. --replay_reuse K' hands each staged
+batch out K' times through the arena (runtime/queues.BatchArena, a
+unit-column one at K=1); env frames advance on the fresh handout only,
+and the run ends at --total_steps once the last batch's replays are
+learned from. Under impact the replica tier is armed every 10 updates
+unless --replica_refresh_updates says otherwise.
+
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. A flag whose feature the port
 does not have yet still parses; set away from its default it raises
@@ -344,12 +356,22 @@ def make_parser():
                         choices=["abs_one", "none"])
     parser.add_argument("--loss", default="vtrace",
                         choices=["vtrace", "impact"],
-                        help="Objective; impact " + _LATER)
+                        help="Objective family: IMPALA V-trace (the "
+                             "default) or the IMPACT clipped "
+                             "target-network surrogate (ops/impact.py), "
+                             "lag-tolerant, for --replay_reuse. Under "
+                             "impact the default --replica_refresh_updates "
+                             "relaxes to every 10 updates.")
     parser.add_argument("--impact_clip", type=float, default=0.2,
-                        help=_LATER)
-    parser.add_argument("--replay_reuse", type=int, default=1, help=_LATER)
+                        help="IMPACT surrogate clip epsilon "
+                             "(--loss impact).")
+    parser.add_argument("--replay_reuse", type=int, default=1,
+                        help="Consume each collected batch K' times "
+                             "(--loss impact; 1 = on-policy). The "
+                             "schedule clock scales with it.")
     parser.add_argument("--target_refresh_updates", type=int, default=8,
-                        help=_LATER)
+                        help="Refresh the IMPACT target network every "
+                             "N optimizer updates (--loss impact).")
     parser.add_argument("--learning_rate", type=float, default=4.8e-4)
     parser.add_argument("--alpha", type=float, default=0.99)
     parser.add_argument("--momentum", type=float, default=0.0)
@@ -384,10 +406,6 @@ NOT_IN_PORT = {
     "fleet": "data parallel and the fleet",
     "min_live_hosts": "data parallel and the fleet",
     "device_split": "data parallel and the fleet",
-    "loss": "IMPACT",
-    "impact_clip": "IMPACT",
-    "replay_reuse": "IMPACT",
-    "target_refresh_updates": "IMPACT",
 }
 
 
@@ -402,6 +420,19 @@ def check_flags(flags) -> None:
                 f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
                 f"Queue 1 item '{item}'"
             )
+
+
+def effective_replica_refresh_updates(flags) -> int:
+    """Resolved --replica_refresh_updates. An explicit value always
+    wins. Under --loss impact the default relaxes to every 10 updates:
+    the clipped surrogate absorbs the extra policy lag. V-trace keeps the
+    default 0 (central serving only)."""
+    explicit = getattr(flags, "replica_refresh_updates", 0) or 0
+    if explicit > 0:
+        return explicit
+    if getattr(flags, "loss", "vtrace") == "impact":
+        return 10
+    return 0
 
 
 def _probe_env_via_server(flags, address, timeout_s: float = 60.0):
@@ -480,7 +511,8 @@ def select_runtime(flags):
 
 def train(flags):
     """Train; returns the last flushed stats, plus "sps" (env frames per
-    second of this run), "update_interval_ms_median" (between CUDA
+    second of this run), "learn_sps" (frames learned from per second:
+    env frames x --replay_reuse), "update_interval_ms_median" (between CUDA
     events recorded before and after each update on the default stream,
     which the acting forwards share, so their kernels in between count
     too; the host clock on the CPU), "updates", "inference_batch_mean"
@@ -575,7 +607,24 @@ def train(flags):
         generator = torch.Generator(device=device)
         generator.manual_seed(flags.seed)
 
-        state = {"step": step, "stats": dict(stats)}
+        # --replay_reuse K': the arena hands each staged batch out K'
+        # times; env frames advance on its first handout only, the learn
+        # clock on every one (on resume: the split is not saved).
+        replay_reuse = hp.replay_reuse
+        state = {"step": step, "learn_step": step * replay_reuse,
+                 "stats": dict(stats)}
+        # The IMPACT target network (--loss impact): a full-precision
+        # copy of the params stamped every --target_refresh_updates
+        # updates, version 0 before any update; its forward runs per
+        # dispatch, so replay handouts see the current target.
+        target = None
+        if hp.loss == "impact":
+            target = learner_lib.TargetNetwork(
+                model, max(1, flags.target_refresh_updates or 1),
+                superstep_k=superstep_k, registry=reg)
+            log.info("IMPACT loss: target network refresh every %d "
+                     "updates, replay reuse %d",
+                     target.store.refresh_updates, replay_reuse)
         learner_done = threading.Event()
         # Guards state, the acting copy's params and the generator: every
         # acting forward launches under it, and the learner copies new
@@ -677,9 +726,8 @@ def train(flags):
         # (the replica model, allocated once), loaded when a batch
         # brings a version it does not hold yet, and samples from a
         # generator of its own.
-        # (The reference relaxes the default to every 10 updates under
-        # --loss impact, which the port does not have yet.)
-        refresh_updates = flags.replica_refresh_updates
+        # Under --loss impact the default arms them every 10 updates.
+        refresh_updates = effective_replica_refresh_updates(flags)
         snapshot_store = replica_hooks = replica_model = None
         if refresh_updates > 0:
             snapshot_store = PolicySnapshotStore(refresh_updates,
@@ -772,10 +820,16 @@ def train(flags):
         if device.type == "cuda":
             t0 = time.time()
             # Every graph is captured here, before the first thread starts.
-            dispatch.capture(*_dummy_learner_inputs(
+            dummy = _dummy_learner_inputs(
                 T, B, superstep_k, frame_shape, num_actions,
                 to_host(model.initial_state(B, device)), policy.batch_dtype,
-                policy_lag=replica_model is not None))
+                policy_lag=replica_model is not None,
+                impact=target is not None)
+            if target is not None:
+                # The target forward's graph; the update's static batch
+                # holds the two target leaves.
+                target.capture(*nest.map(lambda t: t.to(device), dummy))
+            dispatch.capture(*dummy)
             n_graphs = len(buckets)
             if state_table is not None:
                 state_table.capture(
@@ -995,6 +1049,11 @@ def train(flags):
             copied = None
             if copy_stream is not None:
                 torch.cuda.set_device(device)
+            if arena is not None and superstep_k == 1:
+                # --replay_reuse at K=1: the arena stages [1, T+1, B]
+                # stacks (its slots are what replay re-serves); the K=1
+                # update takes [T+1, B] batches (a view, not a copy).
+                host = nest.map(lambda a: a[0], host)
             with (torch.cuda.stream(copy_stream) if copy_stream is not None
                   else contextlib.nullcontext()):
                 staged = to_device(host, device)
@@ -1023,13 +1082,16 @@ def train(flags):
         # host arena stacks and the prefetcher stages one K-batch copy a
         # dispatch. A slot is released at its dispatch's stats flush, so
         # the pool is the prefetch depth + a filling slot + the two
-        # dispatched-unflushed supersteps.
+        # dispatched-unflushed supersteps. --replay_reuse rides the same
+        # arena (K=1 gets a unit-column one): a slot is handed out K'
+        # times before it is refilled, each handout staged anew.
         prefetch_depth = 2
         arena = None
-        if superstep_k > 1:
+        if superstep_k > 1 or replay_reuse > 1:
             arena = BatchArena(
                 k=superstep_k, rows=B, batch_dim=1,
                 pool=prefetch_depth + 3, telemetry_name="learner_queue",
+                replay_reuse=replay_reuse,
             )
         prefetcher = DevicePrefetcher(
             learner_queue, _place, depth=prefetch_depth,
@@ -1059,6 +1121,16 @@ def train(flags):
             # Under supersteps each dispatch carries K updates and [K]
             # stats, so this one delayed sync covers K updates.
             pending = None  # (device stats, step after, timer, release)
+            # Replay handouts still owed by the last fresh batch: the run
+            # ends at --total_steps env frames once they are learned from.
+            owed = 0
+
+            def merge(batch, agent_state):
+                # --loss impact: the target network's forward, inside the
+                # timed interval (it is part of the IMPACT update).
+                if target is None:
+                    return batch
+                return target.merge(batch, agent_state)
 
             def flush(entry):
                 device_stats, at_step, timer, release = entry
@@ -1092,6 +1164,10 @@ def train(flags):
                 release = None
                 if arena is not None:
                     staged, release = staged
+                # Replay handouts carry release.fresh == False: they
+                # advance the learn clock but not the env frames.
+                fresh = release is None or release.fresh
+                owed = replay_reuse - 1 if fresh else owed - 1
                 batch, initial_agent_state = _take_staged(staged)
                 timings.time("dequeue")
                 if throttle is not None:
@@ -1103,11 +1179,15 @@ def train(flags):
                         t0 = torch.cuda.Event(enable_timing=True)
                         t1 = torch.cuda.Event(enable_timing=True)
                         t0.record()
-                        train_stats = update(batch, initial_agent_state)
+                        train_stats = update(
+                            merge(batch, initial_agent_state),
+                            initial_agent_state)
                         t1.record()
                     else:
                         t0 = time.perf_counter()
-                        train_stats = update(batch, initial_agent_state)
+                        train_stats = update(
+                            merge(batch, initial_agent_state),
+                            initial_agent_state)
                         t1 = time.perf_counter()
                     with state_lock:
                         # Publish: the acting copy takes the new params
@@ -1115,7 +1195,9 @@ def train(flags):
                         # on the stream after the update.
                         with torch.no_grad():
                             torch._foreach_copy_(act_params, learn_params)
-                        state["step"] += superstep_k * T * B
+                        if fresh:
+                            state["step"] += superstep_k * T * B
+                        state["learn_step"] += superstep_k * T * B
                         now_step = state["step"]
                         updates_done[0] += superstep_k
                         # A versioned snapshot when one is due (a
@@ -1126,12 +1208,16 @@ def train(flags):
                                     updates_done[0])):
                             snapshot_store.publish(updates_done[0],
                                                    act_params)
+                    if target is not None:
+                        # A full-precision target refresh when one is
+                        # due, queued behind the update.
+                        target.maybe_refresh(updates_done[0], learn_params)
                 watchdog.ping()
                 if pending is not None:
                     flush(pending)
                 pending = (train_stats, now_step, (t0, t1), release)
                 timings.time("learn")
-                if now_step >= flags.total_steps:
+                if now_step >= flags.total_steps and owed <= 0:
                     break
             if pending is not None:
                 flush(pending)
@@ -1182,6 +1268,7 @@ def train(flags):
         degraded_dead = 0
         last_checkpoint = time.time()
         last_step, last_time = state["step"], time.time()
+        last_learn_step = state["learn_step"]
         while not learner_done.is_set():
             # A finished learner or a halt cuts the 5 s tick short.
             tick_end = time.time() + 5
@@ -1218,17 +1305,21 @@ def train(flags):
                 break
             with state_lock:
                 now_step = state["step"]
+                now_learn_step = state["learn_step"]
                 stats_now = dict(state["stats"])
             now = time.time()
             sps = (now_step - last_step) / (now - last_time)
+            learn_sps = (now_learn_step - last_learn_step) / (now - last_time)
             last_step, last_time = now_step, now
+            last_learn_step = now_learn_step
             if telemetry_on:
                 # Set here, not in the queues: the core's queues carry
-                # no instruments. Every frame is learned from once.
+                # no instruments. env_sps counts unique env frames,
+                # learn_sps frames learned from (x --replay_reuse).
                 reg.gauge("learner.sps").set(sps)
                 reg.gauge("learner.env_sps").set(sps)
-                reg.gauge("learner.learn_sps").set(sps)
-                reg.gauge("learner.sample_reuse").set(1)
+                reg.gauge("learner.learn_sps").set(learn_sps)
+                reg.gauge("learner.sample_reuse").set(replay_reuse)
                 reg.gauge("learner_queue.depth").set(learner_queue.size())
                 reg.gauge("inference.depth").set(inference_batcher.size())
                 tele.write(extra={"step": now_step})
@@ -1299,6 +1390,8 @@ def train(flags):
         statistics.median(update_interval_ms) if update_interval_ms
         else 0.0)
     stats["updates"] = len(update_interval_ms)
+    stats["learn_sps"] = (updates_done[0] * T * B / elapsed if elapsed
+                          else 0.0)
     counts = _counter_values(reg, counters)
     batches = counts["inference.batches"] - counts_at_start[
         "inference.batches"]
@@ -1334,13 +1427,14 @@ class _FlagSyncHooks:
 
 
 def _dummy_learner_inputs(T, B, k, frame_shape, num_actions, agent_state,
-                          batch_dtype, policy_lag=False):
+                          batch_dtype, policy_lag=False, impact=False):
     """Zero learner inputs of one dispatch, as the prefetcher stages them
     (the wire's dtypes, float leaves cast to `batch_dtype`): a [T+1, B]
     batch and `agent_state` (a host state nest at B), stacked [K, ...]
     when k > 1. With `policy_lag` the batch carries the int32 leaf the
-    pool records under replica serving (the update does not read it).
-    The learner graph's capture takes them."""
+    pool records under replica serving (the update does not read it);
+    with `impact` the target network's two f32 outputs. The learner
+    graph's capture takes them."""
     env = _dummy_env_outputs(B, frame_shape)
     batch = {key: np.repeat(v, T + 1, axis=0) for key, v in env.items()}
     batch.update({
@@ -1356,7 +1450,15 @@ def _dummy_learner_inputs(T, B, k, frame_shape, num_actions, agent_state,
     if k > 1:
         tree = nest.map(lambda v: np.stack([v] * k), tree)
     tree = nest.map(lambda v: torch.from_numpy(np.asarray(v)), tree)
-    return tuple(precision.cast_batch(t, batch_dtype) for t in tree)
+    batch, agent_state = (precision.cast_batch(t, batch_dtype)
+                          for t in tree)
+    if impact:
+        lead = (k,) if k > 1 else ()
+        batch[learner_lib.TARGET_LOGITS_KEY] = torch.zeros(
+            lead + (T + 1, B, num_actions))
+        batch[learner_lib.TARGET_BASELINE_KEY] = torch.zeros(
+            lead + (T + 1, B))
+    return batch, agent_state
 
 
 def _dummy_env_outputs(batch_size, frame_shape):

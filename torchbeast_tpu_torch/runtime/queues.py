@@ -23,12 +23,11 @@ test surface):
 
 - BatchArena (with BatchingQueue.dequeue_item, its intake, and
   DevicePrefetcher's superstep mode): host staging of [K, T+1, B, ...]
-  stacks for --superstep_k.
+  stacks for --superstep_k, and the circular replay of --replay_reuse.
 
 The port's copy of torchbeast_tpu/runtime/queues.py. BatchArena comes
-without its replay bookkeeping (--replay_reuse), which ROADMAP.md Queue 1
-item 'IMPACT' brings, and without its float_dtype cast: numpy has no
-bfloat16, so the port casts a staged batch on the card.
+without its float_dtype cast: numpy has no bfloat16, so the port casts a
+staged batch on the card.
 """
 
 import collections
@@ -269,13 +268,21 @@ class BatchingQueue:
 
 class _ArenaSlot:
     """One preallocated arena: per-leaf [K, ...] numpy arrays + a
-    free/busy latch. Released (reusable) only via its release()."""
+    free/busy latch. Released (reusable) only via its release().
 
-    __slots__ = ("arrays", "free")
+    Replay bookkeeping (--replay_reuse): `uses_left` counts the replay
+    handouts this filled slot still owes, `outstanding` the handouts
+    not yet released. The slot is free for rewrite only when BOTH hit
+    zero — the reuse-counter fence that replaces the single
+    release-flips-free latch."""
+
+    __slots__ = ("arrays", "free", "uses_left", "outstanding")
 
     def __init__(self):
         self.arrays = None  # lazily allocated from the first item
         self.free = True
+        self.uses_left = 0  # guarded-by: arena._free
+        self.outstanding = 0  # guarded-by: arena._free
 
 
 class BatchArena:
@@ -302,11 +309,18 @@ class BatchArena:
     ActorPool rollouts are one column each, so the learner queue always
     tiles). All items must share one nest structure/dtype set.
 
-    The port's copy leaves out the reference's replay bookkeeping
-    (`replay_reuse`, `uses_left`, `outstanding`: --replay_reuse re-serves
-    a slot K' times), which ROADMAP.md Queue 1 item 'IMPACT' brings, and
-    its `float_dtype` cast (numpy has no bfloat16; the port casts a
-    staged batch on the card).
+    Circular replay (`replay_reuse` K' > 1, --loss impact): after a
+    fresh fill, the SAME slot is handed out K'-1 more times WITHOUT
+    draining the queue — sample reuse as slot re-release. Each handout
+    carries its own release() (stamped `release.fresh`: True for the
+    queue-draining fill, False for replays) and the slot's rewrite
+    fence holds until every handout is released AND the replay quota is
+    spent — a slot is never rewritten mid-reuse. At K'=1 the behavior
+    (and the staged bytes) are bit-identical to the single-release
+    arena.
+
+    The port's copy leaves out the reference's `float_dtype` cast (numpy
+    has no bfloat16; the port casts a staged batch on the card).
     """
 
     def __init__(
@@ -317,6 +331,7 @@ class BatchArena:
         pool: int = 5,
         grow_timeout_s: float = 5.0,
         telemetry_name: Optional[str] = None,
+        replay_reuse: int = 1,
     ):
         if k < 1:
             raise ValueError(f"superstep k must be >= 1, got {k}")
@@ -326,10 +341,16 @@ class BatchArena:
             # One slot filling + at least one staged/consumed: fewer
             # would force a grow on every superstep.
             raise ValueError(f"arena pool must be >= 2, got {pool}")
+        if replay_reuse < 1:
+            raise ValueError(
+                f"replay_reuse must be >= 1, got {replay_reuse}"
+            )
         self._k = k
         self._rows = rows
         self._batch_dim = batch_dim
         self._grow_timeout_s = grow_timeout_s
+        self._replay_reuse = replay_reuse
+        self._replay_slot = None  # guarded-by: self._free
         self._slots = [_ArenaSlot() for _ in range(pool)]
         self._free = threading.Condition(threading.Lock())
         self._template = None  # nest structure of the first item
@@ -383,14 +404,30 @@ class BatchArena:
             self._set_occupancy()
         return slot
 
-    def _release_fn(self, slot: _ArenaSlot):
+    def _release_fn(self, slot: _ArenaSlot, fresh: bool = True):
         def release():
             with self._free:
-                slot.free = True
-                self._set_occupancy()
-                self._free.notify()
+                slot.outstanding = max(0, slot.outstanding - 1)
+                if slot.outstanding == 0 and slot.uses_left == 0:
+                    slot.free = True
+                    self._set_occupancy()
+                    self._free.notify()
 
+        release.fresh = fresh
         return release
+
+    def _abort_slot(self, slot: _ArenaSlot):
+        """Drop a slot whose fill raised: a partial fill must never be
+        replayed, so the replay quota and handout count reset before
+        the slot frees."""
+        with self._free:
+            if self._replay_slot is slot:
+                self._replay_slot = None
+            slot.uses_left = 0
+            slot.outstanding = 0
+            slot.free = True
+            self._set_occupancy()
+            self._free.notify()
 
     def _allocate(self, slot: _ArenaSlot, item_leaves: List[np.ndarray]):
         bd = self._batch_dim
@@ -407,8 +444,24 @@ class BatchArena:
         drained from `queue`; returns (stacked_nest, release). Raises
         StopIteration when the queue closes — a partially filled arena
         is dropped (a fixed-K superstep cannot consume it) and its slot
-        released."""
+        released.
+
+        With replay_reuse K' > 1 the last fresh fill is handed out
+        again (no queue drain) until its K'-fold quota is spent;
+        `release.fresh` says which kind this handout was."""
         t0 = time.perf_counter() if self._tm_assemble is not None else 0.0
+        with self._free:
+            replay = self._replay_slot
+            if replay is not None:
+                replay.uses_left -= 1
+                replay.outstanding += 1
+                if replay.uses_left == 0:
+                    self._replay_slot = None
+        if replay is not None:
+            return (
+                nest.pack_as(self._template, replay.arrays),
+                self._release_fn(replay, fresh=False),
+            )
         slot = self._acquire_slot()
         bd = self._batch_dim
         batch_idx, col = 0, 0
@@ -443,8 +496,13 @@ class BatchArena:
                     "BatchArena: dropping %d assembled rows (source "
                     "closed mid-superstep)", dropped,
                 )
-            self._release_fn(slot)()
+            self._abort_slot(slot)
             raise
+        with self._free:
+            slot.uses_left = self._replay_reuse - 1
+            slot.outstanding = 1
+            if slot.uses_left > 0:
+                self._replay_slot = slot
         if self._tm_assemble is not None:
             self._tm_assemble.observe(time.perf_counter() - t0)
         return nest.pack_as(self._template, slot.arrays), self._release_fn(
