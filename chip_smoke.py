@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
-                           | --impact-only]
+                           | --impact-only | --remat-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -55,7 +55,22 @@ exits non-zero without printing the final result line:
    update as one eager update does, with the target forward's graph and
    the update's timed; and the target forward's own graph (bound to the
    target params buffer) against an eager twin, bitwise, before and
-   after one refresh;
+   after one refresh.
+   4r. remat plans (runtime/remat_plan.py), same settings: deep + LSTM
+   at f32 under the default plan (every activation kept), `all`, the
+   three trunk fronts and the LSTM core alone, at bf16_train under the
+   default and `all`, and the transformer with --attention_impl pallas
+   under the default and blocks=all. Each plan prints the allocator's
+   peak over one eager dispatch (the planner's oracle, which run again on
+   the same candidate must leave nothing more on the card) and its
+   bytes accessed, the median of 10 replays of its update graph, the
+   port kernels one replay launched (V-trace 1, the tail 1, pool_bwd 3;
+   the transformer's attention forwards 2, or 4 under blocks=all, and
+   backwards 2) and whether the params after one update are bitwise
+   equal to the default plan's, which they must be; the deep model's
+   `all` must peak below its default. Then the deep f32 update graph
+   under the default and `all` at the training settings, interleaved,
+   with each plan's peak at those settings;
 5. main paths: `monobeast.train` through the port's own parser, every
    kernel switch on, T=80, B=32, each dispatch one CUDA graph, at full
    width: (a) deep ResNet + LSTM (84x84x4 frames, 16/32/32 trunk, fc
@@ -123,7 +138,21 @@ exits non-zero without printing the final result line:
    interval; (o) monobeast --model mlp --use_lstm on 84x84x4 Mock
    frames, 2 updates, V-trace and the tail launched. With --impact-only
    the script runs only this slice's phases 4, 5 (m)-(o) and 6, after
-   the builds;
+   the builds; (p) monobeast deep + LSTM with --remat auto and
+   --hbm_budget_gb at what is allocated when it starts plus the midpoint
+   of the default's and `all`'s footprints at the training settings
+   (measured after 4r), 4
+   updates: the plan neither none nor all-remat, its measured peak within
+   the budget, the launch and loss checks, telemetry.jsonl carrying the
+   plan (source auto, the size of its table) and
+   learner.hbm_bytes_per_update; polybeast deep + LSTM with --remat all,
+   4 updates, on the Python pool and on the core: the launch checks and
+   the same telemetry; (q) polybeast deep without --use_lstm (no state
+   table) with --replica_refresh_updates 1 --max_policy_lag 20, 4
+   updates on each runtime: the replica thread serves requests and every
+   stamped policy_lag is within 20. 4r, the training-settings timing and
+   (p)-(q) run right after phase 4, before (a); with --remat-only the
+   script runs only these after the builds;
 6. parity: one learner update of each model from the same weights and
    batch with the kernels and with the plain versions on the card (TF32
    off, cuDNN deterministic), at f32, bf16_compute and bf16_train, and
@@ -429,16 +458,17 @@ def check_pool(ops, dev, dtype=torch.float32):
     }
 
 
-def _param_tree(dev, name="deep", policy="f32"):
+def _param_tree(dev, name="deep", policy="f32", **levers):
     """A model of the slice at full width, random from seed 0, built at
-    the precision `policy` (its params cast to the resident dtype), and a
-    copy of its parameters."""
+    the precision `policy` (its params cast to the resident dtype) with
+    the remat `levers` (runtime/remat_plan.model_kwargs), and a copy of
+    its parameters."""
     from torchbeast_tpu_torch import precision
     from torchbeast_tpu_torch.models import create_model
 
     pol = precision.get(policy)
     torch.manual_seed(0)
-    kw = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype)
+    kw = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype, **levers)
     if name == "deep":
         model = create_model("deep", NUM_ACTIONS, use_lstm=True, **kw)
     else:
@@ -1972,6 +2002,364 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32",
                            f"{stat_failed}")
 
 
+# ------------------------------------------------------------------ remat
+
+# 4r. The plans each model is run under: the default (--remat unset, every
+# activation kept), all, the three trunk fronts, the LSTM core alone.
+FRONTS = "stage0=front,stage1=front,stage2=front,core=none"
+CORE_ONLY = "stage0=none,stage1=none,stage2=none,core=all"
+REMAT_PLANS = {
+    ("deep", "f32"): (("default", None), ("all", "all"), ("fronts", FRONTS),
+                      ("core=all", CORE_ONLY)),
+    ("deep", "bf16_train"): (("default", None), ("all", "all")),
+    ("transformer", "f32"): (("default", None), ("all", "all")),
+}
+REMAT_REPLAYS = 10
+
+
+def _free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def check_remat_update(ops, dev, model_name, policy, label, spec):
+    """One plan of 4r: the allocator's peak over one eager dispatch (the
+    planner's oracle, runtime/remat_plan.superstep_cost_fn, as --remat
+    auto measures it) and the bytes it accesses; then the plan's update
+    graph (learner.make_update_dispatch) captured, its launches of each
+    port kernel in one replay, the params after that one update, and the
+    median update time over REMAT_REPLAYS replays."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import precision
+    from torchbeast_tpu_torch.profile_update import remat_levers
+    from torchbeast_tpu_torch.runtime import remat_plan
+
+    pol = precision.get(policy)
+    assignment, levers = remat_levers(model_name, model_name == "deep", spec)
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas",
+                             param_dtype=pol.param_dtype,
+                             opt_state_dtype=pol.opt_state_dtype)
+    resident = _free_card()
+    cost_fn = remat_plan.superstep_cost_fn(
+        lambda kw: _param_tree(dev, model_name, policy, **kw)[0], hp, 1,
+        remat_plan.learner_batch_structs(hp, NUM_ACTIONS, (84, 84, 4),
+                                         torch.uint8, pol.batch_dtype),
+        B, model_name)
+    peak, accessed = cost_fn(assignment)
+    check(peak is not None, f"remat {label} {spec}: the oracle failed")
+    # A plan's first run may allocate what a library keeps (a workspace
+    # for an op or a thread it meets first); the same candidate run again
+    # must then leave nothing more on the card.
+    first = _free_card()
+    cost_fn(assignment)
+    left = _free_card() - first
+    model, _ = _param_tree(dev, model_name, policy, **levers)
+    optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
+    state = (model.initial_state(B, dev) if model_name == "deep"
+             else random_cache(model, 0, dev))
+    state = precision.cast_batch(state, pol.batch_dtype)
+    batch = precision.cast_batch(random_batch(0, dev), pol.batch_dtype)
+    dispatch = learner_lib.make_update_dispatch(model, optimizer, hp)
+    dispatch.capture(batch, state)
+    ops.reset_launch_counts()
+    dispatch(batch, state)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    params = [p.detach().clone() for p in model.parameters()]
+    ms = time_ms(lambda: dispatch(batch, state), reps=REMAT_REPLAYS)
+    del model, optimizer, dispatch, batch, state
+    _free_card()
+    return {"peak": peak, "accessed": accessed, "ms": ms,
+            "launches": launches, "params": params, "left": left,
+            "assignment": remat_plan.spell(assignment)}
+
+
+def run_remat_graphs(ops, dev):
+    """4r (TF32 off, cuDNN deterministic, TBT_POOL_PALLAS=1): each plan of
+    REMAT_PLANS on the deep + LSTM model at f32 and bf16_train and on the
+    transformer with --attention_impl pallas, one line each. Every plan's
+    params after one update must equal the default's bitwise, its
+    launches per update be the default's (the transformer's attention
+    forwards 2 -> 4 under blocks=all, its backwards 2), and the deep
+    model's `all` must peak below its default. Returns {(model, policy):
+    {plan: result}}."""
+    want = {"deep": {"default": {"vtrace_targets": 1, "rmsprop_tail": 1,
+                                 "pool_bwd": 3}},
+            "transformer": {
+                "default": {"vtrace_targets": 1, "rmsprop_tail": 1,
+                            "transformer_attention": 2,
+                            "transformer_attention_bwd": 2},
+                "all": {"vtrace_targets": 1, "rmsprop_tail": 1,
+                        "transformer_attention": 4,
+                        "transformer_attention_bwd": 2}}}
+    results = {}
+    for (model_name, policy), plans in REMAT_PLANS.items():
+        label = ("deep+LSTM" if model_name == "deep" else
+                 "transformer") + ("" if policy == "f32" else f" {policy}")
+        got = results[(model_name, policy)] = {}
+        for plan, spec in plans:
+            r = got[plan] = check_remat_update(ops, dev, model_name, policy,
+                                               label, spec)
+            base = got["default"]
+            equal = all(torch.equal(a, b)
+                        for a, b in zip(r["params"], base["params"]))
+            launches = want[model_name].get(plan,
+                                            want[model_name]["default"])
+            print(f"remat {label} {plan} ({r['assignment']}): peak "
+                  f"{r['peak'] / 2**30:.3f} GiB ({int(r['peak'])} bytes, "
+                  f"the allocator's), bytes accessed "
+                  f"{r['accessed'] / 2**30:.3f} GiB; update graph median "
+                  f"{r['ms']:.3f} ms over {REMAT_REPLAYS} replays; launches "
+                  f"per update {r['launches']}; params after one update "
+                  f"{'bitwise equal to' if equal else 'DIFFER from'} the "
+                  "default's")
+            check(r["launches"] == launches,
+                  f"remat {label} {plan}: launches {r['launches']}, want "
+                  f"{launches}")
+            check(r["left"] == 0, f"remat {label} {plan}: a second oracle "
+                                  f"run left {r['left']} bytes more on the "
+                                  "card")
+            check(equal, f"remat {label} {plan}: params after one update "
+                         "differ from the default plan's")
+        for r in got.values():
+            del r["params"]
+        if model_name == "deep":
+            check(got["all"]["peak"] < got["default"]["peak"],
+                  f"remat {label}: all peaks at {got['all']['peak']}, the "
+                  f"default at {got['default']['peak']}")
+    return results
+
+
+def time_remat_training(dev):
+    """The deep + LSTM f32 update graph at the training settings (TF32 as
+    PyTorch defaults it, cuDNN free to choose) under the default plan and
+    under `all`, timed over CUDA-event runs in one process, interleaved;
+    and each plan's peak under these settings through the planner's
+    oracle, as --remat auto measures it in a training run (cuDNN's
+    choice of algorithms, and so its workspaces, follows the settings).
+    Returns {plan: the peak less what was allocated before the oracle
+    ran}: the dispatch's own footprint, which the budget of 5p adds to
+    what is allocated when its run starts (each graph captured so far
+    left its streams' cuBLAS workspaces behind)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.profile_update import remat_levers
+    from torchbeast_tpu_torch.runtime import remat_plan
+
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas")
+    times, peaks = {}, {}
+    for plan in ("default", "all", "default", "all"):
+        assignment, levers = remat_levers(
+            "deep", True, None if plan == "default" else plan)
+        model, _ = _param_tree(dev, "deep", "f32", **levers)
+        optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
+        state = model.initial_state(B, dev)
+        batch = random_batch(0, dev)
+        dispatch = learner_lib.make_update_dispatch(model, optimizer, hp)
+        times.setdefault(plan, []).append(
+            time_ms(lambda: dispatch(batch, state)))
+        del model, optimizer, dispatch
+        _free_card()
+        if plan not in peaks:
+            resident = torch.cuda.memory_allocated()
+            peaks[plan] = remat_plan.superstep_cost_fn(
+                lambda kw: _param_tree(dev, "deep", "f32", **kw)[0], hp, 1,
+                remat_plan.learner_batch_structs(hp, NUM_ACTIONS,
+                                                 (84, 84, 4)),
+                B, "deep")(assignment)[0] - resident
+    print(f"remat update deep+LSTM f32, training settings (TF32 "
+          f"{torch.backends.cudnn.allow_tf32} for cuDNN): default "
+          f"{times['default']} ms, all {times['all']} ms (two timings "
+          f"each, interleaved); all / default "
+          f"{min(times['all']) / min(times['default']):.3f}; peaks above "
+          f"what was allocated before: default "
+          f"{peaks['default'] / 2**30:.3f} GiB, all "
+          f"{peaks['all'] / 2**30:.3f} GiB (the allocator's)")
+    return peaks
+
+
+def run_remat_auto(ops, savedir, budget_bytes):
+    """5p (monobeast): deep + LSTM with --remat auto --hbm_budget_gb at
+    `budget_bytes` for 4 updates: the plan is neither none nor all-remat,
+    its measured peak within the budget, the run trains (the launch and
+    loss checks of run_main_path), and telemetry.jsonl carries the plan
+    (source auto, the table's size) and the bytes-accessed gauge."""
+    from torchbeast_tpu_torch import telemetry
+    from torchbeast_tpu_torch.runtime import remat_plan
+
+    gb = budget_bytes / 2**30
+    label = "deep+LSTM remat auto"
+    resident = _free_card()
+    path = (label, DEEP_ARGS + ["--remat", "auto", "--hbm_budget_gb",
+                                repr(gb)], DEEP_KERNELS, "f32", 4)
+    counts = run_main_path(ops, savedir, path)
+    plan = remat_plan.last_plan()
+    stages = remat_plan.stages_for("deep", True)
+    check(plan is not None and plan.source == "auto",
+          f"{label}: plan {plan and plan.source}")
+    print(f"{label}: budget {gb:.3f} GiB ({budget_bytes:.0f} bytes; "
+          f"{resident} bytes resident before); chose "
+          f"{remat_plan.spell(plan.assignment)} at peak "
+          f"{plan.peak_bytes / 2**30:.3f} GiB after {len(plan.table)} "
+          "candidates: "
+          f"{[(r['assignment'], r['peak_bytes']) for r in plan.table]}")
+    check(plan.assignment not in (remat_plan.no_remat(stages),
+                                  remat_plan.all_remat(stages)),
+          f"{label}: chose {remat_plan.spell(plan.assignment)}")
+    check(plan.peak_bytes <= budget_bytes,
+          f"{label}: peak {plan.peak_bytes} above the budget {budget_bytes}")
+    xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
+    last = telemetry.read_jsonl(os.path.join(savedir, xpid,
+                                             "telemetry.jsonl"))[-1]
+    static = last.get("learner.remat_plan", {})
+    check(static.get("source") == "auto" and static.get("evaluated")
+          == len(plan.table) > 0, f"{label}: static {static}")
+    gauge = last["gauges"].get("learner.hbm_bytes_per_update", 0)
+    check(gauge > 0, f"{label}: learner.hbm_bytes_per_update {gauge}")
+    print(f"{label}: learner.hbm_bytes_per_update {gauge:.0f}")
+    return {label: counts}
+
+
+def run_polybeast_remat(ops, savedir, native):
+    """5p (polybeast): deep + LSTM with --remat all for 4 updates on the
+    Python pool or the core: every update launches V-trace, the tail and
+    the pool backward three times (16-byte path), the losses are finite,
+    and the last telemetry line carries the plan (source all) and the
+    bytes-accessed gauge."""
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    label = "polybeast deep+LSTM remat all" + (" native runtime" if native
+                                               else "")
+    xpid = "chip_smoke_remat" + ("_native" if native else "")
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid) + ["--remat", "all",
+                                            "--total_steps", str(4 * T * B)]
+    if native:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    ops.reset_launch_counts()
+    stats = polybeast.train(polybeast.make_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    updates = stats["updates"]
+    check(updates >= 4, f"{label}: {updates} updates")
+    for name, per_update in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                             ("pool_bwd", 3)):
+        check(counts[name] >= per_update * updates,
+              f"{label}: {counts[name]} {name} launches in {updates} "
+              "updates")
+    check(ops.pool_bwd.vector_launches == counts["pool_bwd"],
+          f"{label}: not every pool_bwd launch took the 16-byte path")
+    for key in ("total_loss", "grad_norm"):
+        check(np.isfinite(stats[key]), f"{label}: {key} {stats[key]}")
+    last = telemetry.read_jsonl(os.path.join(savedir, xpid,
+                                             "telemetry.jsonl"))[-1]
+    static = last.get("learner.remat_plan", {})
+    gauge = last["gauges"].get("learner.hbm_bytes_per_update", 0)
+    check(static.get("source") == "all" and gauge > 0,
+          f"{label}: static {static}, gauge {gauge}")
+    print(f"{label} 84x84x4 T={T} B={B}: {updates} updates; SPS "
+          f"{stats['sps']:.1f}; median update interval "
+          f"{stats['update_interval_ms_median']:.2f} ms; launches {counts};"
+          f" plan {static['assignment']}; learner.hbm_bytes_per_update "
+          f"{gauge:.0f}")
+    return {label: (counts, bf16)}
+
+
+def run_polybeast_stateless(ops, savedir, native):
+    """5q: polybeast deep WITHOUT --use_lstm (no state table: the agent
+    state rides each request), --replica_refresh_updates 1
+    --max_policy_lag 20, 4 updates on the Python pool or the core: the
+    replica thread serves requests through its own graphs, and every
+    policy_lag stamped into a learner batch is within the budget."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    label = "polybeast deep stateless replicas" + (" native runtime"
+                                                   if native else "")
+    xpid = "chip_smoke_stateless" + ("_native" if native else "")
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid)
+    argv.remove("--use_lstm")
+    argv += ["--replica_refresh_updates", "1", "--max_policy_lag", "20",
+             "--total_steps", str(4 * T * B)]
+    if native:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
+        argv.append("--native_server")
+    lags = []
+    instrument = learner_lib.instrument_update_step
+
+    def recording(update, **kwargs):
+        def wrapped(batch, state):
+            lags.append(batch["policy_lag"].clone())
+            return update(batch, state)
+
+        return instrument(wrapped, **kwargs)
+
+    reg = telemetry.get_registry()
+    before = {n: reg.counter(n).value() for n in (
+        "serving.replica_requests", "serving.central_requests")}
+    ops.reset_launch_counts()
+    learner_lib.instrument_update_step = recording
+    try:
+        stats = polybeast.train(polybeast.make_parser().parse_args(argv))
+    finally:
+        learner_lib.instrument_update_step = instrument
+    torch.cuda.synchronize()
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    served = {n: reg.counter(n).value() - v for n, v in before.items()}
+    check(stats["updates"] >= 4 and stats["health"] == "HEALTHY",
+          f"{label}: {stats['updates']} updates, health {stats['health']}")
+    check(served["serving.replica_requests"] > 0,
+          f"{label}: the replica thread served no request ({served})")
+    check(lags and all(lag.dtype == torch.int32 for lag in lags),
+          f"{label}: no policy_lag stamped")
+    worst = max(int(lag.max()) for lag in lags)
+    check(worst <= 20, f"{label}: a policy_lag of {worst} above 20")
+    last = telemetry.read_jsonl(os.path.join(savedir, xpid,
+                                             "telemetry.jsonl"))[-1]
+    check(last.get("acting_path", {}).get("agent_state") == "host",
+          f"{label}: acting path {last.get('acting_path')}")
+    for name, per_update in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                             ("pool_bwd", 3)):
+        check(counts[name] >= per_update * stats["updates"],
+              f"{label}: {counts[name]} {name} launches")
+    print(f"{label} 84x84x4 T={T} B={B}: {stats['updates']} updates; SPS "
+          f"{stats['sps']:.1f}; replica requests "
+          f"{int(served['serving.replica_requests'])}, central "
+          f"{int(served['serving.central_requests'])}; policy_lag max "
+          f"{worst} over {len(lags)} batches (budget 20); launches {counts}")
+    return {label: (counts, bf16)}
+
+
+def run_remat_phases(ops, dev, savedir, tf32):
+    """This slice's phases: 4r (TF32 off, cuDNN deterministic), the
+    training-settings timing and peaks of default against all, then 5p
+    (the auto budget what is allocated when it starts plus the midpoint
+    of those two footprints of the deep f32 model, measured at the
+    settings the run trains at) and 5q. Returns
+    the launch counts of the 5p and 5q runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    results = run_remat_graphs(ops, dev)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    peaks = time_remat_training(dev)
+    by_path = run_remat_auto(ops, savedir, _free_card()
+                             + (peaks["default"] + peaks["all"]) / 2)
+    for native in (False, True):
+        by_path.update(run_polybeast_remat(ops, savedir, native))
+    for native in (False, True):
+        by_path.update(run_polybeast_stateless(ops, savedir, native))
+    return by_path
+
+
 def run_impact_phases(ops, dev, savedir, tf32):
     """--impact-only: this slice's phases alone, after the builds: the
     IMPACT update graphs and the target forward's graph (phase 4), paths
@@ -2004,8 +2392,9 @@ def main(argv):
     vtrace_only = argv == ["--vtrace-only"]
     serving_only = argv == ["--serving-only"]
     impact_only = argv == ["--impact-only"]
+    remat_only = argv == ["--remat-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
-                     or impact_only):
+                     or impact_only or remat_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2081,6 +2470,9 @@ def main(argv):
     if impact_only:
         run_impact_phases(ops, dev, savedir, tf32)
         return 0
+    if remat_only:
+        run_remat_phases(ops, dev, savedir, tf32)
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -2120,7 +2512,9 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
 
-    by_path = {path[0]: run_main_path(ops, savedir, path) for path in PATHS}
+    by_path = run_remat_phases(ops, dev, savedir, tf32)
+    by_path.update({path[0]: run_main_path(ops, savedir, path)
+                    for path in PATHS})
     time_impact_update(dev)
     by_path.update(run_polybeast(ops, savedir))
     by_path.update(run_polybeast(ops, savedir, native=True))

@@ -34,19 +34,38 @@ def _selftest(tmp_path, *extra):
 # three timed runs of both cases, above the 20 s a quick-lane test may
 # take. The quick lane keeps in-process chaos runs that assert the exact
 # counts on both runtimes (tests/test_torch_telemetry.py).
+def _spinners():
+    """Pids of live `while True: pass` processes (chaos_run's spinners)."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    if b"while True: pass" in f.read():
+                        pids.append(int(entry))
+            except OSError:
+                pass
+    return pids
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize("runtime", ["python", "native"])
-def test_chaos_run_selftest(tmp_path, runtime):
+@pytest.mark.parametrize("runtime,pressure", [("python", 0), ("native", 0),
+                                              ("python", 2)])
+def test_chaos_run_selftest(tmp_path, runtime, pressure):
     """Two short polybeast runs (fault-free, then a seeded 4-class plan)
     and the acceptance contract: completion, exact recovery accounting,
-    return parity, real and lossless load shedding, no leaks."""
+    return parity, real and lossless load shedding, no leaks; with
+    --scheduler_pressure 2 the chaos leg runs beside two spinners, the
+    ring block records 2, and no spinner outlives the run."""
     if runtime == "native":
         try:
             native_build.check_toolchain()
         except native_build.NativeBuildError as e:
             pytest.skip(str(e))
+    spinners = set(_spinners())
     out = _selftest(tmp_path, *(["--native"] if runtime == "native"
-                                else []))
+                                else []),
+                    "--scheduler_pressure", str(pressure))
     assert out["bench"] == "chaos_run"
     assert out["selftest"] is True
     assert out["native"] is (runtime == "native")
@@ -76,7 +95,8 @@ def test_chaos_run_selftest(tmp_path, runtime):
     assert out["results"]["baseline"]["mean_episode_return"] == \
         chaos["mean_episode_return"]
     ring = out["ring"]
-    assert ring["scheduler_pressure"] == 0
+    assert ring["scheduler_pressure"] == pressure
+    assert set(_spinners()) <= spinners
     for leg in ("baseline", "chaos"):
         assert set(ring[leg]) == {"doorbell_waits", "recheck_wakeups"}
         assert 0 <= ring[leg]["recheck_wakeups"] <= \
@@ -191,3 +211,62 @@ def test_expected_counters_follow_the_topology():
     assert expected["recovery.inference_restarts"] == 1
     assert expected["recovery.table_rebuilds"] == 1
     assert expected["chaos.learner_stall.injected"] == 1
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def test_scheduler_pressure_spinners_come_and_go():
+    """--scheduler_pressure's spinners: N processes, each the leader of a
+    process group of its own while the leg runs, all gone after it."""
+    with chaos_run.SchedulerPressure(2) as pressure:
+        pids = pressure.pids
+        assert len(pids) == 2 and all(_alive(pid) for pid in pids)
+        assert all(os.getpgid(pid) == pid for pid in pids)
+    assert not any(_alive(pid) for pid in pids)
+    with chaos_run.SchedulerPressure(0) as pressure:
+        assert pressure.pids == []
+
+
+def test_scheduler_pressure_wraps_the_chaos_leg_only(tmp_path, monkeypatch,
+                                                     capsys):
+    """main() with --scheduler_pressure 2 (the legs stubbed out): the
+    baseline leg runs beside no spinner, the chaos leg beside 2, the
+    verdict's ring block records 2 with each leg's ring counters, and no
+    spinner outlives the run."""
+    seen = {}
+    real = chaos_run.SchedulerPressure
+
+    class Watched(real):
+        def __enter__(self):
+            super().__enter__()
+            seen["pids"] = list(self.pids)
+            return self
+
+    def fake_run(args, savedir, xpid, chaos_plan_path=None, argv=None):
+        seen[xpid] = [pid for pid in seen.get("pids", []) if _alive(pid)]
+        waits = 5 if chaos_plan_path else 3
+        return {"xpid": xpid, "step": args.total_steps, "health": "HEALTHY",
+                "mean_episode_return": 200.0, "chaos": None,
+                "counters": {"ring.doorbell_waits": waits,
+                             "ring.recheck_wakeups": 1},
+                "leaked_processes": [], "leaked_shm": [], "stats": {}}
+
+    monkeypatch.setattr(chaos_run, "SchedulerPressure", Watched)
+    monkeypatch.setattr(chaos_run, "run_one", fake_run)
+    chaos_run.main(["--selftest", "--disable_cuda", "--savedir",
+                    str(tmp_path), "--scheduler_pressure", "2"])
+    verdict = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert seen["chaos-baseline"] == []
+    assert len(seen["chaos-faulted"]) == 2
+    assert verdict["ring"] == {
+        "scheduler_pressure": 2,
+        "baseline": {"doorbell_waits": 3, "recheck_wakeups": 1},
+        "chaos": {"doorbell_waits": 5, "recheck_wakeups": 1}}
+    assert not any(_alive(pid) for pid in seen["pids"])
+    assert chaos_run.main(["--scheduler_pressure", "-1"]) == 2

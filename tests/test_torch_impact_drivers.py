@@ -20,10 +20,6 @@ import pytest
 from torchbeast_tpu import polybeast as jax_polybeast
 from torchbeast_tpu_torch import monobeast, polybeast, telemetry
 from torchbeast_tpu_torch.runtime import native_build
-from tests.test_torch_telemetry import (
-    NOT_IN_PORT_GAUGES,
-    NOT_IN_PORT_STATICS,
-)
 from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,11 +138,10 @@ def test_monobeast_impact_series_match_the_reference(tmp_path):
                                           "histograms")
                 for name in line[kind]}
 
-    assert kinds(ours) == kinds(theirs) - {
-        ("gauges", name) for name in NOT_IN_PORT_GAUGES}
+    assert kinds(ours) == kinds(theirs)
     statics = set(theirs) - {"counters", "gauges", "histograms", "time"}
     assert set(ours) - {"counters", "gauges", "histograms", "time"} == (
-        statics - NOT_IN_PORT_STATICS)
+        statics)
     for name in ("learner.updates", "learner.target.snapshots_published"):
         assert ours["counters"][name] == theirs["counters"][name], name
     for name in ("learner.target.snapshot_version", "learner.sample_reuse"):

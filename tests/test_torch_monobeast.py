@@ -87,8 +87,6 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("args,item", [
     (["--device_split", "auto"], "data parallel and the fleet"),
     (["--num_learner_devices", "2"], "data parallel"),
-    (["--remat", "all"], "stage remat"),
-    (["--hbm_budget_gb", "1"], "stage remat"),
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], "data parallel"),
     (["--model", "pipelined_transformer"], "transformer"),
     (["--sequence_parallel", "2"], "transformer"),

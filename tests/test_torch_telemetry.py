@@ -4,8 +4,8 @@ package's: the same registry operations give equal snapshots, deltas,
 merges, validation, Prometheus text and telemetry blocks; the JSON-lines
 exporter's lines read back alike; a CPU monobeast run of each package
 with the same flags writes telemetry.jsonl lines with the same series
-names and kinds (less what the port has no feature for yet, listed
-below); the port's polybeast lines carry the reference's serving,
+names and kinds, the remat plan's static and the bytes-accessed gauge
+included; the port's polybeast lines carry the reference's serving,
 chaos and recovery series; the Prometheus endpoint serves on an
 ephemeral port; and --profile_dir writes a trace profile_update reads."""
 
@@ -22,12 +22,6 @@ from torchbeast_tpu_torch import telemetry
 from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# Series of the reference's lines that the port has no feature for yet:
-# XLA's bytes-accessed gauge and the remat plan (ROADMAP.md Queue 1 item
-# 'stage remat').
-NOT_IN_PORT_GAUGES = {"learner.hbm_bytes_per_update"}
-NOT_IN_PORT_STATICS = {"learner.remat_plan"}
 
 
 def _jax_telemetry():
@@ -157,8 +151,8 @@ def _train_in_a_fresh_process(package, argv):
 
 def test_monobeast_series_match_the_reference(tmp_path):
     """A CPU monobeast run of each package, the same flags: the same
-    series names and kinds on the final telemetry.jsonl line, but the
-    listed ones the port does not have yet."""
+    series names and kinds and the same statics on the final
+    telemetry.jsonl line."""
     _train_in_a_fresh_process(
         "torchbeast_tpu", MONO_ARGV + ["--savedir", str(tmp_path / "jax")])
     _train_in_a_fresh_process(
@@ -170,9 +164,11 @@ def test_monobeast_series_match_the_reference(tmp_path):
     assert ours and ours[-1]["final"] and ours[-1]["step"] == 48
     for line in ours:
         assert telemetry.validate_snapshot(line) == []
-    assert _kinds(ours[-1]) == _kinds(theirs[-1]) - {
-        ("gauges", name) for name in NOT_IN_PORT_GAUGES}
-    assert _statics(ours[-1]) == _statics(theirs[-1]) - NOT_IN_PORT_STATICS
+    assert _kinds(ours[-1]) == _kinds(theirs[-1])
+    assert _statics(ours[-1]) == _statics(theirs[-1])
+    assert set(ours[-1]["learner.remat_plan"]) == set(
+        theirs[-1]["learner.remat_plan"])
+    assert ours[-1]["gauges"]["learner.hbm_bytes_per_update"] > 0
     assert ours[-1]["learner.mesh_shape"] == theirs[-1]["learner.mesh_shape"]
     assert ours[-1]["counters"]["learner.updates"] == \
         theirs[-1]["counters"]["learner.updates"]
@@ -210,7 +206,8 @@ POLY_SERVING_SERIES = {
         "learner.dequeue", "learner.learn",
     )}
 POLY_STATICS = {"driver", "host_rank", "fleet_size", "learner.mesh_shape",
-                "acting_path", "slo", "chaos", "final", "step", "schema"}
+                "learner.remat_plan", "acting_path", "slo", "chaos",
+                "final", "step", "schema"}
 
 
 @pytest.mark.parametrize("runtime", ["--no_native_runtime",
@@ -266,7 +263,8 @@ def test_polybeast_lines_carry_the_reference_series(tmp_path, runtime,
     assert POLY_SERVING_SERIES <= _kinds(last), \
         POLY_SERVING_SERIES - _kinds(last)
     assert POLY_STATICS <= _statics(last)
-    assert not _statics(last) & NOT_IN_PORT_STATICS
+    assert last["learner.remat_plan"]["source"] == "default"
+    assert last["gauges"]["learner.hbm_bytes_per_update"] > 0
     assert last["chaos"] == stats["chaos"]
     assert stats["chaos"]["injected"] == {
         "learner_stall": 1, "env_server_sigkill": 1, "transport_sever": 1,

@@ -32,12 +32,15 @@ too):
 
 Both legs run the reference's model, `--model mlp --use_lstm`. The
 harness runs on the card, and on the CPU only with --disable_cuda.
-The reference's --scheduler_pressure mode is not here: the verdict's
-ring block records its level as 0.
+--scheduler_pressure N runs the chaos leg beside N spinner processes
+(each killed by its process group when the leg ends); the verdict's ring
+block records N with each leg's ring.doorbell_waits and
+ring.recheck_wakeups.
 
 Usage:
   python -m torchbeast_tpu_torch.chaos_run --selftest --disable_cuda
   python -m torchbeast_tpu_torch.chaos_run --selftest --native
+  python -m torchbeast_tpu_torch.chaos_run --selftest --scheduler_pressure 2
   python -m torchbeast_tpu_torch.chaos_run --out chaos_run.json
 """
 
@@ -45,6 +48,8 @@ import argparse
 import json
 import multiprocessing as mp
 import os
+import signal
+import subprocess
 import sys
 import time
 
@@ -96,6 +101,14 @@ def parse_args(argv=None):
                    help="FaultPlan seed + --env_seed for both runs.")
     p.add_argument("--return_tol", type=float, default=0.2,
                    help="Allowed |chaos - baseline| final-return gap.")
+    p.add_argument("--scheduler_pressure", type=int, default=0,
+                   help="Run the CHAOS leg with N spinner subprocesses "
+                        "competing for every core and record the "
+                        "ring.doorbell_waits / ring.recheck_wakeups "
+                        "contrast between the unpressured baseline leg "
+                        "and the pressured chaos leg in the verdict's "
+                        "\"ring\" block. 0 = off (both legs unpressured; "
+                        "the ring block is still recorded).")
     p.add_argument("--savedir", default=None,
                    help="Default: a fresh temp dir.")
     p.add_argument("--out", default=None,
@@ -350,7 +363,44 @@ def check_leaks(run):
     return failures
 
 
-def ring_block(baseline, chaos):
+class SchedulerPressure:
+    """Spinner subprocesses competing for every core while the chaos leg
+    runs (the reference's _SchedulerPressure): each in a session of its
+    own, killed by its process group on exit. n=0 spawns nothing.
+    `pids` lists the spinners while they run."""
+
+    def __init__(self, n: int):
+        self._n = max(0, int(n))
+        self._procs = []
+
+    @property
+    def pids(self):
+        return [p.pid for p in self._procs]
+
+    def __enter__(self):
+        for _ in range(self._n):
+            self._procs.append(subprocess.Popen(
+                [sys.executable, "-c", "while True: pass"],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                start_new_session=True,
+            ))
+        return self
+
+    def __exit__(self, *exc):
+        for proc in self._procs:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                proc.kill()
+            proc.wait()
+        self._procs = []
+        return False
+
+
+def ring_block(baseline, chaos, scheduler_pressure=0):
+    """Each leg's ring-wait counters, the chaos leg run beside
+    `scheduler_pressure` spinners."""
+
     def leg(run):
         return {
             "doorbell_waits": int(
@@ -359,7 +409,7 @@ def ring_block(baseline, chaos):
                 run["counters"].get("ring.recheck_wakeups", 0)),
         }
 
-    return {"scheduler_pressure": 0,
+    return {"scheduler_pressure": scheduler_pressure,
             "baseline": leg(baseline), "chaos": leg(chaos)}
 
 
@@ -367,6 +417,8 @@ def validate_args(args):
     """An error message for an unusable configuration, or None."""
     if args.scale < 1:
         return "--scale must be >= 1"
+    if args.scheduler_pressure < 0:
+        return "--scheduler_pressure must be >= 0"
     if args.num_actors % args.num_servers != 0:
         return (f"num_actors {args.num_actors} must be a multiple of "
                 f"num_servers {args.num_servers} (uniform actors-per-server "
@@ -429,7 +481,10 @@ def main(argv=None) -> int:
         json.dump(plan_dict, f, indent=2)
 
     baseline = run_one(args, savedir, "chaos-baseline")
-    chaos = run_one(args, savedir, "chaos-faulted", plan_path)
+    # Only the chaos leg runs under scheduler pressure: the unpressured
+    # baseline leg is the contrast the ring block records.
+    with SchedulerPressure(args.scheduler_pressure):
+        chaos = run_one(args, savedir, "chaos-faulted", plan_path)
     for run in (baseline, chaos):
         run.pop("stats")  # the driver's own figures: not in the verdict
 
@@ -460,7 +515,7 @@ def main(argv=None) -> int:
         "plan": plan_dict,
         "expected_counters": expected,
         "serving": serving,
-        "ring": ring_block(baseline, chaos),
+        "ring": ring_block(baseline, chaos, args.scheduler_pressure),
         "results": {"baseline": baseline, "chaos": chaos},
         "telemetry": telemetry.telemetry_block(),
     }

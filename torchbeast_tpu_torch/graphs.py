@@ -20,7 +20,10 @@ Capture rules, kept by every class:
 - Warm-up first: a few eager runs on a side stream before the capture
   (cuBLAS and cuDNN set themselves up, every kernel is built). What they
   change is undone: a warm-up update applies updates, so CapturedUpdate
-  restores the optimizer's state; a warm-up acting step draws from the
+  restores the optimizer's state (`update_state_restored`, which the
+  remat planner's oracle uses too), and counts the bytes its first
+  warm-up run accesses (precision.count_bytes: the
+  `learner.hbm_bytes_per_update` gauge); a warm-up acting step draws from the
   generator, whose state CapturedAct puts back (and callers pass acting
   inputs that make a warm-up step harmless: trash slots, a state the
   first call overwrites).
@@ -35,15 +38,19 @@ Capture rules, kept by every class:
 - A capture in a process whose other threads launch CUDA work fails, so
   the drivers capture before their threads start. A failed capture or
   replay raises; nothing falls back to the eager step on the card.
+- A model under a remat plan captures its checkpointed regions as they
+  are: the recompute is part of the backward, so it is captured with it
+  and replays inside the graph (models/layers.checkpointed saves no RNG
+  state, which a capture could not read).
 """
 
+import contextlib
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import nest
-from torchbeast_tpu_torch import ops
+from torchbeast_tpu_torch import nest, ops, precision
 
 WARMUP_RUNS = 2  # eager runs on a side stream before each capture
 
@@ -74,13 +81,42 @@ class _LaunchDelta:
                 if name == "launches"}
 
 
-def _warm_up(fn: Callable[[], Any], runs: int) -> None:
+def _warm_up(fn: Callable[[], Any], runs: int, counted=None) -> None:
+    """`runs` eager runs of fn on a side stream; the first inside
+    `counted` (a context manager) when one is given."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(runs):
-            fn()
+        for run in range(runs):
+            with (counted if run == 0 and counted is not None
+                  else contextlib.nullcontext()):
+                fn()
     torch.cuda.current_stream().wait_stream(side)
+
+
+def update_state_tensors(optimizer) -> list:
+    """Everything an update writes: the params (the optimizer holds the
+    model's), its moments and masters, and its device count."""
+    st = optimizer.state
+    return (list(optimizer.params) + nest.flatten((st.nu, st.mom, st.master))
+            + [optimizer.device_count])
+
+
+@contextlib.contextmanager
+def update_state_restored(optimizer):
+    """Updates run inside leave the params, every optimizer moment, the
+    masters and both counts bitwise as they were on entry."""
+    tensors = update_state_tensors(optimizer)
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in tensors]
+    count = optimizer.state.count
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        optimizer.set_count(count)
 
 
 def _capture(fn: Callable[[], Any], generator=None):
@@ -137,7 +173,9 @@ class CapturedUpdate:
     copies its inputs into the static buffers and replays; it returns the
     dispatch's stats, each an f32 tensor (0-d, or [K] for a superstep),
     copied out of the graph's memory. The optimizer's host count advances
-    by `k` per call, as its device count does inside the graph."""
+    by `k` per call, as its device count does inside the graph.
+    `bytes_accessed` is what the first warm-up run of the capture
+    accessed (precision.count_bytes; None before the capture)."""
 
     def __init__(self, step: Callable, optimizer, k: int = 1):
         self.k = k
@@ -145,14 +183,7 @@ class CapturedUpdate:
         self._optimizer = optimizer
         self._graph = None
         self.launches_per_replay = {}
-
-    def _state_tensors(self):
-        """Everything an update writes: the params (the optimizer holds
-        the model's), its moments and masters, and its device count."""
-        st = self._optimizer.state
-        return (list(self._optimizer.params)
-                + nest.flatten((st.nu, st.mom, st.master))
-                + [self._optimizer.device_count])
+        self.bytes_accessed = None
 
     def capture(self, batch, initial_agent_state) -> None:
         device = self._optimizer.device_count.device
@@ -167,16 +198,11 @@ class CapturedUpdate:
             return torch.stack([stats[key].float() for key in self._keys],
                                -1)
 
-        tensors = self._state_tensors()
-        with torch.no_grad():
-            saved = [t.detach().clone() for t in tensors]
-        count = self._optimizer.state.count
-        _warm_up(packed, WARMUP_RUNS)
-        self._graph, self._packed, self._delta = _capture(packed)
-        with torch.no_grad():
-            for t, s in zip(tensors, saved):
-                t.copy_(s)
-        self._optimizer.set_count(count)
+        counted = precision.count_bytes()
+        with update_state_restored(self._optimizer):
+            _warm_up(packed, WARMUP_RUNS, counted)
+            self._graph, self._packed, self._delta = _capture(packed)
+        self.bytes_accessed = float(counted.count.total)
         self.launches_per_replay = self._delta.per_replay()
 
     def __call__(self, batch, initial_agent_state):

@@ -31,7 +31,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import graphs, nest, telemetry
+from torchbeast_tpu_torch import graphs, nest, precision, telemetry
 from torchbeast_tpu_torch.ops import (
     compute_entropy_loss,
     impact_policy_losses,
@@ -597,10 +597,15 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
     - learner.updates: +superstep_k per dispatch;
     - learner.superstep_k (gauge) and learner.updates_per_dispatch;
     - learner.host_syncs: the drivers call `wrapped.count_host_sync()`
-      per stats fetch (once per K updates under supersteps).
-
-    Not here: the reference's learner.hbm_bytes_per_update gauge, read
-    from XLA's cost analysis (ROADMAP.md Queue 1 item 'stage remat').
+      per stats fetch (once per K updates under supersteps);
+    - learner.hbm_bytes_per_update (gauge): the bytes ONE update accesses
+      (precision.count_bytes: the aten ops' operands and results, plus
+      the hand kernels' own), set once at the first dispatch. On the card
+      the figure comes from the first eager warm-up run of the dispatch's
+      CUDA graph (graphs.CapturedUpdate.bytes_accessed; nothing is counted
+      inside a capture), on the CPU from the first eager dispatch. A
+      superstep body loops over its K updates, so the dispatch's figure is
+      divided by K (the reference's scan counts its body once).
     """
     reg = registry if registry is not None else telemetry.get_registry()
     h_dispatch = reg.histogram("learner.update_dispatch_s")
@@ -609,6 +614,9 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
     c_updates = reg.counter("learner.updates")
     c_host_syncs = reg.counter("learner.host_syncs")
     reg.gauge("learner.superstep_k").set(superstep_k)
+    g_hbm = reg.gauge("learner.hbm_bytes_per_update")
+    # Single consumer (the learner thread): a plain flag, no lock.
+    hbm_pending = [True]
 
     def wrapped(batch, initial_agent_state):
         nbytes = sum(
@@ -616,7 +624,14 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
             else int(getattr(t, "nbytes", 0))
             for t in nest.flatten((batch, initial_agent_state)))
         t0 = time.perf_counter()
-        out = update_step(batch, initial_agent_state)
+        if hbm_pending[0]:
+            hbm_pending[0] = False
+            out, accessed = _counted_dispatch(update_step, batch,
+                                              initial_agent_state)
+            if accessed:
+                g_hbm.set(accessed / superstep_k)
+        else:
+            out = update_step(batch, initial_agent_state)
         h_dispatch.observe(time.perf_counter() - t0)
         c_bytes.inc(nbytes)
         c_updates.inc(superstep_k)
@@ -625,6 +640,18 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
 
     wrapped.count_host_sync = lambda: c_host_syncs.inc()
     return wrapped
+
+
+def _counted_dispatch(update_step, batch, initial_agent_state):
+    """(stats, bytes one dispatch accessed): a CUDA graph's figure is its
+    capture's first warm-up run's (captured now if it was not yet); an
+    eager dispatch is counted as it runs."""
+    if isinstance(update_step, graphs.CapturedUpdate):
+        out = update_step(batch, initial_agent_state)
+        return out, update_step.bytes_accessed
+    with precision.count_bytes() as counted:
+        out = update_step(batch, initial_agent_state)
+    return out, counted.total
 
 
 def stack_superstep_columns(batch, initial_agent_state, k: int,

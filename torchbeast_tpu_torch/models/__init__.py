@@ -6,7 +6,9 @@ policy. Unlike flax,
 a torch module sizes its first layer at construction, so the frame shape
 ([H, W, C]) is an argument. `dtype` (the trunk's compute dtype) and
 `head_dtype` (the core's and heads') come from the precision policy
-(torchbeast_tpu_torch/precision.py).
+(torchbeast_tpu_torch/precision.py). The remat levers (runtime/remat_plan.py
+model_kwargs: `remat` of the deep trunk and the transformer, `core_remat`
+of the LSTM core) pass through `kwargs` to the model.
 """
 
 import torch

@@ -9,7 +9,8 @@ Submodule names follow the reference's flax scopes (Conv_0, Dense_0,
 head.policy, ...). `dtype` is the convs' and fc's compute dtype,
 `head_dtype` the core's and heads' (torchbeast_tpu_torch/precision.py):
 the fc output, the clipped reward and the one-hot action join the core
-input in `head_dtype`, as in the reference.
+input in `head_dtype`, as in the reference. `core_remat` is the LSTM
+core's remat lever (models/cores.LSTMCore.remat).
 """
 
 from typing import Tuple
@@ -32,7 +33,7 @@ def _valid(n: int, k: int, s: int) -> int:
 class AtariNet(nn.Module):
     def __init__(self, num_actions: int, use_lstm: bool = False,
                  frame_shape=(84, 84, 4), dtype=torch.float32,
-                 head_dtype=torch.float32):
+                 head_dtype=torch.float32, core_remat: bool = False):
         super().__init__()
         H, W, C = frame_shape
         self.num_actions = num_actions
@@ -47,7 +48,7 @@ class AtariNet(nn.Module):
         self.head = RecurrentPolicyHead(
             self.core_output_size, num_actions, use_lstm,
             hidden_size=self.core_output_size, num_layers=2,
-            dtype=head_dtype,
+            dtype=head_dtype, remat=core_remat,
         )
         self.to(memory_format=torch.channels_last)
 

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchbeast_tpu_torch.models import init
-from torchbeast_tpu_torch.models.layers import Dense, linear
+from torchbeast_tpu_torch.models.layers import Dense, checkpointed, linear
 from torchbeast_tpu_torch.types import AgentOutput
 
 
@@ -34,16 +34,25 @@ class LSTMCore(nn.Module):
     its scanned carry; the new state is upcast to f32, the core output
     stays in `dtype`.
 
+    `remat` recomputes each time step's cell in the backward
+    (models/layers.checkpointed, the reference's nn.remat around its
+    scanned step): only the carried states and the step inputs are kept,
+    the gate activations are recomputed. It is the `core` stage of the
+    remat planner (runtime/remat_plan.py); the forward's values, the
+    parameters and their names are the same either way.
+
     forward(core_input [T, B, D], notdone [T, B], (h, c)) ->
         (core_output [T, B, H], (h, c))
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1, dtype=torch.float32):
+                 num_layers: int = 1, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
+        self.remat = bool(remat)
         for layer in range(num_layers):
             d = input_size if layer == 0 else hidden_size
             for name, shape in (
@@ -76,25 +85,39 @@ class LSTMCore(nn.Module):
         x_proj = F.linear(core_input, w["weight_ih_l0"])
         outputs = []
         for t in range(core_input.shape[0]):
-            nd = notdone[t].unsqueeze(-1)
-            y = None
-            for layer in range(self.num_layers):
-                h_l = hs[layer] * nd
-                c_l = cs[layer] * nd
-                gates = F.linear(
-                    h_l, w[f"weight_hh_l{layer}"], w[f"bias_hh_l{layer}"],
-                ) + (
-                    x_proj[t] if layer == 0
-                    else F.linear(y, w[f"weight_ih_l{layer}"])
-                )
-                i, f, g, o = gates.chunk(4, dim=-1)
-                c_l = torch.sigmoid(f) * c_l + torch.sigmoid(i) * torch.tanh(g)
-                h_l = torch.sigmoid(o) * torch.tanh(c_l)
-                hs[layer], cs[layer] = h_l, c_l
-                y = h_l
+            if self.remat:
+                y, *state = checkpointed(self._step, w, x_proj[t],
+                                         notdone[t], *hs, *cs)
+            else:
+                y, *state = self._step(w, x_proj[t], notdone[t], *hs, *cs)
+            hs = state[:self.num_layers]
+            cs = state[self.num_layers:]
             outputs.append(y)
         return torch.stack(outputs), (torch.stack(hs).float(),
                                       torch.stack(cs).float())
+
+    def _step(self, w, x_proj_t, notdone_t, *state):
+        """One time step of every layer: (x_proj_t [B, 4H], notdone_t [B],
+        h_0..h_{L-1}, c_0..c_{L-1}) -> (y, h_0.., c_0..)."""
+        hs = list(state[:self.num_layers])
+        cs = list(state[self.num_layers:])
+        nd = notdone_t.unsqueeze(-1)
+        y = None
+        for layer in range(self.num_layers):
+            h_l = hs[layer] * nd
+            c_l = cs[layer] * nd
+            gates = F.linear(
+                h_l, w[f"weight_hh_l{layer}"], w[f"bias_hh_l{layer}"],
+            ) + (
+                x_proj_t if layer == 0
+                else F.linear(y, w[f"weight_ih_l{layer}"])
+            )
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c_l = torch.sigmoid(f) * c_l + torch.sigmoid(i) * torch.tanh(g)
+            h_l = torch.sigmoid(o) * torch.tanh(c_l)
+            hs[layer], cs[layer] = h_l, c_l
+            y = h_l
+        return (y, *hs, *cs)
 
 
 def lstm_initial_state(use_lstm: bool, num_layers: int, hidden_size: int,
@@ -115,16 +138,19 @@ class RecurrentPolicyHead(nn.Module):
     the `[T, B]` done mask; returns (AgentOutput with `[T, B, ...]`
     fields, new core state). `dtype` is the head's compute dtype (the
     core and the policy/baseline projections); logits and baseline are
-    f32 at the head boundary under every policy."""
+    f32 at the head boundary under every policy. `remat` goes to the
+    LSTM core (LSTMCore.remat; nothing without one)."""
 
     def __init__(self, input_size: int, num_actions: int, use_lstm: bool,
-                 hidden_size: int, num_layers: int, dtype=torch.float32):
+                 hidden_size: int, num_layers: int, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.num_actions = num_actions
         self.use_lstm = use_lstm
         self.dtype = dtype
         if use_lstm:
-            self.core = LSTMCore(input_size, hidden_size, num_layers, dtype)
+            self.core = LSTMCore(input_size, hidden_size, num_layers, dtype,
+                                 remat=remat)
             out = hidden_size
         else:
             out = input_size

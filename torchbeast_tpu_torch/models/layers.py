@@ -9,11 +9,16 @@ than leaving the choice to torch.autocast's own op lists.
 
 `Dense` and `Conv` are nn.Linear and nn.Conv2d whose fresh weights are
 drawn as flax's Dense and Conv draw theirs (models/init.py).
+
+`checkpointed` is the port's flax `nn.remat`: the remat levers of the
+models (the trunk stages, the LSTM step, the transformer block) call
+through it.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from torchbeast_tpu_torch.models import init
 
@@ -71,3 +76,16 @@ def layer_norm(layer: nn.LayerNorm, x):
     return F.layer_norm(x.to(dtype), layer.normalized_shape,
                         _cast(layer.weight, dtype), _cast(layer.bias, dtype),
                         layer.eps)
+
+
+def checkpointed(fn, *args):
+    """fn(*args) with its activations recomputed in the backward instead
+    of kept (torch.utils.checkpoint, non-reentrant), when a gradient is
+    being taken; the plain call under torch.no_grad() (acting, the target
+    forward, replicas), whose graphs keep their launches and bits. No RNG
+    state is saved: saving it reads the generator, which a CUDA graph
+    capture forbids, and no remat region draws random numbers."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -9,7 +9,8 @@ gives the policy and baseline. Submodule names follow the reference's
 flax scopes (Dense_0, Dense_1, head.*), so weights.py converts its
 params both ways; its fresh weights are flax's draw (models/layers.Dense).
 `dtype` is the Dense layers' compute dtype, `head_dtype` the core's and
-heads' (torchbeast_tpu_torch/precision.py).
+heads' (torchbeast_tpu_torch/precision.py). `core_remat` is the LSTM
+core's remat lever (models/cores.LSTMCore.remat).
 """
 
 from typing import Sequence, Tuple
@@ -30,7 +31,8 @@ class MLPNet(nn.Module):
     def __init__(self, num_actions: int, use_lstm: bool = False,
                  frame_shape=(84, 84, 4), dtype=torch.float32,
                  head_dtype=torch.float32,
-                 hidden_sizes: Sequence[int] = (128, 128)):
+                 hidden_sizes: Sequence[int] = (128, 128),
+                 core_remat: bool = False):
         super().__init__()
         self.num_actions = num_actions
         self.use_lstm = use_lstm
@@ -43,6 +45,7 @@ class MLPNet(nn.Module):
         self.head = RecurrentPolicyHead(
             self.core_size, num_actions, use_lstm,
             hidden_size=self.core_size, num_layers=1, dtype=head_dtype,
+            remat=core_remat,
         )
 
     @property

@@ -37,6 +37,12 @@ LayerNorms (which promote, carrying no dtype of their own) and the
 `extras` Dense stay f32; the cache is cast to k's dtype before the
 concat, and the new k and v are returned as f32. `head_dtype` is the
 policy head's.
+
+`remat` recomputes each block in the backward, keeping only its inputs
+(models/layers.checkpointed; the reference's nn.remat around _Block):
+the `blocks` stage of the remat planner (runtime/remat_plan.py), set by
+--remat or the older --transformer_remat. Under the fused attention the
+recompute runs the attention forward kernel again in the backward.
 """
 
 from typing import Tuple
@@ -46,7 +52,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchbeast_tpu_torch.models.cores import RecurrentPolicyHead
-from torchbeast_tpu_torch.models.layers import Dense, layer_norm, linear
+from torchbeast_tpu_torch.models.layers import (
+    Dense,
+    checkpointed,
+    layer_norm,
+    linear,
+)
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -122,7 +133,8 @@ class TransformerNet(nn.Module):
                  frame_shape=(84, 84, 4), num_layers: int = 2,
                  d_model: int = 128, num_heads: int = 4,
                  memory_len: int = 64, attention_impl: str = "dense",
-                 dtype=torch.float32, head_dtype=torch.float32):
+                 dtype=torch.float32, head_dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
@@ -139,6 +151,7 @@ class TransformerNet(nn.Module):
         self.memory_len = memory_len
         self.attention_impl = attention_impl
         self.dtype = dtype
+        self.remat = bool(remat)
         frame_size = 1
         for n in frame_shape:
             frame_size *= n
@@ -194,10 +207,11 @@ class TransformerNet(nn.Module):
                 cache_mask = (band[None, :, :M] & (valid_b != 0)[:, None, :]
                               & no_done_yet[:, :, None])
                 mask = torch.cat([cache_mask, seq_mask], dim=-1)
-            x, k_new, v_new = getattr(self, f"block_{layer}")(
-                x, k_cache_b, v_cache_b, mask, offsets, seg, valid_b,
-                no_done_yet,
-            )
+            block = getattr(self, f"block_{layer}")
+            args = (x, k_cache_b, v_cache_b, mask, offsets, seg, valid_b,
+                    no_done_yet)
+            x, k_new, v_new = (checkpointed(block, *args) if self.remat
+                               else block(*args))
             k_roll, v_roll, valid_roll = roll_kv_cache(
                 k_cache_b, v_cache_b, valid_b, k_new, v_new, seg,
                 no_done_yet,

@@ -31,12 +31,16 @@ Telemetry is the reference's (telemetry/driver.py): the registry's
 series land in {xpid}/telemetry.jsonl on the 5 s log cadence and at
 exit, under the reference's names; --telemetry_port serves them as
 Prometheus text, --trace_path writes the tracer's spans, and
---profile_dir a torch.profiler trace (utils/prof.DeviceTrace). Its lines
-lack what the port has no feature for yet: the `learner.remat_plan`
-static (ROADMAP.md Queue 1 item 'stage remat') and the
-`learner.hbm_bytes_per_update` gauge, which the reference reads from
-XLA's cost analysis. `learner.mesh_shape` is the single-device update's
-{"data": 1, "model": 1}.
+--profile_dir a torch.profiler trace (utils/prof.DeviceTrace). The
+`learner.remat_plan` static is the run's remat plan and the
+`learner.hbm_bytes_per_update` gauge the bytes one update accesses
+(precision.count_bytes). `learner.mesh_shape` is the single-device
+update's {"data": 1, "model": 1}.
+
+--remat {auto,all,none,<spec>}, --hbm_budget_gb and --transformer_remat
+set the model's remat levers (runtime/remat_plan.py): `auto` measures
+candidate plans on the card and takes the first, in order of recompute,
+whose peak fits the budget. Unset, every activation is kept.
 
 Run:  python -m torchbeast_tpu_torch.monobeast --env Mock --model deep \\
           --use_lstm --vtrace_impl pallas --opt_impl pallas
@@ -64,6 +68,7 @@ from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
 from torchbeast_tpu_torch.models import create_model
 from torchbeast_tpu_torch.resilience import LearnerWatchdog, PipelineHealth
+from torchbeast_tpu_torch.runtime import remat_plan
 from torchbeast_tpu_torch.rollout import (
     PipelinedRolloutCollector,
     RolloutCollector,
@@ -181,11 +186,31 @@ def make_parser():
     parser.add_argument("--min_live_hosts", type=int, default=1,
                         help=_LATER)
     parser.add_argument("--transformer_remat", action="store_true",
-                        help=_LATER)
+                        help="DEPRECATED spelling of --remat with the "
+                             "transformer blocks stage at 'all' "
+                             "(conflicts with an explicit --remat).")
     parser.add_argument("--remat", default=None,
-                        help="Rematerialization plan " + _LATER)
+                        help="Rematerialization plan over the model's "
+                             "remat-able stages (runtime/remat_plan.py: "
+                             "the ResNet trunk's per-stage none/front/"
+                             "all, the transformer's block remat, the "
+                             "LSTM core): 'auto' picks the "
+                             "minimum-recompute plan whose measured peak "
+                             "(the CUDA allocator's) fits "
+                             "--hbm_budget_gb; 'all'/'none' force every "
+                             "stage; 'stage0=front,stage1=all,core=none' "
+                             "pins per stage. Default: every activation "
+                             "kept (transformer blocks per "
+                             "--transformer_remat). The chosen plan is "
+                             "logged and exported as the "
+                             "learner.remat_plan telemetry static.")
     parser.add_argument("--hbm_budget_gb", type=float, default=0.0,
-                        help=_LATER)
+                        help="Device-memory envelope for --remat auto, "
+                             "in GiB, covering one live update dispatch "
+                             "(params + optimizer state + staged batch "
+                             "+ activations and workspaces). 0 = the "
+                             "card's total memory (the host's on the "
+                             "CPU).")
     parser.add_argument("--opt_impl", default="xla",
                         choices=["xla", "pallas"],
                         help="Optimizer tail: 'xla' runs the torch form of "
@@ -283,9 +308,6 @@ NOT_IN_PORT = {
     "device_split": "data parallel and the fleet",
     "fleet": "data parallel and the fleet",
     "min_live_hosts": "data parallel and the fleet",
-    "transformer_remat": "stage remat",
-    "remat": "stage remat",
-    "hbm_budget_gb": "stage remat",
 }
 
 
@@ -396,11 +418,7 @@ def _attention_impl(flags):
     return {"attention_impl": impl}
 
 
-def build_model(flags, num_actions, frame_shape, device):
-    """The model on `device`, its initial weights drawn from --seed
-    without touching the global RNG state, computing in the precision
-    policy's dtypes, its params cast to the policy's resident dtype (the
-    optimizer is built after, from the cast params)."""
+def _create_model(flags, num_actions, frame_shape, device, **levers):
     policy = precision.resolve_flags(flags)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(flags.seed)
@@ -408,9 +426,43 @@ def build_model(flags, num_actions, frame_shape, device):
             flags.model, num_actions=num_actions, use_lstm=flags.use_lstm,
             frame_shape=frame_shape, dtype=policy.compute_dtype,
             head_dtype=policy.head_dtype, **_trunk_channels(flags),
-            **_attention_impl(flags),
+            **_attention_impl(flags), **levers,
         )
     return precision.cast_params(model.to(device), policy)
+
+
+def resolve_remat_plan(flags, num_actions, frame_shape, device):
+    """The run's remat plan (runtime/remat_plan.resolve_from_flags: --remat,
+    --hbm_budget_gb, --transformer_remat), memoized: every later call with
+    the same flags returns it at no cost. `--remat auto` runs candidate
+    models built as build_model builds the real one (on `device`, from
+    --seed), one dispatch each, and frees them."""
+    if getattr(flags, "transformer_remat", False) and flags.model not in (
+            "transformer", "pipelined_transformer"):
+        raise ValueError(
+            "--transformer_remat applies to the transformer families "
+            "only (the conv trunk's levers are --remat's, "
+            "models/resnet.py `remat`)"
+        )
+    return remat_plan.resolve_from_flags(
+        flags, hparams_from_flags(flags), num_actions, frame_shape,
+        torch.uint8, precision.resolve_flags(flags),
+        build_model=lambda kw: _create_model(
+            flags, num_actions, frame_shape, device, **kw),
+    )
+
+
+def build_model(flags, num_actions, frame_shape, device):
+    """The model on `device`, its initial weights drawn from --seed
+    without touching the global RNG state, computing in the precision
+    policy's dtypes, its params cast to the policy's resident dtype (the
+    optimizer is built after, from the cast params), its remat levers set
+    from the run's plan (resolve_remat_plan). Every model instance of a
+    run is built here or copied from one that was."""
+    plan = resolve_remat_plan(flags, num_actions, frame_shape, device)
+    return _create_model(
+        flags, num_actions, frame_shape, device,
+        **remat_plan.model_kwargs(flags.model, plan.assignment))
 
 
 def to_device(batch, device, batch_dtype=None):
@@ -501,6 +553,10 @@ def train(flags):
     B = flags.num_actors
     T = flags.unroll_length
     model = build_model(flags, num_actions, frame_shape, device)
+    # The resolved remat plan rides every telemetry line as a static.
+    plan = remat_plan.last_plan()
+    if plan is not None:
+        tele.set_static("learner.remat_plan", plan.summary())
     optimizer = learner_lib.make_optimizer(
         hp, list(model.parameters()),
         layouts=weights.jax_layouts(model) if hp.opt_factored else None)

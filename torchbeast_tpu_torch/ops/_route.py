@@ -5,6 +5,11 @@ its plain PyTorch version for a CPU tensor; any other device raises. There
 is no fallback from the kernel to the plain version: a kernel that fails
 to build or launch raises.
 
+Each wrapper also adds the bytes its kernel reads and writes (each
+operand once, each result once: PERF.md's bound by bytes) to every count
+that precision.count_bytes has open (`note_bytes`): a TorchDispatchMode
+sees the aten ops of the plain versions, never a ctypes launch.
+
 `plain_on_device()` is the one exception, for tests only: inside it a CUDA
 tensor takes the plain version on the card, so a whole update can be held
 against its kernel twin on the same device (chip_smoke.py does this). It
@@ -70,3 +75,19 @@ def require(cond: bool, name: str, what: str) -> None:
     """Input check of a kernel wrapper."""
     if not cond:
         raise ValueError(f"{name}: {what}")
+
+
+# The byte counts precision.count_bytes has open, process-wide as
+# `_switch` is: a backward's kernels launch on autograd's device threads.
+_byte_counts = []
+
+
+def note_bytes(*tensors) -> None:
+    """Add the bytes of `tensors` (a kernel launch's operands and results;
+    None entries skipped) to every open byte count."""
+    if not _byte_counts:
+        return
+    n = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    with _count_lock:
+        for count in _byte_counts:
+            count.total += n

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torchbeast_tpu_torch.ops import _build
 from torchbeast_tpu_torch.ops._route import (
     count_launch,
+    note_bytes,
     require,
     use_kernel,
 )
@@ -204,6 +205,8 @@ def _launch_forward(memory_len, q, k_all, v_all, seg, cache_valid, no_done,
         )
     _build.check(status, name)
     count_launch(transformer_attention, bf16_launches=_bf16(q))
+    note_bytes(q, k_all, v_all, seg, cache_valid, no_done, rel_bias, out,
+               lse)
     return out, lse
 
 
@@ -267,6 +270,8 @@ def transformer_attention_bwd(memory_len, q, k_all, v_all, seg, cache_valid,
         )
     _build.check(status, name)
     count_launch(transformer_attention_bwd, bf16_launches=_bf16(q))
+    note_bytes(q, k_all, v_all, seg, cache_valid, no_done, rel_bias, out,
+               lse, grad_out, dq, dk, dv, dbias)
     return dq, dk, dv, dbias
 
 

@@ -28,6 +28,7 @@ import torch
 from torchbeast_tpu_torch.ops import _build
 from torchbeast_tpu_torch.ops._route import (
     count_launch,
+    note_bytes,
     require,
     use_kernel,
 )
@@ -186,6 +187,11 @@ def rmsprop_tail(params, grads, nus, moms, *, lr, alpha: float,
     # One cooperative launch, both passes.
     count_launch(rmsprop_tail,
                  bf16_launches=int(bf16_params or nu_dtype != p_dtype))
+    # Read: every role's leaves; written: all but the grads.
+    for tensors, _ in roles:
+        note_bytes(*tensors)
+        if tensors is not grads:
+            note_bytes(*tensors)
     return sumsq
 
 

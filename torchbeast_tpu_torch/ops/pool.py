@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torchbeast_tpu_torch.ops import _build
 from torchbeast_tpu_torch.ops._route import (
     count_launch,
+    note_bytes,
     require,
     use_kernel,
 )
@@ -120,6 +121,7 @@ def pool_bwd(x, y, g):
     _build.check(status, name)
     count_launch(pool_bwd, vector_launches=vectorized.value,
                  bf16_launches=int(x.dtype == torch.bfloat16))
+    note_bytes(x, y, g, gx)
     return gx
 
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torchbeast_tpu_torch.ops import _build
 from torchbeast_tpu_torch.ops._route import (
     count_launch,
+    note_bytes,
     require,
     use_kernel,
 )
@@ -164,6 +165,7 @@ def vtrace_targets(a, deltas, clipped_pg_rhos, rewards, discounts, values,
             )
         _build.check(status, name)
         count_launch(vtrace_targets)
+        note_bytes(*seq, bootstrap_value, vs, pg)
         return vs, pg
 
 

@@ -46,9 +46,15 @@ Telemetry is the reference's (telemetry/driver.py): {xpid}/telemetry.jsonl
 on every monitor tick and at exit, --telemetry_port, --trace_path and
 --profile_dir (a torch.profiler trace). On the native runtime the core's
 series fold into the registry from a tick callback
-(runtime/native.NativeTelemetryFolder). The lines lack the reference's
-`learner.remat_plan` static and `learner.hbm_bytes_per_update` gauge
-(ROADMAP.md Queue 1 item 'stage remat').
+(runtime/native.NativeTelemetryFolder). Each line carries the run's
+remat plan (the `learner.remat_plan` static) and the
+`learner.hbm_bytes_per_update` gauge, as monobeast's do.
+
+--remat, --hbm_budget_gb and --transformer_remat are monobeast's
+(runtime/remat_plan.py): the plan is resolved once, and the learner's
+model, the acting copy, the IMPACT target network and the replica model
+are all built from it (each copy keeps the levers; under torch.no_grad()
+no region is recomputed, so acting is the same under every plan).
 
 The serving tier (serving/) on both runtimes: --request_deadline_ms arms
 the admission gate (the Python AdmissionController on the Python
@@ -108,7 +114,7 @@ from torchbeast_tpu_torch.resilience import (
     LearnerWatchdog,
     PipelineHealth,
 )
-from torchbeast_tpu_torch.runtime import native, wire
+from torchbeast_tpu_torch.runtime import native, remat_plan, wire
 from torchbeast_tpu_torch.runtime.actor_pool import ActorPool
 from torchbeast_tpu_torch.runtime.inference import (
     default_buckets,
@@ -250,10 +256,31 @@ def make_parser():
     parser.add_argument("--expert_parallel", type=int, default=0,
                         help=_LATER)
     parser.add_argument("--transformer_remat", action="store_true",
-                        help=_LATER)
-    parser.add_argument("--remat", default=None, help=_LATER)
+                        help="DEPRECATED spelling of --remat with the "
+                             "transformer blocks stage at 'all' "
+                             "(conflicts with an explicit --remat).")
+    parser.add_argument("--remat", default=None,
+                        help="Rematerialization plan over the model's "
+                             "remat-able stages (runtime/remat_plan.py: "
+                             "the ResNet trunk's per-stage none/front/"
+                             "all, the transformer's block remat, the "
+                             "LSTM core): 'auto' picks the "
+                             "minimum-recompute plan whose measured peak "
+                             "(the CUDA allocator's) fits "
+                             "--hbm_budget_gb; 'all'/'none' force every "
+                             "stage; 'stage0=front,stage1=all,core=none' "
+                             "pins per stage. Default: every activation "
+                             "kept (transformer blocks per "
+                             "--transformer_remat). The chosen plan is "
+                             "logged and exported as the "
+                             "learner.remat_plan telemetry static.")
     parser.add_argument("--hbm_budget_gb", type=float, default=0.0,
-                        help=_LATER)
+                        help="Device-memory envelope for --remat auto, "
+                             "in GiB, covering one live update dispatch "
+                             "(params + optimizer state + staged batch "
+                             "+ activations and workspaces). 0 = the "
+                             "card's total memory (the host's on the "
+                             "CPU).")
     parser.add_argument("--opt_impl", default="xla",
                         choices=["xla", "pallas"],
                         help="Optimizer tail: 'xla' runs the torch form of "
@@ -397,9 +424,6 @@ NOT_IN_PORT = {
     "pipeline_microbatches": "the transformer family",
     "num_experts": "the transformer family",
     "expert_parallel": "the transformer family",
-    "transformer_remat": "stage remat",
-    "remat": "stage remat",
-    "hbm_budget_gb": "stage remat",
     "tensor_parallel": "data parallel and the fleet",
     "num_learner_devices": "data parallel and the fleet",
     "coordinator_address": "data parallel and the fleet",
@@ -586,6 +610,10 @@ def train(flags):
         policy = precision.resolve_flags(flags)
         num_actions, frame_shape = _probe_env_via_server(flags, addresses[0])
         model = monobeast.build_model(flags, num_actions, frame_shape, device)
+        # The resolved remat plan rides every telemetry line as a static.
+        plan = remat_plan.last_plan()
+        if plan is not None:
+            tele.set_static("learner.remat_plan", plan.summary())
         optimizer = learner_lib.make_optimizer(
             hp, list(model.parameters()),
             layouts=weights.jax_layouts(model) if hp.opt_factored else None)

@@ -12,7 +12,15 @@ with --native_runtime, on the port's C++ runtime core, with
     python -m torchbeast_tpu_torch.profile_update
         [deep|transformer|polybeast]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
+        [--remat none|all|<spec>]
         [--native_runtime] [--num_inference_threads N]
+
+--remat sets the model's remat levers as the drivers' flag does
+(runtime/remat_plan.py: none, the default, keeps every activation; all;
+or a per-stage spec such as stage0=front,stage1=front,stage2=front,
+core=none); the JSON line then also carries the plan and the allocator's
+peak over one eager update (precision.memory_stats), so one call can
+time and trace each plan.
 
 The update and the acting step run as the drivers run them on the card:
 one captured CUDA graph per learner dispatch of K updates
@@ -53,9 +61,11 @@ import time
 import numpy as np
 import torch
 
+from torchbeast_tpu_torch import graphs
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch import nest, precision
 from torchbeast_tpu_torch.models import create_model
+from torchbeast_tpu_torch.runtime import remat_plan
 
 T, B = 80, 32
 NUM_ACTIONS = 6  # MockEnv
@@ -126,6 +136,19 @@ def random_cache(model, seed, device):
                 rng.standard_normal(k.shape).astype(np.float32),
                 (rng.random(valid.shape) < 0.7).astype(np.float32))))
     return tuple(state)
+
+
+def remat_levers(model_name, use_lstm, spec=None):
+    """(the plan's assignment, the model's remat kwargs) of a --remat value
+    other than auto: None or "none" keeps every activation."""
+    stages = remat_plan.stages_for(model_name, use_lstm)
+    if spec in (None, "none"):
+        assignment = remat_plan.no_remat(stages)
+    elif spec == "all":
+        assignment = remat_plan.all_remat(stages)
+    else:
+        assignment = remat_plan.parse_spec(spec, stages)
+    return assignment, remat_plan.model_kwargs(model_name, assignment)
 
 
 def polybeast_argv(savedir, xpid):
@@ -308,7 +331,7 @@ def api_calls(events, tid=None):
 
 
 def polybeast_trace(policy="f32", superstep_k=1, native_runtime=False,
-                    num_inference_threads=2):
+                    num_inference_threads=2, remat=None):
     """The async driver at polybeast_argv's flags for TRACE_UPDATES
     updates, with a torch.profiler window (CUDA activity: device work and
     CUDA API calls, no CPU ops) over three flushed updates from the
@@ -331,6 +354,8 @@ def polybeast_trace(policy="f32", superstep_k=1, native_runtime=False,
         num_inference_threads)
     if native_runtime:
         argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    if remat is not None:
+        argv += ["--remat", remat]
     flags = polybeast.make_parser().parse_args(
         argv + [
             "--precision", policy, "--superstep_k", str(superstep_k),
@@ -393,12 +418,14 @@ def polybeast_trace(policy="f32", superstep_k=1, native_runtime=False,
 
 
 def main(model_name="deep", policy="f32", superstep_k=1,
-         native_runtime=False, num_inference_threads=2):
+         native_runtime=False, num_inference_threads=2, remat=None):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
+    if remat == "auto":
+        raise ValueError("--remat auto is the drivers'; pass a plan")
     if model_name == "polybeast":
         return polybeast_trace(policy, superstep_k, native_runtime,
-                               num_inference_threads)
+                               num_inference_threads, remat)
     if native_runtime or num_inference_threads != 2:
         raise ValueError("--native_runtime and --num_inference_threads "
                          "are polybeast's")
@@ -412,13 +439,17 @@ def main(model_name="deep", policy="f32", superstep_k=1,
     pol = precision.get(policy)
     dtypes = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype)
     torch.manual_seed(SEED)
+    assignment, levers = remat_levers(model_name, model_name == "deep",
+                                      remat)
     if model_name == "deep":
-        model = create_model("deep", NUM_ACTIONS, use_lstm=True, **dtypes)
+        model = create_model("deep", NUM_ACTIONS, use_lstm=True, **dtypes,
+                             **levers)
         config = {"model": "deep", "use_lstm": True, "pool_kernel": True}
     else:
         model = create_model("transformer", NUM_ACTIONS,
-                             attention_impl="pallas", **dtypes)
+                             attention_impl="pallas", **dtypes, **levers)
         config = {"model": "transformer", "attention_impl": "pallas"}
+    config["remat"] = remat_plan.spell(assignment)
     model = precision.cast_params(model.to(device), pol)
     if model_name == "deep":
         state = model.initial_state(B, device)
@@ -457,6 +488,11 @@ def main(model_name="deep", policy="f32", superstep_k=1,
             out.append(start.elapsed_time(end) / per)
         return out
 
+    # Before any graph holds memory of its own.
+    with graphs.update_state_restored(optimizer):
+        memory = precision.memory_stats(
+            eager_update, *eager_args,
+            resident=graphs.update_state_tensors(optimizer))
     update_ms = timed(update, (batch, state), K)
     eager_update_ms = timed(eager_update, eager_args, 1)
 
@@ -523,6 +559,10 @@ def main(model_name="deep", policy="f32", superstep_k=1,
         "update_ms_median": statistics.median(update_ms),
         "update_ms_all": update_ms,
         "eager_update_ms_median": statistics.median(eager_update_ms),
+        # The caching allocator's peak over one eager update, and the
+        # bytes that update accessed (precision.memory_stats).
+        "eager_update_peak_bytes": memory.peak_bytes,
+        "eager_update_bytes_accessed": memory.bytes_accessed,
         "act_ms_median": statistics.median(act_ms),
         "eager_act_ms_median": statistics.median(eager_act_ms),
         "profiled_updates": n,
@@ -571,9 +611,13 @@ def cli():
                              "(default: the Python pool).")
     parser.add_argument("--num_inference_threads", type=int, default=2,
                         help="polybeast's inference threads.")
+    parser.add_argument("--remat", default=None,
+                        help="The model's remat plan: none (default), all "
+                             "or a per-stage spec (the drivers' --remat "
+                             "without auto).")
     args = parser.parse_args()
     main(args.model, args.precision, args.superstep_k, args.native_runtime,
-         args.num_inference_threads)
+         args.num_inference_threads, args.remat)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,10 @@ stdlib only).
   (`python -m torchbeast_tpu_torch.telemetry --selftest`).
 - driver:  the drivers' shared flag stanza and DriverTelemetry.
 
-Not here: the reference's `precision.bytes_accessed` /
-`hbm_gauge_async` gauges, which read XLA's cost analysis (ROADMAP.md
-Queue 1 item 'stage remat').
+The `learner.hbm_bytes_per_update` gauge is set by
+learner.instrument_update_step from precision.count_bytes, and the
+`learner.remat_plan` static by the drivers from
+runtime/remat_plan.last_plan().
 """
 
 from torchbeast_tpu_torch.telemetry.driver import (  # noqa: F401
