@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
-                           | --impact-only | --remat-only]
+                           | --impact-only | --remat-only | --anakin-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -159,6 +159,27 @@ exits non-zero without printing the final result line:
    the deep + LSTM IMPACT update (a lagged target's outputs on the
    batch) at f32 and bf16_train; params, RMSprop state and loss stats
    must agree, at the tolerances printed.
+7. Anakin and the MoE transformer (run after 5k in the full script; with
+   --anakin-only alone after the builds): the pool backward at the deep
+   trunk's stages on the device envs' frames (Catch's 10x5x1, Memory's
+   4x1x1, N = 17 x 64), exact against its plain version, Catch's timed
+   as a kernel row; the anakin iteration graph (graphs.
+   CapturedIteration: T=16 acting forwards, env steps, the batch and the
+   update in one replay) for mlp and for deep + LSTM on Catch, B=64, the
+   LR decay and the entropy anneal moving, three replays bitwise equal
+   to eager iterations of a twin (TF32 off, cuDNN deterministic: stats,
+   params, nu, carry, the generator's state), pool_bwd 3 a replay on the
+   deep model, each printing its host API calls and port kernels a
+   replay and its ms; the learning runs of the reference's anakin tests
+   through anakin's own parser (Catch mlp > 0.5 at 200k steps; Memory
+   LSTM > 0.6 and feed-forward < 0.5 at 1M; the Memory transformer with
+   --num_experts 4 > 0.6 at 600k), each printing SPS and wall time,
+   then resumed from its checkpoint for one more log interval; monobeast
+   --model transformer --num_experts 8 at full width with every kernel
+   switch, f32 and bf16_train, 3 updates each with the launch checks of
+   5 and a non-zero aux_loss; polybeast --num_experts 4 on the C++ core,
+   3 updates; and the MoE update's parity, kernels against plain, at f32
+   and bf16_train as in 6.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -376,19 +397,14 @@ def pool_case(pool, label, x, y, g, vector):
     return e
 
 
-def check_pool(ops, dev, dtype=torch.float32):
-    """pool_bwd per trunk stage at the main path's N, in `dtype` (f32, or
-    bf16: the bf16 variant, 8 channels a 16-byte access); exact against
-    the plain version, which adds (and in bf16 rounds) in its order."""
-    from torchbeast_tpu_torch.ops import pool
-
-    n = (T + 1) * B
-    gen = torch.Generator(device=dev).manual_seed(0)
+def pool_stages(pool, gen, dev, n, shapes, dtype, tag):
+    """pool_bwd at each trunk stage's input (H, W, C) of `shapes`, N=`n`,
+    exact against the plain version and timed beside it, PyTorch's
+    backward and the bound: (max |err|, the summed times, the stages)."""
     err = 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     stages = []
-    tag = "" if dtype == torch.float32 else "_bf16"
-    for H, W, C in STAGES:
+    for H, W, C in shapes:
         x = torch.randn(n, H, W, C, generator=gen, device=dev).to(dtype)
         x = x.permute(0, 3, 1, 2)  # channels_last [N, C, H, W]
         y, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
@@ -424,6 +440,19 @@ def check_pool(ops, dev, dtype=torch.float32):
     print(f"kernel pool_bwd{tag} three stages: {tot['ms']:.4f} ms against "
           f"a bound of {tot['bound_ms']:.4f} ms, share "
           f"{tot['bound_ms'] / tot['ms']:.3f}")
+    return err, tot, stages
+
+
+def check_pool(ops, dev, dtype=torch.float32):
+    """pool_bwd per trunk stage at the main path's N, in `dtype` (f32, or
+    bf16: the bf16 variant, 8 channels a 16-byte access); exact against
+    the plain version, which adds (and in bf16 rounds) in its order."""
+    from torchbeast_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tag = "" if dtype == torch.float32 else "_bf16"
+    err, tot, stages = pool_stages(pool, gen, dev, (T + 1) * B, STAGES,
+                                   dtype, tag)
 
     def case(shape, ties):
         if ties:
@@ -978,6 +1007,8 @@ def run_main_path(ops, savedir, path):
                 "grad_norm"):
         check(key in stats and np.isfinite(stats[key]),
               f"{label} loss stat {key} = {stats.get(key)}")
+    if "--num_experts" in model_args:
+        check(stats["aux_loss"] > 0, f"{label}: aux_loss {stats['aux_loss']}")
     print(f"main path {label} 84x84x4 T={T} B={B}: {updates} updates in "
           f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
           f"{stats['update_ms_median']:.2f} ms; launches {counts}; bf16 "
@@ -1911,7 +1942,8 @@ def check_graph_replica(dev):
 # 7.1e-7 (0 at bf16_compute) and stats equal; the transformer read 1.63e-2
 # (nu of block_0.k.bias at bf16_compute, a gradient near 0 in exact
 # arithmetic), its stats within rtol 1e-2 (largest gap 1.77).
-PARITY_BF16 = {"deep+LSTM": (1e-5, 1e-5), "transformer": (3e-2, 1e-2)}
+PARITY_BF16 = {"deep+LSTM": (1e-5, 1e-5), "transformer": (3e-2, 1e-2),
+               "transformer num_experts 8": (3e-2, 1e-2)}
 
 
 def _norm_rel(a, b):
@@ -2335,6 +2367,269 @@ def run_polybeast_stateless(ops, savedir, native):
     return {label: (counts, bf16)}
 
 
+# ----------------------------------------------------------------- anakin
+
+# The device envs' pool inputs (H, W, C) in the deep trunk: Catch's 10x5x1
+# frames and Memory's 4x1x1, at N = (T+1) * B of the reference's anakin
+# defaults (T=16, B=64).
+ANAKIN_T, ANAKIN_B = 16, 64
+ANAKIN_STAGES = {"Catch": ((10, 5, 16), (5, 3, 32), (3, 2, 32)),
+                 "Memory": ((4, 1, 16), (2, 1, 32), (1, 1, 32))}
+
+
+def check_pool_anakin(ops, dev):
+    """pool_bwd at the deep trunk's stages on the device envs' frames
+    (anakin --model deep with TBT_POOL_PALLAS=1), exact against the plain
+    version; the row times Catch's three stages."""
+    from torchbeast_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = (ANAKIN_T + 1) * ANAKIN_B
+    err, tot, stages = pool_stages(pool, gen, dev, n, ANAKIN_STAGES["Catch"],
+                                   torch.float32, " anakin Catch")
+    e_mem, _, _ = pool_stages(pool, gen, dev, n, ANAKIN_STAGES["Memory"],
+                              torch.float32, " anakin Memory")
+    return {
+        "name": "pool_bwd_anakin_catch", "wrapper": "pool_bwd",
+        "bf16": False, "route": "cuda",
+        "source": "torchbeast_tpu_torch/csrc/pool_bwd.cu",
+        "replaces": "torchbeast_tpu/ops/pallas_pool.py:54",
+        "max_abs_err": max(err, e_mem), "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes", "library_ms": tot["library_ms"],
+        "stages": stages,
+    }
+
+
+# (label, flags): the reference's defaults (B=64, T=16) on Catch, the LR
+# decay and the entropy anneal moving every iteration.
+ANAKIN_GRAPHS = (
+    ("anakin mlp Catch", ["--model", "mlp"]),
+    ("anakin deep+LSTM Catch", ["--model", "deep", "--use_lstm"]),
+)
+ANAKIN_REPLAYS = 3
+
+
+def check_anakin_graph(ops, dev, label, model_args):
+    """ANAKIN_REPLAYS replays of the anakin iteration graph (graphs.
+    CapturedIteration) against as many eager iterations of a twin from
+    the same params, optimizer state, carry and generator state: TF32
+    off and cuDNN deterministic, every stat, param, RMSprop nu, carry
+    leaf and the generator's state must be bitwise equal. Prints the
+    host's API calls and the port kernels of one replay, and the
+    iteration's ms (median of 20 CUDA-event runs)."""
+    from torchbeast_tpu_torch import anakin, nest
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    argv = ["--env", "Catch", *model_args, "--total_steps",
+            str(100 * ANAKIN_T * ANAKIN_B), "--entropy_cost_final", "1e-4"]
+    env, model, opt, hp, gen, carry = anakin.setup(
+        anakin.make_parser().parse_args(argv), dev)
+    twin = copy.deepcopy(model)
+    opt_e = learner_lib.make_optimizer(hp, list(twin.parameters()))
+    gen_e = torch.Generator(device=dev)
+    gen_e.set_state(gen.get_state())
+    carry_e = nest.map(torch.clone, carry)
+    eager = anakin.make_train_step(env, twin, opt_e, hp, gen_e)
+    dispatch = anakin.make_iteration_dispatch(env, model, opt, hp, gen,
+                                              carry)
+    dispatch.capture()
+    ops.reset_launch_counts()
+    got = [dispatch() for _ in range(ANAKIN_REPLAYS)]
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    want = [eager(carry_e) for _ in range(ANAKIN_REPLAYS)]
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in w:
+            check(torch.equal(g[key], w[key].float()),
+                  f"{label} iteration {i}: stat {key} {float(g[key])} vs "
+                  f"{float(w[key])}")
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        check(torch.equal(p, q), f"{label}: param {name} differs")
+    for a, b in zip(opt.state.nu, opt_e.state.nu):
+        check(torch.equal(a, b), f"{label}: nu differs")
+    for a, b in zip(nest.flatten(carry), nest.flatten(carry_e)):
+        check(torch.equal(a, b), f"{label}: a carry leaf differs")
+    check(torch.equal(gen.get_state(), gen_e.get_state()),
+          f"{label}: the generators' states differ")
+    check(opt.state.count == ANAKIN_REPLAYS
+          and int(opt.device_count) == ANAKIN_REPLAYS,
+          f"{label}: counts {opt.state.count} / {int(opt.device_count)}")
+    per_replay = dispatch.launches_per_replay
+    pools = 3 if "deep" in model_args else 0
+    check(per_replay.get("pool_bwd", 0) == pools
+          and counts["pool_bwd"] == pools * ANAKIN_REPLAYS,
+          f"{label}: pool_bwd {per_replay} per replay, {counts['pool_bwd']} "
+          f"in {ANAKIN_REPLAYS} replays")
+    calls, kernels = profile_call(dispatch)
+    ms = time_ms(dispatch)
+    eager_ms = time_ms(lambda: eager(carry_e), reps=5)
+    frames = ANAKIN_T * ANAKIN_B
+    print(f"graph {label} T={ANAKIN_T} B={ANAKIN_B}: {ANAKIN_REPLAYS} "
+          f"replays bitwise equal to eager iterations (stats, params, nu, "
+          f"carry, generator); host API calls per replay "
+          f"{sum(calls.values())} {calls}; port kernels per replay "
+          f"{per_replay} (profiled {kernels}); iteration {ms:.3f} ms "
+          f"({frames / ms * 1e3:.0f} frames/s), eager {eager_ms:.3f} ms")
+    return {label: (counts, bf16)}
+
+
+# Phase 5: learning runs on the card, the reference test's settings and
+# thresholds (tests/test_anakin.py:72-206): (label, flags, mean episode
+# return above (+1) or below (-1) the threshold).
+ANAKIN_RUNS = (
+    ("anakin Catch mlp",
+     ["--env", "Catch", "--batch_size", "32", "--unroll_length", "9",
+      "--learning_rate", "2e-3", "--entropy_cost", "0.01",
+      "--total_steps", "200000", "--log_interval_updates", "5"], 1, 0.5),
+    ("anakin Memory LSTM",
+     ["--env", "Memory", "--use_lstm", "--batch_size", "64",
+      "--unroll_length", "12", "--learning_rate", "1e-3", "--total_steps",
+      "1000000", "--log_interval_updates", "100"], 1, 0.6),
+    ("anakin Memory feed-forward",
+     ["--env", "Memory", "--batch_size", "64", "--unroll_length", "12",
+      "--learning_rate", "1e-3", "--total_steps", "1000000",
+      "--log_interval_updates", "100"], -1, 0.5),
+    ("anakin Memory transformer num_experts 4",
+     ["--env", "Memory", "--model", "transformer", "--num_experts", "4",
+      "--batch_size", "64", "--unroll_length", "12", "--learning_rate",
+      "5e-4", "--entropy_cost", "0.02", "--total_steps", "600000",
+      "--log_interval_updates", "100"], 1, 0.6),
+)
+
+
+def run_anakin(ops, savedir, label, argv, sign, threshold):
+    """anakin.train through its own parser on the card: the return must
+    clear the threshold (sign +1: above, -1: below); then the same xpid
+    for one more log interval must resume from the checkpoint."""
+    from torchbeast_tpu_torch import anakin
+
+    xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    parse = anakin.make_parser().parse_args
+    base = argv + ["--savedir", savedir, "--xpid", xpid,
+                   "--checkpoint_interval_s", "100000"]
+    flags = parse(base)
+    ops.reset_launch_counts()
+    t0 = time.time()
+    stats = anakin.train(flags)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    ret = stats.get("mean_episode_return", float("nan"))
+    check(stats["step"] >= flags.total_steps,
+          f"{label}: stopped at step {stats['step']}")
+    check(np.isfinite(stats["total_loss"]),
+          f"{label}: total_loss {stats['total_loss']}")
+    check(sign * (ret - threshold) > 0,
+          f"{label}: mean episode return {ret} is not "
+          f"{'above' if sign > 0 else 'below'} {threshold}")
+    print(f"{label}: {stats['step']} steps in {wall:.1f} s, SPS "
+          f"{stats['sps']:.0f}; mean episode return {ret:.3f} "
+          f"({'>' if sign > 0 else '<'} {threshold}); aux_loss "
+          f"{stats['aux_loss']:.4g}; launches {counts}")
+    more = flags.unroll_length * flags.batch_size * flags.log_interval_updates
+    lines = _Lines()
+    logging.getLogger("torchbeast_tpu_torch").addHandler(lines)
+    logging.getLogger("torchbeast_tpu_torch").setLevel(logging.INFO)
+    try:
+        # The last --total_steps on a command line wins.
+        again = anakin.train(parse(base + [
+            "--total_steps", str(stats["step"] + more)]))
+    finally:
+        logging.getLogger("torchbeast_tpu_torch").removeHandler(lines)
+    resumed = f"Resuming preempted job at step {stats['step']}"
+    check(resumed in lines.lines and again["step"] == stats["step"] + more,
+          f"{label}: the resume logged {lines.lines[:3]} and reached step "
+          f"{again['step']}")
+    print(f"{label}: resumed at step {stats['step']} and ran to "
+          f"{again['step']}, return {again.get('mean_episode_return')}")
+    return {label: (counts, bf16)}
+
+
+# MoE monobeast: the full-width transformer with 8 experts and every kernel
+# switch, f32 and bf16_train (run_main_path's paths).
+MOE_ARGS = TRANSFORMER_ARGS + ["--num_experts", "8"]
+MOE_PATHS = (
+    ("transformer num_experts 8", MOE_ARGS, TRANSFORMER_KERNELS, "f32", 3),
+    ("transformer num_experts 8 bf16_train", MOE_ARGS, TRANSFORMER_KERNELS,
+     "bf16_train", 3),
+)
+
+
+def run_polybeast_moe(ops, savedir):
+    """polybeast --model transformer --num_experts 4 on the C++ core
+    (--native_runtime), 16 Mock env servers, T=80, B=32, V-trace and the
+    tail on: three updates, each launching both, a non-zero aux_loss,
+    finite losses, HEALTHY."""
+    from torchbeast_tpu_torch import polybeast
+
+    label = "polybeast transformer num_experts 4 native runtime"
+    xpid = "chip_smoke_polybeast_moe"
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid)
+    argv.remove("--use_lstm")
+    argv[argv.index("deep")] = "transformer"
+    argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    ops.reset_launch_counts()
+    t0 = time.time()
+    stats = polybeast.train(polybeast.make_parser().parse_args(argv + [
+        "--num_experts", "4", "--total_steps", str(3 * T * B)]))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    updates = stats["updates"]
+    check(updates >= 3, f"{label}: {updates} updates")
+    for name in ("vtrace_targets", "rmsprop_tail"):
+        check(counts[name] >= updates, f"{label}: {counts[name]} {name} "
+                                       f"launches in {updates} updates")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(np.isfinite(stats[key]), f"{label} loss stat {key}")
+    check(stats["aux_loss"] > 0, f"{label}: aux_loss {stats['aux_loss']}")
+    check(stats["health"] == "HEALTHY" and stats["runtime"] == "native",
+          f"{label}: health {stats['health']}, runtime {stats['runtime']}")
+    print(f"{label} 84x84x4 T={T} B={B}: {updates} updates in {wall:.1f} s; "
+          f"SPS {stats['sps']:.1f}; median update interval "
+          f"{stats['update_interval_ms_median']:.2f} ms; aux_loss "
+          f"{stats['aux_loss']:.4g}; launches {counts}")
+    return {label: (counts, bf16)}
+
+
+def run_anakin_phases(ops, dev, savedir, tf32):
+    """--anakin-only: this slice's phases alone, after the builds: the
+    pool kernel at the device envs' shapes (returned as a kernel row),
+    the anakin iteration graphs (phase 4), the learning runs, the MoE
+    monobeast and polybeast paths (phase 5) and the MoE update parity
+    (phase 6). Returns (the kernel row, the paths' launch counts)."""
+    row = check_pool_anakin(ops, dev)
+    # The graph checks' settings, whatever an earlier phase left.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    by_path = {}
+    for label, model_args in ANAKIN_GRAPHS:
+        by_path.update(check_anakin_graph(ops, dev, label, model_args))
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    for run in ANAKIN_RUNS:
+        by_path.update(run_anakin(ops, savedir, *run))
+    for path in MOE_PATHS:
+        by_path[path[0]] = run_main_path(ops, savedir, path)
+    by_path.update(run_polybeast_moe(ops, savedir))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    for policy in ("f32", "bf16_train"):
+        model, _ = _param_tree(dev, "transformer", policy, num_experts=8)
+        check_update_parity(ops, dev, "transformer num_experts 8", model,
+                            random_cache(model, 0, dev), policy)
+    return row, by_path
+
+
 def run_remat_phases(ops, dev, savedir, tf32):
     """This slice's phases: 4r (TF32 off, cuDNN deterministic), the
     training-settings timing and peaks of default against all, then 5p
@@ -2387,14 +2682,27 @@ def run_impact_phases(ops, dev, savedir, tf32):
                             model.initial_state(B, dev), policy, impact=True)
 
 
+def tally_launches(kernels, by_path):
+    """Each kernel row's launches on the main paths, by path and in all
+    (a bf16 row counts its variant's launches; an f32 row the rest)."""
+    for k in kernels:
+        wrapper = k.get("wrapper", k["name"])
+        k["launches_by_path"] = {
+            p: (bf16.get(wrapper, 0) if k.get("bf16")
+                else counts[wrapper] - bf16.get(wrapper, 0))
+            for p, (counts, bf16) in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     vtrace_only = argv == ["--vtrace-only"]
     serving_only = argv == ["--serving-only"]
     impact_only = argv == ["--impact-only"]
     remat_only = argv == ["--remat-only"]
+    anakin_only = argv == ["--anakin-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
-                     or impact_only or remat_only):
+                     or impact_only or remat_only or anakin_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2473,6 +2781,11 @@ def main(argv):
     if remat_only:
         run_remat_phases(ops, dev, savedir, tf32)
         return 0
+    if anakin_only:
+        row, by_path = run_anakin_phases(ops, dev, savedir, tf32)
+        tally_launches([row], by_path)
+        print(json.dumps({"kernels": [row]}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -2524,14 +2837,10 @@ def main(argv):
     for native in (False, True):
         by_path.update(run_polybeast_chaos(ops, savedir, native))
     check_checkpoint_round_trip(dev)
-    for k in kernels:
-        # A bf16 row counts its variant's launches; an f32 row the rest.
-        wrapper = k.get("wrapper", k["name"])
-        k["launches_by_path"] = {
-            p: (bf16.get(wrapper, 0) if k.get("bf16")
-                else counts[wrapper] - bf16.get(wrapper, 0))
-            for p, (counts, bf16) in by_path.items()}
-        k["launches"] = sum(k["launches_by_path"].values())
+    row, anakin_paths = run_anakin_phases(ops, dev, savedir, tf32)
+    kernels.append(row)
+    by_path.update(anakin_paths)
+    tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -90,7 +90,7 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], "data parallel"),
     (["--model", "pipelined_transformer"], "transformer"),
     (["--sequence_parallel", "2"], "transformer"),
-    (["--num_experts", "4"], "transformer"),
+    (["--num_experts", "4", "--expert_parallel", "2"], "data parallel"),
 ])
 def test_features_outside_the_port_raise(tmp_path, args, item):
     flags = _flags(*args, tmp_path=tmp_path)

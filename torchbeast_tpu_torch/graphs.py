@@ -15,6 +15,14 @@ CapturedForward holds the IMPACT target network's forward
 buffer, whose outputs reach the update graph's static inputs by
 device-to-device copies.
 
+CapturedIteration holds a whole Anakin iteration (anakin.py), the
+counterpart of the reference's one jitted program: T acting forwards, T
+steps of the device envs, the [T+1, B] batch assembly and the update, one
+replay with no host in the loop. Its static buffers are the actor carry,
+the params and the optimizer's state, which each replay updates in
+place; its generator (the envs' resets and the sampled actions) is
+registered with the graph.
+
 Capture rules, kept by every class:
 
 - Warm-up first: a few eager runs on a side stream before the capture
@@ -26,7 +34,8 @@ Capture rules, kept by every class:
   `learner.hbm_bytes_per_update` gauge); a warm-up acting step draws from the
   generator, whose state CapturedAct puts back (and callers pass acting
   inputs that make a warm-up step harmless: trash slots, a state the
-  first call overwrites).
+  first call overwrites); CapturedIteration puts back all three: the
+  optimizer's state, the generator's and the carry.
 - A capture launches nothing, but the port's launch counters
   (`ops.launch_counts()`) tick in the wrappers' Python, which runs only
   at capture. Each graph records what its capture counted, puts the
@@ -290,3 +299,63 @@ class CapturedAct(CapturedForward):
             _fill(static, value, self._what, pinned)
         self._copied = torch.cuda.Event()
         self._copied.record()
+
+
+class CapturedIteration:
+    """A whole on-device iteration as one CUDA graph: `step(carry)` (the
+    Anakin iteration, anakin.make_train_step), which updates the carry
+    (a nest of device tensors), the params and the optimizer's state in
+    place and returns its stats. The carry is the graph's static input
+    and output: each call replays over it and leaves the next carry
+    there. Random numbers come from `generator`, registered with the
+    graph, so each replay draws the numbers an eager step would draw
+    from the generator's state and advances it as far.
+
+    The warm-up before the capture runs real iterations; the carry, the
+    generator, the params and the optimizer's state are put back after
+    it, so the first replay is the run's first iteration. A call returns
+    the stats as f32 device tensors copied out of the graph's memory (a
+    host reads them when it needs them) and advances the optimizer's host
+    count by one, as the device count advances inside the graph.
+    `launches_per_replay` is what one replay launches of the port's
+    kernels."""
+
+    def __init__(self, step: Callable, carry, optimizer,
+                 generator: torch.Generator):
+        self._step = step
+        self._carry = carry
+        self._optimizer = optimizer
+        self._generator = generator
+        self._graph = None
+        self.launches_per_replay = {}
+
+    def capture(self) -> None:
+        leaves = nest.flatten(self._carry)
+        with torch.no_grad():
+            saved = [t.clone() for t in leaves]
+        rng = self._generator.get_state()
+        self._keys = None
+
+        def packed():
+            stats = self._step(self._carry)
+            self._keys = list(stats)
+            return torch.stack([stats[key].float() for key in self._keys])
+
+        with update_state_restored(self._optimizer):
+            _warm_up(packed, WARMUP_RUNS)
+            with torch.no_grad():
+                torch._foreach_copy_(leaves, saved)
+            self._generator.set_state(rng)
+            self._graph, self._packed, self._delta = _capture(
+                packed, self._generator)
+        self._generator.set_state(rng)
+        self.launches_per_replay = self._delta.per_replay()
+
+    def __call__(self):
+        if self._graph is None:
+            self.capture()
+        self._graph.replay()
+        row = self._packed.clone()
+        self._optimizer.advance_host_count(1)
+        self._delta.replayed()
+        return {key: row[j] for j, key in enumerate(self._keys)}

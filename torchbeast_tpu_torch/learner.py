@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import graphs, nest, precision, telemetry
+from torchbeast_tpu_torch.models.moe import recording_losses
 from torchbeast_tpu_torch.ops import (
     compute_entropy_loss,
     impact_policy_losses,
@@ -414,7 +415,13 @@ class TargetNetwork:
 def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
                  hp: HParams, entropy_cost=None):
     """Forward the full [T+1, B] batch and build the IMPALA loss.
-    Returns (total_loss, stats), stats as 0-d device tensors."""
+    Returns (total_loss, stats), stats as 0-d device tensors.
+
+    The losses the model records during this forward (the MoE
+    load-balance loss, models/moe.recording_losses; the reference's
+    sown "losses" collection) are added to the objective and reported as
+    `aux_loss`; a model that records none reports a zero and adds
+    nothing."""
     # --loss impact: the target network's outputs ride the batch (merged
     # in by TargetNetwork.merge), popped from a shallow copy so the model
     # forward sees the stock batch and the caller's dict (a captured
@@ -422,8 +429,9 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
     batch = dict(batch)
     target_net_logits_full = batch.pop(TARGET_LOGITS_KEY, None)
     target_net_baseline_full = batch.pop(TARGET_BASELINE_KEY, None)
-    learner_outputs, _ = model(batch, initial_agent_state,
-                               sample_action=False)
+    with recording_losses() as recorded:
+        learner_outputs, _ = model(batch, initial_agent_state,
+                                   sample_action=False)
     bootstrap_value = learner_outputs.baseline[-1]
 
     # Shift: env/behavior fields drop slot 0, learner outputs slot T.
@@ -476,6 +484,11 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
         entropy_cost = hp.entropy_cost
     entropy_loss = entropy_cost * compute_entropy_loss(target_logits)
     total_loss = pg_loss + baseline_loss + entropy_loss
+    if recorded:
+        aux_loss = sum(recorded.values())
+        total_loss = total_loss + aux_loss
+    else:
+        aux_loss = torch.zeros((), device=total_loss.device)
 
     episode_returns_sum = torch.sum(torch.where(
         done, batch["episode_return"][1:].float(), 0.0
@@ -485,7 +498,7 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
         "pg_loss": pg_loss,
         "baseline_loss": baseline_loss,
         "entropy_loss": entropy_loss,
-        "aux_loss": torch.zeros((), device=total_loss.device),
+        "aux_loss": aux_loss,
         "episode_returns_sum": episode_returns_sum,
         "episode_count": torch.sum(done),
     }

@@ -8,7 +8,9 @@ a torch module sizes its first layer at construction, so the frame shape
 `head_dtype` (the core's and heads') come from the precision policy
 (torchbeast_tpu_torch/precision.py). The remat levers (runtime/remat_plan.py
 model_kwargs: `remat` of the deep trunk and the transformer, `core_remat`
-of the LSTM core) pass through `kwargs` to the model.
+of the LSTM core) pass through `kwargs` to the model, and so do the
+transformer's `num_experts` and `moe_top_k` (models/moe.py), which no
+other family takes.
 """
 
 import torch
@@ -52,6 +54,11 @@ def create_model(name: str, num_actions: int, use_lstm: bool = False,
         raise ValueError(
             f"Unknown model {name!r}; available: {sorted(_REGISTRY)}"
         ) from None
+    if kwargs.get("num_experts") and cls is not TransformerNet:
+        raise ValueError(
+            "--num_experts applies to --model transformer only (the "
+            "conv/MLP families have no MoE formulation)"
+        )
     if cls is TransformerNet and use_lstm:
         raise ValueError(
             "--use_lstm does not apply to the transformer family (its "

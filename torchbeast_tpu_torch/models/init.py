@@ -10,6 +10,12 @@ flax's default initialisers).
   q/k/v (kernel [d, H, hd]) and H * hd for the DenseGeneral `out`
   (kernel [H, hd, d]; flax reshapes a DenseGeneral kernel to
   (prod(in axes), prod(out axes)) before it draws).
+- The MoE leaves (models/moe.py): the router's kernel [d, E] is a Dense
+  kernel, fan_in d. The expert kernels w_in [E, d, ff] and w_out
+  [E, ff, d] are rank-3 leaves, and flax's `variance_scaling` counts
+  every axis but the last two in the receptive field, so the leading
+  expert axis multiplies fan_in: d * E for w_in and ff * E for w_out.
+  b_in and b_out are zeros.
 - Biases: zeros (torch.nn.init.zeros_).
 - `nn.OptimizedLSTMCell`'s recurrent kernels: orthogonal, each gate's
   [H, H] block on its own (flax makes hi, hf, hg, ho as four params); its

@@ -1,5 +1,5 @@
 """Transformer policy with an episode-aware KV-cache memory (counterpart of
-torchbeast_tpu/models/transformer.py, single device, without experts).
+torchbeast_tpu/models/transformer.py, on a single device).
 
 The core attends over the unroll AND over a rolling key/value cache
 carried across unrolls as the recurrent state, so acting at T=1 still
@@ -28,11 +28,17 @@ State layout, the framework's convention (batch on axis 1): per layer
 batch-first inside. Submodule names follow the flax scopes (Dense_0,
 extras, block_{i}.{LayerNorm_0, q, k, v, rel_bias, out, LayerNorm_1,
 Dense_0, Dense_1}, LayerNorm_0, head), which is what weights.py maps
-between. flax's LayerNorm has epsilon 1e-6 and its gelu is the tanh
-approximation; both are set so here.
+between. With `num_experts` > 0 the block's MLP is the mixture of experts
+models/moe.MoEFFN (top `moe_top_k` of `num_experts` experts of width
+4 * d_model) over the block's [B*T, d] tokens, under the name `moe` in
+place of Dense_0 and Dense_1, as the reference's block builds it
+(transformer.py:178-193); its load-balance loss is recorded for the
+learner (moe.recording_losses). flax's LayerNorm has epsilon 1e-6 and
+its gelu is the tanh approximation; both are set so here.
 
 Precision, as the reference's: `dtype` (the trunk's compute dtype) is
-the frame Dense's, q/k/v/out's and the MLP's; the residual stream, the
+the frame Dense's, q/k/v/out's and the MLP's (the experts'; the MoE
+routing stays f32); the residual stream, the
 LayerNorms (which promote, carrying no dtype of their own) and the
 `extras` Dense stay f32; the cache is cast to k's dtype before the
 concat, and the new k and v are returned as f32. `head_dtype` is the
@@ -58,6 +64,7 @@ from torchbeast_tpu_torch.models.layers import (
     layer_norm,
     linear,
 )
+from torchbeast_tpu_torch.models.moe import MoEFFN
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -71,11 +78,13 @@ LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 class _Block(nn.Module):
-    """Pre-norm attention + GELU MLP block; q/k/v/out are flax
-    DenseGenerals over (H, hd), stored as Linear layers of H*hd."""
+    """Pre-norm attention + GELU MLP (or, num_experts > 0, MoE) block;
+    q/k/v/out are flax DenseGenerals over (H, hd), stored as Linear
+    layers of H*hd."""
 
     def __init__(self, d_model: int, num_heads: int, memory_len: int,
-                 attention_impl: str, dtype=torch.float32):
+                 attention_impl: str, dtype=torch.float32,
+                 num_experts: int = 0, moe_top_k: int = 2):
         super().__init__()
         self.num_heads = num_heads
         self.memory_len = memory_len
@@ -88,8 +97,12 @@ class _Block(nn.Module):
         self.rel_bias = nn.Parameter(torch.zeros(num_heads, memory_len + 1))
         self.out = Dense(d_model, d_model)
         self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.Dense_0 = Dense(d_model, 4 * d_model)
-        self.Dense_1 = Dense(4 * d_model, d_model)
+        if num_experts > 0:
+            self.moe = MoEFFN(d_model, 4 * d_model, num_experts,
+                              top_k=moe_top_k, dtype=dtype)
+        else:
+            self.Dense_0 = Dense(d_model, 4 * d_model)
+            self.Dense_1 = Dense(4 * d_model, d_model)
 
     def forward(self, x, k_cache, v_cache, mask, offsets, seg, cache_valid,
                 no_done):
@@ -118,8 +131,11 @@ class _Block(nn.Module):
                                                 offsets, self.rel_bias)
         x = x + linear(self.out, attended.reshape(B, T, d), dtype).float()
         h = layer_norm(self.LayerNorm_1, x)
-        h = F.gelu(linear(self.Dense_0, h, dtype), approximate="tanh")
-        x = x + linear(self.Dense_1, h, dtype).float()
+        if hasattr(self, "moe"):
+            x = x + self.moe(h.reshape(B * T, d)).reshape(B, T, d)
+        else:
+            h = F.gelu(linear(self.Dense_0, h, dtype), approximate="tanh")
+            x = x + linear(self.Dense_1, h, dtype).float()
         return x, k.float(), v.float()
 
 
@@ -134,7 +150,8 @@ class TransformerNet(nn.Module):
                  d_model: int = 128, num_heads: int = 4,
                  memory_len: int = 64, attention_impl: str = "dense",
                  dtype=torch.float32, head_dtype=torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, num_experts: int = 0,
+                 moe_top_k: int = 2):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
@@ -159,7 +176,8 @@ class TransformerNet(nn.Module):
         self.extras = Dense(1 + num_actions, d_model)
         for layer in range(num_layers):
             setattr(self, f"block_{layer}", _Block(
-                d_model, num_heads, memory_len, attention_impl, dtype))
+                d_model, num_heads, memory_len, attention_impl, dtype,
+                num_experts, moe_top_k))
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.head = RecurrentPolicyHead(
             d_model, num_actions, use_lstm=False, hidden_size=d_model,

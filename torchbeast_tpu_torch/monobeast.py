@@ -13,6 +13,12 @@ in the environment (the max-pool backward). --precision bf16_compute and
 bf16_train (and the deprecated --model_dtype bfloat16) run the bf16
 variants of those kernels (torchbeast_tpu_torch/precision.py).
 
+--num_experts N replaces the transformer's FFN with a top-2 mixture of N
+experts (models/moe.py), whose load-balance loss joins the objective and
+is reported as aux_loss; the routing stays f32 under every precision
+policy. --expert_parallel > 1 (experts sharded over devices) raises
+NotImplementedError.
+
 --loss impact trains the IMPACT surrogate (ops/impact.py) against a
 target network (learner.TargetNetwork) refreshed every
 --target_refresh_updates updates, and --replay_reuse K' dispatches each
@@ -172,9 +178,13 @@ def make_parser():
                         help=_LATER)
     parser.add_argument("--pipeline_stages", type=int, default=0,
                         help=_LATER)
-    parser.add_argument("--num_experts", type=int, default=0, help=_LATER)
+    parser.add_argument("--num_experts", type=int, default=0,
+                        help="Replace the transformer's FFN with a top-2 "
+                             "mixture of N experts (model=transformer "
+                             "only; adds a sown load-balance loss).")
     parser.add_argument("--expert_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="Shard the MoE experts over N devices; > 1 "
+                             + _LATER)
     parser.add_argument("--sp_strategy", default="ring",
                         choices=["ring", "ulysses"], help=_LATER)
     parser.add_argument("--ring_schedule", default="contiguous",
@@ -300,8 +310,6 @@ NOT_IN_PORT = {
     "pipeline_parallel": "the transformer family",
     "pipeline_microbatches": "the transformer family",
     "pipeline_stages": "the transformer family",
-    "num_experts": "the transformer family",
-    "expert_parallel": "the transformer family",
     "sp_strategy": "the transformer family",
     "ring_schedule": "the transformer family",
     "num_learner_devices": "data parallel and the fleet",
@@ -311,9 +319,25 @@ NOT_IN_PORT = {
 }
 
 
+def check_moe_flags(flags) -> None:
+    """The reference's MoE flag checks (monobeast.py:558-559; the
+    transformer-only one is create_model's): --expert_parallel needs
+    --num_experts, and more than one expert shard (the reference's
+    parallel/ep.py, a multi-device item) is not in the port."""
+    expert_par = getattr(flags, "expert_parallel", 0)
+    if expert_par and not getattr(flags, "num_experts", 0):
+        raise ValueError("--expert_parallel needs --num_experts")
+    if expert_par > 1:
+        raise NotImplementedError(
+            f"--expert_parallel {expert_par!r} is not in the port yet: "
+            "ROADMAP.md Queue 1 item 'data parallel and the fleet'"
+        )
+
+
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
     does not have yet."""
+    check_moe_flags(flags)
     defaults = make_parser().parse_args([])
     for dest, item in NOT_IN_PORT.items():
         value = getattr(flags, dest, getattr(defaults, dest))
@@ -418,6 +442,11 @@ def _attention_impl(flags):
     return {"attention_impl": impl}
 
 
+def _num_experts(flags):
+    n = getattr(flags, "num_experts", 0)
+    return {"num_experts": n} if n else {}
+
+
 def _create_model(flags, num_actions, frame_shape, device, **levers):
     policy = precision.resolve_flags(flags)
     with torch.random.fork_rng(devices=[]):
@@ -426,7 +455,7 @@ def _create_model(flags, num_actions, frame_shape, device, **levers):
             flags.model, num_actions=num_actions, use_lstm=flags.use_lstm,
             frame_shape=frame_shape, dtype=policy.compute_dtype,
             head_dtype=policy.head_dtype, **_trunk_channels(flags),
-            **_attention_impl(flags), **levers,
+            **_attention_impl(flags), **_num_experts(flags), **levers,
         )
     return precision.cast_params(model.to(device), policy)
 

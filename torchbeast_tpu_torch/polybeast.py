@@ -50,6 +50,13 @@ series fold into the registry from a tick callback
 remat plan (the `learner.remat_plan` static) and the
 `learner.hbm_bytes_per_update` gauge, as monobeast's do.
 
+--num_experts N gives --model transformer a mixture-of-experts FFN
+(models/moe.py), built by monobeast.build_model like every other model
+instance here, so the acting copy, the bf16 snapshots and the replicas
+carry the expert leaves; its load-balance loss joins the objective and is
+reported as aux_loss. --expert_parallel > 1 raises NotImplementedError
+(ROADMAP.md Queue 1 item 'data parallel and the fleet').
+
 --remat, --hbm_budget_gb and --transformer_remat are monobeast's
 (runtime/remat_plan.py): the plan is resolved once, and the learner's
 model, the acting copy, the IMPACT target network and the replica model
@@ -252,9 +259,13 @@ def make_parser():
                         help=_LATER)
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
                         help=_LATER)
-    parser.add_argument("--num_experts", type=int, default=0, help=_LATER)
+    parser.add_argument("--num_experts", type=int, default=0,
+                        help="Replace the transformer's FFN with a top-2 "
+                             "mixture of N experts (model=transformer "
+                             "only; adds a sown load-balance loss).")
     parser.add_argument("--expert_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="Shard the MoE experts over N devices; > 1 "
+                             + _LATER)
     parser.add_argument("--transformer_remat", action="store_true",
                         help="DEPRECATED spelling of --remat with the "
                              "transformer blocks stage at 'all' "
@@ -422,8 +433,6 @@ NOT_IN_PORT = {
     "ring_schedule": "the transformer family",
     "pipeline_parallel": "the transformer family",
     "pipeline_microbatches": "the transformer family",
-    "num_experts": "the transformer family",
-    "expert_parallel": "the transformer family",
     "tensor_parallel": "data parallel and the fleet",
     "num_learner_devices": "data parallel and the fleet",
     "coordinator_address": "data parallel and the fleet",
@@ -436,6 +445,7 @@ NOT_IN_PORT = {
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
     does not have yet."""
+    monobeast.check_moe_flags(flags)
     defaults = make_parser().parse_args([])
     for dest, item in NOT_IN_PORT.items():
         value = getattr(flags, dest, getattr(defaults, dest))

@@ -7,10 +7,11 @@ precision policy --precision (default f32; bf16_train casts the params,
 the batch and the agent state as the driver does). `polybeast` traces
 the async driver instead (see polybeast_trace), on the Python pool or,
 with --native_runtime, on the port's C++ runtime core, with
---num_inference_threads inference threads (default 2).
+--num_inference_threads inference threads (default 2). `anakin` profiles
+the Anakin iteration graph instead (see anakin_profile).
 
     python -m torchbeast_tpu_torch.profile_update
-        [deep|transformer|polybeast]
+        [deep|transformer|polybeast|anakin]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
         [--remat none|all|<spec>]
         [--native_runtime] [--num_inference_threads N]
@@ -417,6 +418,132 @@ def polybeast_trace(policy="f32", superstep_k=1, native_runtime=False,
         shutil.rmtree(savedir, ignore_errors=True)
 
 
+# anakin_profile's configurations: the reference's anakin defaults (Catch,
+# B=64, T=16) on the mlp and on deep + LSTM.
+ANAKIN_CONFIGS = (("mlp", ["--model", "mlp"]),
+                  ("deep+LSTM", ["--model", "deep", "--use_lstm"]))
+
+
+def _device_ms(fn, calls):
+    """(device ms per call of fn() by torch.profiler over `calls` calls,
+    {kernel name: (ms per call, launches per call)}, {CUDA API call:
+    count per call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    api = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(evt.name, [0.0, 0])
+            k[0] += evt.device_time / 1e3 / calls
+            k[1] += 1 / calls
+        elif evt.name.startswith("cuda") and "ynchronize" not in evt.name:
+            api[evt.name] = api.get(evt.name, 0) + 1 / calls
+    return sum(v[0] for v in kernels.values()), kernels, api
+
+
+def anakin_profile():
+    """The Anakin iteration graph (anakin.make_iteration_dispatch: one
+    CUDA graph a replay) of each ANAKIN_CONFIGS entry, TBT_POOL_PALLAS=1:
+    one JSON line each with the median replay time (CUDA events over
+    UPDATES replays after WARMUP), the device time a replay and the
+    device's busy share (profiled device time over the median replay
+    time), the host's CUDA API calls and the port's kernels a replay, and
+    where the device time goes: the same pieces captured apart, each its
+    own graph from the iteration's shapes and state (T acting forwards
+    on a fixed env output; T env steps on fixed actions; the update on a
+    batch the collect recorded), each profiled for its device time a
+    replay."""
+    from torchbeast_tpu_torch import anakin
+
+    os.environ["TBT_POOL_PALLAS"] = "1"
+    device = torch.device("cuda", 0)
+    card = _card()
+    for label, model_args in ANAKIN_CONFIGS:
+        flags = anakin.make_parser().parse_args(["--env", "Catch",
+                                                 *model_args])
+        env, model, opt, hp, gen, carry = anakin.setup(flags, device)
+        n_t = flags.unroll_length
+        # The pieces' inputs, recorded before the iteration moves on.
+        batch, _ = anakin.make_collect(env, model, n_t, gen)(carry)
+        batch = {k: v.clone() for k, v in batch.items()}
+        state = nest.map(torch.clone, carry.agent_state)
+        dispatch = anakin.make_iteration_dispatch(env, model, opt, hp, gen,
+                                                  carry)
+        for _ in range(WARMUP):
+            dispatch()
+        replay_ms = []
+        for _ in range(UPDATES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dispatch()
+            end.record()
+            torch.cuda.synchronize()
+            replay_ms.append(start.elapsed_time(end))
+        device_ms, kernels, api = _device_ms(dispatch, UPDATES)
+
+        def act(inputs):
+            out, st = None, inputs["state"]
+            for _ in range(n_t):
+                out, st = anakin._policy_step(model, inputs["env"], st,
+                                              gen)
+            return out["policy_logits"]
+
+        def step_envs(inputs):
+            st, out = inputs["state"], None
+            for _ in range(n_t):
+                st, out = env.step(st, inputs["action"], gen)
+            return out["frame"]
+
+        act_graph = graphs.CapturedForward(
+            act, {"env": {k: v for k, v in carry.env_out.items()},
+                  "state": state}, device, gen)
+        env_graph = graphs.CapturedForward(
+            step_envs, {"state": carry.env_state,
+                        "action": carry.agent_out["action"]}, device, gen)
+        update = learner_lib.make_update_dispatch(model, opt, hp)
+        update.capture(batch, state)
+        split = {}
+        for name, graph, args in (
+                ("acting forwards", act_graph, (act_graph.inputs,)),
+                ("env steps", env_graph, (env_graph.inputs,)),
+                ("update", update, (batch, state))):
+            split[name] = _device_ms(lambda g=graph, a=args: g(*a),
+                                     UPDATES)[0]
+        parts = sum(split.values())
+        print(json.dumps({
+            "card": card,
+            "config": {"anakin": label, "env": "Catch",
+                       "batch_size": flags.batch_size, "T": n_t,
+                       "pool_kernel": "deep" in model_args,
+                       "dispatch": "CUDA graph per iteration"},
+            "iteration_ms_median": statistics.median(replay_ms),
+            "iteration_ms_all": replay_ms,
+            "frames_per_s": n_t * flags.batch_size * 1e3
+            / statistics.median(replay_ms),
+            "device_ms_per_iteration": device_ms,
+            "device_busy_share": device_ms / statistics.median(replay_ms),
+            "host_api_calls_per_replay": sum(api.values()),
+            "host_api_calls_by_name_per_replay": api,
+            "kernels_per_iteration": sum(v[1] for v in kernels.values()),
+            "port_kernels_per_replay": dispatch.launches_per_replay,
+            "port_kernels_profiled": {
+                name[:80]: {"ms_per_iteration": ms, "calls": c}
+                for name, (ms, c) in sorted(kernels.items())
+                if _group(name) == "port kernels"},
+            # The pieces captured apart: device ms a replay of each.
+            "device_ms_split": split,
+            "device_share_split": {k: v / parts for k, v in split.items()},
+        }))
+
+
 def main(model_name="deep", policy="f32", superstep_k=1,
          native_runtime=False, num_inference_threads=2, remat=None):
     if not torch.cuda.is_available():
@@ -426,6 +553,11 @@ def main(model_name="deep", policy="f32", superstep_k=1,
     if model_name == "polybeast":
         return polybeast_trace(policy, superstep_k, native_runtime,
                                num_inference_threads, remat)
+    if model_name == "anakin":
+        if (policy, superstep_k, remat) != ("f32", 1, None):
+            raise ValueError("anakin takes no --precision, --superstep_k "
+                             "or --remat (its parser has none)")
+        return anakin_profile()
     if native_runtime or num_inference_threads != 2:
         raise ValueError("--native_runtime and --num_inference_threads "
                          "are polybeast's")
@@ -601,7 +733,8 @@ def main(model_name="deep", policy="f32", superstep_k=1,
 def cli():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="deep",
-                        choices=["deep", "transformer", "polybeast"])
+                        choices=["deep", "transformer", "polybeast",
+                                 "anakin"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
     parser.add_argument("--superstep_k", type=int, default=1,
