@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (torchbeast_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
-                           | --impact-only | --remat-only | --anakin-only]
+                           | --impact-only | --remat-only | --anakin-only
+                           | --pipelined-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -180,6 +181,29 @@ exits non-zero without printing the final result line:
    5 and a non-zero aux_loss; polybeast --num_experts 4 on the C++ core,
    3 updates; and the MoE update's parity, kernels against plain, at f32
    and bf16_train as in 6.
+8. The pipelined families, their towers run sequentially (run after 7;
+   with --pipelined-only alone after the builds): the RMSprop tail on the
+   pipelined_transformer tree (4 layers, d_model 128, 4 heads, memory
+   64; 4.41 M params) at f32 and bf16_train and on the pipelined_mlp +
+   LSTM tree (4 stages of d_model 128), checked and timed as kernel rows
+   as in 3; TF32 off and cuDNN deterministic, the update graph at K=1
+   against eager updates bitwise as in 4, one eager update launching
+   V-trace 1 and the tail 1, its dispatch timed, and the update with the
+   kernels against its plain twin as in 6, for pipelined_transformer f32
+   and bf16_train and pipelined_mlp + LSTM f32; --remat all on the
+   pipelined transformer against the default plan (params after one
+   update bitwise, the same launches); the anakin pipelined_mlp
+   iteration graph on Catch against its eager twin as in 7; then, at the
+   training settings, monobeast on the same three (3 updates each, the
+   launch checks of 5), polybeast pipelined_transformer on the C++ core
+   (3 updates, SPS and update interval), and the converter: monobeast
+   --model pipelined_transformer --pipeline_stages 2 for 3 updates, its
+   checkpoint turned to the sequential layout (utils/convert.py), whose
+   weights give --model transformer --attention_impl pallas the
+   pipelined model's logits on one batch (2 attention launches, TF32
+   off, within DENSE_VS_KERNEL), then resumed by monobeast as that
+   transformer for one more update with every transformer kernel
+   launched.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -207,7 +231,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # The slice's shape and random batch, shared with the port's profiler.
 from torchbeast_tpu_torch.profile_update import (  # noqa: E402
-    B, NUM_ACTIONS, T, polybeast_argv, random_batch, random_cache)
+    B, MODEL_CONFIGS, NUM_ACTIONS, T, polybeast_argv, random_batch,
+    random_cache)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, and the rate
 # of operations on the operands' type: f32 outside the tensor cores, bf16
@@ -488,7 +513,9 @@ def check_pool(ops, dev, dtype=torch.float32):
 
 
 def _param_tree(dev, name="deep", policy="f32", **levers):
-    """A model of the slice at full width, random from seed 0, built at
+    """A model of profile_update.MODEL_CONFIGS (deep + LSTM, the
+    transformer with the attention kernel, the pipelined transformer, the
+    pipelined MLP + LSTM) at full width, random from seed 0, built at
     the precision `policy` (its params cast to the resident dtype) with
     the remat `levers` (runtime/remat_plan.model_kwargs), and a copy of
     its parameters."""
@@ -497,14 +524,19 @@ def _param_tree(dev, name="deep", policy="f32", **levers):
 
     pol = precision.get(policy)
     torch.manual_seed(0)
-    kw = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype, **levers)
-    if name == "deep":
-        model = create_model("deep", NUM_ACTIONS, use_lstm=True, **kw)
-    else:
-        model = create_model("transformer", NUM_ACTIONS,
-                             attention_impl="pallas", **kw)
+    model = create_model(name, NUM_ACTIONS, **MODEL_CONFIGS[name],
+                         dtype=pol.compute_dtype, head_dtype=pol.head_dtype,
+                         **levers)
     model = precision.cast_params(model.to(dev), pol)
     return model, [p.detach().clone() for p in model.parameters()]
+
+
+def _agent_state(model, name, dev):
+    """The update's agent state: a random cache about 70% valid for the
+    transformer families, the zero LSTM state otherwise."""
+    if "transformer" in name:
+        return random_cache(model, 0, dev)
+    return model.initial_state(B, dev)
 
 
 def kernels_per_call(fn, calls=5):
@@ -572,11 +604,11 @@ def check_opt(ops, dev, tree, policy="f32"):
                                     ("clip inactive", 1e-3, 0.0),
                                     ("momentum 0.9", 1.0, 0.9)):
         steps = 1 if momentum and not bf16 else 3
-        grads = [[(gscale * torch.randn(p.shape, generator=g_cpu)).to(
-            dev, p.dtype).contiguous(memory_format=(
-                torch.channels_last if p.dim() == 4
-                else torch.contiguous_format)) for p in params0]
-            for _ in range(steps)]
+        # Each gradient in its param's own layout (the trunk's convs are
+        # channels_last, the stacked [L, ...] leaves contiguous).
+        grads = [[torch.empty_like(p).copy_(
+            gscale * torch.randn(p.shape, generator=g_cpu))
+            for p in params0] for _ in range(steps)]
         runs = []
         for plain in (False, True):
             p, master, nu, mom = fresh(momentum)
@@ -1622,7 +1654,8 @@ def impact_batch(target_forward, batch, state):
             learner_lib.TARGET_BASELINE_KEY: baseline}
 
 
-def check_graph_update(dev, label, model_name, policy, k, impact=False):
+def check_graph_update(dev, label, model_name, policy, k, impact=False,
+                       per_update=None):
     """Two dispatches of the learner's CUDA graph (learner.
     make_update_dispatch: K updates a replay) against 2K eager updates
     (update_body) of a copy from the same state, on the same batches,
@@ -1630,9 +1663,11 @@ def check_graph_update(dev, label, model_name, policy, k, impact=False):
     off and cuDNN deterministic, params, nu, the master and every stat
     must be bitwise equal, and the device count must read 2K. One
     replay, profiled: the host's API calls and the port kernels it ran,
-    K times the eager update's. With `impact`, --loss impact: each batch
-    carries the outputs of a lagged target network (the same for both),
-    and the target forward's graph and the update's are timed."""
+    K times the eager update's, which must launch each kernel of
+    `per_update` as often as it says. With `impact`, --loss impact: each
+    batch carries the outputs of a lagged target network (the same for
+    both), and the target forward's graph and the update's are timed.
+    Returns the median ms of one dispatch (CUDA events)."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import nest, precision
 
@@ -1648,9 +1683,8 @@ def check_graph_update(dev, label, model_name, policy, k, impact=False):
                              loss="impact" if impact else "vtrace")
     opt_g = learner_lib.make_optimizer(hp, list(model_g.parameters()))
     opt_e = learner_lib.make_optimizer(hp, list(model_e.parameters()))
-    state = (model_g.initial_state(B, dev) if model_name == "deep"
-             else random_cache(model_g, 0, dev))
-    state = precision.cast_batch(state, pol.batch_dtype)
+    state = precision.cast_batch(_agent_state(model_g, model_name, dev),
+                                 pol.batch_dtype)
     batches = [precision.cast_batch(random_batch(i, dev), pol.batch_dtype)
                for i in range(2 * k)]
     if impact:
@@ -1697,6 +1731,13 @@ def check_graph_update(dev, label, model_name, policy, k, impact=False):
     check(calls.get("cudaGraphLaunch", 0) == 1,
           f"{label} K={k}: {calls.get('cudaGraphLaunch', 0)} graph launches "
           "in one dispatch")
+    expected = dict(per_update or {})
+    if impact:
+        expected.update(vtrace_targets=1, rmsprop_tail=1, pool_bwd=3)
+    for w, n in expected.items():
+        check(eager_kernels[w] == n,
+              f"{label}: one eager update ran {eager_kernels[w]} {w} "
+              f"kernels, not {n}")
     print(f"graph update {label} K={k}: 2 dispatches bitwise equal to "
           f"{2 * k} eager updates ({len(pairs)} tensors, {len(want[0])} "
           f"stats; TF32 off, cuDNN deterministic); one dispatch: "
@@ -1704,11 +1745,6 @@ def check_graph_update(dev, label, model_name, policy, k, impact=False):
           f"{sum(eager_calls.values())} for one eager update; port kernels "
           f"per replay { {w: n for w, n in kernels.items() if n} }")
     if impact:
-        for w, n in (("vtrace_targets", 1), ("rmsprop_tail", 1),
-                     ("pool_bwd", 3)):
-            check(eager_kernels[w] == n,
-                  f"{label}: one eager update ran {eager_kernels[w]} {w} "
-                  f"kernels, not {n}")
         graph_forward = learner_lib.make_target_forward(target, k)
         stacked = inputs(0)
         update_ms = time_ms(lambda: dispatch(*stacked)) / k
@@ -1717,6 +1753,8 @@ def check_graph_update(dev, label, model_name, policy, k, impact=False):
               f"graph {target_ms:.3f} ms, update graph {update_ms:.3f} "
               f"ms; the target's share of the two "
               f"{target_ms / (target_ms + update_ms):.3f}")
+        return update_ms
+    return time_ms(lambda: dispatch(*inputs(0))) / k
 
 
 def check_graph_target(dev):
@@ -1943,7 +1981,8 @@ def check_graph_replica(dev):
 # (nu of block_0.k.bias at bf16_compute, a gradient near 0 in exact
 # arithmetic), its stats within rtol 1e-2 (largest gap 1.77).
 PARITY_BF16 = {"deep+LSTM": (1e-5, 1e-5), "transformer": (3e-2, 1e-2),
-               "transformer num_experts 8": (3e-2, 1e-2)}
+               "transformer num_experts 8": (3e-2, 1e-2),
+               "pipelined_transformer": (3e-2, 1e-2)}
 
 
 def _norm_rel(a, b):
@@ -2070,7 +2109,8 @@ def check_remat_update(ops, dev, model_name, policy, label, spec):
     from torchbeast_tpu_torch.runtime import remat_plan
 
     pol = precision.get(policy)
-    assignment, levers = remat_levers(model_name, model_name == "deep", spec)
+    assignment, levers = remat_levers(
+        model_name, MODEL_CONFIGS[model_name].get("use_lstm", False), spec)
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas",
                              param_dtype=pol.param_dtype,
@@ -2091,9 +2131,8 @@ def check_remat_update(ops, dev, model_name, policy, label, spec):
     left = _free_card() - first
     model, _ = _param_tree(dev, model_name, policy, **levers)
     optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
-    state = (model.initial_state(B, dev) if model_name == "deep"
-             else random_cache(model, 0, dev))
-    state = precision.cast_batch(state, pol.batch_dtype)
+    state = precision.cast_batch(_agent_state(model, model_name, dev),
+                                 pol.batch_dtype)
     batch = precision.cast_batch(random_batch(0, dev), pol.batch_dtype)
     dispatch = learner_lib.make_update_dispatch(model, optimizer, hp)
     dispatch.capture(batch, state)
@@ -2110,17 +2149,19 @@ def check_remat_update(ops, dev, model_name, policy, label, spec):
             "assignment": remat_plan.spell(assignment)}
 
 
-def run_remat_graphs(ops, dev):
+def run_remat_graphs(ops, dev, plans=REMAT_PLANS):
     """4r (TF32 off, cuDNN deterministic, TBT_POOL_PALLAS=1): each plan of
-    REMAT_PLANS on the deep + LSTM model at f32 and bf16_train and on the
-    transformer with --attention_impl pallas, one line each. Every plan's
-    params after one update must equal the default's bitwise, its
-    launches per update be the default's (the transformer's attention
-    forwards 2 -> 4 under blocks=all, its backwards 2), and the deep
-    model's `all` must peak below its default. Returns {(model, policy):
-    {plan: result}}."""
+    `plans` (REMAT_PLANS: the deep + LSTM model at f32 and bf16_train and
+    the transformer with --attention_impl pallas; phase 8: the pipelined
+    transformer), one line each. Every plan's params after one update
+    must equal the default's bitwise, its launches per update be the
+    default's (the transformer's attention forwards 2 -> 4 under
+    blocks=all, its backwards 2), and the deep model's `all` must peak
+    below its default. Returns {(model, policy): {plan: result}}."""
     want = {"deep": {"default": {"vtrace_targets": 1, "rmsprop_tail": 1,
                                  "pool_bwd": 3}},
+            "pipelined_transformer": {"default": {"vtrace_targets": 1,
+                                                  "rmsprop_tail": 1}},
             "transformer": {
                 "default": {"vtrace_targets": 1, "rmsprop_tail": 1,
                             "transformer_attention": 2,
@@ -2129,11 +2170,11 @@ def run_remat_graphs(ops, dev):
                         "transformer_attention": 4,
                         "transformer_attention_bwd": 2}}}
     results = {}
-    for (model_name, policy), plans in REMAT_PLANS.items():
-        label = ("deep+LSTM" if model_name == "deep" else
-                 "transformer") + ("" if policy == "f32" else f" {policy}")
+    for (model_name, policy), model_plans in plans.items():
+        label = ({"deep": "deep+LSTM"}.get(model_name, model_name)
+                 + ("" if policy == "f32" else f" {policy}"))
         got = results[(model_name, policy)] = {}
-        for plan, spec in plans:
+        for plan, spec in model_plans:
             r = got[plan] = check_remat_update(ops, dev, model_name, policy,
                                                label, spec)
             base = got["default"]
@@ -2557,45 +2598,6 @@ MOE_PATHS = (
 )
 
 
-def run_polybeast_moe(ops, savedir):
-    """polybeast --model transformer --num_experts 4 on the C++ core
-    (--native_runtime), 16 Mock env servers, T=80, B=32, V-trace and the
-    tail on: three updates, each launching both, a non-zero aux_loss,
-    finite losses, HEALTHY."""
-    from torchbeast_tpu_torch import polybeast
-
-    label = "polybeast transformer num_experts 4 native runtime"
-    xpid = "chip_smoke_polybeast_moe"
-    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
-    argv = polybeast_argv(savedir, xpid)
-    argv.remove("--use_lstm")
-    argv[argv.index("deep")] = "transformer"
-    argv[argv.index("--no_native_runtime")] = "--native_runtime"
-    ops.reset_launch_counts()
-    t0 = time.time()
-    stats = polybeast.train(polybeast.make_parser().parse_args(argv + [
-        "--num_experts", "4", "--total_steps", str(3 * T * B)]))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
-    updates = stats["updates"]
-    check(updates >= 3, f"{label}: {updates} updates")
-    for name in ("vtrace_targets", "rmsprop_tail"):
-        check(counts[name] >= updates, f"{label}: {counts[name]} {name} "
-                                       f"launches in {updates} updates")
-    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
-                "grad_norm"):
-        check(np.isfinite(stats[key]), f"{label} loss stat {key}")
-    check(stats["aux_loss"] > 0, f"{label}: aux_loss {stats['aux_loss']}")
-    check(stats["health"] == "HEALTHY" and stats["runtime"] == "native",
-          f"{label}: health {stats['health']}, runtime {stats['runtime']}")
-    print(f"{label} 84x84x4 T={T} B={B}: {updates} updates in {wall:.1f} s; "
-          f"SPS {stats['sps']:.1f}; median update interval "
-          f"{stats['update_interval_ms_median']:.2f} ms; aux_loss "
-          f"{stats['aux_loss']:.4g}; launches {counts}")
-    return {label: (counts, bf16)}
-
-
 def run_anakin_phases(ops, dev, savedir, tf32):
     """--anakin-only: this slice's phases alone, after the builds: the
     pool kernel at the device envs' shapes (returned as a kernel row),
@@ -2619,7 +2621,9 @@ def run_anakin_phases(ops, dev, savedir, tf32):
         by_path.update(run_anakin(ops, savedir, *run))
     for path in MOE_PATHS:
         by_path[path[0]] = run_main_path(ops, savedir, path)
-    by_path.update(run_polybeast_moe(ops, savedir))
+    by_path.update(run_polybeast_core(
+        ops, savedir, "polybeast transformer num_experts 4 native runtime",
+        ["--model", "transformer"], ["--num_experts", "4"]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -2682,6 +2686,224 @@ def run_impact_phases(ops, dev, savedir, tf32):
                             model.initial_state(B, dev), policy, impact=True)
 
 
+# ------------------------------------------------------------- pipelined
+
+# Phase 8: the pipelined families at full width, their towers run
+# sequentially (pipelined_transformer: 4 layers, d 128, 4 heads, memory
+# 64; pipelined_mlp + LSTM: 4 stages of d 128). Their updates launch
+# V-trace and the tail, once each; the transformer's dense attention
+# reaches no kernel.
+PIPELINED_KERNELS = ("vtrace_targets", "rmsprop_tail")
+PER_UPDATE = {"vtrace_targets": 1, "rmsprop_tail": 1}
+PP_TRANSFORMER_ARGS = ["--model", "pipelined_transformer"]
+PP_MLP_ARGS = ["--model", "pipelined_mlp", "--use_lstm"]
+# (label, model, precision policy) of the graph and parity checks, and
+# the monobeast paths of the same three (labelled with their policy).
+PIPELINED_MODELS = (
+    ("pipelined_transformer", "pipelined_transformer", "f32"),
+    ("pipelined_transformer", "pipelined_transformer", "bf16_train"),
+    ("pipelined_mlp+LSTM", "pipelined_mlp", "f32"),
+)
+
+
+def _with_policy(label, policy):
+    return label if policy == "f32" else f"{label} {policy}"
+
+
+PIPELINED_PATHS = tuple(
+    (_with_policy(label, policy),
+     PP_TRANSFORMER_ARGS if "transformer" in name else PP_MLP_ARGS,
+     PIPELINED_KERNELS, policy, 3)
+    for label, name, policy in PIPELINED_MODELS)
+# A model's logits with the attention kernel against the dense body (f32,
+# TF32 off): PERF.md section 2.
+DENSE_VS_KERNEL = dict(rtol=1e-4, atol=1e-5)
+
+
+def run_polybeast_core(ops, savedir, label, model_args, extra=()):
+    """polybeast on the C++ core (--native_runtime), 16 Mock env servers,
+    T=80, B=32, V-trace and the tail on, `model_args` and `extra` in
+    place of deep + LSTM: three updates, each launching both, finite
+    losses (with --num_experts, a non-zero aux_loss), HEALTHY. Prints SPS
+    and the median update interval; returns the launch counts."""
+    from torchbeast_tpu_torch import polybeast
+
+    xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid)
+    at = argv.index("--model")
+    del argv[at:at + 2]
+    argv.remove("--use_lstm")
+    argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    ops.reset_launch_counts()
+    t0 = time.time()
+    stats = polybeast.train(polybeast.make_parser().parse_args(
+        argv + list(model_args) + list(extra)
+        + ["--total_steps", str(3 * T * B)]))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    updates = stats["updates"]
+    check(updates >= 3, f"{label}: {updates} updates")
+    for name in ("vtrace_targets", "rmsprop_tail"):
+        check(counts[name] >= updates, f"{label}: {counts[name]} {name} "
+                                       f"launches in {updates} updates")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(np.isfinite(stats[key]), f"{label} loss stat {key}")
+    if "--num_experts" in extra:
+        check(stats["aux_loss"] > 0, f"{label}: aux_loss {stats['aux_loss']}")
+    check(stats["health"] == "HEALTHY" and stats["runtime"] == "native",
+          f"{label}: health {stats['health']}, runtime {stats['runtime']}")
+    print(f"{label} 84x84x4 T={T} B={B}: {updates} updates in {wall:.1f} s; "
+          f"SPS {stats['sps']:.1f}; median update interval "
+          f"{stats['update_interval_ms_median']:.2f} ms; aux_loss "
+          f"{stats['aux_loss']:.4g}; launches {counts}")
+    return {label: (counts, bf16)}
+
+
+def run_converted_resume(ops, dev, savedir):
+    """The converter on the card: monobeast --model pipelined_transformer
+    --pipeline_stages 2 trains 3 updates (a main path: V-trace and the
+    tail launched) and checkpoints; utils/convert.py turns the file to
+    the sequential layout; that checkpoint drives --model transformer
+    --attention_impl pallas to the pipelined model's logits on one batch
+    (TF32 off, within DENSE_VS_KERNEL), through the attention kernel;
+    then monobeast resumes from it as the transformer for one more
+    update. Returns the two runs' launch counts."""
+    from torchbeast_tpu_torch import monobeast
+    from torchbeast_tpu_torch.models import create_model
+    from torchbeast_tpu_torch.utils.checkpoint import load_params
+    from torchbeast_tpu_torch.utils.convert import convert_checkpoint
+
+    label = "pipelined_transformer pipeline_stages 2"
+    by_path = {label: run_main_path(ops, savedir, (
+        label, PP_TRANSFORMER_ARGS + ["--pipeline_stages", "2"],
+        PIPELINED_KERNELS, "f32", 3))}
+    source = os.path.join(savedir,
+                          "chip_smoke_" + re.sub(r"\W+", "_", label),
+                          "model.ckpt")
+    xpid = "chip_smoke_converted_transformer"
+    target = os.path.join(savedir, xpid, "model.ckpt")
+    shutil.rmtree(os.path.dirname(target), ignore_errors=True)
+    t0 = time.time()
+    convert_checkpoint(source, target, "sequential")
+    convert_s = time.time() - t0
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipelined = create_model("pipelined_transformer", NUM_ACTIONS,
+                             num_layers=2).to(dev)
+    sequential = create_model("transformer", NUM_ACTIONS,
+                              attention_impl="pallas").to(dev)
+    load_params(source, pipelined)
+    load_params(target, sequential)
+    batch, state = random_batch(0, dev), random_cache(pipelined, 0, dev)
+    inputs = {k: batch[k] for k in ("frame", "reward", "done",
+                                    "last_action")}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        want, _ = pipelined(inputs, state, sample_action=False)
+        attention_before = ops.launch_counts()["transformer_attention"]
+        got, _ = sequential(inputs, state, sample_action=False)
+    torch.cuda.synchronize()
+    launched = (ops.launch_counts()["transformer_attention"]
+                - attention_before)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    err, ok = close(got.policy_logits, want.policy_logits,
+                    DENSE_VS_KERNEL["rtol"], DENSE_VS_KERNEL["atol"])
+    check(attention_before == 0 and launched == 2,
+          f"converted: attention launches {attention_before} on the "
+          f"pipelined forward, {launched} on the converted one")
+    check(ok and torch.equal(got.action, want.action),
+          f"converted checkpoint: logits max |err| {err} against the "
+          "pipelined model's")
+    print(f"converted checkpoint (convert {convert_s:.2f} s): the "
+          f"transformer with --attention_impl pallas ({launched} attention "
+          f"launches) gives the pipelined model's logits on one T={T + 1}, "
+          f"B={B} batch, max |err| {err:.3g} (rtol "
+          f"{DENSE_VS_KERNEL['rtol']}, atol {DENSE_VS_KERNEL['atol']}), "
+          "argmax actions equal")
+
+    lines = _Lines()
+    logging.getLogger("torchbeast_tpu_torch").addHandler(lines)
+    logging.getLogger("torchbeast_tpu_torch").setLevel(logging.INFO)
+    ops.reset_launch_counts()
+    try:
+        stats = monobeast.train(monobeast.make_parser().parse_args([
+            "--env", "Mock", "--num_actors", str(B), *TRANSFORMER_ARGS,
+            "--batch_size", str(B), "--unroll_length", str(T),
+            "--vtrace_impl", "pallas", "--opt_impl", "pallas",
+            "--serial_envs", "--total_steps", str(4 * T * B), "--savedir",
+            savedir, "--xpid", xpid]))
+    finally:
+        logging.getLogger("torchbeast_tpu_torch").removeHandler(lines)
+    torch.cuda.synchronize()
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    check(any(line.startswith("Resuming preempted job") for line in
+              lines.lines) and stats["step"] == 4 * T * B,
+          f"converted: the resume reached step {stats['step']}")
+    for name in TRANSFORMER_KERNELS:
+        check(counts[name] >= 1, f"converted resume: {name} launched "
+                                 f"{counts[name]} times")
+    check(np.isfinite(stats["total_loss"]),
+          f"converted resume: total_loss {stats['total_loss']}")
+    print(f"converted checkpoint resumed as --model transformer "
+          f"--attention_impl pallas from step {3 * T * B} to {stats['step']}; "
+          f"launches {counts}")
+    by_path["converted transformer resume"] = (counts, bf16)
+    return by_path
+
+
+def run_pipelined_phases(ops, dev, savedir, tf32):
+    """Phase 8 (--pipelined-only alone after the builds): the tail on the
+    pipelined trees as kernel rows; TF32 off and cuDNN deterministic, the
+    update graph against its eager twin and the kernels against their
+    plain versions for each of PIPELINED_MODELS, --remat all against the
+    default on the pipelined transformer, and the anakin pipelined_mlp
+    iteration graph; then at the training settings the monobeast paths,
+    polybeast pipelined_transformer on the core, and the converted
+    checkpoint. Returns (the kernel rows, the paths' launch counts)."""
+    t0 = time.time()
+    rows = [check_opt(ops, dev, "pipelined_transformer"),
+            check_opt(ops, dev, "pipelined_transformer", "bf16_train"),
+            check_opt(ops, dev, "pipelined_mlp")]
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    by_path = {}
+    for label, name, policy in PIPELINED_MODELS:
+        ms = check_graph_update(dev, _with_policy(label, policy), name,
+                                policy, 1, per_update=PER_UPDATE)
+        print(f"graph update {_with_policy(label, policy)}: {ms:.3f} ms a "
+              "dispatch (median of 20, TF32 off)")
+        model, _ = _param_tree(dev, name, policy)
+        check_update_parity(ops, dev, label, model,
+                            _agent_state(model, name, dev), policy)
+        del model
+        torch.cuda.empty_cache()
+    run_remat_graphs(ops, dev, {("pipelined_transformer", "f32"): (
+        ("default", None), ("all", "all"))})
+    by_path.update(check_anakin_graph(ops, dev, "anakin pipelined_mlp Catch",
+                                      ["--model", "pipelined_mlp"]))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    for path in PIPELINED_PATHS:
+        by_path[path[0]] = run_main_path(ops, savedir, path)
+    by_path.update(run_polybeast_core(
+        ops, savedir, "polybeast pipelined_transformer native runtime",
+        PP_TRANSFORMER_ARGS))
+    by_path.update(run_converted_resume(ops, dev, savedir))
+    print(f"phase 8 (pipelined families): {time.time() - t0:.1f} s")
+    return rows, by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -2701,8 +2923,10 @@ def main(argv):
     impact_only = argv == ["--impact-only"]
     remat_only = argv == ["--remat-only"]
     anakin_only = argv == ["--anakin-only"]
+    pipelined_only = argv == ["--pipelined-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
-                     or impact_only or remat_only or anakin_only):
+                     or impact_only or remat_only or anakin_only
+                     or pipelined_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2786,6 +3010,11 @@ def main(argv):
         tally_launches([row], by_path)
         print(json.dumps({"kernels": [row]}))
         return 0
+    if pipelined_only:
+        rows, by_path = run_pipelined_phases(ops, dev, savedir, tf32)
+        tally_launches(rows, by_path)
+        print(json.dumps({"kernels": rows}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -2840,6 +3069,9 @@ def main(argv):
     row, anakin_paths = run_anakin_phases(ops, dev, savedir, tf32)
     kernels.append(row)
     by_path.update(anakin_paths)
+    rows, pipelined_paths = run_pipelined_phases(ops, dev, savedir, tf32)
+    kernels.extend(rows)
+    by_path.update(pipelined_paths)
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

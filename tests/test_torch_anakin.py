@@ -196,8 +196,8 @@ def _argv(tmp_path, xpid, *extra):
 @pytest.mark.parametrize("extra,error,match", [
     (["--num_devices", "2"], NotImplementedError,
      "Queue 1 item 'data parallel and the fleet'"),
-    (["--model", "pipelined_mlp"], NotImplementedError,
-     "Queue 1 item 'the transformer family'"),
+    (["--model", "pipelined_mlp", "--num_devices", "2"], NotImplementedError,
+     "Queue 1 item 'data parallel and the fleet'"),
     (["--num_experts", "4"], ValueError,
      "--num_experts applies to --model transformer only"),
 ])

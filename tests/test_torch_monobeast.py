@@ -88,8 +88,12 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--device_split", "auto"], "data parallel and the fleet"),
     (["--num_learner_devices", "2"], "data parallel"),
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], "data parallel"),
-    (["--model", "pipelined_transformer"], "transformer"),
-    (["--sequence_parallel", "2"], "transformer"),
+    # The pipelined and sequence-parallel transformer across devices.
+    pytest.param(["--model", "pipelined_transformer", "--pipeline_parallel",
+                  "2"], "data parallel and the fleet",
+                 id="args3-transformer"),
+    pytest.param(["--sequence_parallel", "2"], "data parallel and the fleet",
+                 id="args4-transformer"),
     (["--num_experts", "4", "--expert_parallel", "2"], "data parallel"),
 ])
 def test_features_outside_the_port_raise(tmp_path, args, item):

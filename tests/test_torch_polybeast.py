@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 from torchbeast_tpu import polybeast as jax_polybeast
-from torchbeast_tpu_torch import polybeast
+from torchbeast_tpu_torch import monobeast, polybeast
 from torchbeast_tpu_torch.utils import serialization
 from tests.test_torch_monobeast import _actions
 from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
@@ -195,10 +195,19 @@ def _not_default(parser, dest):
     return [flag, "x"]
 
 
-@pytest.mark.parametrize("dest", sorted(polybeast.NOT_IN_PORT))
+@pytest.mark.parametrize("dest", sorted(
+    [*polybeast.NOT_IN_PORT, *monobeast.SEQUENCE_PARALLEL_ONLY]))
 def test_features_outside_the_port_raise(tmp_path, dest):
+    """A flag of a feature outside the port raises NotImplementedError
+    naming its ROADMAP item; a sequence-parallel option without
+    --sequence_parallel > 1 raises the reference's ValueError."""
     parser = polybeast.make_parser()
     flags = parser.parse_args(_args(tmp_path) + _not_default(parser, dest))
+    if dest in monobeast.SEQUENCE_PARALLEL_ONLY:
+        with pytest.raises(ValueError,
+                           match="only takes effect with --sequence_parallel"):
+            polybeast.main(flags)
+        return
     with pytest.raises(NotImplementedError,
                        match=polybeast.NOT_IN_PORT[dest]):
         polybeast.main(flags)

@@ -28,9 +28,10 @@ The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. The trainer runs on the first
 CUDA device; without one it raises, unless --disable_cuda asks for the
 CPU. --num_devices > 1 raises NotImplementedError (ROADMAP.md Queue 1
-item 'data parallel and the fleet'), and so does --model pipelined_mlp
-('the transformer family'). --num_experts N makes the transformer's FFN
-a mixture of N experts (models/moe.py) whose load-balance loss joins the
+item 'data parallel and the fleet'). --model pipelined_mlp runs its stage
+tower sequentially at its default depth (models/pipelined.py), as the
+reference's anakin does. --num_experts N makes the transformer's FFN a
+mixture of N experts (models/moe.py) whose load-balance loss joins the
 objective.
 
 The checkpoint {savedir}/{xpid}/model.ckpt is the reference's file

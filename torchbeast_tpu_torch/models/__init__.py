@@ -1,14 +1,16 @@
 """Model registry (counterpart of torchbeast_tpu/models/__init__.py).
 
-`create_model("shallow"|"deep"|"mlp"|"transformer", ...)`: monobeast's
-AtariNet, polybeast's deep ResNet, the MLP policy and the transformer
-policy. Unlike flax,
+`create_model(name, ...)` for every family of the reference's registry:
+monobeast's AtariNet ("shallow"), polybeast's deep ResNet ("deep"), the
+MLP policy ("mlp"), the transformer policy ("transformer") and the two
+stage-stacked families ("pipelined_mlp", "pipelined_transformer"), which
+run their stage towers sequentially on one device. Unlike flax,
 a torch module sizes its first layer at construction, so the frame shape
 ([H, W, C]) is an argument. `dtype` (the trunk's compute dtype) and
 `head_dtype` (the core's and heads') come from the precision policy
 (torchbeast_tpu_torch/precision.py). The remat levers (runtime/remat_plan.py
-model_kwargs: `remat` of the deep trunk and the transformer, `core_remat`
-of the LSTM core) pass through `kwargs` to the model, and so do the
+model_kwargs: `remat` of the deep trunk and the transformer families,
+`core_remat` of the LSTM core) pass through `kwargs` to the model, and so do the
 transformer's `num_experts` and `moe_top_k` (models/moe.py), which no
 other family takes.
 """
@@ -18,9 +20,15 @@ import torch
 from torchbeast_tpu_torch.models.atari_net import AtariNet  # noqa: F401
 from torchbeast_tpu_torch.models.cores import LSTMCore  # noqa: F401
 from torchbeast_tpu_torch.models.mlp import MLPNet  # noqa: F401
+from torchbeast_tpu_torch.models.pipelined import (  # noqa: F401
+    PipelinedMLPNet,
+)
 from torchbeast_tpu_torch.models.resnet import ResNet  # noqa: F401
 from torchbeast_tpu_torch.models.transformer import (  # noqa: F401
     TransformerNet,
+)
+from torchbeast_tpu_torch.models.transformer_pp import (  # noqa: F401
+    PipelinedTransformerNet,
 )
 
 _REGISTRY = {
@@ -29,15 +37,14 @@ _REGISTRY = {
     "deep": ResNet,
     "resnet": ResNet,
     "mlp": MLPNet,
+    "pipelined_mlp": PipelinedMLPNet,
     "transformer": TransformerNet,
+    "pipelined_transformer": PipelinedTransformerNet,
 }
 
 # Reference families the port does not have yet -> the ROADMAP item that
 # brings each.
-NOT_PORTED = {
-    "pipelined_mlp": "the transformer family",
-    "pipelined_transformer": "the transformer family",
-}
+NOT_PORTED = {}
 
 
 def create_model(name: str, num_actions: int, use_lstm: bool = False,
@@ -59,7 +66,7 @@ def create_model(name: str, num_actions: int, use_lstm: bool = False,
             "--num_experts applies to --model transformer only (the "
             "conv/MLP families have no MoE formulation)"
         )
-    if cls is TransformerNet and use_lstm:
+    if cls in (TransformerNet, PipelinedTransformerNet) and use_lstm:
         raise ValueError(
             "--use_lstm does not apply to the transformer family (its "
             "memory is the KV cache); drop the flag"

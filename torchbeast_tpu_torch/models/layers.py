@@ -10,8 +10,15 @@ than leaving the choice to torch.autocast's own op lists.
 `Dense` and `Conv` are nn.Linear and nn.Conv2d whose fresh weights are
 drawn as flax's Dense and Conv draw theirs (models/init.py).
 
+`promoted_einsum` and `layer_norm_of` serve the pipelined families
+(models/pipelined.py, models/transformer_pp.py), whose stage functions
+work on explicit slices of stacked parameters rather than on layers: a
+product in the promoted type of its operands, as `jnp.einsum` and `@`
+promote (torch's raise on mixed dtypes), and a LayerNorm from a scale and
+a bias.
+
 `checkpointed` is the port's flax `nn.remat`: the remat levers of the
-models (the trunk stages, the LSTM step, the transformer block) call
+models (the trunk stages, the LSTM step, the transformer blocks) call
 through it.
 """
 
@@ -76,6 +83,20 @@ def layer_norm(layer: nn.LayerNorm, x):
     return F.layer_norm(x.to(dtype), layer.normalized_shape,
                         _cast(layer.weight, dtype), _cast(layer.bias, dtype),
                         layer.eps)
+
+
+def promoted_einsum(equation: str, x, w):
+    """torch.einsum of x and w in their promoted type."""
+    dtype = _promoted(x, w)
+    return torch.einsum(equation, x.to(dtype), w.to(dtype))
+
+
+def layer_norm_of(x, scale, bias, eps: float):
+    """LayerNorm of x over its last axis with `scale` and `bias`, in the
+    promoted type of the three."""
+    dtype = _promoted(x, scale, bias)
+    return F.layer_norm(x.to(dtype), scale.shape, scale.to(dtype),
+                        bias.to(dtype), eps)
 
 
 def checkpointed(fn, *args):

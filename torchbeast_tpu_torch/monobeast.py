@@ -19,6 +19,14 @@ is reported as aux_loss; the routing stays f32 under every precision
 policy. --expert_parallel > 1 (experts sharded over devices) raises
 NotImplementedError.
 
+--model pipelined_mlp and --model pipelined_transformer (models/
+pipelined.py, models/transformer_pp.py) run their stage-stacked towers
+sequentially on one device, as the reference does without
+--pipeline_parallel; --pipeline_stages sets the tower's depth (the MLP's
+stages, the transformer's layers). --pipeline_parallel and
+--sequence_parallel at 0 or 1 are the single-device run; above 1, and
+--pipeline_microbatches set at all, they raise NotImplementedError.
+
 --loss impact trains the IMPACT surrogate (ops/impact.py) against a
 target network (learner.TargetNetwork) refreshed every
 --target_refresh_updates updates, and --replay_reuse K' dispatches each
@@ -138,9 +146,11 @@ def make_parser():
                         choices=["shallow", "deep", "mlp", "pipelined_mlp",
                                  "transformer", "pipelined_transformer"],
                         help="Model family: shallow (AtariNet), deep "
-                             "(IMPALA ResNet), mlp or transformer "
-                             "(KV-cache attention); the pipelined ones "
-                             + _LATER)
+                             "(IMPALA ResNet), mlp, transformer "
+                             "(KV-cache attention), or the stage-stacked "
+                             "pipelined_mlp and pipelined_transformer "
+                             "(their towers run sequentially on one "
+                             "device).")
     parser.add_argument("--use_lstm", action="store_true",
                         help="Use LSTM in the agent model.")
     parser.add_argument("--precision", default="f32",
@@ -171,13 +181,16 @@ def make_parser():
                              "materialized mask) or 'pallas' (the CUDA "
                              "kernels csrc/attention.cu).")
     parser.add_argument("--sequence_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="0 or 1: one device; > 1 " + _LATER)
     parser.add_argument("--pipeline_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="0 or 1: one device; > 1 " + _LATER)
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
                         help=_LATER)
     parser.add_argument("--pipeline_stages", type=int, default=0,
-                        help=_LATER)
+                        help="Tower depth of the pipelined families "
+                             "(pipelined_mlp: stages, "
+                             "pipelined_transformer: layers); 0 keeps "
+                             "the model's default.")
     parser.add_argument("--num_experts", type=int, default=0,
                         help="Replace the transformer's FFN with a top-2 "
                              "mixture of N experts (model=transformer "
@@ -304,19 +317,57 @@ def make_parser():
 
 
 # Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
-# item that brings it. Each must stay at its parser default.
+# item that brings it. Each must stay at its parser default, except those
+# of ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
-    "sequence_parallel": "the transformer family",
-    "pipeline_parallel": "the transformer family",
-    "pipeline_microbatches": "the transformer family",
-    "pipeline_stages": "the transformer family",
-    "sp_strategy": "the transformer family",
-    "ring_schedule": "the transformer family",
+    "sequence_parallel": "data parallel and the fleet",
+    "pipeline_parallel": "data parallel and the fleet",
+    "pipeline_microbatches": "data parallel and the fleet",
     "num_learner_devices": "data parallel and the fleet",
     "device_split": "data parallel and the fleet",
     "fleet": "data parallel and the fleet",
     "min_live_hosts": "data parallel and the fleet",
 }
+
+
+# Device counts the reference treats alike at 0 and 1 (`> 1` gates every
+# multi-device branch): the port runs those on its one device.
+ONE_DEVICE_AT_MOST = ("sequence_parallel", "pipeline_parallel")
+
+# Sequence-parallel options, and the reference's refusal of each without
+# a `seq` mesh (monobeast.py:479-494), raised by both drivers.
+SEQUENCE_PARALLEL_ONLY = {
+    "ring_schedule": (
+        "contiguous",
+        "--ring_schedule only takes effect with --sequence_parallel > 1 "
+        "(no ring attention runs without a seq mesh)"),
+    "sp_strategy": (
+        "ring",
+        "--sp_strategy only takes effect with --sequence_parallel > 1 (no "
+        "sequence-parallel attention runs without a seq mesh)"),
+}
+
+
+def check_parallel_flags(flags, not_in_port) -> None:
+    """The reference's checks of the parallelism flags that one device can
+    answer: --ring_schedule and --sp_strategy away from their defaults
+    without --sequence_parallel > 1 raise its ValueError; then each flag
+    of `not_in_port` away from its parser default (above 1 for those of
+    ONE_DEVICE_AT_MOST) raises NotImplementedError naming its ROADMAP.md
+    item."""
+    if getattr(flags, "sequence_parallel", 0) <= 1:
+        for dest, (default, message) in SEQUENCE_PARALLEL_ONLY.items():
+            if getattr(flags, dest, default) != default:
+                raise ValueError(message)
+    for dest, (default, item) in not_in_port.items():
+        value = getattr(flags, dest, default)
+        if dest in ONE_DEVICE_AT_MOST and value <= 1:
+            continue
+        if value != default:
+            raise NotImplementedError(
+                f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
+                f"Queue 1 item '{item}'"
+            )
 
 
 def check_moe_flags(flags) -> None:
@@ -336,16 +387,13 @@ def check_moe_flags(flags) -> None:
 
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet."""
+    does not have yet, and the reference's errors for the parallelism
+    flags (check_parallel_flags)."""
     check_moe_flags(flags)
     defaults = make_parser().parse_args([])
-    for dest, item in NOT_IN_PORT.items():
-        value = getattr(flags, dest, getattr(defaults, dest))
-        if value != getattr(defaults, dest):
-            raise NotImplementedError(
-                f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
-                f"Queue 1 item '{item}'"
-            )
+    check_parallel_flags(flags, {
+        dest: (getattr(defaults, dest), item)
+        for dest, item in NOT_IN_PORT.items()})
 
 
 def select_device(flags) -> torch.device:
@@ -447,6 +495,23 @@ def _num_experts(flags):
     return {"num_experts": n} if n else {}
 
 
+PIPELINED_MODELS = ("pipelined_mlp", "pipelined_transformer")
+
+
+def _pipeline_stages(flags):
+    """--pipeline_stages as the pipelined family's depth kwarg, as the
+    reference keeps it without --pipeline_parallel (a silently different
+    stage count would make checkpoints shape-incompatible with a later
+    pipelined run)."""
+    if flags.model not in PIPELINED_MODELS:
+        return {}
+    n = getattr(flags, "pipeline_stages", 0)
+    if not n:
+        return {}
+    return {("num_layers" if flags.model == "pipelined_transformer"
+             else "num_stages"): n}
+
+
 def _create_model(flags, num_actions, frame_shape, device, **levers):
     policy = precision.resolve_flags(flags)
     with torch.random.fork_rng(devices=[]):
@@ -455,7 +520,8 @@ def _create_model(flags, num_actions, frame_shape, device, **levers):
             flags.model, num_actions=num_actions, use_lstm=flags.use_lstm,
             frame_shape=frame_shape, dtype=policy.compute_dtype,
             head_dtype=policy.head_dtype, **_trunk_channels(flags),
-            **_attention_impl(flags), **_num_experts(flags), **levers,
+            **_attention_impl(flags), **_num_experts(flags),
+            **_pipeline_stages(flags), **levers,
         )
     return precision.cast_params(model.to(device), policy)
 
@@ -489,6 +555,9 @@ def build_model(flags, num_actions, frame_shape, device):
     from the run's plan (resolve_remat_plan). Every model instance of a
     run is built here or copied from one that was."""
     plan = resolve_remat_plan(flags, num_actions, frame_shape, device)
+    if flags.model in PIPELINED_MODELS:
+        log.info("--model %s without --pipeline_parallel: the stage tower "
+                 "runs sequentially on one device", flags.model)
     return _create_model(
         flags, num_actions, frame_shape, device,
         **remat_plan.model_kwargs(flags.model, plan.assignment))

@@ -206,8 +206,11 @@ def make_parser():
     parser.add_argument("--model", default="deep",
                         choices=["shallow", "deep", "mlp", "pipelined_mlp",
                                  "transformer", "pipelined_transformer"],
-                        help="shallow (AtariNet), deep (IMPALA ResNet) or "
-                             "transformer; the others " + _LATER)
+                        help="shallow (AtariNet), deep (IMPALA ResNet), "
+                             "mlp, transformer, or the stage-stacked "
+                             "pipelined_mlp and pipelined_transformer "
+                             "(their towers run sequentially on one "
+                             "device, at their default depths).")
     parser.add_argument("--use_lstm", action="store_true")
     parser.add_argument("--precision", default="f32",
                         choices=["f32", "bf16_compute", "bf16_train"],
@@ -250,13 +253,13 @@ def make_parser():
     parser.add_argument("--max_server_restarts", type=int, default=10,
                         help="Respawn budget for dead env servers.")
     parser.add_argument("--sequence_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="0 or 1: one device; > 1 " + _LATER)
     parser.add_argument("--sp_strategy", default="ring",
                         choices=["ring", "ulysses"], help=_LATER)
     parser.add_argument("--ring_schedule", default="contiguous",
                         choices=["contiguous", "zigzag"], help=_LATER)
     parser.add_argument("--pipeline_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="0 or 1: one device; > 1 " + _LATER)
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
                         help=_LATER)
     parser.add_argument("--num_experts", type=int, default=0,
@@ -426,13 +429,12 @@ def make_parser():
 
 
 # Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
-# item that brings it. Each must stay at its parser default.
+# item that brings it. Each must stay at its parser default, except those
+# of monobeast.ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
-    "sequence_parallel": "the transformer family",
-    "sp_strategy": "the transformer family",
-    "ring_schedule": "the transformer family",
-    "pipeline_parallel": "the transformer family",
-    "pipeline_microbatches": "the transformer family",
+    "sequence_parallel": "data parallel and the fleet",
+    "pipeline_parallel": "data parallel and the fleet",
+    "pipeline_microbatches": "data parallel and the fleet",
     "tensor_parallel": "data parallel and the fleet",
     "num_learner_devices": "data parallel and the fleet",
     "coordinator_address": "data parallel and the fleet",
@@ -444,16 +446,13 @@ NOT_IN_PORT = {
 
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet."""
+    does not have yet, and the reference's errors for the parallelism
+    flags (monobeast.check_parallel_flags)."""
     monobeast.check_moe_flags(flags)
     defaults = make_parser().parse_args([])
-    for dest, item in NOT_IN_PORT.items():
-        value = getattr(flags, dest, getattr(defaults, dest))
-        if value != getattr(defaults, dest):
-            raise NotImplementedError(
-                f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
-                f"Queue 1 item '{item}'"
-            )
+    monobeast.check_parallel_flags(flags, {
+        dest: (getattr(defaults, dest), item)
+        for dest, item in NOT_IN_PORT.items()})
 
 
 def effective_replica_refresh_updates(flags) -> int:

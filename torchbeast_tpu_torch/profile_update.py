@@ -1,8 +1,11 @@
 """Where the time of the port's learner update and acting step goes on the
-GPU, at one of the port's two configurations, both with 84x84x4 frames,
-6 actions (MockEnv), T=80, B=32, --vtrace_impl pallas --opt_impl pallas:
-deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), or the
-transformer policy at full width with --attention_impl pallas; at the
+GPU, at one of the port's model configurations, each with 84x84x4
+frames, 6 actions (MockEnv), T=80, B=32, --vtrace_impl pallas --opt_impl
+pallas: deep ResNet + LSTM with TBT_POOL_PALLAS=1 (the default), the
+transformer policy at full width with --attention_impl pallas, or a
+pipelined family at its defaults, its tower run sequentially
+(pipelined_transformer: 4 layers, d_model 128, 4 heads, memory 64;
+pipelined_mlp + LSTM: 4 stages of d_model 128); at the
 precision policy --precision (default f32; bf16_train casts the params,
 the batch and the agent state as the driver does). `polybeast` traces
 the async driver instead (see polybeast_trace), on the Python pool or,
@@ -11,7 +14,8 @@ with --native_runtime, on the port's C++ runtime core, with
 the Anakin iteration graph instead (see anakin_profile).
 
     python -m torchbeast_tpu_torch.profile_update
-        [deep|transformer|polybeast|anakin]
+        [deep|transformer|pipelined_transformer|pipelined_mlp|polybeast
+         |anakin]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
         [--remat none|all|<spec>]
         [--native_runtime] [--num_inference_threads N]
@@ -30,7 +34,8 @@ one captured CUDA graph per learner dispatch of K updates
 limit), then one JSON line: the median update time (CUDA events around
 each dispatch, over its K updates), the median acting step time (host
 clock around one T=1, B=32 forward and the copy of its actions to the
-host; the transformer acts from a cache about 70% valid), the eager
+host; the transformer families act from a cache about 70% valid), the
+eager
 step's update and acting times in the same process for comparison, and
 from a torch.profiler window over UPDATES dispatches the host's CUDA API
 calls per dispatch by name (a graph replay is one), the device time per
@@ -137,6 +142,15 @@ def random_cache(model, seed, device):
                 rng.standard_normal(k.shape).astype(np.float32),
                 (rng.random(valid.shape) < 0.7).astype(np.float32))))
     return tuple(state)
+
+
+# The update's model configurations: create_model's kwargs at full width.
+MODEL_CONFIGS = {
+    "deep": {"use_lstm": True},
+    "transformer": {"attention_impl": "pallas"},
+    "pipelined_transformer": {},
+    "pipelined_mlp": {"use_lstm": True},
+}
 
 
 def remat_levers(model_name, use_lstm, spec=None):
@@ -561,9 +575,9 @@ def main(model_name="deep", policy="f32", superstep_k=1,
     if native_runtime or num_inference_threads != 2:
         raise ValueError("--native_runtime and --num_inference_threads "
                          "are polybeast's")
-    if model_name not in ("deep", "transformer"):
-        raise ValueError(f"model {model_name!r}: deep, transformer or "
-                         "polybeast")
+    if model_name not in MODEL_CONFIGS:
+        raise ValueError(f"model {model_name!r}: one of "
+                         f"{sorted(MODEL_CONFIGS)}, polybeast or anakin")
     os.environ["TBT_POOL_PALLAS"] = "1"
     device = torch.device("cuda", 0)
     card = _card()
@@ -571,22 +585,20 @@ def main(model_name="deep", policy="f32", superstep_k=1,
     pol = precision.get(policy)
     dtypes = dict(dtype=pol.compute_dtype, head_dtype=pol.head_dtype)
     torch.manual_seed(SEED)
-    assignment, levers = remat_levers(model_name, model_name == "deep",
-                                      remat)
+    model_kw = MODEL_CONFIGS[model_name]
+    use_lstm = model_kw.get("use_lstm", False)
+    assignment, levers = remat_levers(model_name, use_lstm, remat)
+    model = create_model(model_name, NUM_ACTIONS, **model_kw, **dtypes,
+                         **levers)
+    config = {"model": model_name, **model_kw}
     if model_name == "deep":
-        model = create_model("deep", NUM_ACTIONS, use_lstm=True, **dtypes,
-                             **levers)
-        config = {"model": "deep", "use_lstm": True, "pool_kernel": True}
-    else:
-        model = create_model("transformer", NUM_ACTIONS,
-                             attention_impl="pallas", **dtypes, **levers)
-        config = {"model": "transformer", "attention_impl": "pallas"}
+        config["pool_kernel"] = True
     config["remat"] = remat_plan.spell(assignment)
     model = precision.cast_params(model.to(device), pol)
-    if model_name == "deep":
-        state = model.initial_state(B, device)
-    else:
+    if "transformer" in model_name:
         state = random_cache(model, SEED, device)
+    else:
+        state = model.initial_state(B, device)
     hp = learner_lib.HParams(unroll_length=T, batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas",
                              param_dtype=pol.param_dtype,
@@ -733,8 +745,7 @@ def main(model_name="deep", policy="f32", superstep_k=1,
 def cli():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="deep",
-                        choices=["deep", "transformer", "polybeast",
-                                 "anakin"])
+                        choices=[*MODEL_CONFIGS, "polybeast", "anakin"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
     parser.add_argument("--superstep_k", type=int, default=1,

@@ -109,7 +109,7 @@ def load_checkpoint(
 ) -> Dict[str, Any]:
     """Restore onto templates (trees with the right structure, shapes and
     dtypes)."""
-    payload = _read(path)
+    payload = read_payload(path)
     out = {
         "params": restore(
             params_template,
@@ -279,7 +279,7 @@ def save_train_state(path: str, model, optimizer, *, step: int,
                     flags=flags, stats=stats)
 
 
-def _read(path: str) -> Dict[str, Any]:
+def read_payload(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         raw = f.read()
     if raw[:1] == b"\x80":  # pickle protocol-2+ magic; msgpack's 0x80 head
@@ -303,7 +303,7 @@ def load_params(path: str, model) -> Dict[str, Any]:
     """Restore only the params of a checkpoint into the module (--mode
     test: any optimizer's checkpoint of the same model and precision).
     Returns its step, flags and stats."""
-    payload = _read(path)
+    payload = read_payload(path)
     _load_params(model, restore(
         params_tree(model), serialization.msgpack_restore(payload["params"])))
     return {k: payload.get(k, {}) for k in ("step", "flags", "stats")}

@@ -20,7 +20,10 @@ submodules after the flax scopes). Per leaf:
   `out` kernel [H, hd, d] becomes the weight [d, H*hd]. Back to flax, H
   is the first dimension of the block's `rel_bias` [H, M+1].
 - LayerNorm `scale` is the port's `weight` (the only 1-D weight);
-  `rel_bias` crosses as it is.
+  `rel_bias` crosses as it is, and so does every other leaf: the MoE
+  experts' and the pipelined families' stacked `[L, ...]` leaves (`wq`,
+  `w_in`, `ln1_scale`, ...), which keep the reference's names and layout
+  (none is named `weight` or `kernel`), at any depth of the tree.
 
 Optimizer trees shaped like the params (RMSprop's nu, the momentum trace,
 the f32 master) convert with the same leaf map. flax's LSTM carry is
@@ -91,7 +94,7 @@ def jax_to_torch(tree) -> Dict[str, torch.Tensor]:
         elif path[-1] == "bias":
             out[key + ".bias"] = leaf.reshape(-1)
         else:
-            out[key + "." + path[-1]] = leaf
+            out[".".join(path)] = leaf
     for (prefix, layer), parts in lstm.items():
         out[f"{prefix}.weight_ih_l{layer}"] = np.concatenate(
             [parts[("i", g, "kernel")] for g in _GATES], axis=1
