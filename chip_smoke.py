@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
                            | --impact-only | --remat-only | --anakin-only
-                           | --pipelined-only]
+                           | --pipelined-only | --dp-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -204,6 +204,32 @@ exits non-zero without printing the final result line:
    off, within DENSE_VS_KERNEL), then resumed by monobeast as that
    transformer for one more update with every transformer kernel
    launched.
+9. The data-parallel learner (run after 8; with --dp-only alone after
+   the builds, printing the paths' launches as one JSON line): (a) the
+   CUDA device count; on one card monobeast.train with
+   --num_learner_devices 2 must raise the reference's "visible"
+   ValueError, with two or more it trains 3 updates (V-trace 2 and
+   pool_bwd 6 an update, the tail none). Then TF32 off and cuDNN
+   deterministic, deep + LSTM f32 at T=80, B=32: (b) the DP update with
+   two shards of 16 rows, both on cuda:0 through the explicit device
+   list, against the one-device update on all 32 rows over 2 updates
+   (the LR decay and the entropy anneal moving): params within rtol
+   2e-3 / atol 2e-5 (the reference's DP tolerance; the largest
+   difference printed), total_loss within rtol 2e-4, both replicas
+   bitwise equal, V-trace 2, pool_bwd 6 and the tail 0 launches an
+   update, the DP graphs bitwise equal to their eager twin, the update's
+   ms with 2 shards and with 1 (again at the training settings, both
+   dispatches captured anew under them) and the host API calls of a DP
+   dispatch beside the one-device one's; (c) (b) again in a torch.distributed
+   NCCL group of world size 1, its all-reduce captured in the lead's
+   graph, bitwise equal to (b); (d) one K=2 DP dispatch bitwise equal to
+   (b)'s two K=1 dispatches; (e) (b) for the transformer with
+   --attention_impl pallas (attention forward 4 and backward 4 an
+   update); (f) anakin's Catch iteration (deep + LSTM, T=16, B=64) with
+   two shards on the card: its graphs bitwise equal to their eager twin
+   over 3 iterations, pool_bwd 6 an iteration, and the first
+   iteration's update against the one-device update on the 64 columns
+   its shards collected, at (b)'s tolerances.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2904,6 +2930,384 @@ def run_pipelined_phases(ops, dev, savedir, tf32):
     return rows, by_path
 
 
+# ------------------------------------------------------------------ phase 9
+
+DP_SHARDS = 2
+# Two shards against the whole batch: the reference's own tolerance for
+# its DP test (tests/test_parallel.py:89-99), whose sums also run in
+# another order. At RMSprop's eps 0.01 the first steps divide each
+# gradient by about 0.1 |g| + eps, which turns the order's 1e-7-relative
+# gradient differences into percent-sized step differences of a
+# cancelling leaf (the deep trunk's fc weight: 6.2e-5 after 2 updates),
+# so the DP paths' learner takes eps 1.0, as tests/test_torch_learner.py
+# does: the comparison sees the update, not that conditioning.
+DP_PARAMS_RTOL, DP_PARAMS_ATOL, DP_LOSS_RTOL = 2e-3, 2e-5, 2e-4
+DP_EPS = 1.0
+DP_UPDATES = 2
+
+
+def _dp_hp():
+    """The DP paths' learner: V-trace's kernel, the --opt_impl xla chain
+    (the sharded learner refuses the fused tail, as the reference does),
+    the LR decay and the entropy anneal moving every update."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    return learner_lib.HParams(unroll_length=T, batch_size=B,
+                               vtrace_impl="pallas", opt_impl="xla",
+                               total_steps=20 * T * B,
+                               entropy_cost_final=1e-4, rmsprop_eps=DP_EPS)
+
+
+def run_dp_visible(ops, savedir):
+    """(a) The visible-device check: monobeast.train through its parser
+    with --num_learner_devices 2 raises the reference's "visible"
+    ValueError on one card; with two or more it trains 3 updates (the
+    launch checks of 5, V-trace twice and pool_bwd six times an update)."""
+    from torchbeast_tpu_torch import monobeast
+
+    n = torch.cuda.device_count()
+    print(f"phase 9 (a): {n} CUDA device(s) visible")
+    xpid = "chip_smoke_dp_visible"
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    flags = monobeast.make_parser().parse_args([
+        "--env", "Mock", "--num_actors", str(B), *DEEP_ARGS,
+        "--batch_size", str(B), "--unroll_length", str(T),
+        "--vtrace_impl", "pallas", "--serial_envs",
+        "--num_learner_devices", "2", "--total_steps", str(3 * T * B),
+        "--savedir", savedir, "--xpid", xpid])
+    if n < 2:
+        try:
+            monobeast.train(flags)
+        except ValueError as e:
+            check("only 1 devices are visible" in str(e),
+                  f"(a): the one-card run raised {e!r}")
+            print(f"phase 9 (a): monobeast --num_learner_devices 2 on one "
+                  f"card raised the reference's ValueError: {e}")
+            return {}
+        raise SmokeFailure("(a): --num_learner_devices 2 trained on one card")
+    ops.reset_launch_counts()
+    stats = monobeast.train(flags)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(stats["updates"] == 3 and np.isfinite(stats["total_loss"]),
+          f"(a): {stats['updates']} updates, loss {stats['total_loss']}")
+    # At least: the counts include the graphs' warm-up updates.
+    check(counts["vtrace_targets"] >= 6 and counts["pool_bwd"] >= 18
+          and counts["rmsprop_tail"] == 0, f"(a): launches {counts}")
+    print(f"phase 9 (a): monobeast on 2 cards, 3 updates; launches {counts}")
+    return {"monobeast deep+LSTM num_learner_devices 2":
+            (counts, ops.bf16_launch_counts())}
+
+
+def _dp_twins(dev, name, devices, k=1, capture=None):
+    """A DP dispatch over `devices` (parallel.make_parallel_update_step)
+    of the full-width model `name` from seed 0's weights."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+
+    model, _ = _param_tree(dev, name)
+    hp = _dp_hp()
+    opt = learner_lib.make_optimizer(hp, list(model.parameters()))
+    mesh = parallel.create_mesh(devices=devices)
+    dispatch = parallel.make_parallel_update_step(
+        model, opt, hp, mesh, superstep_k=k, capture=capture)
+    return model, opt, dispatch
+
+
+def _dp_run(dispatch, batches, state, k=1):
+    """The dispatches of `batches` (K at a time), stats stacked [U]."""
+    from torchbeast_tpu_torch import nest
+
+    out = []
+    for d in range(len(batches) // k):
+        group = batches[d * k:(d + 1) * k]
+        if k == 1:
+            out.append(dispatch(group[0], state))
+        else:
+            out.append(dispatch(
+                {key: torch.stack([b[key] for b in group])
+                 for key in group[0]},
+                nest.map(lambda s: torch.stack([s] * k), state)))
+    torch.cuda.synchronize()
+    return {key: torch.cat([o[key].reshape(-1) for o in out])
+            for key in out[0]}
+
+
+def _bitwise(m1, m2):
+    """Whether model m1's params equal m2's (a model or a tensor list)."""
+    other = m2 if isinstance(m2, list) else list(m2.parameters())
+    return all(torch.equal(a, b) for a, b in zip(m1.parameters(), other))
+
+
+def check_dp_path(ops, dev, label, name, expected, tf32_label, tf32):
+    """(b), (e): DP_SHARDS shards of B // DP_SHARDS rows, both on `dev`
+    (one card: the explicit device list), against the one-device update
+    on all B rows, DP_UPDATES updates of the same batches from the same
+    weights: params within DP_PARAMS_RTOL / DP_PARAMS_ATOL (the largest
+    relative difference printed), total_loss within DP_LOSS_RTOL, every
+    replica bitwise equal to the lead, the kernels launched `expected`
+    times an update (the tail never), and the DP graphs bitwise equal to
+    their eager twin. Prints both updates' ms and one DP dispatch's host
+    API calls. Returns (its launch counts, the DP run's params after its
+    updates and its stats, the inputs) for (c) and (d)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    devices = [dev] * DP_SHARDS
+    batches = [random_batch(i, dev) for i in range(DP_UPDATES)]
+    model, opt, dispatch = _dp_twins(dev, name, devices)
+    state = _agent_state(model, name, dev)
+    # The capture's warm-up runs launch kernels too: count the replays.
+    dispatch.capture(batches[0], state)
+    ops.reset_launch_counts()
+    got = _dp_run(dispatch, batches, state)
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    after = [p.detach().clone() for p in model.parameters()]
+    for w, n in expected.items():
+        check(counts[w] == n * DP_UPDATES,
+              f"{label}: {counts[w]} {w} launches in {DP_UPDATES} updates, "
+              f"not {n} an update")
+    check(counts["rmsprop_tail"] == 0, f"{label}: the tail launched")
+    learner = dispatch.learner
+    for params in learner.params[1:]:
+        check(all(torch.equal(p, q) for p, q in zip(params,
+                                                    learner.params[0])),
+              f"{label}: a replica differs from the lead")
+    check(opt.state.count == DP_UPDATES
+          and all(int(c) == DP_UPDATES for c in learner.counts),
+          f"{label}: counts {opt.state.count}, "
+          f"{[int(c) for c in learner.counts]}")
+    eager_model, _, eager = _dp_twins(dev, name, devices, capture=False)
+    want_eager = _dp_run(eager, batches, state)
+    check(_bitwise(model, eager_model)
+          and all(torch.equal(got[k], want_eager[k].float()) for k in got),
+          f"{label}: the DP graphs differ from their eager twin")
+    one, _ = _param_tree(dev, name)
+    opt1 = learner_lib.make_optimizer(_dp_hp(), list(one.parameters()))
+    one_dispatch = learner_lib.make_update_dispatch(one, opt1, _dp_hp())
+    want = _dp_run(one_dispatch, batches, state)
+    worst = 0.0
+    for (pname, p), q in zip(model.named_parameters(), one.parameters()):
+        p, q = p.detach(), q.detach()
+        err, ok = close(p, q, DP_PARAMS_RTOL, DP_PARAMS_ATOL)
+        check(ok, f"{label}: param {pname} max |diff| {err:.3g} beyond "
+                  f"rtol {DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL}")
+        worst = max(worst, float(((p - q).abs().max()
+                                  / q.abs().max().clamp_min(1e-30))))
+    loss_err, ok = close(got["total_loss"], want["total_loss"],
+                         DP_LOSS_RTOL, 0.0)
+    check(ok, f"{label}: total_loss {got['total_loss'].tolist()} vs "
+              f"{want['total_loss'].tolist()}")
+    calls, _ = profile_call(lambda: dispatch(batches[0], state))
+    one_calls, _ = profile_call(lambda: one_dispatch(batches[0], state))
+    dp_ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    one_ms = time_ms(lambda: one_dispatch(batches[0], state), reps=10)
+    # Again at the training settings (TF32 as the run found it, cuDNN
+    # free to pick its algorithms), each dispatch captured anew under
+    # them (a graph keeps the kernels its capture chose), interleaved.
+    checks = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32,
+              torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    torch.backends.cudnn.deterministic = False
+    try:
+        train_dp = _dp_twins(dev, name, devices)[2]
+        train_one, _ = _param_tree(dev, name)
+        train_one = learner_lib.make_update_dispatch(
+            train_one, learner_lib.make_optimizer(
+                _dp_hp(), list(train_one.parameters())), _dp_hp())
+        train_ms = [time_ms(fn, reps=10) for fn in (
+            lambda: train_dp(batches[0], state),
+            lambda: train_one(batches[0], state),
+            lambda: train_dp(batches[0], state))]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = checks
+    print(f"phase 9 {label} T={T} B={B} ({tf32_label}): {DP_SHARDS} shards "
+          f"of {B // DP_SHARDS} rows on {dev} against one device on {B}, "
+          f"{DP_UPDATES} updates, RMSprop eps {DP_EPS}: params within "
+          f"rtol {DP_PARAMS_RTOL} / "
+          f"atol {DP_PARAMS_ATOL} (largest difference {worst:.3g} of a "
+          f"leaf's largest entry), total_loss within rtol {DP_LOSS_RTOL} "
+          f"(max |diff| {loss_err:.3g}); replicas bitwise equal; graphs "
+          f"bitwise equal to their eager twin; launches an update "
+          f"{ {w: counts[w] // DP_UPDATES for w in counts} }; update "
+          f"{dp_ms:.3f} ms with {DP_SHARDS} shards, {one_ms:.3f} ms with "
+          f"one (both on one card: the overhead, no speed-up), at the "
+          f"training settings {train_ms[0]:.3f} / {train_ms[2]:.3f} ms "
+          f"with {DP_SHARDS} shards, {train_ms[1]:.3f} ms with one; host API "
+          f"calls a DP dispatch {sum(calls.values())} {calls}, one-device "
+          f"{sum(one_calls.values())}")
+    return (counts, bf16), after, got, (batches, state)
+
+
+def check_dp_nccl(dev, name, want_params, want_stats, inputs):
+    """(c) (b)'s DP run again inside a torch.distributed NCCL group of
+    world size 1 (the lead's reduce and update one CUDA graph with the
+    all-reduce captured in it): bitwise equal to (b)."""
+    import socket
+
+    from torchbeast_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                    backend="nccl")
+    try:
+        model, _, dispatch = _dp_twins(dev, name, [dev] * DP_SHARDS)
+        check(dispatch.learner.group is not None, "(c): no group")
+        got = _dp_run(dispatch, *inputs)
+        check(dispatch._step._apply_graph is not None,
+              "(c): the NCCL reduce was not captured")
+        check(_bitwise(model, want_params)
+              and all(torch.equal(got[k], want_stats[k]) for k in got),
+              "(c): the NCCL group's DP run differs from (b)'s")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 9 (c): {name} DP in an NCCL group of world size 1 "
+          f"(all-reduce captured in the lead's graph): bitwise equal to (b)")
+
+
+def check_dp_superstep(dev, name, want_params, want_stats, inputs):
+    """(d) One K=2 DP dispatch bitwise equal to (b)'s two K=1 dispatches."""
+    model, _, dispatch = _dp_twins(dev, name, [dev] * DP_SHARDS, k=2)
+    batches, state = inputs
+    got = _dp_run(dispatch, batches, state, k=2)
+    check(_bitwise(model, want_params)
+          and all(torch.equal(got[k], want_stats[k]) for k in got),
+          "(d): the K=2 DP dispatch differs from two K=1 dispatches")
+    print(f"phase 9 (d): {name} one K=2 DP dispatch bitwise equal to two "
+          f"K=1 dispatches")
+
+
+def check_dp_anakin(ops, dev, label, model_args):
+    """(f) An anakin iteration on Catch at phase 7's shape with two shards
+    on the card (the one-device run's initial carry split, shard 1
+    drawing from --seed + 1): its graphs (one a shard: its rollout,
+    forward and backward; one on the lead: the sum and the update)
+    bitwise equal to their eager twin over ANAKIN_REPLAYS iterations
+    (stats, params, carries), pool_bwd 3 a shard an iteration; and its
+    first iteration's params and total_loss against learner.update_body
+    on all B rows of what the two shards collected, from the agent
+    state that entered the unroll, at (b)'s tolerances."""
+    from torchbeast_tpu_torch import anakin, nest, parallel
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    flags = anakin.make_parser().parse_args([
+        "--env", "Catch", *model_args, "--total_steps",
+        str(100 * ANAKIN_T * ANAKIN_B), "--entropy_cost_final", "1e-4",
+        "--epsilon", str(DP_EPS)])
+    runs = {}
+    for capture in (True, False):
+        env, model, opt, hp, gen, carry = anakin.setup(flags, dev)
+        start = copy.deepcopy(model)
+        state0 = nest.map(torch.clone, carry.agent_state)
+        learner = parallel.ParallelLearner(
+            model, opt, hp, parallel.create_mesh(devices=[dev, dev]))
+        gen1 = torch.Generator(device=dev)
+        gen1.manual_seed(flags.seed + 1)
+        carries = anakin.split_carry(carry, [dev, dev])
+        step = anakin.make_parallel_iteration(env, learner, hp, [gen, gen1],
+                                              carries, capture=capture)
+        if capture:
+            step.capture()
+        ops.reset_launch_counts()
+        first = step()
+        batch = {k: torch.cat([c.buffers[k] for c in step.collects], 1)
+                 for k in step.collects[0].buffers}
+        after1 = [p.detach().clone() for p in model.parameters()]
+        stats = [first] + [step() for _ in range(ANAKIN_REPLAYS - 1)]
+        torch.cuda.synchronize()
+        runs[capture] = dict(
+            model=model, stats=stats, carries=carries, step=step,
+            counts=(ops.launch_counts(), ops.bf16_launch_counts()),
+            start=start, state0=state0, batch=batch, after1=after1, hp=hp)
+    g, e = runs[True], runs[False]
+    check(_bitwise(g["model"], e["model"]),
+          f"{label}: params differ from the eager twin's")
+    for i, (a, b) in enumerate(zip(g["stats"], e["stats"])):
+        for key in a:
+            check(torch.equal(a[key], b[key]),
+                  f"{label} iteration {i}: stat {key} differs from eager")
+    check(all(torch.equal(a, b) for a, b in zip(
+        nest.flatten(g["carries"]), nest.flatten(e["carries"]))),
+        f"{label}: the carries differ from the eager twin's")
+    counts = g["counts"][0]
+    pools = 3 * DP_SHARDS if "deep" in model_args else 0
+    check(counts["pool_bwd"] == pools * ANAKIN_REPLAYS,
+          f"{label}: {counts['pool_bwd']} pool_bwd launches in "
+          f"{ANAKIN_REPLAYS} iterations")
+    opt1 = learner_lib.make_optimizer(g["hp"], list(g["start"].parameters()))
+    want = learner_lib.update_body(g["start"], opt1, g["hp"])(
+        g["batch"], g["state0"])
+    worst = 0.0
+    for (pname, q), p in zip(g["start"].named_parameters(), g["after1"]):
+        q = q.detach()
+        err, ok = close(p, q, DP_PARAMS_RTOL, DP_PARAMS_ATOL)
+        check(ok, f"{label}: param {pname} max |diff| {err:.3g} against "
+                  "the one-device update of the collected batch")
+        worst = max(worst, float(((p - q).abs().max()
+                                  / q.abs().max().clamp_min(1e-30))))
+    loss_err, ok = close(g["stats"][0]["total_loss"],
+                         want["total_loss"].float(), DP_LOSS_RTOL, 0.0)
+    check(ok, f"{label}: total_loss {float(g['stats'][0]['total_loss'])} "
+              f"vs {float(want['total_loss'])}")
+    calls, _ = profile_call(g["step"])
+    ms = time_ms(g["step"], reps=5)
+    print(f"phase 9 (f) {label} T={ANAKIN_T} B={ANAKIN_B}: {DP_SHARDS} "
+          f"shards on {dev}; graphs bitwise equal to their eager twin over "
+          f"{ANAKIN_REPLAYS} iterations (stats, params, carries); pool_bwd "
+          f"{pools} an iteration; the first iteration against the "
+          f"one-device update of its {ANAKIN_B} collected columns: params "
+          f"within rtol {DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest "
+          f"difference {worst:.3g} of a leaf's largest entry), total_loss "
+          f"within rtol {DP_LOSS_RTOL} (max |diff| {loss_err:.3g}); "
+          f"iteration {ms:.3f} ms; host API calls an iteration "
+          f"{sum(calls.values())} {calls}")
+    return {f"{label} {DP_SHARDS} shards": g["counts"]}
+
+
+def run_dp_phases(ops, dev, savedir, tf32):
+    """Phase 9 (--dp-only alone after the builds): (a) the visible-device
+    check, then TF32 off and cuDNN deterministic: (b) the deep + LSTM DP
+    path, (c) its NCCL twin, (d) its K=2 dispatch, (e) the transformer's
+    DP path, (f) anakin's DP iteration. Returns the paths' launch
+    counts."""
+    t0 = time.time()
+    by_path = run_dp_visible(ops, savedir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    settings = "TF32 off, cuDNN deterministic"
+    counts, model, stats, inputs = check_dp_path(
+        ops, dev, "(b) deep+LSTM", "deep",
+        {"vtrace_targets": DP_SHARDS, "pool_bwd": 3 * DP_SHARDS}, settings,
+        tf32)
+    by_path[f"dp deep+LSTM {DP_SHARDS} shards"] = counts
+    check_dp_nccl(dev, "deep", model, stats, inputs)
+    check_dp_superstep(dev, "deep", model, stats, inputs)
+    del model, stats, inputs
+    torch.cuda.empty_cache()
+    counts, *_ = check_dp_path(
+        ops, dev, "(e) transformer", "transformer",
+        {"vtrace_targets": DP_SHARDS,
+         "transformer_attention": 2 * DP_SHARDS,
+         "transformer_attention_bwd": 2 * DP_SHARDS}, settings, tf32)
+    by_path[f"dp transformer {DP_SHARDS} shards"] = counts
+    torch.cuda.empty_cache()
+    by_path.update(check_dp_anakin(ops, dev, "anakin deep+LSTM Catch",
+                                   ["--model", "deep", "--use_lstm"]))
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    print(f"phase 9 (data parallel): {time.time() - t0:.1f} s")
+    return by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -2924,9 +3328,10 @@ def main(argv):
     remat_only = argv == ["--remat-only"]
     anakin_only = argv == ["--anakin-only"]
     pipelined_only = argv == ["--pipelined-only"]
+    dp_only = argv == ["--dp-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
-                     or pipelined_only):
+                     or pipelined_only or dp_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3015,6 +3420,11 @@ def main(argv):
         tally_launches(rows, by_path)
         print(json.dumps({"kernels": rows}))
         return 0
+    if dp_only:
+        by_path = run_dp_phases(ops, dev, savedir, tf32)
+        print(json.dumps({"dp_launches": {
+            path: counts for path, (counts, _) in by_path.items()}}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -3072,6 +3482,7 @@ def main(argv):
     rows, pipelined_paths = run_pipelined_phases(ops, dev, savedir, tf32)
     kernels.extend(rows)
     by_path.update(pipelined_paths)
+    by_path.update(run_dp_phases(ops, dev, savedir, tf32))
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

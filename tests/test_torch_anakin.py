@@ -194,10 +194,11 @@ def _argv(tmp_path, xpid, *extra):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--num_devices", "2"], NotImplementedError,
-     "Queue 1 item 'data parallel and the fleet'"),
-    (["--model", "pipelined_mlp", "--num_devices", "2"], NotImplementedError,
-     "Queue 1 item 'data parallel and the fleet'"),
+    # --num_devices is in the port: the reference's errors for it.
+    (["--num_devices", "3"], ValueError,
+     "batch_size 4 not divisible by num_devices 3"),
+    (["--model", "pipelined_mlp", "--num_devices", "16", "--batch_size",
+      "16"], ValueError, "only 8 devices are visible"),
     (["--num_experts", "4"], ValueError,
      "--num_experts applies to --model transformer only"),
 ])

@@ -514,7 +514,7 @@ def _mono_argv(tmp_path, *extra):
 @pytest.mark.parametrize("driver", ["monobeast", "polybeast"])
 @pytest.mark.parametrize("extra,error,match", [
     (["--num_experts", "4", "--expert_parallel", "2"], NotImplementedError,
-     "Queue 1 item 'data parallel and the fleet'"),
+     "Queue 1 item 'expert parallel'"),
     (["--expert_parallel", "1"], ValueError,
      "--expert_parallel needs --num_experts"),
 ])

@@ -84,21 +84,31 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     assert monobeast.select_device(_flags(tmp_path=tmp_path)).type == "cpu"
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--device_split", "auto"], "data parallel and the fleet"),
-    (["--num_learner_devices", "2"], "data parallel"),
-    (["--fleet", "host=0/2,coord=127.0.0.1:1"], "data parallel"),
+@pytest.mark.parametrize("args,error,match", [
+    (["--device_split", "auto"], NotImplementedError,
+     "Queue 1 item 'the device split'"),
+    # The data-parallel learner is in the port: two shards train.
+    (["--num_learner_devices", "2"], None, None),
+    (["--fleet", "host=0/2,coord=127.0.0.1:1"], ValueError,
+     "the sync trainer is single-host"),
     # The pipelined and sequence-parallel transformer across devices.
     pytest.param(["--model", "pipelined_transformer", "--pipeline_parallel",
-                  "2"], "data parallel and the fleet",
-                 id="args3-transformer"),
-    pytest.param(["--sequence_parallel", "2"], "data parallel and the fleet",
-                 id="args4-transformer"),
-    (["--num_experts", "4", "--expert_parallel", "2"], "data parallel"),
+                  "2"], NotImplementedError,
+                 "Queue 1 item 'pipeline parallel'", id="args3-transformer"),
+    pytest.param(["--sequence_parallel", "2"], NotImplementedError,
+                 "Queue 1 item 'sequence parallel'", id="args4-transformer"),
+    (["--num_experts", "4", "--expert_parallel", "2"], NotImplementedError,
+     "Queue 1 item 'expert parallel'"),
 ])
-def test_features_outside_the_port_raise(tmp_path, args, item):
+def test_features_outside_the_port_raise(tmp_path, args, error, match):
+    """Each multi-device flag: the ROADMAP.md item that brings it, the
+    reference's error for it, or (--num_learner_devices) a run."""
     flags = _flags(*args, tmp_path=tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    if error is None:
+        stats = monobeast.main(flags)
+        assert stats["step"] == 48 and np.isfinite(stats["total_loss"])
+        return
+    with pytest.raises(error, match=match):
         monobeast.main(flags)
 
 

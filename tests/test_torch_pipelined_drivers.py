@@ -14,8 +14,9 @@ parallelism flags' rules against the reference's drivers.
   tests/test_torch_anakin.py holds the mlp).
 - Without --disable_cuda and without a GPU, each driver raises.
 - The flags: --pipeline_parallel, --sequence_parallel above 1 and
-  --pipeline_microbatches at all raise NotImplementedError naming
-  'data parallel and the fleet' in both drivers; --ring_schedule and
+  --pipeline_microbatches at all raise NotImplementedError naming their
+  ROADMAP.md items ('pipeline parallel', 'sequence parallel') in both
+  drivers; --ring_schedule and
   --sp_strategy away from their defaults without --sequence_parallel > 1
   raise the reference's ValueError, and --attention_impl on the
   pipelined transformer the reference's ValueError, checked against the
@@ -55,7 +56,12 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: E402,F401
 
 TRANSFORMER = ["--model", "pipelined_transformer"]
 MLP_LSTM = ["--model", "pipelined_mlp", "--use_lstm"]
-FLEET = "Queue 1 item 'data parallel and the fleet'"
+# Each multi-device flag -> the ROADMAP.md Queue 1 item that brings it.
+ITEMS = {
+    "--pipeline_parallel": "Queue 1 item 'pipeline parallel'",
+    "--sequence_parallel": "Queue 1 item 'sequence parallel'",
+    "--pipeline_microbatches": "Queue 1 item 'pipeline parallel'",
+}
 
 
 def _mono_args(tmp_path, *extra):
@@ -206,7 +212,7 @@ def test_multi_device_flags_raise_not_implemented(tmp_path, driver, extra):
         flags = _mono(tmp_path, *TRANSFORMER, *extra)
     else:
         flags = _poly(tmp_path, *TRANSFORMER, *extra)
-    with pytest.raises(NotImplementedError, match=FLEET):
+    with pytest.raises(NotImplementedError, match=ITEMS[extra[0]]):
         {"monobeast": monobeast, "polybeast": polybeast}[driver].main(flags)
 
 

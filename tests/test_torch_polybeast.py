@@ -8,12 +8,14 @@ driver nor its env servers load jax; the env servers load no torch)."""
 import logging
 import os
 import signal
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from torchbeast_tpu import polybeast as jax_polybeast
 from torchbeast_tpu_torch import monobeast, polybeast
@@ -195,17 +197,50 @@ def _not_default(parser, dest):
     return [flag, "x"]
 
 
+# Flags the data-parallel slice took out of NOT_IN_PORT -> what a value
+# other than the default now does: the reference's error for that input,
+# or (None) a run.
+PORTED = {
+    "num_learner_devices": (
+        ValueError, "batch_size 2 not divisible by the learner mesh's "
+        r"data axis \(3\)"),
+    "coordinator_address": (None, None),
+}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("dest", sorted(
-    [*polybeast.NOT_IN_PORT, *monobeast.SEQUENCE_PARALLEL_ONLY]))
+    [*polybeast.NOT_IN_PORT, *monobeast.SEQUENCE_PARALLEL_ONLY, *PORTED]))
 def test_features_outside_the_port_raise(tmp_path, dest):
     """A flag of a feature outside the port raises NotImplementedError
     naming its ROADMAP item; a sequence-parallel option without
-    --sequence_parallel > 1 raises the reference's ValueError."""
+    --sequence_parallel > 1 raises the reference's ValueError; a ported
+    multi-device flag raises the reference's error for its value, or
+    (--coordinator_address of a one-process group) trains."""
     parser = polybeast.make_parser()
-    flags = parser.parse_args(_args(tmp_path) + _not_default(parser, dest))
+    extra = _not_default(parser, dest)
+    if dest == "coordinator_address":
+        extra = ["--coordinator_address", f"127.0.0.1:{_free_port()}",
+                 "--total_steps", str(T * B)]
+    flags = parser.parse_args(_args(tmp_path) + extra)
     if dest in monobeast.SEQUENCE_PARALLEL_ONLY:
         with pytest.raises(ValueError,
                            match="only takes effect with --sequence_parallel"):
+            polybeast.main(flags)
+        return
+    if dest in PORTED:
+        error, match = PORTED[dest]
+        if error is None:
+            stats = polybeast.main(flags)
+            assert stats["step"] >= T * B
+            assert not torch.distributed.is_initialized()
+            return
+        with pytest.raises(error, match=match):
             polybeast.main(flags)
         return
     with pytest.raises(NotImplementedError,

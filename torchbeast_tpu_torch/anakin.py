@@ -27,8 +27,15 @@ Fresh weights are drawn from --seed as the drivers draw theirs.
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. The trainer runs on the first
 CUDA device; without one it raises, unless --disable_cuda asks for the
-CPU. --num_devices > 1 raises NotImplementedError (ROADMAP.md Queue 1
-item 'data parallel and the fleet'). --model pipelined_mlp runs its stage
+CPU. --num_devices N > 1 shards the envs along B over N devices (the
+reference's mesh branch): the initial carry is the one-device run's,
+split, each device acts and steps its own shard from a generator of its
+own (shard 0 keeps the run's, shard i draws from --seed + i) into its own
+batch and gradient, the lead sums the gradients and applies the update,
+and every replica takes the lead's params (parallel/dp.py). On the card
+each device's part of the iteration is one CUDA graph (its rollout,
+forward and backward) and the lead's sum and update one more.
+--model pipelined_mlp runs its stage
 tower sequentially at its default depth (models/pipelined.py), as the
 reference's anakin does. --num_experts N makes the transformer's FFN a
 mixture of N experts (models/moe.py) whose load-balance loss joins the
@@ -54,7 +61,7 @@ import torch
 
 from torchbeast_tpu_torch import graphs
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch import nest
+from torchbeast_tpu_torch import nest, parallel
 from torchbeast_tpu_torch.envs.device_env import create_device_env
 from torchbeast_tpu_torch.models import create_model
 from torchbeast_tpu_torch.monobeast import hparams_from_flags, select_device
@@ -115,8 +122,11 @@ def make_parser():
                              "experts (load-balance loss in objective).")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="Data-parallel devices; > 1 is not in the "
-                             "port yet (see ROADMAP.md).")
+                        help="Data-parallel devices (the CUDA devices, "
+                             "or the CPU's "
+                             "--xla_force_host_platform_device_count of "
+                             "XLA_FLAGS under --disable_cuda); batch_size "
+                             "must divide by N.")
     parser.add_argument("--checkpoint_interval_s", type=int, default=600)
     parser.add_argument("--log_interval_updates", type=int, default=20)
     # Loss/optimizer knobs (reference defaults).
@@ -159,7 +169,8 @@ def make_collect(env, model, unroll_length: int, generator):
     outputs); slot i pairs env output i with the agent output computed
     from env output i-1. The batch lives in buffers made at the first
     call and rewritten by every later one (inside a CUDA graph, static
-    buffers of the graph); the next carry's tensors are new."""
+    buffers of the graph), `collect.buffers`; the next carry's tensors
+    are new."""
     T = unroll_length
     buffers = {}
 
@@ -184,6 +195,7 @@ def make_collect(env, model, unroll_length: int, generator):
         return dict(buffers), ActorCarry(env_state, env_out, agent_out,
                                          agent_state)
 
+    collect.buffers = buffers
     return collect
 
 
@@ -221,6 +233,55 @@ def make_iteration_dispatch(env, model, optimizer, hp, generator, carry):
     return lambda: step(carry)
 
 
+def split_carry(carry: ActorCarry, devices) -> list:
+    """The carry's B envs split in order over `devices`, one ActorCarry
+    each (copies): B is axis 0 of the env leaves and axis 1 of the agent
+    state's, as in the learner batch."""
+    n = len(devices)
+
+    def part(tree, axis, i):
+        return nest.map(
+            lambda t: t.chunk(n, dim=axis)[i].to(devices[i]).clone(), tree)
+
+    return [ActorCarry(part(carry.env_state, 0, i), part(carry.env_out, 0, i),
+                       part(carry.agent_out, 0, i),
+                       part(carry.agent_state, 1, i)) for i in range(n)]
+
+
+def make_parallel_iteration(env, learner, hp, generators, carries,
+                            capture=None):
+    """() -> stats of one data-parallel iteration (parallel.ShardedStep):
+    shard i collects T steps from carries[i] with its replica and
+    generators[i], computes its gradient on that batch from the agent
+    state that entered the unroll, and takes its next carry in place;
+    then the lead sums, applies and syncs. On the card each shard's part
+    is one CUDA graph on its device (its generator registered, its carry
+    put back after the warm-up) and the lead's one more; `capture=False`
+    runs the eager twin. `collects[i].buffers` holds shard i's last
+    batch (make_collect)."""
+    shard_fns = []
+    collects = []
+    for i, (replica, gen, carry) in enumerate(
+            zip(learner.replicas, generators, carries)):
+        collect = make_collect(env, replica, hp.unroll_length, gen)
+        collects.append(collect)
+
+        def shard(i=i, collect=collect, carry=carry):
+            batch, next_carry = collect(carry)
+            grads, vec = learner.grads(i, batch, carry.agent_state)
+            with torch.no_grad():
+                torch._foreach_copy_(nest.flatten(carry),
+                                     nest.flatten(next_carry))
+            return grads, vec
+
+        shard_fns.append(shard)
+    step = parallel.ShardedStep(
+        learner, shard_fns, generators=generators,
+        restores=[nest.flatten(c) for c in carries], capture=capture)
+    step.collects = collects
+    return step
+
+
 def initial_carry(env, model, batch_size: int, generator) -> ActorCarry:
     """Reset all envs and prime the boundary agent output (its state
     advance discarded, the collector convention), drawing from
@@ -236,11 +297,6 @@ def initial_carry(env, model, batch_size: int, generator) -> ActorCarry:
 def build_model(flags, env, device):
     """The model on `device`, its fresh weights drawn from --seed without
     touching the global RNG state."""
-    if flags.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {flags.num_devices} is not in the port yet: "
-            "ROADMAP.md Queue 1 item 'data parallel and the fleet'"
-        )
     extra = {"num_experts": flags.num_experts} if flags.num_experts else {}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(flags.seed)
@@ -260,6 +316,17 @@ class Setup(NamedTuple):
     carry: ActorCarry
 
 
+def check_num_devices(flags) -> int:
+    """--num_devices, checked as the reference checks it."""
+    n = flags.num_devices
+    if n > 1 and flags.batch_size % n != 0:
+        raise ValueError(
+            f"batch_size {flags.batch_size} not divisible by "
+            f"num_devices {n}"
+        )
+    return max(1, n)
+
+
 def setup(flags, device) -> Setup:
     """Everything an iteration needs, as train() builds it on `device`:
     the wrapped device env, the model, the optimizer over its params, the
@@ -275,6 +342,29 @@ def setup(flags, device) -> Setup:
     return Setup(env, model, optimizer, hp, generator, carry)
 
 
+def make_dispatch(flags, setup_: Setup):
+    """() -> stats of one iteration of the run: make_iteration_dispatch
+    on one device; with --num_devices N > 1 make_parallel_iteration over
+    the first N devices of the run's platform, the carry split over them
+    (build it after a resume: the replicas copy the lead's params)."""
+    env, model, optimizer, hp, generator, carry = setup_
+    n = check_num_devices(flags)
+    if n == 1:
+        return make_iteration_dispatch(env, model, optimizer, hp, generator,
+                                       carry)
+    device = generator.device
+    mesh = parallel.create_mesh(n, devices=parallel.visible_devices(
+        device.type))
+    learner = parallel.ParallelLearner(model, optimizer, hp, mesh)
+    generators = [generator]
+    for i, d in enumerate(mesh.local_devices[1:], start=1):
+        generators.append(torch.Generator(device=d))
+        generators[-1].manual_seed(flags.seed + i)
+    log.info("Anakin over %d devices", n)
+    return make_parallel_iteration(env, learner, hp, generators,
+                                   split_carry(carry, mesh.local_devices))
+
+
 def train(flags):
     """Train, resuming from {savedir}/{xpid}/model.ckpt when it exists.
     Returns the last logged stats plus "step" and this run's "sps". The
@@ -282,7 +372,9 @@ def train(flags):
     log them (the reference's logs.csv ends at the last interval), so a
     run shorter than --log_interval_updates still writes logs.csv."""
     device = select_device(flags)
-    env, model, optimizer, hp, generator, carry = setup(flags, device)
+    check_num_devices(flags)
+    setup_ = setup(flags, device)
+    env, model, optimizer, hp, generator, carry = setup_
     if flags.xpid is None:
         flags.xpid = "anakin-%s" % time.strftime("%Y%m%d-%H%M%S")
     plogger = FileWriter(
@@ -295,8 +387,7 @@ def train(flags):
     if os.path.exists(checkpoint_path):
         step = load_train_state(checkpoint_path, model, optimizer)["step"]
         log.info("Resuming preempted job at step %d", step)
-    train_step = make_iteration_dispatch(env, model, optimizer, hp,
-                                         generator, carry)
+    train_step = make_dispatch(flags, setup_)
 
     frames_per_update = flags.unroll_length * flags.batch_size
     start_time = last_log_time = last_checkpoint = time.time()

@@ -1,7 +1,7 @@
 """Chaos acceptance harness for the port's polybeast: run it under a
 seeded multi-fault plan and PROVE recovery, not just survival (the port
 of scripts/chaos_run.py, without its multi-host fleet mode, which goes
-with ROADMAP.md Queue 1 item 'data parallel and the fleet').
+with ROADMAP.md Queue 1 item 'the fleet').
 
 Two in-process polybeast runs on the same config:
 

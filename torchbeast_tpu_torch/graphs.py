@@ -23,6 +23,11 @@ the params and the optimizer's state, which each replay updates in
 place; its generator (the envs' resets and the sampled actions) is
 registered with the graph.
 
+Each of those captures through CapturedStep, which also holds each part
+of a data-parallel step (parallel/dp.py): a shard's forward and backward
+on its device (under Anakin, its rollout too), or the lead device's sum
+and optimizer update, each a graph of its own on its device.
+
 Capture rules, kept by every class:
 
 - Warm-up first: a few eager runs on a side stream before the capture
@@ -146,10 +151,10 @@ def _capture(fn: Callable[[], Any], generator=None):
 
 
 def _fill(static, value, name: str, pinned=None) -> None:
-    """Copy one input leaf into its static device buffer. Host leaves go
-    through pinned memory (`pinned`, or a fresh pinned copy the caching
-    host allocator keeps until the copy has run), so the copy does not
-    wait for the stream's earlier work."""
+    """Copy one input leaf into its static buffer. Host leaves bound for
+    the card go through pinned memory (`pinned`, or a fresh pinned copy
+    the caching host allocator keeps until the copy has run), so the copy
+    does not wait for the stream's earlier work."""
     if value is static:
         return
     if isinstance(value, np.ndarray) or np.isscalar(value):
@@ -162,7 +167,7 @@ def _fill(static, value, name: str, pinned=None) -> None:
         raise ValueError(
             f"{name}: input of dtype {value.dtype} for a graph captured "
             f"with {static.dtype}")
-    if value.device.type == "cpu":
+    if value.device.type == "cpu" and static.device.type == "cuda":
         if pinned is not None:
             pinned.copy_(value)
             value = pinned
@@ -207,12 +212,9 @@ class CapturedUpdate:
             return torch.stack([stats[key].float() for key in self._keys],
                                -1)
 
-        counted = precision.count_bytes()
-        with update_state_restored(self._optimizer):
-            _warm_up(packed, WARMUP_RUNS, counted)
-            self._graph, self._packed, self._delta = _capture(packed)
-        self.bytes_accessed = float(counted.count.total)
-        self.launches_per_replay = self._delta.per_replay()
+        self._graph = CapturedStep(packed, device, optimizer=self._optimizer)
+        self.bytes_accessed = self._graph.bytes_accessed
+        self.launches_per_replay = self._graph.launches_per_replay
 
     def __call__(self, batch, initial_agent_state):
         if self._graph is None:
@@ -227,10 +229,8 @@ class CapturedUpdate:
                                  f"captured with {len(leaves)}")
             for s, v in zip(leaves, values):
                 _fill(s, v, what)
-        self._graph.replay()
-        row = self._packed.clone()
+        row = self._graph().clone()
         self._optimizer.advance_host_count(self.k)
-        self._delta.replayed()
         return {key: row[..., j] for j, key in enumerate(self._keys)}
 
 
@@ -254,13 +254,12 @@ class CapturedForward:
         device = torch.device(device)
         self.inputs = nest.map(
             lambda x: torch.as_tensor(x).to(device).clone(), example)
-        rng = generator.get_state() if generator is not None else None
-        run = lambda: fn(self.inputs)  # noqa: E731
-        with torch.no_grad():
-            _warm_up(run, WARMUP_RUNS)
-            self._graph, self._out, self._delta = _capture(run, generator)
-        if generator is not None:
-            generator.set_state(rng)
+
+        def run():
+            with torch.no_grad():
+                return fn(self.inputs)
+
+        self._graph = CapturedStep(run, device, generator=generator)
 
     def _load(self, statics, values):
         for static, value in zip(statics, values):
@@ -273,9 +272,7 @@ class CapturedForward:
             raise ValueError(f"{len(values)} input leaves for a graph "
                              f"captured with {len(statics)}")
         self._load(statics, values)
-        self._graph.replay()
-        self._delta.replayed()
-        return nest.map(lambda t: t.clone(), self._out)
+        return nest.map(lambda t: t.clone(), self._graph())
 
 
 class CapturedAct(CapturedForward):
@@ -330,10 +327,6 @@ class CapturedIteration:
         self.launches_per_replay = {}
 
     def capture(self) -> None:
-        leaves = nest.flatten(self._carry)
-        with torch.no_grad():
-            saved = [t.clone() for t in leaves]
-        rng = self._generator.get_state()
         self._keys = None
 
         def packed():
@@ -341,21 +334,57 @@ class CapturedIteration:
             self._keys = list(stats)
             return torch.stack([stats[key].float() for key in self._keys])
 
-        with update_state_restored(self._optimizer):
-            _warm_up(packed, WARMUP_RUNS)
-            with torch.no_grad():
-                torch._foreach_copy_(leaves, saved)
-            self._generator.set_state(rng)
-            self._graph, self._packed, self._delta = _capture(
-                packed, self._generator)
-        self._generator.set_state(rng)
-        self.launches_per_replay = self._delta.per_replay()
+        self._graph = CapturedStep(
+            packed, self._generator.device, generator=self._generator,
+            restore=nest.flatten(self._carry), optimizer=self._optimizer)
+        self.launches_per_replay = self._graph.launches_per_replay
 
     def __call__(self):
         if self._graph is None:
             self.capture()
-        self._graph.replay()
-        row = self._packed.clone()
+        row = self._graph().clone()
         self._optimizer.advance_host_count(1)
-        self._delta.replayed()
         return {key: row[j] for j, key in enumerate(self._keys)}
+
+
+class CapturedStep:
+    """`fn()` captured as one CUDA graph on `device`, over the buffers fn
+    closes over (the data-parallel learner's parts, parallel/dp.py).
+
+    The warm-up runs on a side stream of `device`, the first run counted
+    by precision.count_bytes (`bytes_accessed`). What it changes is put
+    back before the capture: the tensors of `restore` (an Anakin shard's
+    carry), `generator`'s state (registered with the graph, so a replay
+    draws what an eager call would) and, with `optimizer`, its update
+    state (update_state_restored). A call replays on the device's
+    current stream and returns fn's outputs as the graph's static
+    tensors, which the next replay overwrites."""
+
+    def __init__(self, fn: Callable[[], Any], device, generator=None,
+                 restore=(), optimizer=None):
+        self.device = torch.device(device)
+        restore = list(restore)
+        counted = precision.count_bytes()
+        with torch.cuda.device(self.device):
+            with torch.no_grad():
+                saved = [t.clone() for t in restore]
+            rng = generator.get_state() if generator is not None else None
+            with (update_state_restored(optimizer) if optimizer is not None
+                  else contextlib.nullcontext()):
+                _warm_up(fn, WARMUP_RUNS, counted)
+                with torch.no_grad():
+                    for t, s in zip(restore, saved):
+                        t.copy_(s)
+                if generator is not None:
+                    generator.set_state(rng)
+                self._graph, self.out, self._delta = _capture(fn, generator)
+            if generator is not None:
+                generator.set_state(rng)
+        self.bytes_accessed = float(counted.count.total)
+        self.launches_per_replay = self._delta.per_replay()
+
+    def __call__(self):
+        with torch.cuda.device(self.device):
+            self._graph.replay()
+        self._delta.replayed()
+        return self.out

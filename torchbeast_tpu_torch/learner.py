@@ -657,9 +657,12 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
 
 def _counted_dispatch(update_step, batch, initial_agent_state):
     """(stats, bytes one dispatch accessed): a CUDA graph's figure is its
-    capture's first warm-up run's (captured now if it was not yet); an
-    eager dispatch is counted as it runs."""
-    if isinstance(update_step, graphs.CapturedUpdate):
+    capture's first warm-up run's (captured now if it was not yet; a
+    data-parallel dispatch, parallel.ParallelUpdate, says with
+    `captures_graphs` whether it captures); an eager dispatch is counted
+    as it runs."""
+    if getattr(update_step, "captures_graphs",
+               isinstance(update_step, graphs.CapturedUpdate)):
         out = update_step(batch, initial_agent_state)
         return out, update_step.bytes_accessed
     with precision.count_bytes() as counted:

@@ -1,7 +1,7 @@
 """Mixture-of-experts feed-forward layer (counterpart of
 torchbeast_tpu/models/moe.py, on one device: the reference's `mesh` and
 its expert-axis sharding constraints stay out, ROADMAP.md Queue 1 item
-'data parallel and the fleet').
+'expert parallel').
 
 Routing, as the reference's (moe.py:59-148): each token takes its top-k
 experts by router probability (a softmax in f32 over a bias-free router,

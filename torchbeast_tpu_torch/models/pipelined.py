@@ -5,7 +5,7 @@ The reference keeps every stage's parameters as one stacked `[S, ...]`
 leaf so that the tower can shard over a `pipe` mesh axis; without a mesh
 it runs the same parameters as a sequential loop over the stages, which
 is what this module does. The GPipe schedule (the reference's
-parallel/pp.py) is ROADMAP.md Queue 1 item 'data parallel and the fleet'.
+parallel/pp.py) is ROADMAP.md Queue 1 item 'pipeline parallel'.
 
 Forward, as the reference's: the frame flattened in its [H, W, C] order,
 cast to f32 and scaled by 1/255; the `encoder` Dense to d_model, plus the

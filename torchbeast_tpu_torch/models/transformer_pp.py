@@ -6,7 +6,7 @@ so that the tower can shard over a `pipe` mesh axis, and writes the block
 as a pure function over one layer's slice; without a mesh it runs that
 function over the layers in turn, which is what this module does. The
 GPipe schedule (the reference's parallel/pp.py) is ROADMAP.md Queue 1
-item 'data parallel and the fleet'.
+item 'pipeline parallel'.
 
 Attention is models/transformer.py's dense path: the band-windowed
 attention over [cache; unroll] with segment masking, the rolling

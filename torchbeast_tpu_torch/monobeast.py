@@ -17,7 +17,7 @@ variants of those kernels (torchbeast_tpu_torch/precision.py).
 experts (models/moe.py), whose load-balance loss joins the objective and
 is reported as aux_loss; the routing stays f32 under every precision
 policy. --expert_parallel > 1 (experts sharded over devices) raises
-NotImplementedError.
+NotImplementedError (ROADMAP.md Queue 1 item 'expert parallel').
 
 --model pipelined_mlp and --model pipelined_transformer (models/
 pipelined.py, models/transformer_pp.py) run their stage-stacked towers
@@ -26,6 +26,16 @@ sequentially on one device, as the reference does without
 stages, the transformer's layers). --pipeline_parallel and
 --sequence_parallel at 0 or 1 are the single-device run; above 1, and
 --pipeline_microbatches set at all, they raise NotImplementedError.
+
+--num_learner_devices N > 1 is the reference's plain data-parallel sync
+learner (parallel/dp.py): each update's batch_size columns split over N
+devices, one model replica each, the shard gradients summed on the lead
+device, which applies the --opt_impl xla chain once and hands the params
+to every replica. The reference's checks come first: batch_size must
+divide by N, SP/EP/PP above 1 need polybeast's composite meshes, and
+--opt_impl pallas is refused. Acting and checkpoints read the lead
+replica, which is the run's model. --fleet raises the reference's
+ValueError (the sync trainer is single-host).
 
 --loss impact trains the IMPACT surrogate (ops/impact.py) against a
 target network (learner.TargetNetwork) refreshed every
@@ -48,8 +58,8 @@ Prometheus text, --trace_path writes the tracer's spans, and
 --profile_dir a torch.profiler trace (utils/prof.DeviceTrace). The
 `learner.remat_plan` static is the run's remat plan and the
 `learner.hbm_bytes_per_update` gauge the bytes one update accesses
-(precision.count_bytes). `learner.mesh_shape` is the single-device
-update's {"data": 1, "model": 1}.
+(precision.count_bytes). `learner.mesh_shape` is {"data": N, "model": 1}
+for the learner's N data shards (1 without --num_learner_devices).
 
 --remat {auto,all,none,<spec>}, --hbm_budget_gb and --transformer_remat
 set the model's remat levers (runtime/remat_plan.py): `auto` measures
@@ -76,7 +86,7 @@ import numpy as np
 import torch
 
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch import nest, precision, telemetry, weights
+from torchbeast_tpu_torch import nest, parallel, precision, telemetry, weights
 from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
@@ -203,9 +213,15 @@ def make_parser():
     parser.add_argument("--ring_schedule", default="contiguous",
                         choices=["contiguous", "zigzag"], help=_LATER)
     parser.add_argument("--num_learner_devices", type=int, default=1,
-                        help="Data-parallel learner; > 1 " + _LATER)
+                        help="Data-parallel learner over N devices (the "
+                             "CUDA devices, or the CPU's "
+                             "--xla_force_host_platform_device_count of "
+                             "XLA_FLAGS under --disable_cuda); "
+                             "batch_size must divide by N.")
     parser.add_argument("--device_split", default="", help=_LATER)
-    parser.add_argument("--fleet", default=None, help=_LATER)
+    parser.add_argument("--fleet", default=None,
+                        help="The async driver's (polybeast); refused "
+                             "here, as the reference refuses it.")
     parser.add_argument("--min_live_hosts", type=int, default=1,
                         help=_LATER)
     parser.add_argument("--transformer_remat", action="store_true",
@@ -320,13 +336,11 @@ def make_parser():
 # item that brings it. Each must stay at its parser default, except those
 # of ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
-    "sequence_parallel": "data parallel and the fleet",
-    "pipeline_parallel": "data parallel and the fleet",
-    "pipeline_microbatches": "data parallel and the fleet",
-    "num_learner_devices": "data parallel and the fleet",
-    "device_split": "data parallel and the fleet",
-    "fleet": "data parallel and the fleet",
-    "min_live_hosts": "data parallel and the fleet",
+    "sequence_parallel": "sequence parallel",
+    "pipeline_parallel": "pipeline parallel",
+    "pipeline_microbatches": "pipeline parallel",
+    "device_split": "the device split",
+    "min_live_hosts": "the fleet",
 }
 
 
@@ -381,14 +395,54 @@ def check_moe_flags(flags) -> None:
     if expert_par > 1:
         raise NotImplementedError(
             f"--expert_parallel {expert_par!r} is not in the port yet: "
-            "ROADMAP.md Queue 1 item 'data parallel and the fleet'"
+            "ROADMAP.md Queue 1 item 'expert parallel'"
         )
+
+
+def check_dp_flags(flags) -> int:
+    """--num_learner_devices, with the reference's checks of the sync
+    trainer's DP (monobeast.py:810-834), made before any side effect:
+    plain DP only, batch_size divisible by the devices, no fused tail.
+    Returns the device count."""
+    n_dev = getattr(flags, "num_learner_devices", 1)
+    if n_dev > 1:
+        if any(
+            (getattr(flags, f, 0) or 0) > 1
+            for f in ("sequence_parallel", "expert_parallel",
+                      "pipeline_parallel")
+        ):
+            raise ValueError(
+                "--num_learner_devices in the sync trainer is plain DP; "
+                "composing DP with SP/EP/PP needs the async driver's "
+                "composite meshes (polybeast)"
+            )
+        if flags.batch_size % n_dev != 0:
+            raise ValueError(
+                f"batch_size {flags.batch_size} not divisible by "
+                f"num_learner_devices {n_dev}"
+            )
+        if getattr(flags, "opt_impl", "xla") == "pallas":
+            raise ValueError(parallel.dp.PALLAS_REFUSAL)
+    return max(1, n_dev)
+
+
+def learner_mesh(device, n_dev: int):
+    """The learner's data mesh over the first n_dev devices of `device`'s
+    platform (parallel.create_mesh, with the reference's "visible"
+    error); its lead is `device` (select_device's: cuda:0, or the CPU)."""
+    return parallel.create_mesh(
+        n_dev, devices=parallel.visible_devices(device.type))
 
 
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
     does not have yet, and the reference's errors for the parallelism
     flags (check_parallel_flags)."""
+    if getattr(flags, "fleet", None):
+        raise ValueError(
+            "--fleet needs the async driver (polybeast): the sync "
+            "trainer is single-host by design"
+        )
     check_moe_flags(flags)
     defaults = make_parser().parse_args([])
     check_parallel_flags(flags, {
@@ -620,6 +674,7 @@ def train(flags):
     reads its own copy of the params, which takes the chain head
     dispatched before each collect (policy lag 1); without it acting
     reads the learner's params after each collect's updates (lag 0)."""
+    n_dev = check_dp_flags(flags)
     check_flags(flags)
     if flags.num_actors % flags.batch_size != 0:
         raise ValueError(
@@ -629,6 +684,7 @@ def train(flags):
     K = check_superstep(flags)
     overlap = bool(getattr(flags, "overlap_collect", False))
     device = select_device(flags)
+    mesh = learner_mesh(device, n_dev) if n_dev > 1 else None
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S"
@@ -643,7 +699,8 @@ def train(flags):
     tele = telemetry.DriverTelemetry(
         flags, plogger.paths["telemetry"], driver="monobeast")
     reg = tele.registry
-    tele.set_static("learner.mesh_shape", {"data": 1, "model": 1})
+    tele.set_static("learner.mesh_shape",
+                    mesh.shape if mesh else {"data": 1, "model": 1})
 
     hp = hparams_from_flags(flags)
     batch_dtype = precision.resolve_flags(flags).batch_dtype
@@ -664,9 +721,15 @@ def train(flags):
         restored = load_train_state(checkpoint_path, model, optimizer)
         step, stats = restored["step"], restored["stats"]
         log.info("Resuming preempted job, current stats:\n%s", stats)
+    if mesh is not None:
+        update = parallel.make_parallel_update_step(
+            model, optimizer, hp, mesh, superstep_k=K)
+        log.info("Sync learner data-parallel over %d devices",
+                 mesh.shape["data"])
+    else:
+        update = learner_lib.make_update_dispatch(model, optimizer, hp, K)
     dispatch = learner_lib.instrument_update_step(
-        learner_lib.make_update_dispatch(model, optimizer, hp, K),
-        registry=reg, superstep_k=K)
+        update, registry=reg, superstep_k=K)
     # Lag 0: acting reads the learner's params, updated in place on the
     # same stream. Lag 1: its own copy, refreshed after each collect.
     act_model = (copy.deepcopy(model).requires_grad_(False) if overlap
@@ -690,9 +753,15 @@ def train(flags):
     # update, so the first batches train at ratio 1.
     target = None
     if hp.loss == "impact":
-        target = learner_lib.TargetNetwork(
-            model, max(1, flags.target_refresh_updates or 1),
-            superstep_k=K, registry=reg)
+        refresh = max(1, flags.target_refresh_updates or 1)
+        if mesh is None:
+            target = learner_lib.TargetNetwork(model, refresh, superstep_k=K,
+                                               registry=reg)
+        else:
+            # One target network per shard, each forward on its shard's
+            # device.
+            target = parallel.ShardedTarget(update, refresh, superstep_k=K,
+                                            registry=reg)
         log.info("IMPACT loss: target network refresh every %d updates, "
                  "replay reuse %d", target.store.refresh_updates, reuse)
     updates_done = 0  # the target store's version clock, in updates

@@ -55,7 +55,23 @@ remat plan (the `learner.remat_plan` static) and the
 instance here, so the acting copy, the bf16 snapshots and the replicas
 carry the expert leaves; its load-balance loss joins the objective and is
 reported as aux_loss. --expert_parallel > 1 raises NotImplementedError
-(ROADMAP.md Queue 1 item 'data parallel and the fleet').
+(ROADMAP.md Queue 1 item 'expert parallel').
+
+--num_learner_devices N > 1 makes the learner the reference's plain
+data-parallel one (parallel/dp.py): each dispatch's batch splits over N
+devices, one model replica each, whose gradients the lead device sums
+and applies with the --opt_impl xla chain before every replica takes the
+lead's params. Acting, snapshots and checkpoints read the lead replica
+(the reference's local_view). --coordinator_address host:port (or the
+TORCHBEAST_COORDINATOR, TORCHBEAST_NUM_PROCESSES and
+TORCHBEAST_PROCESS_ID variables) joins several processes in one
+torch.distributed group (nccl on the card, gloo under --disable_cuda):
+every process runs its own env servers, actors and inference on
+batch_size / processes rows, all of them run the same number of
+collective updates (the gradient sum is all-reduced), the lead process
+alone checkpoints, and the others log under {xpid}-host{rank}. The
+reference's multi-host checks come first (an explicit --xpid, N above 1
+and divisible by the processes, batch_size divisible too).
 
 --remat, --hbm_budget_gb and --transformer_remat are monobeast's
 (runtime/remat_plan.py): the plan is resolved once, and the learner's
@@ -113,7 +129,7 @@ import torch
 from torchbeast_tpu_torch import graphs
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch import nest, polybeast_env, precision, telemetry
-from torchbeast_tpu_torch import monobeast, weights
+from torchbeast_tpu_torch import monobeast, parallel, weights
 from torchbeast_tpu_torch.resilience import (
     ChaosController,
     FaultPlan,
@@ -318,8 +334,14 @@ def make_parser():
                         dest="continuous_batching", action="store_false",
                         help="Native runtime only.")
     parser.add_argument("--num_learner_devices", type=int, default=1,
-                        help="Data-parallel learner; > 1 " + _LATER)
-    parser.add_argument("--coordinator_address", default=None, help=_LATER)
+                        help="Data-parallel learner over N devices (in "
+                             "all, over every process); batch_size must "
+                             "divide by N.")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="host:port of process 0 of a multi-process "
+                             "run (torch.distributed; the process count "
+                             "and id come from TORCHBEAST_NUM_PROCESSES "
+                             "and TORCHBEAST_PROCESS_ID).")
     parser.add_argument("--fleet", default=None, help=_LATER)
     parser.add_argument("--min_live_hosts", type=int, default=1,
                         help=_LATER)
@@ -432,15 +454,13 @@ def make_parser():
 # item that brings it. Each must stay at its parser default, except those
 # of monobeast.ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
-    "sequence_parallel": "data parallel and the fleet",
-    "pipeline_parallel": "data parallel and the fleet",
-    "pipeline_microbatches": "data parallel and the fleet",
-    "tensor_parallel": "data parallel and the fleet",
-    "num_learner_devices": "data parallel and the fleet",
-    "coordinator_address": "data parallel and the fleet",
-    "fleet": "data parallel and the fleet",
-    "min_live_hosts": "data parallel and the fleet",
-    "device_split": "data parallel and the fleet",
+    "sequence_parallel": "sequence parallel",
+    "pipeline_parallel": "pipeline parallel",
+    "pipeline_microbatches": "pipeline parallel",
+    "tensor_parallel": "tensor parallel",
+    "fleet": "the fleet",
+    "min_live_hosts": "the fleet",
+    "device_split": "the device split",
 }
 
 
@@ -560,6 +580,70 @@ def train(flags):
         raise ValueError("--admission_depth_factor must be >= 1, got "
                          f"{flags.admission_depth_factor}")
     device = monobeast.select_device(flags)
+    # No-op (with a log line) when no coordinator is configured by flag
+    # or TORCHBEAST_COORDINATOR.
+    joined = parallel.initialize_distributed(
+        flags.coordinator_address,
+        backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _train(flags, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def check_multihost_flags(flags, proc_count: int) -> None:
+    """The reference's checks of a multi-process run (polybeast.py:
+    616-647): an explicit --xpid, a learner over more than one device
+    and divisible by the processes, a global batch divisible by them."""
+    if proc_count <= 1:
+        return
+    if flags.xpid is None:
+        raise ValueError(
+            "multi-host runs need an explicit --xpid (the timestamp "
+            "default would differ per host and break checkpoint "
+            "resume)"
+        )
+    if flags.num_learner_devices <= 1:
+        raise ValueError(
+            "multi-host runs need --num_learner_devices > 1 (each "
+            "host training single-device would silently diverge)"
+        )
+    if flags.num_learner_devices % proc_count != 0:
+        raise ValueError(
+            f"--num_learner_devices {flags.num_learner_devices} must "
+            f"be divisible by the {proc_count} processes"
+        )
+    if flags.batch_size % proc_count != 0:
+        raise ValueError(
+            f"--batch_size {flags.batch_size} (global) must be "
+            f"divisible by the {proc_count} processes"
+        )
+
+
+def _train(flags, device):
+    """train's body, inside the process group when one was joined."""
+    superstep_k = getattr(flags, "superstep_k", 1)
+    proc_count = parallel.process_count()
+    host_rank = parallel.process_index()
+    is_lead = host_rank == 0
+    check_multihost_flags(flags, proc_count)
+    n_dev = flags.num_learner_devices
+    mesh = None
+    if n_dev > 1:
+        mesh = monobeast.learner_mesh(device, n_dev)
+        if flags.batch_size % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"batch_size {flags.batch_size} not divisible by "
+                f"the learner mesh's data axis ({mesh.shape['data']})"
+            )
+        if getattr(flags, "opt_impl", "xla") == "pallas":
+            raise ValueError(
+                "--opt_impl pallas does not compose with the sharded "
+                "learner meshes yet (the fused tail is a per-chip "
+                "kernel; its sharded-update story is the Sebulba "
+                "item's)"
+            )
     # Before the env servers start: with --native_server each of them
     # loads the core, which is then built once, here.
     core = select_runtime(flags)
@@ -567,7 +651,8 @@ def train(flags):
         flags.xpid = "polybeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S")
     plogger = FileWriter(
-        xpid=flags.xpid, xp_args=vars(flags), rootdir=flags.savedir
+        xpid=flags.xpid if is_lead else f"{flags.xpid}-host{host_rank}",
+        xp_args=vars(flags), rootdir=flags.savedir
     )
     # Telemetry: one process-wide registry every runtime stage writes
     # into; snapshots append to {xpid}/telemetry.jsonl on the monitor
@@ -576,10 +661,12 @@ def train(flags):
         flags, plogger.paths["telemetry"], driver="polybeast")
     telemetry_on = tele.enabled
     reg = tele.registry
-    # One host, one device: the reference's single-host statics.
-    tele.set_static("host_rank", 0)
-    tele.set_static("fleet_size", 1)
-    tele.set_static("learner.mesh_shape", {"data": 1, "model": 1})
+    # Host identity on every line: multi-host analyses join the
+    # per-host telemetry.jsonl files on these two statics.
+    tele.set_static("host_rank", host_rank)
+    tele.set_static("fleet_size", proc_count)
+    tele.set_static("learner.mesh_shape",
+                    mesh.shape if mesh else {"data": 1, "model": 1})
     health = PipelineHealth(registry=reg)
     chaos = None
     if flags.chaos_plan:
@@ -592,7 +679,10 @@ def train(flags):
                                      i % flags.num_servers)
         for i in range(num_actors)
     ]
-    T, B = flags.unroll_length, flags.batch_size
+    # B: this process's rows of each learner batch (the global batch over
+    # the processes); the step clock counts the global batch's frames.
+    T, B = flags.unroll_length, flags.batch_size // proc_count
+    global_rows = flags.batch_size
 
     # Any failure from the instant the server group exists until the main
     # try/finally below takes over must not leak the spawned processes.
@@ -631,8 +721,16 @@ def train(flags):
             restored = load_train_state(checkpoint_path, model, optimizer)
             step, stats = restored["step"], restored["stats"]
             log.info("Resuming preempted job, current stats:\n%s", stats)
-        dispatch = learner_lib.make_update_dispatch(model, optimizer, hp,
-                                                   superstep_k)
+        if mesh is not None:
+            parallel.check_consistent_restore(mesh, step,
+                                              list(model.parameters()))
+            dispatch = parallel.make_parallel_update_step(
+                model, optimizer, hp, mesh, superstep_k=superstep_k)
+            log.info("Parallel learner: data=%d (%d processes)",
+                     mesh.shape["data"], proc_count)
+        else:
+            dispatch = learner_lib.make_update_dispatch(
+                model, optimizer, hp, superstep_k)
         update = learner_lib.instrument_update_step(
             dispatch, registry=reg, superstep_k=superstep_k)
 
@@ -656,9 +754,16 @@ def train(flags):
         # dispatch, so replay handouts see the current target.
         target = None
         if hp.loss == "impact":
-            target = learner_lib.TargetNetwork(
-                model, max(1, flags.target_refresh_updates or 1),
-                superstep_k=superstep_k, registry=reg)
+            refresh = max(1, flags.target_refresh_updates or 1)
+            if mesh is None:
+                target = learner_lib.TargetNetwork(
+                    model, refresh, superstep_k=superstep_k, registry=reg)
+            else:
+                # One target network per shard, each forward on its
+                # shard's device.
+                target = parallel.ShardedTarget(
+                    dispatch, refresh, superstep_k=superstep_k,
+                    registry=reg)
             log.info("IMPACT loss: target network refresh every %d "
                      "updates, replay reuse %d",
                      target.store.refresh_updates, replay_reuse)
@@ -1232,9 +1337,11 @@ def train(flags):
                         # on the stream after the update.
                         with torch.no_grad():
                             torch._foreach_copy_(act_params, learn_params)
+                        # Global frames: every process ran this
+                        # collective dispatch.
                         if fresh:
-                            state["step"] += superstep_k * T * B
-                        state["learn_step"] += superstep_k * T * B
+                            state["step"] += superstep_k * T * global_rows
+                        state["learn_step"] += superstep_k * T * global_rows
                         now_step = state["step"]
                         updates_done[0] += superstep_k
                         # A versioned snapshot when one is due (a
@@ -1269,6 +1376,8 @@ def train(flags):
         raise
 
     def checkpoint():
+        if not is_lead:  # the lead process alone writes the checkpoint
+            return
         with update_lock:
             with state_lock:
                 at_step, at_stats = state["step"], dict(state["stats"])
@@ -1427,8 +1536,8 @@ def train(flags):
         statistics.median(update_interval_ms) if update_interval_ms
         else 0.0)
     stats["updates"] = len(update_interval_ms)
-    stats["learn_sps"] = (updates_done[0] * T * B / elapsed if elapsed
-                          else 0.0)
+    stats["learn_sps"] = (updates_done[0] * T * global_rows / elapsed
+                          if elapsed else 0.0)
     counts = _counter_values(reg, counters)
     batches = counts["inference.batches"] - counts_at_start[
         "inference.batches"]

@@ -57,7 +57,7 @@ Frames are bounded by `max_frame_bytes` (default 256 MiB): a corrupt
 
 The port's copy of torchbeast_tpu/runtime/wire.py, without the policy
 snapshot frame (tag 0x09, PolicySnapshot): only the fleet's control
-plane sends it (ROADMAP.md Queue 1 item 'data parallel and the fleet'),
+plane sends it (ROADMAP.md Queue 1 item 'the fleet'),
 so the port refuses it as an unknown tag. Every frame of actor and env-server
 traffic is the reference's byte for byte.
 """

@@ -1,6 +1,6 @@
 """The serving tier (the port of torchbeast_tpu/serving/, without the
 remote replica hosts of serving/replica_server.py, which go with the
-fleet: ROADMAP.md Queue 1 item 'data parallel and the fleet').
+fleet: ROADMAP.md Queue 1 item 'the fleet').
 
 - admission: bounded-depth admission control + deadline-aware load
   shedding on the central inference path (--request_deadline_ms,
