@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
                            | --impact-only | --remat-only | --anakin-only
-                           | --pipelined-only | --dp-only]
+                           | --pipelined-only | --dp-only | --ep-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -230,6 +230,31 @@ exits non-zero without printing the final result line:
    over 3 iterations, pool_bwd 6 an iteration, and the first
    iteration's update against the one-device update on the 64 columns
    its shards collected, at (b)'s tolerances.
+10. Expert parallelism and the MoE transformer under the data-parallel
+   learner (run after 9; with --ep-only alone after the builds, printing
+   the paths' launches as one JSON line): TF32 off and cuDNN
+   deterministic, the full-width transformer with --num_experts 8
+   (top-2, d_ff 512; 2592 tokens an update, 810 slots an expert) at
+   T=80, B=32, --attention_impl pallas, --vtrace_impl pallas, RMSprop
+   eps 1.0, every shard on cuda:0 through the explicit device list: for
+   each (data, expert) layout of EP_LAYOUTS (data 2 and 4; 1x2 and 2x2)
+   at f32, and those the reference allows at bf16_train (data 2, data 4,
+   1x2: its polybeast refuses bf16_train on a data x expert mesh), 2
+   updates against the one-device MoE update (one CUDA graph) on the
+   same batches from the same weights: params within phase 9's rtol
+   2e-3 / atol 2e-5 (at bf16_train the f32 masters so, the bf16 params
+   within one bf16 ulp), aux_loss within rtol 2e-4 (a bf16 ulp at
+   bf16_train), total_loss within rtol 2e-4 (2e-2 at bf16_train), each
+   update's kept assignments equal to the one-device rule on the shards'
+   own router probabilities (exactly), its dropped assignments within
+   1e-3 of the assignments of the one device's (a near tie may round the
+   other way over fewer rows; bf16_train's second update 1e-2), every
+   replica bitwise equal to the lead, V-trace once,
+   the attention forward and backward twice (one a layer) a data shard
+   an update and the tail never; each layout's update ms beside the one
+   device's; then data 2 at f32 again in a torch.distributed NCCL group
+   of world size 1 (its routing counts all_gathered on the group),
+   bitwise equal to the run without a group.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3308,6 +3333,283 @@ def run_dp_phases(ops, dev, savedir, tf32):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 10
+
+# (data, expert) layouts of the MoE update, and those the reference runs
+# at bf16_train (its polybeast refuses bf16_train on a data x expert
+# mesh: polybeast.py:1000-1011).
+EP_LAYOUTS = ((2, 1), (4, 1), (1, 2), (2, 2))
+EP_BF16_LAYOUTS = ((2, 1), (4, 1), (1, 2))
+EP_EXPERTS = 8
+EP_AUX_RTOL = 2e-4
+# Dropped assignments against the one-device update, as a share of the
+# assignments (the shards' routing itself is held exactly: see
+# check_ep_path).
+EP_DROPS_APART = 1e-3
+EP_BF16_DROPS_APART = 1e-2  # bf16_train's updates after the first
+# bf16_train's loss: the bf16 products of a shard and of the whole batch
+# round differently, and the second update starts from params a bf16 ulp
+# apart here and there (tests/test_torch_parallel.py's bf16_train DP
+# tolerance for the stats).
+EP_BF16_LOSS_RTOL = 2e-2
+EP_KERNELS = {"vtrace_targets": 1, "transformer_attention": 2,
+              "transformer_attention_bwd": 2}  # a data shard an update
+
+
+def _ep_hp(policy):
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import precision
+
+    pol = precision.get(policy)
+    return learner_lib.HParams(
+        unroll_length=T, batch_size=B, vtrace_impl="pallas", opt_impl="xla",
+        total_steps=20 * T * B, entropy_cost_final=1e-4, rmsprop_eps=DP_EPS,
+        param_dtype=pol.param_dtype, opt_state_dtype=pol.opt_state_dtype)
+
+
+def _whole_batch_kept(probs, top_k, capacity):
+    """The one-device rule (models/moe.py) on router probabilities
+    [t, E]: the kept mask [t, K, E] of top-k picks, rank-major then token
+    order, at most `capacity` an expert."""
+    t, E = probs.shape
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :top_k]
+    sel = F.one_hot(idx, E).float()
+    flat = sel.transpose(0, 1).reshape(top_k * t, E)
+    pos = (torch.cumsum(flat, 0) - flat).reshape(top_k, t, E).transpose(0, 1)
+    return sel * (pos < capacity)
+
+
+def _routing_exact(replicas):
+    """Whether each MoE layer's kept masks, over the data shards in order,
+    equal the one-device rule on the same router probabilities: the
+    whole-batch routing of the shards' exchange, free of the shards' and
+    the whole batch's own rounding of those probabilities."""
+    from torchbeast_tpu_torch.models.moe import MoEFFN
+
+    per_replica = [[m for m in r.modules() if isinstance(m, MoEFFN)]
+                   for r in replicas]
+    for layers in zip(*per_replica):
+        probs = torch.cat([m.last_probs for m in layers])
+        kept = torch.cat([m.last_kept for m in layers])
+        want = _whole_batch_kept(probs, layers[0].top_k,
+                                 layers[0].capacity(probs.shape[0]))
+        if not torch.equal(kept, want):
+            return False
+    return True
+
+
+def _ep_path(dev, policy, layout, inputs):
+    """The MoE transformer's update on one device (layout None: one CUDA
+    graph) or over a (data, expert) mesh of `dev` repeated, captured (or
+    built) on the first batch, then DP_UPDATES updates counted: (the
+    params after them and, at bf16_train, the optimizer's f32 masters,
+    copies; the dispatch; stats stacked [U]; launch counts; each update's
+    dropped assignments)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+    from torchbeast_tpu_torch.models.moe import MoEFFN
+
+    from torchbeast_tpu_torch import ops
+
+    batches, state = inputs
+    model, _ = _param_tree(dev, "transformer", policy,
+                           num_experts=EP_EXPERTS)
+    hp = _ep_hp(policy)
+    opt = learner_lib.make_optimizer(hp, list(model.parameters()))
+    if layout is None:
+        dispatch = learner_lib.make_update_dispatch(model, opt, hp)
+        replicas = [model]
+    else:
+        data, expert = layout
+        mesh = parallel.create_mesh(devices=[dev] * (data * expert),
+                                    expert_parallelism=expert)
+        dispatch = parallel.make_parallel_update_step(model, opt, hp, mesh)
+        replicas = dispatch.learner.replicas
+    layers = [m for r in replicas for m in r.modules()
+              if isinstance(m, MoEFFN)]
+    for m in layers:
+        m.track_routing = True
+    dispatch.capture(batches[0], state)
+    ops.reset_launch_counts()
+    out, dropped, exact = [], [], []
+    for batch in batches:
+        out.append(dispatch(batch, state))
+        dropped.append(sum(int(m.last_dropped) for m in layers))
+        exact.append(_routing_exact(replicas))
+    stats = {k: torch.stack([o[k].float() for o in out]) for k in out[0]}
+    counts = (ops.launch_counts(), ops.bf16_launch_counts())
+    after = {name: p.detach().clone()
+             for name, p in model.named_parameters()}
+    master = (None if opt.state.master is None
+              else [m.detach().clone() for m in opt.state.master])
+    check(all(exact), f"phase 10 {layout} {policy}: the shards' kept "
+                      "assignments differ from the one-device rule on "
+                      "their router probabilities")
+    return (after, master), dispatch, stats, counts, dropped
+
+
+def check_ep_path(dev, policy, layout, want, inputs):
+    """One layout of phase 10 against the one-device run `want` (an
+    _ep_path result). Returns (its launch counts and bf16 launch counts,
+    the path's result, its update ms)."""
+    label = f"phase 10 data {layout[0]} x expert {layout[1]} {policy}"
+    got = _ep_path(dev, policy, layout, inputs)
+    (params, master), dispatch, stats, (counts, _), dropped = got
+    (w_params, w_master), _, w_stats, _, w_dropped = want
+    data = layout[0]
+    for name, n in EP_KERNELS.items():
+        check(counts[name] == n * data * DP_UPDATES,
+              f"{label}: {counts[name]} {name} launches in {DP_UPDATES} "
+              f"updates, not {n} a data shard an update")
+    check(counts["rmsprop_tail"] == 0, f"{label}: the tail launched")
+    learner = dispatch.learner
+    for replica in learner.params[1:]:
+        check(all(torch.equal(p, q) for p, q in zip(replica,
+                                                    learner.params[0])),
+              f"{label}: a replica differs from the lead")
+    if master is None:
+        pairs = [(name, p, w_params[name]) for name, p in params.items()]
+    else:
+        pairs = [(name, m, w) for name, m, w in zip(params, master,
+                                                    w_master)]
+        for name, p in params.items():
+            err, ok = close(p.float(), w_params[name].float(), BF16_ULP,
+                            DP_PARAMS_ATOL)
+            check(ok, f"{label}: bf16 param {name} max |diff| {err:.3g} "
+                      "beyond one bf16 ulp")
+    worst = 0.0
+    for pname, p, q in pairs:
+        p, q = p.float(), q.float()
+        err, ok = close(p, q, DP_PARAMS_RTOL, DP_PARAMS_ATOL)
+        check(ok, f"{label}: param {pname} max |diff| {err:.3g} beyond "
+                  f"rtol {DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL}")
+        worst = max(worst, float(((p - q).abs().max()
+                                  / q.abs().max().clamp_min(1e-30))))
+    # At bf16_train the router reads activations of bf16 products, which
+    # a shard's fewer rows round otherwise: aux_loss, a mean of router
+    # probabilities, within a bf16 ulp.
+    aux_rtol = EP_AUX_RTOL if master is None else BF16_ULP
+    aux_err, ok = close(stats["aux_loss"], w_stats["aux_loss"].float(),
+                        aux_rtol, 0.0)
+    check(ok and float(stats["aux_loss"][-1]) > 0,
+          f"{label}: aux_loss {stats['aux_loss'].tolist()} vs "
+          f"{w_stats['aux_loss'].tolist()}")
+    loss_rtol = DP_LOSS_RTOL if master is None else EP_BF16_LOSS_RTOL
+    loss_err, ok = close(stats["total_loss"], w_stats["total_loss"].float(),
+                         loss_rtol, 0.0)
+    check(ok, f"{label}: total_loss {stats['total_loss'].tolist()} vs "
+              f"{w_stats['total_loss'].tolist()}")
+    # The shards' routing is exact on their own router probabilities
+    # (_ep_path). Against the one-device update's count, a token whose
+    # top-k ties within the last bits of f32 may pick otherwise: a
+    # shard's products over fewer rows round differently. A routing that
+    # was not the whole batch's (a shard's own capacity) would part by
+    # thousands.
+    # At bf16_train the second update's routing also reads params a bf16
+    # ulp apart here and there.
+    assignments = 2 * 2 * T * B  # 2 layers, top-2
+    bounds = [EP_DROPS_APART * assignments] + [
+        (EP_DROPS_APART if master is None else EP_BF16_DROPS_APART)
+        * assignments] * (len(dropped) - 1)
+    apart = [abs(a - b) for a, b in zip(dropped, w_dropped)]
+    check(all(a <= bound for a, bound in zip(apart, bounds)),
+          f"{label}: {dropped} assignments dropped, one device {w_dropped}")
+    batches, state = inputs
+    ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    print(f"{label}: {data * layout[1]} shards on {dev}, {DP_UPDATES} "
+          f"updates against one device: params within rtol "
+          f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
+          f"{worst:.3g} of a leaf's largest entry{'' if policy == 'f32' else ', f32 masters; bf16 params within a bf16 ulp'}), "
+          f"aux_loss within rtol {aux_rtol:.3g} (max |diff| {aux_err:.3g}), "
+          f"total_loss within rtol {loss_rtol} (max |diff| "
+          f"{loss_err:.3g}); kept assignments = the one-device rule on "
+          f"the shards' router probabilities; dropped {dropped} (one "
+          f"device {w_dropped}, {apart} apart); replicas "
+          f"bitwise equal; launches an update "
+          f"{ {k: counts[k] // DP_UPDATES for k in EP_KERNELS} }; update "
+          f"{ms:.3f} ms ({'eager, shards in lockstep' if data > 1 else 'one CUDA graph'})")
+    return got[3], got, ms
+
+
+def check_ep_nccl(dev, want, inputs):
+    """Data 2 at f32 again in an NCCL group of world size 1: bitwise equal
+    to the run without a group."""
+    import socket
+
+    from torchbeast_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                    backend="nccl")
+    try:
+        (params, _), dispatch, stats, _, _ = _ep_path(dev, "f32", (2, 1),
+                                                      inputs)
+        check(dispatch.learner.group is not None
+              and dispatch.learner.exchange.group is not None,
+              "phase 10 NCCL: no group")
+        (want_params, _), _, want_stats, _, _ = want
+        check(all(torch.equal(p, want_params[k]) for k, p in params.items())
+              and all(torch.equal(stats[k], want_stats[k]) for k in stats),
+              "phase 10 NCCL: the group's MoE DP run differs from the run "
+              "without one")
+    finally:
+        torch.distributed.destroy_process_group()
+    print("phase 10 data 2 f32 in an NCCL group of world size 1 (routing "
+          "counts all_gathered, gradients all-reduced): bitwise equal to "
+          "the run without a group")
+
+
+def run_ep_phases(ops, dev, savedir, tf32):
+    """Phase 10 (--ep-only alone after the builds). Returns the paths'
+    launch counts."""
+    from torchbeast_tpu_torch import precision
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    by_path = {}
+    print(f"phase 10: {card_line()}")
+    for policy, layouts in (("f32", EP_LAYOUTS),
+                            ("bf16_train", EP_BF16_LAYOUTS)):
+        dtype = precision.get(policy).batch_dtype
+        model, _ = _param_tree(dev, "transformer", policy,
+                               num_experts=EP_EXPERTS)
+        inputs = ([precision.cast_batch(random_batch(i, dev), dtype)
+                   for i in range(DP_UPDATES)],
+                  precision.cast_batch(_agent_state(model, "transformer",
+                                                    dev), dtype))
+        del model
+        want = _ep_path(dev, policy, None, inputs)
+        one_ms = time_ms(lambda: want[1](inputs[0][0], inputs[1]), reps=10)
+        print(f"phase 10 one device {policy}: update {one_ms:.3f} ms (one "
+              f"CUDA graph), {want[4]} assignments dropped in its updates "
+              f"of {2 * 2 * T * B} (2 layers, top-2)")
+        for layout in layouts:
+            counts, got, _ = check_ep_path(dev, policy, layout, want,
+                                           inputs)
+            by_path[f"moe data {layout[0]} x expert {layout[1]} "
+                    f"{policy}"] = counts
+            if policy == "f32" and layout == (2, 1):
+                nccl_want = got
+            del got
+            torch.cuda.empty_cache()
+        if policy == "f32":
+            check_ep_nccl(dev, nccl_want, inputs)
+            del nccl_want
+        del want, inputs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    print(f"phase 10 (expert parallel): {time.time() - t0:.1f} s")
+    return by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -3329,9 +3631,10 @@ def main(argv):
     anakin_only = argv == ["--anakin-only"]
     pipelined_only = argv == ["--pipelined-only"]
     dp_only = argv == ["--dp-only"]
+    ep_only = argv == ["--ep-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
-                     or pipelined_only or dp_only):
+                     or pipelined_only or dp_only or ep_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3425,6 +3728,11 @@ def main(argv):
         print(json.dumps({"dp_launches": {
             path: counts for path, (counts, _) in by_path.items()}}))
         return 0
+    if ep_only:
+        by_path = run_ep_phases(ops, dev, savedir, tf32)
+        print(json.dumps({"ep_launches": {
+            path: counts for path, (counts, _) in by_path.items()}}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -3483,6 +3791,7 @@ def main(argv):
     kernels.extend(rows)
     by_path.update(pipelined_paths)
     by_path.update(run_dp_phases(ops, dev, savedir, tf32))
+    by_path.update(run_ep_phases(ops, dev, savedir, tf32))
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -513,8 +513,11 @@ def _mono_argv(tmp_path, *extra):
 
 @pytest.mark.parametrize("driver", ["monobeast", "polybeast"])
 @pytest.mark.parametrize("extra,error,match", [
-    (["--num_experts", "4", "--expert_parallel", "2"], NotImplementedError,
-     "Queue 1 item 'expert parallel'"),
+    # --expert_parallel is in the port (tests/test_torch_ep.py trains
+    # it); the reference's divisibility check comes before any side
+    # effect.
+    (["--num_experts", "4", "--expert_parallel", "3"], ValueError,
+     "--num_experts 4 not divisible by --expert_parallel 3"),
     (["--expert_parallel", "1"], ValueError,
      "--expert_parallel needs --num_experts"),
 ])

@@ -97,13 +97,18 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
                  "Queue 1 item 'pipeline parallel'", id="args3-transformer"),
     pytest.param(["--sequence_parallel", "2"], NotImplementedError,
                  "Queue 1 item 'sequence parallel'", id="args4-transformer"),
-    (["--num_experts", "4", "--expert_parallel", "2"], NotImplementedError,
-     "Queue 1 item 'expert parallel'"),
+    # Expert parallelism is in the port: the MoE transformer's experts
+    # split over 2 devices train.
+    pytest.param(["--model", "transformer", "--num_experts", "4",
+                  "--expert_parallel", "2"], None, None,
+                 id="args5-expert_parallel-trains"),
 ])
 def test_features_outside_the_port_raise(tmp_path, args, error, match):
     """Each multi-device flag: the ROADMAP.md item that brings it, the
-    reference's error for it, or (--num_learner_devices) a run."""
-    flags = _flags(*args, tmp_path=tmp_path)
+    reference's error for it, or (--num_learner_devices, and
+    --expert_parallel on the MoE transformer) a run."""
+    flags = _flags(*args, tmp_path=tmp_path,
+                   model=() if "--num_experts" in args else DEEP)
     if error is None:
         stats = monobeast.main(flags)
         assert stats["step"] == 48 and np.isfinite(stats["total_loss"])

@@ -509,10 +509,15 @@ _KINDS = {
 
 class _Pool:
     """One actor through the native, the reference's or the port's
-    Python pool, with an inference thread serving its batcher."""
+    Python pool, with an inference thread serving its batcher.
+    `queue_size` bounds the learner queue (unbounded by default): a test
+    that takes rollouts after a fault bounds it to 1, so that at most two
+    rollouts of before the fault (one queued, one blocked on the full
+    queue) can stand ahead of those of the recovered stream, however far
+    the actor ran ahead of a test thread slowed by a loaded host."""
 
     def __init__(self, core, kind, address, slots=False, max_reconnects=0,
-                 **pool_kwargs):
+                 queue_size=None, **pool_kwargs):
         import importlib
 
         if kind == "native":
@@ -523,7 +528,8 @@ class _Pool:
             pool_cls = importlib.import_module(pool_name).ActorPool
         self.kind = kind
         self.learner_queue = queues.BatchingQueue(
-            batch_dim=1, minimum_batch_size=1, maximum_batch_size=1)
+            batch_dim=1, minimum_batch_size=1, maximum_batch_size=1,
+            maximum_queue_size=queue_size)
         self.batcher = queues.DynamicBatcher(batch_dim=1, timeout_ms=20)
         if slots:
             table = _HostSlotTable(num_slots=1)
@@ -810,7 +816,8 @@ def test_native_shm_crash_reconnect_and_sweep(core):
     path = os.path.join(tempfile.mkdtemp(), "native_shm_crash")
     proc = _spawn_counting_server_proc(path)
     pids.add(proc.pid)
-    pool = _Pool(core, "native", f"shm:{path}", max_reconnects=3)
+    pool = _Pool(core, "native", f"shm:{path}", max_reconnects=3,
+                 queue_size=1)
     try:
         pool.take(1)  # a rollout through the first connection
         # The first connection's rings are the server's, by name.
@@ -820,7 +827,7 @@ def test_native_shm_crash_reconnect_and_sweep(core):
         os.unlink(path)  # the dead server's socket file lingers
         proc = _spawn_counting_server_proc(path)
         pids.add(proc.pid)
-        pool.take(3)
+        pool.take(3)  # at least one through the revived connection
         assert pool.pool.first_error_message() is None
         assert pool.pool.reconnect_count() >= 1
     finally:

@@ -2,8 +2,9 @@
 against the JAX package's (torchbeast_tpu/parallel/), on the CPU's 8
 virtual devices (tests/conftest.py sets XLA_FLAGS for both packages).
 
-- create_mesh: the reference's shapes and errors; an inner axis above 1
-  raises NotImplementedError naming its ROADMAP.md item.
+- create_mesh: the reference's shapes and errors; the `expert` axis is
+  the reference's (data, model, expert) grid, and any other inner axis
+  above 1 raises NotImplementedError naming its ROADMAP.md item.
 - The DP update over 2, 4 and 8 shards against the reference's
   make_parallel_update_step on the 8 devices, shallow + LSTM (the
   reference's own fixture), from the same weights (weights.py) and numpy
@@ -122,9 +123,20 @@ def test_mesh_errors_match_the_reference(kwargs, match):
     ("pipe_parallelism", "pipeline parallel"),
 ])
 def test_inner_axes_are_roadmap_items(axis, item):
-    """The reference builds these meshes; the port names the item that
-    brings each axis."""
-    assert jax_create_mesh(8, **{axis: 2}).devices.size == 8
+    """The reference builds these meshes; the port builds the expert one
+    as the reference lays it out (expert innermost) and names the item
+    that brings each other axis."""
+    theirs = jax_create_mesh(8, **{axis: 2})
+    assert theirs.devices.size == 8
+    if axis == "expert_parallelism":
+        ours = parallel.create_mesh(8, **{axis: 2})
+        assert ours.shape == dict(theirs.shape) == {
+            "data": 4, "model": 1, "expert": 2}
+        assert ours.axis_names == theirs.axis_names
+        assert ours.devices.shape == theirs.devices.shape == (4, 1, 2)
+        assert len(ours.local_devices) == 4
+        assert ours.expert_devices(1) == [torch.device("cpu")] * 2
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item '{item}'"):
         parallel.create_mesh(8, **{axis: 2})
 
@@ -380,14 +392,19 @@ def test_refusals():
     with pytest.raises(ValueError, match="--opt_impl pallas does not"):
         parallel.make_parallel_update_step(model, opt, hp,
                                            parallel.create_mesh(2))
+    # A mixture of experts is no longer refused: its step routes over the
+    # whole batch and runs eagerly, so only a capture is refused
+    # (tests/test_torch_ep.py holds its numbers against the reference).
     moe = port_create_model("transformer", A, frame_shape=FRAME,
                             num_experts=4)
     hp = port_learner.HParams(**_hp())
     opt = port_learner.make_optimizer(hp, list(moe.parameters()))
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 'expert parallel'"):
-        parallel.make_parallel_update_step(moe, opt, hp,
-                                           parallel.create_mesh(2))
+    update = parallel.make_parallel_update_step(
+        moe, opt, hp, parallel.create_mesh(2), capture=True)
+    assert update.learner.exchange is not None
+    with pytest.raises(ValueError, match="cannot be captured"):
+        update(_torch(make_batch(frame=FRAME)),
+               moe.initial_state(B))
 
 
 def test_initialize_distributed_reads_the_environment(monkeypatch):

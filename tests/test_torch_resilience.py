@@ -470,8 +470,11 @@ def test_native_chaos_sever_forces_one_recovery(core):
 
     path = os.path.join(tempfile.mkdtemp(), "chaos_sever")
     server = _start_server(core, f"unix:{path}")
+    # A learner queue of one: take(3) below then holds at least one
+    # rollout of the recovered stream, not only rollouts the actor queued
+    # before the sever while the test thread was slow.
     pool = _Pool(core, "native", f"unix:{path}", max_reconnects=3,
-                 fault_hooks=True)
+                 fault_hooks=True, queue_size=1)
     try:
         pool.take(1)  # the stream is live
         assert pool.pool.chaos_sever(0) is True

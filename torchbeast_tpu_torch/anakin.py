@@ -39,7 +39,11 @@ forward and backward) and the lead's sum and update one more.
 tower sequentially at its default depth (models/pipelined.py), as the
 reference's anakin does. --num_experts N makes the transformer's FFN a
 mixture of N experts (models/moe.py) whose load-balance loss joins the
-objective.
+objective; with --num_devices > 1 every forward of the iteration, the T
+acting forwards as well as the learner's, routes over the whole batch,
+as the reference's one jitted iteration does: the shards exchange their
+routing counts in each MoE layer (parallel/dp.py), run in lockstep, and
+the iteration runs eagerly.
 
 The checkpoint {savedir}/{xpid}/model.ckpt is the reference's file
 (params, opt_state, step, flags, stats; utils/checkpoint.py), written
@@ -52,6 +56,8 @@ Run:  python -m torchbeast_tpu_torch.anakin --env Catch --total_steps 200000
 """
 
 import argparse
+import contextlib
+import functools
 import logging
 import os
 import time
@@ -160,7 +166,7 @@ def _policy_step(model, env_out, agent_state, generator):
     return _agent_out_dict(out), new_state
 
 
-def make_collect(env, model, unroll_length: int, generator):
+def make_collect(env, model, unroll_length: int, generator, routing=None):
     """The T-step rollout (the reference's scan of rollout_step):
 
         carry -> (batch {key: [T+1, B, ...]}, next carry)
@@ -170,7 +176,9 @@ def make_collect(env, model, unroll_length: int, generator):
     from env output i-1. The batch lives in buffers made at the first
     call and rewritten by every later one (inside a CUDA graph, static
     buffers of the graph), `collect.buffers`; the next carry's tensors
-    are new."""
+    are new. `routing()`, when given, is the context of each acting
+    forward (a data shard's whole-batch MoE routing scope,
+    parallel.ParallelLearner.routing)."""
     T = unroll_length
     buffers = {}
 
@@ -186,8 +194,9 @@ def make_collect(env, model, unroll_length: int, generator):
         env_state, env_out = carry.env_state, carry.env_out
         agent_state = carry.agent_state
         for t in range(1, T + 1):
-            agent_out, agent_state = _policy_step(model, env_out,
-                                                  agent_state, generator)
+            with routing() if routing else contextlib.nullcontext():
+                agent_out, agent_state = _policy_step(
+                    model, env_out, agent_state, generator)
             env_state, env_out = env.step(env_state, agent_out["action"],
                                           generator)
             for k, v in {**env_out, **agent_out}.items():
@@ -257,13 +266,17 @@ def make_parallel_iteration(env, learner, hp, generators, carries,
     then the lead sums, applies and syncs. On the card each shard's part
     is one CUDA graph on its device (its generator registered, its carry
     put back after the warm-up) and the lead's one more; `capture=False`
-    runs the eager twin. `collects[i].buffers` holds shard i's last
-    batch (make_collect)."""
+    runs the eager twin. A MoE model's shards run in lockstep, eagerly,
+    each acting forward and the learner forward in a routing scope of
+    their own (learner.routing). `collects[i].buffers` holds shard i's
+    last batch (make_collect)."""
     shard_fns = []
     collects = []
     for i, (replica, gen, carry) in enumerate(
             zip(learner.replicas, generators, carries)):
-        collect = make_collect(env, replica, hp.unroll_length, gen)
+        collect = make_collect(env, replica, hp.unroll_length, gen,
+                               routing=functools.partial(learner.routing,
+                                                         i))
         collects.append(collect)
 
         def shard(i=i, collect=collect, carry=carry):

@@ -421,7 +421,10 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], initial_agent_state,
     load-balance loss, models/moe.recording_losses; the reference's
     sown "losses" collection) are added to the objective and reported as
     `aux_loss`; a model that records none reports a zero and adds
-    nothing."""
+    nothing. Under a data shard's routing scope (models/moe.routing,
+    parallel/dp.py) each layer records this shard's piece of the whole
+    batch's loss, so the shards' aux_loss stats and gradients sum to the
+    whole batch's."""
     # --loss impact: the target network's outputs ride the batch (merged
     # in by TargetNetwork.merge), popped from a shallow copy so the model
     # forward sees the stock batch and the caller's dict (a captured

@@ -22,6 +22,8 @@ models (the trunk stages, the LSTM step, the transformer blocks) call
 through it.
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -105,8 +107,19 @@ def checkpointed(fn, *args):
     being taken; the plain call under torch.no_grad() (acting, the target
     forward, replicas), whose graphs keep their launches and bits. No RNG
     state is saved: saving it reads the generator, which a CUDA graph
-    capture forbids, and no remat region draws random numbers."""
+    capture forbids, and no remat region draws random numbers. Under a
+    MoE routing scope (models/moe.routing) the recompute runs in that
+    scope again, on whatever thread the backward runs it, so each layer
+    reuses the routing table of its forward."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    from torchbeast_tpu_torch.models import moe
+
+    scope = moe.current_routing()
+    if scope is None:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          moe.active(scope)))

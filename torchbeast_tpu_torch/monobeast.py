@@ -16,8 +16,15 @@ variants of those kernels (torchbeast_tpu_torch/precision.py).
 --num_experts N replaces the transformer's FFN with a top-2 mixture of N
 experts (models/moe.py), whose load-balance loss joins the objective and
 is reported as aux_loss; the routing stays f32 under every precision
-policy. --expert_parallel > 1 (experts sharded over devices) raises
-NotImplementedError (ROADMAP.md Queue 1 item 'expert parallel').
+policy. --expert_parallel K > 1 splits each MoE layer's experts over K
+devices (parallel/ep.py, the reference's 1-D `expert` mesh): the layer
+runs expert group j on device j and sums the groups' outputs; params and
+optimizer state stay whole on the first device and the update is the
+one-device one, as the reference's. Acting goes through the same split:
+across cards each acting forward would send every other group its
+experts' weights (2 MiB a layer and group at the full width's d 128, ff
+512, 4 experts a group, f32) and its share of the dispatched tokens, and
+take back its outputs; on one card (every group on it) nothing moves.
 
 --model pipelined_mlp and --model pipelined_transformer (models/
 pipelined.py, models/transformer_pp.py) run their stage-stacked towers
@@ -33,7 +40,9 @@ devices, one model replica each, the shard gradients summed on the lead
 device, which applies the --opt_impl xla chain once and hands the params
 to every replica. The reference's checks come first: batch_size must
 divide by N, SP/EP/PP above 1 need polybeast's composite meshes, and
---opt_impl pallas is refused. Acting and checkpoints read the lead
+--opt_impl pallas is refused. A MoE model routes over the whole batch
+(the shards exchange their routing counts in every MoE layer, and the
+update runs eagerly; parallel/dp.py). Acting and checkpoints read the lead
 replica, which is the run's model. --fleet raises the reference's
 ValueError (the sync trainer is single-host).
 
@@ -206,8 +215,9 @@ def make_parser():
                              "mixture of N experts (model=transformer "
                              "only; adds a sown load-balance loss).")
     parser.add_argument("--expert_parallel", type=int, default=0,
-                        help="Shard the MoE experts over N devices; > 1 "
-                             + _LATER)
+                        help="Shard the MoE experts over N devices (an "
+                             "`expert` mesh axis; needs --num_experts "
+                             "divisible by N).")
     parser.add_argument("--sp_strategy", default="ring",
                         choices=["ring", "ulysses"], help=_LATER)
     parser.add_argument("--ring_schedule", default="contiguous",
@@ -385,17 +395,18 @@ def check_parallel_flags(flags, not_in_port) -> None:
 
 
 def check_moe_flags(flags) -> None:
-    """The reference's MoE flag checks (monobeast.py:558-559; the
-    transformer-only one is create_model's): --expert_parallel needs
-    --num_experts, and more than one expert shard (the reference's
-    parallel/ep.py, a multi-device item) is not in the port."""
-    expert_par = getattr(flags, "expert_parallel", 0)
-    if expert_par and not getattr(flags, "num_experts", 0):
+    """The reference's MoE flag checks (monobeast.py:558-559 and 673-678;
+    the transformer-only one is create_model's, which comes first there):
+    --expert_parallel needs --num_experts, which must divide by it."""
+    expert_par = getattr(flags, "expert_parallel", 0) or 0
+    num_experts = getattr(flags, "num_experts", 0)
+    if expert_par and not num_experts:
         raise ValueError("--expert_parallel needs --num_experts")
-    if expert_par > 1:
-        raise NotImplementedError(
-            f"--expert_parallel {expert_par!r} is not in the port yet: "
-            "ROADMAP.md Queue 1 item 'expert parallel'"
+    if (expert_par > 1 and flags.model == "transformer"
+            and num_experts % expert_par != 0):
+        raise ValueError(
+            f"--num_experts {num_experts} not divisible by "
+            f"--expert_parallel {expert_par}"
         )
 
 
@@ -426,12 +437,39 @@ def check_dp_flags(flags) -> int:
     return max(1, n_dev)
 
 
-def learner_mesh(device, n_dev: int):
-    """The learner's data mesh over the first n_dev devices of `device`'s
-    platform (parallel.create_mesh, with the reference's "visible"
-    error); its lead is `device` (select_device's: cuda:0, or the CPU)."""
+def learner_mesh(device, n_dev: int, expert_par: int = 1):
+    """The learner's data (x expert) mesh over the first n_dev x
+    expert_par devices of `device`'s platform (parallel.create_mesh, with
+    the reference's "visible" error); its lead is `device`
+    (select_device's: cuda:0, or the CPU)."""
     return parallel.create_mesh(
-        n_dev, devices=parallel.visible_devices(device.type))
+        n_dev * expert_par, expert_parallelism=expert_par,
+        devices=parallel.visible_devices(device.type))
+
+
+def expert_mesh(device, flags):
+    """The reference's 1-D expert mesh of a one-device learner
+    (--expert_parallel K > 1 without a learner mesh): the first K
+    devices of `device`'s platform, with _make_1d_mesh's error, as a
+    (data=1, expert=K) Mesh; None without --expert_parallel > 1."""
+    n = getattr(flags, "expert_parallel", 0) or 0
+    if n <= 1:
+        return None
+    devices = parallel.visible_devices(device.type)
+    if len(devices) < n:
+        raise ValueError(
+            f"--expert_parallel {n} but only {len(devices)} devices are "
+            "visible"
+        )
+    return parallel.create_mesh(devices=devices[:n], expert_parallelism=n)
+
+
+def place_experts(model, mesh) -> None:
+    """Split `model`'s MoE layers over the expert devices of `mesh`'s
+    first data row (parallel.set_expert_devices), logging the layout."""
+    n = parallel.set_expert_devices(model, mesh.expert_devices(0))
+    log.info("Expert parallel: %d expert leaves split over %s", n,
+             mesh.expert_devices(0))
 
 
 def check_flags(flags) -> None:
@@ -685,6 +723,7 @@ def train(flags):
     overlap = bool(getattr(flags, "overlap_collect", False))
     device = select_device(flags)
     mesh = learner_mesh(device, n_dev) if n_dev > 1 else None
+    ep_mesh = expert_mesh(device, flags)
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S"
@@ -699,8 +738,8 @@ def train(flags):
     tele = telemetry.DriverTelemetry(
         flags, plogger.paths["telemetry"], driver="monobeast")
     reg = tele.registry
-    tele.set_static("learner.mesh_shape",
-                    mesh.shape if mesh else {"data": 1, "model": 1})
+    tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
+                    if mesh or ep_mesh else {"data": 1, "model": 1})
 
     hp = hparams_from_flags(flags)
     batch_dtype = precision.resolve_flags(flags).batch_dtype
@@ -721,6 +760,8 @@ def train(flags):
         restored = load_train_state(checkpoint_path, model, optimizer)
         step, stats = restored["step"], restored["stats"]
         log.info("Resuming preempted job, current stats:\n%s", stats)
+    if ep_mesh is not None:
+        place_experts(model, ep_mesh)
     if mesh is not None:
         update = parallel.make_parallel_update_step(
             model, optimizer, hp, mesh, superstep_k=K)

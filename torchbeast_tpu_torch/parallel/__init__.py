@@ -1,11 +1,13 @@
-"""The data-parallel learner: the mesh and the sharded update
-(counterpart of torchbeast_tpu/parallel/). Only the `data` axis is in the
-port; the tensor-, expert-, sequence- and pipeline-parallel axes, the
-device split and the fleet are ROADMAP.md Queue 1 items of their own."""
+"""The data-parallel learner and expert parallelism: the mesh, the
+sharded update and the expert leaves' placement (counterpart of
+torchbeast_tpu/parallel/). The `data` and `expert` axes are in the port;
+the tensor-, sequence- and pipeline-parallel axes, the device split and
+the fleet are ROADMAP.md Queue 1 items of their own."""
 
 from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
     ParallelLearner,
     ParallelUpdate,
+    RoutingExchange,
     Sharded,
     ShardedStep,
     ShardedTarget,
@@ -22,4 +24,9 @@ from torchbeast_tpu_torch.parallel.mesh import (  # noqa: F401
     cpu_device_count,
     create_mesh,
     visible_devices,
+)
+from torchbeast_tpu_torch.parallel.ep import (  # noqa: F401
+    expert_param_shardings,
+    place_expert_params,
+    set_expert_devices,
 )

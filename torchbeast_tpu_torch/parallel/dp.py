@@ -33,9 +33,22 @@ collectives cannot be captured, so under gloo the lead's part runs
 eagerly; NCCL's can. On the CPU everything runs eagerly.
 
 The fused RMSprop tail (--opt_impl pallas) is refused, as the reference
-refuses it on every learner mesh. So is a mixture-of-experts model: its
-routing capacity and load-balance loss depend on the whole batch, so the
-sharded forward would not be the whole batch's.
+refuses it on every learner mesh.
+
+A mixture-of-experts model routes over the whole batch, as the
+reference's sharded forward does: its capacity, slots and load-balance
+loss are the whole batch's (models/moe.py, `routing`). Each MoE layer of
+each shard's forward hands its [K, E] pick counts to a RoutingExchange,
+which returns every shard's: within a process a copy of the local
+shards' counts, across processes an all_gather on the mesh's group.
+That exchange sits in the middle of the forward, so the local shards run
+in lockstep, one thread each, and the step runs eagerly (no CUDA graph
+can hold one shard's forward while it waits on another's). The
+backward exchanges nothing. On a mesh with an `expert` axis, data row
+i's replica runs its experts on the row's expert devices (parallel/
+ep.py) and their gradients come back to the row's replica, so the
+expert leaves' gradients are reduced over `data` only, with every other
+gradient.
 
 Multi-process: `initialize_distributed` joins the processes (nccl for
 CUDA devices, gloo for the CPU), then mesh.create_mesh spans them. Each
@@ -43,9 +56,12 @@ process passes its LOCAL rows of the batch, as the reference's
 shard_batch takes process-local data.
 """
 
+import contextlib
 import copy
+import functools
 import logging
 import os
+import threading
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -54,7 +70,8 @@ import torch.distributed as dist
 
 from torchbeast_tpu_torch import graphs, nest, telemetry
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch.models.moe import MoEFFN
+from torchbeast_tpu_torch.models import moe
+from torchbeast_tpu_torch.parallel import ep
 from torchbeast_tpu_torch.parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
@@ -169,6 +186,71 @@ def _copy_all(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]):
             d.copy_(s)
 
 
+class RoutingExchange:
+    """The count exchange of whole-batch MoE routing (models/moe.
+    RoutingScope) among a mesh's shards. `shard(i)` is local shard i's
+    exchange: counts [K, E] -> (table [S, K, E] of every shard's counts
+    in global shard order, i's global index). The local shards meet at a
+    barrier; shard 0 stacks their counts on the lead and, with a process
+    group, all_gathers the stack, process rank-major as the data axis
+    runs. `run` calls the shards' functions on one thread each; a shard's
+    error breaks the barrier for the others and is raised."""
+
+    def __init__(self, mesh: Mesh, timeout_s: float = 600.0):
+        self.n = len(mesh.local_devices)
+        self.group = mesh.group
+        self.first = (dist.get_rank(self.group) * self.n
+                      if self.group is not None else 0)
+        self.lead = mesh.lead
+        self._barrier = threading.Barrier(self.n, timeout=timeout_s)
+        self._posted = [None] * self.n
+        self._table = None
+
+    def shard(self, i: int):
+        return functools.partial(self._exchange, i)
+
+    def _exchange(self, i, counts):
+        self._posted[i] = counts
+        self._barrier.wait()
+        if i == 0:
+            table = torch.stack([c.to(self.lead) for c in self._posted])
+            if self.group is not None:
+                parts = [torch.empty_like(table) for _ in
+                         range(dist.get_world_size(self.group))]
+                dist.all_gather(parts, table, group=self.group)
+                table = torch.cat(parts)
+            self._table = table
+        self._barrier.wait()
+        return self._table, self.first + i
+
+    def run(self, fns: Sequence[Callable]) -> list:
+        if len(fns) == 1:
+            return [fns[0]()]
+        results = [None] * len(fns)
+        errors = []
+
+        def body(i):
+            try:
+                results[i] = fns[i]()
+            except BaseException as e:  # noqa: BLE001  raised below
+                errors.append(e)
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(i,),
+                                    name=f"shard{i}")
+                   for i in range(len(fns))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            self._barrier.reset()
+            first = [e for e in errors
+                     if not isinstance(e, threading.BrokenBarrierError)]
+            raise (first or errors)[0]
+        return results
+
+
 class ParallelLearner:
     """The replicas and the reduce/apply of a data-parallel update (see
     the module docstring). Build it after a checkpoint was loaded into
@@ -179,11 +261,6 @@ class ParallelLearner:
                  mesh: Mesh):
         if not isinstance(optimizer, learner_lib.RMSpropChain):
             raise ValueError(PALLAS_REFUSAL)
-        if any(isinstance(m, MoEFFN) for m in model.modules()):
-            raise NotImplementedError(
-                "a mixture-of-experts model under --num_learner_devices "
-                "> 1 is not in the port yet: ROADMAP.md Queue 1 item "
-                "'expert parallel'")
         params = list(model.parameters())
         if len(params) != len(optimizer.params) or any(
                 p is not q for p, q in zip(params, optimizer.params)):
@@ -200,7 +277,15 @@ class ParallelLearner:
         self.anneal = learner_lib.entropy_schedule(hp)
         self.replicas = [model] + [copy.deepcopy(model).to(d)
                                    for d in self.devices[1:]]
+        if "expert" in mesh.shape:
+            for i, replica in enumerate(self.replicas):
+                ep.set_expert_devices(replica, mesh.expert_devices(i))
         self.params = [list(r.parameters()) for r in self.replicas]
+        # Whole-batch routing needs the exchange when the batch is split.
+        self.exchange = (
+            RoutingExchange(mesh) if mesh.shape["data"] > 1 and any(
+                isinstance(m, moe.MoEFFN) for m in model.modules())
+            else None)
         self.counts = [optimizer.device_count] + [
             torch.zeros_like(optimizer.device_count, device=d)
             for d in self.devices[1:]]
@@ -218,15 +303,24 @@ class ParallelLearner:
                 _copy_all(self.params[i], self.params[0])
                 self.counts[i].copy_(self.counts[0])
 
+    def routing(self, i: int):
+        """The whole-batch routing scope of one forward of local shard i
+        (models/moe.routing over the exchange); a null context for a
+        dense model or an unsplit batch."""
+        if self.exchange is None:
+            return contextlib.nullcontext()
+        return moe.routing(self.exchange.shard(i))
+
     def grads(self, i: int, batch, initial_agent_state):
         """Shard i's loss and gradient on its device: (the gradients of
         replica i's params, its stats as one f32 vector in `keys`
         order)."""
         ecost = (None if self.anneal is None
                  else self.anneal.on_device(self.counts[i]))
-        total_loss, stats = learner_lib.compute_loss(
-            self.replicas[i], batch, initial_agent_state, self.hp,
-            entropy_cost=ecost)
+        with self.routing(i):
+            total_loss, stats = learner_lib.compute_loss(
+                self.replicas[i], batch, initial_agent_state, self.hp,
+                entropy_cost=ecost)
         grads = torch.autograd.grad(total_loss, self.params[i])
         if self.keys is None:
             self.keys = list(stats)
@@ -287,13 +381,23 @@ class ShardedStep:
     else it runs eagerly. `capture=False` runs every part eagerly on the
     card too (the graphs' eager twin). `launches_per_replay` sums what one
     step's graphs launch of the port's kernels, `bytes_accessed` what
-    their first warm-up runs accessed."""
+    their first warm-up runs accessed.
+
+    A learner with a routing exchange (a MoE model over a split batch)
+    runs its shard functions in lockstep (RoutingExchange.run), eagerly:
+    `capture=True` raises for it."""
 
     def __init__(self, learner: ParallelLearner, shard_fns: List[Callable],
                  generators=None, restores=None,
                  capture: Optional[bool] = None):
         self.learner = learner
-        self.graphs = (learner.lead.type == "cuda" if capture is None
+        if learner.exchange is not None and capture:
+            raise ValueError(
+                "a MoE model's data-parallel step exchanges routing "
+                "counts in the middle of the forward and runs eagerly; "
+                "it cannot be captured")
+        self.graphs = (learner.lead.type == "cuda"
+                       and learner.exchange is None if capture is None
                        else capture)
         self._fns = list(shard_fns)
         n = len(self._fns)
@@ -343,7 +447,8 @@ class ShardedStep:
     def __call__(self) -> dict:
         L = self.learner
         if not self.graphs:
-            outs = [fn() for fn in self._fns]
+            outs = (L.exchange.run(self._fns) if L.exchange is not None
+                    else [fn() for fn in self._fns])
             row = L.apply([o[0] for o in outs], [o[1] for o in outs])
             L.sync()
             return L.unpack(row)
@@ -393,8 +498,10 @@ class ParallelUpdate:
 
     @property
     def captures_graphs(self) -> bool:
-        return (self.learner.lead.type == "cuda" if self._capture is None
-                else self._capture)
+        if self._capture is not None:
+            return self._capture
+        return (self.learner.lead.type == "cuda"
+                and self.learner.exchange is None)
 
     @property
     def launches_per_replay(self) -> dict:
@@ -480,7 +587,10 @@ class ShardedTarget:
     publish the same versions from bitwise-equal params; the lead's
     store is `store` and writes the "learner.target" series. `merge`
     splits the batch (shard_batch) and puts each shard's target outputs
-    on its part, returning a Sharded for the dispatch."""
+    on its part, returning a Sharded for the dispatch. A MoE model's
+    target forwards route over the whole batch as the learner's do: the
+    shards run them in lockstep, eagerly, each forward (each of a
+    superstep's K) in a routing scope of its own."""
 
     def __init__(self, update: ParallelUpdate, refresh_updates: int,
                  superstep_k: int = 1, registry=None):
@@ -493,6 +603,11 @@ class ShardedTarget:
                           else telemetry.MetricsRegistry()))
             for i, replica in enumerate(learner.replicas)]
         self.store = self.targets[0].store
+        if learner.exchange is not None:
+            for i, t in enumerate(self.targets):
+                t._forward = _routed_target_forward(
+                    t.model, superstep_k,
+                    functools.partial(learner.routing, i))
 
     def maybe_refresh(self, updates_done: int, params=None) -> bool:
         """Each shard's target takes its own replica's params when a
@@ -506,16 +621,43 @@ class ShardedTarget:
         return shard_batch(self.update.mesh, batch, initial_agent_state,
                            leading_axes=1 if self.update.k > 1 else 0)
 
+    def _each(self, method, batch, initial_agent_state) -> list:
+        fns = [functools.partial(getattr(t, method), b, s)
+               for t, (b, s) in zip(
+                   self.targets,
+                   self._split(batch, initial_agent_state).shards)]
+        exchange = self.update.learner.exchange
+        return (exchange.run(fns) if exchange is not None
+                else [fn() for fn in fns])
+
     def capture(self, batch, initial_agent_state) -> None:
-        for t, (b, s) in zip(self.targets,
-                             self._split(batch, initial_agent_state).shards):
-            t.capture(b, s)
+        self._each("capture", batch, initial_agent_state)
 
     def merge(self, batch, initial_agent_state) -> Sharded:
-        return Sharded([
-            (t.merge(b, s), s) for t, (b, s) in zip(
-                self.targets,
-                self._split(batch, initial_agent_state).shards)])
+        shards = self._split(batch, initial_agent_state).shards
+        merged = self._each("merge", batch, initial_agent_state)
+        return Sharded([(m, s) for m, (_, s) in zip(merged, shards)])
+
+
+def _routed_target_forward(model, superstep_k: int, routing):
+    """learner.target_forward_body of `model`, eager, each forward (one,
+    or one per K slice) inside `routing()`."""
+    one = learner_lib.target_forward_body(model)
+
+    def forward(batch, initial_agent_state):
+        if superstep_k == 1:
+            with routing():
+                return one(batch, initial_agent_state)
+        outs = []
+        for j in range(superstep_k):
+            with routing():
+                outs.append(one(nest.map(lambda v: v[j], batch),
+                                nest.map(lambda s: s[j],
+                                         initial_agent_state)))
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    return forward
 
 
 def check_consistent_restore(mesh: Mesh, step: int, params) -> None:

@@ -5,9 +5,12 @@ The reference builds a `jax.sharding.Mesh` over its chips with a `data`
 axis (the batch is sharded along it, params are replicated) and inner
 `model`, `seq`, `expert` and `pipe` axes nested inside it. The port's Mesh
 is the same grid of devices, held as a numpy array of `torch.device`s of
-this process, with the axis names and sizes the reference reports. Only
-the `data` axis is in the port: an inner axis above 1 raises
-NotImplementedError naming the ROADMAP.md item that brings it.
+this process, with the axis names and sizes the reference reports. The
+`data` axis and the `expert` axis are in the port: the grid is (data,
+model, expert), `expert` innermost as the reference lays it out, and the
+shape reports `expert` only above 1, as the reference's mesh has the axis
+only then. Any other inner axis above 1 raises NotImplementedError
+naming the ROADMAP.md item that brings it.
 
 Devices: the CUDA devices, or the CPU. A CPU "device" is the host itself;
 the number of them follows what the reference's CPU device count follows,
@@ -33,7 +36,6 @@ import torch
 INNER_AXES = {
     "model": "tensor parallel",
     "seq": "sequence parallel",
-    "expert": "expert parallel",
     "pipe": "pipeline parallel",
 }
 
@@ -71,31 +73,48 @@ def _process_group():
 
 
 class Mesh:
-    """A (data, model) grid of this process's devices; see the module
-    docstring. `process_count` processes hold one such grid each, in rank
-    order along `data`."""
+    """A (data, model, expert) grid of this process's devices; see the
+    module docstring. `process_count` processes hold one such grid each,
+    in rank order along `data`."""
 
-    axis_names = ("data", "model")
-
-    def __init__(self, devices: np.ndarray, process_count: int = 1,
+    def __init__(self, grid: np.ndarray, process_count: int = 1,
                  group=None):
-        self.devices = devices
+        self.grid = grid
         self.process_count = process_count
         self.group = group
 
     @property
+    def axis_names(self) -> tuple:
+        return ("data", "model") + (
+            ("expert",) if self.grid.shape[2] > 1 else ())
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The grid with the axes of `axis_names`, as the reference's
+        mesh.devices."""
+        return self.grid if self.grid.shape[2] > 1 else self.grid[:, :, 0]
+
+    @property
     def shape(self) -> dict:
-        data, model = self.devices.shape
-        return {"data": data * self.process_count, "model": model}
+        data, model, expert = self.grid.shape
+        shape = {"data": data * self.process_count, "model": model}
+        if expert > 1:
+            shape["expert"] = expert
+        return shape
 
     @property
     def local_devices(self) -> list:
-        """This process's data shards' devices, lead first."""
-        return list(self.devices[:, 0])
+        """This process's data shards' devices (each row's first), lead
+        first."""
+        return list(self.grid[:, 0, 0])
+
+    def expert_devices(self, row: int) -> list:
+        """The `expert` axis of this process's data row `row`."""
+        return list(self.grid[row, 0, :])
 
     @property
     def lead(self) -> torch.device:
-        return self.devices[0, 0]
+        return self.grid[0, 0, 0]
 
     def __repr__(self):
         return (f"Mesh({dict(self.shape)}, devices={self.local_devices}, "
@@ -120,9 +139,10 @@ def create_mesh(
     of `platform`). An explicit list may name one device twice: two
     shards on one card, each a replica of its own, run the same sharded
     update, reduce and apply that two cards would (chip_smoke.py does
-    this on a one-card machine; nothing else should). An inner axis
-    (`model`, `expert`, `seq`, `pipe`) above 1 raises NotImplementedError
-    after the reference's own checks pass."""
+    this on a one-card machine; nothing else should).
+    `expert_parallelism` K makes each data row K consecutive devices,
+    expert innermost. Another inner axis (`model`, `seq`, `pipe`) above 1
+    raises NotImplementedError after the reference's own checks pass."""
     world, group = _process_group()
     if devices is None:
         devices = visible_devices(platform)
@@ -160,7 +180,6 @@ def create_mesh(
             f" x pipe_parallelism={pipe_parallelism}"
         )
     for axis, size in (("model", model_parallelism),
-                       ("expert", expert_parallelism),
                        ("seq", seq_parallelism),
                        ("pipe", pipe_parallelism)):
         if size > 1:
@@ -168,7 +187,8 @@ def create_mesh(
                 f"a {axis!r} mesh axis of {size} is not in the port yet: "
                 f"ROADMAP.md Queue 1 item '{INNER_AXES[axis]}'"
             )
-    grid = np.empty((n, 1), dtype=object)
+    grid = np.empty(n, dtype=object)
     for i, d in enumerate(devices):
-        grid[i, 0] = torch.device(d)
-    return Mesh(grid, process_count=world, group=group)
+        grid[i] = torch.device(d)
+    return Mesh(grid.reshape(n // inner, 1, expert_parallelism),
+                process_count=world, group=group)

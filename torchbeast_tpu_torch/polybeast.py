@@ -54,8 +54,15 @@ remat plan (the `learner.remat_plan` static) and the
 (models/moe.py), built by monobeast.build_model like every other model
 instance here, so the acting copy, the bf16 snapshots and the replicas
 carry the expert leaves; its load-balance loss joins the objective and is
-reported as aux_loss. --expert_parallel > 1 raises NotImplementedError
-(ROADMAP.md Queue 1 item 'expert parallel').
+reported as aux_loss. --expert_parallel K > 1 splits each MoE layer's
+experts over an `expert` mesh axis (parallel/ep.py): with
+--num_learner_devices N > 1 the learner mesh is the reference's
+composite data N x expert K grid, expert innermost (each data row's
+replica runs its experts on its row's K devices; bf16_train and
+--factored_opt_state raise the reference's RuntimeError there), and
+with N = 1 the reference's 1-D expert mesh under the one-device update.
+Acting reads the lead replica, whose layers run on the first row's
+expert devices.
 
 --num_learner_devices N > 1 makes the learner the reference's plain
 data-parallel one (parallel/dp.py): each dispatch's batch splits over N
@@ -195,8 +202,9 @@ def make_parser():
                         help="Actor loops (default: one per server).")
     parser.add_argument("--num_servers", type=int, default=4)
     parser.add_argument("--env", type=str, default="PongNoFrameskip-v4",
-                        help="Mock, Counting, Catch or Memory[-L<n>] "
-                             "(Atari ids: " + _LATER + ").")
+                        help="Mock, Counting, Catch, Memory[-L<n>], "
+                             "tbt/MiniAtari-v0 or a gymnasium Atari id "
+                             "(needs ale_py).")
     parser.add_argument("--mode", default="train", choices=["train", "test"],
                         help="test: greedy episodes from the run's "
                              "checkpoint (monobeast's test).")
@@ -283,8 +291,9 @@ def make_parser():
                              "mixture of N experts (model=transformer "
                              "only; adds a sown load-balance loss).")
     parser.add_argument("--expert_parallel", type=int, default=0,
-                        help="Shard the MoE experts over N devices; > 1 "
-                             + _LATER)
+                        help="Shard the MoE experts over N devices (an "
+                             "`expert` mesh axis, inside the data axis "
+                             "with --num_learner_devices > 1).")
     parser.add_argument("--transformer_remat", action="store_true",
                         help="DEPRECATED spelling of --remat with the "
                              "transformer blocks stage at 'all' "
@@ -629,9 +638,10 @@ def _train(flags, device):
     is_lead = host_rank == 0
     check_multihost_flags(flags, proc_count)
     n_dev = flags.num_learner_devices
-    mesh = None
+    expert_par = max(1, getattr(flags, "expert_parallel", 0) or 0)
+    mesh = ep_mesh = None
     if n_dev > 1:
-        mesh = monobeast.learner_mesh(device, n_dev)
+        mesh = monobeast.learner_mesh(device, n_dev, expert_par)
         if flags.batch_size % mesh.shape["data"] != 0:
             raise ValueError(
                 f"batch_size {flags.batch_size} not divisible by "
@@ -644,6 +654,18 @@ def _train(flags, device):
                 "kernel; its sharded-update story is the Sebulba "
                 "item's)"
             )
+        if expert_par > 1 and (
+            precision.resolve_flags(flags).param_dtype == "bf16"
+            or getattr(flags, "factored_opt_state", False)
+        ):
+            raise RuntimeError(
+                "--precision bf16_train / --factored_opt_state do "
+                "not compose with --expert_parallel/--tensor_"
+                "parallel yet (optimizer-state sharding rules need "
+                "a params-mirroring state tree)"
+            )
+    else:
+        ep_mesh = monobeast.expert_mesh(device, flags)
     # Before the env servers start: with --native_server each of them
     # loads the core, which is then built once, here.
     core = select_runtime(flags)
@@ -665,8 +687,8 @@ def _train(flags, device):
     # per-host telemetry.jsonl files on these two statics.
     tele.set_static("host_rank", host_rank)
     tele.set_static("fleet_size", proc_count)
-    tele.set_static("learner.mesh_shape",
-                    mesh.shape if mesh else {"data": 1, "model": 1})
+    tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
+                    if mesh or ep_mesh else {"data": 1, "model": 1})
     health = PipelineHealth(registry=reg)
     chaos = None
     if flags.chaos_plan:
@@ -721,13 +743,17 @@ def _train(flags, device):
             restored = load_train_state(checkpoint_path, model, optimizer)
             step, stats = restored["step"], restored["stats"]
             log.info("Resuming preempted job, current stats:\n%s", stats)
+        if ep_mesh is not None:
+            monobeast.place_experts(model, ep_mesh)
         if mesh is not None:
             parallel.check_consistent_restore(mesh, step,
                                               list(model.parameters()))
             dispatch = parallel.make_parallel_update_step(
                 model, optimizer, hp, mesh, superstep_k=superstep_k)
-            log.info("Parallel learner: data=%d (%d processes)",
-                     mesh.shape["data"], proc_count)
+            log.info("Parallel learner: data=%d%s (%d processes)",
+                     mesh.shape["data"],
+                     f" x expert={expert_par}" if expert_par > 1 else "",
+                     proc_count)
         else:
             dispatch = learner_lib.make_update_dispatch(
                 model, optimizer, hp, superstep_k)

@@ -11,14 +11,16 @@ the batch and the agent state as the driver does). `polybeast` traces
 the async driver instead (see polybeast_trace), on the Python pool or,
 with --native_runtime, on the port's C++ runtime core, with
 --num_inference_threads inference threads (default 2). `anakin` profiles
-the Anakin iteration graph instead (see anakin_profile).
+the Anakin iteration graph instead (see anakin_profile). `moe --dp N
+--ep K` times the MoE transformer's update over a data N x expert K
+mesh of cuda:0 repeated (see moe_profile).
 
     python -m torchbeast_tpu_torch.profile_update
         [deep|transformer|pipelined_transformer|pipelined_mlp|polybeast
-         |anakin]
+         |anakin|moe]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
         [--remat none|all|<spec>]
-        [--native_runtime] [--num_inference_threads N]
+        [--native_runtime] [--num_inference_threads N] [--dp N] [--ep K]
 
 --remat sets the model's remat levers as the drivers' flag does
 (runtime/remat_plan.py: none, the default, keeps every activation; all;
@@ -558,10 +560,109 @@ def anakin_profile():
         }))
 
 
+MOE_EXPERTS = 8
+
+
+def moe_profile(dp=2, ep=1, policy="f32"):
+    """The MoE transformer (MODEL_CONFIGS["transformer"] with
+    MOE_EXPERTS experts, top-2, d_ff 512) at T=80, B=32, --vtrace_impl
+    pallas --opt_impl xla (the sharded learner refuses the fused tail),
+    its update over a (data dp x expert ep) mesh whose devices are all
+    cuda:0 (parallel.create_mesh's explicit list: one card runs every
+    shard; dp > 1 runs the shards in lockstep, eagerly, exchanging their
+    routing counts in each MoE layer), beside the one-device update (one
+    CUDA graph) in the same process. One JSON line: the card, both
+    updates' median ms (CUDA events over UPDATES dispatches after
+    WARMUP), the host's CUDA API calls per dispatch of each (torch.
+    profiler), the device time per update, and the port's kernel
+    launches per update a data shard (ops.launch_counts)."""
+    from torchbeast_tpu_torch import ops, parallel
+
+    device = torch.device("cuda", 0)
+    card = _card()
+    pol = precision.get(policy)
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="xla",
+                             param_dtype=pol.param_dtype,
+                             opt_state_dtype=pol.opt_state_dtype)
+
+    def build():
+        torch.manual_seed(SEED)
+        model = create_model("transformer", NUM_ACTIONS,
+                             **MODEL_CONFIGS["transformer"],
+                             num_experts=MOE_EXPERTS,
+                             dtype=pol.compute_dtype,
+                             head_dtype=pol.head_dtype)
+        model = precision.cast_params(model.to(device), pol)
+        return model, learner_lib.make_optimizer(
+            hp, list(model.parameters()))
+
+    model, optimizer = build()
+    mesh = parallel.create_mesh(devices=[device] * (dp * ep),
+                                expert_parallelism=ep)
+    sharded = parallel.make_parallel_update_step(model, optimizer, hp,
+                                                 mesh)
+    one = learner_lib.make_update_dispatch(*build(), hp)
+    batch = precision.cast_batch(random_batch(SEED, device), pol.batch_dtype)
+    state = precision.cast_batch(random_cache(model, SEED, device),
+                                 pol.batch_dtype)
+
+    def median_ms(fn):
+        for _ in range(WARMUP):
+            fn(batch, state)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(UPDATES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(batch, state)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    ms = {"sharded": median_ms(sharded), "one_device": median_ms(one)}
+    ops.reset_launch_counts()
+    for _ in range(UPDATES):
+        sharded(batch, state)
+    torch.cuda.synchronize()
+    launches = {k: v / (UPDATES * dp)
+                for k, v in ops.launch_counts().items() if v}
+    profiled = {}
+    for name, fn in (("sharded", sharded), ("one_device", one)):
+        device_ms, _, api = _device_ms(lambda fn=fn: fn(batch, state), 3)
+        profiled[name] = (device_ms, sum(api.values()))
+    print(json.dumps({
+        "card": card,
+        "config": {"model": "transformer", **MODEL_CONFIGS["transformer"],
+                   "num_experts": MOE_EXPERTS, "T": T, "B": B,
+                   "precision": policy, "vtrace_impl": "pallas",
+                   "opt_impl": "xla", "mesh": mesh.shape,
+                   "devices": f"{dp * ep} x {device}",
+                   "dispatch": ("eager, shards in lockstep" if dp > 1
+                                else "CUDA graph")},
+        "update_ms_median": ms["sharded"],
+        "one_device_update_ms_median": ms["one_device"],
+        "host_api_calls_per_dispatch": profiled["sharded"][1],
+        "one_device_host_api_calls_per_dispatch": profiled["one_device"][1],
+        "device_ms_per_update": profiled["sharded"][0],
+        "one_device_device_ms_per_update": profiled["one_device"][0],
+        "launches_per_update_per_data_shard": launches,
+    }))
+
+
 def main(model_name="deep", policy="f32", superstep_k=1,
-         native_runtime=False, num_inference_threads=2, remat=None):
+         native_runtime=False, num_inference_threads=2, remat=None,
+         dp=1, ep=1):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
+    if model_name == "moe":
+        if (superstep_k, remat, native_runtime) != (1, None, False):
+            raise ValueError("moe takes --dp, --ep and --precision only")
+        return moe_profile(dp, ep, policy)
+    if (dp, ep) != (1, 1):
+        raise ValueError("--dp and --ep are the moe mode's")
     if remat == "auto":
         raise ValueError("--remat auto is the drivers'; pass a plan")
     if model_name == "polybeast":
@@ -745,7 +846,8 @@ def main(model_name="deep", policy="f32", superstep_k=1,
 def cli():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="deep",
-                        choices=[*MODEL_CONFIGS, "polybeast", "anakin"])
+                        choices=[*MODEL_CONFIGS, "polybeast", "anakin",
+                                 "moe"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
     parser.add_argument("--superstep_k", type=int, default=1,
@@ -759,9 +861,13 @@ def cli():
                         help="The model's remat plan: none (default), all "
                              "or a per-stage spec (the drivers' --remat "
                              "without auto).")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="moe: data shards.")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="moe: expert shards a data shard.")
     args = parser.parse_args()
     main(args.model, args.precision, args.superstep_k, args.native_runtime,
-         args.num_inference_threads, args.remat)
+         args.num_inference_threads, args.remat, args.dp, args.ep)
 
 
 if __name__ == "__main__":
