@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
                            | --impact-only | --remat-only | --anakin-only
-                           | --pipelined-only | --dp-only | --ep-only]
+                           | --pipelined-only | --dp-only | --ep-only
+                           | --split-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -255,6 +256,43 @@ exits non-zero without printing the final result line:
    device's; then data 2 at f32 again in a torch.distributed NCCL group
    of world size 1 (its routing counts all_gathered on the group),
    bitwise equal to the run without a group.
+11. The device split and remote replica serving (run after 10; with
+   --split-only alone after the builds, printing the paths' launches as
+   one JSON line): deep + LSTM at T=80, B=32, TBT_POOL_PALLAS=1,
+   --vtrace_impl pallas. (a) On the one visible card, monobeast and
+   polybeast given --device_split inf=1,learn=rest through their parsers
+   log the reference's degradation warning and train the time-shared
+   path with its launches. Then the drivers' device list
+   (parallel.visible_devices) is replaced by [cuda:0] * 3, and restored
+   after (c2), so the split's slices and learner share the one card:
+   (b) TF32 off and cuDNN deterministic, monobeast --device_split
+   inf=1,learn=1 trains 3 updates bitwise equal to the time-shared run
+   from the same seed (stats, the checkpoint's params and optimizer
+   state) with the same launches, --opt_impl pallas raises the
+   reference's ValueError, inf=1,learn=2 runs the DP update; (c)
+   polybeast --device_split inf=2,learn=1 --opt_impl pallas on the
+   Python pool and on the core (16 env servers, two inference threads a
+   slice): every slot's row written in its slice_for_slot slice's table
+   alone, the per-slice request counters summing to the rows served, the
+   core's hash equal to the Python one's, every reply's policy_lag within
+   --max_policy_lag, a publish an update, every params buffer a slice
+   loaded bitwise the learner's bf16-rounded params of its version, the
+   launches of the time-shared path; it prints SPS, the update interval,
+   the acting round trip's p50 and p99, each slice's forward host ms and
+   graph-capture seconds beside the time-shared run's figures, then the
+   same figures of inf=1,learn=1 on the core (one slice) and of
+   inf=2,learn=1 without the LSTM on the core (no table: each slice's
+   forward a graph over the request's state, requests round-robin over
+   the slices, both serving); (c2) a
+   state-table acting step timed from launch to reply while the
+   learner's update graph replays back to back, on a pinned table's own
+   stream and on the default stream; (d) TF32 off, cuDNN deterministic,
+   a ReplicaServer on cuda:0 serving the deep acting forward (no LSTM)
+   over unix: and shm:, fed by a RemoteSnapshotPublisher, reached
+   through a RemoteReplicaBatcher as serving.ReplicaRouter's replica leg
+   and through proxy_loop from the core's batcher: replies equal a local
+   forward of the same snapshot (actions exact, logits bitwise), lag
+   stamps right, the round trip printed.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3610,6 +3648,741 @@ def run_ep_phases(ops, dev, savedir, tf32):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 11
+
+SPLIT_UPDATES = 3
+SPLIT_MAX_POLICY_LAG = 20  # polybeast's --max_policy_lag default
+
+
+def _hist_delta(reg, name, before):
+    """(p50, p99) in ms of the samples `name` took since `before` (its
+    buckets then), or (nan, nan) without any."""
+    from torchbeast_tpu_torch.telemetry.metrics import (
+        percentiles_from_buckets)
+
+    buckets = {i: n - before.get(i, 0) for i, n in
+               reg.histogram(name).merged().buckets.items()}
+    if sum(buckets.values()) <= 0:
+        return float("nan"), float("nan")
+    p50, p99 = percentiles_from_buckets(buckets, [0.5, 0.99])
+    return 1000 * p50, 1000 * p99
+
+
+def _poly_run(ops, savedir, xpid, extra, native=False, lstm=True):
+    """polybeast through its parser at polybeast_argv's settings (16 Mock
+    env servers, deep + LSTM (without it with `lstm` False), T=80, B=32,
+    V-trace, the tail and pool_bwd on, two inference threads) plus
+    `extra`, SPLIT_UPDATES updates, the Python pool or the core. Returns
+    a record: stats, launch counts, the
+    log lines, the acting round trip's and each forward series' p50/p99
+    in ms over this run, the serving counters' deltas."""
+    from torchbeast_tpu_torch import polybeast, telemetry
+
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid) + list(extra) + [
+        "--total_steps", str(SPLIT_UPDATES * T * B)]
+    if native:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    if not lstm:
+        argv.remove("--use_lstm")
+    reg = telemetry.get_registry()
+    series = ["actor.request_rtt_s", "inference.dispatch_s"] + [
+        f"inference.slice.{i}.dispatch_s" for i in range(2)]
+    before = {name: dict(reg.histogram(name).merged().buckets)
+              for name in series}
+    counter_names = ["serving.snapshots_published"] + [
+        f"inference.slice.{i}.{c}" for i in range(2)
+        for c in ("requests", "rows")]
+    counters_before = {c: reg.counter(c).value() for c in counter_names}
+    lines = _Lines()
+    logger = logging.getLogger("torchbeast_tpu_torch")
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    ops.reset_launch_counts()
+    t0 = time.time()
+    try:
+        stats = polybeast.train(polybeast.make_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(lines)
+    wall = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    updates = stats["updates"]
+    check(updates >= SPLIT_UPDATES, f"{xpid}: {updates} updates")
+    for name, per_update in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                             ("pool_bwd", 3)):
+        check(counts[name] >= per_update * updates,
+              f"{xpid}: {counts[name]} {name} launches in {updates} updates")
+    check(ops.pool_bwd.vector_launches == counts["pool_bwd"],
+          f"{xpid}: pool_bwd launches off the 16-byte path")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(np.isfinite(stats[key]), f"{xpid} loss stat {key}")
+    check(stats["health"] == "HEALTHY", f"{xpid}: health {stats['health']}")
+    check(stats["runtime"] == ("native" if native else "python"),
+          f"{xpid}: runtime {stats['runtime']}")
+    return {"stats": stats, "counts": counts, "bf16": bf16, "wall": wall,
+            "lines": lines.lines[:],
+            "ms": {name: _hist_delta(reg, name, before[name])
+                   for name in series},
+            "counters": {c: reg.counter(c).value() - counters_before[c]
+                         for c in counter_names},
+            "steady_sps": _steady_sps(os.path.join(savedir, xpid,
+                                                   "logs.csv"))}
+
+
+def _poly_line(label, run, slices=0):
+    s, ms = run["stats"], run["ms"]
+    rtt50, rtt99 = ms["actor.request_rtt_s"]
+    forwards = ([ms["inference.dispatch_s"][0]] if not slices else
+                [ms[f"inference.slice.{i}.dispatch_s"][0]
+                 for i in range(slices)])
+    return (f"{label}: {s['updates']} updates in {run['wall']:.1f} s; SPS "
+            f"{s['sps']:.1f} (from the second batch {run['steady_sps']}); "
+            f"update interval median {s['update_interval_ms_median']:.2f} ms;"
+            f" acting round trip p50 {rtt50:.2f} ms p99 {rtt99:.2f} ms; "
+            f"forward host ms p50 "
+            f"{', '.join(f'{x:.3f}' for x in forwards)}"
+            f"{' (per slice)' if slices else ''}; mean inference batch "
+            f"{s['inference_batch_mean']:.2f}; launches {run['counts']}")
+
+
+def split_visible(ops, savedir):
+    """(a) One visible card: monobeast and polybeast, each given
+    --device_split inf=1,learn=rest through its parser, log the
+    reference's degradation warning and train the time-shared path with
+    its usual launches. Returns polybeast's run (the Python pool's
+    time-shared figures for (c)) and the paths' launch counts."""
+    from torchbeast_tpu_torch import monobeast
+
+    n = torch.cuda.device_count()
+    if n != 1:
+        print(f"phase 11 (a): {n} CUDA devices visible: the split resolves "
+              "over them, nothing degrades; (a) skipped")
+        return None, {}
+    warning = "degrading to the time-shared serving path"
+    xpid = "chip_smoke_split_visible_mono"
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    flags = monobeast.make_parser().parse_args([
+        "--env", "Mock", "--num_actors", str(B), *DEEP_ARGS,
+        "--batch_size", str(B), "--unroll_length", str(T),
+        "--vtrace_impl", "pallas", "--opt_impl", "pallas", "--serial_envs",
+        "--device_split", "inf=1,learn=rest",
+        "--total_steps", str(2 * T * B), "--savedir", savedir,
+        "--xpid", xpid])
+    lines = _Lines()
+    logger = logging.getLogger("torchbeast_tpu_torch")
+    logger.addHandler(lines)
+    ops.reset_launch_counts()
+    try:
+        stats = monobeast.train(flags)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(lines)
+    counts = ops.launch_counts()
+    check(any(warning in m for m in lines.lines),
+          "(a) monobeast: no degradation warning")
+    check(stats["updates"] == 2 and counts["vtrace_targets"] >= 2
+          and counts["rmsprop_tail"] >= 2 and counts["pool_bwd"] >= 6,
+          f"(a) monobeast: {stats['updates']} updates, launches {counts}")
+    by_path = {"split (a) monobeast degraded": (
+        counts, ops.bf16_launch_counts())}
+    print(f"phase 11 (a): monobeast --device_split inf=1,learn=rest on one "
+          f"card warned and trained time-shared: 2 updates, launches "
+          f"{counts}")
+    run = _poly_run(ops, savedir, "chip_smoke_split_visible_poly",
+                    ["--device_split", "inf=1,learn=rest"])
+    check(any(warning in m for m in run["lines"]),
+          "(a) polybeast: no degradation warning")
+    check("slice_capture_s" not in run["stats"],
+          "(a) polybeast built slices on one card")
+    by_path["split (a) polybeast degraded"] = (run["counts"], run["bf16"])
+    print("phase 11 (a): " + _poly_line(
+        "polybeast --device_split inf=1,learn=rest on one card warned and "
+        "trained time-shared", run))
+    return run, by_path
+
+
+def _same_tree(a, b):
+    """Bitwise equal nests of arrays (checkpoint payloads)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    x, y = np.asarray(a), np.asarray(b)
+    return x.dtype == y.dtype and x.shape == y.shape and (
+        x.tobytes() == y.tobytes())
+
+
+def split_monobeast(ops, savedir):
+    """(b) monobeast with every device on cuda:0 (the caller's device
+    list): --device_split inf=1,learn=1 trains SPLIT_UPDATES updates
+    bitwise equal to the time-shared run from the same seed (stats and
+    the checkpoint's params and optimizer state), with the same launches
+    (V-trace 1, pool_bwd 3 an update); --opt_impl pallas raises the
+    reference's ValueError; inf=1,learn=2 runs the data-parallel update
+    (V-trace 2, pool_bwd 6, the tail none an update)."""
+    from torchbeast_tpu_torch import monobeast
+    from torchbeast_tpu_torch.utils.checkpoint import read_payload
+
+    def run(xpid, extra):
+        shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+        flags = monobeast.make_parser().parse_args([
+            "--env", "Mock", "--num_actors", str(B), *DEEP_ARGS,
+            "--batch_size", str(B), "--unroll_length", str(T),
+            "--vtrace_impl", "pallas", "--serial_envs",
+            "--total_steps", str(SPLIT_UPDATES * T * B),
+            "--savedir", savedir, "--xpid", xpid, *extra])
+        ops.reset_launch_counts()
+        t0 = time.time()
+        stats = monobeast.train(flags)
+        torch.cuda.synchronize()
+        return (stats, ops.launch_counts(), ops.bf16_launch_counts(),
+                read_payload(os.path.join(savedir, xpid, "model.ckpt")),
+                time.time() - t0)
+
+    shared = run("chip_smoke_split_mono_shared", [])
+    split = run("chip_smoke_split_mono_split",
+                ["--device_split", "inf=1,learn=1"])
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm", "step", "updates"):
+        check(shared[0][key] == split[0][key],
+              f"(b) monobeast split {key} {split[0][key]} against "
+              f"{shared[0][key]} time-shared")
+    for part in ("params", "opt_state"):
+        check(_same_tree(shared[3][part], split[3][part]),
+              f"(b) monobeast split: checkpoint {part} differ from the "
+              "time-shared run's")
+    counts = split[1]
+    check(counts == shared[1] and counts["vtrace_targets"]
+          >= SPLIT_UPDATES and counts["pool_bwd"] >= 3 * SPLIT_UPDATES,
+          f"(b) launches {counts} against time-shared {shared[1]}")
+    print(f"phase 11 (b): monobeast --device_split inf=1,learn=1, every "
+          f"device cuda:0: {SPLIT_UPDATES} updates bitwise equal to the "
+          f"time-shared run (stats, params, optimizer state); launches "
+          f"{counts} (time-shared {shared[1]}); update median "
+          f"{split[0]['update_ms_median']:.2f} ms (time-shared "
+          f"{shared[0]['update_ms_median']:.2f}); SPS {split[0]['sps']:.1f} "
+          f"({shared[0]['sps']:.1f})")
+    try:
+        run("chip_smoke_split_mono_pallas",
+            ["--device_split", "inf=1,learn=1", "--opt_impl", "pallas"])
+    except ValueError as e:
+        check("does not compose with --device_split" in str(e),
+              f"(b) --opt_impl pallas raised {e!r}")
+        print(f"phase 11 (b): --opt_impl pallas under the split raised the "
+              f"reference's ValueError: {e}")
+    else:
+        raise SmokeFailure("(b): --opt_impl pallas trained under the split")
+    dp = run("chip_smoke_split_mono_dp", ["--device_split", "inf=1,learn=2"])
+    dp_counts = dp[1]
+    check(dp[0]["updates"] == SPLIT_UPDATES
+          and np.isfinite(dp[0]["total_loss"])
+          and dp_counts["vtrace_targets"] >= 2 * SPLIT_UPDATES
+          and dp_counts["pool_bwd"] >= 6 * SPLIT_UPDATES
+          and dp_counts["rmsprop_tail"] == 0,
+          f"(b) inf=1,learn=2: {dp[0]['updates']} updates, launches "
+          f"{dp_counts}")
+    print(f"phase 11 (b): monobeast --device_split inf=1,learn=2: the DP "
+          f"learner over 2 shards on cuda:0, {SPLIT_UPDATES} updates, "
+          f"update median {dp[0]['update_ms_median']:.2f} ms; launches "
+          f"{dp_counts}")
+    return {"split (b) monobeast inf=1,learn=1": (counts, split[2]),
+            "split (b) monobeast inf=1,learn=2": (dp_counts, dp[2])}
+
+
+class _SplitRecorder:
+    """Phase 11 (c)'s instruments, patched in around one run: the
+    serving polybeast builds, every publish's bf16 tree (kept on the
+    card: a publish makes fresh tensors and never changes them), a clone
+    of each slice's params buffer after each load (on the slice's
+    stream, no sync), and every reply's policy_lag stamp."""
+
+    def __init__(self):
+        from torchbeast_tpu_torch import nest, parallel
+        from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+        from torchbeast_tpu_torch.serving import snapshot
+        from torchbeast_tpu_torch.serving.replica import ReplicaServingHooks
+
+        self.serving, self.published, self.loads, self.lags = [], {}, [], []
+        self._patches = []
+        recorder = self
+
+        def patch(owner, name, make):
+            original = getattr(owner, name)
+            self._patches.append((owner, name, original))
+            setattr(owner, name, make(original))
+
+        def build(original):
+            def wrapped(*args, **kwargs):
+                serving = original(*args, **kwargs)
+                recorder.serving.append(serving)
+                return serving
+            return wrapped
+
+        def publish(original):
+            def wrapped(store, version, params):
+                ok = original(store, version, params)
+                if ok:
+                    recorder.published[version] = nest.flatten(store._bf16)
+                return ok
+            return wrapped
+
+        def load(original):
+            def wrapped(table, context):
+                before = table._context_version
+                original(table, context)
+                if table._context_version != before:
+                    recorder.loads.append(
+                        (table, context[0],
+                         [t.clone() for t in table._context_params]))
+            return wrapped
+
+        def begin(original):
+            def wrapped(hooks):
+                ctx, annotate = original(hooks)
+
+                def stamped(outputs, n):
+                    out = annotate(outputs, n)
+                    recorder.lags.append(int(np.max(out["policy_lag"])))
+                    return out
+                return ctx, stamped
+            return wrapped
+
+        patch(parallel, "build_sebulba_serving", build)
+        patch(snapshot.PolicySnapshotStore, "publish", publish)
+        patch(DeviceStateTable, "_load_context", load)
+        patch(ReplicaServingHooks, "begin_batch", begin)
+
+    def restore(self):
+        for owner, name, original in reversed(self._patches):
+            setattr(owner, name, original)
+
+
+def split_polybeast(ops, savedir, shared_python):
+    """(c) polybeast --device_split inf=2,learn=1 --opt_impl pallas with
+    every device on cuda:0 (the caller's device list), on the Python pool
+    and on the core, at polybeast_argv's settings: each slot's requests
+    reached its slice_for_slot slice alone (the other slice's table never
+    wrote the slot's row), the per-slice counters sum to every request
+    served, the core's hash equals the Python one's for every slot, every
+    reply's policy_lag within --max_policy_lag, at least one publish an
+    update, every params buffer a slice loaded bitwise the learner's
+    bf16-rounded params of that version, and the launches those of the
+    time-shared path; printed beside the time-shared run at the same
+    settings (the Python pool's from (a))."""
+    from torchbeast_tpu_torch import nest
+    from torchbeast_tpu_torch.runtime import native_build, placement
+
+    core = native_build.load()
+    split = placement.DeviceSplit("chip", (torch.device("cuda", 0),) * 2,
+                                  (torch.device("cuda", 0),))
+    check(all(core.slice_for_slot(s, 2) == split.slice_for_slot(s)
+              for s in range(-64, 4096)),
+          "(c) the core's slot hash differs from the Python router's")
+    by_path = {}
+    for native in (False, True):
+        runtime = "core" if native else "Python pool"
+        recorder = _SplitRecorder()
+        try:
+            run = _poly_run(
+                ops, savedir, f"chip_smoke_split_poly_{int(native)}",
+                ["--device_split", "inf=2,learn=1"], native=native)
+        finally:
+            recorder.restore()
+        stats, counters = run["stats"], run["counters"]
+        check(len(recorder.serving) == 1, f"(c) {runtime}: no slices built")
+        serving = recorder.serving[0]
+        num_actors = serving.state_tables.num_slots
+        for stack in serving.stacks:
+            rows = [t.detach() for t in nest.flatten(
+                stack.state_table._rows)]
+            for slot in range(num_actors):
+                written = any(bool(t.select(1, slot).abs().sum() > 0)
+                              for t in rows)
+                owner = split.slice_for_slot(slot) == stack.index
+                check(written == owner,
+                      f"(c) {runtime}: slot {slot}'s row in slice "
+                      f"{stack.index}'s table {'never' if owner else 'was'}"
+                      " written")
+        # Every routed request is served as one row, but for at most one
+        # in flight an actor when the run closes the slices' batchers.
+        requests = sum(counters[f"inference.slice.{i}.requests"]
+                       for i in range(2))
+        rows_served = sum(counters[f"inference.slice.{i}.rows"]
+                          for i in range(2))
+        check(rows_served > 0 and 0 <= requests - rows_served <= num_actors,
+              f"(c) {runtime}: {requests} requests routed, {rows_served} "
+              "rows served")
+        check(recorder.lags and max(recorder.lags) <= SPLIT_MAX_POLICY_LAG,
+              f"(c) {runtime}: policy_lag max "
+              f"{max(recorder.lags, default=None)}")
+        published = counters["serving.snapshots_published"]
+        check(published >= stats["updates"] + 1,
+              f"(c) {runtime}: {published} publishes in {stats['updates']}"
+              " updates")
+        check(recorder.loads, f"(c) {runtime}: no slice loaded a snapshot")
+        for table, version, buffer in recorder.loads:
+            want = recorder.published.get(version)
+            check(want is not None and all(
+                torch.equal(b, w.to(b.dtype)) for b, w in zip(buffer, want)),
+                f"(c) {runtime}: a slice's params at version {version} are "
+                "not the learner's bf16-rounded params")
+        capture = stats["slice_capture_s"]
+        check(len(capture) == 2, f"(c) {runtime}: capture {capture}")
+        if native:
+            shared = _poly_run(ops, savedir, "chip_smoke_split_poly_shared1",
+                               [], native=True)
+        elif shared_python is not None:
+            shared = shared_python
+        else:
+            shared = _poly_run(ops, savedir, "chip_smoke_split_poly_shared0",
+                               [])
+        # The same launches an update, and the same launches outside the
+        # updates (warm-up and capture), so the check holds whatever the
+        # two runs' update counts are.
+        for name, per_update in (("vtrace_targets", 1), ("rmsprop_tail", 1),
+                                 ("pool_bwd", 3)):
+            extra = run["counts"][name] - per_update * stats["updates"]
+            shared_extra = (shared["counts"][name]
+                            - per_update * shared["stats"]["updates"])
+            check(extra == shared_extra,
+                  f"(c) {runtime}: {name} {run['counts'][name]} launches in "
+                  f"{stats['updates']} updates against "
+                  f"{shared['counts'][name]} in "
+                  f"{shared['stats']['updates']} time-shared")
+        by_path[f"split (c) polybeast inf=2,learn=1 {runtime}"] = (
+            run["counts"], run["bf16"])
+        print("phase 11 (c): " + _poly_line(
+            f"polybeast --device_split inf=2,learn=1 --opt_impl pallas on "
+            f"the {runtime}, every device cuda:0", run, slices=2)
+            + f"; per-slice graph capture s "
+            f"{', '.join(f'{x:.2f}' for x in capture)}; requests per slice "
+            f"{[counters[f'inference.slice.{i}.requests'] for i in range(2)]}"
+            f"; policy_lag max {max(recorder.lags)} over "
+            f"{len(recorder.lags)} replies; {published} publishes; "
+            f"{len(recorder.loads)} snapshot loads bitwise the published "
+            "bf16 params")
+        print("phase 11 (c): " + _poly_line(
+            f"time-shared at the same settings on the {runtime}", shared))
+    # One slice on the core: the time-shared path's batching (every
+    # actor's requests in one batcher) with the slice's stream.
+    one = _poly_run(ops, savedir, "chip_smoke_split_poly_one",
+                    ["--device_split", "inf=1,learn=1"], native=True)
+    check(len(one["stats"]["slice_capture_s"]) == 1,
+          "(c) inf=1,learn=1 built no slice")
+    by_path["split (c) polybeast inf=1,learn=1 core"] = (one["counts"],
+                                                         one["bf16"])
+    print("phase 11 (c): " + _poly_line(
+        "polybeast --device_split inf=1,learn=1 --opt_impl pallas on the "
+        "core, every device cuda:0", one, slices=1))
+    # Without the LSTM: no state table, each slice's forward a graph of
+    # its own over the request's state, slot-less requests round-robin.
+    recorder = _SplitRecorder()
+    try:
+        flat = _poly_run(ops, savedir, "chip_smoke_split_poly_stateless",
+                         ["--device_split", "inf=2,learn=1"], native=True,
+                         lstm=False)
+    finally:
+        recorder.restore()
+    rows = [flat["counters"][f"inference.slice.{i}.rows"] for i in range(2)]
+    check(recorder.serving[0].state_tables is None and min(rows) > 0,
+          f"(c) stateless: rows a slice {rows}")
+    check(recorder.lags and max(recorder.lags) <= SPLIT_MAX_POLICY_LAG,
+          f"(c) stateless: policy_lag max {max(recorder.lags, default=None)}")
+    by_path["split (c) polybeast inf=2,learn=1 deep core"] = (
+        flat["counts"], flat["bf16"])
+    print("phase 11 (c): " + _poly_line(
+        "polybeast deep (no LSTM) --device_split inf=2,learn=1 on the "
+        "core, every device cuda:0", flat, slices=2)
+        + f"; rows a slice {rows}")
+    return by_path
+
+
+def measure_slice_stream(dev):
+    """(c2) What the split's stream buys on one card, measured directly:
+    the deep + LSTM learner's update graph (T=80, B=32) replays back to
+    back on the default stream from a thread while a state-table acting
+    step at B=32 (one captured replica graph: the gather, the acting
+    forward, the scatter) is timed on the host from launch to its reply,
+    on a table pinned to the card (its own stream, as a slice's) and on an
+    unpinned one (the default stream, behind the learner's work, as the
+    time-shared path's). Prints each one's p50/p99 beside the step alone
+    and the update's time."""
+    import threading
+
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.runtime.state_table import DeviceStateTable
+
+    model, _ = _param_tree(dev, "deep", "f32")
+    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                             vtrace_impl="pallas", opt_impl="pallas",
+                             total_steps=10 ** 9)
+    update = learner_lib.make_update_dispatch(
+        model, learner_lib.make_optimizer(hp, list(model.parameters())), hp,
+        1)
+    batch, state = random_batch(0, dev), _agent_state(model, "deep", dev)
+    update(batch, state)  # the capture
+    torch.cuda.synchronize()
+    actor = copy.deepcopy(model).requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(5)
+
+    def env(n):
+        return {"frame": rng.integers(0, 256, (1, n, 84, 84, 4), np.uint8),
+                "reward": np.zeros((1, n), np.float32),
+                "done": np.zeros((1, n), bool),
+                "last_action": np.zeros((1, n), np.int32)}
+
+    def act(env_d, agent_state):
+        out, new_state = learner_lib.act_body(
+            actor, {k: env_d[k][0] for k in learner_lib.MODEL_INPUT_KEYS},
+            agent_state, gen)
+        return {"action": out.action[None].to(torch.int32),
+                "policy_logits": out.policy_logits[None]}, new_state
+
+    tables = {}
+    for label, pin in (("own stream", dev), ("default stream", None)):
+        table = DeviceStateTable(actor.initial_state(1, dev), B,
+                                 lambda ctx, e, s: None, batch_dim=1,
+                                 device=pin)
+        table.bind_context(act, list(actor.parameters()))
+        table.capture_context([B], env, gen)
+        tables[label] = table
+    context = (0, list(actor.parameters()))
+    e = env(B)
+
+    def step_ms(table, reps=40):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            table.fetch(table.step(np.arange(B), np.ones(B, bool), e,
+                                   context), B)
+            times.append(1000 * (time.perf_counter() - t0))
+        return np.percentile(times, 50), np.percentile(times, 99)
+
+    alone = {label: step_ms(t) for label, t in tables.items()}
+    stop = threading.Event()
+    updates = []
+
+    def learn():
+        torch.cuda.set_device(dev)
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            update(batch, state)
+            torch.cuda.current_stream(dev).synchronize()
+            updates.append(1000 * (time.perf_counter() - t0))
+
+    learner = threading.Thread(target=learn)
+    learner.start()
+    try:
+        time.sleep(0.2)
+        busy = {label: step_ms(t) for label, t in tables.items()}
+    finally:
+        stop.set()
+        learner.join(60)
+    check(not learner.is_alive(), "(c2) the learner thread did not end")
+    print(f"phase 11 (c2): a state-table acting step at B={B} (deep+LSTM, "
+          f"one graph) while the learner's update graph replays back to "
+          f"back (update median {statistics.median(updates):.2f} ms over "
+          f"{len(updates)}): on its own stream p50 "
+          f"{busy['own stream'][0]:.2f} ms p99 {busy['own stream'][1]:.2f} "
+          f"ms; on the default stream p50 {busy['default stream'][0]:.2f} ms "
+          f"p99 {busy['default stream'][1]:.2f} ms; alone "
+          f"{alone['own stream'][0]:.2f} / {alone['default stream'][0]:.2f} "
+          "ms p50")
+    return busy, alone
+
+
+def check_replica_server(dev):
+    """(d) A ReplicaServer on cuda:0 serving the deep acting forward (no
+    LSTM, greedy actions) over unix: and shm:, fed by a
+    RemoteSnapshotPublisher and reached through a RemoteReplicaBatcher as
+    the replica leg of serving.ReplicaRouter, then through proxy_loop from
+    the core's batcher behind the core's ReplicaRouter: its replies equal
+    a local forward of the same published snapshot (actions exact, logits
+    and baseline bitwise, B=32), lag stamps right (3 behind the head, then
+    0), the round trip's median printed."""
+    import tempfile
+    import threading
+
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import nest
+    from torchbeast_tpu_torch.runtime import native_build
+    from torchbeast_tpu_torch.runtime.inference import to_device
+    from torchbeast_tpu_torch.runtime.queues import DynamicBatcher
+    from torchbeast_tpu_torch.serving import (
+        PolicySnapshotStore, ReplicaRouter, ReplicaServingHooks)
+    from torchbeast_tpu_torch.serving import replica_server as rs
+    from torchbeast_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    from torchbeast_tpu_torch.models import create_model
+
+    def build(seed):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return create_model("deep", NUM_ACTIONS).to(
+                dev).requires_grad_(False)
+
+    published = build(11)
+    server_model, local_model = build(12), build(13)
+    server_params = list(server_model.parameters())
+    loaded = [None]
+
+    def forward(acting, inputs):
+        out, _ = learner_lib.act_body(
+            acting, {k: v[0] for k, v in inputs.items()}, (),
+            sample_action=False)
+        return {"action": out.action[None].to(torch.int32),
+                "policy_logits": out.policy_logits[None],
+                "baseline": out.baseline[None]}
+
+    def act_fn(params, inputs):
+        if loaded[0] is not params:
+            torch._foreach_copy_(server_params, nest.flatten(params))
+            loaded[0] = params
+        return forward(server_model, to_device(
+            {k: inputs[k] for k in learner_lib.MODEL_INPUT_KEYS}, dev))
+
+    local = PolicySnapshotStore(1, registry=MetricsRegistry())
+    local.note_update(0)
+    local.publish(0, list(published.parameters()))
+    with torch.no_grad():
+        torch._foreach_copy_(list(local_model.parameters()),
+                             nest.flatten(local.latest()[1]))
+    rng = np.random.default_rng(6)
+    request = {"frame": rng.integers(0, 256, (1, B, 84, 84, 4), np.uint8),
+               "reward": rng.standard_normal((1, B)).astype(np.float32),
+               "done": rng.random((1, B)) < 0.1,
+               "last_action": rng.integers(0, NUM_ACTIONS, (1, B)).astype(
+                   np.int32)}
+    with torch.no_grad():
+        want = {k: v.cpu().numpy() for k, v in forward(
+            local_model, to_device(request, dev)).items()}
+
+    def same(out, lag, where):
+        out = {k: np.array(v) for k, v in out.items()}
+        check(np.array_equal(out["action"], want["action"]),
+              f"(d) {where}: actions differ from the local forward")
+        for key in ("policy_logits", "baseline"):
+            check(out[key].dtype == want[key].dtype
+                  and out[key].tobytes() == want[key].tobytes(),
+                  f"(d) {where}: {key} not bitwise the local forward's")
+        stamp = out["policy_lag"]
+        check(stamp.dtype == np.int32 and (stamp == lag).all(),
+              f"(d) {where}: policy_lag {stamp.reshape(-1)[:4]}, want {lag}")
+
+    core = native_build.load()
+    rtt = {}
+    for transport in ("unix", "shm"):
+        address = (f"{transport}:"
+                   f"{os.path.join(tempfile.mkdtemp(), 'replica')}")
+        server = rs.ReplicaServer(act_fn, address, max_policy_lag=20,
+                                  batch_dim=1, max_batch_size=B,
+                                  timeout_ms=1, registry=MetricsRegistry(),
+                                  device=dev)
+        server.start()
+        publisher = rs.RemoteSnapshotPublisher(address, timeout_s=60)
+        remote = rs.RemoteReplicaBatcher(address, timeout_s=60)
+        central = DynamicBatcher(batch_dim=1, timeout_ms=1)
+        native_central = core.DynamicBatcher(batch_dim=1)
+        native_replica = core.DynamicBatcher(batch_dim=1)
+        proxy = threading.Thread(target=rs.proxy_loop,
+                                 args=(native_replica, remote), daemon=True)
+        try:
+            publisher.publish(0, list(published.parameters()))
+            for v in (1, 2, 3):
+                publisher.note_update(v)
+            same(remote.compute(request), 3, f"{transport} direct")
+            publisher.publish(3, list(published.parameters()))
+            store = PolicySnapshotStore(1, registry=MetricsRegistry())
+            store.note_update(3)
+            store.publish(3, list(published.parameters()))
+            hooks = ReplicaServingHooks(store, max_policy_lag=20,
+                                        batch_dim=1,
+                                        registry=MetricsRegistry())
+            router = ReplicaRouter(central, remote, hooks,
+                                   registry=MetricsRegistry())
+            same(router.compute(request), 0, f"{transport} ReplicaRouter")
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                remote.compute(request)
+                times.append(1000 * (time.perf_counter() - t0))
+            rtt[transport] = statistics.median(times)
+            proxy.start()
+            native_router = core.ReplicaRouter(central=native_central,
+                                               replica=native_replica)
+            native_router.set_serving(True)
+            same(native_router.compute(request), 0,
+                 f"{transport} proxy_loop from the core's batcher")
+            tm = native_router.telemetry()
+            check(tm["replica_requests"] == 1 and tm["central_requests"] == 0,
+                  f"(d) {transport}: the core's router {tm}")
+        finally:
+            native_central.close()
+            native_replica.close()
+            if proxy.is_alive():
+                proxy.join(10)
+            central.close()
+            remote.close()
+            publisher.close()
+            server.stop()
+        check(not proxy.is_alive(), f"(d) {transport}: proxy_loop hung")
+    print(f"phase 11 (d): ReplicaServer on {dev} (deep, no LSTM, B={B}) "
+          f"over unix: and shm:, fed by RemoteSnapshotPublisher: replies "
+          "through RemoteReplicaBatcher, serving.ReplicaRouter and "
+          "proxy_loop from the core's batcher equal a local forward of the "
+          "same published snapshot (actions exact, logits and baseline "
+          f"bitwise), lag stamps 3 then 0; round trip median "
+          f"{rtt['unix']:.2f} ms unix, {rtt['shm']:.2f} ms shm (20 requests "
+          f"of {B} rows)")
+
+
+def run_split_phases(ops, dev, savedir, tf32):
+    """Phase 11 (--split-only alone after the builds): (a) on the visible
+    card; then, with the drivers' device list (parallel.visible_devices)
+    replaced by [cuda:0] * 3 and restored after (the split's slices and
+    learner all share the one card; nothing in the package has a knob for
+    this), (b) monobeast and (c), (c2) polybeast; then (d) the replica
+    server. TF32 off and cuDNN deterministic for (b) and (d), whose
+    comparisons are bitwise. Returns the paths' launch counts."""
+    from torchbeast_tpu_torch import parallel
+
+    t0 = time.time()
+    print(f"phase 11: {card_line()}")
+    shared_python, by_path = split_visible(ops, savedir)
+    visible = parallel.visible_devices
+    parallel.visible_devices = lambda platform=None: [dev] * 3
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        by_path.update(split_monobeast(ops, savedir))
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        by_path.update(split_polybeast(ops, savedir, shared_python))
+        torch.cuda.empty_cache()
+        measure_slice_stream(dev)
+    finally:
+        parallel.visible_devices = visible
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    check_replica_server(dev)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    torch.cuda.empty_cache()
+    print(f"phase 11 (device split, replica server): {time.time() - t0:.1f} s")
+    return by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -3632,9 +4405,10 @@ def main(argv):
     pipelined_only = argv == ["--pipelined-only"]
     dp_only = argv == ["--dp-only"]
     ep_only = argv == ["--ep-only"]
+    split_only = argv == ["--split-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
-                     or pipelined_only or dp_only or ep_only):
+                     or pipelined_only or dp_only or ep_only or split_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3733,6 +4507,11 @@ def main(argv):
         print(json.dumps({"ep_launches": {
             path: counts for path, (counts, _) in by_path.items()}}))
         return 0
+    if split_only:
+        by_path = run_split_phases(ops, dev, savedir, tf32)
+        print(json.dumps({"split_launches": {
+            path: counts for path, (counts, _) in by_path.items()}}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -3792,6 +4571,7 @@ def main(argv):
     by_path.update(pipelined_paths)
     by_path.update(run_dp_phases(ops, dev, savedir, tf32))
     by_path.update(run_ep_phases(ops, dev, savedir, tf32))
+    by_path.update(run_split_phases(ops, dev, savedir, tf32))
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -85,8 +85,11 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,error,match", [
-    (["--device_split", "auto"], NotImplementedError,
-     "Queue 1 item 'the device split'"),
+    # The device split is in the port: on one CPU device it warns, as the
+    # reference does, and trains the time-shared path.
+    pytest.param(["--device_split", "auto"], None,
+                 "degrading to the time-shared serving path",
+                 id="args0-device_split-degrades"),
     # The data-parallel learner is in the port: two shards train.
     (["--num_learner_devices", "2"], None, None),
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], ValueError,
@@ -103,15 +106,24 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
                   "--expert_parallel", "2"], None, None,
                  id="args5-expert_parallel-trains"),
 ])
-def test_features_outside_the_port_raise(tmp_path, args, error, match):
+def test_features_outside_the_port_raise(tmp_path, monkeypatch, caplog,
+                                        args, error, match):
     """Each multi-device flag: the ROADMAP.md item that brings it, the
     reference's error for it, or (--num_learner_devices, and
-    --expert_parallel on the MoE transformer) a run."""
+    --expert_parallel on the MoE transformer) a run; --device_split on a
+    single visible device (XLA_FLAGS' CPU count 1) the reference's
+    warning and a time-shared run."""
     flags = _flags(*args, tmp_path=tmp_path,
                    model=() if "--num_experts" in args else DEEP)
+    if "--device_split" in args:
+        monkeypatch.setenv("XLA_FLAGS",
+                           "--xla_force_host_platform_device_count=1")
     if error is None:
-        stats = monobeast.main(flags)
+        with caplog.at_level(logging.WARNING):
+            stats = monobeast.main(flags)
         assert stats["step"] == 48 and np.isfinite(stats["total_loss"])
+        if match is not None:
+            assert any(match in r.getMessage() for r in caplog.records)
         return
     with pytest.raises(error, match=match):
         monobeast.main(flags)

@@ -46,6 +46,17 @@ update runs eagerly; parallel/dp.py). Acting and checkpoints read the lead
 replica, which is the run's model. --fleet raises the reference's
 ValueError (the sync trainer is single-host).
 
+--device_split (runtime/placement.py, the reference's grammar and
+errors) splits the devices into inference slices and learner devices:
+acting runs on the first inference device, from a copy of the params
+taken after each collect's updates (lag 0, as time-shared), and the
+update on the learner devices (one: the one-device update pinned there;
+more: the data-parallel learner over exactly them). The split moves the
+work without changing it: its run is bitwise the time-shared one from
+the same seed. --opt_impl pallas is refused under it, as the reference
+refuses it; on a single visible device the split degrades to the
+time-shared path with the reference's warning.
+
 --loss impact trains the IMPACT surrogate (ops/impact.py) against a
 target network (learner.TargetNetwork) refreshed every
 --target_refresh_updates updates, and --replay_reuse K' dispatches each
@@ -101,7 +112,7 @@ from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
 from torchbeast_tpu_torch.models import create_model
 from torchbeast_tpu_torch.resilience import LearnerWatchdog, PipelineHealth
-from torchbeast_tpu_torch.runtime import remat_plan
+from torchbeast_tpu_torch.runtime import placement, remat_plan
 from torchbeast_tpu_torch.rollout import (
     PipelinedRolloutCollector,
     RolloutCollector,
@@ -228,7 +239,21 @@ def make_parser():
                              "--xla_force_host_platform_device_count of "
                              "XLA_FLAGS under --disable_cuda); "
                              "batch_size must divide by N.")
-    parser.add_argument("--device_split", default="", help=_LATER)
+    parser.add_argument("--device_split", default="",
+                        help="Sebulba device split (runtime/placement."
+                             "py): 'auto' or 'inf=K,learn=rest|M'. In "
+                             "the sync trainer the split pins the "
+                             "acting forward to the first inference "
+                             "device (policy params copied there "
+                             "device-to-device at each rebind) and runs "
+                             "the learner update on the learner devices "
+                             "(data-parallel over more than one): "
+                             "collect and learn stop contending for one "
+                             "device's compute. Empty = time-shared; a "
+                             "single-device process degrades to it with "
+                             "a warning. The full per-slice serving "
+                             "split (pinned slot tables, snapshot "
+                             "publication) lives in the async driver.")
     parser.add_argument("--fleet", default=None,
                         help="The async driver's (polybeast); refused "
                              "here, as the reference refuses it.")
@@ -349,7 +374,6 @@ NOT_IN_PORT = {
     "sequence_parallel": "sequence parallel",
     "pipeline_parallel": "pipeline parallel",
     "pipeline_microbatches": "pipeline parallel",
-    "device_split": "the device split",
     "min_live_hosts": "the fleet",
 }
 
@@ -435,6 +459,26 @@ def check_dp_flags(flags) -> int:
         if getattr(flags, "opt_impl", "xla") == "pallas":
             raise ValueError(parallel.dp.PALLAS_REFUSAL)
     return max(1, n_dev)
+
+
+SPLIT_PALLAS_REFUSAL = (
+    "--opt_impl pallas does not compose with --device_split "
+    "yet (the fused tail is a per-chip kernel)"
+)
+
+
+def resolve_split(flags, device, parallel_flags):
+    """--device_split resolved over `device`'s platform's visible devices
+    (parallel.visible_devices, read at call time) and checked with the
+    reference's composition rules (placement.validate_split_composition
+    over `parallel_flags`), before any side effect; None for no split,
+    and for the single-device degradation (with the reference's
+    warning)."""
+    split = placement.resolve_device_split(
+        getattr(flags, "device_split", ""),
+        parallel.visible_devices(device.type))
+    placement.validate_split_composition(flags, split, parallel_flags)
+    return split
 
 
 def learner_mesh(device, n_dev: int, expert_par: int = 1):
@@ -722,7 +766,27 @@ def train(flags):
     K = check_superstep(flags)
     overlap = bool(getattr(flags, "overlap_collect", False))
     device = select_device(flags)
-    mesh = learner_mesh(device, n_dev) if n_dev > 1 else None
+    split = resolve_split(flags, device, ("sequence_parallel",
+                                          "expert_parallel",
+                                          "pipeline_parallel"))
+    if split is not None and getattr(flags, "opt_impl", "xla") == "pallas":
+        raise ValueError(SPLIT_PALLAS_REFUSAL)
+    # Under the split the learner owns the learner devices: one gives the
+    # one-device path pinned there, more a data-parallel mesh over
+    # exactly them; acting moves to the first inference device.
+    mesh = None
+    act_device = learn_device = device
+    if split is not None:
+        act_device = torch.device(split.inference_devices[0])
+        if len(split.learner_devices) > 1:
+            mesh = parallel.create_mesh(devices=list(split.learner_devices))
+            learn_device = mesh.lead
+        else:
+            learn_device = torch.device(split.learner_devices[0])
+        if learn_device.type == "cuda":
+            torch.cuda.set_device(learn_device)
+    elif n_dev > 1:
+        mesh = learner_mesh(device, n_dev)
     ep_mesh = expert_mesh(device, flags)
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
@@ -740,13 +804,15 @@ def train(flags):
     reg = tele.registry
     tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
                     if mesh or ep_mesh else {"data": 1, "model": 1})
+    if split is not None:
+        tele.set_static("device_split", split.describe())
 
     hp = hparams_from_flags(flags)
     batch_dtype = precision.resolve_flags(flags).batch_dtype
     num_actions, frame_shape = _probe_env(flags)
     B = flags.num_actors
     T = flags.unroll_length
-    model = build_model(flags, num_actions, frame_shape, device)
+    model = build_model(flags, num_actions, frame_shape, learn_device)
     # The resolved remat plan rides every telemetry line as a static.
     plan = remat_plan.last_plan()
     if plan is not None:
@@ -765,26 +831,31 @@ def train(flags):
     if mesh is not None:
         update = parallel.make_parallel_update_step(
             model, optimizer, hp, mesh, superstep_k=K)
-        log.info("Sync learner data-parallel over %d devices",
-                 mesh.shape["data"])
+        log.info("Sync learner data-parallel over %d devices%s",
+                 mesh.shape["data"],
+                 " (device split)" if split is not None else "")
     else:
         update = learner_lib.make_update_dispatch(model, optimizer, hp, K)
     dispatch = learner_lib.instrument_update_step(
         update, registry=reg, superstep_k=K)
     # Lag 0: acting reads the learner's params, updated in place on the
-    # same stream. Lag 1: its own copy, refreshed after each collect.
-    act_model = (copy.deepcopy(model).requires_grad_(False) if overlap
-                 else model)
+    # same stream; under the split a copy on the acting device, refreshed
+    # after each collect's updates. Lag 1: its own copy, refreshed after
+    # each collect.
+    act_model = (copy.deepcopy(model).to(act_device).requires_grad_(False)
+                 if overlap or split is not None else model)
     act_params, learn_params = (list(act_model.parameters()),
                                 list(model.parameters()))
-    learner_stream = (torch.cuda.Stream(device)
-                      if overlap and device.type == "cuda" else None)
-    generator = torch.Generator(device=device)
+    if split is not None:
+        log.info("Acting pinned to inference device %s", act_device)
+    learner_stream = (torch.cuda.Stream(learn_device)
+                      if overlap and learn_device.type == "cuda" else None)
+    generator = torch.Generator(device=act_device)
     generator.manual_seed(flags.seed + 2)
-    act_step = learner_lib.make_act_step(act_model, device, generator)
+    act_step = learner_lib.make_act_step(act_model, act_device, generator)
     pipelined = getattr(flags, "pipelined_collect", True)
-    log.info("Training on %s (superstep_k %d, overlap_collect %s)", device,
-             K, overlap)
+    log.info("Training on %s (superstep_k %d, overlap_collect %s)",
+             learn_device, K, overlap)
     # --replay_reuse K': every staged batch is dispatched K' times
     # (IMPACT's sample reuse); env frames advance on its first pass only.
     reuse = hp.replay_reuse
@@ -841,7 +912,8 @@ def train(flags):
             PipelinedRolloutCollector if pipelined else RolloutCollector
         )
         collector = collector_cls(
-            pool, policy, model.initial_state(B, device), unroll_length=T
+            pool, policy, act_model.initial_state(B, act_device),
+            unroll_length=T
         )
 
         def flush_stats(entry):
@@ -857,7 +929,7 @@ def train(flags):
             dispatch.count_host_sync()
             for t in timers:
                 update_ms.append((
-                    t[0].elapsed_time(t[1]) if device.type == "cuda"
+                    t[0].elapsed_time(t[1]) if learn_device.type == "cuda"
                     else 1000 * (t[1] - t[0])) / K)
             out = learner_lib.episode_stat_postprocess(
                 {k: rows[:, j] for j, k in enumerate(keys)}
@@ -872,12 +944,12 @@ def train(flags):
             to finish, so acting does not wait on it, and the updates
             dispatched next hide behind the next collect the same way."""
             if head is not None:
-                torch.cuda.current_stream(device).wait_event(head)
+                torch.cuda.current_stream(act_device).wait_event(head)
             with torch.no_grad():
                 torch._foreach_copy_(act_params, learn_params)
 
         def dispatch_timed(sub, sub_state):
-            if device.type != "cuda":
+            if learn_device.type != "cuda":
                 t0 = time.perf_counter()
                 out = dispatch(sub, sub_state)
                 return out, (t0, time.perf_counter())
@@ -920,8 +992,10 @@ def train(flags):
                         sub_state = nest.map(
                             lambda s: s[:, i : i + flags.batch_size],
                             initial_agent_state)
-                    sub = to_device(sub, device, batch_dtype)
-                    sub_state = precision.cast_batch(sub_state, batch_dtype)
+                    sub = to_device(sub, learn_device, batch_dtype)
+                    sub_state = precision.cast_batch(
+                        nest.map(lambda t: t.to(learn_device), sub_state),
+                        batch_dtype)
                     if target is not None:
                         # Once per fresh batch: its K' passes train
                         # against one target version.
@@ -940,8 +1014,13 @@ def train(flags):
                     if target is not None:
                         # Between reuse groups only.
                         target.maybe_refresh(updates_done, learn_params)
+                if split is not None and not overlap:
+                    # The rebind: acting takes this collect's updates
+                    # (lag 0, as time-shared), queued behind them.
+                    with torch.no_grad():
+                        torch._foreach_copy_(act_params, learn_params)
                 done = None
-                if device.type == "cuda":
+                if learn_device.type == "cuda":
                     done = torch.cuda.Event()
                     done.record()
                     if overlap:
@@ -972,7 +1051,7 @@ def train(flags):
                     if "mean_episode_return" in stats else "",
                 )
             if now - last_checkpoint_time > flags.checkpoint_interval_s:
-                _synchronize(device)
+                _synchronize(learn_device)
                 save_train_state(checkpoint_path, model, optimizer,
                                  step=step, flags=vars(flags), stats=stats)
                 last_checkpoint_time = now
@@ -996,7 +1075,7 @@ def train(flags):
             pending = None
         g_dispatch_q.set(0)  # everything flushed (or abandoned) now
         elapsed = time.time() - start_time
-        _synchronize(device)
+        _synchronize(learn_device)
         if device_trace is not None:
             device_trace.stop()
         save_train_state(checkpoint_path, model, optimizer, step=step,

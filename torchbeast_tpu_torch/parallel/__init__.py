@@ -1,8 +1,10 @@
-"""The data-parallel learner and expert parallelism: the mesh, the
-sharded update and the expert leaves' placement (counterpart of
-torchbeast_tpu/parallel/). The `data` and `expert` axes are in the port;
-the tensor-, sequence- and pipeline-parallel axes, the device split and
-the fleet are ROADMAP.md Queue 1 items of their own."""
+"""The data-parallel learner, expert parallelism and the device split's
+serving: the mesh, the sharded update, the expert leaves' placement and
+the per-slice inference stacks (counterpart of torchbeast_tpu/parallel/).
+The `data` and `expert` axes and the Sebulba split (sebulba.py, over
+runtime/placement.py) are in the port; the tensor-, sequence- and
+pipeline-parallel axes and the fleet are ROADMAP.md Queue 1 items of
+their own."""
 
 from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
     ParallelLearner,
@@ -29,4 +31,12 @@ from torchbeast_tpu_torch.parallel.ep import (  # noqa: F401
     expert_param_shardings,
     place_expert_params,
     set_expert_devices,
+)
+from torchbeast_tpu_torch.parallel.sebulba import (  # noqa: F401
+    SebulbaServing,
+    ShardedStateTables,
+    SliceRouter,
+    SliceStack,
+    build_sebulba_serving,
+    slice_gauge_snapshot,
 )

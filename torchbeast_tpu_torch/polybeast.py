@@ -36,6 +36,25 @@ update (the reference rebinds its `infer_params` there). Every acting
 forward runs under the same lock, so no forward sees a half-copied
 update. The learner and acting launch on the device's default stream.
 
+--device_split (runtime/placement.py, parallel/sebulba.py; the
+reference's grammar, checks and errors) splits the devices into inference
+slices and learner devices. The learner runs on the learner devices: one
+takes the one-device update pinned there (the fused tail included), more
+the data-parallel learner over exactly them. No central batcher: each
+slice has its own batcher (a core DynamicBatcher behind the core's
+SliceRouter on the native runtime), a copy of the acting model on its
+device as its snapshot buffer, a state table pinned there, and
+--num_inference_threads serving loops, all on a CUDA stream of the
+slice's own; actors hash to slices by slot. The learner publishes a bf16
+snapshot of its params every --replica_refresh_updates updates (every
+update by default, version 0 before serving starts), each slice copies a
+version to its device once, after the publish's event, and stamps each
+reply's policy_lag; a slice takes no lock of the learner's. On the card
+each slice's acting steps are graphs of their own, captured with the
+learner's before the threads start. A single visible device degrades to
+the time-shared path with the reference's warning; a multi-process run
+refuses the split with the reference's ValueError.
+
 Checkpoints are the reference's own files (utils/checkpoint.py): one
 every --checkpoint_interval_s and one at exit, also on SIGTERM under
 cli() (and under train() when a --chaos_plan plans `preempt_sigterm`);
@@ -327,7 +346,30 @@ def make_parser():
                              "fused CUDA kernel csrc/rmsprop_tail.cu.")
     parser.add_argument("--tensor_parallel", type=int, default=0,
                         help=_LATER)
-    parser.add_argument("--device_split", default="", help=_LATER)
+    parser.add_argument("--device_split", default="",
+                        help="Sebulba device split (runtime/placement."
+                             "py): partition the devices into "
+                             "dedicated inference slices + learner "
+                             "devices, so acting batches never "
+                             "time-share a device with the update step. "
+                             "'auto' pins 1 of every 4 devices to "
+                             "inference; 'inf=K,learn=rest' (or "
+                             "learn=M) pins exactly. Each inference "
+                             "device is one slice with its own batcher "
+                             "and pinned DeviceStateTable; actors hash "
+                             "statically to slices (slot state never "
+                             "migrates); slices serve versioned "
+                             "snapshots copied device-to-device from "
+                             "the PolicySnapshotStore (--replica_"
+                             "refresh_updates sets the cadence, default "
+                             "every update; --max_policy_lag "
+                             "degradation applies per slice). The "
+                             "learner runs on the remaining devices, "
+                             "data-parallel over more than one "
+                             "(batch_size divisible by their count). "
+                             "Empty = the time-shared path; a "
+                             "single-device process degrades to it with "
+                             "a warning.")
     parser.add_argument("--admission_depth_factor", type=int, default=4,
                         help="Admission-gate queue-depth bound as a "
                              "multiple of --max_inference_batch_size: "
@@ -469,7 +511,6 @@ NOT_IN_PORT = {
     "tensor_parallel": "tensor parallel",
     "fleet": "the fleet",
     "min_live_hosts": "the fleet",
-    "device_split": "the device split",
 }
 
 
@@ -482,6 +523,16 @@ def check_flags(flags) -> None:
     monobeast.check_parallel_flags(flags, {
         dest: (getattr(defaults, dest), item)
         for dest, item in NOT_IN_PORT.items()})
+
+
+# The reference's refusal of --device_split across processes without its
+# fleet (polybeast.py:681-687).
+SPLIT_MULTIHOST_REFUSAL = (
+    "--device_split with bare --coordinator_address "
+    "multi-host is not supported: use --fleet host=<rank>/"
+    "<n>,coord=<addr> — the fleet plane composes the split "
+    "per host over DCN (fleet/topology.py)"
+)
 
 
 def effective_replica_refresh_updates(flags) -> int:
@@ -637,11 +688,30 @@ def _train(flags, device):
     host_rank = parallel.process_index()
     is_lead = host_rank == 0
     check_multihost_flags(flags, proc_count)
+    # The device split, resolved and checked before any side effect; None
+    # is the time-shared path (the single-device degradation included).
+    split = monobeast.resolve_split(
+        flags, device, ("expert_parallel", "sequence_parallel",
+                        "pipeline_parallel", "tensor_parallel"))
+    if split is not None and proc_count > 1:
+        raise ValueError(SPLIT_MULTIHOST_REFUSAL)
     n_dev = flags.num_learner_devices
     expert_par = max(1, getattr(flags, "expert_parallel", 0) or 0)
     mesh = ep_mesh = None
-    if n_dev > 1:
+    if split is not None:
+        # The split's learner: plain DP over exactly its learner devices,
+        # or the one-device learner pinned to its one. From here on
+        # `device` is the learner's.
+        if len(split.learner_devices) > 1:
+            mesh = parallel.create_mesh(devices=list(split.learner_devices))
+            device = mesh.lead
+        else:
+            device = torch.device(split.learner_devices[0])
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    elif n_dev > 1:
         mesh = monobeast.learner_mesh(device, n_dev, expert_par)
+    if mesh is not None:
         if flags.batch_size % mesh.shape["data"] != 0:
             raise ValueError(
                 f"batch_size {flags.batch_size} not divisible by "
@@ -689,6 +759,8 @@ def _train(flags, device):
     tele.set_static("fleet_size", proc_count)
     tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
                     if mesh or ep_mesh else {"data": 1, "model": 1})
+    if split is not None:
+        tele.set_static("device_split", split.describe())
     health = PipelineHealth(registry=reg)
     chaos = None
     if flags.chaos_plan:
@@ -841,11 +913,15 @@ def _train(flags, device):
             maximum_queue_size=flags.max_learner_queue_size or B,
             check_inputs=True, **queue_tm,
         )
-        inference_batcher = batcher_cls(
-            batch_dim=1, minimum_batch_size=1,
-            maximum_batch_size=flags.max_inference_batch_size,
-            timeout_ms=flags.inference_timeout_ms, **batcher_tm,
-        )
+        # The split has no central batcher: each inference slice owns
+        # one (parallel/sebulba.py, built below).
+        inference_batcher = None
+        if split is None:
+            inference_batcher = batcher_cls(
+                batch_dim=1, minimum_batch_size=1,
+                maximum_batch_size=flags.max_inference_batch_size,
+                timeout_ms=flags.inference_timeout_ms, **batcher_tm,
+            )
         model_keys = learner_lib.MODEL_INPUT_KEYS
 
         def _forward_with(acting_model, gen, env_d, agent_state):
@@ -895,9 +971,12 @@ def _train(flags, device):
         # brings a version it does not hold yet, and samples from a
         # generator of its own.
         # Under --loss impact the default arms them every 10 updates.
+        # Under the split the slices are the snapshot serving (a store
+        # refreshed every --replica_refresh_updates, every update by
+        # default, below); no replica tier beside them.
         refresh_updates = effective_replica_refresh_updates(flags)
         snapshot_store = replica_hooks = replica_model = None
-        if refresh_updates > 0:
+        if split is None and refresh_updates > 0:
             snapshot_store = PolicySnapshotStore(refresh_updates,
                                                  registry=reg)
             # Version 0 = the initial params, published before serving
@@ -935,11 +1014,23 @@ def _train(flags, device):
                 return _replica_forward(to_device(env, device),
                                         to_device(agent_state, device))
 
+        # The chaos learner_stall gate (the shared-chip overload model):
+        # consulted at the learner's dispatch and in every serving loop;
+        # None when chaos is unarmed.
+        throttle = chaos.throttle if chaos is not None else None
         state_table = None
         initial_state = act_model.initial_state(1, device)
         stateful_acting = flags.device_agent_state and bool(
             nest.flatten(initial_state))
-        if stateful_acting:
+        sebulba = native_slice_router = None
+        if split is not None:
+            sebulba, native_slice_router, snapshot_store = _split_serving(
+                flags, split, core, batcher_tm, act_model, learn_params,
+                initial_state if stateful_acting else None, _forward_with,
+                model_keys, num_actors, refresh_updates, health, reg,
+                admission, throttle, tele)
+            state_table = sebulba.state_tables
+        elif stateful_acting:
             state_table = DeviceStateTable(
                 initial_state, num_slots=num_actors,
                 act_fn=lambda ctx, env_d, s: _act(env_d, s),
@@ -950,10 +1041,6 @@ def _train(flags, device):
                 state_table.bind_context(
                     _replica_forward, list(replica_model.parameters()))
 
-        # The chaos learner_stall gate (the shared-chip overload model):
-        # consulted at the learner's dispatch and in every serving loop;
-        # None when chaos is unarmed.
-        throttle = chaos.throttle if chaos is not None else None
         if chaos is not None:
             chaos.attach_state_table(state_table)
 
@@ -985,13 +1072,14 @@ def _train(flags, device):
         log.info("Acting path: agent_state=%s", acting_mode)
 
         buckets = default_buckets(flags.max_inference_batch_size)
+        slice_capture_s = []
         if device.type == "cuda":
             t0 = time.time()
             # Every graph is captured here, before the first thread starts.
             dummy = _dummy_learner_inputs(
                 T, B, superstep_k, frame_shape, num_actions,
                 to_host(model.initial_state(B, device)), policy.batch_dtype,
-                policy_lag=replica_model is not None,
+                policy_lag=replica_model is not None or split is not None,
                 impact=target is not None)
             if target is not None:
                 # The target forward's graph; the update's static batch
@@ -999,7 +1087,20 @@ def _train(flags, device):
                 target.capture(*nest.map(lambda t: t.to(device), dummy))
             dispatch.capture(*dummy)
             n_graphs = len(buckets)
-            if state_table is not None:
+            if sebulba is not None:
+                # One graph per bucket on each slice, on its device and
+                # stream, bound to its snapshot buffer.
+                n_graphs = 0
+                for stack in sebulba.stacks:
+                    t_slice = time.time()
+                    n_graphs += stack.capture(
+                        buckets, lambda b: _dummy_env_outputs(b, frame_shape),
+                        lambda b: to_host(act_model.initial_state(b, device)))
+                    slice_capture_s.append(time.time() - t_slice)
+                    log.info("Captured slice %d's %d acting graphs on %s in "
+                             "%.2fs", stack.index, len(buckets), stack.device,
+                             slice_capture_s[-1])
+            elif state_table is not None:
                 state_table.capture(
                     buckets, lambda b: _dummy_env_outputs(b, frame_shape),
                     generator, replay_lock=state_lock)
@@ -1030,7 +1131,11 @@ def _train(flags, device):
             t0 = time.time()
             for b in buckets:
                 dummy = _dummy_env_outputs(b, frame_shape)
-                if state_table is not None:
+                if sebulba is not None:
+                    for stack in sebulba.stacks:
+                        _prewarm_slice(stack, b, dummy, to_host(
+                            act_model.initial_state(b, device)))
+                elif state_table is not None:
                     # All-trash slots, advance=False: no real slot moves.
                     state_table.step(
                         np.full(b, state_table.trash_slot, np.int64),
@@ -1105,21 +1210,47 @@ def _train(flags, device):
                 telemetry_prefix="replica",
             )
 
-        # Replica loops ride the same supervisor: they share the state
-        # table, so poison recovery rebuilds once and restarts every
-        # serving thread under one budget.
-        infer_supervisor = InferenceSupervisor(
-            _serve_loop,
-            num_threads=flags.num_inference_threads,
-            state_table=state_table,
-            restart_budget=flags.inference_restart_budget,
-            health=health,
-            registry=reg,
-            extra_loop_fns=([_replica_loop] if replica_hooks is not None
-                            else None),
-        )
-        serving_frontend = (replica_router if replica_router is not None
-                            else inference_batcher)
+        # Replica and slice loops ride the same supervisor: they share
+        # the (sharded) state table, so poison recovery rebuilds once and
+        # restarts every serving thread under one budget.
+        if sebulba is not None:
+            # --num_inference_threads loops PER SLICE, each draining only
+            # its slice's batcher.
+            slice_loops = [
+                loop for loop in sebulba.loop_fns
+                for _ in range(max(1, flags.num_inference_threads))]
+            infer_supervisor = InferenceSupervisor(
+                slice_loops[0], num_threads=1, state_table=state_table,
+                restart_budget=flags.inference_restart_budget,
+                health=health, registry=reg,
+                extra_loop_fns=slice_loops[1:])
+        else:
+            infer_supervisor = InferenceSupervisor(
+                _serve_loop,
+                num_threads=flags.num_inference_threads,
+                state_table=state_table,
+                restart_budget=flags.inference_restart_budget,
+                health=health,
+                registry=reg,
+                extra_loop_fns=([_replica_loop]
+                                if replica_hooks is not None else None),
+            )
+        # The batcher-shaped surface the pool talks to: the slice router
+        # under the split (the core's with the native pool), the replica
+        # router when replicas are armed, else the central batcher.
+        if sebulba is not None:
+            serving_frontend = (native_slice_router
+                                if native_slice_router is not None
+                                else sebulba.router)
+        elif replica_router is not None:
+            serving_frontend = replica_router
+        else:
+            serving_frontend = inference_batcher
+        # The monitor's depth: the central batcher's, or the slices'
+        # summed under the split.
+        serving_depth = (inference_batcher.size
+                         if inference_batcher is not None
+                         else serving_frontend.size)
         pool_kwargs = {}
         if state_table is not None:
             # The C++ pool calls reset / initial_state_host / read_slot
@@ -1129,7 +1260,7 @@ def _train(flags, device):
             # SLO breach accounting lives actor-side in the Python pool
             # (the core counts breaches batcher-side).
             pool_kwargs["slo_target_s"] = slo_target_s
-        if replica_hooks is not None:
+        if replica_hooks is not None or sebulba is not None:
             # Rollouts mixing replica and central replies stay
             # well-formed: a missing policy_lag leaf is zeros.
             pool_kwargs["record_policy_lag"] = True
@@ -1160,11 +1291,19 @@ def _train(flags, device):
             # and wire / step / queue / admission counters fold into the
             # Python runtime's series on every exported line, the final
             # one included.
+            slice_kwargs = {}
+            if native_slice_router is not None:
+                # The slices' admission counters fold into serving.*,
+                # their depths and routed counts into the Python
+                # router's inference.slice.<i>.* series.
+                slice_kwargs = {
+                    "slice_batchers": [s.batcher for s in sebulba.stacks],
+                    "slice_router": native_slice_router}
             tele.add_tick_callback(native.NativeTelemetryFolder(
                 reg, pool=actors, batcher=inference_batcher,
                 queue=learner_queue, slo_target_s=slo_target_s,
                 replica_batcher=replica_batcher,
-                replica_router=replica_router).tick)
+                replica_router=replica_router, **slice_kwargs).tick)
         if telemetry_on:
             # Fresh liveness gauges and the per-connection SLO block on
             # every exported line: the p99 of actor.request_rtt_s
@@ -1189,7 +1328,7 @@ def _train(flags, device):
         def _stall_diagnostics():
             return {
                 "learner_queue": learner_queue.size(),
-                "inference_batcher": inference_batcher.size(),
+                "inference_batcher": serving_depth(),
                 "live_actors": actors.live_actors(),
             }
 
@@ -1268,7 +1407,11 @@ def _train(flags, device):
         update_interval_ms = []
         learner_errors = []
         updates_done = [0]  # the snapshot store's version clock
-        counters = ("inference.batches", "inference.rows")
+        # Rows per acting forward, over the central loops or the slices'.
+        prefixes = (["inference"] if sebulba is None else
+                    [f"inference.slice.{s.index}" for s in sebulba.stacks])
+        counters = tuple(f"{p}.{c}" for p in prefixes
+                         for c in ("batches", "rows"))
         counts_at_start = _counter_values(reg, counters)
 
         def learner_loop():
@@ -1360,9 +1503,12 @@ def _train(flags, device):
                     with state_lock:
                         # Publish: the acting copy takes the new params
                         # (bf16_train: the bf16 resident ones), queued
-                        # on the stream after the update.
-                        with torch.no_grad():
-                            torch._foreach_copy_(act_params, learn_params)
+                        # on the stream after the update. Under the split
+                        # the slices act from snapshots alone.
+                        if sebulba is None:
+                            with torch.no_grad():
+                                torch._foreach_copy_(act_params,
+                                                     learn_params)
                         # Global frames: every process ran this
                         # collective dispatch.
                         if fresh:
@@ -1372,12 +1518,16 @@ def _train(flags, device):
                         updates_done[0] += superstep_k
                         # A versioned snapshot when one is due (a
                         # dropped refresh stays due): its bf16 cast is
-                        # queued behind the copy above.
+                        # queued behind the copy above (the update, under
+                        # the split, whose slices copy it from their own
+                        # streams after the cast's event).
                         if (snapshot_store is not None
                                 and snapshot_store.note_update(
                                     updates_done[0])):
-                            snapshot_store.publish(updates_done[0],
-                                                   act_params)
+                            snapshot_store.publish(
+                                updates_done[0],
+                                act_params if sebulba is None
+                                else learn_params)
                     if target is not None:
                         # A full-precision target refresh when one is
                         # due, queued behind the update.
@@ -1493,14 +1643,14 @@ def _train(flags, device):
                 reg.gauge("learner.learn_sps").set(learn_sps)
                 reg.gauge("learner.sample_reuse").set(replay_reuse)
                 reg.gauge("learner_queue.depth").set(learner_queue.size())
-                reg.gauge("inference.depth").set(inference_batcher.size())
+                reg.gauge("inference.depth").set(serving_depth())
                 tele.write(extra={"step": now_step})
             means = timings.means()
             log.info(
                 "Step %d @ %.1f SPS. Inference batcher size: %d. "
                 "Learner queue size: %d. Loss %.4f. "
                 "[dequeue %.0fms learn %.0fms] %s",
-                now_step, sps, inference_batcher.size(),
+                now_step, sps, serving_depth(),
                 learner_queue.size(),
                 stats_now.get("total_loss", float("nan")),
                 1000 * means.get("dequeue", 0.0),
@@ -1528,7 +1678,12 @@ def _train(flags, device):
             device_trace.stop()
         # Shutdown in the reference's order: close the batchers + queue,
         # join the actors, then the threads.
-        closers = [inference_batcher, learner_queue]
+        closers = [learner_queue]
+        if inference_batcher is not None:
+            closers.insert(0, inference_batcher)
+        if sebulba is not None:
+            # Every slice's batcher, so each slice's loops end cleanly.
+            closers = [s.batcher for s in sebulba.stacks] + closers
         if replica_batcher is not None:
             closers.insert(1, replica_batcher)
         for closer in closers:
@@ -1565,9 +1720,10 @@ def _train(flags, device):
     stats["learn_sps"] = (updates_done[0] * T * global_rows / elapsed
                           if elapsed else 0.0)
     counts = _counter_values(reg, counters)
-    batches = counts["inference.batches"] - counts_at_start[
-        "inference.batches"]
-    rows = counts["inference.rows"] - counts_at_start["inference.rows"]
+    batches = sum(counts[c] - counts_at_start[c] for c in counters
+                  if c.endswith(".batches"))
+    rows = sum(counts[c] - counts_at_start[c] for c in counters
+               if c.endswith(".rows"))
     stats["inference_batch_mean"] = rows / batches if batches else 0.0
     stats["server_restarts"] = (
         server_supervisor.restarts if server_supervisor is not None else 0
@@ -1578,9 +1734,79 @@ def _train(flags, device):
     stats["health_reasons"] = health.reasons()
     stats["actor_reconnects"] = int(actors.reconnect_count())
     stats["inference_restarts"] = infer_supervisor.restarts
+    if sebulba is not None:
+        stats["slice_capture_s"] = slice_capture_s
     if chaos is not None:
         stats["chaos"] = chaos.summary()
     return stats
+
+
+def _split_serving(flags, split, core, batcher_tm, act_model, learn_params,
+                   initial_state, forward_with, model_keys, num_actors,
+                   refresh_updates, health, reg, admission, throttle, tele):
+    """The device split's serving (parallel/sebulba.py): the snapshot
+    store, version 0 (the learner's initial params) published before
+    serving starts and refreshed every --replica_refresh_updates (every
+    update by default); one stack per inference slice, each acting with a
+    copy of the acting model on its device (the snapshot buffer) through
+    a pinned state table, or the forward alone without one
+    (`initial_state` None); on the native runtime a core DynamicBatcher a
+    slice behind the core's SliceRouter, whose lag transitions the
+    monitor tick drives. Returns (serving, the core's router or None,
+    the store)."""
+    store = PolicySnapshotStore(max(1, refresh_updates), registry=reg)
+    store.note_update(0)
+    store.publish(0, learn_params)
+    batcher_factory = None
+    if core is not None:
+        def batcher_factory(i, name):
+            return core.DynamicBatcher(
+                batch_dim=1, minimum_batch_size=1,
+                maximum_batch_size=flags.max_inference_batch_size,
+                timeout_ms=flags.inference_timeout_ms, **batcher_tm)
+    serving = parallel.build_sebulba_serving(
+        split, store, num_slots=num_actors,
+        max_batch_size=flags.max_inference_batch_size,
+        timeout_ms=flags.inference_timeout_ms,
+        max_policy_lag=flags.max_policy_lag, rng_seed=flags.seed,
+        slice_model=lambda d: copy.deepcopy(act_model).to(d),
+        initial_state=initial_state,
+        act_fn=forward_with,
+        input_filter=lambda env: {k: env[k] for k in model_keys},
+        health=health, registry=reg, admission=admission,
+        throttle_fn=throttle, batcher_factory=batcher_factory)
+    router = None
+    if core is not None:
+        # Slot-hash fan-out in C++ over the slices' core batchers, the
+        # Python SliceRouter's assignment bit for bit (splitmix64).
+        router = core.SliceRouter(slices=[s.batcher for s in serving.stacks])
+        if tele.enabled:
+            def _slice_health_tick():
+                for stack in serving.stacks:
+                    stack.hooks.serving_ok()
+
+            tele.add_tick_callback(_slice_health_tick)
+    if tele.enabled:
+        tele.add_tick_callback(serving.gauge_tick(reg))
+    log.info("Sebulba serving: %d slice(s) on %s, snapshot refresh every %d "
+             "update(s), max policy lag %d (%s routing)", split.n_slices,
+             [str(d) for d in split.inference_devices],
+             max(1, refresh_updates), flags.max_policy_lag,
+             "native" if core is not None else "python")
+    return serving, router, store
+
+
+def _prewarm_slice(stack, b, env, state):
+    """--prewarm_inference on the CPU under the split: one slice step at
+    bucket `b` from the slice's snapshot (all-trash slots, advance False,
+    on the table path: no real slot moves)."""
+    ctx, _ = stack.hooks.begin_batch()
+    if stack.state_table is not None:
+        stack.state_table.step(
+            np.full(b, stack.state_table.trash_slot, np.int64),
+            np.zeros(b, bool), env, context=ctx)
+    else:
+        stack.act(env, state, b, ctx)
 
 
 class _FlagSyncHooks:

@@ -6,10 +6,9 @@ Each dynamic batch is padded up to the nearest power-of-two bucket (the
 last row repeated, see pad_to), the acting step runs at that shape, and
 the outputs are sliced back to the true size before set_outputs
 distributes rows to the waiting actors. PyTorch's eager forward would
-take any batch size; the buckets stay so that one CUDA graph per bucket
-can capture the acting step later (ROADMAP.md Queue 1 item 'overlap and
-supersteps'), and so that the padding contract of the state table is the
-reference's.
+take any batch size; on the card each bucket's acting step replays one
+captured CUDA graph (graphs.CapturedAct), and the padding contract of the
+state table is the reference's.
 
 Two state regimes:
 

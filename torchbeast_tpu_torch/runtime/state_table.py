@@ -43,6 +43,16 @@ starts; a poison and `rebuild` leave both sets valid, since `rebuild`
 writes into the same storage. The copy and the replay run under one
 hold of the table lock (and the replay lock), so no poison lands between
 them.
+
+`device=` pins the table to one device, as the reference's does for the
+device split (parallel/sebulba.py builds one table per inference slice):
+the initial state, slot ids and env inputs all go there, and so do its
+graphs. On a CUDA device a pinned table also owns a stream (`stream`),
+on which every one of its operations runs whichever thread calls it (the
+slice's serving thread, which serves on that stream, and the actor
+threads' resets and boundary reads): the table's work is ordered on one
+stream of its own, and never queues behind the learner's on the
+device's default stream.
 """
 
 # beastlint: hot-module — the table step runs once per acting batch.
@@ -80,9 +90,11 @@ class DeviceStateTable:
         context_fn: Optional[Callable] = None,
         batch_dim: int = 1,
         input_filter: Optional[Callable] = None,
+        device=None,
     ):
         """`initial_state`: a nest of tensors, each of size 1 along
-        `batch_dim`, on the device the table lives on."""
+        `batch_dim`, on the device the table lives on, or copied to
+        `device` when one is given (see the module docstring)."""
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         leaves = nest.flatten(initial_state)
@@ -100,7 +112,13 @@ class DeviceStateTable:
                 )
         self.num_slots = num_slots
         self.batch_dim = batch_dim
-        self.device = leaves[0].device
+        self.device = (leaves[0].device if device is None
+                       else torch.device(device))
+        self.stream = None
+        if device is not None and self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # After whatever the caller queued for initial_state.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self._act_fn = act_fn
         self._context_fn = context_fn
         self._input_filter = input_filter
@@ -109,14 +127,15 @@ class DeviceStateTable:
         self._tm_dispatches = _reg.counter("state_table.dispatches")
         self._tm_fetch_s = _reg.histogram("state_table.fetch_s")
         self._tm_read_slot_s = _reg.histogram("state_table.read_slot_s")
-        self._initial = nest.map(lambda t: t.detach().clone(),
-                                 initial_state)
-        # Host copy: the actor pool hands it to rollouts as the boundary
-        # state of freshly connected actors.
-        self.initial_state_host = to_host(self._initial)
-        # The table's tensors for its whole life (captured graphs address
-        # them); `_table` is they, or None while poisoned.
-        self._rows = self._fresh_table()
+        with self._on_stream():
+            self._initial = nest.map(
+                lambda t: t.detach().to(self.device).clone(), initial_state)
+            # Host copy: the actor pool hands it to rollouts as the
+            # boundary state of freshly connected actors.
+            self.initial_state_host = to_host(self._initial)
+            # The table's tensors for its whole life (captured graphs
+            # address them); `_table` is they, or None while poisoned.
+            self._rows = self._fresh_table()
         self._table = self._rows
         self._graphs = {}  # batch size -> graphs.CapturedAct
         self._replay_lock = contextlib.nullcontext()
@@ -126,6 +145,13 @@ class DeviceStateTable:
         self._context_params = None
         self._context_version = None  # guarded-by: self._lock
         self._context_graphs = {}  # batch size -> graphs.CapturedAct
+
+    def _on_stream(self):
+        """The table's stream as the current one (a pinned CUDA table),
+        else nothing."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def _fresh_table(self):
         """A new [.., num_slots+1, ..] table (+1: the trash slot), every
@@ -163,7 +189,7 @@ class DeviceStateTable:
         batch re-prime through their retry path; the others continue
         their unroll against a reset slot (a bounded glitch, like an
         episode boundary)."""
-        with self._lock, torch.no_grad():
+        with self._lock, torch.no_grad(), self._on_stream():
             for leaf, fresh in zip(nest.flatten(self._rows),
                                    nest.flatten(self._fresh_table())):
                 leaf.copy_(fresh)
@@ -231,7 +257,7 @@ class DeviceStateTable:
                     static["env"],
                     lambda env_d, state: self._act_fn(ctx, env_d, state))
 
-            with self._lock, torch.no_grad():
+            with self._lock, torch.no_grad(), self._on_stream():
                 self._require_alive()
                 self._graphs[n] = graphs.CapturedAct(
                     run, example, self.device, generator)
@@ -264,7 +290,7 @@ class DeviceStateTable:
                                      static["advance"], static["env"],
                                      self._context_act_fn)
 
-            with self._lock, torch.no_grad():
+            with self._lock, torch.no_grad(), self._on_stream():
                 self._require_alive()
                 self._context_graphs[n] = graphs.CapturedAct(
                     run, example, self.device, generator)
@@ -321,19 +347,19 @@ class DeviceStateTable:
             if ctx is None and self._context_fn is not None:
                 ctx = self._context_fn()
             act = lambda env_d, state: self._act_fn(ctx, env_d, state)  # noqa: E731
-        ids = to_device(slots, self.device)
-        advance_d = to_device(advance, self.device)
-        env_d = to_device(env_outputs, self.device)
-
-        with self._lock, torch.no_grad():
-            self._require_alive()
-            if replica:
-                self._load_context(context)
-            # Poisoned until the scatter is through: a raise on the way
-            # leaves the table None.
-            table, self._table = self._table, None
-            outputs = self._advance(table, ids, advance_d, env_d, act)
-            self._table = table
+        with self._on_stream():
+            ids = to_device(slots, self.device)
+            advance_d = to_device(advance, self.device)
+            env_d = to_device(env_outputs, self.device)
+            with self._lock, torch.no_grad():
+                self._require_alive()
+                if replica:
+                    self._load_context(context)
+                # Poisoned until the scatter is through: a raise on the
+                # way leaves the table None.
+                table, self._table = self._table, None
+                outputs = self._advance(table, ids, advance_d, env_d, act)
+                self._table = table
         self._tm_dispatches.inc()
         return outputs
 
@@ -348,7 +374,8 @@ class DeviceStateTable:
         if context is not None and not replica:
             raise ValueError("a captured table step binds its context at "
                              "capture")
-        with self._lock, self._replay_lock, torch.no_grad():
+        with self._lock, self._replay_lock, torch.no_grad(), \
+                self._on_stream():
             self._require_alive()
             if replica:
                 self._load_context(context)
@@ -363,7 +390,8 @@ class DeviceStateTable:
         """One device->host copy of a step's padded outputs, sliced to the
         true batch size on the host."""
         t0 = time.perf_counter()
-        host = to_host(outputs)
+        with self._on_stream():
+            host = to_host(outputs)
         bd = self.batch_dim
 
         def cut(arr):
@@ -381,18 +409,19 @@ class DeviceStateTable:
         `initial_agent_state`, once per unroll per actor. The copy to the
         host runs outside the table lock."""
         t0 = time.perf_counter()
-        ids = self._ids([slot])
-        with self._lock, torch.no_grad():
-            self._require_alive()
-            piece = self._gather(self._table, ids)
-        out = to_host(piece)
+        with self._on_stream():
+            ids = self._ids([slot])
+            with self._lock, torch.no_grad():
+                self._require_alive()
+                piece = self._gather(self._table, ids)
+            out = to_host(piece)
         self._tm_read_slot_s.observe(time.perf_counter() - t0)
         return out
 
     def reset(self, slots) -> None:
         """Reset `slots` to the initial state (actor connect/reconnect)."""
-        ids = self._ids(slots)
-        with self._lock, torch.no_grad():
+        with self._on_stream(), self._lock, torch.no_grad():
+            ids = self._ids(slots)
             self._require_alive()
             values = nest.map(
                 lambda leaf: leaf.expand(

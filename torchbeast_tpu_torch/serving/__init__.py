@@ -1,6 +1,4 @@
-"""The serving tier (the port of torchbeast_tpu/serving/, without the
-remote replica hosts of serving/replica_server.py, which go with the
-fleet: ROADMAP.md Queue 1 item 'the fleet').
+"""The serving tier (the port of torchbeast_tpu/serving/).
 
 - admission: bounded-depth admission control + deadline-aware load
   shedding on the central inference path (--request_deadline_ms,
@@ -14,6 +12,13 @@ fleet: ROADMAP.md Queue 1 item 'the fleet').
 - replica: the replica serving hooks (per-batch snapshot context,
   policy_lag stamping, degradation past --max_policy_lag through the
   health machine) and the Python ReplicaRouter.
+- replica_server: the replica tier on another host over the transports
+  (ReplicaServer, RemoteSnapshotPublisher, RemoteReplicaBatcher,
+  proxy_loop); no driver wires it, as in the reference.
+
+The device split's slices (parallel/sebulba.py) serve through the same
+hooks, each from the snapshot `PolicySnapshotStore.latest_on` places on
+its device.
 
 The typed ShedError lives in runtime/errors.py, where the actor pool
 and the C++ core's exception bridge import it.

@@ -64,9 +64,14 @@ class ReplicaServingHooks:
         device=None,
         health_key: str = "replica_lag",
     ):
-        """`device` is where the replica's sampling generator lives (the
-        acting device); `health_key` scopes the lag degradation in the
-        health machine's keyed causes."""
+        """`device` pins this hook set to one acting device: its
+        sampling generator lives there, and begin_batch hands out the
+        snapshot placed there by `PolicySnapshotStore.latest_on` (one
+        copy per version, on the serving thread's stream, after the
+        publish's cast). The device split's slices each pass their own
+        (parallel/sebulba.py). `health_key` scopes the lag degradation
+        in the health machine's keyed causes (one slice's recovery must
+        not mask another's stall)."""
         if max_policy_lag < 1:
             raise ValueError(
                 f"max_policy_lag must be >= 1, got {max_policy_lag}"
@@ -128,7 +133,10 @@ class ReplicaServingHooks:
         replica params buffer when the version is new) — or act_fn as
         its 4th argument — and `annotate(outputs, n)` stamps the
         matching policy_lag into the reply at flush time."""
-        latest = self.store.latest()
+        if self._device is not None:
+            latest = self.store.latest_on(self._device)
+        else:
+            latest = self.store.latest()
         if latest is None:
             raise RuntimeError(
                 "replica serving before the first snapshot publish "

@@ -29,9 +29,14 @@ number recorded into rollouts as `policy_lag` and compared against
 are dropped (counted in serving.snapshot_refresh_failures) so the
 lag-degradation path can be exercised deterministically.
 
-Not here: the reference's `latest_on(device)`, the per-slice placement
-of --device_split (ROADMAP.md Queue 1 item 'data parallel and the
-fleet').
+`latest_on(device)` is the device split's publication path
+(runtime/placement.py, parallel/sebulba.py): the restored tree placed on
+an inference slice's device, one copy per (version, device) and reading
+stream. The learner casts a publish on its own stream while a slice
+copies it from its thread on a stream of its own, so a publish records a
+CUDA event after its cast and `latest_on` makes the reading stream wait
+on it before the copy (and keeps the published tensors alive for that
+stream): a slice never reads a half-written snapshot.
 """
 
 import threading
@@ -127,6 +132,10 @@ class PolicySnapshotStore:
         self._bf16 = None  # guarded-by: self._lock
         self._dtypes = None  # guarded-by: self._lock
         self._restored = None  # (version, tree) cache  # guarded-by: self._lock
+        # The event after the latest publish's cast (CUDA), or None.
+        self._ready = None  # guarded-by: self._lock
+        # (device, stream) -> (version, tree): latest_on's cache.
+        self._placed = {}  # guarded-by: self._lock
         self._fail_next = 0  # guarded-by: self._lock
 
     # -- learner side -----------------------------------------------------
@@ -164,12 +173,20 @@ class PolicySnapshotStore:
             # A copy: the learner changes its params in place.
             bf16 = nest.map(lambda t: t.detach().clone(), params)
             dtypes = nest.map(lambda t: t.dtype, params)
+        ready = None
+        leaves = nest.flatten(bf16)
+        if leaves and leaves[0].is_cuda:
+            # After the cast, on the stream that ran it.
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(leaves[0].device))
         with self._lock:
             self._version = version
             self._head = max(self._head, version)
             self._bf16 = bf16
             self._dtypes = dtypes
+            self._ready = ready
             self._restored = None
+            self._placed = {}
         self._c_published.inc()
         self._c_bytes_published.inc(sum(
             t.numel() * t.element_size() for t in nest.flatten(bf16)))
@@ -227,3 +244,52 @@ class PolicySnapshotStore:
             # re-validated against _version on the next read.
             self._restored = (version, restored)
         return (version, restored)
+
+    def latest_on(self, device) -> Optional[Tuple[int, Any]]:
+        """(version, restored params on `device`), or None before the
+        first publish: the device split's cross-slice publication path.
+
+        The published bf16 tree is copied to `device` (one copy a dtype
+        group) and restored to the original dtypes there, on the calling
+        thread's current stream, after that stream waited on the
+        publish's event; the published tensors are recorded as used by
+        that stream, so the learner's next publish cannot free them under
+        the copy. The result is cached per (version, device, stream): a
+        slice reads one dict lookup a batch, and each slice's stream owns
+        the tree it reads.
+        """
+        device = torch.device(device)
+        with self._lock:
+            if self._bf16 is None:
+                return None
+            version, bf16, dtypes = self._version, self._bf16, self._dtypes
+            ready = self._ready
+        leaves, targets = nest.flatten(bf16), nest.flatten(dtypes)
+        source = leaves[0].device
+        stream = (torch.cuda.current_stream(source) if source.type == "cuda"
+                  else None)
+        key = (device, stream)
+        with self._lock:
+            cached = self._placed.get(key)
+            if cached is not None and cached[0] == version:
+                return cached
+        if stream is not None:
+            if ready is not None:
+                stream.wait_event(ready)
+            for t in leaves:
+                t.record_stream(stream)
+        by_target = {}
+        for i, dt in enumerate(targets):
+            by_target.setdefault(dt, []).append(i)
+        placed = {}
+        for dt, idx in by_target.items():
+            placed.update(_grouped(
+                leaves, idx, lambda flat, _, dt=dt: flat.to(
+                    device, non_blocking=True).to(dt)))
+        tree = nest.pack_as(bf16, [placed[i] for i in range(len(leaves))])
+        with self._lock:
+            # Last-writer-wins on a racing publish, as _restored: the next
+            # read re-validates against the version.
+            if self._version == version:
+                self._placed[key] = (version, tree)
+        return (version, tree)
