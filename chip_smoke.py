@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
                            | --impact-only | --remat-only | --anakin-only
                            | --pipelined-only | --dp-only | --ep-only
-                           | --split-only]
+                           | --split-only | --tp-pp-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -293,6 +293,37 @@ exits non-zero without printing the final result line:
    and through proxy_loop from the core's batcher: replies equal a local
    forward of the same snapshot (actions exact, logits bitwise), lag
    stamps right, the round trip printed.
+12. Tensor and pipeline parallelism (run after 11; with --tp-pp-only
+   alone after the builds, printing the paths' launches as one JSON
+   line), with the drivers' device list (parallel.visible_devices)
+   replaced by [cuda:0] * 4 and restored after, so every model, pipe
+   and data device is the one card. TF32 off and cuDNN deterministic
+   for (a)-(c)'s comparisons, at full width, T=80, B=32, seed 0's
+   weights, RMSprop eps 1.0, 2 updates: (a) polybeast's transformer (2
+   layers, d 128, 4 heads, memory 64, FFN 512, dense attention) at data
+   1 x model 2 and data 2 x model 2 against the one-device update on the
+   same batches: params within phase 9's rtol 2e-3 / atol 2e-5,
+   total_loss rtol 2e-4, replicas bitwise equal, V-trace once a data
+   shard an update and the tail never, each step CUDA graphs, the update
+   ms beside one device's; (b) the MoE transformer (8 experts,
+   --attention_impl pallas) at data 1 x model 2 x expert 2 against one
+   device at phase 10's tolerances, the attention kernels once a head
+   group a layer; (c) the GPipe over 2 pipe devices for pipelined_mlp +
+   LSTM (2 stages, M = 2 and 4; 4 stages, two passes) and
+   pipelined_transformer (4 layers, two passes; M = 2 and 4) against the
+   sequential tower at phase 9's tolerance (the microbatches' products
+   over fewer rows may take other cuBLAS kernels), V-trace and the tail
+   once an update, both updates' ms; the kernels against their plain
+   versions on a pipelined update of each family; a T=1 acting batch of
+   3 rows takes the sequential tower (bitwise), one of 32 pipelines.
+   Then at the training settings: monobeast --pipeline_parallel 2 for
+   pipelined_mlp + LSTM (M 4; --pipeline_stages 4, two passes) and
+   pipelined_transformer, polybeast --tensor_parallel 2 with
+   --num_learner_devices 1 and 2 on the Python pool and on the core,
+   with --expert_parallel 2 and with --coordinator_address (an NCCL
+   group of one) on the core, and (d) polybeast --num_learner_devices 2
+   --pipeline_parallel 2 --model pipelined_transformer on the core, each
+   2 updates with its launches, SPS and update interval.
 
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3459,9 +3490,10 @@ def _ep_path(dev, policy, layout, inputs):
         dispatch = learner_lib.make_update_dispatch(model, opt, hp)
         replicas = [model]
     else:
-        data, expert = layout
-        mesh = parallel.create_mesh(devices=[dev] * (data * expert),
-                                    expert_parallelism=expert)
+        data, expert, model_par = (tuple(layout) + (1,))[:3]
+        mesh = parallel.create_mesh(
+            devices=[dev] * (data * expert * model_par),
+            expert_parallelism=expert, model_parallelism=model_par)
         dispatch = parallel.make_parallel_update_step(model, opt, hp, mesh)
         replicas = dispatch.learner.replicas
     layers = [m for r in replicas for m in r.modules()
@@ -3487,16 +3519,21 @@ def _ep_path(dev, policy, layout, inputs):
     return (after, master), dispatch, stats, counts, dropped
 
 
-def check_ep_path(dev, policy, layout, want, inputs):
+def check_ep_path(dev, policy, layout, want, inputs, kernels=EP_KERNELS):
     """One layout of phase 10 against the one-device run `want` (an
-    _ep_path result). Returns (its launch counts and bf16 launch counts,
-    the path's result, its update ms)."""
-    label = f"phase 10 data {layout[0]} x expert {layout[1]} {policy}"
+    _ep_path result), each kernel launched as often as `kernels` says a
+    data shard an update; a third entry of `layout` splits the blocks
+    over that many model devices (phase 12 (b)). Returns (its launch
+    counts and bf16 launch counts, the path's result, its update ms)."""
+    label = (f"phase 10 data {layout[0]} x expert {layout[1]} {policy}"
+             if len(layout) == 2 else
+             f"phase 12 (b) data {layout[0]} x model {layout[2]} x expert "
+             f"{layout[1]} {policy}")
     got = _ep_path(dev, policy, layout, inputs)
     (params, master), dispatch, stats, (counts, _), dropped = got
     (w_params, w_master), _, w_stats, _, w_dropped = want
     data = layout[0]
-    for name, n in EP_KERNELS.items():
+    for name, n in kernels.items():
         check(counts[name] == n * data * DP_UPDATES,
               f"{label}: {counts[name]} {name} launches in {DP_UPDATES} "
               f"updates, not {n} a data shard an update")
@@ -3555,7 +3592,7 @@ def check_ep_path(dev, policy, layout, want, inputs):
           f"{label}: {dropped} assignments dropped, one device {w_dropped}")
     batches, state = inputs
     ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
-    print(f"{label}: {data * layout[1]} shards on {dev}, {DP_UPDATES} "
+    print(f"{label}: {int(np.prod(layout))} shards on {dev}, {DP_UPDATES} "
           f"updates against one device: params within rtol "
           f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
           f"{worst:.3g} of a leaf's largest entry{'' if policy == 'f32' else ', f32 masters; bf16 params within a bf16 ulp'}), "
@@ -3565,7 +3602,7 @@ def check_ep_path(dev, policy, layout, want, inputs):
           f"the shards' router probabilities; dropped {dropped} (one "
           f"device {w_dropped}, {apart} apart); replicas "
           f"bitwise equal; launches an update "
-          f"{ {k: counts[k] // DP_UPDATES for k in EP_KERNELS} }; update "
+          f"{ {k: counts[k] // DP_UPDATES for k in kernels} }; update "
           f"{ms:.3f} ms ({'eager, shards in lockstep' if data > 1 else 'one CUDA graph'})")
     return got[3], got, ms
 
@@ -4383,6 +4420,413 @@ def run_split_phases(ops, dev, savedir, tf32):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 12
+
+# (data, model) layouts of the TP paths: polybeast --tensor_parallel 2,
+# alone and with --num_learner_devices 2.
+TP_LAYOUTS = ((1, 2), (2, 2))
+# A TP data shard's kernels an update: V-trace (the sharded learner
+# refuses the fused tail, as the reference does; polybeast's transformer
+# attends densely, reaching no attention kernel).
+TP_KERNELS = {"vtrace_targets": 1}
+# The MoE transformer at data 1 x model 2 x expert 2 ((data, expert,
+# model), as _ep_path takes it): the attention kernels once a head group
+# a layer.
+TP_EP_LAYOUT = (1, 2, 2)
+TP_EP_KERNELS = {"vtrace_targets": 1, "transformer_attention": 4,
+                 "transformer_attention_bwd": 4}
+# The PP updates: (label, model, depth, microbatches). Monobeast's
+# defaults at --pipeline_parallel 2: the MLP one stage a device, the
+# transformer its 4 layers (two passes).
+PP_PATHS = (
+    ("pipelined_mlp+LSTM pipe 2 M=2", "pipelined_mlp", {"num_stages": 2},
+     None),
+    ("pipelined_mlp+LSTM pipe 2 M=4", "pipelined_mlp", {"num_stages": 2},
+     4),
+    ("pipelined_mlp+LSTM pipe 2 stages 4 (two passes)", "pipelined_mlp",
+     {"num_stages": 4}, None),
+    ("pipelined_transformer pipe 2 M=2 (two passes)",
+     "pipelined_transformer", {}, None),
+    ("pipelined_transformer pipe 2 M=4 (two passes)",
+     "pipelined_transformer", {}, 4),
+)
+PP_KERNELS = {"vtrace_targets": 1, "rmsprop_tail": 1}  # an update
+# The monobeast PP paths through the driver, and polybeast's.
+PP_DRIVER_ARGS = (
+    ("monobeast pipelined_mlp+LSTM pipeline_parallel 2 M=4",
+     PP_MLP_ARGS + ["--pipeline_parallel", "2", "--pipeline_microbatches",
+                    "4"]),
+    ("monobeast pipelined_mlp+LSTM pipeline_parallel 2 pipeline_stages 4",
+     PP_MLP_ARGS + ["--pipeline_parallel", "2", "--pipeline_stages", "4"]),
+    ("monobeast pipelined_transformer pipeline_parallel 2",
+     PP_TRANSFORMER_ARGS + ["--pipeline_parallel", "2"]),
+)
+TP_PP_UPDATES = 2  # a polybeast path's updates
+
+
+def _pp_hp():
+    """The PP paths' learner: monobeast's, V-trace's kernel and the fused
+    tail, the LR decay and the entropy anneal moving, RMSprop eps 1.0 as
+    phase 9's (the comparison sees the update, not eps 0.01's
+    conditioning)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    return learner_lib.HParams(unroll_length=T, batch_size=B,
+                               vtrace_impl="pallas", opt_impl="pallas",
+                               total_steps=20 * T * B,
+                               entropy_cost_final=1e-4, rmsprop_eps=DP_EPS)
+
+
+def _compare_params(label, model, want):
+    """model's params against `want`'s within phase 9's tolerance; the
+    largest difference relative to a leaf's largest entry."""
+    worst = 0.0
+    for (pname, p), q in zip(model.named_parameters(), want.parameters()):
+        p, q = p.detach().float(), q.detach().float()
+        err, ok = close(p, q, DP_PARAMS_RTOL, DP_PARAMS_ATOL)
+        check(ok, f"{label}: param {pname} max |diff| {err:.3g} beyond "
+                  f"rtol {DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL}")
+        worst = max(worst, float(((p - q).abs().max()
+                                  / q.abs().max().clamp_min(1e-30))))
+    return worst
+
+
+def _tp_model(dev):
+    """polybeast's transformer at full width (2 layers, d 128, 4 heads,
+    memory 64, FFN 512; dense attention), seed 0's weights."""
+    from torchbeast_tpu_torch.models import create_model
+
+    torch.manual_seed(0)
+    return create_model("transformer", NUM_ACTIONS).to(dev)
+
+
+def check_tp_path(ops, dev, layout, inputs, want):
+    """(a) The TP update over a (data, model) mesh of `dev` repeated
+    against the one-device update `want` ((model, stats, ms)) on the same
+    batches from the same weights: params within phase 9's tolerance,
+    total_loss within DP_LOSS_RTOL, replicas bitwise equal, V-trace once
+    a data shard an update, the tail never, the shards' steps CUDA
+    graphs. Returns its launch counts."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+
+    data, model_par = layout
+    label = f"phase 12 (a) TP data {data} x model {model_par}"
+    batches, state = inputs
+    model = _tp_model(dev)
+    opt = learner_lib.make_optimizer(_dp_hp(), list(model.parameters()))
+    mesh = parallel.create_mesh(devices=[dev] * (data * model_par),
+                                model_parallelism=model_par)
+    dispatch = parallel.make_parallel_update_step(model, opt, _dp_hp(), mesh)
+    check(dispatch.captures_graphs and all(
+        all(getattr(m, "model_devices", None) == mesh.model_devices(i)
+            for m in r.modules() if hasattr(m, "model_devices"))
+        for i, r in enumerate(dispatch.learner.replicas)),
+        f"{label}: not split over the model devices in CUDA graphs")
+    dispatch.capture(batches[0], state)
+    ops.reset_launch_counts()
+    got = _dp_run(dispatch, batches, state)
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    for w, n in TP_KERNELS.items():
+        check(counts[w] == n * data * DP_UPDATES,
+              f"{label}: {counts[w]} {w} launches in {DP_UPDATES} updates")
+    check(counts["rmsprop_tail"] == 0, f"{label}: the tail launched")
+    for params in dispatch.learner.params[1:]:
+        check(all(torch.equal(p, q) for p, q in zip(
+            params, dispatch.learner.params[0])),
+            f"{label}: a replica differs from the lead")
+    want_model, want_stats, one_ms = want
+    worst = _compare_params(label, model, want_model)
+    loss_err, ok = close(got["total_loss"], want_stats["total_loss"],
+                         DP_LOSS_RTOL, 0.0)
+    check(ok, f"{label}: total_loss {got['total_loss'].tolist()} vs "
+              f"{want_stats['total_loss'].tolist()}")
+    ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    print(f"{label} T={T} B={B}: every device {dev}, {DP_UPDATES} updates "
+          f"against one device, RMSprop eps {DP_EPS}: params within rtol "
+          f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
+          f"{worst:.3g} of a leaf's largest entry), total_loss within rtol "
+          f"{DP_LOSS_RTOL} (max |diff| {loss_err:.3g}); replicas bitwise "
+          f"equal; launches an update "
+          f"{ {w: counts[w] // DP_UPDATES for w in TP_KERNELS} }, the tail "
+          f"0; update {ms:.3f} ms (CUDA graphs), one device {one_ms:.3f} ms")
+    return counts, bf16
+
+
+def run_poly_parallel(ops, savedir, label, model_args, extra, native,
+                      shards):
+    """polybeast through its parser at polybeast_argv's settings (16 Mock
+    env servers, T=80, B=32, V-trace on) with `model_args` in place of
+    deep + LSTM, --opt_impl xla (the sharded learner refuses the tail)
+    and `extra`, TP_PP_UPDATES updates on the Python pool or the core:
+    V-trace once a data shard an update (`shards`), the tail never,
+    finite losses, HEALTHY, the parallel learner's log line. Returns the
+    launch counts."""
+    from torchbeast_tpu_torch import polybeast
+
+    xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
+    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    argv = polybeast_argv(savedir, xpid)
+    at = argv.index("--model")
+    del argv[at:at + 2]
+    argv.remove("--use_lstm")
+    argv[argv.index("--opt_impl") + 1] = "xla"
+    if native:
+        argv[argv.index("--no_native_runtime")] = "--native_runtime"
+    lines = _Lines()
+    logger = logging.getLogger("torchbeast_tpu_torch")
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    ops.reset_launch_counts()
+    t0 = time.time()
+    try:
+        stats = polybeast.train(polybeast.make_parser().parse_args(
+            argv + list(model_args) + list(extra)
+            + ["--total_steps", str(TP_PP_UPDATES * T * B)]))
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(lines)
+    wall = time.time() - t0
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    updates = stats["updates"]
+    check(updates >= TP_PP_UPDATES, f"{label}: {updates} updates")
+    check(counts["vtrace_targets"] >= shards * updates
+          and counts["rmsprop_tail"] == 0,
+          f"{label}: launches {counts} in {updates} updates")
+    for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
+                "grad_norm"):
+        check(np.isfinite(stats[key]), f"{label} loss stat {key}")
+    check(stats["health"] == "HEALTHY"
+          and stats["runtime"] == ("native" if native else "python"),
+          f"{label}: health {stats['health']}, runtime {stats['runtime']}")
+    learner_line = [line for line in lines.lines
+                    if line.startswith("Parallel learner")]
+    check(learner_line, f"{label}: no parallel learner")
+    if "--coordinator_address" in extra:
+        joined = [line for line in lines.lines if line.startswith("Joined")]
+        check(joined, f"{label}: no process group joined")
+        learner_line[0] += f"; {joined[0]}"
+    print(f"{label} T={T} B={B}: {learner_line[0]}; {updates} updates in "
+          f"{wall:.1f} s; SPS {stats['sps']:.1f}; update interval median "
+          f"{stats['update_interval_ms_median']:.2f} ms; launches {counts}")
+    return {label: (counts, bf16)}
+
+
+def _pp_update(ops, dev, name, depth, mesh, microbatches, inputs):
+    """DP_UPDATES updates (one CUDA graph a dispatch) of the full-width
+    `name` at `depth`, seed 0's weights, its tower a GPipe over `mesh`'s
+    pipe devices in `microbatches` (mesh None: the sequential tower):
+    (model, stats, launch counts, dispatch)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+
+    batches, state = inputs
+    model, _ = _param_tree(dev, name, **depth)
+    if mesh is not None:
+        parallel.set_pipeline(model, mesh, microbatches)
+    opt = learner_lib.make_optimizer(_pp_hp(), list(model.parameters()))
+    dispatch = learner_lib.make_update_dispatch(model, opt, _pp_hp())
+    dispatch.capture(batches[0], state)
+    ops.reset_launch_counts()
+    stats = _dp_run(dispatch, batches, state)
+    return model, stats, (ops.launch_counts(), ops.bf16_launch_counts()), \
+        dispatch
+
+
+def check_pp_path(ops, dev, mesh, label, name, depth, microbatches):
+    """(c) A GPipe update over `mesh` (two pipe devices, both `dev`)
+    against the sequential tower on the same batches from the same
+    weights: params within phase 9's tolerance and total_loss within
+    DP_LOSS_RTOL (the microbatches' products run over fewer rows than the
+    whole batch's, which can take other cuBLAS kernels and sum in another
+    order, as the DP shards' do), V-trace and the tail once an update,
+    the forward pipelined; both updates' ms. Returns the launch counts."""
+    batches = [random_batch(i, dev) for i in range(DP_UPDATES)]
+    probe, _ = _param_tree(dev, name, **depth)
+    state = _agent_state(probe, name, dev)
+    del probe
+    seq, want, _, seq_dispatch = _pp_update(ops, dev, name, depth, None,
+                                            None, (batches, state))
+    pipe, got, (counts, bf16), dispatch = _pp_update(
+        ops, dev, name, depth, mesh, microbatches, (batches, state))
+    check(pipe.last_pipelined and not seq.last_pipelined,
+          f"{label}: the update's forward did not pipeline")
+    for w, n in PP_KERNELS.items():
+        check(counts[w] == n * DP_UPDATES,
+              f"{label}: {counts[w]} {w} launches in {DP_UPDATES} updates")
+    worst = _compare_params(label, pipe, seq)
+    loss_err, ok = close(got["total_loss"], want["total_loss"],
+                         DP_LOSS_RTOL, 0.0)
+    check(ok, f"{label}: total_loss {got['total_loss'].tolist()} vs "
+              f"{want['total_loss'].tolist()}")
+    ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    seq_ms = time_ms(lambda: seq_dispatch(batches[0], state), reps=10)
+    print(f"phase 12 (c) {label} T={T} B={B}: {DP_UPDATES} updates against "
+          f"the sequential tower, RMSprop eps {DP_EPS}: params within rtol "
+          f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
+          f"{worst:.3g} of a leaf's largest entry), total_loss within rtol "
+          f"{DP_LOSS_RTOL} (max |diff| {loss_err:.3g}); launches an update "
+          f"{ {w: counts[w] // DP_UPDATES for w in PP_KERNELS} }; update "
+          f"{ms:.3f} ms (one CUDA graph), sequential {seq_ms:.3f} ms")
+    return counts, bf16
+
+
+def check_pp_acting(dev, mesh):
+    """(c) Acting: a T=1 batch of 3 rows does not divide into the 2
+    microbatches and takes the sequential tower (bitwise the sequential
+    model's outputs); B rows pipeline (within rtol 1e-5, atol 1e-6)."""
+    from torchbeast_tpu_torch import parallel
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, depth in (("pipelined_mlp", {"num_stages": 2}),
+                            ("pipelined_transformer", {})):
+            seq, _ = _param_tree(dev, name, **depth)
+            pipe, _ = _param_tree(dev, name, **depth)
+            parallel.set_pipeline(pipe, mesh, None)
+            batch = random_batch(5, dev)
+            for rows in (3, B):
+                inputs = {k: batch[k][:1, :rows] for k in
+                          ("frame", "reward", "done", "last_action")}
+                state = seq.initial_state(rows, dev)
+                with torch.no_grad():
+                    want, _ = seq(inputs, state, sample_action=False)
+                    got, _ = pipe(inputs, state, sample_action=False)
+                torch.cuda.synchronize()
+                if rows == 3:
+                    check(not pipe.last_pipelined and torch.equal(
+                        got.policy_logits, want.policy_logits),
+                        f"{name} acting at 3 rows: not the sequential tower")
+                else:
+                    err, ok = close(got.policy_logits, want.policy_logits,
+                                    1e-5, 1e-6)
+                    check(pipe.last_pipelined and ok,
+                          f"{name} acting at {rows} rows: pipelined "
+                          f"{pipe.last_pipelined}, max |err| {err}")
+            print(f"phase 12 (c) {name} acting (T=1, TF32 off): 3 rows take "
+                  f"the sequential tower, bitwise its outputs; {B} rows "
+                  f"pipeline, logits within rtol 1e-5 / atol 1e-6 (max "
+                  f"|err| {err:.3g})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_tp_pp_phases(ops, dev, savedir, tf32):
+    """Phase 12 (--tp-pp-only alone after the builds): with the drivers'
+    device list (parallel.visible_devices) replaced by [cuda:0] * 4 and
+    restored after, (a) TP, (b) TP with EP, (c) PP, (d) polybeast's data
+    x pipe on the core. Returns the paths' launch counts."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+
+    t0 = time.time()
+    print(f"phase 12: {card_line()}")
+    by_path = {}
+    visible = parallel.visible_devices
+    parallel.visible_devices = lambda platform=None: [dev] * 4
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        # (a) TP against one device.
+        one = _tp_model(dev)
+        batches = [random_batch(i, dev) for i in range(DP_UPDATES)]
+        state = random_cache(one, 0, dev)
+        one_dispatch = learner_lib.make_update_dispatch(
+            one, learner_lib.make_optimizer(_dp_hp(), list(
+                one.parameters())), _dp_hp())
+        one_dispatch.capture(batches[0], state)
+        want_stats = _dp_run(one_dispatch, batches, state)
+        # The params after DP_UPDATES updates, before timing runs more.
+        want = copy.deepcopy(one)
+        one_ms = time_ms(lambda: one_dispatch(batches[0], state), reps=10)
+        for layout in TP_LAYOUTS:
+            by_path[f"TP data {layout[0]} x model {layout[1]} update"] = \
+                check_tp_path(ops, dev, layout, (batches, state),
+                              (want, want_stats, one_ms))
+        del one, want, one_dispatch, batches, state
+        torch.cuda.empty_cache()
+        # (b) The MoE transformer at data 1 x model 2 x expert 2.
+        model, _ = _param_tree(dev, "transformer", "f32",
+                               num_experts=EP_EXPERTS)
+        inputs = ([random_batch(i, dev) for i in range(DP_UPDATES)],
+                  _agent_state(model, "transformer", dev))
+        del model
+        want = _ep_path(dev, "f32", None, inputs)
+        counts, got, ms = check_ep_path(dev, "f32", TP_EP_LAYOUT, want,
+                                        inputs, TP_EP_KERNELS)
+        by_path["MoE data 1 x model 2 x expert 2 update"] = counts
+        del want, got, inputs
+        torch.cuda.empty_cache()
+        # (c) PP against the sequential tower, the kernels against their
+        # plain versions, acting.
+        mesh = parallel.create_mesh(devices=[dev] * 2, pipe_parallelism=2)
+        for label, name, depth, microbatches in PP_PATHS:
+            by_path[f"PP {label} update"] = check_pp_path(
+                ops, dev, mesh, label, name, depth, microbatches)
+            torch.cuda.empty_cache()
+        for name, depth in (("pipelined_mlp", {"num_stages": 2}),
+                            ("pipelined_transformer", {})):
+            model, _ = _param_tree(dev, name, **depth)
+            parallel.set_pipeline(model, mesh, None)
+            check_update_parity(ops, dev, f"{name} pipe 2", model,
+                                _agent_state(model, name, dev))
+            del model
+        check_pp_acting(dev, mesh)
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        # The drivers: monobeast PP, polybeast TP on both runtimes and
+        # data x pipe on the core, at the training settings.
+        for label, args in PP_DRIVER_ARGS:
+            by_path[label] = run_main_path(ops, savedir, (
+                label, args, PIPELINED_KERNELS, "f32", TP_PP_UPDATES))
+        for data, model_par in TP_LAYOUTS:
+            for native in (False, True):
+                by_path.update(run_poly_parallel(
+                    ops, savedir,
+                    f"polybeast transformer data {data} x model "
+                    f"{model_par} {'core' if native else 'Python pool'}",
+                    ["--model", "transformer"],
+                    ["--tensor_parallel", str(model_par),
+                     "--num_learner_devices", str(data)], native, data))
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast transformer data 1 x model 2 x expert "
+            "2 core", ["--model", "transformer"],
+            ["--tensor_parallel", "2", "--num_experts", "4",
+             "--expert_parallel", "2"], True, 1))
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast transformer model 2 coordinator_address"
+            " (NCCL group of one) core", ["--model", "transformer"],
+            ["--tensor_parallel", "2", "--coordinator_address",
+             f"127.0.0.1:{_free_tcp_port()}"], True, 1))
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast pipelined_transformer data 2 x pipe 2 "
+            "core", PP_TRANSFORMER_ARGS,
+            ["--num_learner_devices", "2", "--pipeline_parallel", "2"],
+            True, 2))
+    finally:
+        parallel.visible_devices = visible
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    print(f"phase 12 (tensor and pipeline parallel): "
+          f"{time.time() - t0:.1f} s")
+    return by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -4406,9 +4850,11 @@ def main(argv):
     dp_only = argv == ["--dp-only"]
     ep_only = argv == ["--ep-only"]
     split_only = argv == ["--split-only"]
+    tp_pp_only = argv == ["--tp-pp-only"]
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
-                     or pipelined_only or dp_only or ep_only or split_only):
+                     or pipelined_only or dp_only or ep_only or split_only
+                     or tp_pp_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4512,6 +4958,11 @@ def main(argv):
         print(json.dumps({"split_launches": {
             path: counts for path, (counts, _) in by_path.items()}}))
         return 0
+    if tp_pp_only:
+        by_path = run_tp_pp_phases(ops, dev, savedir, tf32)
+        print(json.dumps({"tp_pp_launches": {
+            path: counts for path, (counts, _) in by_path.items()}}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -4572,6 +5023,7 @@ def main(argv):
     by_path.update(run_dp_phases(ops, dev, savedir, tf32))
     by_path.update(run_ep_phases(ops, dev, savedir, tf32))
     by_path.update(run_split_phases(ops, dev, savedir, tf32))
+    by_path.update(run_tp_pp_phases(ops, dev, savedir, tf32))
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -94,10 +94,11 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--num_learner_devices", "2"], None, None),
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], ValueError,
      "the sync trainer is single-host"),
-    # The pipelined and sequence-parallel transformer across devices.
+    # The pipelined transformer across devices is in the port: its
+    # GPipe over 2 devices trains. The sequence-parallel one is not.
     pytest.param(["--model", "pipelined_transformer", "--pipeline_parallel",
-                  "2"], NotImplementedError,
-                 "Queue 1 item 'pipeline parallel'", id="args3-transformer"),
+                  "2", "--pipeline_stages", "2"], None, None,
+                 id="args3-transformer"),
     pytest.param(["--sequence_parallel", "2"], NotImplementedError,
                  "Queue 1 item 'sequence parallel'", id="args4-transformer"),
     # Expert parallelism is in the port: the MoE transformer's experts
@@ -109,12 +110,13 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
 def test_features_outside_the_port_raise(tmp_path, monkeypatch, caplog,
                                         args, error, match):
     """Each multi-device flag: the ROADMAP.md item that brings it, the
-    reference's error for it, or (--num_learner_devices, and
-    --expert_parallel on the MoE transformer) a run; --device_split on a
+    reference's error for it, or (--num_learner_devices, --pipeline_
+    parallel on the pipelined transformer, and --expert_parallel on the
+    MoE transformer) a run; --device_split on a
     single visible device (XLA_FLAGS' CPU count 1) the reference's
     warning and a time-shared run."""
     flags = _flags(*args, tmp_path=tmp_path,
-                   model=() if "--num_experts" in args else DEEP)
+                   model=() if "--model" in args else DEEP)
     if "--device_split" in args:
         monkeypatch.setenv("XLA_FLAGS",
                            "--xla_force_host_platform_device_count=1")
@@ -226,6 +228,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "torchbeast_tpu_torch.serving.replica",
         "torchbeast_tpu_torch.resilience.chaos",
         "torchbeast_tpu_torch.chaos_run",
+        # Tensor and pipeline parallelism.
+        "torchbeast_tpu_torch.parallel.tp",
+        "torchbeast_tpu_torch.parallel.pp",
     ]))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -121,8 +121,8 @@ def test_policy_lag(tmp_path, monkeypatch, overlap):
     make_act, make_dispatch = (port_learner.make_act_step,
                                port_learner.make_update_dispatch)
 
-    def act_step(model, device, generator=None):
-        inner = make_act(model, device, generator)
+    def act_step(model, device, generator=None, capture=None):
+        inner = make_act(model, device, generator, capture)
         params = list(model.parameters())
         events.append(("init", _flat(params)))
 
@@ -131,8 +131,8 @@ def test_policy_lag(tmp_path, monkeypatch, overlap):
             return inner(env, state)
         return step
 
-    def update_dispatch(model, optimizer, hp, k=1):
-        inner = make_dispatch(model, optimizer, hp, k)
+    def update_dispatch(model, optimizer, hp, k=1, capture=None):
+        inner = make_dispatch(model, optimizer, hp, k, capture)
         params = list(model.parameters())
 
         def dispatch(batch, state):

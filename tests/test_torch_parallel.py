@@ -123,19 +123,22 @@ def test_mesh_errors_match_the_reference(kwargs, match):
     ("pipe_parallelism", "pipeline parallel"),
 ])
 def test_inner_axes_are_roadmap_items(axis, item):
-    """The reference builds these meshes; the port builds the expert one
-    as the reference lays it out (expert innermost) and names the item
-    that brings each other axis."""
+    """The reference builds these meshes; the port builds the model, pipe
+    and expert ones as the reference lays them out (the inner axis
+    innermost, reported only above 1 for pipe and expert), and names the
+    item that brings the seq axis."""
     theirs = jax_create_mesh(8, **{axis: 2})
     assert theirs.devices.size == 8
-    if axis == "expert_parallelism":
+    if axis != "seq_parallelism":
         ours = parallel.create_mesh(8, **{axis: 2})
-        assert ours.shape == dict(theirs.shape) == {
-            "data": 4, "model": 1, "expert": 2}
+        assert ours.shape == dict(theirs.shape)
         assert ours.axis_names == theirs.axis_names
-        assert ours.devices.shape == theirs.devices.shape == (4, 1, 2)
+        assert ours.devices.shape == theirs.devices.shape
         assert len(ours.local_devices) == 4
-        assert ours.expert_devices(1) == [torch.device("cpu")] * 2
+        row = {"model_parallelism": ours.model_devices,
+               "expert_parallelism": ours.expert_devices,
+               "pipe_parallelism": ours.pipe_devices}[axis](1)
+        assert row == [torch.device("cpu")] * 2
         return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item '{item}'"):
         parallel.create_mesh(8, **{axis: 2})

@@ -586,17 +586,21 @@ def make_update_superstep(model, optimizer, hp: HParams, k: int):
     return superstep
 
 
-def make_update_dispatch(model, optimizer, hp: HParams, k: int = 1):
+def make_update_dispatch(model, optimizer, hp: HParams, k: int = 1,
+                         capture: Optional[bool] = None):
     """The drivers' learner dispatch: (batch, initial_agent_state) ->
     stats of `k` updates. k=1 takes [T+1, B, ...] inputs (update_body),
     k>1 [K, T+1, B, ...] inputs with [K] stats (make_update_superstep).
     On a CUDA device it is one CUDA graph per dispatch
     (graphs.CapturedUpdate: captured at the first call, or by its
     `capture` method from example inputs), with every stat an f32 tensor;
-    on the CPU the eager step."""
+    on the CPU, and with `capture=False` (a model whose pipeline spans
+    cards), the eager step."""
     step = (update_body(model, optimizer, hp) if k == 1
             else make_update_superstep(model, optimizer, hp, k))
-    if optimizer.device_count.device.type == "cuda":
+    if capture is None:
+        capture = optimizer.device_count.device.type == "cuda"
+    if capture:
         return graphs.CapturedUpdate(step, optimizer, k)
     return step
 
@@ -712,7 +716,8 @@ def act_body(model, env_output, agent_state, generator=None,
 MODEL_INPUT_KEYS = ("frame", "reward", "done", "last_action")
 
 
-def make_act_step(model, device, generator=None):
+def make_act_step(model, device, generator=None,
+                  capture: Optional[bool] = None):
     """(env_output {key: [B, ...] numpy}, agent_state) ->
     (AgentOutput [B, ...] on `device`, new agent state on `device`).
     Sampled actions draw from `generator` (a torch.Generator on
@@ -722,8 +727,8 @@ def make_act_step(model, device, generator=None):
     captured at the first call for that call's B. The new state it
     returns is the graph's static state buffer, which the next call
     overwrites in place: a caller that keeps a state across calls clones
-    it, and passing the returned state back skips its copy. On the CPU
-    the step runs eagerly."""
+    it, and passing the returned state back skips its copy. On the CPU,
+    and with `capture=False`, the step runs eagerly."""
     device = torch.device(device)
 
     @torch.no_grad()
@@ -734,7 +739,7 @@ def make_act_step(model, device, generator=None):
         }
         return act_body(model, inputs, agent_state, generator)
 
-    if device.type != "cuda":
+    if not (device.type == "cuda" if capture is None else capture):
         return eager
 
     captured = []

@@ -1,11 +1,17 @@
 """Deep residual-MLP policy with a stage-stacked torso (counterpart of
-torchbeast_tpu/models/pipelined.py, on one device).
+torchbeast_tpu/models/pipelined.py).
 
 The reference keeps every stage's parameters as one stacked `[S, ...]`
-leaf so that the tower can shard over a `pipe` mesh axis; without a mesh
-it runs the same parameters as a sequential loop over the stages, which
-is what this module does. The GPipe schedule (the reference's
-parallel/pp.py) is ROADMAP.md Queue 1 item 'pipeline parallel'.
+leaf so that the tower can run as a pipeline over a `pipe` mesh axis;
+without a mesh it runs the same parameters as a sequential loop over the
+stages. So does this module: with `mesh` set (parallel/pp.set_pipeline)
+the [T*B, d] tokens run through parallel/pp.pipeline_apply_multi, the
+GPipe schedule over the mesh's pipe devices (k passes for k stages a
+device); the stage count must be a multiple of the pipe axis. A batch
+whose tokens do not divide into the microbatches (an acting step, a
+small inference bucket) takes the sequential loop on the same params,
+as in the reference; `last_pipelined` says which path the last forward
+took.
 
 Forward, as the reference's: the frame flattened in its [H, W, C] order,
 cast to f32 and scaled by 1/255; the `encoder` Dense to d_model, plus the
@@ -58,6 +64,35 @@ from torchbeast_tpu_torch.models.layers import (
 LAYER_NORM_EPS = 1e-6
 
 
+def _pp():
+    """parallel/pp.py, imported at first use: the parallel package
+    imports the learner, which imports the models."""
+    from torchbeast_tpu_torch.parallel import pp
+
+    return pp
+
+
+def _stage_fn(p, x, carry, shared):
+    """One residual block on one stage's params `p` (the stacked leaves'
+    slices, by name)."""
+    h = layer_norm_of(x, p["ln_scale"], p["ln_bias"], LAYER_NORM_EPS)
+    h = F.gelu(promoted_einsum("nd,df->nf", h, p["w_in"]) + p["b_in"],
+               approximate="tanh")
+    return x + (promoted_einsum("nf,fd->nd", h, p["w_out"])
+                + p["b_out"]), carry
+
+
+def check_pipe_axis(mesh, axis: str, depth: int, what: str,
+                    note: str = "") -> None:
+    """The reference's check that the tower's depth is a multiple of the
+    pipe axis."""
+    if mesh is not None and depth % mesh.shape[axis] != 0:
+        raise ValueError(
+            f"{what}={depth} must be a multiple of the "
+            f"`{axis}` axis size {mesh.shape[axis]}{note}"
+        )
+
+
 class PipelinedMLPNet(nn.Module):
     """forward(inputs, core_state=(), sample_action=True, generator=None)
     -> (AgentOutput, new core_state), the interface of every family."""
@@ -69,7 +104,9 @@ class PipelinedMLPNet(nn.Module):
     def __init__(self, num_actions: int, use_lstm: bool = False,
                  frame_shape=(84, 84, 4), num_stages: int = 4,
                  d_model: int = 128, dtype=torch.float32,
-                 head_dtype=torch.float32, core_remat: bool = False):
+                 head_dtype=torch.float32, core_remat: bool = False,
+                 mesh=None, pipe_axis: str = "pipe",
+                 n_microbatches=None, batch_axis=None):
         super().__init__()
         self.num_actions = num_actions
         self.use_lstm = use_lstm
@@ -93,15 +130,17 @@ class PipelinedMLPNet(nn.Module):
         )
         init.lecun_normal_(self.w_in, S * d)
         init.lecun_normal_(self.w_out, S * ff)
+        self.last_pipelined = False
+        _pp().set_pipeline(self, mesh, n_microbatches, batch_axis, pipe_axis)
 
-    def _stage(self, s: int, x):
-        """One residual block on stage s's slice of the stacked params."""
-        h = layer_norm_of(x, self.ln_scale[s], self.ln_bias[s],
-                          LAYER_NORM_EPS)
-        h = F.gelu(promoted_einsum("nd,df->nf", h, self.w_in[s])
-                   + self.b_in[s], approximate="tanh")
-        return x + (promoted_einsum("nf,fd->nd", h, self.w_out[s])
-                    + self.b_out[s])
+    def check_pipe_axis(self):
+        check_pipe_axis(self.mesh, self.pipe_axis, self.num_stages,
+                        "num_stages", " (k stages per device run as k "
+                        "pipeline passes)")
+
+    def stage_params(self) -> dict:
+        return {name: getattr(self, name)
+                for name in self.STAGE_PARAM_NAMES}
 
     def forward(self, inputs, core_state=(), sample_action: bool = True,
                 generator=None):
@@ -113,8 +152,20 @@ class PipelinedMLPNet(nn.Module):
         reward = torch.clamp(inputs["reward"].float(), -1, 1).reshape(
             T * B, 1)
         x = x + linear(self.extras, torch.cat([reward, one_hot], dim=-1))
-        for s in range(self.num_stages):
-            x = self._stage(s, x)
+        stacked = self.stage_params()
+        self.check_pipe_axis()
+        self.last_pipelined = self.mesh is not None and _pp().can_pipeline(
+            self.mesh, T * B, self.pipe_axis, self.n_microbatches,
+            self.batch_axis)
+        if self.last_pipelined:
+            x, _ = _pp().pipeline_apply_multi(
+                _stage_fn, stacked, x, mesh=self.mesh, axis=self.pipe_axis,
+                n_microbatches=self.n_microbatches,
+                batch_axis=self.batch_axis)
+        else:
+            for s in range(self.num_stages):
+                x, _ = _stage_fn({k: v[s] for k, v in stacked.items()}, x,
+                                 None, None)
         x = layer_norm_of(x, self.final_scale, self.final_bias,
                           LAYER_NORM_EPS)
         return self.head(x, inputs["done"], core_state, T, B, sample_action,

@@ -1,5 +1,5 @@
 """Transformer policy with an episode-aware KV-cache memory (counterpart of
-torchbeast_tpu/models/transformer.py, on a single device).
+torchbeast_tpu/models/transformer.py).
 
 The core attends over the unroll AND over a rolling key/value cache
 carried across unrolls as the recurrent state, so acting at T=1 still
@@ -35,6 +35,19 @@ place of Dense_0 and Dense_1, as the reference's block builds it
 (transformer.py:178-193); its load-balance loss is recorded for the
 learner (moe.recording_losses). flax's LayerNorm has epsilon 1e-6 and
 its gelu is the tanh approximation; both are set so here.
+
+Tensor parallelism (`model_devices`, set by parallel/tp.py): with K
+devices, block device j runs head group j (its q/k/v column slices, its
+rel_bias rows and the cache's heads copied to it inside the forward),
+the attention of those heads and a partial `out` projection over their
+rows, then FFN column group j (Dense_0's columns) and a partial Dense_1
+over its rows. The K partial outputs come back to the block's device and
+are summed in f32 in the order j = 0..K-1; then the replicated biases
+and the residual are added. The weights stay whole leaves of the module,
+so the optimizer and the checkpoint see the one-device tree; autograd
+carries the gradients back through the copies. On one device (every
+group on the block's device) the copies are no-ops and the split is the
+same arithmetic in K pieces. The MoE layer is left to EP.
 
 Precision, as the reference's: `dtype` (the trunk's compute dtype) is
 the frame Dense's, q/k/v/out's and the MLP's (the experts'; the MoE
@@ -90,6 +103,7 @@ class _Block(nn.Module):
         self.memory_len = memory_len
         self.attention_impl = attention_impl
         self.dtype = dtype
+        self.model_devices = None
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.q = Dense(d_model, d_model)
         self.k = Dense(d_model, d_model)
@@ -111,6 +125,10 @@ class _Block(nn.Module):
         fused path, which builds both from seg [B, T] int32, cache_valid
         [B, M] f32 and no_done [B, T]). Returns (y, k, v), k and v this
         unroll's [B, T, H, hd]."""
+        devices = self.model_devices
+        if devices and len(devices) > 1:
+            return self._split(devices, x, k_cache, v_cache, mask, offsets,
+                               seg, cache_valid, no_done)
         B, T, d = x.shape
         H = self.num_heads
         hd = d // H
@@ -119,16 +137,8 @@ class _Block(nn.Module):
         q = linear(self.q, h, dtype).view(B, T, H, hd)
         k = linear(self.k, h, dtype).view(B, T, H, hd)
         v = linear(self.v, h, dtype).view(B, T, H, hd)
-        k_all = torch.cat([k_cache.to(k.dtype), k], dim=1)
-        v_all = torch.cat([v_cache.to(v.dtype), v], dim=1)
-        if self.attention_impl == "pallas":
-            attended = transformer_attention(
-                self.memory_len, q, k_all, v_all, seg, cache_valid.float(),
-                no_done, self.rel_bias,
-            )
-        else:
-            attended = dense_transformer_attend(q, k_all, v_all, mask,
-                                                offsets, self.rel_bias)
+        attended = self._attend(q, k, v, k_cache, v_cache, mask, offsets,
+                                seg, cache_valid, no_done, self.rel_bias)
         x = x + linear(self.out, attended.reshape(B, T, d), dtype).float()
         h = layer_norm(self.LayerNorm_1, x)
         if hasattr(self, "moe"):
@@ -137,6 +147,78 @@ class _Block(nn.Module):
             h = F.gelu(linear(self.Dense_0, h, dtype), approximate="tanh")
             x = x + linear(self.Dense_1, h, dtype).float()
         return x, k.float(), v.float()
+
+    def _attend(self, q, k, v, k_cache, v_cache, mask, offsets, seg,
+                cache_valid, no_done, rel_bias):
+        """The attention of q's heads over [cache; unroll]."""
+        k_all = torch.cat([k_cache.to(k.dtype), k], dim=1)
+        v_all = torch.cat([v_cache.to(v.dtype), v], dim=1)
+        if self.attention_impl == "pallas":
+            return transformer_attention(
+                self.memory_len, q, k_all, v_all, seg, cache_valid.float(),
+                no_done, rel_bias,
+            )
+        return dense_transformer_attend(q, k_all, v_all, mask, offsets,
+                                        rel_bias)
+
+    def _split(self, devices, x, k_cache, v_cache, mask, offsets, seg,
+               cache_valid, no_done):
+        """forward over K = len(devices) head and FFN column groups (the
+        module docstring's tensor parallelism)."""
+        B, T, d = x.shape
+        K = len(devices)
+        H = self.num_heads
+        hd = d // H
+        Hk = H // K
+        dtype = self.dtype
+        home = x.device
+
+        def on(dev):
+            return lambda t: None if t is None else t.to(dev)
+
+        h = layer_norm(self.LayerNorm_0, x)
+        attn, ks, vs = None, [], []
+        for j, dev in enumerate(devices):
+            to = on(dev)
+            cols = slice(j * Hk * hd, (j + 1) * Hk * hd)
+            heads = slice(j * Hk, (j + 1) * Hk)
+            hj = to(h).to(dtype)
+
+            def project(layer):
+                return F.linear(hj, to(layer.weight[cols]).to(dtype),
+                                to(layer.bias[cols]).to(dtype)).view(
+                                    B, T, Hk, hd)
+
+            q, k, v = project(self.q), project(self.k), project(self.v)
+            attended = self._attend(
+                q, k, v, to(k_cache[:, :, heads]), to(v_cache[:, :, heads]),
+                to(mask), to(offsets), to(seg), to(cache_valid),
+                to(no_done), to(self.rel_bias[heads]))
+            part = F.linear(attended.reshape(B, T, Hk * hd).to(dtype),
+                            to(self.out.weight[:, cols]).to(dtype))
+            part = part.to(home).float()
+            attn = part if attn is None else attn + part
+            ks.append(k.to(home).float())
+            vs.append(v.to(home).float())
+        x = x + (attn + self.out.bias.to(dtype).float())
+        h = layer_norm(self.LayerNorm_1, x)
+        if hasattr(self, "moe"):
+            x = x + self.moe(h.reshape(B * T, d)).reshape(B, T, d)
+        else:
+            ff = self.Dense_0.out_features // K
+            mlp = None
+            for j, dev in enumerate(devices):
+                to = on(dev)
+                cols = slice(j * ff, (j + 1) * ff)
+                u = F.gelu(F.linear(to(h).to(dtype),
+                                    to(self.Dense_0.weight[cols]).to(dtype),
+                                    to(self.Dense_0.bias[cols]).to(dtype)),
+                           approximate="tanh")
+                part = F.linear(u, to(self.Dense_1.weight[:, cols]).to(
+                    dtype)).to(home).float()
+                mlp = part if mlp is None else mlp + part
+            x = x + (mlp + self.Dense_1.bias.to(dtype).float())
+        return x, torch.cat(ks, dim=2), torch.cat(vs, dim=2)
 
 
 class TransformerNet(nn.Module):

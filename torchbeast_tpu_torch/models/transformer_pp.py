@@ -1,12 +1,18 @@
 """Transformer policy with stage-stacked blocks (counterpart of
-torchbeast_tpu/models/transformer_pp.py, on one device).
+torchbeast_tpu/models/transformer_pp.py).
 
 The reference keeps every block parameter as one stacked `[L, ...]` leaf,
-so that the tower can shard over a `pipe` mesh axis, and writes the block
-as a pure function over one layer's slice; without a mesh it runs that
-function over the layers in turn, which is what this module does. The
-GPipe schedule (the reference's parallel/pp.py) is ROADMAP.md Queue 1
-item 'pipeline parallel'.
+so that the tower can run as a pipeline over a `pipe` mesh axis, and
+writes the block as a pure function over one layer's slice; without a
+mesh it runs that function over the layers in turn. So does this module:
+with `mesh` set (parallel/pp.set_pipeline) the [B, T, d] batch runs
+through parallel/pp.pipeline_apply_multi over the mesh's pipe devices,
+microbatched over B, each layer's KV cache its stage carry (resident on
+its stage's device) and the segment ids and no-done mask its shared
+inputs; the layer count must be a multiple of the pipe axis. A batch
+whose B does not divide into the microbatches (an acting bucket) takes
+the sequential loop on the same params, as in the reference;
+`last_pipelined` says which path the last forward took.
 
 Attention is models/transformer.py's dense path: the band-windowed
 attention over [cache; unroll] with segment masking, the rolling
@@ -65,6 +71,7 @@ from torchbeast_tpu_torch.models.layers import (
     linear,
     promoted_einsum,
 )
+from torchbeast_tpu_torch.models.pipelined import _pp, check_pipe_axis
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -89,7 +96,9 @@ class PipelinedTransformerNet(nn.Module):
                  frame_shape=(84, 84, 4), num_layers: int = 4,
                  d_model: int = 128, num_heads: int = 4,
                  memory_len: int = 64, dtype=torch.float32,
-                 head_dtype=torch.float32, remat: bool = False):
+                 head_dtype=torch.float32, remat: bool = False,
+                 mesh=None, pipe_axis: str = "pipe",
+                 n_microbatches=None, batch_axis=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(
@@ -131,6 +140,12 @@ class PipelinedTransformerNet(nn.Module):
             d, num_actions, use_lstm=False, hidden_size=d, num_layers=1,
             dtype=head_dtype,
         )
+        self.last_pipelined = False
+        _pp().set_pipeline(self, mesh, n_microbatches, batch_axis, pipe_axis)
+
+    def check_pipe_axis(self):
+        check_pipe_axis(self.mesh, self.pipe_axis, self.num_layers,
+                        "num_layers")
 
     def _stage(self, layer, x, k_cache, v_cache, valid, seg, no_done,
                band, offsets, seq_mask):
@@ -139,8 +154,37 @@ class PipelinedTransformerNet(nn.Module):
         valid: [B, M]; seg/no_done: [B, T]; band/offsets: [T, M+T];
         seq_mask: [B, T, T]. Returns (x, k, v, valid), the rolled cache
         batch-first."""
+        params = {name: getattr(self, name)[layer]
+                  for name in self.STAGE_PARAM_NAMES}
+        return self._block(params, x, k_cache, v_cache, valid, seg, no_done,
+                           band, offsets, seq_mask)
+
+    def _pipe_stage(self, band, offsets):
+        """The stage function of pipeline_apply: one block on a stage's
+        params, its cache the carry, (seg, no_done) the shared inputs;
+        band and offsets go to the stage's device, the sequence mask is
+        made there from the microbatch's segments."""
+        M = self.memory_len
+
+        def stage(p, x, carry, shared):
+            k_cache, v_cache, valid = carry
+            seg, no_done = shared
+            b, o = band.to(x.device), offsets.to(x.device)
+            seq_mask = b[None, :, M:] & (seg[:, :, None] == seg[:, None, :])
+            x, k, v, valid = self._block(p, x, k_cache, v_cache, valid, seg,
+                                         no_done, b, o, seq_mask)
+            return x, (k, v, valid)
+
+        if not self.remat:
+            return stage
+        return lambda p, x, carry, shared: checkpointed(stage, p, x, carry,
+                                                        shared)
+
+    def _block(self, params, x, k_cache, v_cache, valid, seg, no_done,
+               band, offsets, seq_mask):
+        """_stage's body on explicit params (a dict by stage name)."""
         def p(name):
-            return getattr(self, name)[layer]
+            return params[name]
 
         M = self.memory_len
         h = layer_norm_of(x, p("ln1_scale"), p("ln1_bias"),
@@ -189,7 +233,24 @@ class PipelinedTransformerNet(nn.Module):
         seq_mask = band[None, :, M:] & (seg[:, :, None] == seg[:, None, :])
 
         new_state = []
-        for layer in range(self.num_layers):
+        self.check_pipe_axis()
+        self.last_pipelined = self.mesh is not None and _pp().can_pipeline(
+            self.mesh, B, self.pipe_axis, self.n_microbatches,
+            self.batch_axis)
+        if self.last_pipelined:
+            caches = tuple(torch.stack(leaves) for leaves in zip(*(
+                (k.transpose(0, 1), v.transpose(0, 1), valid.t())
+                for k, v, valid in core_state)))
+            x, (ks, vs, valids) = _pp().pipeline_apply_multi(
+                self._pipe_stage(band, offsets),
+                {name: getattr(self, name)
+                 for name in self.STAGE_PARAM_NAMES},
+                x, mesh=self.mesh, axis=self.pipe_axis,
+                n_microbatches=self.n_microbatches, stage_carry=caches,
+                shared=(seg, no_done), batch_axis=self.batch_axis)
+            new_state = [(ks[i].transpose(0, 1), vs[i].transpose(0, 1),
+                          valids[i].t()) for i in range(self.num_layers)]
+        for layer in range(0 if self.last_pipelined else self.num_layers):
             k_cache, v_cache, valid = core_state[layer]
             args = (layer, x, k_cache.transpose(0, 1),
                     v_cache.transpose(0, 1), valid.t(), seg, no_done, band,

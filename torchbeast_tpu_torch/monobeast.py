@@ -28,11 +28,19 @@ take back its outputs; on one card (every group on it) nothing moves.
 
 --model pipelined_mlp and --model pipelined_transformer (models/
 pipelined.py, models/transformer_pp.py) run their stage-stacked towers
-sequentially on one device, as the reference does without
---pipeline_parallel; --pipeline_stages sets the tower's depth (the MLP's
-stages, the transformer's layers). --pipeline_parallel and
---sequence_parallel at 0 or 1 are the single-device run; above 1, and
---pipeline_microbatches set at all, they raise NotImplementedError.
+sequentially on one device without --pipeline_parallel, as the
+reference does; --pipeline_stages sets the tower's depth (the MLP's
+stages, the transformer's layers). --pipeline_parallel P > 1 runs the
+tower as a GPipe pipeline over the first P devices (parallel/pp.py, the
+reference's 1-D `pipe` mesh) in --pipeline_microbatches microbatches
+(0: one per device), k passes for --pipeline_stages k x P; the update is
+the one-device one (the fused tail included), its params whole on the
+first device, and acting batches that do not divide into the
+microbatches take the sequential tower. The reference's checks come
+first (check_pp_flags). On one card the update and acting steps stay
+CUDA graphs; a pipeline over several cards runs them eagerly.
+--sequence_parallel at 0 or 1 is the single-device run; above 1 it
+raises NotImplementedError.
 
 --num_learner_devices N > 1 is the reference's plain data-parallel sync
 learner (parallel/dp.py): each update's batch_size columns split over N
@@ -101,6 +109,7 @@ import logging
 import os
 import statistics
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -111,6 +120,7 @@ from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
 from torchbeast_tpu_torch.models import create_model
+from torchbeast_tpu_torch.parallel import pp
 from torchbeast_tpu_torch.resilience import LearnerWatchdog, PipelineHealth
 from torchbeast_tpu_torch.runtime import placement, remat_plan
 from torchbeast_tpu_torch.rollout import (
@@ -213,9 +223,14 @@ def make_parser():
     parser.add_argument("--sequence_parallel", type=int, default=0,
                         help="0 or 1: one device; > 1 " + _LATER)
     parser.add_argument("--pipeline_parallel", type=int, default=0,
-                        help="0 or 1: one device; > 1 " + _LATER)
+                        help="Run the pipelined_mlp / "
+                             "pipelined_transformer tower as a GPipe "
+                             "pipeline over N devices (a `pipe` mesh "
+                             "axis).")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
-                        help=_LATER)
+                        help="Microbatches per pipelined forward "
+                             "(0, the default, means one per pipeline "
+                             "device).")
     parser.add_argument("--pipeline_stages", type=int, default=0,
                         help="Tower depth of the pipelined families "
                              "(pipelined_mlp: stages, "
@@ -372,15 +387,13 @@ def make_parser():
 # of ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
     "sequence_parallel": "sequence parallel",
-    "pipeline_parallel": "pipeline parallel",
-    "pipeline_microbatches": "pipeline parallel",
     "min_live_hosts": "the fleet",
 }
 
 
 # Device counts the reference treats alike at 0 and 1 (`> 1` gates every
 # multi-device branch): the port runs those on its one device.
-ONE_DEVICE_AT_MOST = ("sequence_parallel", "pipeline_parallel")
+ONE_DEVICE_AT_MOST = ("sequence_parallel",)
 
 # Sequence-parallel options, and the reference's refusal of each without
 # a `seq` mesh (monobeast.py:479-494), raised by both drivers.
@@ -434,6 +447,114 @@ def check_moe_flags(flags) -> None:
         )
 
 
+PIPELINED_MODELS = ("pipelined_mlp", "pipelined_transformer")
+# The pipelined transformer's default depth (PipelinedTransformerNet's
+# num_layers), the default stage count of its pipeline.
+PIPELINED_TRANSFORMER_LAYERS = 4
+
+
+def check_pp_combination(flags) -> None:
+    """The reference's refusal of --pipeline_parallel > 1 with SP or EP
+    (monobeast.py:560-571)."""
+    pipe_par = getattr(flags, "pipeline_parallel", 0) or 0
+    if pipe_par > 1 and (
+        (getattr(flags, "sequence_parallel", 0) or 0) > 1
+        or (getattr(flags, "expert_parallel", 0) or 0) > 1
+    ):
+        raise ValueError(
+            "--pipeline_parallel cannot combine with "
+            "--sequence_parallel or --expert_parallel (the pipeline "
+            "schedule owns its mesh; SP x EP do compose with each other "
+            "and with data parallelism)"
+        )
+
+
+def pipeline_stages(flags) -> int:
+    """The tower's depth under --pipeline_parallel P > 1: --pipeline_stages,
+    else P for the MLP (one stage a device) and the model's own depth for
+    the transformer (an architecture choice the device count must not
+    change)."""
+    pipe_par = getattr(flags, "pipeline_parallel", 0) or 0
+    default = (PIPELINED_TRANSFORMER_LAYERS
+               if flags.model == "pipelined_transformer" else pipe_par)
+    return getattr(flags, "pipeline_stages", 0) or default
+
+
+def check_pp_flags(flags, mesh, batch_axis: Optional[str] = None
+                   ) -> Optional[int]:
+    """The reference's checks of --pipeline_parallel P > 1 on `mesh`, the
+    pipe mesh its model will run over (monobeast.py:579-654, in its
+    order, after check_pp_combination): a pipelined model, the stage
+    count a multiple of P, --pipeline_microbatches >= 0, and the learner
+    batch divisible into the microbatches (and each microbatch's rows
+    over `batch_axis` on polybeast's composite mesh). Returns the
+    microbatch count to set (None: one per pipe device)."""
+    pipe_par = getattr(flags, "pipeline_parallel", 0) or 0
+    if pipe_par <= 1:
+        return None
+    n_stages = pipeline_stages(flags)
+    if n_stages % pipe_par != 0:
+        raise ValueError(
+            f"--pipeline_stages {n_stages} must be a multiple of "
+            f"--pipeline_parallel {pipe_par}"
+        )
+    n_mb = getattr(flags, "pipeline_microbatches", 0)
+    if n_mb < 0:
+        raise ValueError(
+            f"--pipeline_microbatches {n_mb} must be >= 0 "
+            "(0 means the default: one microbatch per pipeline "
+            "device)"
+        )
+    n_mb = n_mb or None
+    if flags.model == "pipelined_transformer":
+        quantity, what = flags.batch_size, "batch_size"
+    else:  # pipelined_mlp microbatches over flattened T*B tokens
+        quantity = (flags.unroll_length + 1) * flags.batch_size
+        what = "(unroll_length+1)*batch_size"
+    if not pp.can_pipeline(mesh, quantity, n_microbatches=n_mb,
+                           batch_axis=batch_axis):
+        m_eff = pp.default_n_microbatches(mesh, "pipe", n_mb)
+        raise ValueError(
+            f"--pipeline_parallel {pipe_par} requires {what} "
+            f"(= {quantity}) divisible by the microbatch "
+            f"count ({m_eff}; --pipeline_microbatches overrides the "
+            "one-per-device default), and each microbatch's rows by "
+            "the data axis when composing with DP — otherwise the "
+            "learner step would silently run the sequential fallback"
+        )
+    return n_mb
+
+
+def check_pipelined_model(flags) -> None:
+    """The reference's refusal of --pipeline_parallel > 1 for a family
+    without a stage tower (monobeast.py:579-585)."""
+    if flags.model not in PIPELINED_MODELS:
+        raise ValueError(
+            "--pipeline_parallel needs --model pipelined_mlp or "
+            "pipelined_transformer (the other families have no "
+            "stage-uniform tower to pipeline)"
+        )
+
+
+def pipe_mesh(device, flags):
+    """The reference's 1-D pipe mesh of a one-device learner
+    (--pipeline_parallel P > 1): the first P devices of `device`'s
+    platform, with _make_1d_mesh's error, as a (data=1, pipe=P) Mesh,
+    after the reference's model check; None without
+    --pipeline_parallel > 1."""
+    n = getattr(flags, "pipeline_parallel", 0) or 0
+    if n <= 1:
+        return None
+    check_pipelined_model(flags)
+    devices = parallel.visible_devices(device.type)
+    if len(devices) < n:
+        raise ValueError(
+            f"--pipeline_parallel {n} but only {len(devices)} devices are "
+            "visible"
+        )
+    return parallel.create_mesh(devices=devices[:n], pipe_parallelism=n)
+
+
 def check_dp_flags(flags) -> int:
     """--num_learner_devices, with the reference's checks of the sync
     trainer's DP (monobeast.py:810-834), made before any side effect:
@@ -481,13 +602,16 @@ def resolve_split(flags, device, parallel_flags):
     return split
 
 
-def learner_mesh(device, n_dev: int, expert_par: int = 1):
-    """The learner's data (x expert) mesh over the first n_dev x
-    expert_par devices of `device`'s platform (parallel.create_mesh, with
-    the reference's "visible" error); its lead is `device`
-    (select_device's: cuda:0, or the CPU)."""
+def learner_mesh(device, n_dev: int, expert_par: int = 1,
+                 model_par: int = 1, pipe_par: int = 1):
+    """The learner's data (x model x pipe x expert) mesh over the first
+    n_dev x the inner axes' devices of `device`'s platform
+    (parallel.create_mesh, with the reference's "visible" error); its
+    lead is `device` (select_device's: cuda:0, or the CPU)."""
     return parallel.create_mesh(
-        n_dev * expert_par, expert_parallelism=expert_par,
+        n_dev * expert_par * model_par * pipe_par,
+        model_parallelism=model_par, expert_parallelism=expert_par,
+        pipe_parallelism=pipe_par,
         devices=parallel.visible_devices(device.type))
 
 
@@ -526,6 +650,7 @@ def check_flags(flags) -> None:
             "trainer is single-host by design"
         )
     check_moe_flags(flags)
+    check_pp_combination(flags)
     defaults = make_parser().parse_args([])
     check_parallel_flags(flags, {
         dest: (getattr(defaults, dest), item)
@@ -631,17 +756,16 @@ def _num_experts(flags):
     return {"num_experts": n} if n else {}
 
 
-PIPELINED_MODELS = ("pipelined_mlp", "pipelined_transformer")
-
-
 def _pipeline_stages(flags):
     """--pipeline_stages as the pipelined family's depth kwarg, as the
     reference keeps it without --pipeline_parallel (a silently different
     stage count would make checkpoints shape-incompatible with a later
-    pipelined run)."""
+    pipelined run); under --pipeline_parallel > 1 pipeline_stages'."""
     if flags.model not in PIPELINED_MODELS:
         return {}
-    n = getattr(flags, "pipeline_stages", 0)
+    n = (pipeline_stages(flags)
+         if (getattr(flags, "pipeline_parallel", 0) or 0) > 1
+         else getattr(flags, "pipeline_stages", 0))
     if not n:
         return {}
     return {("num_layers" if flags.model == "pipelined_transformer"
@@ -691,7 +815,8 @@ def build_model(flags, num_actions, frame_shape, device):
     from the run's plan (resolve_remat_plan). Every model instance of a
     run is built here or copied from one that was."""
     plan = resolve_remat_plan(flags, num_actions, frame_shape, device)
-    if flags.model in PIPELINED_MODELS:
+    if (flags.model in PIPELINED_MODELS
+            and (getattr(flags, "pipeline_parallel", 0) or 0) <= 1):
         log.info("--model %s without --pipeline_parallel: the stage tower "
                  "runs sequentially on one device", flags.model)
     return _create_model(
@@ -788,6 +913,12 @@ def train(flags):
     elif n_dev > 1:
         mesh = learner_mesh(device, n_dev)
     ep_mesh = expert_mesh(device, flags)
+    pp_mesh = pipe_mesh(device, flags)
+    n_microbatches = (check_pp_flags(flags, pp_mesh) if pp_mesh is not None
+                      else None)
+    # A pipeline over several cards cannot be one CUDA graph.
+    capture = (False if pp_mesh is not None and pp_mesh.spans_cards()
+               else None)
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S"
@@ -828,6 +959,13 @@ def train(flags):
         log.info("Resuming preempted job, current stats:\n%s", stats)
     if ep_mesh is not None:
         place_experts(model, ep_mesh)
+    if pp_mesh is not None:
+        pp.set_pipeline(model, pp_mesh, n_microbatches)
+        log.info("Pipeline parallel: %d stages over %s, %d microbatches%s",
+                 pipeline_stages(flags), pp_mesh.pipe_devices(0),
+                 pp.default_n_microbatches(pp_mesh, "pipe", n_microbatches),
+                 " (eager: the pipeline spans cards)" if capture is False
+                 else "")
     if mesh is not None:
         update = parallel.make_parallel_update_step(
             model, optimizer, hp, mesh, superstep_k=K)
@@ -835,7 +973,8 @@ def train(flags):
                  mesh.shape["data"],
                  " (device split)" if split is not None else "")
     else:
-        update = learner_lib.make_update_dispatch(model, optimizer, hp, K)
+        update = learner_lib.make_update_dispatch(model, optimizer, hp, K,
+                                                  capture=capture)
     dispatch = learner_lib.instrument_update_step(
         update, registry=reg, superstep_k=K)
     # Lag 0: acting reads the learner's params, updated in place on the
@@ -852,7 +991,8 @@ def train(flags):
                       if overlap and learn_device.type == "cuda" else None)
     generator = torch.Generator(device=act_device)
     generator.manual_seed(flags.seed + 2)
-    act_step = learner_lib.make_act_step(act_model, act_device, generator)
+    act_step = learner_lib.make_act_step(act_model, act_device, generator,
+                                         capture=capture)
     pipelined = getattr(flags, "pipelined_collect", True)
     log.info("Training on %s (superstep_k %d, overlap_collect %s)",
              learn_device, K, overlap)

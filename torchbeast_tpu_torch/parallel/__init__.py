@@ -1,10 +1,12 @@
-"""The data-parallel learner, expert parallelism and the device split's
-serving: the mesh, the sharded update, the expert leaves' placement and
-the per-slice inference stacks (counterpart of torchbeast_tpu/parallel/).
-The `data` and `expert` axes and the Sebulba split (sebulba.py, over
-runtime/placement.py) are in the port; the tensor-, sequence- and
-pipeline-parallel axes and the fleet are ROADMAP.md Queue 1 items of
-their own."""
+"""The data-parallel learner, tensor, pipeline and expert parallelism and
+the device split's serving: the mesh, the sharded update, the leaf rules
+of the `model`, `pipe` and `expert` axes, the GPipe schedule and the
+per-slice inference stacks (counterpart of torchbeast_tpu/parallel/).
+The `data`, `model`, `pipe` and `expert` axes and the Sebulba split
+(sebulba.py, over runtime/placement.py) are in the port; the
+sequence-parallel axis and the fleet are ROADMAP.md Queue 1 items of
+their own. The reference's shardy_partitioner selects an XLA partitioner
+and has no counterpart here."""
 
 from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
     ParallelLearner,
@@ -31,6 +33,22 @@ from torchbeast_tpu_torch.parallel.ep import (  # noqa: F401
     expert_param_shardings,
     place_expert_params,
     set_expert_devices,
+)
+from torchbeast_tpu_torch.parallel.pp import (  # noqa: F401
+    can_pipeline,
+    default_n_microbatches,
+    pipeline_apply,
+    pipeline_apply_multi,
+    set_pipeline,
+    stack_stages,
+    stage_param_shardings,
+)
+from torchbeast_tpu_torch.parallel.tp import (  # noqa: F401
+    dense_kernel_shardings,
+    merge_param_shardings,
+    place_params,
+    set_model_devices,
+    transformer_tp_shardings,
 )
 from torchbeast_tpu_torch.parallel.sebulba import (  # noqa: F401
     SebulbaServing,

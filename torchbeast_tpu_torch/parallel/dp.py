@@ -48,7 +48,18 @@ backward exchanges nothing. On a mesh with an `expert` axis, data row
 i's replica runs its experts on the row's expert devices (parallel/
 ep.py) and their gradients come back to the row's replica, so the
 expert leaves' gradients are reduced over `data` only, with every other
-gradient.
+gradient. In the same way, on a mesh with a `model` axis data row i's
+replica splits its transformer blocks over the row's model devices
+(parallel/tp.py), and on one with a `pipe` axis its pipelined model runs
+its GPipe over the row's pipe devices (parallel/pp.py: the replica's
+model holds mesh.row(i)). Either way the leaves stay whole on the row's
+device and the gradients reduce over `data` only, shard 0 first.
+
+Graph or eager is chosen from the device list, up front: when every
+device of each data row is one card, each shard's step stays one CUDA
+graph on it; when a row spans cards (its model, pipe or expert devices
+are other cards), the step runs eagerly, since one shard's graph cannot
+launch on several cards. A capture that fails raises.
 
 Multi-process: `initialize_distributed` joins the processes (nccl for
 CUDA devices, gloo for the CPU), then mesh.create_mesh spans them. Each
@@ -71,7 +82,7 @@ import torch.distributed as dist
 from torchbeast_tpu_torch import graphs, nest, telemetry
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch.models import moe
-from torchbeast_tpu_torch.parallel import ep
+from torchbeast_tpu_torch.parallel import ep, pp, tp
 from torchbeast_tpu_torch.parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
@@ -277,9 +288,15 @@ class ParallelLearner:
         self.anneal = learner_lib.entropy_schedule(hp)
         self.replicas = [model] + [copy.deepcopy(model).to(d)
                                    for d in self.devices[1:]]
-        if "expert" in mesh.shape:
-            for i, replica in enumerate(self.replicas):
+        for i, replica in enumerate(self.replicas):
+            if "expert" in mesh.shape:
                 ep.set_expert_devices(replica, mesh.expert_devices(i))
+            if mesh.shape["model"] > 1:
+                tp.set_model_devices(replica, mesh.model_devices(i))
+            if "pipe" in mesh.shape:
+                pp.set_pipeline(replica, mesh.row(i))
+        # A row over several cards cannot be one shard's CUDA graph.
+        self.spans_cards = mesh.spans_cards()
         self.params = [list(r.parameters()) for r in self.replicas]
         # Whole-batch routing needs the exchange when the batch is split.
         self.exchange = (
@@ -359,6 +376,12 @@ class ParallelLearner:
         return {key: row[..., j]
                 for j, key in enumerate(self.keys + ["grad_norm"])}
 
+    def captures(self) -> bool:
+        """Whether the shards' steps are CUDA graphs by default: on a
+        CUDA lead, without a routing exchange, each row on one card."""
+        return (self.lead.type == "cuda" and self.exchange is None
+                and not self.spans_cards)
+
     def capturable_apply(self) -> bool:
         """Whether the lead's reduce and update can be one CUDA graph:
         on a CUDA lead without a group or with an NCCL one."""
@@ -385,7 +408,8 @@ class ShardedStep:
 
     A learner with a routing exchange (a MoE model over a split batch)
     runs its shard functions in lockstep (RoutingExchange.run), eagerly:
-    `capture=True` raises for it."""
+    `capture=True` raises for it. A learner whose rows span cards runs
+    eagerly by default (ParallelLearner.captures)."""
 
     def __init__(self, learner: ParallelLearner, shard_fns: List[Callable],
                  generators=None, restores=None,
@@ -396,9 +420,7 @@ class ShardedStep:
                 "a MoE model's data-parallel step exchanges routing "
                 "counts in the middle of the forward and runs eagerly; "
                 "it cannot be captured")
-        self.graphs = (learner.lead.type == "cuda"
-                       and learner.exchange is None if capture is None
-                       else capture)
+        self.graphs = learner.captures() if capture is None else capture
         self._fns = list(shard_fns)
         n = len(self._fns)
         self._generators = list(generators or [None] * n)
@@ -500,8 +522,7 @@ class ParallelUpdate:
     def captures_graphs(self) -> bool:
         if self._capture is not None:
             return self._capture
-        return (self.learner.lead.type == "cuda"
-                and self.learner.exchange is None)
+        return self.learner.captures()
 
     @property
     def launches_per_replay(self) -> dict:

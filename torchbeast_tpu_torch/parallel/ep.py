@@ -42,25 +42,37 @@ def _size(mesh_or_size, axis: str) -> int:
     return mesh_or_size.shape.get(axis, 1)
 
 
-def _flat(tree, path=()):
+def is_spec(tree) -> bool:
+    """Whether `tree` is a leaf spec of parallel/tp.py: a tuple of mesh
+    axis names and None (the empty tuple replicated)."""
+    return isinstance(tree, tuple) and not hasattr(tree, "_fields") and all(
+        s is None or isinstance(s, str) for s in tree)
+
+
+def _flat(tree, path=(), specs=False):
     """(path tuple, leaf) of every leaf: nested dicts, lists and tuples
-    by key or position, a dict's dotted keys split into their parts."""
-    if isinstance(tree, dict):
+    by key or position, a dict's dotted keys split into their parts;
+    with `specs`, a spec tuple (is_spec) is a leaf."""
+    if specs and is_spec(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _flat(v, path + tuple(str(k).split(".")))
+            yield from _flat(v, path + tuple(str(k).split(".")), specs)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flat(v, path + (i,))
+            yield from _flat(v, path + (i,), specs)
     else:
         yield path, tree
 
 
-def _map(fn, tree, path=()):
+def _map(fn, tree, path=(), specs=False):
+    if specs and is_spec(tree):
+        return fn(path, tree)
     if isinstance(tree, dict):
-        return {k: _map(fn, v, path + tuple(str(k).split(".")))
+        return {k: _map(fn, v, path + tuple(str(k).split(".")), specs)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+        out = [_map(fn, v, path + (i,), specs) for i, v in enumerate(tree)]
         return type(tree)(*out) if hasattr(tree, "_fields") else type(
             tree)(out)
     return fn(path, tree)

@@ -6,11 +6,20 @@ axis (the batch is sharded along it, params are replicated) and inner
 `model`, `seq`, `expert` and `pipe` axes nested inside it. The port's Mesh
 is the same grid of devices, held as a numpy array of `torch.device`s of
 this process, with the axis names and sizes the reference reports. The
-`data` axis and the `expert` axis are in the port: the grid is (data,
-model, expert), `expert` innermost as the reference lays it out, and the
-shape reports `expert` only above 1, as the reference's mesh has the axis
-only then. Any other inner axis above 1 raises NotImplementedError
+`data`, `model`, `pipe` and `expert` axes are in the port: the grid is
+(data, model, pipe, expert), the inner axes in the reference's order
+(`pipe` and `expert` never both above 1), and `axis_names`, `shape` and
+`devices` report `pipe` and `expert` only above 1, as the reference's
+mesh has those axes only then: (data, model), (data, model, expert) and
+(data, model, pipe). A `seq` axis above 1 raises NotImplementedError
 naming the ROADMAP.md item that brings it.
+
+Each data row is one replica of the learner (parallel/dp.py), whose
+inner axes are its devices by role: `model_devices(row)` run its
+head and FFN groups (parallel/tp.py), `pipe_devices(row)` its pipeline
+stages (parallel/pp.py), `expert_devices(row)` its expert groups
+(parallel/ep.py). `row(i)` is data row i alone, a data-1 mesh: the mesh
+a replica's pipelined model runs its GPipe over.
 
 Devices: the CUDA devices, or the CPU. A CPU "device" is the host itself;
 the number of them follows what the reference's CPU device count follows,
@@ -31,14 +40,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-
-# An inner axis above 1 -> the ROADMAP.md Queue 1 item that brings it.
-INNER_AXES = {
-    "model": "tensor parallel",
-    "seq": "sequence parallel",
-    "pipe": "pipeline parallel",
-}
-
 
 def cpu_device_count() -> int:
     """The CPU device count of the reference's backend: the
@@ -73,31 +74,49 @@ def _process_group():
 
 
 class Mesh:
-    """A (data, model, expert) grid of this process's devices; see the
-    module docstring. `process_count` processes hold one such grid each,
-    in rank order along `data`."""
+    """A (data, model, pipe, expert) grid of this process's devices; see
+    the module docstring. `process_count` processes hold one such grid
+    each, in rank order along `data`. A mesh describes devices and is
+    never copied: deepcopy of a model that holds one keeps the mesh."""
 
     def __init__(self, grid: np.ndarray, process_count: int = 1,
                  group=None):
+        if grid.ndim != 4:
+            raise ValueError(f"a mesh grid is (data, model, pipe, expert), "
+                             f"got {grid.ndim} axes")
         self.grid = grid
         self.process_count = process_count
         self.group = group
 
+    def __deepcopy__(self, memo):
+        return self
+
+    def _inner(self) -> tuple:
+        """The inner axes the reference's mesh has: `model` always,
+        `pipe` and `expert` above 1."""
+        _, _, pipe, expert = self.grid.shape
+        return ("model",) + (("pipe",) if pipe > 1 else ()) + (
+            ("expert",) if expert > 1 else ())
+
     @property
     def axis_names(self) -> tuple:
-        return ("data", "model") + (
-            ("expert",) if self.grid.shape[2] > 1 else ())
+        return ("data",) + self._inner()
 
     @property
     def devices(self) -> np.ndarray:
         """The grid with the axes of `axis_names`, as the reference's
         mesh.devices."""
-        return self.grid if self.grid.shape[2] > 1 else self.grid[:, :, 0]
+        keep = [0, 1] + [i for i, axis in ((2, "pipe"), (3, "expert"))
+                         if axis in self._inner()]
+        drop = tuple(i for i in range(4) if i not in keep)
+        return self.grid.squeeze(axis=drop) if drop else self.grid
 
     @property
     def shape(self) -> dict:
-        data, model, expert = self.grid.shape
+        data, model, pipe, expert = self.grid.shape
         shape = {"data": data * self.process_count, "model": model}
+        if pipe > 1:
+            shape["pipe"] = pipe
         if expert > 1:
             shape["expert"] = expert
         return shape
@@ -106,15 +125,34 @@ class Mesh:
     def local_devices(self) -> list:
         """This process's data shards' devices (each row's first), lead
         first."""
-        return list(self.grid[:, 0, 0])
+        return list(self.grid[:, 0, 0, 0])
+
+    def model_devices(self, row: int) -> list:
+        """The `model` axis of this process's data row `row`."""
+        return list(self.grid[row, :, 0, 0])
+
+    def pipe_devices(self, row: int) -> list:
+        """The `pipe` axis of this process's data row `row`."""
+        return list(self.grid[row, 0, :, 0])
 
     def expert_devices(self, row: int) -> list:
         """The `expert` axis of this process's data row `row`."""
-        return list(self.grid[row, 0, :])
+        return list(self.grid[row, 0, 0, :])
+
+    def row(self, row: int) -> "Mesh":
+        """Data row `row` alone: a mesh of data 1 with the row's inner
+        axes, in this process, without a group."""
+        return Mesh(self.grid[row:row + 1])
+
+    def spans_cards(self) -> bool:
+        """Whether a data row holds more than one distinct device: its
+        step then copies between cards and runs eagerly
+        (parallel/dp.py)."""
+        return any(len(set(row.reshape(-1))) > 1 for row in self.grid)
 
     @property
     def lead(self) -> torch.device:
-        return self.grid[0, 0, 0]
+        return self.grid[0, 0, 0, 0]
 
     def __repr__(self):
         return (f"Mesh({dict(self.shape)}, devices={self.local_devices}, "
@@ -130,8 +168,8 @@ def create_mesh(
     pipe_parallelism: int = 1,
     platform: Optional[str] = None,
 ) -> Mesh:
-    """The (data, model) mesh over the first `n_devices` devices, with
-    the reference's checks and error texts.
+    """The (data, model[, pipe][, expert]) mesh over the first
+    `n_devices` devices, with the reference's checks and error texts.
 
     `n_devices` is the total count, over every process when a process
     group is up (each process takes n / world of its own devices).
@@ -140,9 +178,9 @@ def create_mesh(
     shards on one card, each a replica of its own, run the same sharded
     update, reduce and apply that two cards would (chip_smoke.py does
     this on a one-card machine; nothing else should).
-    `expert_parallelism` K makes each data row K consecutive devices,
-    expert innermost. Another inner axis (`model`, `seq`, `pipe`) above 1
-    raises NotImplementedError after the reference's own checks pass."""
+    Each data row is model x pipe x expert consecutive devices, in that
+    order (the reference's reshape). A `seq` axis above 1 raises
+    NotImplementedError after the reference's own checks pass."""
     world, group = _process_group()
     if devices is None:
         devices = visible_devices(platform)
@@ -179,16 +217,14 @@ def create_mesh(
             f"{expert_parallelism} x seq_parallelism={seq_parallelism}"
             f" x pipe_parallelism={pipe_parallelism}"
         )
-    for axis, size in (("model", model_parallelism),
-                       ("seq", seq_parallelism),
-                       ("pipe", pipe_parallelism)):
-        if size > 1:
-            raise NotImplementedError(
-                f"a {axis!r} mesh axis of {size} is not in the port yet: "
-                f"ROADMAP.md Queue 1 item '{INNER_AXES[axis]}'"
-            )
+    if seq_parallelism > 1:
+        raise NotImplementedError(
+            f"a 'seq' mesh axis of {seq_parallelism} is not in the port "
+            "yet: ROADMAP.md Queue 1 item 'sequence parallel'"
+        )
     grid = np.empty(n, dtype=object)
     for i, d in enumerate(devices):
         grid[i] = torch.device(d)
-    return Mesh(grid.reshape(n // inner, 1, expert_parallelism),
+    return Mesh(grid.reshape(n // inner, model_parallelism,
+                             pipe_parallelism, expert_parallelism),
                 process_count=world, group=group)

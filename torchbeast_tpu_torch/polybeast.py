@@ -144,6 +144,7 @@ import copy
 import logging
 import os
 import queue as stdlib_queue
+import re
 import signal
 import statistics
 import threading
@@ -302,9 +303,14 @@ def make_parser():
     parser.add_argument("--ring_schedule", default="contiguous",
                         choices=["contiguous", "zigzag"], help=_LATER)
     parser.add_argument("--pipeline_parallel", type=int, default=0,
-                        help="0 or 1: one device; > 1 " + _LATER)
+                        help="Run the pipelined_mlp / "
+                             "pipelined_transformer tower as a GPipe "
+                             "pipeline over N devices (a `pipe` mesh "
+                             "axis, inside the data axis with "
+                             "--num_learner_devices > 1).")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
-                        help=_LATER)
+                        help="Microbatches per pipelined forward "
+                             "(default: one per pipeline device).")
     parser.add_argument("--num_experts", type=int, default=0,
                         help="Replace the transformer's FFN with a top-2 "
                              "mixture of N experts (model=transformer "
@@ -345,7 +351,10 @@ def make_parser():
                              "the reference's optax chain; 'pallas' the "
                              "fused CUDA kernel csrc/rmsprop_tail.cu.")
     parser.add_argument("--tensor_parallel", type=int, default=0,
-                        help=_LATER)
+                        help="Megatron-split the transformer's blocks "
+                             "over N devices (a `model` mesh axis inside "
+                             "the data axis; --model transformer "
+                             "only).")
     parser.add_argument("--device_split", default="",
                         help="Sebulba device split (runtime/placement."
                              "py): partition the devices into "
@@ -506,19 +515,79 @@ def make_parser():
 # of monobeast.ONE_DEVICE_AT_MOST.
 NOT_IN_PORT = {
     "sequence_parallel": "sequence parallel",
-    "pipeline_parallel": "pipeline parallel",
-    "pipeline_microbatches": "pipeline parallel",
-    "tensor_parallel": "tensor parallel",
     "fleet": "the fleet",
     "min_live_hosts": "the fleet",
 }
 
 
+XPID_REFUSAL = (
+    "multi-host runs need an explicit --xpid (the timestamp default would "
+    "differ per host and break checkpoint resume)")
+
+
+def _above_one(flags, dest) -> bool:
+    return (getattr(flags, dest, 0) or 0) > 1
+
+
+def check_fleet_refusal(flags) -> None:
+    """The reference's refusal of a fleet of more than one host with an
+    inner mesh axis (polybeast.py:590-616; its --xpid and batch checks
+    first). The fleet itself is a later item: a --fleet that passes
+    these raises NotImplementedError in check_flags."""
+    m = re.search(r"host=\s*(\d+)\s*/\s*(\d+)",
+                  getattr(flags, "fleet", None) or "")
+    num_hosts = int(m.group(2)) if m else 1
+    if num_hosts <= 1:
+        return
+    if flags.xpid is None:
+        raise ValueError(XPID_REFUSAL)
+    if flags.batch_size % num_hosts != 0:
+        raise ValueError(
+            f"--batch_size {flags.batch_size} (global) must be "
+            f"divisible by the fleet's {num_hosts} hosts"
+        )
+    if any(_above_one(flags, f) for f in (
+            "expert_parallel", "sequence_parallel", "tensor_parallel",
+            "pipeline_parallel")):
+        raise ValueError(
+            "--fleet composes a data-only learner mesh; it does "
+            "not compose with --expert_parallel/--sequence_"
+            "parallel/--tensor_parallel/--pipeline_parallel yet"
+        )
+
+
+def check_tp_flags(flags) -> None:
+    """The reference's checks of --tensor_parallel > 1
+    (polybeast.py:815-830): the transformer only, and not with SP or
+    PP."""
+    if not _above_one(flags, "tensor_parallel"):
+        return
+    if flags.model != "transformer":
+        raise ValueError(
+            "--tensor_parallel needs --model transformer (the "
+            "Megatron pairing targets its projection/FFN layout)"
+        )
+    if _above_one(flags, "sequence_parallel") or _above_one(
+            flags, "pipeline_parallel"):
+        raise ValueError(
+            "--tensor_parallel composes with --num_learner_devices "
+            "and --expert_parallel, not with --sequence_parallel or "
+            "--pipeline_parallel (their shard_maps leave the "
+            "`model` axis unmentioned, which would force gathers of "
+            "the head-sharded projections every layer)"
+        )
+
+
 def check_flags(flags) -> None:
     """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet, and the reference's errors for the parallelism
-    flags (monobeast.check_parallel_flags)."""
+    does not have yet, after the reference's errors for the parallelism
+    flags: the fleet refusal, the TP checks, the MoE checks, PP with SP
+    or EP (monobeast.check_pp_combination), and monobeast.
+    check_parallel_flags'."""
+    check_fleet_refusal(flags)
+    check_tp_flags(flags)
     monobeast.check_moe_flags(flags)
+    monobeast.check_pp_combination(flags)
     defaults = make_parser().parse_args([])
     monobeast.check_parallel_flags(flags, {
         dest: (getattr(defaults, dest), item)
@@ -659,11 +728,7 @@ def check_multihost_flags(flags, proc_count: int) -> None:
     if proc_count <= 1:
         return
     if flags.xpid is None:
-        raise ValueError(
-            "multi-host runs need an explicit --xpid (the timestamp "
-            "default would differ per host and break checkpoint "
-            "resume)"
-        )
+        raise ValueError(XPID_REFUSAL)
     if flags.num_learner_devices <= 1:
         raise ValueError(
             "multi-host runs need --num_learner_devices > 1 (each "
@@ -679,6 +744,14 @@ def check_multihost_flags(flags, proc_count: int) -> None:
             f"--batch_size {flags.batch_size} (global) must be "
             f"divisible by the {proc_count} processes"
         )
+
+
+def _check_pipe_model(flags, mesh, batch_axis):
+    """The reference's pipeline checks on the composite (data x pipe)
+    learner mesh (monobeast.check_pipelined_model, then
+    monobeast.check_pp_flags over `batch_axis`); the microbatch count."""
+    monobeast.check_pipelined_model(flags)
+    return monobeast.check_pp_flags(flags, mesh, batch_axis)
 
 
 def _train(flags, device):
@@ -697,7 +770,9 @@ def _train(flags, device):
         raise ValueError(SPLIT_MULTIHOST_REFUSAL)
     n_dev = flags.num_learner_devices
     expert_par = max(1, getattr(flags, "expert_parallel", 0) or 0)
-    mesh = ep_mesh = None
+    tensor_par = max(1, getattr(flags, "tensor_parallel", 0) or 0)
+    pipe_par = max(1, getattr(flags, "pipeline_parallel", 0) or 0)
+    mesh = ep_mesh = pp_mesh = None
     if split is not None:
         # The split's learner: plain DP over exactly its learner devices,
         # or the one-device learner pinned to its one. From here on
@@ -709,8 +784,14 @@ def _train(flags, device):
             device = torch.device(split.learner_devices[0])
         if device.type == "cuda":
             torch.cuda.set_device(device)
-    elif n_dev > 1:
-        mesh = monobeast.learner_mesh(device, n_dev, expert_par)
+    elif n_dev > 1 or tensor_par > 1:
+        # The reference's composite mesh: data x (model | pipe | expert)
+        # over num_learner_devices x inner devices.
+        mesh = monobeast.learner_mesh(device, n_dev, expert_par,
+                                      tensor_par, pipe_par)
+    n_microbatches = None
+    if mesh is not None and pipe_par > 1:
+        n_microbatches = _check_pipe_model(flags, mesh, "data")
     if mesh is not None:
         if flags.batch_size % mesh.shape["data"] != 0:
             raise ValueError(
@@ -724,7 +805,7 @@ def _train(flags, device):
                 "kernel; its sharded-update story is the Sebulba "
                 "item's)"
             )
-        if expert_par > 1 and (
+        if (expert_par > 1 or tensor_par > 1) and (
             precision.resolve_flags(flags).param_dtype == "bf16"
             or getattr(flags, "factored_opt_state", False)
         ):
@@ -736,6 +817,9 @@ def _train(flags, device):
             )
     else:
         ep_mesh = monobeast.expert_mesh(device, flags)
+        pp_mesh = monobeast.pipe_mesh(device, flags)
+        if pp_mesh is not None:
+            n_microbatches = monobeast.check_pp_flags(flags, pp_mesh)
     # Before the env servers start: with --native_server each of them
     # loads the core, which is then built once, here.
     core = select_runtime(flags)
@@ -817,24 +901,43 @@ def _train(flags, device):
             log.info("Resuming preempted job, current stats:\n%s", stats)
         if ep_mesh is not None:
             monobeast.place_experts(model, ep_mesh)
+        if pp_mesh is not None:
+            parallel.set_pipeline(model, pp_mesh, n_microbatches)
+        elif mesh is not None and pipe_par > 1:
+            # Each data row's replica runs its own GPipe over its row's
+            # pipe devices (ParallelLearner hands each its Mesh.row).
+            parallel.set_pipeline(model, mesh.row(0), n_microbatches)
         if mesh is not None:
             parallel.check_consistent_restore(mesh, step,
                                               list(model.parameters()))
             dispatch = parallel.make_parallel_update_step(
                 model, optimizer, hp, mesh, superstep_k=superstep_k)
-            log.info("Parallel learner: data=%d%s (%d processes)",
+            log.info("Parallel learner: data=%d%s (%d processes)%s",
                      mesh.shape["data"],
-                     f" x expert={expert_par}" if expert_par > 1 else "",
-                     proc_count)
+                     (f" x model={tensor_par}" if tensor_par > 1 else "")
+                     + (f" x pipe={pipe_par}" if pipe_par > 1 else "")
+                     + (f" x expert={expert_par}" if expert_par > 1
+                        else ""),
+                     proc_count,
+                     " eagerly: a data row spans cards"
+                     if mesh.spans_cards() else "")
         else:
             dispatch = learner_lib.make_update_dispatch(
-                model, optimizer, hp, superstep_k)
+                model, optimizer, hp, superstep_k,
+                capture=(False if pp_mesh is not None
+                         and pp_mesh.spans_cards() else None))
         update = learner_lib.instrument_update_step(
             dispatch, registry=reg, superstep_k=superstep_k)
 
         # The acting copy: inference never reads the learner's params,
         # which the update changes in place.
         act_model = copy.deepcopy(model).requires_grad_(False)
+        # Acting runs the one-device forward of the learner's params: no
+        # model or pipe devices, so its graphs stay on the card the
+        # actors are served from (the same arithmetic, row by row).
+        parallel.set_model_devices(act_model, None)
+        if pipe_par > 1:
+            parallel.set_pipeline(act_model, None)
         act_params = list(act_model.parameters())
         learn_params = list(model.parameters())
         generator = torch.Generator(device=device)
