@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--kernels-only | --vtrace-only | --serving-only
                            | --impact-only | --remat-only | --anakin-only
                            | --pipelined-only | --dp-only | --ep-only
-                           | --split-only | --tp-pp-only]
+                           | --split-only | --tp-pp-only
+                           | --sp-fleet-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -325,11 +326,51 @@ exits non-zero without printing the final result line:
    --pipeline_parallel 2 --model pipelined_transformer on the core, each
    2 updates with its launches, SPS and update interval.
 
+13. Sequence parallelism and the fleet (run after 12; with
+   --sp-fleet-only alone after the builds, printing the paths' launches
+   as one JSON line), with the drivers' device list replaced by
+   [cuda:0] * 4 and restored after, so every seq device is the one card.
+   TF32 off and cuDNN deterministic for (a)-(b): (a) the ring
+   (contiguous and zigzag) and Ulysses, plain and transformer variants,
+   at the learner shape over T+1 = 80 steps (B=32, H=4, D=32, M=64), P
+   = 2 and 4: forward and the gradients of a fixed cotangent against the
+   dense path on the card, each one's ms beside the dense path's; (b)
+   monobeast's transformer (dense attention) over seq 2 with the ring,
+   the zigzag ring and Ulysses, and seq 2 x expert 2 (8 experts), T=79,
+   B=32, 2 updates each in one CUDA graph against the one-device update
+   (params within phase 9's tolerance, total_loss rtol 2e-4), V-trace
+   and the tail once an update, held against their plain versions on an
+   SP update, the update ms beside one device's; then monobeast.train
+   from its parser with --sequence_parallel 2 at --unroll_length 79,
+   V-trace and the tail on (the ring, --ring_schedule zigzag,
+   --sp_strategy ulysses, --num_experts 8 --expert_parallel 2), each
+   run's counts reset just before it: the driver's seq mesh, every block
+   on the path, the update one CUDA graph, V-trace and the tail launched
+   each update. Then (c) polybeast --sequence_parallel 2 alone on the
+   core (the tail on) and data 2 x seq 2 on the Python pool and on the
+   core (SPS, the update interval) and (d) the fleet: a one-host fleet
+   (--fleet host=0/1) in an NCCL group of one on the core; a snapshot of CUDA params through
+   the wire into a store on the card, bitwise a local publish; two hosts
+   as two processes on cuda:0 (chip_smoke.py --fleet-host), mlp + LSTM
+   on Mock, in a gloo group both join first (NCCL refuses two ranks on
+   one GPU), ending with equal params, the remote applying the lead's
+   snapshots; the same two hosts in the driver's NCCL group, its outcome
+   and NCCL's words printed; the wire strategy (chosen by the worker)
+   with the remote SIGKILLed: at --min_live_hosts 1 the lead DEGRADED
+   with a sticky fleet.host1_lost, checkpointing at SIGTERM; three hosts
+   at --min_live_hosts 3 with one killed: the lead and the survivor
+   HALTED, the lead checkpointed; the gloo group's remote killed, the
+   lead's outcome and its time after the kill printed (watched 60 s);
+   and chaos_run --selftest --hosts 2 (chip_smoke.py --fleet-chaos: its
+   remote a --fleet-host process, both hosts in a gloo group), its
+   verdict ok.
+
 Then one JSON line with every kernel's numbers, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import copy
 import csv
 import importlib.util
@@ -341,6 +382,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1091,11 +1133,11 @@ def target_published(updates_per_group, groups, refresh):
     return published
 
 
-def run_main_path(ops, savedir, path):
-    """Train one path's updates; return its launch counts, all and
-    bf16. Every dispatch replays a CUDA graph; each replay adds the port
-    kernels its capture counted, so the counts are launches on the
-    card."""
+def run_main_path(ops, savedir, path, unroll=T):
+    """Train one path's updates of `unroll` steps; return its launch
+    counts, all and bf16. Every dispatch replays a CUDA graph; each
+    replay adds the port kernels its capture counted, so the counts are
+    launches on the card."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import monobeast, telemetry
 
@@ -1105,9 +1147,10 @@ def run_main_path(ops, savedir, path):
     flags = parse([
         "--env", "Mock", "--num_actors", str(B), *model_args,
         "--batch_size", str(B),
-        "--unroll_length", str(T), "--vtrace_impl", "pallas",
+        "--unroll_length", str(unroll), "--vtrace_impl", "pallas",
         "--opt_impl", "pallas", "--serial_envs", "--precision", policy,
-        "--total_steps", str(updates * T * B // reuse), "--savedir", savedir,
+        "--total_steps", str(updates * unroll * B // reuse),
+        "--savedir", savedir,
         "--xpid", "chip_smoke_" + re.sub(r"\W+", "_", label),
     ])
     # A checkpoint left by an earlier run of this script would resume.
@@ -1123,8 +1166,8 @@ def run_main_path(ops, savedir, path):
     wall = time.time() - t0
     counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
     forwards = learner_lib.TargetNetwork.forwards
-    check(stats["updates"] == updates and stats["step"] == updates * T * B
-          // reuse, f"{label}: {stats['updates']} updates over "
+    check(stats["updates"] == updates and stats["step"] == updates * unroll
+          * B // reuse, f"{label}: {stats['updates']} updates over "
           f"{stats['step']} env frames")
     if flags.loss == "impact":
         # One fresh batch a collect (num_actors = batch_size): one target
@@ -1161,8 +1204,8 @@ def run_main_path(ops, savedir, path):
               f"{label} loss stat {key} = {stats.get(key)}")
     if "--num_experts" in model_args:
         check(stats["aux_loss"] > 0, f"{label}: aux_loss {stats['aux_loss']}")
-    print(f"main path {label} 84x84x4 T={T} B={B}: {updates} updates in "
-          f"{wall:.1f} s; SPS {stats['sps']:.1f}; median update "
+    print(f"main path {label} 84x84x4 T={unroll} B={B}: {updates} updates "
+          f"in {wall:.1f} s; SPS {stats['sps']:.1f}; median update "
           f"{stats['update_ms_median']:.2f} ms; launches {counts}; bf16 "
           f"launches {bf16}; total_loss {stats['total_loss']:.4f}")
     return counts, bf16
@@ -2111,18 +2154,22 @@ def _norm_rel(a, b):
 
 
 def check_update_parity(ops, dev, label, model_k, state, policy="f32",
-                        impact=False):
+                        impact=False, batch=None):
     """One learner update of `model_k` from `state` with the kernels and
-    one of its copy with the plain versions, on the same random batch, at
-    the precision `policy`; with `impact` under --loss impact, the batch
-    carrying a lagged target network's outputs."""
+    one of its copy with the plain versions, on the same random batch
+    (`batch`, default random_batch(0)), at the precision `policy`; with
+    `impact` under --loss impact, the batch carrying a lagged target
+    network's outputs."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import precision
 
     pol = precision.get(policy)
-    batch = precision.cast_batch(random_batch(0, dev), pol.batch_dtype)
+    if batch is None:
+        batch = random_batch(0, dev)
+    batch = precision.cast_batch(batch, pol.batch_dtype)
     state = precision.cast_batch(state, pol.batch_dtype)
-    hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+    hp = learner_lib.HParams(unroll_length=batch["reward"].shape[0] - 1,
+                             batch_size=B,
                              vtrace_impl="pallas", opt_impl="pallas",
                              param_dtype=pol.param_dtype,
                              opt_state_dtype=pol.opt_state_dtype,
@@ -4554,14 +4601,15 @@ def check_tp_path(ops, dev, layout, inputs, want):
 
 
 def run_poly_parallel(ops, savedir, label, model_args, extra, native,
-                      shards):
+                      shards, tail=False, line="Parallel learner"):
     """polybeast through its parser at polybeast_argv's settings (16 Mock
     env servers, T=80, B=32, V-trace on) with `model_args` in place of
-    deep + LSTM, --opt_impl xla (the sharded learner refuses the tail)
-    and `extra`, TP_PP_UPDATES updates on the Python pool or the core:
-    V-trace once a data shard an update (`shards`), the tail never,
-    finite losses, HEALTHY, the parallel learner's log line. Returns the
-    launch counts."""
+    deep + LSTM, --opt_impl xla (the sharded learner refuses the tail;
+    with `tail`, a one-device learner, pallas) and `extra`, TP_PP_UPDATES
+    updates on the Python pool or the core: V-trace once a data shard an
+    update (`shards`), the tail once an update with `tail` and else
+    never, finite losses, HEALTHY, the learner's log line that starts
+    with `line`. Returns the launch counts."""
     from torchbeast_tpu_torch import polybeast
 
     xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
@@ -4570,7 +4618,8 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     at = argv.index("--model")
     del argv[at:at + 2]
     argv.remove("--use_lstm")
-    argv[argv.index("--opt_impl") + 1] = "xla"
+    if not tail:
+        argv[argv.index("--opt_impl") + 1] = "xla"
     if native:
         argv[argv.index("--no_native_runtime")] = "--native_runtime"
     lines = _Lines()
@@ -4579,10 +4628,11 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     logger.setLevel(logging.INFO)
     ops.reset_launch_counts()
     t0 = time.time()
+    flags = polybeast.make_parser().parse_args(
+        argv + list(model_args) + list(extra)
+        + ["--total_steps", str(TP_PP_UPDATES * T * B)])
     try:
-        stats = polybeast.train(polybeast.make_parser().parse_args(
-            argv + list(model_args) + list(extra)
-            + ["--total_steps", str(TP_PP_UPDATES * T * B)]))
+        stats = polybeast.train(flags)
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(lines)
@@ -4591,7 +4641,8 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     updates = stats["updates"]
     check(updates >= TP_PP_UPDATES, f"{label}: {updates} updates")
     check(counts["vtrace_targets"] >= shards * updates
-          and counts["rmsprop_tail"] == 0,
+          and (counts["rmsprop_tail"] >= updates if tail
+               else counts["rmsprop_tail"] == 0),
           f"{label}: launches {counts} in {updates} updates")
     for key in ("total_loss", "pg_loss", "baseline_loss", "entropy_loss",
                 "grad_norm"):
@@ -4599,14 +4650,15 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     check(stats["health"] == "HEALTHY"
           and stats["runtime"] == ("native" if native else "python"),
           f"{label}: health {stats['health']}, runtime {stats['runtime']}")
-    learner_line = [line for line in lines.lines
-                    if line.startswith("Parallel learner")]
-    check(learner_line, f"{label}: no parallel learner")
-    if "--coordinator_address" in extra:
-        joined = [line for line in lines.lines if line.startswith("Joined")]
+    learner_line = [text for text in lines.lines if text.startswith(line)]
+    check(learner_line, f"{label}: no line '{line}...'")
+    if "--coordinator_address" in extra or "--fleet" in extra:
+        joined = [text for text in lines.lines
+                  if text.startswith("Joined")]
         check(joined, f"{label}: no process group joined")
         learner_line[0] += f"; {joined[0]}"
-    print(f"{label} T={T} B={B}: {learner_line[0]}; {updates} updates in "
+    print(f"{label} T={flags.unroll_length} B={B}: {learner_line[0]}; "
+          f"{updates} updates in "
           f"{wall:.1f} s; SPS {stats['sps']:.1f}; update interval median "
           f"{stats['update_interval_ms_median']:.2f} ms; launches {counts}")
     return {label: (counts, bf16)}
@@ -4827,6 +4879,694 @@ def run_tp_pp_phases(ops, dev, savedir, tf32):
     return by_path
 
 
+# ----------------------------------------------------------------- phase 13
+
+# The sequence-parallel paths' unroll: T + 1 = 80 steps divide by the
+# ring's P (2 and 4), the zigzag's 2P and, with the 4 heads, Ulysses'.
+SP_T = 79
+SP_OP_P = (2, 4)
+# The ops against the dense path on the card (TF32 off): the online
+# softmax adds and rescales in another order than one softmax.
+SP_OP_RTOL, SP_OP_ATOL = 1e-4, 2e-5
+SP_GRAD_RTOL, SP_GRAD_ATOL = 1e-3, 1e-4
+# monobeast's SP updates: (label, schedule, strategy, experts).
+SP_PATHS = (
+    ("seq 2 ring", "contiguous", "ring", 0),
+    ("seq 2 zigzag ring", "zigzag", "ring", 0),
+    ("seq 2 Ulysses", "contiguous", "ulysses", 0),
+    ("seq 2 x expert 2 ring", "contiguous", "ring", EP_EXPERTS),
+)
+SP_KERNELS = {"vtrace_targets": 1, "rmsprop_tail": 1}  # an update
+# monobeast's SP paths through its parser: (label, flags beyond --model
+# transformer --sequence_parallel 2, the blocks' path).
+SP_DRIVER_ARGS = (
+    ("ring", [], "ring"),
+    ("zigzag ring", ["--ring_schedule", "zigzag"], "ring"),
+    ("Ulysses", ["--sp_strategy", "ulysses"], "ulysses"),
+    ("x expert_parallel 2 ring", ["--num_experts", str(EP_EXPERTS),
+                                  "--expert_parallel", "2"], "ring"),
+)
+# The fleet's hosts: Mock frames, mlp + LSTM, 4 env servers a host.
+FLEET_ARGS = ["--env", "Mock", "--model", "mlp", "--use_lstm",
+              "--num_servers", "4", "--batch_size", "8", "--unroll_length",
+              "20", "--vtrace_impl", "pallas", "--opt_impl", "xla",
+              "--num_inference_threads", "1", "--max_inference_batch_size",
+              "4", "--replica_refresh_updates", "1", "--max_policy_lag",
+              "20", "--checkpoint_interval_s", "100000",
+              "--no_native_runtime"]
+FLEET_UPDATES = 8
+FLEET_LONG_STEPS = 10 ** 7  # a run the smoke ends itself (SIGTERM)
+# How long the lead of a gloo group whose remote is killed is watched.
+FLEET_GROUP_LOSS_S = 60.0
+
+
+def sp_op_inputs(dev, seed=0):
+    """The transformer's attention inputs at the learner shape over
+    T = SP_T + 1 steps (B=32, H=4, D=32, M=64): q, k, v, the cache, the
+    relative bias, segments, the cache mask, the dense mask and offsets,
+    a cotangent."""
+    from torchbeast_tpu_torch.ops import attention
+
+    t, M = SP_T + 1, MEMORY
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    x = {name: normal(B, t, HEADS, HEAD_DIM) for name in ("q", "k", "v",
+                                                          "ct")}
+    x["cache_k"], x["cache_v"] = (normal(B, M, HEADS, HEAD_DIM)
+                                  for _ in range(2))
+    x["rel_bias"] = normal(HEADS, M + 1)
+    done = torch.from_numpy(rng.random((t, B)) < 0.05).to(dev)
+    seg = attention.segment_ids_from_done(done).t().contiguous()
+    valid = torch.from_numpy((rng.random((B, M)) < 0.7).astype(
+        np.float32)).to(dev)
+    no_done = seg == 0
+    band, offsets = attention.band_relative_offsets(t, M, device=dev)
+    cache_mask = (band[None, :, :M] & (valid != 0)[:, None, :]
+                  & no_done[:, :, None])
+    same = seg[:, :, None] == seg[:, None, :]
+    x.update(seg=seg, cache_mask=cache_mask, offsets=offsets,
+             mask=torch.cat([cache_mask, band[None, :, M:] & same], -1))
+    return x
+
+
+def check_sp_ops(dev):
+    """(a) Ring (contiguous and zigzag) and Ulysses, plain and transformer
+    variants, at P = 2 and 4 with every seq device `dev`: forward and the
+    gradients of a fixed cotangent against the dense path, each one's
+    forward ms beside the dense path's."""
+    from torchbeast_tpu_torch.ops import attention as at
+
+    x = sp_op_inputs(dev)
+    plain_in, tf_in = ("q", "k", "v"), ("q", "k", "v", "cache_k",
+                                        "cache_v", "rel_bias")
+
+    def dense_plain(q, k, v):
+        return at.causal_attention(q, k, v, x["seg"])
+
+    def dense_tf(q, k, v, ck, cv, rb):
+        return at.dense_transformer_attend(
+            q, torch.cat([ck, k], 1), torch.cat([cv, v], 1), x["mask"],
+            x["offsets"], rb)
+
+    def grads(fn, names):
+        xs = [x[n].detach().clone().requires_grad_(True) for n in names]
+        out = fn(*xs)
+        (out * x["ct"]).sum().backward()
+        return out.detach(), [t.grad for t in xs]
+
+    def ms(fn, names):
+        with torch.no_grad():
+            return time_ms(lambda: fn(*(x[n] for n in names)), reps=10)
+
+    refs = {"plain": (grads(dense_plain, plain_in),
+                      ms(dense_plain, plain_in)),
+            "transformer": (grads(dense_tf, tf_in), ms(dense_tf, tf_in))}
+    for P in SP_OP_P:
+        devs = [dev] * P
+        cases = (
+            ("plain", "ring", plain_in,
+             lambda q, k, v: at.ring_attention(q, k, v, devs, x["seg"])),
+            ("plain", "zigzag ring", plain_in,
+             lambda q, k, v: at.ring_attention(q, k, v, devs, x["seg"],
+                                               schedule="zigzag")),
+            ("plain", "Ulysses", plain_in,
+             lambda q, k, v: at.ulysses_attention(q, k, v, devs, x["seg"])),
+            ("transformer", "ring", tf_in,
+             lambda q, k, v, ck, cv, rb: at.ring_transformer_attention(
+                 q, k, v, ck, cv, x["cache_mask"], rb, MEMORY, x["seg"],
+                 devs)),
+            ("transformer", "zigzag ring", tf_in,
+             lambda q, k, v, ck, cv, rb: at.ring_transformer_attention(
+                 q, k, v, ck, cv, x["cache_mask"], rb, MEMORY, x["seg"],
+                 devs, schedule="zigzag")),
+            ("transformer", "Ulysses", tf_in,
+             lambda q, k, v, ck, cv, rb: at.ulysses_transformer_attention(
+                 q, k, v, ck, cv, x["mask"], x["offsets"], rb, devs)),
+        )
+        for kind, name, names, fn in cases:
+            label = f"phase 13 (a) {kind} {name} P={P}"
+            (want, want_g), dense_ms = refs[kind]
+            out, got_g = grads(fn, names)
+            err, ok = close(out, want, SP_OP_RTOL, SP_OP_ATOL)
+            check(ok, f"{label}: forward max |diff| {err:.3g}")
+            gerr = 0.0
+            for n, g, w in zip(names, got_g, want_g):
+                e, ok = close(g, w, SP_GRAD_RTOL, SP_GRAD_ATOL)
+                check(ok, f"{label}: d{n} max |diff| {e:.3g}")
+                gerr = max(gerr, e)
+            print(f"{label} B={B} T={SP_T + 1} H={HEADS} D={HEAD_DIM} "
+                  f"M={MEMORY}, every seq device {dev}: forward max |diff| "
+                  f"{err:.3g} (rtol {SP_OP_RTOL}, atol {SP_OP_ATOL}), "
+                  f"gradients {gerr:.3g} (rtol {SP_GRAD_RTOL}, atol "
+                  f"{SP_GRAD_ATOL}) against the dense path; forward "
+                  f"{ms(fn, names):.4f} ms, dense {dense_ms:.4f} ms")
+
+
+def _sp_hp():
+    """monobeast's SP learner: V-trace's kernel and the fused tail, the LR
+    decay and the entropy anneal moving, RMSprop eps 1.0 (phase 9's)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    return learner_lib.HParams(unroll_length=SP_T, batch_size=B,
+                               vtrace_impl="pallas", opt_impl="pallas",
+                               total_steps=20 * SP_T * B,
+                               entropy_cost_final=1e-4, rmsprop_eps=DP_EPS)
+
+
+def _sp_model(dev, experts):
+    """monobeast's transformer at full width (dense attention; with
+    `experts` the MoE FFN), seed 0's weights."""
+    from torchbeast_tpu_torch.models import create_model
+
+    torch.manual_seed(0)
+    return create_model("transformer", NUM_ACTIONS, **(
+        {"num_experts": experts} if experts else {})).to(dev)
+
+
+def _sp_inputs(dev, model):
+    """DP_UPDATES random batches of SP_T + 1 steps and a random cache."""
+    batches = [{k: v[:SP_T + 1].contiguous()
+                for k, v in random_batch(i, dev).items()}
+               for i in range(DP_UPDATES)]
+    return batches, random_cache(model, 0, dev)
+
+
+def _sp_one_device(dev, experts):
+    """The one-device update (one CUDA graph) on the SP inputs: (params
+    after DP_UPDATES updates, stats, update ms, inputs)."""
+    from torchbeast_tpu_torch import learner as learner_lib
+
+    one = _sp_model(dev, experts)
+    inputs = _sp_inputs(dev, one)
+    dispatch = learner_lib.make_update_dispatch(
+        one, learner_lib.make_optimizer(_sp_hp(), list(one.parameters())),
+        _sp_hp())
+    dispatch.capture(inputs[0][0], inputs[1])
+    stats = _dp_run(dispatch, *inputs)
+    want = copy.deepcopy(one)
+    ms = time_ms(lambda: dispatch(inputs[0][0], inputs[1]), reps=10)
+    return want, stats, ms, inputs
+
+
+def check_sp_update(ops, dev, label, schedule, strategy, experts, want):
+    """(b) monobeast's SP update over seq devices [dev, dev] (with
+    `experts`, expert devices [dev, dev] too) against the one-device
+    update `want`: params within phase 9's tolerance, total_loss within
+    DP_LOSS_RTOL, one CUDA graph an update, V-trace and the tail once an
+    update and held against their plain versions on that update, the
+    update ms beside one device's. Returns its launch counts."""
+    from torchbeast_tpu_torch import graphs
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import parallel
+    from torchbeast_tpu_torch.models.transformer import set_seq_devices
+
+    name, label = label, f"phase 13 (b) monobeast {label}"
+    want_model, want_stats, one_ms, (batches, state) = want
+    model = _sp_model(dev, experts)
+    set_seq_devices(model, [dev, dev], schedule, strategy)
+    if experts:
+        parallel.set_expert_devices(model, [dev, dev])
+    check(model.block_0._sequence_parallel(SP_T + 1, HEADS) == strategy,
+          f"{label}: the block does not take the {strategy} path")
+    opt = learner_lib.make_optimizer(_sp_hp(), list(model.parameters()))
+    dispatch = learner_lib.make_update_dispatch(model, opt, _sp_hp())
+    check(isinstance(dispatch, graphs.CapturedUpdate),
+          f"{label}: not a CUDA graph")
+    dispatch.capture(batches[0], state)
+    ops.reset_launch_counts()
+    got = _dp_run(dispatch, batches, state)
+    counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
+    for w, n in SP_KERNELS.items():
+        check(counts[w] == n * DP_UPDATES,
+              f"{label}: {counts[w]} {w} launches in {DP_UPDATES} updates")
+    worst = _compare_params(label, model, want_model)
+    loss_err, ok = close(got["total_loss"], want_stats["total_loss"],
+                         DP_LOSS_RTOL, 0.0)
+    check(ok, f"{label}: total_loss {got['total_loss'].tolist()} vs "
+              f"{want_stats['total_loss'].tolist()}")
+    ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    print(f"{label} T={SP_T} B={B}: seq devices {[dev, dev]}, "
+          f"{DP_UPDATES} updates in one CUDA graph each against one device, "
+          f"RMSprop eps {DP_EPS}: params within rtol {DP_PARAMS_RTOL} / "
+          f"atol {DP_PARAMS_ATOL} (largest difference {worst:.3g} of a "
+          f"leaf's largest entry), total_loss within rtol {DP_LOSS_RTOL} "
+          f"(max |diff| {loss_err:.3g}); launches an update "
+          f"{ {w: counts[w] // DP_UPDATES for w in SP_KERNELS} }; update "
+          f"{ms:.3f} ms, one device {one_ms:.3f} ms")
+    check_update_parity(ops, dev, f"monobeast {name}", model, state,
+                        batch=batches[0])
+    return counts, bf16
+
+
+def run_sp_driver(ops, dev, savedir, label, extra, strategy):
+    """(b) monobeast.train from its parser with --model transformer
+    --sequence_parallel 2 and `extra` at --unroll_length SP_T, V-trace and
+    the tail on (run_main_path, its counts reset just before the run):
+    the driver's own seq mesh over [dev, dev] (its log line), every block
+    taking `strategy` at SP_T + 1 steps, the update one CUDA graph that
+    launches V-trace and the tail once a replay. Returns the counts."""
+    from torchbeast_tpu_torch import graphs
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch import monobeast
+
+    built, dispatches = [], []
+    build_model = monobeast.build_model
+    make_dispatch = learner_lib.make_update_dispatch
+
+    def keep_model(*args, **kwargs):
+        built.append(build_model(*args, **kwargs))
+        return built[-1]
+
+    def keep_dispatch(*args, **kwargs):
+        dispatches.append(make_dispatch(*args, **kwargs))
+        return dispatches[-1]
+
+    lines = _Lines()
+    logger = logging.getLogger("torchbeast_tpu_torch")
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    monobeast.build_model = keep_model
+    learner_lib.make_update_dispatch = keep_dispatch
+    try:
+        counts = run_main_path(ops, savedir, (
+            label, ["--model", "transformer", "--sequence_parallel", "2",
+                    *extra], tuple(SP_KERNELS), "f32", TP_PP_UPDATES),
+            unroll=SP_T)
+    finally:
+        monobeast.build_model = build_model
+        learner_lib.make_update_dispatch = make_dispatch
+        logger.removeHandler(lines)
+    sp_line = [text for text in lines.lines
+               if text.startswith("Sequence parallel")]
+    check(sp_line, f"{label}: no sequence-parallel line")
+    blocks = [getattr(built[0], f"block_{i}")
+              for i in range(built[0].num_layers)]
+    check(all(b.seq_devices == [dev, dev]
+              and b._sequence_parallel(SP_T + 1, HEADS) == strategy
+              for b in blocks),
+          f"{label}: the blocks do not take the {strategy} path over "
+          f"{[dev, dev]}")
+    update = dispatches[0]
+    check(isinstance(update, graphs.CapturedUpdate)
+          and update._graph is not None
+          and all(update.launches_per_replay.get(w) == n
+                  for w, n in SP_KERNELS.items()),
+          f"{label}: the update is not one CUDA graph launching "
+          f"{SP_KERNELS} ({getattr(update, 'launches_per_replay', None)})")
+    print(f"{label}: {sp_line[0]}; every block {strategy} at T+1 = "
+          f"{SP_T + 1}; the update one CUDA graph, launches a replay "
+          f"{ {w: update.launches_per_replay[w] for w in SP_KERNELS} }")
+    return counts
+
+
+def _fleet_argv(savedir, xpid, rank, hosts, port, total_steps,
+                min_live_hosts=1):
+    return FLEET_ARGS + [
+        "--batch_size", str(4 * hosts),  # 4 rows a host
+        "--savedir", savedir, "--xpid", xpid, "--total_steps",
+        str(total_steps), "--min_live_hosts", str(min_live_hosts),
+        "--pipes_basename", f"unix:{savedir}/{xpid}-pipes",
+        "--fleet", f"host={rank}/{hosts},coord=127.0.0.1:{port}"]
+
+
+@contextlib.contextmanager
+def _gloo_group(flags):
+    """The process group of `flags.fleet` (its rendezvous address, the
+    host count as world size, the host rank) in gloo, for the block:
+    polybeast takes a joined group of the fleet's size as it finds it.
+    Two hosts on one card need it: NCCL refuses two ranks on one GPU."""
+    from torchbeast_tpu_torch import parallel
+    from torchbeast_tpu_torch.fleet import parse_fleet_spec
+
+    spec = parse_fleet_spec(flags.fleet)
+    parallel.initialize_distributed(spec.coord_address, spec.num_hosts,
+                                    spec.host_rank, backend="gloo")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def fleet_host_worker(config) -> int:
+    """One fleet host of phase 13 (d) (`chip_smoke.py --fleet-host
+    <json>`): polybeast.train with the config's argv under its strategy
+    ("gloo": the process-group strategy in a gloo group joined first;
+    "nccl": the driver's own NCCL group; "wire": the wire strategy, by
+    this worker's choice, on the card), SIGTERM a checkpoint-and-exit.
+    Its last line is one JSON object: step, health, reasons, a digest of
+    the learner's params, the fleet counters, or the error."""
+    import hashlib
+
+    cfg = json.loads(config)
+    from torchbeast_tpu_torch import monobeast, parallel, polybeast
+    from torchbeast_tpu_torch import telemetry
+    from torchbeast_tpu_torch.utils import install_preemption_handler
+
+    built = []
+    build_model = monobeast.build_model
+
+    def capture(*args, **kwargs):
+        model = build_model(*args, **kwargs)
+        built.append(model)
+        return model
+
+    monobeast.build_model = capture
+    if cfg["strategy"] == "wire":
+        parallel.fleet_strategy = lambda device: "wire"
+    polybeast._configure_logging()
+    install_preemption_handler()
+    flags = polybeast.make_parser().parse_args(cfg["argv"])
+    out = {"rank": cfg["rank"]}
+    try:
+        if cfg["strategy"] == "gloo":
+            with _gloo_group(flags):
+                stats = polybeast.train(flags)
+        else:
+            stats = polybeast.train(flags)
+    except Exception as e:  # noqa: BLE001  reported, the smoke decides
+        out["error"] = f"{type(e).__name__}: {e}"
+        if e.__cause__ is not None:
+            out["error"] += (f" (from {type(e.__cause__).__name__}: "
+                             f"{str(e.__cause__)[:300]})")
+        print(json.dumps(out))
+        return 1
+    digest = hashlib.sha256()
+    for p in built[0].parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    reg = telemetry.get_registry()
+    out.update(step=int(stats["step"]), health=stats["health"],
+               reasons=[r for _, r in stats.get("health_reasons") or []],
+               params=digest.hexdigest(), updates=int(stats["updates"]),
+               sps=float(stats["sps"]), counters={
+                   name: reg.counter(name).value() for name in (
+                       "fleet.param_syncs", "fleet.snapshots_received",
+                       "fleet.snapshots_stale_dropped",
+                       "fleet.heartbeats_received")})
+    print(json.dumps(out))
+    return 0
+
+
+def fleet_chaos_worker(savedir, out) -> int:
+    """Phase 13 (d)'s chaos lane (`chip_smoke.py --fleet-chaos <savedir>
+    <out>`): chaos_run --selftest --hosts 2, its remote a `--fleet-host`
+    process and its lead in a gloo group both hosts join first."""
+    from torchbeast_tpu_torch import chaos_run
+
+    def remote(argv):
+        return [sys.executable, os.path.abspath(__file__), "--fleet-host",
+                json.dumps({"rank": 1, "strategy": "gloo", "argv": argv})]
+
+    return chaos_run.main(["--selftest", "--hosts", "2", "--savedir",
+                           savedir, "--out", out], remote_command=remote,
+                          lead_context=_gloo_group)
+
+
+class _FleetRun:
+    """The hosts of one fleet run of phase 13 (d), each a `chip_smoke.py
+    --fleet-host` process of its own session, the remotes started first;
+    their output under savedir."""
+
+    def __init__(self, savedir, xpid, hosts, strategy, total_steps,
+                 min_live_hosts=1):
+        from torchbeast_tpu_torch import chaos_run
+
+        shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+        port = chaos_run._free_coord_port()
+        self.logs, self.procs = {}, {}
+        for rank in reversed(range(hosts)):
+            cfg = {"rank": rank, "strategy": strategy, "argv": _fleet_argv(
+                savedir, xpid, rank, hosts, port, total_steps,
+                min_live_hosts)}
+            self.logs[rank] = os.path.join(savedir, f"{xpid}-{rank}.log")
+            with open(self.logs[rank], "w") as f:
+                self.procs[rank] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--fleet-host", json.dumps(cfg)], stdout=f,
+                    stderr=subprocess.STDOUT, cwd=ROOT,
+                    start_new_session=True)
+
+    def text(self, rank):
+        with open(self.logs[rank]) as f:
+            return f.read()
+
+    def wait_for(self, rank, marker, timeout_s):
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            if marker in self.text(rank):
+                return True
+            if self.procs[rank].poll() is not None:
+                return marker in self.text(rank)
+            time.sleep(0.2)
+        return False
+
+    def signal(self, rank, sig):
+        try:
+            os.killpg(self.procs[rank].pid, sig)
+        except ProcessLookupError:
+            pass
+
+    def finish(self, timeout_s):
+        """{rank: the host's JSON line, or None}; every process ended."""
+        import signal as signals
+
+        deadline = time.time() + timeout_s
+        results = {}
+        for rank, p in self.procs.items():
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                self.signal(rank, signals.SIGKILL)
+                p.wait()
+            self.signal(rank, signals.SIGKILL)  # its env servers
+            lines = [line for line in self.text(rank).splitlines()
+                     if line.startswith('{"rank"')]
+            results[rank] = json.loads(lines[-1]) if lines else None
+        return results
+
+
+def check_snapshot_wire_on_card(dev):
+    """The lead's snapshot of CUDA params through the wire into a remote
+    store on the card: latest_on serves the bits of a local publish."""
+    from torchbeast_tpu_torch.fleet import apply_snapshot, build_snapshot
+    from torchbeast_tpu_torch.runtime import wire
+    from torchbeast_tpu_torch.serving import PolicySnapshotStore
+
+    model = _sp_model(dev, 0)
+    local = PolicySnapshotStore(1)
+    local.publish(3, list(model.parameters()))
+    remote = PolicySnapshotStore(1)
+    snap = wire.decode(wire.encode(build_snapshot(3, model))[4:])
+    check(apply_snapshot(remote, snap, template=model),
+          "phase 13 (d) snapshot not applied")
+    a, b = local.latest_on(dev)[1], remote.latest_on(dev)[1]
+    check(all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+              for x, y in zip(a, b)),
+          "phase 13 (d) the wire snapshot differs from a local publish")
+    print(f"phase 13 (d) snapshot wire on the card: {len(snap.params)} "
+          f"leaves, the remote store's tensors on {dev} bitwise a local "
+          f"publish's")
+
+
+def run_fleet_phases(ops, dev, savedir):
+    """(d) The fleet: a one-host fleet over NCCL (in process), two hosts
+    in a gloo group on the card (equal params, snapshots served), two in
+    the driver's NCCL group (its error recorded), host loss above and
+    below --min_live_hosts (wire strategy) and in the gloo group (the
+    lead's outcome measured), and chaos_run --hosts 2. Returns the
+    in-process path's launch counts."""
+    import signal as signals
+
+    by_path = run_poly_parallel(
+        ops, savedir, "polybeast transformer fleet host=0/1 (NCCL group of "
+        "one) core", ["--model", "transformer"],
+        ["--fleet", f"host=0/1,coord=127.0.0.1:{_free_tcp_port()}"], True, 1)
+    check_snapshot_wire_on_card(dev)
+    steps = FLEET_UPDATES * 20 * 8
+    # Two hosts in a gloo group, and beside them two in the driver's
+    # NCCL group (one card, two ranks).
+    t0 = time.time()
+    gloo = _FleetRun(savedir, "fleet_gloo", 2, "gloo", steps)
+    nccl = _FleetRun(savedir, "fleet_nccl", 2, "nccl", steps)
+    res = gloo.finish(240)
+    label = "phase 13 (d) two-host fleet, gloo group, learners on cuda:0"
+    check(all(r and "error" not in r for r in res.values()),
+          f"{label}: {res}")
+    lead, remote = res[0], res[1]
+    check(lead["params"] == remote["params"],
+          f"{label}: the hosts' params differ")
+    check(lead["health"] == remote["health"] == "HEALTHY",
+          f"{label}: health {lead['health']} / {remote['health']}")
+    check(remote["counters"]["fleet.snapshots_received"] > 0
+          and remote["counters"]["fleet.snapshots_stale_dropped"] == 0,
+          f"{label}: snapshots {remote['counters']}")
+    check(os.path.exists(os.path.join(savedir, "fleet_gloo", "model.ckpt")),
+          f"{label}: no checkpoint")
+    print(f"{label}: {lead['updates']} updates each, params equal "
+          f"(sha256 {lead['params'][:16]}), the remote applied "
+          f"{remote['counters']['fleet.snapshots_received']:.0f} snapshots, "
+          f"heartbeats {lead['counters']['fleet.heartbeats_received']:.0f};"
+          f" SPS {lead['sps']:.1f} / {remote['sps']:.1f}; "
+          f"{time.time() - t0:.1f} s")
+    res = nccl.finish(120)
+    outcome = {r: (v or {}).get("error", (v or {}).get("health"))
+               for r, v in res.items()}
+    print(f"phase 13 (d) two-host fleet, the driver's NCCL group on one "
+          f"card, beside the gloo one: {outcome}; {time.time() - t0:.1f} s")
+    # Host loss, the wire strategy (chosen by the worker): above the
+    # floor the lead degrades; three hosts below it halt. Beside them the
+    # process-group strategy in the gloo group, its remote killed: what
+    # the lead does, and when, is measured and not held to a verdict.
+    t0 = time.time()
+    above = "phase 13 (d) remote killed, --min_live_hosts 1"
+    below = "phase 13 (d) remote killed, --min_live_hosts 3"
+    in_group = "phase 13 (d) remote killed in the gloo group"
+    grouped = _FleetRun(savedir, "fleet_gloo_loss", 2, "gloo",
+                        FLEET_LONG_STEPS)
+    loss = _FleetRun(savedir, "fleet_loss", 2, "wire", FLEET_LONG_STEPS)
+    halt = _FleetRun(savedir, "fleet_halt", 3, "wire", FLEET_LONG_STEPS,
+                     min_live_hosts=3)
+    check(grouped.wait_for(1, "Step ", 120),
+          f"{in_group}: the remote never ran")
+    grouped.signal(1, signals.SIGKILL)
+    killed_at = time.time()
+    lead_exit = []
+    threading.Thread(target=lambda: lead_exit.append(
+        (grouped.procs[0].wait(), time.time())), daemon=True).start()
+    check(loss.wait_for(1, "Step ", 120), f"{above}: the remote never ran")
+    loss.signal(1, signals.SIGKILL)
+    check(halt.wait_for(2, "Step ", 120), f"{below}: host 2 never ran")
+    halt.signal(2, signals.SIGKILL)
+    check(loss.wait_for(0, "LOST", 60), f"{above}: the lead saw no loss")
+    time.sleep(1.0)
+    loss.signal(0, signals.SIGTERM)
+    lead = loss.finish(120)[0]
+    check(lead and "error" not in lead and lead["health"] == "DEGRADED"
+          and any(r.startswith("fleet.host1_lost")
+                  for r in lead["reasons"]), f"{above}: {lead}")
+    check(os.path.exists(os.path.join(savedir, "fleet_loss", "model.ckpt")),
+          f"{above}: no checkpoint")
+    print(f"{above}: the lead DEGRADED, sticky {lead['reasons']}, "
+          f"{lead['updates']} updates, checkpointed")
+    res = halt.finish(120)
+    check(all(res[r] and res[r].get("health") == "HALTED" for r in (0, 1)),
+          f"{below}: {res}")
+    check(os.path.exists(os.path.join(savedir, "fleet_halt", "model.ckpt")),
+          f"{below}: no checkpoint")
+    print(f"{below}: the lead and host 1 HALTED ({res[0]['reasons'][-1]}), "
+          f"the lead checkpointed; both legs {time.time() - t0:.1f} s")
+    deadline = killed_at + FLEET_GROUP_LOSS_S
+    while not lead_exit and time.time() < deadline:
+        time.sleep(0.1)
+    lead = grouped.finish(5)[0] or {}
+    log_tail = [text for text in grouped.text(0).splitlines()
+                if "LOST" in text or "health ->" in text][-2:]
+    if lead_exit:
+        outcome = lead.get("error") or (
+            f"{lead.get('health')} {lead.get('reasons')}")
+        print(f"{in_group}: the lead exited rc {lead_exit[0][0]} "
+              f"{lead_exit[0][1] - killed_at:.1f} s after the kill: "
+              f"{outcome}; its fleet log lines {log_tail}")
+    else:
+        print(f"{in_group}: the lead had not exited "
+              f"{FLEET_GROUP_LOSS_S:.0f} s after the kill (SIGKILLed); "
+              f"its fleet log lines {log_tail}")
+    # The chaos lane across two hosts, in a gloo group on the card.
+    t0 = time.time()
+    out = os.path.join(savedir, "chaos_fleet.json")
+    chaos_dir = os.path.join(savedir, "chaos_fleet")
+    shutil.rmtree(chaos_dir, ignore_errors=True)
+    os.makedirs(chaos_dir)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--fleet-chaos",
+         chaos_dir, out], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    check(proc.returncode == 0 and os.path.exists(out),
+          f"chaos_run --hosts 2: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with open(out) as f:
+        verdict = json.load(f)
+    lead = verdict["results"]["lead"]
+    counters = {k: v for k, v in
+                verdict["results"]["remote"]["counters"].items()
+                if v and not k.startswith("fleet.")}
+    print(f"phase 13 (d) chaos_run --selftest --hosts 2, both hosts in a "
+          f"gloo group: ok {verdict['ok']}, fleet {verdict['fleet']}, the "
+          f"lead {lead['health']} "
+          f"({[r for _, r in lead['health_reasons']]}), the remote's "
+          f"counters {counters}; {time.time() - t0:.1f} s")
+    return by_path
+
+
+def run_sp_fleet_phases(ops, dev, savedir, tf32):
+    """Phase 13 (--sp-fleet-only alone after the builds): with the
+    drivers' device list replaced by [cuda:0] * 4 and restored after,
+    (a) the sequence-parallel ops, (b) monobeast's SP updates and the
+    driver's SP runs, (c) polybeast's seq mesh alone and data 2 x seq 2
+    on both runtimes; then, on the machine's
+    own devices, (d) the fleet. Returns the paths' launch counts."""
+    from torchbeast_tpu_torch import parallel
+
+    t0 = time.time()
+    print(f"phase 13: {card_line()}")
+    by_path = {}
+    visible = parallel.visible_devices
+    parallel.visible_devices = lambda platform=None: [dev] * 4
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        check_sp_ops(dev)
+        torch.cuda.empty_cache()
+        wants = {}
+        for label, schedule, strategy, experts in SP_PATHS:
+            if experts not in wants:
+                wants[experts] = _sp_one_device(dev, experts)
+            by_path[f"SP monobeast {label} update"] = check_sp_update(
+                ops, dev, label, schedule, strategy, experts, wants[experts])
+            torch.cuda.empty_cache()
+        del wants
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        # The drivers at the training settings: monobeast's 1-D seq mesh
+        # (and seq x expert) from its parser, polybeast's seq mesh alone
+        # on the core and data 2 x seq 2 on both runtimes.
+        for label, extra, strategy in SP_DRIVER_ARGS:
+            label = f"monobeast transformer sequence_parallel 2 {label}"
+            by_path[label] = run_sp_driver(ops, dev, savedir, label, extra,
+                                           strategy)
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast transformer sequence_parallel 2 core",
+            ["--model", "transformer"],
+            ["--sequence_parallel", "2", "--unroll_length", str(SP_T)],
+            True, 1, tail=True, line="Sequence parallel"))
+        for native in (False, True):
+            by_path.update(run_poly_parallel(
+                ops, savedir, f"polybeast transformer data 2 x seq 2 "
+                f"{'core' if native else 'Python pool'}",
+                ["--model", "transformer"],
+                ["--sequence_parallel", "2", "--num_learner_devices", "2",
+                 "--unroll_length", str(SP_T)], native, 2))
+    finally:
+        parallel.visible_devices = visible
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    # The fleet's hosts see the machine's devices: one card here.
+    by_path.update(run_fleet_phases(ops, dev, savedir))
+    torch.cuda.empty_cache()
+    print(f"phase 13 (sequence parallel and the fleet): "
+          f"{time.time() - t0:.1f} s")
+    return by_path
+
+
 def tally_launches(kernels, by_path):
     """Each kernel row's launches on the main paths, by path and in all
     (a bf16 row counts its variant's launches; an f32 row the rest)."""
@@ -4851,10 +5591,15 @@ def main(argv):
     ep_only = argv == ["--ep-only"]
     split_only = argv == ["--split-only"]
     tp_pp_only = argv == ["--tp-pp-only"]
+    sp_fleet_only = argv == ["--sp-fleet-only"]
+    if len(argv) == 2 and argv[0] == "--fleet-host":
+        return fleet_host_worker(argv[1])
+    if len(argv) == 3 and argv[0] == "--fleet-chaos":
+        return fleet_chaos_worker(argv[1], argv[2])
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
                      or pipelined_only or dp_only or ep_only or split_only
-                     or tp_pp_only):
+                     or tp_pp_only or sp_fleet_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4963,6 +5708,11 @@ def main(argv):
         print(json.dumps({"tp_pp_launches": {
             path: counts for path, (counts, _) in by_path.items()}}))
         return 0
+    if sp_fleet_only:
+        by_path = run_sp_fleet_phases(ops, dev, savedir, tf32)
+        print(json.dumps({"sp_fleet_launches": {
+            path: counts for path, (counts, _) in by_path.items()}}))
+        return 0
     kernels = [check_vtrace(ops, dev), check_opt(ops, dev, "deep"),
                check_opt(ops, dev, "transformer"), check_pool(ops, dev),
                *check_attention(ops, dev),
@@ -5024,6 +5774,7 @@ def main(argv):
     by_path.update(run_ep_phases(ops, dev, savedir, tf32))
     by_path.update(run_split_phases(ops, dev, savedir, tf32))
     by_path.update(run_tp_pp_phases(ops, dev, savedir, tf32))
+    by_path.update(run_sp_fleet_phases(ops, dev, savedir, tf32))
     tally_launches(kernels, by_path)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -573,7 +573,8 @@ def _mono(tmp_path, xpid, *extra, total_steps=48):
     (["--expert_parallel", "2", "--num_learner_devices", "2"], ValueError,
      "--num_learner_devices in the sync trainer is plain DP"),
     (["--expert_parallel", "2", "--sequence_parallel", "2"],
-     NotImplementedError, "Queue 1 item 'sequence parallel'"),
+     ValueError, "--attention_impl pallas and --sequence_parallel are "
+     "mutually exclusive"),
 ], ids=["needs_experts", "divisible", "visible", "dp_x_ep", "sp_x_ep"])
 def test_monobeast_reference_errors(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):

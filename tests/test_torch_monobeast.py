@@ -95,12 +95,14 @@ def test_no_silent_cpu(tmp_path, monkeypatch):
     (["--fleet", "host=0/2,coord=127.0.0.1:1"], ValueError,
      "the sync trainer is single-host"),
     # The pipelined transformer across devices is in the port: its
-    # GPipe over 2 devices trains. The sequence-parallel one is not.
+    # GPipe over 2 devices trains. Sequence parallelism is too: on the
+    # deep model it raises the reference's ValueError.
     pytest.param(["--model", "pipelined_transformer", "--pipeline_parallel",
                   "2", "--pipeline_stages", "2"], None, None,
                  id="args3-transformer"),
-    pytest.param(["--sequence_parallel", "2"], NotImplementedError,
-                 "Queue 1 item 'sequence parallel'", id="args4-transformer"),
+    pytest.param(["--sequence_parallel", "2"], ValueError,
+                 "--sequence_parallel needs --model transformer",
+                 id="args4-transformer"),
     # Expert parallelism is in the port: the MoE transformer's experts
     # split over 2 devices train.
     pytest.param(["--model", "transformer", "--num_experts", "4",
@@ -231,6 +233,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # Tensor and pipeline parallelism.
         "torchbeast_tpu_torch.parallel.tp",
         "torchbeast_tpu_torch.parallel.pp",
+        # The fleet.
+        "torchbeast_tpu_torch.fleet",
+        "torchbeast_tpu_torch.fleet.topology",
+        "torchbeast_tpu_torch.fleet.coordinator",
+        "torchbeast_tpu_torch.fleet.snapshot_wire",
     ]))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,

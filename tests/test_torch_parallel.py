@@ -2,9 +2,8 @@
 against the JAX package's (torchbeast_tpu/parallel/), on the CPU's 8
 virtual devices (tests/conftest.py sets XLA_FLAGS for both packages).
 
-- create_mesh: the reference's shapes and errors; the `expert` axis is
-  the reference's (data, model, expert) grid, and any other inner axis
-  above 1 raises NotImplementedError naming its ROADMAP.md item.
+- create_mesh: the reference's shapes and errors; each inner axis
+  (model, seq, pipe, expert) lays out as the reference's grid.
 - The DP update over 2, 4 and 8 shards against the reference's
   make_parallel_update_step on the 8 devices, shallow + LSTM (the
   reference's own fixture), from the same weights (weights.py) and numpy
@@ -123,25 +122,22 @@ def test_mesh_errors_match_the_reference(kwargs, match):
     ("pipe_parallelism", "pipeline parallel"),
 ])
 def test_inner_axes_are_roadmap_items(axis, item):
-    """The reference builds these meshes; the port builds the model, pipe
-    and expert ones as the reference lays them out (the inner axis
-    innermost, reported only above 1 for pipe and expert), and names the
-    item that brings the seq axis."""
+    """The reference builds these meshes (each once a ROADMAP.md Queue 1
+    item of the port: `item`); the port builds every one as the
+    reference lays it out (the inner axis innermost, reported only above
+    1 for seq, pipe and expert)."""
     theirs = jax_create_mesh(8, **{axis: 2})
     assert theirs.devices.size == 8
-    if axis != "seq_parallelism":
-        ours = parallel.create_mesh(8, **{axis: 2})
-        assert ours.shape == dict(theirs.shape)
-        assert ours.axis_names == theirs.axis_names
-        assert ours.devices.shape == theirs.devices.shape
-        assert len(ours.local_devices) == 4
-        row = {"model_parallelism": ours.model_devices,
-               "expert_parallelism": ours.expert_devices,
-               "pipe_parallelism": ours.pipe_devices}[axis](1)
-        assert row == [torch.device("cpu")] * 2
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item '{item}'"):
-        parallel.create_mesh(8, **{axis: 2})
+    ours = parallel.create_mesh(8, **{axis: 2})
+    assert ours.shape == dict(theirs.shape)
+    assert ours.axis_names == theirs.axis_names
+    assert ours.devices.shape == theirs.devices.shape
+    assert len(ours.local_devices) == 4
+    row = {"model_parallelism": ours.model_devices,
+           "expert_parallelism": ours.expert_devices,
+           "seq_parallelism": ours.seq_devices,
+           "pipe_parallelism": ours.pipe_devices}[axis](1)
+    assert row == [torch.device("cpu")] * 2
 
 
 def test_cpu_device_count_follows_xla_flags(monkeypatch):

@@ -13,8 +13,8 @@ parallelism flags' rules against the reference's drivers.
   the recorded batch (params rtol 1e-5 / atol 2e-6, stats rtol 1e-4, as
   tests/test_torch_anakin.py holds the mlp).
 - Without --disable_cuda and without a GPU, each driver raises.
-- The flags: --sequence_parallel above 1 raises NotImplementedError
-  naming its ROADMAP.md item ('sequence parallel') in both
+- The flags: --sequence_parallel above 1 on a pipelined family raises
+  the reference's ValueError (it needs --model transformer) in both
   drivers; --ring_schedule and
   --sp_strategy away from their defaults without --sequence_parallel > 1
   raise the reference's ValueError, and --attention_impl on the
@@ -56,8 +56,11 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: E402,F401
 TRANSFORMER = ["--model", "pipelined_transformer"]
 MLP_LSTM = ["--model", "pipelined_mlp", "--use_lstm"]
 # Each multi-device flag -> the ROADMAP.md Queue 1 item that brings it.
+# Flags refused on the pipelined families -> the reference's error.
 ITEMS = {
-    "--sequence_parallel": "Queue 1 item 'sequence parallel'",
+    "--sequence_parallel": (
+        ValueError, r"--sequence_parallel needs --model transformer \(the "
+        r"conv\+LSTM families have no sequence-sharded formulation\)"),
 }
 
 
@@ -205,8 +208,9 @@ def test_no_gpu_without_disable_cuda_raises(tmp_path, monkeypatch):
     ["--pipeline_parallel", "2"], ["--sequence_parallel", "2"],
     ["--pipeline_microbatches", "2"]], ids=lambda a: a[0][2:])
 def test_multi_device_flags_raise_not_implemented(tmp_path, driver, extra):
-    """--sequence_parallel 2 raises NotImplementedError naming its item;
-    the pipeline flags are in the port and raise nothing of the kind:
+    """--sequence_parallel 2 on the pipelined transformer raises the
+    reference's ValueError (sequence parallelism is the transformer
+    family's); the pipeline flags raise nothing:
     --pipeline_parallel 2 runs the tower's GPipe over 2 devices, and
     --pipeline_microbatches without it is ignored, as in the
     reference."""
@@ -217,7 +221,8 @@ def test_multi_device_flags_raise_not_implemented(tmp_path, driver, extra):
     flags.pipeline_stages = 2
     main = {"monobeast": monobeast, "polybeast": polybeast}[driver].main
     if extra[0] in ITEMS:
-        with pytest.raises(NotImplementedError, match=ITEMS[extra[0]]):
+        error, match = ITEMS[extra[0]]
+        with pytest.raises(error, match=match):
             main(flags)
         return
     _finite(main(flags))

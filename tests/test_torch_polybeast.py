@@ -197,14 +197,20 @@ def _not_default(parser, dest):
     return [flag, "x"]
 
 
-# Flags the data-parallel slice took out of NOT_IN_PORT -> what a value
-# other than the default now does: the reference's error for that input,
-# or (None) a run.
+# Flags that raised NotImplementedError before their slice of the port
+# (the data-parallel one, then the sequence-parallel and fleet one) ->
+# what a value other than the default now does: the reference's error
+# for that input, or (None) a run.
 PORTED = {
     "num_learner_devices": (
         ValueError, "batch_size 2 not divisible by the learner mesh's "
         r"data axis \(3\)"),
     "coordinator_address": (None, None),
+    "sequence_parallel": (
+        ValueError, r"--sequence_parallel needs --model transformer \(the "
+        r"conv\+LSTM families have no sequence-sharded formulation\)"),
+    "fleet": (ValueError, "--fleet piece 'x' is not key=value"),
+    "min_live_hosts": (None, None),
 }
 
 
@@ -215,36 +221,33 @@ def _free_port() -> int:
 
 
 @pytest.mark.parametrize("dest", sorted(
-    [*polybeast.NOT_IN_PORT, *monobeast.SEQUENCE_PARALLEL_ONLY, *PORTED]))
+    [*monobeast.SEQUENCE_PARALLEL_ONLY, *PORTED]))
 def test_features_outside_the_port_raise(tmp_path, dest):
-    """A flag of a feature outside the port raises NotImplementedError
-    naming its ROADMAP item; a sequence-parallel option without
-    --sequence_parallel > 1 raises the reference's ValueError; a ported
-    multi-device flag raises the reference's error for its value, or
-    (--coordinator_address of a one-process group) trains."""
+    """A sequence-parallel option without --sequence_parallel > 1 raises
+    the reference's ValueError; a ported flag raises the reference's
+    error for its value, or (--coordinator_address of a one-process
+    group, --min_live_hosts without --fleet) trains."""
     parser = polybeast.make_parser()
     extra = _not_default(parser, dest)
     if dest == "coordinator_address":
         extra = ["--coordinator_address", f"127.0.0.1:{_free_port()}",
                  "--total_steps", str(T * B)]
+    if dest == "min_live_hosts":
+        # The fleet's floor: without --fleet the run is one host's.
+        extra += ["--total_steps", str(T * B)]
     flags = parser.parse_args(_args(tmp_path) + extra)
     if dest in monobeast.SEQUENCE_PARALLEL_ONLY:
         with pytest.raises(ValueError,
                            match="only takes effect with --sequence_parallel"):
             polybeast.main(flags)
         return
-    if dest in PORTED:
-        error, match = PORTED[dest]
-        if error is None:
-            stats = polybeast.main(flags)
-            assert stats["step"] >= T * B
-            assert not torch.distributed.is_initialized()
-            return
-        with pytest.raises(error, match=match):
-            polybeast.main(flags)
+    error, match = PORTED[dest]
+    if error is None:
+        stats = polybeast.main(flags)
+        assert stats["step"] >= T * B
+        assert not torch.distributed.is_initialized()
         return
-    with pytest.raises(NotImplementedError,
-                       match=polybeast.NOT_IN_PORT[dest]):
+    with pytest.raises(error, match=match):
         polybeast.main(flags)
 
 

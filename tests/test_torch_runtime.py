@@ -83,12 +83,26 @@ def test_wire_constants_match():
 
 
 def test_wire_refuses_the_snapshot_frame():
-    # The fleet's policy snapshot frame is not in the port: it must fail
-    # as a malformed frame, not decode to something else.
+    # The fleet's policy snapshot frame (tag 0x09) is in the port: both
+    # encoders give the same bytes, each decodes the other's, and a
+    # truncated frame is refused as malformed, not decoded to something
+    # else.
+    assert port_wire.TAG_SNAPSHOT == jax_wire.TAG_SNAPSHOT == 0x09
     snapshot = jax_wire.PolicySnapshot(
         3, {"w": np.ones(2, np.float32)}, {"w": "float32"})
-    with pytest.raises(port_wire.WireError, match="Unknown tag 0x9"):
-        port_wire.decode(jax_wire.encode(snapshot)[4:])
+    ours = port_wire.PolicySnapshot(
+        3, {"w": np.ones(2, np.float32)}, {"w": "float32"})
+    theirs = jax_wire.encode(snapshot)
+    assert port_wire.encode(ours) == theirs
+    assert port_wire.encode_legacy(ours) == theirs
+    decoded = port_wire.decode(theirs[4:])
+    assert isinstance(decoded, port_wire.PolicySnapshot)
+    assert decoded.version == 3 and decoded.dtypes == {"w": "float32"}
+    np.testing.assert_array_equal(decoded.params["w"], np.ones(2))
+    back = jax_wire.decode(port_wire.encode(ours)[4:])
+    assert isinstance(back, jax_wire.PolicySnapshot) and back.version == 3
+    with pytest.raises(port_wire.WireError):
+        port_wire.decode(theirs[4:12])
 
 
 @pytest.mark.parametrize("rt", sorted(RUNTIMES))

@@ -322,7 +322,7 @@ def test_rows_on_other_devices_run_eagerly():
     assert not one.spans_cards()
     two = parallel.Mesh(np.array(
         [torch.device("cpu"), torch.device("meta")],
-        dtype=object).reshape(1, 2, 1, 1))
+        dtype=object).reshape(1, 2, 1, 1, 1))
     assert two.spans_cards()
     learner = parallel.ParallelLearner(model, opt, hp, one)
     assert not learner.spans_cards and not learner.captures()

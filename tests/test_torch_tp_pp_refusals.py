@@ -8,8 +8,9 @@ drivers.py's), on the CPU's virtual devices under --disable_cuda:
   monobeast.py:557-664, :814-820), in one parametrized test: the
   reference's error type and text (for monobeast's, the reference's own
   driver raises the same text on the same argv);
-- --sequence_parallel 2 and --fleet still raise NotImplementedError
-  naming their ROADMAP.md Queue 1 items.
+- --sequence_parallel 2 and --fleet, once later items, raise the
+  reference's errors or train (their refusals are tests/
+  test_torch_sp_fleet_refusals.py's).
 """
 
 import pytest
@@ -157,16 +158,32 @@ def test_reference_refusals(tmp_path, case):
     assert str(ours.value) == text
 
 
-@pytest.mark.parametrize("driver,extra,item", [
-    ("mono", ["--sequence_parallel", "2"], "sequence parallel"),
-    ("poly", ["--sequence_parallel", "2"], "sequence parallel"),
-    ("poly", ["--fleet", "host=0/1,coord=127.0.0.1:1"], "the fleet"),
+@pytest.mark.parametrize("driver,extra,text", [
+    ("mono", ["--sequence_parallel", "2"],
+     "--sequence_parallel 2 (contiguous) requires unroll_length+1 "
+     "divisible by 2 (got 81)"),
+    ("poly", ["--sequence_parallel", "2"],
+     "--sequence_parallel 2 (contiguous) requires unroll_length+1 "
+     "divisible by 2 (got 81)"),
+    ("poly", ["--fleet", "host=0/1,coord=127.0.0.1:1"], None),
 ], ids=["mono_sp", "poly_sp", "poly_fleet"])
-def test_later_items_still_raise(tmp_path, driver, extra, item):
+def test_later_items_still_raise(tmp_path, driver, extra, text):
+    """Sequence parallelism and the fleet, once later ROADMAP.md items,
+    are in the port: --sequence_parallel 2 at the default unroll (T + 1
+    = 81) raises the reference's ValueError in both drivers, and a
+    one-host fleet on the CPU trains (the wire strategy, no control
+    plane)."""
     argv = ["--disable_cuda", "--env", "Mock", "--model", "transformer",
             "--batch_size", "4", "--savedir", str(tmp_path), *extra]
     parser = (monobeast if driver == "mono" else polybeast).make_parser()
     main = (monobeast if driver == "mono" else polybeast).main
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item '{item}'"):
+    if text is None:
+        stats = main(parser.parse_args(argv + [
+            "--num_servers", "2", "--unroll_length", "4", "--total_steps",
+            "16", "--max_inference_batch_size", "4", "--pipes_basename",
+            f"unix:{tmp_path}/pipes", "--xpid", "fleet"]))
+        assert stats["step"] >= 16 and stats["health"] == "HEALTHY"
+        return
+    with pytest.raises(ValueError) as ours:
         main(parser.parse_args(argv))
+    assert str(ours.value) == text

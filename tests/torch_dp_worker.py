@@ -11,6 +11,8 @@ a torch.distributed gloo group on the CPU, 2 devices each
         <total_steps>
     torch_dp_worker.py poly_tp <rank> <processes> <port> <savedir>
         <total_steps> [native]
+    torch_dp_worker.py poly_sp <rank> <processes> <port> <savedir>
+        <total_steps> [native]
 
 `update`: the DP update over every process's shards of one 8-row batch
 (each process passes its rows) against the one-device update on all 8
@@ -24,7 +26,9 @@ all_gathered across the processes in every MoE layer. `update_tp` and
 `poly_tp` do so for the transformer (tests/test_torch_tp.py's) on a
 (data = processes) x (model 2) mesh, each process one data row of 2
 model devices (`poly_tp` on the Python pool, or with `native` on the
-C++ core).
+C++ core). `poly_sp` runs the transformer with --sequence_parallel 2 on
+a (data = processes) x (seq 2) mesh, each process one data row of 2 seq
+devices.
 
 Everything runs under the __main__ guard: polybeast's env servers are
 fresh interpreters, and this module must not join the group at import.
@@ -163,14 +167,16 @@ def update_tp(rank, procs, port, outdir):
 
 
 def poly(rank, procs, port, savedir, total_steps, ep=False, tp=False,
-         native=False):
+         native=False, sp=False):
     from torchbeast_tpu_torch import polybeast
 
     model = (["--model", "transformer", "--num_experts", "4",
               "--expert_parallel", "2", "--num_learner_devices", "2"]
              if ep else ["--model", "transformer", "--tensor_parallel",
                          "2", "--num_learner_devices", "2"]
-             if tp else ["--model", "shallow", "--use_lstm",
+             if tp else ["--model", "transformer", "--sequence_parallel",
+                         "2", "--num_learner_devices", "2"]
+             if sp else ["--model", "shallow", "--use_lstm",
                          "--num_learner_devices", "4"])
     runtime = (["--native_runtime"] if native
                else ["--no_native_runtime"])
@@ -204,7 +210,7 @@ def main():
     else:
         poly(rank, procs, port, sys.argv[5], int(sys.argv[6]),
              ep=mode == "poly_ep", tp=mode == "poly_tp",
-             native=sys.argv[7:] == ["native"])
+             native=sys.argv[7:] == ["native"], sp=mode == "poly_sp")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 """Chaos acceptance harness for the port's polybeast: run it under a
 seeded multi-fault plan and PROVE recovery, not just survival (the port
-of scripts/chaos_run.py, without its multi-host fleet mode, which goes
-with ROADMAP.md Queue 1 item 'the fleet').
+of scripts/chaos_run.py).
 
 Two in-process polybeast runs on the same config:
 
@@ -37,10 +36,21 @@ harness runs on the card, and on the CPU only with --disable_cuda.
 block records N with each leg's ring.doorbell_waits and
 ring.recheck_wakeups.
 
+--hosts 2 is the fleet lane instead (run_fleet): one two-host fleet, the
+lead in this process and the remote a subprocess, joined over a free
+loopback port, with every env server of the remote SIGKILLed mid-run:
+the remote recovers with exact accounting, the lead folds a sticky
+fleet.host1 degradation, and nobody halts. On the CPU the hosts compose
+by the wire strategy; on CUDA in the driver's NCCL group. A caller of
+run_fleet may start the remote by its own command and run the lead in a
+context of its own (a process group both hosts join first, where NCCL
+cannot form one: two hosts on one card).
+
 Usage:
   python -m torchbeast_tpu_torch.chaos_run --selftest --disable_cuda
   python -m torchbeast_tpu_torch.chaos_run --selftest --native
   python -m torchbeast_tpu_torch.chaos_run --selftest --scheduler_pressure 2
+  python -m torchbeast_tpu_torch.chaos_run --selftest --hosts 2 --disable_cuda
   python -m torchbeast_tpu_torch.chaos_run --out chaos_run.json
 """
 
@@ -109,6 +119,17 @@ def parse_args(argv=None):
                         "and the pressured chaos leg in the verdict's "
                         "\"ring\" block. 0 = off (both legs unpressured; "
                         "the ring block is still recorded).")
+    p.add_argument("--hosts", type=int, default=1,
+                   help="2 = the fleet chaos lane (lead in-process, "
+                        "remote host in a subprocess, composed with "
+                        "--fleet over a free loopback port). 1 = the "
+                        "single-host baseline/chaos pair.")
+    p.add_argument("--fleet", default=None,
+                   help="Refused: the harness composes the fleet spec "
+                        "itself from --hosts.")
+    p.add_argument("--min_live_hosts", type=int, default=1,
+                   help="Fleet degradation floor, forwarded to both "
+                        "fleet hosts.")
     p.add_argument("--savedir", default=None,
                    help="Default: a fresh temp dir.")
     p.add_argument("--out", default=None,
@@ -150,7 +171,7 @@ def build_plan(args) -> dict:
     return {"seed": args.seed, "faults": faults}
 
 
-def make_argv(args, savedir, xpid, chaos_plan_path=None):
+def make_argv(args, savedir, xpid, chaos_plan_path=None, fleet_spec=None):
     argv = [
         "--env", args.env,
         "--model", "mlp",
@@ -187,14 +208,17 @@ def make_argv(args, savedir, xpid, chaos_plan_path=None):
         argv += ["--disable_cuda"]
     if chaos_plan_path is not None:
         argv += ["--chaos_plan", chaos_plan_path]
+    if fleet_spec is not None:
+        argv += ["--fleet", fleet_spec,
+                 "--min_live_hosts", str(args.min_live_hosts)]
     return argv
 
 
-def make_flags(args, savedir, xpid, chaos_plan_path=None):
+def make_flags(args, savedir, xpid, chaos_plan_path=None, fleet_spec=None):
     from torchbeast_tpu_torch import polybeast
 
     return polybeast.make_parser().parse_args(
-        make_argv(args, savedir, xpid, chaos_plan_path))
+        make_argv(args, savedir, xpid, chaos_plan_path, fleet_spec))
 
 
 def final_return(savedir, xpid):
@@ -413,10 +437,202 @@ def ring_block(baseline, chaos, scheduler_pressure=0):
             "baseline": leg(baseline), "chaos": leg(chaos)}
 
 
+def _free_coord_port():
+    """A loopback port whose successor is free too (the fleet's control
+    plane listens one port above the rendezvous, fleet/topology.py
+    CONTROL_PORT_OFFSET)."""
+    import socket
+
+    for _ in range(50):
+        s1, s2 = socket.socket(), socket.socket()
+        try:
+            s1.bind(("127.0.0.1", 0))
+            port = s1.getsockname()[1]
+            try:
+                s2.bind(("127.0.0.1", port + 1))
+            except OSError:
+                continue
+            return port
+        finally:
+            s1.close()
+            s2.close()
+    raise RuntimeError("no free adjacent port pair for --fleet coord")
+
+
+def build_fleet_plan(args) -> dict:
+    """The remote host's plan: SIGKILL its whole env-server fleet,
+    staggered across [0.15, 0.55] of the run, while the lead rides
+    through untouched. Each kill maps to exactly actors-per-server
+    reconnects on that host (the single-host plan's accounting)."""
+    t, n = args.total_steps, args.num_servers
+    faults = [
+        {
+            "kind": "env_server_sigkill",
+            "at_step": int(t * (0.15 + 0.4 * i / n)),
+            "target": i,
+        }
+        for i in range(n)
+    ]
+    return {"seed": args.seed, "faults": faults}
+
+
+def run_fleet(args, savedir, remote_command=None, lead_context=None) -> int:
+    """The --hosts 2 lane: one fleet run, the lead in this process and
+    the remote a subprocess (its own session, so a kill reaps its env
+    servers too) joined over a free loopback coord port, the remote's
+    whole env-server fleet SIGKILLed mid-run. Checks that the remote
+    recovered with exact accounting, that the lead folded a sticky
+    fleet.host1 degradation, and that nobody halted.
+
+    remote_command(argv): the remote's command line for polybeast's
+    `argv` (default: python -m torchbeast_tpu_torch.polybeast argv).
+    lead_context(flags): a context the lead's run is entered in (default:
+    none)."""
+    import contextlib
+
+    from torchbeast_tpu_torch import telemetry
+    from torchbeast_tpu_torch.resilience.chaos import FaultPlan
+
+    xpid = "chaos-fleet"
+    n_hosts = args.hosts
+    plan_dict = build_fleet_plan(args)
+    plan = FaultPlan.from_dict(plan_dict)
+    plan_path = os.path.join(savedir, "fault_plan_host1.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan_dict, f, indent=2)
+
+    coord = f"127.0.0.1:{_free_coord_port()}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + ":" + env.get("PYTHONPATH", "")
+    # The remote launches first (it dials the lead's control plane under
+    # a backoff) and carries the fault plan.
+    remote_log = os.path.join(savedir, "host1.log")
+    remote_argv = make_argv(args, savedir, xpid, plan_path,
+                            fleet_spec=f"host=1/{n_hosts},coord={coord}")
+    if remote_command is None:
+        def remote_command(argv):
+            return [sys.executable, "-m", "torchbeast_tpu_torch.polybeast",
+                    *argv]
+    lead_argv = make_argv(args, savedir, xpid,
+                          fleet_spec=f"host=0/{n_hosts},coord={coord}")
+    with open(remote_log, "w") as logf:
+        remote = subprocess.Popen(
+            remote_command(remote_argv),
+            env=env, stdout=logf, stderr=subprocess.STDOUT, cwd=repo,
+            start_new_session=True,
+        )
+        try:
+            context = (lead_context(make_flags(
+                args, savedir, xpid,
+                fleet_spec=f"host=0/{n_hosts},coord={coord}"))
+                if lead_context is not None else contextlib.nullcontext())
+            with context:
+                lead = run_one(args, savedir, xpid, argv=lead_argv)
+            try:
+                remote_rc = remote.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                remote_rc = None  # killed below; fails the rc check
+        finally:
+            try:
+                os.killpg(remote.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            remote.wait()
+    lead.pop("stats")
+
+    remote_snaps = telemetry.read_jsonl(
+        os.path.join(savedir, f"{xpid}-host1", "telemetry.jsonl"))
+    remote_snap = remote_snaps[-1] if remote_snaps else {}
+    remote_counters = remote_snap.get("counters", {})
+
+    failures = check_completion(lead, args.total_steps)
+    if remote_rc != 0:
+        failures.append(f"remote host exited rc={remote_rc} "
+                        f"(log {remote_log})")
+    if remote_snap.get("host_rank") != 1:
+        failures.append(
+            f"remote host_rank static: got {remote_snap.get('host_rank')}"
+            ", want 1")
+    if remote_snap.get("fleet_size") != n_hosts:
+        failures.append(
+            f"remote fleet_size static: got "
+            f"{remote_snap.get('fleet_size')}, want {n_hosts}")
+    n_kill = plan.counts().get("env_server_sigkill", 0)
+    actors_per_server = args.num_actors // args.num_servers
+    expected = {
+        "chaos.env_server_sigkill.injected": n_kill,
+        "recovery.server_restarts": n_kill,
+        "recovery.actor_reconnects": n_kill * actors_per_server,
+    }
+    for name, want in expected.items():
+        got = int(remote_counters.get(name, 0))
+        if got != want:
+            failures.append(f"remote counter {name}: got {got}, want {want}")
+    reasons = lead.get("health_reasons") or []
+    if not any(r.startswith("fleet.host1") for _, r in reasons):
+        failures.append("no fleet.host1 degradation folded on the lead "
+                        f"(reasons: {reasons})")
+    if lead["health"] != "DEGRADED":
+        failures.append(
+            f"lead health {lead['health']}: the remote's recovered "
+            "SIGKILLs must leave a sticky DEGRADED mark")
+    failures += check_leaks(lead)
+
+    verdict = {
+        "bench": "chaos_run",
+        "selftest": bool(args.selftest),
+        "native": bool(args.native),
+        "hosts": n_hosts,
+        "fleet": remote_snap.get("fleet"),
+        "scale": args.scale,
+        "num_actors": args.num_actors,
+        "num_servers": args.num_servers,
+        "ok": not failures,
+        "failures": failures,
+        "env": args.env,
+        "total_steps": args.total_steps,
+        "plan": plan_dict,
+        "expected_counters": expected,
+        "results": {
+            "lead": lead,
+            "remote": {
+                "rc": remote_rc,
+                "telemetry_lines": len(remote_snaps),
+                "counters": {
+                    k: v for k, v in remote_counters.items()
+                    if k.startswith(("chaos.", "recovery.", "fleet."))
+                },
+                "log": remote_log,
+            },
+        },
+        "telemetry": telemetry.telemetry_block(),
+    }
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(verdict, f, indent=2)
+            f.write("\n")
+    print(json.dumps(verdict))
+    return 0 if verdict["ok"] else 1
+
+
 def validate_args(args):
     """An error message for an unusable configuration, or None."""
     if args.scale < 1:
         return "--scale must be >= 1"
+    if args.fleet:
+        return ("--fleet is composed internally from --hosts; do not set "
+                "it on the harness")
+    if args.hosts not in (1, 2):
+        return ("--hosts must be 1 or 2 (the fleet lane pins one remote "
+                "host)")
+    if args.hosts > 1 and args.scheduler_pressure:
+        return ("--scheduler_pressure is a single-host mode: it wraps the "
+                "chaos leg of the baseline/chaos pair, which the fleet "
+                "lane replaces")
+    if args.hosts > 1 and args.batch_size % args.hosts != 0:
+        return (f"--batch_size {args.batch_size} (global) must be "
+                f"divisible by --hosts {args.hosts}")
     if args.scheduler_pressure < 0:
         return "--scheduler_pressure must be >= 0"
     if args.num_actors % args.num_servers != 0:
@@ -434,7 +650,9 @@ def validate_args(args):
     return None
 
 
-def main(argv=None) -> int:
+def main(argv=None, remote_command=None, lead_context=None) -> int:
+    """The harness; `remote_command` and `lead_context` go to run_fleet
+    (--hosts 2)."""
     args = parse_args(argv)
     if args.selftest:
         # Short structural gate: Mock's return is deterministic (200.0
@@ -474,6 +692,8 @@ def main(argv=None) -> int:
         import tempfile
 
         savedir = tempfile.mkdtemp(prefix="chaos_run_")
+    if args.hosts >= 2:
+        return run_fleet(args, savedir, remote_command, lead_context)
     plan_dict = build_plan(args)
     plan = FaultPlan.from_dict(plan_dict)  # validates kinds/triggers
     plan_path = os.path.join(savedir, "fault_plan.json")

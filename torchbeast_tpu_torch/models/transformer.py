@@ -49,6 +49,20 @@ carries the gradients back through the copies. On one device (every
 group on the block's device) the copies are no-ops and the split is the
 same arithmetic in K pieces. The MoE layer is left to EP.
 
+Sequence parallelism (set_seq_devices, which stands for the reference's
+constructor arguments mesh, seq_axis, ring_schedule and sp_strategy):
+with P seq devices the block's in-unroll attention runs as the
+reference's _Block dispatches it: Ulysses (ops/attention.
+ulysses_transformer_attention) when `sp_strategy` is "ulysses" and T and
+the head count divide by P; the ring (ring_transformer_attention, q, k,
+v and the cache in f32, the result cast back to v's dtype) when
+`sp_strategy` is "ring" and T divides by P (by 2P under the zigzag
+`ring_schedule`); otherwise the dense path, which is the acting step at
+T=1. The weights stay whole leaves of the module, as under TP; the
+mesh's data axis is each replica's own (parallel/dp.py gives replica i
+its row's seq devices), so the reference's `batch_axis` has nothing to
+name here.
+
 Precision, as the reference's: `dtype` (the trunk's compute dtype) is
 the frame Dense's, q/k/v/out's and the MLP's (the experts'; the MoE
 routing stays f32); the residual stream, the
@@ -81,12 +95,16 @@ from torchbeast_tpu_torch.models.moe import MoEFFN
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
+    ring_transformer_attention,
     roll_kv_cache,
     segment_ids_from_done,
     transformer_attention,
+    ulysses_transformer_attention,
 )
 
 ATTENTION_IMPLS = ("dense", "pallas")
+RING_SCHEDULES = ("contiguous", "zigzag")
+SP_STRATEGIES = ("ring", "ulysses")
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
@@ -104,6 +122,9 @@ class _Block(nn.Module):
         self.attention_impl = attention_impl
         self.dtype = dtype
         self.model_devices = None
+        self.seq_devices = None
+        self.ring_schedule = "contiguous"
+        self.sp_strategy = "ring"
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.q = Dense(d_model, d_model)
         self.k = Dense(d_model, d_model)
@@ -148,9 +169,33 @@ class _Block(nn.Module):
             x = x + linear(self.Dense_1, h, dtype).float()
         return x, k.float(), v.float()
 
+    def _sequence_parallel(self, T: int, H: int):
+        """"ulysses", "ring" or None: the reference's dispatch for an
+        unroll of T steps and H heads over the seq devices."""
+        P = len(self.seq_devices) if self.seq_devices else 0
+        if P <= 1:
+            return None
+        if self.sp_strategy == "ulysses":
+            return "ulysses" if T % P == 0 and H % P == 0 else None
+        divisor = 2 * P if self.ring_schedule == "zigzag" else P
+        return "ring" if T % divisor == 0 else None
+
     def _attend(self, q, k, v, k_cache, v_cache, mask, offsets, seg,
                 cache_valid, no_done, rel_bias):
         """The attention of q's heads over [cache; unroll]."""
+        path = self._sequence_parallel(q.shape[1], q.shape[2])
+        if path == "ulysses":
+            return ulysses_transformer_attention(
+                q, k, v, k_cache.to(k.dtype), v_cache.to(v.dtype), mask,
+                offsets, rel_bias, self.seq_devices).to(v.dtype)
+        if path == "ring":
+            # Softmax in f32 on both paths; the ring keeps its products
+            # in f32 too, for the online merge's numerics.
+            return ring_transformer_attention(
+                q.float(), k.float(), v.float(), k_cache.float(),
+                v_cache.float(), mask[..., :self.memory_len], rel_bias,
+                self.memory_len, seg, self.seq_devices,
+                schedule=self.ring_schedule).to(v.dtype)
         k_all = torch.cat([k_cache.to(k.dtype), k], dim=1)
         v_all = torch.cat([v_cache.to(v.dtype), v], dim=1)
         if self.attention_impl == "pallas":
@@ -289,7 +334,10 @@ class TransformerNet(nn.Module):
         seg = segment_ids_from_done(done).t().contiguous()  # [B, T]
         # Both count slot 0's own done: a done at t=0 hides the cache.
         no_done_yet = (seg == 0)
-        dense = self.attention_impl == "dense"
+        # The sequence-parallel paths read the dense path's mask.
+        dense = self.attention_impl == "dense" or any(
+            getattr(self, f"block_{i}")._sequence_parallel(
+                T, self.num_heads) for i in range(self.num_layers))
         if dense:
             band, offsets = band_relative_offsets(T, M, device=device)
             same = seg[:, :, None] == seg[:, None, :]
@@ -336,3 +384,30 @@ class TransformerNet(nn.Module):
             )
             for _ in range(self.num_layers)
         )
+
+
+def set_seq_devices(model, devices, ring_schedule=None,
+                    sp_strategy=None) -> int:
+    """Run each transformer block of `model` sequence-parallel over
+    `devices` (a row's `seq` axis; None or one device: the one-device
+    block), with `ring_schedule` and `sp_strategy` when given (else the
+    blocks keep theirs). Returns the number of blocks set."""
+    if ring_schedule is not None and ring_schedule not in RING_SCHEDULES:
+        raise ValueError(f"Unknown ring schedule {ring_schedule!r}")
+    if sp_strategy is not None and sp_strategy not in SP_STRATEGIES:
+        raise ValueError(
+            f"Unknown sp_strategy {sp_strategy!r} "
+            "(expected 'ring' or 'ulysses')"
+        )
+    devices = list(devices) if devices else None
+    n = 0
+    for module in model.modules():
+        if isinstance(module, _Block):
+            module.seq_devices = (devices if devices and len(devices) > 1
+                                  else None)
+            if ring_schedule is not None:
+                module.ring_schedule = ring_schedule
+            if sp_strategy is not None:
+                module.sp_strategy = sp_strategy
+            n += 1
+    return n

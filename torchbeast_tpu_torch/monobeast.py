@@ -39,8 +39,18 @@ first device, and acting batches that do not divide into the
 microbatches take the sequential tower. The reference's checks come
 first (check_pp_flags). On one card the update and acting steps stay
 CUDA graphs; a pipeline over several cards runs them eagerly.
---sequence_parallel at 0 or 1 is the single-device run; above 1 it
-raises NotImplementedError.
+--sequence_parallel P > 1 shards the transformer's unroll axis over
+the first P devices (the reference's 1-D `seq` mesh; with
+--expert_parallel K > 1 the seq x expert mesh over P x K devices): each
+block's learner attention runs the ring (--ring_schedule contiguous or
+zigzag) or Ulysses (--sp_strategy ulysses) over them (ops/attention.py),
+acting at T=1 the dense path; the update is the one-device one, the
+fused tail included, its params whole on the first device. The
+reference's checks come first (check_sp_flags): the transformer only,
+dense attention, Ulysses with the contiguous schedule and a head count
+that divides by P, and unroll_length + 1 divisible by P (2P under the
+zigzag). On one card the update stays one CUDA graph; seq devices on
+several cards run it eagerly.
 
 --num_learner_devices N > 1 is the reference's plain data-parallel sync
 learner (parallel/dp.py): each update's batch_size columns split over N
@@ -72,9 +82,8 @@ learner batch K' times. --model mlp and --env tbt/MiniAtari-v0 (or a
 real Atari id, with ale_py) need gymnasium only on the Atari branch.
 
 The parser takes every flag of the reference with the same name, type,
-default and choices, plus --disable_cuda. A flag whose feature the port
-does not have yet still parses; set to anything but its default it
-raises NotImplementedError naming the ROADMAP.md item that brings it.
+default and choices, plus --disable_cuda. Every feature of the
+reference's flags is in the port.
 
 The trainer runs on the first CUDA device. Without one it raises, unless
 --disable_cuda asks for the CPU.
@@ -120,6 +129,7 @@ from torchbeast_tpu_torch.envs import create_env, num_actions_of
 from torchbeast_tpu_torch.envs.environment import Environment
 from torchbeast_tpu_torch.envs.vec import ProcessEnvPool, SerialEnvPool
 from torchbeast_tpu_torch.models import create_model
+from torchbeast_tpu_torch.models.transformer import set_seq_devices
 from torchbeast_tpu_torch.parallel import pp
 from torchbeast_tpu_torch.resilience import LearnerWatchdog, PipelineHealth
 from torchbeast_tpu_torch.runtime import placement, remat_plan
@@ -153,7 +163,6 @@ def _configure_logging():
     )
 
 
-_LATER = "(not in the port yet; see ROADMAP.md)"
 
 
 def make_parser():
@@ -221,7 +230,11 @@ def make_parser():
                              "materialized mask) or 'pallas' (the CUDA "
                              "kernels csrc/attention.cu).")
     parser.add_argument("--sequence_parallel", type=int, default=0,
-                        help="0 or 1: one device; > 1 " + _LATER)
+                        help="Shard the transformer's unroll (time) axis "
+                             "over N devices (ring or Ulysses attention "
+                             "over a `seq` mesh; model=transformer only, "
+                             "unroll_length+1 divisible by N; acting "
+                             "runs the dense path).")
     parser.add_argument("--pipeline_parallel", type=int, default=0,
                         help="Run the pipelined_mlp / "
                              "pipelined_transformer tower as a GPipe "
@@ -245,9 +258,15 @@ def make_parser():
                              "`expert` mesh axis; needs --num_experts "
                              "divisible by N).")
     parser.add_argument("--sp_strategy", default="ring",
-                        choices=["ring", "ulysses"], help=_LATER)
+                        choices=["ring", "ulysses"],
+                        help="Sequence-parallel strategy: the K/V ring "
+                             "or all-to-all head sharding (ulysses; "
+                             "needs num_heads divisible by N).")
     parser.add_argument("--ring_schedule", default="contiguous",
-                        choices=["contiguous", "zigzag"], help=_LATER)
+                        choices=["contiguous", "zigzag"],
+                        help="Ring attention block schedule (zigzag "
+                             "balances causal work; unroll_length+1 "
+                             "divisible by 2N).")
     parser.add_argument("--num_learner_devices", type=int, default=1,
                         help="Data-parallel learner over N devices (the "
                              "CUDA devices, or the CPU's "
@@ -273,7 +292,8 @@ def make_parser():
                         help="The async driver's (polybeast); refused "
                              "here, as the reference refuses it.")
     parser.add_argument("--min_live_hosts", type=int, default=1,
-                        help=_LATER)
+                        help="The fleet's host floor (polybeast's "
+                             "--fleet); unused by the sync trainer.")
     parser.add_argument("--transformer_remat", action="store_true",
                         help="DEPRECATED spelling of --remat with the "
                              "transformer blocks stage at 'all' "
@@ -382,19 +402,6 @@ def make_parser():
     return parser
 
 
-# Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
-# item that brings it. Each must stay at its parser default, except those
-# of ONE_DEVICE_AT_MOST.
-NOT_IN_PORT = {
-    "sequence_parallel": "sequence parallel",
-    "min_live_hosts": "the fleet",
-}
-
-
-# Device counts the reference treats alike at 0 and 1 (`> 1` gates every
-# multi-device branch): the port runs those on its one device.
-ONE_DEVICE_AT_MOST = ("sequence_parallel",)
-
 # Sequence-parallel options, and the reference's refusal of each without
 # a `seq` mesh (monobeast.py:479-494), raised by both drivers.
 SEQUENCE_PARALLEL_ONLY = {
@@ -409,26 +416,77 @@ SEQUENCE_PARALLEL_ONLY = {
 }
 
 
-def check_parallel_flags(flags, not_in_port) -> None:
+def check_parallel_flags(flags) -> None:
     """The reference's checks of the parallelism flags that one device can
     answer: --ring_schedule and --sp_strategy away from their defaults
-    without --sequence_parallel > 1 raise its ValueError; then each flag
-    of `not_in_port` away from its parser default (above 1 for those of
-    ONE_DEVICE_AT_MOST) raises NotImplementedError naming its ROADMAP.md
-    item."""
+    without --sequence_parallel > 1 raise its ValueError."""
     if getattr(flags, "sequence_parallel", 0) <= 1:
         for dest, (default, message) in SEQUENCE_PARALLEL_ONLY.items():
             if getattr(flags, dest, default) != default:
                 raise ValueError(message)
-    for dest, (default, item) in not_in_port.items():
-        value = getattr(flags, dest, default)
-        if dest in ONE_DEVICE_AT_MOST and value <= 1:
-            continue
-        if value != default:
-            raise NotImplementedError(
-                f"--{dest} {value!r} is not in the port yet: ROADMAP.md "
-                f"Queue 1 item '{item}'"
+
+
+def check_sp_flags(flags) -> None:
+    """The reference's checks of --sequence_parallel P > 1 that the flags
+    answer (monobeast.py:495-531): the transformer only, dense attention,
+    Ulysses only with the contiguous schedule, and unroll_length + 1
+    divisible by P (2P under the zigzag). The head count is checked on
+    the built model (check_sp_heads)."""
+    seq_par = getattr(flags, "sequence_parallel", 0) or 0
+    if seq_par <= 1:
+        return
+    if flags.model != "transformer":
+        raise ValueError(
+            "--sequence_parallel needs --model transformer (the "
+            "conv+LSTM families have no sequence-sharded formulation)"
+        )
+    if getattr(flags, "attention_impl", "dense") != "dense":
+        raise ValueError(
+            "--attention_impl pallas and --sequence_parallel are "
+            "mutually exclusive (the ring path replaces the fused "
+            "kernel on the learner forward)"
+        )
+    ring_schedule = getattr(flags, "ring_schedule", "contiguous")
+    if getattr(flags, "sp_strategy", "ring") == "ulysses":
+        if ring_schedule != "contiguous":
+            raise ValueError(
+                "--ring_schedule applies to --sp_strategy ring only"
             )
+        divisor = seq_par
+    else:
+        divisor = 2 * seq_par if ring_schedule == "zigzag" else seq_par
+    if (flags.unroll_length + 1) % divisor != 0:
+        raise ValueError(
+            f"--sequence_parallel {seq_par} "
+            f"({ring_schedule}) requires unroll_length+1 divisible "
+            f"by {divisor} (got {flags.unroll_length + 1})"
+        )
+
+
+def check_sp_heads(flags, model) -> None:
+    """The reference's check of Ulysses' head count on the constructed
+    model (monobeast.py:752-767)."""
+    seq_par = getattr(flags, "sequence_parallel", 0) or 0
+    if (seq_par > 1 and getattr(flags, "sp_strategy", "ring") == "ulysses"
+            and model.num_heads % seq_par != 0):
+        raise ValueError(
+            f"--sp_strategy ulysses requires num_heads "
+            f"({model.num_heads}) divisible by --sequence_parallel "
+            f"{seq_par} (heads are the sharded resource)"
+        )
+
+
+def place_sequence_parallel(model, mesh, flags) -> None:
+    """Run `model`'s blocks sequence-parallel over the seq devices of
+    `mesh`'s first data row with the flags' schedule and strategy
+    (models/transformer.set_seq_devices), logging the layout."""
+    set_seq_devices(model, mesh.seq_devices(0),
+                    getattr(flags, "ring_schedule", "contiguous"),
+                    getattr(flags, "sp_strategy", "ring"))
+    log.info("Sequence parallel: %s (%s) over %s",
+             getattr(flags, "sp_strategy", "ring"),
+             getattr(flags, "ring_schedule", "contiguous"),
+             mesh.seq_devices(0))
 
 
 def check_moe_flags(flags) -> None:
@@ -603,25 +661,49 @@ def resolve_split(flags, device, parallel_flags):
 
 
 def learner_mesh(device, n_dev: int, expert_par: int = 1,
-                 model_par: int = 1, pipe_par: int = 1):
-    """The learner's data (x model x pipe x expert) mesh over the first
-    n_dev x the inner axes' devices of `device`'s platform
+                 model_par: int = 1, pipe_par: int = 1, seq_par: int = 1):
+    """The learner's data (x model x seq x pipe x expert) mesh over the
+    first n_dev x the inner axes' devices of `device`'s platform
     (parallel.create_mesh, with the reference's "visible" error); its
     lead is `device` (select_device's: cuda:0, or the CPU)."""
     return parallel.create_mesh(
-        n_dev * expert_par * model_par * pipe_par,
+        n_dev * expert_par * model_par * pipe_par * seq_par,
         model_parallelism=model_par, expert_parallelism=expert_par,
-        pipe_parallelism=pipe_par,
+        pipe_parallelism=pipe_par, seq_parallelism=seq_par,
         devices=parallel.visible_devices(device.type))
+
+
+def seq_mesh(device, flags):
+    """The reference's mesh of a one-device learner under
+    --sequence_parallel P > 1: the 1-D `seq` mesh over the first P
+    devices of `device`'s platform (with _make_1d_mesh's error), or with
+    --expert_parallel K > 1 the (data=1, seq=P, expert=K) mesh over
+    P x K; None without SP."""
+    n = getattr(flags, "sequence_parallel", 0) or 0
+    if n <= 1:
+        return None
+    ep = getattr(flags, "expert_parallel", 0) or 0
+    devices = parallel.visible_devices(device.type)
+    if ep > 1:
+        return parallel.create_mesh(n * ep, devices=devices,
+                                    expert_parallelism=ep,
+                                    seq_parallelism=n)
+    if len(devices) < n:
+        raise ValueError(
+            f"--sequence_parallel {n} but only {len(devices)} devices are "
+            "visible"
+        )
+    return parallel.create_mesh(devices=devices[:n], seq_parallelism=n)
 
 
 def expert_mesh(device, flags):
     """The reference's 1-D expert mesh of a one-device learner
     (--expert_parallel K > 1 without a learner mesh): the first K
     devices of `device`'s platform, with _make_1d_mesh's error, as a
-    (data=1, expert=K) Mesh; None without --expert_parallel > 1."""
+    (data=1, expert=K) Mesh; None without --expert_parallel > 1 (and
+    under SP, whose seq x expert mesh seq_mesh builds)."""
     n = getattr(flags, "expert_parallel", 0) or 0
-    if n <= 1:
+    if n <= 1 or (getattr(flags, "sequence_parallel", 0) or 0) > 1:
         return None
     devices = parallel.visible_devices(device.type)
     if len(devices) < n:
@@ -641,9 +723,8 @@ def place_experts(model, mesh) -> None:
 
 
 def check_flags(flags) -> None:
-    """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet, and the reference's errors for the parallelism
-    flags (check_parallel_flags)."""
+    """The reference's errors for the fleet and the parallelism flags
+    (check_parallel_flags)."""
     if getattr(flags, "fleet", None):
         raise ValueError(
             "--fleet needs the async driver (polybeast): the sync "
@@ -651,10 +732,8 @@ def check_flags(flags) -> None:
         )
     check_moe_flags(flags)
     check_pp_combination(flags)
-    defaults = make_parser().parse_args([])
-    check_parallel_flags(flags, {
-        dest: (getattr(defaults, dest), item)
-        for dest, item in NOT_IN_PORT.items()})
+    check_sp_flags(flags)
+    check_parallel_flags(flags)
 
 
 def select_device(flags) -> torch.device:
@@ -912,13 +991,16 @@ def train(flags):
             torch.cuda.set_device(learn_device)
     elif n_dev > 1:
         mesh = learner_mesh(device, n_dev)
-    ep_mesh = expert_mesh(device, flags)
+    sp_mesh = seq_mesh(device, flags)
+    ep_mesh = expert_mesh(device, flags) or (
+        sp_mesh if sp_mesh is not None and "expert" in sp_mesh.shape
+        else None)
     pp_mesh = pipe_mesh(device, flags)
     n_microbatches = (check_pp_flags(flags, pp_mesh) if pp_mesh is not None
                       else None)
     # A pipeline over several cards cannot be one CUDA graph.
-    capture = (False if pp_mesh is not None and pp_mesh.spans_cards()
-               else None)
+    capture = (False if any(m is not None and m.spans_cards()
+                            for m in (pp_mesh, sp_mesh)) else None)
     if flags.xpid is None:
         flags.xpid = "torchbeast-tpu-torch-%s" % time.strftime(
             "%Y%m%d-%H%M%S"
@@ -933,8 +1015,9 @@ def train(flags):
     tele = telemetry.DriverTelemetry(
         flags, plogger.paths["telemetry"], driver="monobeast")
     reg = tele.registry
-    tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
-                    if mesh or ep_mesh else {"data": 1, "model": 1})
+    inner_mesh = sp_mesh or ep_mesh
+    tele.set_static("learner.mesh_shape", (mesh or inner_mesh).shape
+                    if mesh or inner_mesh else {"data": 1, "model": 1})
     if split is not None:
         tele.set_static("device_split", split.describe())
 
@@ -944,6 +1027,7 @@ def train(flags):
     B = flags.num_actors
     T = flags.unroll_length
     model = build_model(flags, num_actions, frame_shape, learn_device)
+    check_sp_heads(flags, model)
     # The resolved remat plan rides every telemetry line as a static.
     plan = remat_plan.last_plan()
     if plan is not None:
@@ -959,6 +1043,8 @@ def train(flags):
         log.info("Resuming preempted job, current stats:\n%s", stats)
     if ep_mesh is not None:
         place_experts(model, ep_mesh)
+    if sp_mesh is not None:
+        place_sequence_parallel(model, sp_mesh, flags)
     if pp_mesh is not None:
         pp.set_pipeline(model, pp_mesh, n_microbatches)
         log.info("Pipeline parallel: %d stages over %s, %d microbatches%s",

@@ -2,10 +2,10 @@
 the device split's serving: the mesh, the sharded update, the leaf rules
 of the `model`, `pipe` and `expert` axes, the GPipe schedule and the
 per-slice inference stacks (counterpart of torchbeast_tpu/parallel/).
-The `data`, `model`, `pipe` and `expert` axes and the Sebulba split
-(sebulba.py, over runtime/placement.py) are in the port; the
-sequence-parallel axis and the fleet are ROADMAP.md Queue 1 items of
-their own. The reference's shardy_partitioner selects an XLA partitioner
+The `data`, `model`, `seq`, `pipe` and `expert` axes, the Sebulba split
+(sebulba.py, over runtime/placement.py) and the fleet's learner
+strategy (dp.fleet_strategy; the fleet itself is fleet/) are in the
+port. The reference's shardy_partitioner selects an XLA partitioner
 and has no counterpart here."""
 
 from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
@@ -16,6 +16,7 @@ from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
     ShardedStep,
     ShardedTarget,
     check_consistent_restore,
+    fleet_strategy,
     initialize_distributed,
     make_parallel_update_step,
     process_count,

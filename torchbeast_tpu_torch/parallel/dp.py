@@ -53,7 +53,11 @@ replica splits its transformer blocks over the row's model devices
 (parallel/tp.py), and on one with a `pipe` axis its pipelined model runs
 its GPipe over the row's pipe devices (parallel/pp.py: the replica's
 model holds mesh.row(i)). Either way the leaves stay whole on the row's
-device and the gradients reduce over `data` only, shard 0 first.
+device and the gradients reduce over `data` only, shard 0 first. On a
+mesh with a `seq` axis, replica i's transformer blocks run their
+attention sequence-parallel over the row's seq devices
+(models/transformer.set_seq_devices, ops/attention.py's ring and
+Ulysses).
 
 Graph or eager is chosen from the device list, up front: when every
 device of each data row is one card, each shard's step stays one CUDA
@@ -82,6 +86,7 @@ import torch.distributed as dist
 from torchbeast_tpu_torch import graphs, nest, telemetry
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch.models import moe
+from torchbeast_tpu_torch.models.transformer import set_seq_devices
 from torchbeast_tpu_torch.parallel import ep, pp, tp
 from torchbeast_tpu_torch.parallel.mesh import Mesh
 
@@ -128,6 +133,24 @@ def initialize_distributed(
     log.info("Joined %d processes as rank %d (%s, %s)", int(num_processes),
              int(process_id), backend, address)
     return True
+
+
+def fleet_strategy(device) -> str:
+    """How a multi-host fleet composes its learner, from the device the
+    driver selected (a torch.device or its type), never from a probe:
+
+    - "xla" on CUDA (the reference's name for the process-group path,
+      kept for the telemetry's `fleet` record): the hosts join one
+      torch.distributed group (fleet.fleet_rendezvous, NCCL), and one
+      learner mesh's `data` axis runs host-major over every host's
+      learner devices, the multi-process DP learner of this module;
+    - "wire" on the CPU: no process group; each host updates over its
+      local learner devices and the fleet coordinator's control plane
+      averages the params after each dispatch
+      (fleet.FleetCoordinator.sync_params), as the reference does on
+      its CPU backend."""
+    kind = getattr(device, "type", device)
+    return "xla" if kind == "cuda" else "wire"
 
 
 def process_count() -> int:
@@ -293,6 +316,8 @@ class ParallelLearner:
                 ep.set_expert_devices(replica, mesh.expert_devices(i))
             if mesh.shape["model"] > 1:
                 tp.set_model_devices(replica, mesh.model_devices(i))
+            if "seq" in mesh.shape:
+                set_seq_devices(replica, mesh.seq_devices(i))
             if "pipe" in mesh.shape:
                 pp.set_pipeline(replica, mesh.row(i))
         # A row over several cards cannot be one shard's CUDA graph.

@@ -6,20 +6,21 @@ axis (the batch is sharded along it, params are replicated) and inner
 `model`, `seq`, `expert` and `pipe` axes nested inside it. The port's Mesh
 is the same grid of devices, held as a numpy array of `torch.device`s of
 this process, with the axis names and sizes the reference reports. The
-`data`, `model`, `pipe` and `expert` axes are in the port: the grid is
-(data, model, pipe, expert), the inner axes in the reference's order
-(`pipe` and `expert` never both above 1), and `axis_names`, `shape` and
-`devices` report `pipe` and `expert` only above 1, as the reference's
-mesh has those axes only then: (data, model), (data, model, expert) and
-(data, model, pipe). A `seq` axis above 1 raises NotImplementedError
-naming the ROADMAP.md item that brings it.
+grid is (data, model, seq, pipe, expert), the inner axes in the
+reference's order (`pipe` never with `seq` or `expert` above 1), and
+`axis_names`, `shape` and `devices` report `seq`, `pipe` and `expert`
+only above 1, as the reference's mesh has those axes only then: (data,
+model), (data, model, seq), (data, model, expert), (data, model, seq,
+expert) and (data, model, pipe).
 
 Each data row is one replica of the learner (parallel/dp.py), whose
 inner axes are its devices by role: `model_devices(row)` run its
-head and FFN groups (parallel/tp.py), `pipe_devices(row)` its pipeline
-stages (parallel/pp.py), `expert_devices(row)` its expert groups
-(parallel/ep.py). `row(i)` is data row i alone, a data-1 mesh: the mesh
-a replica's pipelined model runs its GPipe over.
+head and FFN groups (parallel/tp.py), `seq_devices(row)` its sequence
+blocks (models/transformer.py's sequence-parallel attention),
+`pipe_devices(row)` its pipeline stages (parallel/pp.py),
+`expert_devices(row)` its expert groups (parallel/ep.py). `row(i)` is
+data row i alone, a data-1 mesh: the mesh a replica's pipelined model
+runs its GPipe over.
 
 Devices: the CUDA devices, or the CPU. A CPU "device" is the host itself;
 the number of them follows what the reference's CPU device count follows,
@@ -31,7 +32,8 @@ Across processes (dp.initialize_distributed) the mesh's `data` axis spans
 every process: `shape["data"]` is the global count, `devices` this
 process's part of it, and `group` the torch.distributed group the
 gradient sum runs over (the default group whenever one is up, of any
-size: a group of one process runs its collectives too).
+size: a group of one process runs its collectives too). The inner axes
+stay within a process, as the reference keeps them innermost.
 """
 
 import os
@@ -73,17 +75,21 @@ def _process_group():
     return 1, None
 
 
+AXES = ("data", "model", "seq", "pipe", "expert")
+
+
 class Mesh:
-    """A (data, model, pipe, expert) grid of this process's devices; see
-    the module docstring. `process_count` processes hold one such grid
-    each, in rank order along `data`. A mesh describes devices and is
-    never copied: deepcopy of a model that holds one keeps the mesh."""
+    """A (data, model, seq, pipe, expert) grid of this process's
+    devices; see the module docstring. `process_count`
+    processes hold one such grid each, in rank order along `data`. A
+    mesh describes devices and is never copied: deepcopy of a model that
+    holds one keeps the mesh."""
 
     def __init__(self, grid: np.ndarray, process_count: int = 1,
                  group=None):
-        if grid.ndim != 4:
-            raise ValueError(f"a mesh grid is (data, model, pipe, expert), "
-                             f"got {grid.ndim} axes")
+        if grid.ndim != 5:
+            raise ValueError(f"a mesh grid is (data, model, seq, pipe, "
+                             f"expert), got {grid.ndim} axes")
         self.grid = grid
         self.process_count = process_count
         self.group = group
@@ -93,10 +99,9 @@ class Mesh:
 
     def _inner(self) -> tuple:
         """The inner axes the reference's mesh has: `model` always,
-        `pipe` and `expert` above 1."""
-        _, _, pipe, expert = self.grid.shape
-        return ("model",) + (("pipe",) if pipe > 1 else ()) + (
-            ("expert",) if expert > 1 else ())
+        `seq`, `pipe` and `expert` above 1."""
+        return ("model",) + tuple(
+            axis for axis, n in zip(AXES[2:], self.grid.shape[2:]) if n > 1)
 
     @property
     def axis_names(self) -> tuple:
@@ -106,38 +111,40 @@ class Mesh:
     def devices(self) -> np.ndarray:
         """The grid with the axes of `axis_names`, as the reference's
         mesh.devices."""
-        keep = [0, 1] + [i for i, axis in ((2, "pipe"), (3, "expert"))
-                         if axis in self._inner()]
-        drop = tuple(i for i in range(4) if i not in keep)
+        names = self.axis_names
+        drop = tuple(i for i, axis in enumerate(AXES) if axis not in names)
         return self.grid.squeeze(axis=drop) if drop else self.grid
 
     @property
     def shape(self) -> dict:
-        data, model, pipe, expert = self.grid.shape
-        shape = {"data": data * self.process_count, "model": model}
-        if pipe > 1:
-            shape["pipe"] = pipe
-        if expert > 1:
-            shape["expert"] = expert
+        shape = {"data": self.grid.shape[0] * self.process_count,
+                 "model": self.grid.shape[1]}
+        for axis, n in zip(AXES[2:], self.grid.shape[2:]):
+            if n > 1:
+                shape[axis] = n
         return shape
 
     @property
     def local_devices(self) -> list:
         """This process's data shards' devices (each row's first), lead
         first."""
-        return list(self.grid[:, 0, 0, 0])
+        return list(self.grid[:, 0, 0, 0, 0])
 
     def model_devices(self, row: int) -> list:
         """The `model` axis of this process's data row `row`."""
-        return list(self.grid[row, :, 0, 0])
+        return list(self.grid[row, :, 0, 0, 0])
+
+    def seq_devices(self, row: int) -> list:
+        """The `seq` axis of this process's data row `row`."""
+        return list(self.grid[row, 0, :, 0, 0])
 
     def pipe_devices(self, row: int) -> list:
         """The `pipe` axis of this process's data row `row`."""
-        return list(self.grid[row, 0, :, 0])
+        return list(self.grid[row, 0, 0, :, 0])
 
     def expert_devices(self, row: int) -> list:
         """The `expert` axis of this process's data row `row`."""
-        return list(self.grid[row, 0, 0, :])
+        return list(self.grid[row, 0, 0, 0, :])
 
     def row(self, row: int) -> "Mesh":
         """Data row `row` alone: a mesh of data 1 with the row's inner
@@ -152,7 +159,7 @@ class Mesh:
 
     @property
     def lead(self) -> torch.device:
-        return self.grid[0, 0, 0, 0]
+        return self.grid[0, 0, 0, 0, 0]
 
     def __repr__(self):
         return (f"Mesh({dict(self.shape)}, devices={self.local_devices}, "
@@ -168,7 +175,7 @@ def create_mesh(
     pipe_parallelism: int = 1,
     platform: Optional[str] = None,
 ) -> Mesh:
-    """The (data, model[, pipe][, expert]) mesh over the first
+    """The (data, model[, seq][, pipe][, expert]) mesh over the first
     `n_devices` devices, with the reference's checks and error texts.
 
     `n_devices` is the total count, over every process when a process
@@ -178,9 +185,9 @@ def create_mesh(
     shards on one card, each a replica of its own, run the same sharded
     update, reduce and apply that two cards would (chip_smoke.py does
     this on a one-card machine; nothing else should).
-    Each data row is model x pipe x expert consecutive devices, in that
-    order (the reference's reshape). A `seq` axis above 1 raises
-    NotImplementedError after the reference's own checks pass."""
+    Each data row is model x seq x pipe x expert consecutive devices, in
+    that order (the reference's reshape; seq and pipe are never both
+    above 1)."""
     world, group = _process_group()
     if devices is None:
         devices = visible_devices(platform)
@@ -217,14 +224,10 @@ def create_mesh(
             f"{expert_parallelism} x seq_parallelism={seq_parallelism}"
             f" x pipe_parallelism={pipe_parallelism}"
         )
-    if seq_parallelism > 1:
-        raise NotImplementedError(
-            f"a 'seq' mesh axis of {seq_parallelism} is not in the port "
-            "yet: ROADMAP.md Queue 1 item 'sequence parallel'"
-        )
     grid = np.empty(n, dtype=object)
     for i, d in enumerate(devices):
         grid[i] = torch.device(d)
     return Mesh(grid.reshape(n // inner, model_parallelism,
-                             pipe_parallelism, expert_parallelism),
+                             seq_parallelism, pipe_parallelism,
+                             expert_parallelism),
                 process_count=world, group=group)

@@ -99,6 +99,32 @@ alone checkpoints, and the others log under {xpid}-host{rank}. The
 reference's multi-host checks come first (an explicit --xpid, N above 1
 and divisible by the processes, batch_size divisible too).
 
+--sequence_parallel P > 1 shards the transformer's unroll axis over a
+`seq` mesh axis (monobeast's checks and ops): alone, the one-device
+learner over monobeast.seq_mesh; with --num_learner_devices N > 1 the
+reference's composite data N x seq P (x expert K) grid, each data row's
+replica running its attention over its row's seq devices (the fused
+tail refused there, as on every learner mesh). The acting copy runs the
+dense path.
+
+--fleet host=<rank>/<n>,coord=<host:port> (fleet/) makes this process
+host <rank> of an n-host fleet: each host runs its own env servers (on
+its host-scoped addresses and env seeds), actors and inference over
+batch_size / n rows. The learner composes by parallel.fleet_strategy,
+from the device: on CUDA ("xla", the reference's name) the hosts join
+one torch.distributed group at coord (NCCL; a group the caller has
+already joined is taken as it is) and the learner mesh's data axis runs
+host-major over every host's learner devices; on the CPU ("wire") each
+host updates alone and the fleet coordinator averages the params after
+every dispatch. With more than one host the coordinator's control plane
+(coord's port + 1) carries heartbeats (a remote incident a sticky
+fleet.host<r> on the lead), host loss (sticky fleet.host<r>_lost above
+--min_live_hosts, a halt of every host below it), and the lead's policy
+snapshots into the remotes' stores. The lead alone checkpoints; the
+others log under {xpid}-host{rank}. The reference's checks come first
+(an explicit --xpid, batch_size divisible by the hosts, a data-only
+mesh, not with --coordinator_address).
+
 --remat, --hbm_budget_gb and --transformer_remat are monobeast's
 (runtime/remat_plan.py): the plan is resolved once, and the learner's
 model, the acting copy, the IMPACT target network and the replica model
@@ -129,9 +155,8 @@ learned from. Under impact the replica tier is armed every 10 updates
 unless --replica_refresh_updates says otherwise.
 
 The parser takes every flag of the reference with the same name, type,
-default and choices, plus --disable_cuda. A flag whose feature the port
-does not have yet still parses; set away from its default it raises
-NotImplementedError naming the ROADMAP.md item that brings it.
+default and choices, plus --disable_cuda. Every feature of the
+reference's flags is in the port.
 
 Run:  python -m torchbeast_tpu_torch.polybeast --env Mock --use_lstm \\
           --num_servers 16 --batch_size 32 --vtrace_impl pallas \\
@@ -139,12 +164,12 @@ Run:  python -m torchbeast_tpu_torch.polybeast --env Mock --use_lstm \\
 """
 
 import argparse
+import dataclasses
 import contextlib
 import copy
 import logging
 import os
 import queue as stdlib_queue
-import re
 import signal
 import statistics
 import threading
@@ -157,6 +182,13 @@ from torchbeast_tpu_torch import graphs
 from torchbeast_tpu_torch import learner as learner_lib
 from torchbeast_tpu_torch import nest, polybeast_env, precision, telemetry
 from torchbeast_tpu_torch import monobeast, parallel, weights
+from torchbeast_tpu_torch.fleet import (
+    FleetCoordinator,
+    compose_fleet_mesh_devices,
+    fleet_rendezvous,
+    parse_fleet_spec,
+)
+from torchbeast_tpu_torch.models.transformer import set_seq_devices
 from torchbeast_tpu_torch.resilience import (
     ChaosController,
     FaultPlan,
@@ -198,7 +230,6 @@ from torchbeast_tpu_torch.utils.prof import DeviceTrace
 
 log = logging.getLogger("torchbeast_tpu_torch.polybeast")
 
-_LATER = "(not in the port yet; see ROADMAP.md)"
 
 
 def _configure_logging():
@@ -297,11 +328,21 @@ def make_parser():
     parser.add_argument("--max_server_restarts", type=int, default=10,
                         help="Respawn budget for dead env servers.")
     parser.add_argument("--sequence_parallel", type=int, default=0,
-                        help="0 or 1: one device; > 1 " + _LATER)
+                        help="Shard the transformer's unroll (time) axis "
+                             "over N devices (ring or Ulysses attention "
+                             "over a `seq` mesh; model=transformer only, "
+                             "unroll_length+1 divisible by N; acting "
+                             "runs the dense path).")
     parser.add_argument("--sp_strategy", default="ring",
-                        choices=["ring", "ulysses"], help=_LATER)
+                        choices=["ring", "ulysses"],
+                        help="Sequence-parallel strategy: the K/V ring "
+                             "or all-to-all head sharding (ulysses; "
+                             "needs num_heads divisible by N).")
     parser.add_argument("--ring_schedule", default="contiguous",
-                        choices=["contiguous", "zigzag"], help=_LATER)
+                        choices=["contiguous", "zigzag"],
+                        help="Ring attention block schedule (zigzag "
+                             "balances causal work; unroll_length+1 "
+                             "divisible by 2N).")
     parser.add_argument("--pipeline_parallel", type=int, default=0,
                         help="Run the pipelined_mlp / "
                              "pipelined_transformer tower as a GPipe "
@@ -402,9 +443,23 @@ def make_parser():
                              "run (torch.distributed; the process count "
                              "and id come from TORCHBEAST_NUM_PROCESSES "
                              "and TORCHBEAST_PROCESS_ID).")
-    parser.add_argument("--fleet", default=None, help=_LATER)
+    parser.add_argument("--fleet", default=None,
+                        help="Multi-host fleet membership (fleet/"
+                             "topology.py): 'host=<rank>/<n>,coord="
+                             "<host:port>' names this host's rank, the "
+                             "fleet size and the rendezvous (the "
+                             "process group on CUDA; port+1 carries the "
+                             "control plane: heartbeats, snapshots, "
+                             "param sync). On the CPU the hosts compose "
+                             "by synchronous parameter averaging "
+                             "(parallel/dp.py fleet_strategy). Unset: "
+                             "one host.")
     parser.add_argument("--min_live_hosts", type=int, default=1,
-                        help=_LATER)
+                        help="Fleet degradation floor (--fleet runs): "
+                             "losing a host marks the fleet DEGRADED "
+                             "(sticky fleet.host<r>_lost) while at "
+                             "least this many hosts stay live; below "
+                             "it every host checkpoints and exits.")
     parser.add_argument("--device_agent_state", dest="device_agent_state",
                         action="store_true", default=True,
                         help="Keep recurrent agent state in the "
@@ -510,16 +565,6 @@ def make_parser():
     return parser
 
 
-# Flags whose feature is outside the port so far -> the ROADMAP.md Queue 1
-# item that brings it. Each must stay at its parser default, except those
-# of monobeast.ONE_DEVICE_AT_MOST.
-NOT_IN_PORT = {
-    "sequence_parallel": "sequence parallel",
-    "fleet": "the fleet",
-    "min_live_hosts": "the fleet",
-}
-
-
 XPID_REFUSAL = (
     "multi-host runs need an explicit --xpid (the timestamp default would "
     "differ per host and break checkpoint resume)")
@@ -529,16 +574,26 @@ def _above_one(flags, dest) -> bool:
     return (getattr(flags, dest, 0) or 0) > 1
 
 
-def check_fleet_refusal(flags) -> None:
-    """The reference's refusal of a fleet of more than one host with an
-    inner mesh axis (polybeast.py:590-616; its --xpid and batch checks
-    first). The fleet itself is a later item: a --fleet that passes
-    these raises NotImplementedError in check_flags."""
-    m = re.search(r"host=\s*(\d+)\s*/\s*(\d+)",
-                  getattr(flags, "fleet", None) or "")
-    num_hosts = int(m.group(2)) if m else 1
+FLEET_COORDINATOR_REFUSAL = (
+    "--fleet and --coordinator_address are exclusive: the "
+    "fleet's coord= endpoint IS the rendezvous address"
+)
+
+
+def check_fleet_refusal(flags):
+    """--fleet parsed (fleet.parse_fleet_spec, the reference's grammar
+    errors) and checked as the reference checks it (polybeast.py:
+    568-615): not with --coordinator_address; with more than one host an
+    explicit --xpid, the global batch divisible by the hosts and a
+    data-only learner mesh. Returns the FleetSpec, or None."""
+    spec = parse_fleet_spec(getattr(flags, "fleet", None))
+    if spec is None:
+        return None
+    if flags.coordinator_address:
+        raise ValueError(FLEET_COORDINATOR_REFUSAL)
+    num_hosts = spec.num_hosts
     if num_hosts <= 1:
-        return
+        return spec
     if flags.xpid is None:
         raise ValueError(XPID_REFUSAL)
     if flags.batch_size % num_hosts != 0:
@@ -554,6 +609,7 @@ def check_fleet_refusal(flags) -> None:
             "not compose with --expert_parallel/--sequence_"
             "parallel/--tensor_parallel/--pipeline_parallel yet"
         )
+    return spec
 
 
 def check_tp_flags(flags) -> None:
@@ -578,20 +634,19 @@ def check_tp_flags(flags) -> None:
         )
 
 
-def check_flags(flags) -> None:
-    """Raise NotImplementedError for a flag set to a feature the port
-    does not have yet, after the reference's errors for the parallelism
-    flags: the fleet refusal, the TP checks, the MoE checks, PP with SP
-    or EP (monobeast.check_pp_combination), and monobeast.
+def check_flags(flags):
+    """The reference's errors for the parallelism flags, before any side
+    effect: the fleet's (returns its FleetSpec, or None), the TP checks,
+    the MoE checks, PP with SP or EP (monobeast.check_pp_combination),
+    the SP checks (monobeast.check_sp_flags) and monobeast.
     check_parallel_flags'."""
-    check_fleet_refusal(flags)
+    spec = check_fleet_refusal(flags)
     check_tp_flags(flags)
     monobeast.check_moe_flags(flags)
     monobeast.check_pp_combination(flags)
-    defaults = make_parser().parse_args([])
-    monobeast.check_parallel_flags(flags, {
-        dest: (getattr(defaults, dest), item)
-        for dest, item in NOT_IN_PORT.items()})
+    monobeast.check_sp_flags(flags)
+    monobeast.check_parallel_flags(flags)
+    return spec
 
 
 # The reference's refusal of --device_split across processes without its
@@ -701,7 +756,7 @@ def train(flags):
     (rows per acting forward), "runtime" ("native" or "python"),
     "actor_pool" (the pool's class), the health summary and, under
     --chaos_plan, the injector's summary ("chaos")."""
-    check_flags(flags)
+    fleet = check_flags(flags)
     superstep_k = getattr(flags, "superstep_k", 1)
     if superstep_k < 1:
         raise ValueError(f"--superstep_k must be >= 1, got {superstep_k}")
@@ -709,16 +764,42 @@ def train(flags):
         raise ValueError("--admission_depth_factor must be >= 1, got "
                          f"{flags.admission_depth_factor}")
     device = monobeast.select_device(flags)
-    # No-op (with a log line) when no coordinator is configured by flag
-    # or TORCHBEAST_COORDINATOR.
-    joined = parallel.initialize_distributed(
-        flags.coordinator_address,
-        backend="nccl" if device.type == "cuda" else "gloo")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    strategy = None
+    if fleet is not None:
+        # On CUDA the hosts join one process group ("xla"); on the CPU
+        # none ("wire": the control plane averages the params).
+        strategy = parallel.fleet_strategy(device)
+        if strategy == "xla" and torch.distributed.is_initialized():
+            _check_existing_group(fleet)
+            joined = False
+        else:
+            fleet_rendezvous(fleet, strategy, backend=backend)
+            joined = strategy == "xla"
+    else:
+        # No-op (with a log line) when no coordinator is configured by
+        # flag or TORCHBEAST_COORDINATOR.
+        joined = parallel.initialize_distributed(
+            flags.coordinator_address, backend=backend)
     try:
-        return _train(flags, device)
+        return _train(flags, device, fleet, strategy)
     finally:
         if joined:
             torch.distributed.destroy_process_group()
+
+
+def _check_existing_group(fleet) -> None:
+    """A process group the caller joined before train() (a worker script
+    choosing its own backend) serves the fleet's learner when it has the
+    fleet's hosts and this host's rank; else the fleet raises."""
+    dist = torch.distributed
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if (world, rank) != (fleet.num_hosts, fleet.host_rank):
+        raise ValueError(
+            f"--fleet host={fleet.host_rank}/{fleet.num_hosts} but the "
+            f"process group joined before it has rank {rank} of {world}")
+    log.info("Fleet rendezvous: the process group already joined (%s, "
+             "%d hosts)", dist.get_backend(), world)
 
 
 def check_multihost_flags(flags, proc_count: int) -> None:
@@ -754,26 +835,66 @@ def _check_pipe_model(flags, mesh, batch_axis):
     return monobeast.check_pp_flags(flags, mesh, batch_axis)
 
 
-def _train(flags, device):
+@dataclasses.dataclass(frozen=True)
+class _HostDevice:
+    """A device of a fleet host, as fleet.compose_fleet_mesh_devices
+    reads one (its owner's rank, an id)."""
+
+    process_index: int
+    id: int
+    device: torch.device
+
+
+def _fleet_learner_mesh(fleet, flags, device):
+    """The process-group fleet's learner mesh: every host's split
+    resolved over its devices with the same spec, the learner group
+    host-major (fleet.compose_fleet_mesh_devices; hosts are uniform, so
+    this host's devices stand for each host's), the mesh over this
+    host's part of it, its data axis spanning the hosts' group."""
+    local = parallel.visible_devices(device.type)
+    tagged = [_HostDevice(r, i, d) for r in range(fleet.num_hosts)
+              for i, d in enumerate(local)]
+    _, learners = compose_fleet_mesh_devices(
+        fleet, getattr(flags, "device_split", ""), tagged)
+    return parallel.create_mesh(devices=[
+        d.device for d in learners if d.process_index == fleet.host_rank])
+
+
+def _train(flags, device, fleet=None, strategy=None):
     """train's body, inside the process group when one was joined."""
     superstep_k = getattr(flags, "superstep_k", 1)
     proc_count = parallel.process_count()
-    host_rank = parallel.process_index()
+    # One host identity for every host-scoped convention (xpid suffix,
+    # pipe addresses, env seeds): the fleet rank when --fleet names one,
+    # else the process index; the wire strategy keeps proc_count 1 while
+    # the fleet spans n_hosts runtimes.
+    n_hosts = fleet.num_hosts if fleet is not None else proc_count
+    host_rank = (fleet.host_rank if fleet is not None
+                 else parallel.process_index())
     is_lead = host_rank == 0
-    check_multihost_flags(flags, proc_count)
+    if fleet is None:
+        check_multihost_flags(flags, proc_count)
     # The device split, resolved and checked before any side effect; None
     # is the time-shared path (the single-device degradation included).
     split = monobeast.resolve_split(
         flags, device, ("expert_parallel", "sequence_parallel",
                         "pipeline_parallel", "tensor_parallel"))
-    if split is not None and proc_count > 1:
+    if split is not None and proc_count > 1 and fleet is None:
         raise ValueError(SPLIT_MULTIHOST_REFUSAL)
     n_dev = flags.num_learner_devices
     expert_par = max(1, getattr(flags, "expert_parallel", 0) or 0)
     tensor_par = max(1, getattr(flags, "tensor_parallel", 0) or 0)
     pipe_par = max(1, getattr(flags, "pipeline_parallel", 0) or 0)
-    mesh = ep_mesh = pp_mesh = None
-    if split is not None:
+    seq_par = max(1, getattr(flags, "sequence_parallel", 0) or 0)
+    mesh = ep_mesh = pp_mesh = sp_mesh = None
+    if fleet is not None and strategy == "xla":
+        # One mesh whose data axis runs host-major over every host's
+        # learner devices.
+        mesh = _fleet_learner_mesh(fleet, flags, device)
+        device = mesh.lead
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    elif split is not None:
         # The split's learner: plain DP over exactly its learner devices,
         # or the one-device learner pinned to its one. From here on
         # `device` is the learner's.
@@ -785,15 +906,25 @@ def _train(flags, device):
         if device.type == "cuda":
             torch.cuda.set_device(device)
     elif n_dev > 1 or tensor_par > 1:
-        # The reference's composite mesh: data x (model | pipe | expert)
-        # over num_learner_devices x inner devices.
+        # The reference's composite mesh: data x (model | seq | pipe |
+        # expert) over num_learner_devices x inner devices.
         mesh = monobeast.learner_mesh(device, n_dev, expert_par,
-                                      tensor_par, pipe_par)
+                                      tensor_par, pipe_par, seq_par)
     n_microbatches = None
     if mesh is not None and pipe_par > 1:
         n_microbatches = _check_pipe_model(flags, mesh, "data")
+    local_rows = flags.batch_size // n_hosts
     if mesh is not None:
-        if flags.batch_size % mesh.shape["data"] != 0:
+        if fleet is not None and strategy == "wire":
+            # The wire strategy's mesh is host-local: it shards this
+            # host's rows, not the fleet's batch.
+            if local_rows % mesh.shape["data"] != 0:
+                raise ValueError(
+                    f"per-host batch rows {local_rows} not divisible by "
+                    f"the local learner mesh's data axis "
+                    f"({mesh.shape['data']})"
+                )
+        elif flags.batch_size % mesh.shape["data"] != 0:
             raise ValueError(
                 f"batch_size {flags.batch_size} not divisible by "
                 f"the learner mesh's data axis ({mesh.shape['data']})"
@@ -816,7 +947,10 @@ def _train(flags, device):
                 "a params-mirroring state tree)"
             )
     else:
-        ep_mesh = monobeast.expert_mesh(device, flags)
+        sp_mesh = monobeast.seq_mesh(device, flags)
+        ep_mesh = monobeast.expert_mesh(device, flags) or (
+            sp_mesh if sp_mesh is not None and "expert" in sp_mesh.shape
+            else None)
         pp_mesh = monobeast.pipe_mesh(device, flags)
         if pp_mesh is not None:
             n_microbatches = monobeast.check_pp_flags(flags, pp_mesh)
@@ -840,9 +974,18 @@ def _train(flags, device):
     # Host identity on every line: multi-host analyses join the
     # per-host telemetry.jsonl files on these two statics.
     tele.set_static("host_rank", host_rank)
-    tele.set_static("fleet_size", proc_count)
-    tele.set_static("learner.mesh_shape", (mesh or ep_mesh).shape
-                    if mesh or ep_mesh else {"data": 1, "model": 1})
+    tele.set_static("fleet_size", n_hosts)
+    if fleet is not None:
+        tele.set_static("fleet", dict(fleet.describe(), strategy=strategy))
+    inner_mesh = sp_mesh or ep_mesh
+    mesh_shape = dict((mesh or inner_mesh).shape if mesh or inner_mesh
+                      else {"data": 1, "model": 1})
+    if fleet is not None and strategy == "wire":
+        # The wire strategy composes the hosts outside the mesh: the
+        # logical data width is the host's times the hosts, what one
+        # process-group mesh would report.
+        mesh_shape["data"] *= n_hosts
+    tele.set_static("learner.mesh_shape", mesh_shape)
     if split is not None:
         tele.set_static("device_split", split.describe())
     health = PipelineHealth(registry=reg)
@@ -850,16 +993,31 @@ def _train(flags, device):
     if flags.chaos_plan:
         chaos = ChaosController(FaultPlan.from_json(flags.chaos_plan),
                                 registry=reg)
+    # The fleet's control plane: heartbeats and health folding, the
+    # snapshot publication and (wire strategy) the param-sync rounds.
+    # start() blocks until every host is connected, before the servers
+    # spawn, so a host that cannot join fails without leaking processes.
+    # A one-host fleet has no control plane to run.
+    fleet_coord = None
+    if fleet is not None and fleet.num_hosts > 1:
+        fleet_coord = FleetCoordinator(
+            fleet, health, strategy,
+            min_live_hosts=getattr(flags, "min_live_hosts", 1),
+            registry=reg)
+        fleet_coord.start()
+    # Every host resumes from the lead's checkpoint (a shared savedir).
     checkpoint_path = monobeast._checkpoint_path(flags, flags.xpid)
     num_actors = flags.num_actors or flags.num_servers
+    # Each host's actors reach its own env servers.
+    pipes_basename = polybeast_env.host_scoped_basename(
+        flags.pipes_basename, host_rank, flags.num_servers)
     addresses = [
-        polybeast_env.server_address(flags.pipes_basename,
-                                     i % flags.num_servers)
+        polybeast_env.server_address(pipes_basename, i % flags.num_servers)
         for i in range(num_actors)
     ]
-    # B: this process's rows of each learner batch (the global batch over
-    # the processes); the step clock counts the global batch's frames.
-    T, B = flags.unroll_length, flags.batch_size // proc_count
+    # B: this host's rows of each learner batch (the global batch over
+    # the hosts); the step clock counts the global batch's frames.
+    T, B = flags.unroll_length, local_rows
     global_rows = flags.batch_size
 
     # Any failure from the instant the server group exists until the main
@@ -868,8 +1026,13 @@ def _train(flags, device):
     server_supervisor = None
     try:
         if flags.start_servers:
+            env_seed = flags.env_seed
+            if env_seed is not None:
+                # Past every seed a host's servers derive (i*1000 +
+                # stream): hosts share --env_seed but never a stream.
+                env_seed += host_rank * flags.num_servers * 1000
             server_supervisor = polybeast_env.ServerSupervisor(
-                flags, env_seed=flags.env_seed,
+                flags, pipes_basename=pipes_basename, env_seed=env_seed,
                 max_restarts=flags.max_server_restarts,
             )
             server_procs = server_supervisor.processes
@@ -887,6 +1050,7 @@ def _train(flags, device):
         policy = precision.resolve_flags(flags)
         num_actions, frame_shape = _probe_env_via_server(flags, addresses[0])
         model = monobeast.build_model(flags, num_actions, frame_shape, device)
+        monobeast.check_sp_heads(flags, model)
         # The resolved remat plan rides every telemetry line as a static.
         plan = remat_plan.last_plan()
         if plan is not None:
@@ -901,6 +1065,10 @@ def _train(flags, device):
             log.info("Resuming preempted job, current stats:\n%s", stats)
         if ep_mesh is not None:
             monobeast.place_experts(model, ep_mesh)
+        if sp_mesh is not None or (mesh is not None and "seq" in mesh.shape):
+            # Replica i of a composite mesh takes its row's seq devices
+            # (parallel/dp.py), and the schedule from this one.
+            monobeast.place_sequence_parallel(model, sp_mesh or mesh, flags)
         if pp_mesh is not None:
             parallel.set_pipeline(model, pp_mesh, n_microbatches)
         elif mesh is not None and pipe_par > 1:
@@ -917,15 +1085,17 @@ def _train(flags, device):
                      (f" x model={tensor_par}" if tensor_par > 1 else "")
                      + (f" x pipe={pipe_par}" if pipe_par > 1 else "")
                      + (f" x expert={expert_par}" if expert_par > 1
-                        else ""),
+                        else "")
+                     + (f" x seq={seq_par}" if seq_par > 1 else ""),
                      proc_count,
                      " eagerly: a data row spans cards"
                      if mesh.spans_cards() else "")
         else:
             dispatch = learner_lib.make_update_dispatch(
                 model, optimizer, hp, superstep_k,
-                capture=(False if pp_mesh is not None
-                         and pp_mesh.spans_cards() else None))
+                capture=(False if any(m is not None and m.spans_cards()
+                                      for m in (pp_mesh, sp_mesh))
+                         else None))
         update = learner_lib.instrument_update_step(
             dispatch, registry=reg, superstep_k=superstep_k)
 
@@ -936,12 +1106,14 @@ def _train(flags, device):
         # model or pipe devices, so its graphs stay on the card the
         # actors are served from (the same arithmetic, row by row).
         parallel.set_model_devices(act_model, None)
+        set_seq_devices(act_model, None)
         if pipe_par > 1:
             parallel.set_pipeline(act_model, None)
         act_params = list(act_model.parameters())
         learn_params = list(model.parameters())
         generator = torch.Generator(device=device)
-        generator.manual_seed(flags.seed)
+        # A fleet's hosts draw their own actions.
+        generator.manual_seed(flags.seed + (host_rank if fleet else 0))
 
         # --replay_reuse K': the arena hands each staged batch out K'
         # times; env frames advance on its first handout only, the learn
@@ -1406,7 +1578,13 @@ def _train(flags, device):
                 reg, pool=actors, batcher=inference_batcher,
                 queue=learner_queue, slo_target_s=slo_target_s,
                 replica_batcher=replica_batcher,
-                replica_router=replica_router, **slice_kwargs).tick)
+                replica_router=replica_router, fleet=fleet_coord,
+                **slice_kwargs).tick)
+        elif fleet_coord is not None and telemetry_on:
+            # The Python runtime: the folder runs for the fleet fold
+            # alone (remote hosts' heartbeat gauges as host<r>.*).
+            tele.add_tick_callback(
+                native.NativeTelemetryFolder(reg, fleet=fleet_coord).tick)
         if telemetry_on:
             # Fresh liveness gauges and the per-connection SLO block on
             # every exported line: the p99 of actor.request_rtt_s
@@ -1510,6 +1688,31 @@ def _train(flags, device):
         update_interval_ms = []
         learner_errors = []
         updates_done = [0]  # the snapshot store's version clock
+
+        if fleet_coord is not None:
+            if not is_lead and snapshot_store is not None:
+                # A remote's store takes the lead's snapshots (applied on
+                # the coordinator's reader thread) into the acting
+                # model's parameter list.
+                fleet_coord.attach_snapshot_store(snapshot_store, act_model)
+
+            def _fleet_stats():
+                # The recovery counters the lead folds into the fleet
+                # verdict (an env-server restart or actor reconnect here
+                # is a sticky fleet.host<r> on the lead).
+                with state_lock:
+                    at_updates = updates_done[0]
+                return {
+                    "updates": int(at_updates),
+                    "restarts": int(server_supervisor.restarts
+                                    if server_supervisor is not None
+                                    else 0),
+                    "reconnects": int(actors.reconnect_count()),
+                }
+
+            fleet_coord.set_stats_source(_fleet_stats)
+            fleet_coord.set_gauges_source(
+                lambda: parallel.slice_gauge_snapshot(reg))
         # Rows per acting forward, over the central loops or the slices'.
         prefixes = (["inference"] if sebulba is None else
                     [f"inference.slice.{s.index}" for s in sebulba.stacks])
@@ -1526,6 +1729,10 @@ def _train(flags, device):
                 learner_errors.append(e)
                 raise
             finally:
+                if fleet_coord is not None:
+                    # Leave the fleet's param-sync rounds, so slower hosts
+                    # stop waiting on this learner.
+                    fleet_coord.learner_done()
                 learner_done.set()
 
         def _learner_loop_body():
@@ -1603,6 +1810,20 @@ def _train(flags, device):
                             merge(batch, initial_agent_state),
                             initial_agent_state)
                         t1 = time.perf_counter()
+                    if fleet_coord is not None and strategy == "wire":
+                        # The wire strategy's parameter composition: one
+                        # synchronous fleet-mean round a dispatch (from
+                        # equal params, averaging the updated params is
+                        # averaging the gradients of an SGD step; each
+                        # host's RMSprop state stays its own, the
+                        # reference's approximation). None: the round
+                        # degraded, keep this host's params.
+                        synced = fleet_coord.sync_params(learn_params, model)
+                        if synced is not None:
+                            with torch.no_grad():
+                                torch._foreach_copy_(learn_params, synced)
+                            if mesh is not None:
+                                dispatch.learner.sync()
                     with state_lock:
                         # Publish: the acting copy takes the new params
                         # (bf16_train: the bf16 resident ones), queued
@@ -1624,13 +1845,26 @@ def _train(flags, device):
                         # queued behind the copy above (the update, under
                         # the split, whose slices copy it from their own
                         # streams after the cast's event).
+                        # A remote fleet host serves the lead's policy,
+                        # which the wire feeds its store (note_update
+                        # still advances the head, so policy_lag is the
+                        # wire's delay).
+                        published = None
+                        served = (act_params if sebulba is None
+                                  else learn_params)
                         if (snapshot_store is not None
                                 and snapshot_store.note_update(
-                                    updates_done[0])):
-                            snapshot_store.publish(
-                                updates_done[0],
-                                act_params if sebulba is None
-                                else learn_params)
+                                    updates_done[0])
+                                and (fleet_coord is None or is_lead)
+                                and snapshot_store.publish(
+                                    updates_done[0], served)):
+                            published = updates_done[0]
+                    if fleet_coord is not None and published is not None:
+                        # The lead fans its publish out to the remotes,
+                        # outside the acting lock (this thread alone
+                        # writes the published params).
+                        fleet_coord.publish_snapshot(published, served,
+                                                     model)
                     if target is not None:
                         # A full-precision target refresh when one is
                         # due, queued behind the update.
@@ -1652,6 +1886,8 @@ def _train(flags, device):
         if server_supervisor is not None:
             server_supervisor.stop()  # before terminate: no resurrect-mid-reap
         polybeast_env.reap_group(server_procs)
+        if fleet_coord is not None:
+            fleet_coord.shutdown()
         raise
 
     def checkpoint():
@@ -1808,6 +2044,11 @@ def _train(flags, device):
         if server_supervisor is not None:
             server_supervisor.stop()  # before terminate: no resurrect-mid-reap
         polybeast_env.reap_group(server_procs)
+        if fleet_coord is not None:
+            # After the last telemetry write (its fold reads the remote
+            # gauges) and the reap: a clean "bye", so the departure
+            # counts as done, not lost.
+            fleet_coord.shutdown()
         if restore_sigterm is not None:
             signal.signal(signal.SIGTERM, restore_sigterm)
     log.info(

@@ -332,9 +332,11 @@ class InferenceSupervisor:
                 return False
             self._restarts += 1
             self._recovery_gen += 1
-            table.rebuild()
+            # Counted before the rebuild clears the poison: whoever sees
+            # the table healthy again sees its rebuild counted.
             self._tm_rebuilds.inc()
             self._tm_restarts.inc()
+            table.rebuild()
             n = self._restarts
         if self._health is not None:
             self._health.degrade(

@@ -55,11 +55,13 @@ Frames are bounded by `max_frame_bytes` (default 256 MiB): a corrupt
 4-byte header must surface as WireError, not as a multi-GiB allocation
 (mirrored in csrc/wire.h's kMaxFrameBytes).
 
-The port's copy of torchbeast_tpu/runtime/wire.py, without the policy
-snapshot frame (tag 0x09, PolicySnapshot): only the fleet's control
-plane sends it (ROADMAP.md Queue 1 item 'the fleet'),
-so the port refuses it as an unknown tag. Every frame of actor and env-server
-traffic is the reference's byte for byte.
+The port's copy of torchbeast_tpu/runtime/wire.py: every frame is the
+reference's byte for byte, the policy snapshot frame (tag 0x09,
+PolicySnapshot, which the fleet's control plane sends) included. numpy
+has no bfloat16 of its own: with ml_dtypes installed code 12 is its
+bfloat16, as in the reference; without it code 12 is `BF16`, a 2-byte
+structured dtype holding the same bits (fleet/snapshot_wire.py reads
+either), where the reference would refuse the array.
 """
 
 # beastlint: hot-module — the codec runs per message on the acting path.
@@ -80,6 +82,11 @@ TAG_INT = 0x05
 TAG_FLOAT = 0x06
 TAG_BOOL = 0x07
 TAG_STRING = 0x08
+# Versioned policy snapshot (fleet/snapshot_wire.py): the fleet control
+# plane's lead->remote publication of bf16-cast policy params. A distinct
+# tag (not a convention-keyed dict) so a snapshot frame can never be
+# mistaken for actor traffic; csrc/native/wire.h kTagSnapshot decodes it.
+TAG_SNAPSHOT = 0x09
 
 # Reject frames whose header demands more than this before allocating
 # (csrc/wire.h kMaxFrameBytes must match).
@@ -121,12 +128,43 @@ try:
     _DTYPE_CODES[np.dtype(_bfloat16)] = 12
 except ImportError:  # pragma: no cover - ml_dtypes ships with jax here
     _bfloat16 = None
+    _DTYPE_CODES[np.dtype([("bf16", "<u2")])] = 12
+
+# The numpy dtype of code 12: ml_dtypes' bfloat16, or the bits dtype.
+BF16 = next(d for d, c in _DTYPE_CODES.items() if c == 12)
 
 _CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
 class WireError(Exception):
     pass
+
+
+class PolicySnapshot:
+    """The TAG_SNAPSHOT message: one versioned bf16 policy snapshot.
+
+    `params` is the bf16-cast param nest (what travels), `dtypes` the
+    original-dtype nest (leaf dtype names, so the receiving host can
+    restore exactly what `PolicySnapshotStore.publish` records; the
+    restore is bit-exact because every leaf was bf16-cast before
+    encoding, see fleet/snapshot_wire.py).
+
+    Wire layout after the tag byte: u64le version, then the params
+    value, then the dtypes value (both in the standard recursive
+    encoding).
+    """
+
+    __slots__ = ("version", "params", "dtypes")
+
+    def __init__(self, version: int, params: Any, dtypes: Any):
+        if version < 0:
+            raise WireError(f"snapshot version {version} must be >= 0")
+        self.version = int(version)
+        self.params = params
+        self.dtypes = dtypes
+
+    def __repr__(self):
+        return f"PolicySnapshot(version={self.version})"
 
 
 # wire.encode_s / wire.decode_s histograms: resolved
@@ -194,6 +232,11 @@ def _encode_value(buf: io.BytesIO, value: Any) -> None:
             buf.write(struct.pack("<H", len(raw)))
             buf.write(raw)
             _encode_value(buf, v)
+    elif isinstance(value, PolicySnapshot):
+        buf.write(bytes([TAG_SNAPSHOT]))
+        buf.write(struct.pack("<Q", value.version))
+        _encode_value(buf, value.params)
+        _encode_value(buf, value.dtypes)
     else:
         raise WireError(f"Cannot serialize {type(value)!r}")
 
@@ -353,6 +396,16 @@ def _write_list(enc: _Encoder, value) -> None:
         _write_value(enc, v)
 
 
+def _write_snapshot(enc: _Encoder, value: "PolicySnapshot") -> None:
+    enc.need(9)
+    pos = enc.pos
+    enc.scratch[pos] = TAG_SNAPSHOT
+    struct.pack_into("<Q", enc.scratch, pos + 1, value.version)
+    enc.pos = pos + 9
+    _write_value(enc, value.params)
+    _write_value(enc, value.dtypes)
+
+
 def _write_value(enc: _Encoder, value: Any) -> None:
     # Exact-type dispatch first (isinstance chains dominated the encode
     # profile); numpy scalars and subclasses fall through to an
@@ -393,6 +446,8 @@ def _write_value(enc: _Encoder, value: Any) -> None:
         _write_list(enc, value)
     elif isinstance(value, dict):
         _write_dict(enc, value)
+    elif isinstance(value, PolicySnapshot):
+        _write_snapshot(enc, value)
     else:
         raise WireError(f"Cannot serialize {type(value)!r}")
 
@@ -502,6 +557,15 @@ def _decode_value(view: memoryview, offset: int):
             v, offset = _decode_value(view, offset)
             out[key] = v
         return out, offset
+    if tag == TAG_SNAPSHOT:
+        (version,) = struct.unpack_from("<Q", view, offset)
+        offset += 8
+        params, offset = _decode_value(view, offset)
+        dtypes, offset = _decode_value(view, offset)
+        # Array leaves are zero-copy views like every decoded nest: the
+        # receiving host must consume (copy/publish) the snapshot before
+        # the next recv on the same buffer.
+        return PolicySnapshot(version, params, dtypes), offset
     raise WireError(f"Unknown tag {tag:#x}")
 
 
