@@ -254,9 +254,21 @@ exits non-zero without printing the final result line:
    replica bitwise equal to the lead, V-trace once,
    the attention forward and backward twice (one a layer) a data shard
    an update and the tail never; each layout's update ms beside the one
-   device's; then data 2 at f32 again in a torch.distributed NCCL group
-   of world size 1 (its routing counts all_gathered on the group),
-   bitwise equal to the run without a group.
+   device's; each layout with an expert axis (1x2, 2x2) held to the
+   sharded storage of polybeast's learner mesh: every row's params and
+   row 0's optimizer state (nu, the f32 master) by slot equal to what
+   the merged EP and TP rules place there, the allocator's bytes after
+   the build printed, and (f32) on one eager update each V-trace and
+   attention call against its plain version on its own inputs (V-trace
+   bit for bit, the attention forward rtol 1e-5 / atol 1e-6, its
+   backward rtol 1e-4 / atol 1e-5); then data 2 at f32 again in a
+   torch.distributed NCCL group of world size 1 (its routing counts
+   all_gathered on the group), bitwise equal to the run without a
+   group; then, the drivers' device list [cuda:0] * 4 (restored after),
+   polybeast --num_experts 4 --expert_parallel 2 --num_learner_devices 2
+   on the Python pool and on the core and the pool run's checkpoint
+   resumed on one device on the core, each run's acting copy bitwise the
+   learner's assembled params after every publish.
 11. The device split and remote replica serving (run after 10; with
    --split-only alone after the builds, printing the paths' launches as
    one JSON line): deep + LSTM at T=80, B=32, TBT_POOL_PALLAS=1,
@@ -306,10 +318,12 @@ exits non-zero without printing the final result line:
    same batches: params within phase 9's rtol 2e-3 / atol 2e-5,
    total_loss rtol 2e-4, replicas bitwise equal, V-trace once a data
    shard an update and the tail never, each step CUDA graphs, the update
-   ms beside one device's; (b) the MoE transformer (8 experts,
-   --attention_impl pallas) at data 1 x model 2 x expert 2 against one
-   device at phase 10's tolerances, the attention kernels once a head
-   group a layer; (c) the GPipe over 2 pipe devices for pipelined_mlp +
+   ms and the host API calls a dispatch beside one device's; (b) the MoE
+   transformer (8 experts, --attention_impl pallas) at data 1 x model 2
+   x expert 2 against one device at phase 10's tolerances, the attention
+   kernels once a head group a layer; (a) and (b) held to the sharded
+   storage and their kernel calls to their plain versions as phase 10's
+   layouts; (c) the GPipe over 2 pipe devices for pipelined_mlp +
    LSTM (2 stages, M = 2 and 4; 4 stages, two passes) and
    pipelined_transformer (4 layers, two passes; M = 2 and 4) against the
    sequential tower at phase 9's tolerance (the microbatches' products
@@ -322,7 +336,10 @@ exits non-zero without printing the final result line:
    pipelined_transformer, polybeast --tensor_parallel 2 with
    --num_learner_devices 1 and 2 on the Python pool and on the core,
    with --expert_parallel 2 and with --coordinator_address (an NCCL
-   group of one) on the core, and (d) polybeast --num_learner_devices 2
+   group of one) on the core, the core's data 1 x model 2 checkpoint
+   resumed on one device on the Python pool (each run's acting copy
+   bitwise the assembled learner after every publish), and (d) polybeast
+   --num_learner_devices 2
    --pipeline_parallel 2 --model pipelined_transformer on the core, each
    2 updates with its launches, SPS and update interval.
 
@@ -3529,6 +3546,8 @@ def _ep_path(dev, policy, layout, inputs):
     from torchbeast_tpu_torch import ops
 
     batches, state = inputs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     model, _ = _param_tree(dev, "transformer", policy,
                            num_experts=EP_EXPERTS)
     hp = _ep_hp(policy)
@@ -3543,6 +3562,10 @@ def _ep_path(dev, policy, layout, inputs):
             expert_parallelism=expert, model_parallelism=model_par)
         dispatch = parallel.make_parallel_update_step(model, opt, hp, mesh)
         replicas = dispatch.learner.replicas
+        torch.cuda.synchronize()
+        # The allocator's bytes once the learner is built, before any
+        # capture: every replica, its slots and the optimizer's state.
+        dispatch.built_bytes = torch.cuda.memory_allocated(dev) - base
     layers = [m for r in replicas for m in r.modules()
               if isinstance(m, MoEFFN)]
     for m in layers:
@@ -3556,17 +3579,20 @@ def _ep_path(dev, policy, layout, inputs):
         exact.append(_routing_exact(replicas))
     stats = {k: torch.stack([o[k].float() for o in out]) for k in out[0]}
     counts = (ops.launch_counts(), ops.bf16_launch_counts())
-    after = {name: p.detach().clone()
-             for name, p in model.named_parameters()}
+    # The one-device trees of the (sharded) params and masters.
+    after = {name: p.clone()
+             for name, p in parallel.local_view(model).items()}
     master = (None if opt.state.master is None
-              else [m.detach().clone() for m in opt.state.master])
+              else [m.clone() for m in parallel.local_view(
+                  model, opt.state.master).values()])
     check(all(exact), f"phase 10 {layout} {policy}: the shards' kept "
                       "assignments differ from the one-device rule on "
                       "their router probabilities")
     return (after, master), dispatch, stats, counts, dropped
 
 
-def check_ep_path(dev, policy, layout, want, inputs, kernels=EP_KERNELS):
+def check_ep_path(ops, dev, policy, layout, want, inputs,
+                  kernels=EP_KERNELS):
     """One layout of phase 10 against the one-device run `want` (an
     _ep_path result), each kernel launched as often as `kernels` says a
     data shard an update; a third entry of `layout` splits the blocks
@@ -3586,6 +3612,7 @@ def check_ep_path(dev, policy, layout, want, inputs, kernels=EP_KERNELS):
               f"updates, not {n} a data shard an update")
     check(counts["rmsprop_tail"] == 0, f"{label}: the tail launched")
     learner = dispatch.learner
+    storage = check_slot_bytes(label, learner, dispatch.built_bytes)
     for replica in learner.params[1:]:
         check(all(torch.equal(p, q) for p, q in zip(replica,
                                                     learner.params[0])),
@@ -3639,6 +3666,24 @@ def check_ep_path(dev, policy, layout, want, inputs, kernels=EP_KERNELS):
           f"{label}: {dropped} assignments dropped, one device {w_dropped}")
     batches, state = inputs
     ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    plain = ""
+    if policy == "f32" and int(np.prod(layout[1:])) > 1:
+        def build():
+            from torchbeast_tpu_torch import learner as learner_lib
+            from torchbeast_tpu_torch import parallel
+
+            model, _ = _param_tree(dev, "transformer", policy,
+                                   num_experts=EP_EXPERTS)
+            hp = _ep_hp(policy)
+            expert, model_par = (tuple(layout[1:]) + (1,))[:2]
+            return (model, learner_lib.make_optimizer(
+                hp, list(model.parameters())), hp,
+                parallel.create_mesh(
+                    devices=[dev] * int(np.prod(layout)),
+                    expert_parallelism=expert,
+                    model_parallelism=model_par))
+
+        plain = "; " + check_sharded_plain(ops, label, build, inputs)
     print(f"{label}: {int(np.prod(layout))} shards on {dev}, {DP_UPDATES} "
           f"updates against one device: params within rtol "
           f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
@@ -3650,8 +3695,155 @@ def check_ep_path(dev, policy, layout, want, inputs, kernels=EP_KERNELS):
           f"device {w_dropped}, {apart} apart); replicas "
           f"bitwise equal; launches an update "
           f"{ {k: counts[k] // DP_UPDATES for k in kernels} }; update "
-          f"{ms:.3f} ms ({'eager, shards in lockstep' if data > 1 else 'one CUDA graph'})")
+          f"{ms:.3f} ms ({'eager, shards in lockstep' if data > 1 else 'one CUDA graph'}); "
+          f"{storage}{plain}")
     return got[3], got, ms
+
+
+def check_sharded_plain(ops, label, build, inputs) -> str:
+    """One eager update of a sharded learner (`build()` -> (model,
+    optimizer, hparams, mesh)) with every V-trace and attention call
+    recorded; each held against its plain version on that call's own
+    inputs, with phase 3's tolerances: V-trace bit for bit, the attention
+    forward within rtol 1e-5 / atol 1e-6 and its backward (a fixed
+    cotangent) within rtol 1e-4 / atol 1e-5. Returns the line's clause."""
+    import types
+
+    from torchbeast_tpu_torch import parallel
+    from torchbeast_tpu_torch.models import transformer
+    from torchbeast_tpu_torch.ops import losses, vtrace
+
+    batches, state = inputs
+    lock = threading.Lock()
+    calls = {"vtrace": [], "attention": []}
+    kernel_vtrace = vtrace.vtrace_targets
+    kernel_attention = transformer.transformer_attention
+
+    def detached(xs):
+        return tuple(x.detach().clone() if torch.is_tensor(x) else x
+                     for x in xs)
+
+    def recorded_vtrace(*args):
+        out = kernel_vtrace(*args)
+        with lock:
+            calls["vtrace"].append((detached(args), detached(out)))
+        return out
+
+    def recorded_attention(*args):
+        with lock:
+            calls["attention"].append(detached(args))
+        return kernel_attention(*args)
+
+    # The callers' names are swapped, not the wrappers' own (which count
+    # their launches through their module's name).
+    losses.vtrace_lib = types.SimpleNamespace(
+        **{**vars(vtrace), "vtrace_targets": recorded_vtrace})
+    transformer.transformer_attention = recorded_attention
+    try:
+        model, opt, hp, mesh = build()
+        parallel.make_parallel_update_step(model, opt, hp, mesh,
+                                           capture=False)(batches[0], state)
+        torch.cuda.synchronize()
+    finally:
+        losses.vtrace_lib = vtrace
+        transformer.transformer_attention = kernel_attention
+    del model, opt
+    check(calls["vtrace"], f"{label}: no V-trace call on the update")
+    for args, out in calls["vtrace"]:
+        with ops.plain_on_device():
+            want = kernel_vtrace(*args)
+        check(all(torch.equal(o, w) for o, w in zip(out, want)),
+              f"{label}: V-trace on the sharded update differs from its "
+              "plain version")
+    err_f = err_b = 0.0
+    gen = torch.Generator(device=batches[0]["reward"].device)
+    for m, q, k, v, seg, valid, nodone, bias in calls["attention"]:
+        gen.manual_seed(0)
+        g = torch.randn(q.shape, generator=gen, device=q.device,
+                        dtype=q.dtype)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+        outs = []
+        for plain in (False, True):
+            with (ops.plain_on_device() if plain
+                  else contextlib.nullcontext()):
+                out = kernel_attention(m, leaves[0], leaves[1], leaves[2],
+                                       seg, valid, nodone, leaves[3])
+                outs.append((out.detach(),
+                             torch.autograd.grad(out, leaves, g)))
+        (ok_, gk), (op_, gp) = outs
+        e, ok = close(ok_, op_, 1e-5, 1e-6)
+        check(ok, f"{label}: attention forward on the sharded update, max "
+                  f"|err| {e}")
+        err_f = max(err_f, e)
+        for a, b_ in zip(gk, gp):
+            e, ok = close(a, b_, 1e-4, 1e-5)
+            check(ok, f"{label}: attention backward on the sharded update, "
+                      f"max |err| {e}")
+            err_b = max(err_b, e)
+    return (f"on one eager sharded update, each kernel call against its "
+            f"plain version on its inputs: V-trace {len(calls['vtrace'])} "
+            f"bit for bit, attention {len(calls['attention'])} (forward max "
+            f"|err| {err_f:.3g}, rtol 1e-5 / atol 1e-6; backward "
+            f"{err_b:.3g}, rtol 1e-4 / atol 1e-5)")
+
+
+def check_slot_bytes(label, learner, built_bytes) -> str:
+    """The learner's sharded storage against the merged EP and TP rules
+    on its one-device tree (the reference's polybeast placement): each
+    row's params and row 0's optimizer state (nu, the momentum trace,
+    the f32 master) hold, at each place, the bytes the rule puts there
+    (a split leaf's 1/K on each of its K slots, the replicated leaves on
+    the row's device), and no split leaf stays whole. Returns a line
+    with the bytes and the allocator's bytes after the build."""
+    from torchbeast_tpu_torch.models import sharded
+    from torchbeast_tpu_torch.parallel import ep, tp
+
+    shape = learner.mesh.shape
+    sizes = {"model": shape["model"], "expert": shape.get("expert", 1)}
+
+    def rule(model, tensors):
+        view = sharded.local_view(model, tensors)
+        specs = dict(ep._flat(tp.merge_param_shardings(
+            ep.expert_param_shardings(sizes["expert"], view),
+            tp.transformer_tp_shardings(sizes["model"], view)), specs=True))
+        want = {}
+        for name, t in view.items():
+            spec = specs[tuple(name.split("."))]
+            nbytes = t.numel() * t.element_size()
+            axis = next((a for a in sizes if a in spec), None)
+            places = ([None] if axis is None else
+                      [(axis, j) for j in range(sizes[axis])])
+            for place in places:
+                want[place] = want.get(place, 0) + nbytes // len(places)
+        return want
+
+    for i, replica in enumerate(learner.replicas):
+        got, want = sharded.slot_bytes(replica), rule(replica, None)
+        check(got == want, f"{label}: row {i}'s params by slot {got}, the "
+                           f"rule's {want}")
+        check(sharded.is_sharded(replica) == (len(got) > 1),
+              f"{label}: row {i}'s storage")
+    st = learner.optimizer.state
+    model = learner.replicas[0]
+    state = {}
+    for key in ("nu", "mom", "master"):
+        tensors = getattr(st, key)
+        if tensors is None:
+            continue
+        got = sharded.slot_bytes(model, tensors)
+        want = rule(model, tensors)
+        check(got == want, f"{label}: row 0's {key} by slot {got}, the "
+                           f"rule's {want}")
+        for place, n in got.items():
+            state[place] = state.get(place, 0) + n
+    mib = 2.0 ** 20
+    by_slot = {("row" if k is None else f"{k[0]} {k[1]}"): round(n / mib, 3)
+               for k, n in sharded.slot_bytes(model).items()}
+    state_by_slot = {("row" if k is None else f"{k[0]} {k[1]}"):
+                     round(n / mib, 3) for k, n in state.items()}
+    return (f"storage by slot (MiB, row 0) params {by_slot}, optimizer "
+            f"state {state_by_slot}, each row's params as the merged rule "
+            f"places them; allocator after the build {built_bytes} B")
 
 
 def check_ep_nccl(dev, want, inputs):
@@ -3712,8 +3904,8 @@ def run_ep_phases(ops, dev, savedir, tf32):
               f"CUDA graph), {want[4]} assignments dropped in its updates "
               f"of {2 * 2 * T * B} (2 layers, top-2)")
         for layout in layouts:
-            counts, got, _ = check_ep_path(dev, policy, layout, want,
-                                           inputs)
+            counts, got, _ = check_ep_path(ops, dev, policy, layout,
+                                           want, inputs)
             by_path[f"moe data {layout[0]} x expert {layout[1]} "
                     f"{policy}"] = counts
             if policy == "f32" and layout == (2, 1):
@@ -3728,6 +3920,29 @@ def run_ep_phases(ops, dev, savedir, tf32):
     torch.backends.cudnn.deterministic = False
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
+    # polybeast's data 2 x expert 2 learner mesh on both runtimes, its
+    # expert kernels sharded, and its checkpoint resumed on one device,
+    # with the drivers' device list [cuda:0] * 4 (restored after).
+    from torchbeast_tpu_torch import parallel
+
+    visible = parallel.visible_devices
+    parallel.visible_devices = lambda platform=None: [dev] * 4
+    try:
+        moe_args = ["--model", "transformer", "--num_experts", "4"]
+        for native in (False, True):
+            by_path.update(run_poly_parallel(
+                ops, savedir, "polybeast MoE transformer data 2 x expert 2 "
+                f"{'core' if native else 'Python pool'}", moe_args,
+                ["--expert_parallel", "2", "--num_learner_devices", "2"],
+                native, 2))
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast MoE transformer one device core, "
+            "resuming data 2 x expert 2 Python pool", moe_args, [], True,
+            1, line="Resuming preempted job",
+            resume="polybeast MoE transformer data 2 x expert 2 Python "
+                   "pool"))
+    finally:
+        parallel.visible_devices = visible
     print(f"phase 10 (expert parallel): {time.time() - t0:.1f} s")
     return by_path
 
@@ -4525,10 +4740,14 @@ def _pp_hp():
 
 
 def _compare_params(label, model, want):
-    """model's params against `want`'s within phase 9's tolerance; the
-    largest difference relative to a leaf's largest entry."""
+    """model's params (its one-device tree: a sharded model's slices
+    assembled) against `want`'s within phase 9's tolerance; the largest
+    difference relative to a leaf's largest entry."""
+    from torchbeast_tpu_torch import parallel
+
     worst = 0.0
-    for (pname, p), q in zip(model.named_parameters(), want.parameters()):
+    for (pname, p), q in zip(parallel.local_view(model).items(),
+                             want.parameters()):
         p, q = p.detach().float(), q.detach().float()
         err, ok = close(p, q, DP_PARAMS_RTOL, DP_PARAMS_ATOL)
         check(ok, f"{label}: param {pname} max |diff| {err:.3g} beyond "
@@ -4556,18 +4775,25 @@ def check_tp_path(ops, dev, layout, inputs, want):
     graphs. Returns its launch counts."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import parallel
+    from torchbeast_tpu_torch.models import sharded
 
     data, model_par = layout
     label = f"phase 12 (a) TP data {data} x model {model_par}"
     batches, state = inputs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     model = _tp_model(dev)
     opt = learner_lib.make_optimizer(_dp_hp(), list(model.parameters()))
     mesh = parallel.create_mesh(devices=[dev] * (data * model_par),
                                 model_parallelism=model_par)
     dispatch = parallel.make_parallel_update_step(model, opt, _dp_hp(), mesh)
+    torch.cuda.synchronize()
+    storage = check_slot_bytes(label, dispatch.learner,
+                               torch.cuda.memory_allocated(dev) - base)
     check(dispatch.captures_graphs and all(
-        all(getattr(m, "model_devices", None) == mesh.model_devices(i)
-            for m in r.modules() if hasattr(m, "model_devices"))
+        all([t.device for t in sharded.slots(m, "rel_bias") or ()]
+            == mesh.model_devices(i)
+            for m in r.modules() if hasattr(m, "rel_bias"))
         for i, r in enumerate(dispatch.learner.replicas)),
         f"{label}: not split over the model devices in CUDA graphs")
     dispatch.capture(batches[0], state)
@@ -4589,6 +4815,16 @@ def check_tp_path(ops, dev, layout, inputs, want):
     check(ok, f"{label}: total_loss {got['total_loss'].tolist()} vs "
               f"{want_stats['total_loss'].tolist()}")
     ms = time_ms(lambda: dispatch(batches[0], state), reps=10)
+    calls, _ = profile_call(lambda: dispatch(batches[0], state))
+
+    def build():
+        twin = _tp_model(dev)
+        return (twin, learner_lib.make_optimizer(
+            _dp_hp(), list(twin.parameters())), _dp_hp(),
+            parallel.create_mesh(devices=[dev] * (data * model_par),
+                                 model_parallelism=model_par))
+
+    plain = check_sharded_plain(ops, label, build, inputs)
     print(f"{label} T={T} B={B}: every device {dev}, {DP_UPDATES} updates "
           f"against one device, RMSprop eps {DP_EPS}: params within rtol "
           f"{DP_PARAMS_RTOL} / atol {DP_PARAMS_ATOL} (largest difference "
@@ -4596,12 +4832,15 @@ def check_tp_path(ops, dev, layout, inputs, want):
           f"{DP_LOSS_RTOL} (max |diff| {loss_err:.3g}); replicas bitwise "
           f"equal; launches an update "
           f"{ {w: counts[w] // DP_UPDATES for w in TP_KERNELS} }, the tail "
-          f"0; update {ms:.3f} ms (CUDA graphs), one device {one_ms:.3f} ms")
+          f"0; update {ms:.3f} ms (CUDA graphs), one device {one_ms:.3f} "
+          f"ms; host API calls a dispatch {sum(calls.values())} {calls}; "
+          f"{storage}; {plain}")
     return counts, bf16
 
 
 def run_poly_parallel(ops, savedir, label, model_args, extra, native,
-                      shards, tail=False, line="Parallel learner"):
+                      shards, tail=False, line="Parallel learner",
+                      resume=None):
     """polybeast through its parser at polybeast_argv's settings (16 Mock
     env servers, T=80, B=32, V-trace on) with `model_args` in place of
     deep + LSTM, --opt_impl xla (the sharded learner refuses the tail;
@@ -4609,11 +4848,17 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     updates on the Python pool or the core: V-trace once a data shard an
     update (`shards`), the tail once an update with `tail` and else
     never, finite losses, HEALTHY, the learner's log line that starts
-    with `line`. Returns the launch counts."""
-    from torchbeast_tpu_torch import polybeast
+    with `line`, and after every publish the acting copy's whole leaves
+    bitwise the learner's assembled params (models/sharded.Publisher,
+    checked where polybeast calls it). `resume` (an earlier label)
+    continues that run's checkpoint for TP_PP_UPDATES more updates.
+    Returns the launch counts."""
+    from torchbeast_tpu_torch import parallel, polybeast
+    from torchbeast_tpu_torch.models import sharded
 
-    xpid = "chip_smoke_" + re.sub(r"\W+", "_", label)
-    shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
+    xpid = "chip_smoke_" + re.sub(r"\W+", "_", resume or label)
+    if resume is None:
+        shutil.rmtree(os.path.join(savedir, xpid), ignore_errors=True)
     argv = polybeast_argv(savedir, xpid)
     at = argv.index("--model")
     del argv[at:at + 2]
@@ -4626,17 +4871,33 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
     logger = logging.getLogger("torchbeast_tpu_torch")
     logger.addHandler(lines)
     logger.setLevel(logging.INFO)
+    publish = sharded.Publisher.__call__
+    published = []
+
+    def checked(self):
+        publish(self)
+        view = parallel.local_view(self.model)
+        check(len(self.whole) == len(view) and all(
+            torch.equal(d, v) for d, v in zip(self.whole, view.values())),
+            f"{label}: the acting copy differs from the learner's "
+            "assembled params after a publish")
+        published.append(sharded.is_sharded(self.model))
+
+    sharded.Publisher.__call__ = checked
     ops.reset_launch_counts()
     t0 = time.time()
     flags = polybeast.make_parser().parse_args(
         argv + list(model_args) + list(extra)
-        + ["--total_steps", str(TP_PP_UPDATES * T * B)])
+        + ["--total_steps", str((2 if resume else 1) * TP_PP_UPDATES * T
+                                * B)])
     try:
         stats = polybeast.train(flags)
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(lines)
+        sharded.Publisher.__call__ = publish
     wall = time.time() - t0
+    check(published, f"{label}: no publish")
     counts, bf16 = ops.launch_counts(), ops.bf16_launch_counts()
     updates = stats["updates"]
     check(updates >= TP_PP_UPDATES, f"{label}: {updates} updates")
@@ -4657,10 +4918,17 @@ def run_poly_parallel(ops, savedir, label, model_args, extra, native,
                   if text.startswith("Joined")]
         check(joined, f"{label}: no process group joined")
         learner_line[0] += f"; {joined[0]}"
-    print(f"{label} T={flags.unroll_length} B={B}: {learner_line[0]}; "
+    if resume:
+        check(stats["step"] >= 2 * TP_PP_UPDATES * T * B,
+              f"{label}: step {stats['step']} after the resume")
+    print(f"{label} T={flags.unroll_length} B={B}: "
+          f"{learner_line[0].splitlines()[0]}; "
           f"{updates} updates in "
           f"{wall:.1f} s; SPS {stats['sps']:.1f}; update interval median "
-          f"{stats['update_interval_ms_median']:.2f} ms; launches {counts}")
+          f"{stats['update_interval_ms_median']:.2f} ms; launches {counts}; "
+          f"{len(published)} publishes, the acting copy bitwise the "
+          f"learner's assembled params after each"
+          f"{' (sharded storage)' if any(published) else ''}")
     return {label: (counts, bf16)}
 
 
@@ -4815,8 +5083,8 @@ def run_tp_pp_phases(ops, dev, savedir, tf32):
                   _agent_state(model, "transformer", dev))
         del model
         want = _ep_path(dev, "f32", None, inputs)
-        counts, got, ms = check_ep_path(dev, "f32", TP_EP_LAYOUT, want,
-                                        inputs, TP_EP_KERNELS)
+        counts, got, ms = check_ep_path(ops, dev, "f32", TP_EP_LAYOUT,
+                                        want, inputs, TP_EP_KERNELS)
         by_path["MoE data 1 x model 2 x expert 2 update"] = counts
         del want, got, inputs
         torch.cuda.empty_cache()
@@ -4853,6 +5121,12 @@ def run_tp_pp_phases(ops, dev, savedir, tf32):
                     ["--model", "transformer"],
                     ["--tensor_parallel", str(model_par),
                      "--num_learner_devices", str(data)], native, data))
+        # The sharded run's checkpoint, resumed on one device.
+        by_path.update(run_poly_parallel(
+            ops, savedir, "polybeast transformer one device Python pool, "
+            "resuming data 1 x model 2 core", ["--model", "transformer"],
+            [], False, 1, line="Resuming preempted job",
+            resume="polybeast transformer data 1 x model 2 core"))
         by_path.update(run_poly_parallel(
             ops, savedir, "polybeast transformer data 1 x model 2 x expert "
             "2 core", ["--model", "transformer"],

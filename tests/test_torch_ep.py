@@ -61,7 +61,7 @@ from torchbeast_tpu_torch import anakin
 from torchbeast_tpu_torch import learner as port_learner
 from torchbeast_tpu_torch import monobeast, parallel, polybeast, weights
 from torchbeast_tpu_torch.models import create_model as port_create_model
-from torchbeast_tpu_torch.models import moe
+from torchbeast_tpu_torch.models import moe, sharded
 from torchbeast_tpu_torch.utils import checkpoint
 from tests.test_torch_moe import _jax_layer, _port_layer
 from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
@@ -310,7 +310,7 @@ def _same(model, stats, want_params, want_stats):
     jax.tree_util.tree_map(
         lambda g, w: np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4,
                                                 atol=1e-6),
-        weights.torch_to_jax(model.state_dict()), want_params)
+        weights.torch_to_jax(parallel.local_view(model)), want_params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -524,13 +524,21 @@ def test_leaf_rule_picks_the_references_leaves():
     got = _picked(parallel.expert_param_shardings(2, port_state), ep.EXPERT)
     assert len(got) == len(want) == 8  # nu and the trace, 2 layers x 2
     assert {p[-4:] for p in got} == {p[-4:] for p in want}
-    # place_expert_params: halves on the row's expert devices.
-    placed = parallel.place_expert_params(
-        parallel.create_mesh(2, expert_parallelism=2), model.state_dict())
-    halves = placed["block_0.moe.w_in"]
-    assert len(halves) == 2 and halves[0].shape[0] == 2
+    # The placement (shard_expert_params over models/sharded.shard):
+    # halves on the row's expert devices, half the kernels' bytes each.
+    placed = copy.deepcopy(model)
+    devices = parallel.create_mesh(
+        2, expert_parallelism=2).expert_devices(0)
+    assert parallel.shard_expert_params(placed, devices) == 4
+    halves = sharded.slots(placed.block_0.moe, "w_in")
+    assert [t.device for t in halves] == devices
+    assert halves[0].shape[0] == 2
     assert torch.equal(torch.cat(halves), model.block_0.moe.w_in)
-    assert torch.is_tensor(placed["block_0.moe.router.weight"])
+    assert sharded.slots(placed.block_0.moe.router, "weight") is None
+    kernels = sum(getattr(model, f"block_{i}").moe.get_parameter(k)
+                  .numel() * 4 for i in (0, 1) for k in ("w_in", "w_out"))
+    assert sharded.slot_bytes(placed)[("expert", 0)] == kernels // 2
+    assert sharded.slot_bytes(placed)[("expert", 1)] == kernels // 2
 
 
 @pytest.mark.parametrize("name,kw", [

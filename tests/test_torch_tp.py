@@ -53,6 +53,7 @@ from torchbeast_tpu.parallel import (
 from torchbeast_tpu_torch import learner as port_learner
 from torchbeast_tpu_torch import parallel, weights
 from torchbeast_tpu_torch.models import create_model as port_create_model
+from torchbeast_tpu_torch.models import sharded
 from torchbeast_tpu_torch.parallel import ep, tp
 from torchbeast_tpu_torch.utils import checkpoint
 from tests.test_torch_ep import A, B, FRAME, STAT_KEYS, T, _hp, _torch
@@ -134,16 +135,22 @@ def test_tp_specs_are_the_references(size):
              "Dense_1.weight": (None, "model")}
     assert flat == {f"block_{i}.{k}": v for i in (0, 1)
                     for k, v in block.items()}
-    # place_params: slices on the row's model devices that cat back to
-    # the whole leaf.
-    placed = parallel.place_params(
-        parallel.create_mesh(size, model_parallelism=size),
-        model.state_dict(),
-        parallel.transformer_tp_shardings(size, model.state_dict()))
-    assert len(placed["block_0.out.weight"]) == size
-    assert torch.equal(torch.cat(placed["block_0.out.weight"], dim=1),
-                       model.block_0.out.weight)
-    assert torch.is_tensor(placed["block_0.LayerNorm_0.weight"])
+    # The placement (set_model_devices over models/sharded.shard):
+    # slices on the row's model devices that cat back to the whole leaf,
+    # 1/size of the split leaves' bytes each.
+    placed = copy.deepcopy(model)
+    devices = parallel.create_mesh(
+        size, model_parallelism=size).model_devices(0)
+    assert parallel.set_model_devices(placed, devices) == len(flat)
+    out_w = sharded.slots(placed.block_0.out, "weight")
+    assert [t.device for t in out_w] == devices
+    assert torch.equal(torch.cat(out_w, dim=1), model.block_0.out.weight)
+    assert sharded.slots(placed.block_0.LayerNorm_0, "weight") is None
+    whole = model.state_dict()
+    split_bytes = sum(whole[k].numel() * 4 for k in flat)
+    assert sharded.slot_bytes(placed) == {
+        None: sum(t.numel() * 4 for t in whole.values()) - split_bytes,
+        **{("model", j): split_bytes // size for j in range(size)}}
 
 
 @pytest.mark.parametrize("name", ["shallow", "deep"])
@@ -217,7 +224,8 @@ def test_split_block_is_the_one_device_block(size, impl):
         out, new_state = m(batch, state, sample_action=False)
         loss = torch.sum(out.policy_logits * w) + out.baseline.sum()
         loss.backward()
-        outs.append((out, new_state, [p.grad for p in m.parameters()]))
+        outs.append((out, new_state, list(parallel.local_view(
+            m, [p.grad for p in m.parameters()]).values())))
     (o1, s1, g1), (o2, s2, g2) = outs
     np.testing.assert_allclose(o2.policy_logits.detach().numpy(),
                                o1.policy_logits.detach().numpy(),
@@ -229,10 +237,11 @@ def test_split_block_is_the_one_device_block(size, impl):
     for a, b in zip(g2, g1):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-6)
-    # One device again: the plain block.
+    # One device again: the plain block, its leaves whole.
     parallel.set_model_devices(split, None)
-    assert all(getattr(m, "model_devices", None) is None
-               for m in split.modules())
+    assert not sharded.is_sharded(split)
+    assert [n for n, _ in split.named_parameters()] == [
+        n for n, _ in model.named_parameters()]
 
 
 # ------------------------------------------------ updates, the reference's
@@ -291,10 +300,18 @@ def test_tp_update_matches_the_reference(data, expert):
     opt = port_learner.make_optimizer(hp, list(model.parameters()))
     update = parallel.make_parallel_update_step(model, opt, hp, mesh)
     for i, replica in enumerate(update.learner.replicas):
-        blocks = [m for m in replica.modules()
-                  if hasattr(m, "model_devices")]
-        assert all(b.model_devices == mesh.model_devices(i)
-                   for b in blocks)
+        blocks = [m for m in replica.modules() if hasattr(m, "rel_bias")]
+        assert blocks
+        # The split leaves are resident slices on the row's model
+        # devices; no whole copy stays.
+        for b in blocks:
+            split = [(b.q, "weight"), (b.out, "weight"), (b, "rel_bias")]
+            if not hasattr(b, "moe"):
+                split.append((b.Dense_0, "bias"))
+            for module, leaf in split:
+                assert getattr(module, leaf) is None
+                assert [t.device for t in sharded.slots(module, leaf)] \
+                    == mesh.model_devices(i)
     assert not update.learner.spans_cards
     stats = update(_torch(make_batch()), model.initial_state(B))
     for key in STAT_KEYS:
@@ -305,7 +322,7 @@ def test_tp_update_matches_the_reference(data, expert):
     jax.tree_util.tree_map(
         lambda g, w: np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4,
                                                 atol=1e-6),
-        weights.torch_to_jax(model.state_dict()), want_params)
+        weights.torch_to_jax(parallel.local_view(model)), want_params)
     for replica in update.learner.params[1:]:
         assert all(torch.equal(p, q)
                    for p, q in zip(replica, update.learner.params[0]))

@@ -114,10 +114,12 @@ def update_ep(rank, procs, port, outdir):
     for key in STAT_KEYS:
         np.testing.assert_allclose(float(got[key]), float(want[key]),
                                    rtol=1e-4, err_msg=key)
-    for p, q in zip(model.parameters(), twin.parameters()):
-        np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(),
+    # The one-device tree of the sharded storage.
+    whole = list(parallel.local_view(twin).values())
+    for p, q in zip(model.parameters(), whole):
+        np.testing.assert_allclose(q.numpy(), p.detach().numpy(),
                                    rtol=1e-4, atol=1e-6)
-    flat = torch.cat([p.detach().reshape(-1) for p in twin.parameters()])
+    flat = torch.cat([q.reshape(-1) for q in whole])
     np.save(os.path.join(outdir, f"params{rank}.npy"), flat.numpy())
     torch.distributed.destroy_process_group()
     print("two-process data x expert update matches one device OK")
@@ -157,10 +159,12 @@ def update_tp(rank, procs, port, outdir):
         if key in want:
             np.testing.assert_allclose(float(got[key]), float(want[key]),
                                        rtol=1e-4, err_msg=key)
-    for p, q in zip(model.parameters(), twin.parameters()):
-        np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(),
+    # The one-device tree of the sharded storage.
+    whole = list(parallel.local_view(twin).values())
+    for p, q in zip(model.parameters(), whole):
+        np.testing.assert_allclose(q.numpy(), p.detach().numpy(),
                                    rtol=1e-4, atol=1e-6)
-    flat = torch.cat([p.detach().reshape(-1) for p in twin.parameters()])
+    flat = torch.cat([q.reshape(-1) for q in whole])
     np.save(os.path.join(outdir, f"params{rank}.npy"), flat.numpy())
     torch.distributed.destroy_process_group()
     print("two-process data x model update matches one device OK")

@@ -112,7 +112,16 @@ class RMSpropChain(FusedRMSpropTail):
       per tensor, one (row, col, nu) triple per JAX leaf.
     - Apply: params += u; bf16 params (the reference's
       _bf16_resident_params) add u to the f32 master and become
-      bf16(master), one narrowing cast per leaf."""
+      bf16(master), one narrowing cast per leaf.
+    - Sharded storage (models/sharded.py, the TP and EP slots of a
+      learner mesh): each state tensor lives on its parameter's device.
+      The global norm adds one partial sum of squares a group
+      (`norm_groups`: the whole leaves, then each slot) on the lead in
+      that order; the lead hands the rate and the clip's divisor and
+      factor to each other device once.
+    - Every elementwise step is one multi-tensor op (torch._foreach_*)
+      over the parameters of one device, each device's in turn, in the
+      same arithmetic as the ops one tensor at a time."""
 
     def __init__(self, params, learning_rate, decay: float, eps: float,
                  momentum: float = 0.0, max_norm: Optional[float] = None,
@@ -125,6 +134,11 @@ class RMSpropChain(FusedRMSpropTail):
         # chain of compact or factored state after it.
         self.lr_first = (not factored
                          and self.state.nu[0].dtype == torch.float32)
+        # Sharded storage (models/sharded.shard_optimizer): the global
+        # norm's partial sums, one a group of leaves, in a fixed order.
+        self.norm_groups = None
+        # The parameter indices by device (_by_device), for self.params.
+        self._groups = self._groups_of = None
         self.layouts = None
         if factored:
             if layouts is None or len(layouts) != len(self.params):
@@ -139,40 +153,89 @@ class RMSpropChain(FusedRMSpropTail):
 
     def step(self, grads) -> torch.Tensor:
         st = self.state
-        lr = self.tick()
+        rate = self.tick()
         with torch.no_grad():
             grads = [g.float() for g in grads]
-            sumsq = torch.stack([torch.sum(g * g) for g in grads]).sum()
+            if self.norm_groups is None:
+                sumsq = torch.stack([torch.sum(g * g) for g in grads]).sum()
+            else:
+                # Sharded storage: each group's partial sum on its
+                # device, added on the lead in the groups' order.
+                lead = self.device_count.device
+                sumsq = torch.stack([
+                    torch.stack([torch.sum(grads[i] * grads[i])
+                                 for i in group]).sum().to(lead)
+                    for group in self.norm_groups if group]).sum()
+            # The clip as a divide and a multiply, both by 1 under the
+            # trigger: where(trigger, g, (g / norm) * max_norm) exactly.
+            scalars = [-rate]
             if self.max_norm is not None:
                 g_norm = torch.sqrt(sumsq)
                 trigger = g_norm < self.max_norm
-                grads = [
-                    torch.where(trigger, g, (g / g_norm) * self.max_norm)
-                    for g in grads
-                ]
-            for i, (p, g, nu) in enumerate(zip(self.params, grads, st.nu)):
-                if self.lr_first:
-                    nu.copy_((1.0 - self.decay) * (g * g) + self.decay * nu)
-                    upd = (1.0 / (torch.sqrt(nu) + self.eps)) * g
-                    upd = upd * -lr
-                    upd = self._trace(i, upd)
-                elif self.layouts is not None:
-                    views, join = self.layouts[i]
-                    upd = join([self._factored(leaf, v) for leaf, v in
-                                zip(nu, views(g))])
-                    upd = self._trace(i, upd) * -lr
-                else:
-                    nu_f = self.decay * nu.float() + (1.0 - self.decay) * (
-                        g * g)
-                    upd = g / (torch.sqrt(nu_f) + self.eps)
-                    nu.copy_(nu_f)
-                    upd = self._trace(i, upd) * -lr
+                one = torch.ones_like(g_norm)
+                scalars += [torch.where(trigger, one, g_norm),
+                            torch.where(trigger, one,
+                                        one * self.max_norm)]
+            for device, idx in self._by_device():
+                # The lead's scalars, handed to each other device once.
+                neg_lr, *clip = [t.to(device) for t in scalars]
+                g = [grads[i] for i in idx]
+                if clip:
+                    g = torch._foreach_div(g, clip[0])
+                    torch._foreach_mul_(g, clip[1])
+                upd = self._scaled(idx, g, neg_lr)
                 if st.master is None:
-                    p.add_(upd)
+                    torch._foreach_add_([self.params[i] for i in idx], upd)
                 else:
-                    st.master[i].add_(upd)
-                    p.copy_(st.master[i])
+                    master = [st.master[i] for i in idx]
+                    torch._foreach_add_(master, upd)
+                    torch._foreach_copy_([self.params[i] for i in idx],
+                                         master)
         return sumsq
+
+    def _by_device(self):
+        """[(device, parameter indices on it)], in first-seen order."""
+        if self._groups_of is not self.params:
+            groups = {}
+            for i, p in enumerate(self.params):
+                groups.setdefault(p.device, []).append(i)
+            self._groups = list(groups.items())
+            self._groups_of = self.params
+        return self._groups
+
+    def _scaled(self, idx, g, neg_lr):
+        """The update of the parameters `idx` (on one device) from their
+        clipped gradients `g`: the second moment, the trace and the LR,
+        in the order of the class docstring, each step one multi-tensor
+        op over the list."""
+        nu = [self.state.nu[i] for i in idx]
+        if self.layouts is None:
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1.0 - self.decay)
+        if self.lr_first:
+            torch._foreach_mul_(nu, self.decay)
+            torch._foreach_add_(nu, g2)
+            upd = torch._foreach_sqrt(nu)
+            torch._foreach_add_(upd, self.eps)
+            torch._foreach_reciprocal_(upd)
+            torch._foreach_mul_(upd, g)
+            torch._foreach_mul_(upd, neg_lr)
+            return self._trace(idx, upd)
+        if self.layouts is not None:
+            upd = []
+            for i, grad in zip(idx, g):
+                views, join = self.layouts[i]
+                upd.append(join([self._factored(leaf, v) for leaf, v in
+                                 zip(self.state.nu[i], views(grad))]))
+        else:
+            nu_f = [v.float() for v in nu]
+            torch._foreach_mul_(nu_f, self.decay)
+            torch._foreach_add_(nu_f, g2)
+            upd = torch._foreach_sqrt(nu_f)
+            torch._foreach_add_(upd, self.eps)
+            upd = torch._foreach_div(g, upd)
+            torch._foreach_copy_(nu, nu_f)
+        return torch._foreach_mul(self._trace(idx, upd), neg_lr)
 
     def _factored(self, leaf, g):
         """One JAX leaf's factored scaling; updates its (row, col, nu)."""
@@ -188,12 +251,14 @@ class RMSpropChain(FusedRMSpropTail):
         nu.copy_(d * nu + (1.0 - d) * g2)
         return g / (torch.sqrt(nu) + self.eps)
 
-    def _trace(self, i, upd):
-        """optax.trace: mom = upd + momentum * mom, the new update."""
+    def _trace(self, idx, upd):
+        """optax.trace over the parameters `idx`: mom = upd + momentum *
+        mom, the new update."""
         if not self.momentum:
             return upd
-        mom = self.state.mom[i]
-        mom.copy_(upd + self.momentum * mom)
+        mom = [self.state.mom[i] for i in idx]
+        torch._foreach_mul_(mom, self.momentum)
+        torch._foreach_add_(mom, upd)
         return mom
 
 

@@ -68,12 +68,21 @@ first call. Without a scope the layer is the one-device layer above.
 Expert parallelism (`expert_devices`, set by parallel/ep.py). With G
 devices the E experts split into G contiguous groups; group j's experts
 run on expert_devices[j] on this layer's tokens: its [E/G, C, d] share
-of the dispatched activations and its experts' weights are copied there
-(differentiably), its [E/G, C, d] outputs come back, and the G groups'
-combines are summed on the tokens' device in group order. The weights
-stay whole leaves of the module: the optimizer and the checkpoint see
-the one-device tree. On one device (every group on the tokens' device)
-the copies are no-ops.
+of the dispatched activations is copied there, its [E/G, C, d] outputs
+come back, and the G groups' combines are summed on the tokens' device
+in group order. Where the weights live, two ways:
+
+- sharded storage (ep.shard_expert_params, polybeast's learner mesh, as
+  the reference places its expert kernels): `w_in` and `w_out` are G
+  resident slices (models/sharded.py), slice j on expert device j, which
+  group j reads where it lies; their gradients land there;
+- whole leaves (ep.set_expert_devices: monobeast's and anakin's expert
+  mesh, whose reference does not place its params): group j's weights
+  are copied to its device inside the forward (differentiably).
+
+The biases are replicated leaves: whole on the tokens' device, group j's
+rows copied to its device. On one device (every group on the tokens'
+device) every copy is a no-op.
 
 `track_routing` (off by default) keeps the last forward's router
 probabilities [t, E] in `last_probs`, its kept mask [t, K, E] in
@@ -98,6 +107,7 @@ from torch import nn
 
 from torchbeast_tpu_torch.models import init
 from torchbeast_tpu_torch.models.layers import linear
+from torchbeast_tpu_torch.models.sharded import slots
 
 _RECORDING = threading.local()
 _ROUTING = threading.local()
@@ -238,15 +248,18 @@ class MoEFFN(nn.Module):
                              C).float() * kept[:, k, :, None]
             dispatch = dispatch + slot  # [t, E, C], 0/1
             combine = combine + gate[:, k, None, None] * slot
-        devices = self.expert_devices
+        w_in, w_out = slots(self, "w_in"), slots(self, "w_out")
+        devices = ([w.device for w in w_in] if w_in is not None
+                   else self.expert_devices)
         if not devices or len(devices) == 1:
             y = self._experts(dispatch, combine, x, slice(None))
         else:
             per = E // len(devices)
             y = None
             for j, dev in enumerate(devices):
-                part = self._experts(dispatch, combine, x,
-                                     slice(j * per, (j + 1) * per), dev)
+                part = self._experts(
+                    dispatch, combine, x, slice(j * per, (j + 1) * per), dev,
+                    None if w_in is None else (w_in[j], w_out[j]))
                 y = part if y is None else y + part
 
         recorded = getattr(_RECORDING, "losses", None)
@@ -261,24 +274,28 @@ class MoEFFN(nn.Module):
                 recorded[self] = self.aux_loss_weight * aux
         return y
 
-    def _experts(self, dispatch, combine, x, experts, device=None):
+    def _experts(self, dispatch, combine, x, experts, device=None,
+                 resident=None):
         """The experts `experts` (a slice) on this layer's tokens: [t, d]
         f32 on x's device. With `device` another device, the dispatched
-        [E/G, C, d] activations and the group's weights go there, and its
-        [E/G, C, d] outputs come back for the combine (the reference's
-        two all-to-alls)."""
+        [E/G, C, d] activations go there, and its [E/G, C, d] outputs come
+        back for the combine (the reference's two all-to-alls); the
+        group's kernels are `resident` (its w_in and w_out slots, on
+        `device`) or copied there from the whole leaves."""
         dtype = self.dtype
         home = x.device
         away = device is not None and device != home
         to = ((lambda t: t.to(device)) if away  # noqa: E731
               else (lambda t: t))
+        w_in, w_out = resident or (to(self.w_in[experts]),
+                                   to(self.w_out[experts]))
         expert_in = to(torch.einsum("tec,td->ecd",
                                     dispatch[:, experts].to(dtype),
                                     x.to(dtype)))
-        h = F.gelu(torch.bmm(expert_in, to(self.w_in[experts]).to(dtype))
+        h = F.gelu(torch.bmm(expert_in, w_in.to(dtype))
                    + to(self.b_in[experts])[:, None, :].to(dtype),
                    approximate="tanh")
-        expert_out = (torch.bmm(h, to(self.w_out[experts]).to(dtype))
+        expert_out = (torch.bmm(h, w_out.to(dtype))
                       + to(self.b_out[experts])[:, None, :].to(dtype))
         if away:
             expert_out = expert_out.to(home)

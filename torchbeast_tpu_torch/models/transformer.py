@@ -36,18 +36,19 @@ place of Dense_0 and Dense_1, as the reference's block builds it
 learner (moe.recording_losses). flax's LayerNorm has epsilon 1e-6 and
 its gelu is the tanh approximation; both are set so here.
 
-Tensor parallelism (`model_devices`, set by parallel/tp.py): with K
-devices, block device j runs head group j (its q/k/v column slices, its
-rel_bias rows and the cache's heads copied to it inside the forward),
-the attention of those heads and a partial `out` projection over their
-rows, then FFN column group j (Dense_0's columns) and a partial Dense_1
-over its rows. The K partial outputs come back to the block's device and
-are summed in f32 in the order j = 0..K-1; then the replicated biases
-and the residual are added. The weights stay whole leaves of the module,
-so the optimizer and the checkpoint see the one-device tree; autograd
-carries the gradients back through the copies. On one device (every
-group on the block's device) the copies are no-ops and the split is the
-same arithmetic in K pieces. The MoE layer is left to EP.
+Tensor parallelism (parallel/tp.set_model_devices, which shards the
+split leaves' storage, models/sharded.py): with K devices,
+block device j holds slot j of q/k/v's weights and biases (head group j),
+of rel_bias's rows, of `out`'s weight columns, of Dense_0's weight rows
+and bias (FFN column group j) and of Dense_1's weight columns, and runs
+on them, where they lie: the attention of its heads (the cache's heads
+and the block's input copied to it) and a partial `out` projection, then
+its FFN columns and a partial Dense_1. The K partial outputs come back
+to the block's device and are summed in f32 in the order j = 0..K-1;
+then the replicated biases and the residual are added. The gradients of
+the slots land on their devices. On one device (every slot on the
+block's device) the copies are no-ops and the split is the same
+arithmetic in K pieces. The MoE layer is left to EP.
 
 Sequence parallelism (set_seq_devices, which stands for the reference's
 constructor arguments mesh, seq_axis, ring_schedule and sp_strategy):
@@ -92,6 +93,7 @@ from torchbeast_tpu_torch.models.layers import (
     linear,
 )
 from torchbeast_tpu_torch.models.moe import MoEFFN
+from torchbeast_tpu_torch.models.sharded import slots
 from torchbeast_tpu_torch.ops.attention import (
     band_relative_offsets,
     dense_transformer_attend,
@@ -121,7 +123,6 @@ class _Block(nn.Module):
         self.memory_len = memory_len
         self.attention_impl = attention_impl
         self.dtype = dtype
-        self.model_devices = None
         self.seq_devices = None
         self.ring_schedule = "contiguous"
         self.sp_strategy = "ring"
@@ -146,10 +147,9 @@ class _Block(nn.Module):
         fused path, which builds both from seg [B, T] int32, cache_valid
         [B, M] f32 and no_done [B, T]). Returns (y, k, v), k and v this
         unroll's [B, T, H, hd]."""
-        devices = self.model_devices
-        if devices and len(devices) > 1:
-            return self._split(devices, x, k_cache, v_cache, mask, offsets,
-                               seg, cache_valid, no_done)
+        if slots(self.q, "weight") is not None:
+            return self._split(x, k_cache, v_cache, mask, offsets, seg,
+                               cache_valid, no_done)
         B, T, d = x.shape
         H = self.num_heads
         hd = d // H
@@ -206,15 +206,16 @@ class _Block(nn.Module):
         return dense_transformer_attend(q, k_all, v_all, mask, offsets,
                                         rel_bias)
 
-    def _split(self, devices, x, k_cache, v_cache, mask, offsets, seg,
-               cache_valid, no_done):
-        """forward over K = len(devices) head and FFN column groups (the
-        module docstring's tensor parallelism)."""
+    def _split(self, x, k_cache, v_cache, mask, offsets, seg, cache_valid,
+               no_done):
+        """forward over the K head and FFN column groups of the resident
+        slots (the module docstring's tensor parallelism)."""
         B, T, d = x.shape
-        K = len(devices)
-        H = self.num_heads
-        hd = d // H
-        Hk = H // K
+        q_w, k_w, v_w = (slots(m, "weight") for m in (self.q, self.k, self.v))
+        q_b, k_b, v_b = (slots(m, "bias") for m in (self.q, self.k, self.v))
+        K = len(q_w)
+        Hk = self.num_heads // K
+        hd = d // self.num_heads
         dtype = self.dtype
         home = x.device
 
@@ -223,24 +224,24 @@ class _Block(nn.Module):
 
         h = layer_norm(self.LayerNorm_0, x)
         attn, ks, vs = None, [], []
-        for j, dev in enumerate(devices):
-            to = on(dev)
-            cols = slice(j * Hk * hd, (j + 1) * Hk * hd)
+        for j, (rel, out_w) in enumerate(zip(slots(self, "rel_bias"),
+                                              slots(self.out, "weight"))):
+            to = on(rel.device)
             heads = slice(j * Hk, (j + 1) * Hk)
             hj = to(h).to(dtype)
 
-            def project(layer):
-                return F.linear(hj, to(layer.weight[cols]).to(dtype),
-                                to(layer.bias[cols]).to(dtype)).view(
-                                    B, T, Hk, hd)
+            def project(w, b):
+                return F.linear(hj, w.to(dtype), b.to(dtype)).view(
+                    B, T, Hk, hd)
 
-            q, k, v = project(self.q), project(self.k), project(self.v)
+            q, k, v = (project(w[j], b[j]) for w, b in
+                       ((q_w, q_b), (k_w, k_b), (v_w, v_b)))
             attended = self._attend(
                 q, k, v, to(k_cache[:, :, heads]), to(v_cache[:, :, heads]),
                 to(mask), to(offsets), to(seg), to(cache_valid),
-                to(no_done), to(self.rel_bias[heads]))
+                to(no_done), rel)
             part = F.linear(attended.reshape(B, T, Hk * hd).to(dtype),
-                            to(self.out.weight[:, cols]).to(dtype))
+                            out_w.to(dtype))
             part = part.to(home).float()
             attn = part if attn is None else attn + part
             ks.append(k.to(home).float())
@@ -250,17 +251,14 @@ class _Block(nn.Module):
         if hasattr(self, "moe"):
             x = x + self.moe(h.reshape(B * T, d)).reshape(B, T, d)
         else:
-            ff = self.Dense_0.out_features // K
             mlp = None
-            for j, dev in enumerate(devices):
-                to = on(dev)
-                cols = slice(j * ff, (j + 1) * ff)
-                u = F.gelu(F.linear(to(h).to(dtype),
-                                    to(self.Dense_0.weight[cols]).to(dtype),
-                                    to(self.Dense_0.bias[cols]).to(dtype)),
-                           approximate="tanh")
-                part = F.linear(u, to(self.Dense_1.weight[:, cols]).to(
-                    dtype)).to(home).float()
+            for up_w, up_b, down_w in zip(slots(self.Dense_0, "weight"),
+                                          slots(self.Dense_0, "bias"),
+                                          slots(self.Dense_1, "weight")):
+                to = on(up_w.device)
+                u = F.gelu(F.linear(to(h).to(dtype), up_w.to(dtype),
+                                    up_b.to(dtype)), approximate="tanh")
+                part = F.linear(u, down_w.to(dtype)).to(home).float()
                 mlp = part if mlp is None else mlp + part
             x = x + (mlp + self.Dense_1.bias.to(dtype).float())
         return x, torch.cat(ks, dim=2), torch.cat(vs, dim=2)

@@ -6,7 +6,10 @@ The `data`, `model`, `seq`, `pipe` and `expert` axes, the Sebulba split
 (sebulba.py, over runtime/placement.py) and the fleet's learner
 strategy (dp.fleet_strategy; the fleet itself is fleet/) are in the
 port. The reference's shardy_partitioner selects an XLA partitioner
-and has no counterpart here."""
+and has no counterpart here. Under --expert_parallel and
+--tensor_parallel the learner mesh keeps the split leaves as resident
+slices on their devices (models/sharded.py; `local_view` assembles the
+one-device tree)."""
 
 from torchbeast_tpu_torch.parallel.dp import (  # noqa: F401
     ParallelLearner,
@@ -30,10 +33,11 @@ from torchbeast_tpu_torch.parallel.mesh import (  # noqa: F401
     create_mesh,
     visible_devices,
 )
+from torchbeast_tpu_torch.models.sharded import local_view  # noqa: F401
 from torchbeast_tpu_torch.parallel.ep import (  # noqa: F401
     expert_param_shardings,
-    place_expert_params,
     set_expert_devices,
+    shard_expert_params,
 )
 from torchbeast_tpu_torch.parallel.pp import (  # noqa: F401
     can_pipeline,
@@ -47,7 +51,6 @@ from torchbeast_tpu_torch.parallel.pp import (  # noqa: F401
 from torchbeast_tpu_torch.parallel.tp import (  # noqa: F401
     dense_kernel_shardings,
     merge_param_shardings,
-    place_params,
     set_model_devices,
     transformer_tp_shardings,
 )

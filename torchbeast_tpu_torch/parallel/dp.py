@@ -44,18 +44,28 @@ shards' counts, across processes an all_gather on the mesh's group.
 That exchange sits in the middle of the forward, so the local shards run
 in lockstep, one thread each, and the step runs eagerly (no CUDA graph
 can hold one shard's forward while it waits on another's). The
-backward exchanges nothing. On a mesh with an `expert` axis, data row
-i's replica runs its experts on the row's expert devices (parallel/
-ep.py) and their gradients come back to the row's replica, so the
-expert leaves' gradients are reduced over `data` only, with every other
-gradient. In the same way, on a mesh with a `model` axis data row i's
-replica splits its transformer blocks over the row's model devices
-(parallel/tp.py), and on one with a `pipe` axis its pipelined model runs
+backward exchanges nothing.
+
+Sharded storage, as the reference's polybeast places its params on the
+merged EP and TP rules. On a mesh with an `expert` axis data row i's
+replica keeps slot j of each expert kernel resident on the row's expert
+device j (parallel/ep.shard_expert_params), and on one with a `model`
+axis slot j of each leaf the Megatron pairing splits on the row's model
+device j (parallel/tp.set_model_devices); the replicated leaves stay
+whole on the row's device (models/sharded.py). The lead's optimizer is
+realigned with row 0's slots (sharded.shard_optimizer): each slot device
+of row 0 holds its slices' RMSprop state, and no whole copy of a split
+leaf stays in the params, the gradients or the state. The gradient of a
+leaf is summed over `data` on row 0's device of that leaf (its slot
+device, or the lead), shard 0 first; one flat f32 buffer a device holds
+that device's sums (the lead's also the stats) and is all-reduced across
+processes on the mesh's group. The optimizer then applies each slice
+where it lies, and every other row's slots take row 0's by copies, slot
+by slot. On a mesh with a `pipe` axis replica i's pipelined model runs
 its GPipe over the row's pipe devices (parallel/pp.py: the replica's
-model holds mesh.row(i)). Either way the leaves stay whole on the row's
-device and the gradients reduce over `data` only, shard 0 first. On a
-mesh with a `seq` axis, replica i's transformer blocks run their
-attention sequence-parallel over the row's seq devices
+model holds mesh.row(i)), its stage params replicated as the reference's
+drivers keep them; on one with a `seq` axis replica i's transformer
+blocks run their attention sequence-parallel over the row's seq devices
 (models/transformer.set_seq_devices, ops/attention.py's ring and
 Ulysses).
 
@@ -85,7 +95,7 @@ import torch.distributed as dist
 
 from torchbeast_tpu_torch import graphs, nest, telemetry
 from torchbeast_tpu_torch import learner as learner_lib
-from torchbeast_tpu_torch.models import moe
+from torchbeast_tpu_torch.models import moe, sharded
 from torchbeast_tpu_torch.models.transformer import set_seq_devices
 from torchbeast_tpu_torch.parallel import ep, pp, tp
 from torchbeast_tpu_torch.parallel.mesh import Mesh
@@ -211,9 +221,9 @@ def replicate(mesh: Mesh, tree) -> list:
 
 
 def _copy_all(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]):
-    """dst[j] <- src[j]: one fused copy on one device, one copy per
-    tensor across two."""
-    if dst[0].device == src[0].device:
+    """dst[j] <- src[j]: one fused copy when every tensor is on one
+    device, one copy per tensor otherwise."""
+    if len({t.device for t in list(dst) + list(src)}) == 1:
         torch._foreach_copy_(list(dst), list(src))
     else:
         for d, s in zip(dst, src):
@@ -313,16 +323,21 @@ class ParallelLearner:
                                    for d in self.devices[1:]]
         for i, replica in enumerate(self.replicas):
             if "expert" in mesh.shape:
-                ep.set_expert_devices(replica, mesh.expert_devices(i))
+                ep.shard_expert_params(replica, mesh.expert_devices(i))
             if mesh.shape["model"] > 1:
                 tp.set_model_devices(replica, mesh.model_devices(i))
             if "seq" in mesh.shape:
                 set_seq_devices(replica, mesh.seq_devices(i))
             if "pipe" in mesh.shape:
                 pp.set_pipeline(replica, mesh.row(i))
+        if sharded.is_sharded(model):
+            sharded.shard_optimizer(optimizer, model)
         # A row over several cards cannot be one shard's CUDA graph.
         self.spans_cards = mesh.spans_cards()
         self.params = [list(r.parameters()) for r in self.replicas]
+        # Where each leaf's gradient is summed and applied: row 0's device
+        # of it (its slot's, or the lead).
+        self.homes = [p.device for p in self.params[0]]
         # Whole-batch routing needs the exchange when the batch is split.
         self.exchange = (
             RoutingExchange(mesh) if mesh.shape["data"] > 1 and any(
@@ -339,7 +354,8 @@ class ParallelLearner:
         return len(self.replicas)
 
     def sync(self) -> None:
-        """Every replica takes the lead's params and update count."""
+        """Every replica takes the lead's params and update count, slot
+        by slot."""
         with torch.no_grad():
             for i in range(1, self.num_shards):
                 _copy_all(self.params[i], self.params[0])
@@ -372,28 +388,38 @@ class ParallelLearner:
         return list(grads), vec
 
     def apply(self, grads_per_shard, vecs) -> torch.Tensor:
-        """On the lead: the gradients summed in f32 (shard 0 first, then
-        the others in order; all-reduced across processes), the optimizer
-        step on the sum, and the stats the same way. Returns one f32
-        vector: the summed stats in `keys` order, then the grad norm."""
+        """On row 0: each gradient summed in f32 on its home device
+        (shard 0 first, then the others in order; all-reduced across
+        processes), the optimizer step on the sums, and the stats the
+        same way on the lead. Returns one f32 vector: the summed stats in
+        `keys` order, then the grad norm."""
         lead = self.lead
         with torch.no_grad():
             summed = [g.float() for g in grads_per_shard[0]]
             vec = vecs[0]
             for grads, v in zip(grads_per_shard[1:], vecs[1:]):
-                summed = [s + g.to(lead).float()
+                summed = [s + g.to(s.device).float()
                           for s, g in zip(summed, grads)]
                 vec = vec + v.to(lead)
-            # One flat f32 buffer, with or without a group: the optimizer
-            # then sees the same (contiguous) layout either way, and its
-            # norm's reduction order with it.
-            flat = torch.cat([s.reshape(-1) for s in summed] + [vec])
-            if self.group is not None:
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                                group=self.group)
-            parts = flat.split([s.numel() for s in summed] + [vec.numel()])
-            summed = [p.view(s.shape) for p, s in zip(parts, summed)]
-            vec = parts[-1]
+            # One flat f32 buffer a device, with or without a group: the
+            # optimizer then sees the same (contiguous) layout either way,
+            # and its norm's reduction order with it. The lead's carries
+            # the stats.
+            order = list(dict.fromkeys([lead] + self.homes))
+            for dev in order:
+                idx = [i for i, h in enumerate(self.homes) if h == dev]
+                tail = [vec] if dev == lead else []
+                flat = torch.cat([summed[i].reshape(-1) for i in idx]
+                                 + tail)
+                if self.group is not None:
+                    dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                    group=self.group)
+                parts = flat.split([summed[i].numel() for i in idx]
+                                   + [t.numel() for t in tail])
+                for i, p in zip(idx, parts):
+                    summed[i] = p.view(summed[i].shape)
+                if tail:
+                    vec = parts[-1]
             sumsq = self.optimizer.step(summed)
             return torch.cat([vec, torch.sqrt(sumsq).reshape(1)])
 
@@ -461,17 +487,19 @@ class ShardedStep:
             graphs.CapturedStep(fn, dev, generator=gen, restore=restore)
             for fn, dev, gen, restore in zip(
                 self._fns, L.devices, self._generators, self._restores)]
-        # The lead reads a same-device shard's graph outputs in place and
-        # another device's through staging buffers of its own.
+        # Row 0 reads a shard's graph outputs in place where each lies on
+        # its home device, and another row's through staging buffers of
+        # its own.
         self._staged = []
-        for dev, g in zip(L.devices, self._shard_graphs):
+        for g in self._shard_graphs:
             grads, vec = g.out
-            if dev == L.lead:
+            if vec.device == L.lead and all(
+                    t.device == h for t, h in zip(grads, L.homes)):
                 self._staged.append(None)
             else:
                 with torch.no_grad():
                     self._staged.append((
-                        [t.to(L.lead, copy=True) for t in grads],
+                        [t.to(h, copy=True) for t, h in zip(grads, L.homes)],
                         vec.to(L.lead, copy=True)))
         inputs = [s if s is not None else g.out
                   for s, g in zip(self._staged, self._shard_graphs)]
@@ -629,8 +657,10 @@ def make_parallel_update_step(model, optimizer, hp: learner_lib.HParams,
 class ShardedTarget:
     """The IMPACT target network (--loss impact) of a data-parallel
     learner: one learner.TargetNetwork per shard over that shard's
-    replica, so each shard's target forward runs on its own device. They
-    publish the same versions from bitwise-equal params; the lead's
+    replica, so each shard's target forward runs on its own device (a
+    copy of the replica, so under sharded storage its split leaves stay
+    slices on the row's slots, as the reference's sharded copy does).
+    They publish the same versions from bitwise-equal params; the lead's
     store is `store` and writes the "learner.target" series. `merge`
     splits the batch (shard_batch) and puts each shard's target outputs
     on its part, returning a Sharded for the dispatch. A MoE model's
@@ -710,7 +740,9 @@ def check_consistent_restore(mesh: Mesh, step: int, params) -> None:
     """Across processes: every process must have restored the same
     checkpoint (the reference's startup check). A process that resumed
     other params would sum gradients of other params and hang at the end
-    when the update counts part; fail loudly at startup instead."""
+    when the update counts part; fail loudly at startup instead. `params`
+    may be whole leaves or a sharded learner's slices (the sum of
+    squares is the same tree's either way)."""
     if mesh.group is None or mesh.process_count == 1:
         return
     with torch.no_grad():

@@ -6,12 +6,21 @@ The reference shards the leading `E` axis of the MoE expert kernels
 the dispatch and combine einsums into all-to-alls. The port picks the
 same leaves by the same rule and splits the same axis: each MoE layer of
 a data row runs expert group j on the row's j-th expert device
-(models/moe.MoEFFN `expert_devices`), its weights copied there inside
-the forward, and sums the groups' outputs on the row's device. The
-leaves themselves stay whole on the row's device, where the optimizer
-and the checkpoint see the one-device tree; the reference's memory
-saving (each chip holding 1/K of the expert kernels and of their
-optimizer state) is not the port's.
+(models/moe.MoEFFN `expert_devices`) and sums the groups' outputs on the
+row's device.
+
+Where the reference places its params on the rule (polybeast's learner
+mesh, polybeast.py:989-1041), `shard_expert_params` does too: each
+picked leaf becomes G resident slices (models/sharded.py), slice j on
+expert device j, so that device holds 1/G of the expert kernels and,
+once the optimizer is realigned (sharded.shard_optimizer, which
+parallel/dp.ParallelLearner runs), of their RMSprop state. The
+checkpoint, weights.py and the acting copy read the one-device tree
+through the assembly (models/sharded.local_view). Where the
+reference passes the mesh to the MoE layers only (monobeast's and
+anakin's expert mesh), `set_expert_devices` keeps the leaves whole on
+the row's device and copies each group's kernels to its device inside
+the forward.
 
 The leaf rule (the reference's expert_param_shardings): a leaf named
 `w_in` or `w_out` of 3 or more dims whose leading dim divides by the
@@ -25,8 +34,7 @@ dict (flat dotted names).
 
 from typing import Any, Sequence
 
-import torch
-
+from torchbeast_tpu_torch.models import sharded
 from torchbeast_tpu_torch.models.moe import MoEFFN
 
 EXPERT_KERNELS = ("w_in", "w_out")
@@ -101,31 +109,6 @@ def expert_param_shardings(mesh_or_size, tree: Any,
     return _map(rule, tree)
 
 
-def expert_slices(leaf: torch.Tensor, devices: Sequence) -> list:
-    """The leaf's leading axis split into len(devices) equal groups, group
-    j copied to devices[j]."""
-    per = leaf.shape[0] // len(devices)
-    return [leaf[j * per:(j + 1) * per].to(d)
-            for j, d in enumerate(devices)]
-
-
-def place_expert_params(mesh, tree: Any, row: int = 0,
-                        axis: str = "expert") -> Any:
-    """`tree` (of tensors) placed on data row `row` of `mesh`: each leaf
-    the rule picks becomes its expert_slices over the row's expert
-    devices, every other leaf goes whole to the row's first device."""
-    devices = mesh.expert_devices(row)
-    specs = expert_param_shardings(mesh, tree, axis)
-    spec_of = dict(_flat(specs))
-
-    def place(path, leaf):
-        if spec_of[path] == EXPERT:
-            return expert_slices(leaf, devices)
-        return torch.as_tensor(leaf).to(devices[0])
-
-    return _map(place, tree)
-
-
 def set_expert_devices(model, devices: Sequence) -> int:
     """Split each MoE layer of `model` whose expert kernels the rule picks
     over `devices` (models/moe.MoEFFN `expert_devices`); one device, or
@@ -140,3 +123,15 @@ def set_expert_devices(model, devices: Sequence) -> int:
         if isinstance(module, MoEFFN):
             module.expert_devices = devices if name in picked else None
     return 2 * len(picked)
+
+
+def shard_expert_params(model, devices: Sequence) -> int:
+    """The reference's placement of the expert kernels over `devices`
+    (two or more): each MoE layer of `model` whose `w_in` / `w_out` the
+    rule picks keeps slice j of them resident on devices[j] and runs its
+    expert group j there. Returns the number of leaves split."""
+    set_expert_devices(model, devices)
+    leaves = {".".join(path): (EXPERT, 0) for path, spec in _flat(
+        expert_param_shardings(len(devices), sharded.local_view(model)))
+        if spec == EXPERT}
+    return sharded.shard(model, leaves, {EXPERT: list(devices)})

@@ -5,20 +5,18 @@ The reference shards the transformer's blocks Megatron-style and lets XLA
 insert one all-reduce per attention and one per FFN: q/k/v and the FFN's
 up-projection split by column (heads, d_ff), the attention's out
 projection and the FFN's down-projection by row. The port picks the same
-leaves by the same rule and splits the same axes in the forward instead:
-with K model devices, each block of a data row runs head group j and FFN
-column group j on the row's j-th model device (models/transformer._Block
-`model_devices`), its weight slices copied there inside the forward, and
-sums the K partial out and down projections on the row's device in the
-order j = 0..K-1 before the replicated biases and the residual are added.
-Autograd carries the gradients back through the copies to the whole
-leaves.
-
-The leaves stay whole on the data row's device, as parallel/ep.py keeps
-the expert kernels: the optimizer, the checkpoints, weights.py and the
-acting forward see the tree of one device. The reference's memory saving
-(each chip holding 1/K of the block kernels and of their optimizer
-state) is not the port's (ROADMAP.md).
+leaves by the same rule and places them as the reference's polybeast
+does (polybeast.py:989-1041): with K model devices, `set_model_devices`
+keeps slice j of each split leaf resident on the row's j-th model device
+(models/sharded.py), and each block of the row runs head group j and FFN
+column group j there on those slices (models/transformer._Block), summing
+the K partial out and down projections on the row's device in the order
+j = 0..K-1 before the replicated biases and the residual are added. The
+gradients of the slices land on their devices; once the optimizer is
+realigned (sharded.shard_optimizer, which parallel/dp.ParallelLearner
+runs) each model device holds 1/K of the split leaves and of their
+RMSprop state. The checkpoint, weights.py and the acting copy read the
+one-device tree through the assembly (models/sharded.local_view).
 
 The leaf rules return one spec per leaf, a tuple of mesh axis names and
 None, one entry a dimension of the leaf (the reference's PartitionSpec as
@@ -34,8 +32,7 @@ columns. The head count of a torch block comes from its `rel_bias`
 
 from typing import Any, Optional, Sequence
 
-import torch
-
+from torchbeast_tpu_torch.models import sharded
 from torchbeast_tpu_torch.parallel.ep import (
     EXPERT,
     REPLICATED,
@@ -192,46 +189,21 @@ def merge_param_shardings(*spec_trees: Any) -> Any:
     return _map(lambda path, _: merged[path], spec_trees[0], specs=True)
 
 
-def split_slices(leaf: torch.Tensor, spec, devices: Sequence) -> list:
-    """The leaf split along the dim its spec shards into len(devices)
-    equal slices, slice j copied to devices[j]."""
-    dim = next(i for i, s in enumerate(spec) if s is not None)
-    return [part.to(d) for part, d in
-            zip(leaf.chunk(len(devices), dim=dim), devices)]
-
-
-def place_params(mesh, params: Any, specs: Any, row: int = 0,
-                 axis: str = "model") -> Any:
-    """`params` (of tensors) placed on data row `row` of `mesh` by
-    `specs` (a rule's tree): a leaf sharded over `axis` becomes its
-    split_slices over the row's model devices, every other leaf goes
-    whole to the row's first device."""
-    devices = mesh.model_devices(row)
-    spec_of = dict(_flat(specs, specs=True))
-
-    def place(path, leaf):
-        spec = _normalized(spec_of[path])
-        if not _is_replicated(spec) and axis in spec:
-            return split_slices(leaf, spec, devices)
-        return torch.as_tensor(leaf).to(devices[0])
-
-    return _map(place, params)
-
-
 def set_model_devices(model, devices: Optional[Sequence]) -> int:
-    """Split each transformer block of `model` over `devices`
-    (models/transformer._Block `model_devices`), after the pairing's
-    checks on the model's state dict (the reference's ValueError for a
-    head count or FFN width that does not divide); one device, or None,
-    is the one-device block. Returns the number of leaves split."""
-    from torchbeast_tpu_torch.models.transformer import _Block
-
+    """Split each transformer block of `model` over `devices`, after the
+    pairing's checks on the one-device state dict (the reference's
+    ValueError for a head count or FFN width that does not divide): slot
+    j of each leaf the pairing splits, resident on devices[j], and the
+    block's head and FFN groups run there (models/transformer._Block).
+    One device, or None, puts the leaves back whole: the one-device
+    block. Returns the number of leaves split."""
     devices = list(devices) if devices else None
     K = len(devices) if devices else 1
-    specs = transformer_tp_shardings(K, model.state_dict())
-    split = sum(not _is_replicated(spec)
-                for _, spec in _flat(specs, specs=True))
-    for module in model.modules():
-        if isinstance(module, _Block):
-            module.model_devices = devices if K > 1 else None
-    return split
+    specs = transformer_tp_shardings(K, sharded.local_view(model))
+    if K == 1:
+        sharded.unshard(model, "model")
+        return 0
+    leaves = {".".join(path): ("model", spec.index("model"))
+              for path, spec in _flat(specs, specs=True)
+              if not _is_replicated(spec)}
+    return sharded.shard(model, leaves, {"model": devices})

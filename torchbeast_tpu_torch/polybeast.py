@@ -188,6 +188,7 @@ from torchbeast_tpu_torch.fleet import (
     fleet_rendezvous,
     parse_fleet_spec,
 )
+from torchbeast_tpu_torch.models import sharded
 from torchbeast_tpu_torch.models.transformer import set_seq_devices
 from torchbeast_tpu_torch.resilience import (
     ChaosController,
@@ -1078,6 +1079,11 @@ def _train(flags, device, fleet=None, strategy=None):
         if mesh is not None:
             parallel.check_consistent_restore(mesh, step,
                                               list(model.parameters()))
+            # The checkpoint went into whole leaves; under --tensor_parallel
+            # and --expert_parallel the parallel learner now keeps each
+            # split leaf and its RMSprop state as slices on the mesh's
+            # slots (the reference's device_put on its merged rules),
+            # before any graph is captured.
             dispatch = parallel.make_parallel_update_step(
                 model, optimizer, hp, mesh, superstep_k=superstep_k)
             log.info("Parallel learner: data=%d%s (%d processes)%s",
@@ -1100,17 +1106,20 @@ def _train(flags, device, fleet=None, strategy=None):
             dispatch, registry=reg, superstep_k=superstep_k)
 
         # The acting copy: inference never reads the learner's params,
-        # which the update changes in place.
-        act_model = copy.deepcopy(model).requires_grad_(False)
+        # which the update changes in place. Its leaves are whole on the
+        # learner's device (the reference's infer_params, local_view'd):
+        # every publish assembles it from the learner's slices.
+        act_model = sharded.unshard(copy.deepcopy(model)).requires_grad_(
+            False)
         # Acting runs the one-device forward of the learner's params: no
-        # model or pipe devices, so its graphs stay on the card the
-        # actors are served from (the same arithmetic, row by row).
-        parallel.set_model_devices(act_model, None)
+        # seq or pipe devices, so its graphs stay on the card the actors
+        # are served from (the same arithmetic, row by row).
         set_seq_devices(act_model, None)
         if pipe_par > 1:
             parallel.set_pipeline(act_model, None)
         act_params = list(act_model.parameters())
         learn_params = list(model.parameters())
+        publish_acting = sharded.Publisher(act_params, model)
         generator = torch.Generator(device=device)
         # A fleet's hosts draw their own actions.
         generator.manual_seed(flags.seed + (host_rank if fleet else 0))
@@ -1830,9 +1839,7 @@ def _train(flags, device, fleet=None, strategy=None):
                         # on the stream after the update. Under the split
                         # the slices act from snapshots alone.
                         if sebulba is None:
-                            with torch.no_grad():
-                                torch._foreach_copy_(act_params,
-                                                     learn_params)
+                            publish_acting()
                         # Global frames: every process ran this
                         # collective dispatch.
                         if fresh:

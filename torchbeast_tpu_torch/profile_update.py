@@ -12,15 +12,17 @@ the async driver instead (see polybeast_trace), on the Python pool or,
 with --native_runtime, on the port's C++ runtime core, with
 --num_inference_threads inference threads (default 2). `anakin` profiles
 the Anakin iteration graph instead (see anakin_profile). `moe --dp N
---ep K` times the MoE transformer's update over a data N x expert K
-mesh of cuda:0 repeated (see moe_profile).
+--ep K [--tp M]` times the MoE transformer's update over a data N x
+model M x expert K mesh of cuda:0 repeated, `tp --dp N --tp M` the
+transformer's over data N x model M (see parallel_profile).
 
     python -m torchbeast_tpu_torch.profile_update
         [deep|transformer|pipelined_transformer|pipelined_mlp|polybeast
-         |anakin|moe]
+         |anakin|moe|tp]
         [--precision f32|bf16_compute|bf16_train] [--superstep_k K]
         [--remat none|all|<spec>]
         [--native_runtime] [--num_inference_threads N] [--dp N] [--ep K]
+        [--tp M]
 
 --remat sets the model's remat levers as the drivers' flag does
 (runtime/remat_plan.py: none, the default, keeps every activation; all;
@@ -563,19 +565,45 @@ def anakin_profile():
 MOE_EXPERTS = 8
 
 
-def moe_profile(dp=2, ep=1, policy="f32"):
-    """The MoE transformer (MODEL_CONFIGS["transformer"] with
-    MOE_EXPERTS experts, top-2, d_ff 512) at T=80, B=32, --vtrace_impl
+def _slot_bytes(learner):
+    """The sharded learner's bytes by place (models/sharded.slot_bytes):
+    each row's params and row 0's optimizer state, {place: bytes}, a
+    place "row<i>" for the whole leaves or "row<i> <axis> <j>" for slot j."""
+    from torchbeast_tpu_torch.models import sharded
+
+    def named(counts, row):
+        return {f"row{row}" + ("" if pos is None else f" {pos[0]} {pos[1]}"):
+                n for pos, n in counts.items()}
+
+    st = learner.optimizer.state
+    state = {}
+    for tensors in (st.nu, st.mom, st.master):
+        if tensors is not None:
+            for k, n in named(sharded.slot_bytes(learner.replicas[0],
+                                                 tensors), 0).items():
+                state[k] = state.get(k, 0) + n
+    return {"params": [named(sharded.slot_bytes(r), i)
+                       for i, r in enumerate(learner.replicas)],
+            "optimizer_state": state}
+
+
+def parallel_profile(dp=2, ep=1, tp=1, policy="f32",
+                     num_experts=MOE_EXPERTS):
+    """The transformer (MODEL_CONFIGS["transformer"]; with num_experts >
+    0 the MoE transformer, top-2, d_ff 512) at T=80, B=32, --vtrace_impl
     pallas --opt_impl xla (the sharded learner refuses the fused tail),
-    its update over a (data dp x expert ep) mesh whose devices are all
-    cuda:0 (parallel.create_mesh's explicit list: one card runs every
-    shard; dp > 1 runs the shards in lockstep, eagerly, exchanging their
-    routing counts in each MoE layer), beside the one-device update (one
-    CUDA graph) in the same process. One JSON line: the card, both
-    updates' median ms (CUDA events over UPDATES dispatches after
-    WARMUP), the host's CUDA API calls per dispatch of each (torch.
-    profiler), the device time per update, and the port's kernel
-    launches per update a data shard (ops.launch_counts)."""
+    its update over a (data dp x model tp x expert ep) mesh whose devices
+    are all cuda:0 (parallel.create_mesh's explicit list: one card runs
+    every shard; a MoE model at dp > 1 runs the shards in lockstep,
+    eagerly, exchanging their routing counts in each MoE layer), beside
+    the one-device update (one CUDA graph) in the same process. One JSON
+    line: the card, both updates' median ms (CUDA events over UPDATES
+    dispatches after WARMUP), the host's CUDA API calls and the device
+    operations (kernels and copies) per dispatch of each (torch.
+    profiler), the device time per update, the port's kernel launches
+    per update a data shard (ops.launch_counts), the allocator's bytes
+    once the sharded learner is built (before any capture) and the bytes
+    by row and slot."""
     from torchbeast_tpu_torch import ops, parallel
 
     device = torch.device("cuda", 0)
@@ -585,23 +613,28 @@ def moe_profile(dp=2, ep=1, policy="f32"):
                              vtrace_impl="pallas", opt_impl="xla",
                              param_dtype=pol.param_dtype,
                              opt_state_dtype=pol.opt_state_dtype)
+    experts = {"num_experts": num_experts} if num_experts else {}
 
     def build():
         torch.manual_seed(SEED)
         model = create_model("transformer", NUM_ACTIONS,
-                             **MODEL_CONFIGS["transformer"],
-                             num_experts=MOE_EXPERTS,
+                             **MODEL_CONFIGS["transformer"], **experts,
                              dtype=pol.compute_dtype,
                              head_dtype=pol.head_dtype)
         model = precision.cast_params(model.to(device), pol)
         return model, learner_lib.make_optimizer(
             hp, list(model.parameters()))
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
     model, optimizer = build()
-    mesh = parallel.create_mesh(devices=[device] * (dp * ep),
-                                expert_parallelism=ep)
+    mesh = parallel.create_mesh(devices=[device] * (dp * ep * tp),
+                                expert_parallelism=ep, model_parallelism=tp)
     sharded = parallel.make_parallel_update_step(model, optimizer, hp,
                                                  mesh)
+    torch.cuda.synchronize()
+    learner_bytes = torch.cuda.memory_allocated(device) - base
+    slots = _slot_bytes(sharded.learner)
     one = learner_lib.make_update_dispatch(*build(), hp)
     batch = precision.cast_batch(random_batch(SEED, device), pol.batch_dtype)
     state = precision.cast_batch(random_cache(model, SEED, device),
@@ -631,38 +664,48 @@ def moe_profile(dp=2, ep=1, policy="f32"):
                 for k, v in ops.launch_counts().items() if v}
     profiled = {}
     for name, fn in (("sharded", sharded), ("one_device", one)):
-        device_ms, _, api = _device_ms(lambda fn=fn: fn(batch, state), 3)
-        profiled[name] = (device_ms, sum(api.values()))
+        device_ms, kernels, api = _device_ms(
+            lambda fn=fn: fn(batch, state), 3)
+        profiled[name] = (device_ms, sum(api.values()),
+                          sum(v[1] for v in kernels.values()))
     print(json.dumps({
         "card": card,
         "config": {"model": "transformer", **MODEL_CONFIGS["transformer"],
-                   "num_experts": MOE_EXPERTS, "T": T, "B": B,
+                   **experts, "T": T, "B": B,
                    "precision": policy, "vtrace_impl": "pallas",
                    "opt_impl": "xla", "mesh": mesh.shape,
-                   "devices": f"{dp * ep} x {device}",
-                   "dispatch": ("eager, shards in lockstep" if dp > 1
-                                else "CUDA graph")},
+                   "devices": f"{dp * ep * tp} x {device}",
+                   "dispatch": ("CUDA graphs" if sharded.captures_graphs
+                                else "eager")},
         "update_ms_median": ms["sharded"],
         "one_device_update_ms_median": ms["one_device"],
         "host_api_calls_per_dispatch": profiled["sharded"][1],
         "one_device_host_api_calls_per_dispatch": profiled["one_device"][1],
+        "device_ops_per_dispatch": profiled["sharded"][2],
+        "one_device_device_ops_per_dispatch": profiled["one_device"][2],
         "device_ms_per_update": profiled["sharded"][0],
         "one_device_device_ms_per_update": profiled["one_device"][0],
         "launches_per_update_per_data_shard": launches,
+        "learner_allocated_bytes": learner_bytes,
+        "bytes_by_slot": slots,
     }))
 
 
 def main(model_name="deep", policy="f32", superstep_k=1,
          native_runtime=False, num_inference_threads=2, remat=None,
-         dp=1, ep=1):
+         dp=1, ep=1, tp=1):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_update needs a CUDA device")
-    if model_name == "moe":
+    if model_name in ("moe", "tp"):
         if (superstep_k, remat, native_runtime) != (1, None, False):
-            raise ValueError("moe takes --dp, --ep and --precision only")
-        return moe_profile(dp, ep, policy)
-    if (dp, ep) != (1, 1):
-        raise ValueError("--dp and --ep are the moe mode's")
+            raise ValueError(f"{model_name} takes --dp, --ep, --tp and "
+                             "--precision only")
+        if model_name == "tp" and ep != 1:
+            raise ValueError("tp is the dense transformer: no --ep")
+        return parallel_profile(dp, ep, tp, policy,
+                                MOE_EXPERTS if model_name == "moe" else 0)
+    if (dp, ep, tp) != (1, 1, 1):
+        raise ValueError("--dp, --ep and --tp are the moe and tp modes'")
     if remat == "auto":
         raise ValueError("--remat auto is the drivers'; pass a plan")
     if model_name == "polybeast":
@@ -847,7 +890,7 @@ def cli():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="deep",
                         choices=[*MODEL_CONFIGS, "polybeast", "anakin",
-                                 "moe"])
+                                 "moe", "tp"])
     parser.add_argument("--precision", default="f32",
                         choices=precision.CHOICES)
     parser.add_argument("--superstep_k", type=int, default=1,
@@ -865,9 +908,11 @@ def cli():
                         help="moe: data shards.")
     parser.add_argument("--ep", type=int, default=1,
                         help="moe: expert shards a data shard.")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="moe and tp: model shards a data shard.")
     args = parser.parse_args()
     main(args.model, args.precision, args.superstep_k, args.native_runtime,
-         args.num_inference_threads, args.remat, args.dp, args.ep)
+         args.num_inference_threads, args.remat, args.dp, args.ep, args.tp)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,12 @@ first as flax's `to_bytes` packs them, beside step, flags, stats and
 extra. Params are the reference's flax tree (weights.torch_to_jax), and
 the optimizer state is the tree the reference's optimizer of the same
 --opt_impl, --precision and --momentum keeps (`opt_state_tree`), so a
-checkpoint that either package writes resumes in the other.
+checkpoint that either package writes resumes in the other. A model
+with sharded storage (models/sharded.py) saves its one-device tree, its
+slices gathered on the data row's device (the reference's local_view,
+which refuses a leaf spanning processes), and loads by cutting that tree
+into its slots: the file has the keys, shapes and dtypes of an unsharded
+run, and resumes on one device, in another layout or in the reference.
 
 The whole payload is msgpack, never pickle: drivers auto-resume from
 whatever file sits at the checkpoint path, so a tampered savedir must not
@@ -24,6 +29,7 @@ import torch
 
 from torchbeast_tpu_torch import weights
 from torchbeast_tpu_torch.learner import RMSpropChain
+from torchbeast_tpu_torch.models import sharded
 from torchbeast_tpu_torch.utils import serialization
 
 log = logging.getLogger(__name__)
@@ -293,10 +299,9 @@ def read_payload(path: str) -> Dict[str, Any]:
 
 
 def _load_params(model, tree) -> None:
-    state = weights.jax_to_torch(serialization.to_numpy(tree))
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(state[name])
+    """The one-device tree into the module's params (a sharded model's
+    slots take their slices)."""
+    sharded.load(model, weights.jax_to_torch(serialization.to_numpy(tree)))
 
 
 def load_params(path: str, model) -> Dict[str, Any]:

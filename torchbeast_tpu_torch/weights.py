@@ -39,12 +39,20 @@ its own).
 `jax_layouts` gives, per port parameter, its views in the JAX leaves'
 layout, which the factored RMSprop (--factored_opt_state) needs: it
 factors each JAX leaf over its last two axes.
+
+A model with sharded storage (models/sharded.py: polybeast's learner
+mesh under --tensor_parallel or --expert_parallel) converts through its
+one-device tree: the lists aligned with its parameters are assembled
+into whole leaves on the way to JAX and cut into its slots on the way
+back, so the flax tree is always the one-device tree.
 """
 
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from torchbeast_tpu_torch.models import sharded
 
 _GATES = ("i", "f", "g", "o")
 _LSTM_SCOPE = ("core", "Scan_StackedLSTMStep_0")
@@ -167,27 +175,31 @@ def torch_to_jax(state: Dict[str, torch.Tensor], wrap: bool = True):
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> None:
-    """Copy flax params into the module (strict: every key must match)."""
+    """Copy flax params into the module (strict: every key must match;
+    a sharded model's slots take their slices)."""
     state = jax_to_torch(tree)
-    model.load_state_dict(state, strict=True)
+    if sharded.is_sharded(model):
+        sharded.load(model, state)
+    else:
+        model.load_state_dict(state, strict=True)
 
 
 def param_list_to_jax(model: torch.nn.Module, tensors, wrap: bool = True):
     """A list aligned with `model.parameters()` (e.g. RMSprop nu) as a
-    params-shaped JAX tree."""
-    names = [n for n, _ in model.named_parameters()]
-    return torch_to_jax(dict(zip(names, tensors)), wrap=wrap)
+    params-shaped JAX tree (a sharded model's slices assembled)."""
+    return torch_to_jax(sharded.local_view(model, tensors), wrap=wrap)
 
 
 def param_list_from_jax(model: torch.nn.Module, tree, like=None):
     """A params-shaped JAX tree (e.g. RMSprop nu) -> a list aligned with
-    `model.parameters()`, each tensor in its parameter's layout and in
-    the dtype of `like`'s entry (default: its parameter's)."""
-    state = jax_to_torch(tree)
+    `model.parameters()`, each tensor in its parameter's layout (a
+    sharded model's slice of it), on its device, and in the dtype of
+    `like`'s entry (default: its parameter's)."""
+    parts = sharded.split(model, jax_to_torch(tree))
     out = []
-    for i, (name, p) in enumerate(model.named_parameters()):
+    for i, (p, part) in enumerate(zip(model.parameters(), parts)):
         dtype = (p if like is None else like[i]).dtype
-        out.append(torch.empty_like(p, dtype=dtype).copy_(state[name]))
+        out.append(torch.empty_like(p, dtype=dtype).copy_(part))
     return out
 
 
@@ -254,6 +266,10 @@ def jax_layouts(model: torch.nn.Module) -> List[Layout]:
     join), where views(t) gives t's values as the reference's leaves (one,
     or an LSTM weight's four gates) in their JAX layout and join(leaves)
     puts such leaves back into one tensor of the port's layout."""
+    if sharded.is_sharded(model):
+        raise ValueError("jax_layouts reads whole leaves: the factored "
+                         "second moment does not compose with sharded "
+                         "storage")
     named = dict(model.named_parameters())
     return [_layout(n, tuple(p.shape), _heads(named, n.split(".")))
             for n, p in named.items()]
