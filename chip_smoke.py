@@ -134,12 +134,14 @@ exits non-zero without printing the final result line:
    fresh batch, learner.target.snapshots_published at the reference's
    cadence, 3*T*B env frames and twice that learned from; (n) polybeast
    deep + LSTM with --loss impact --replay_reuse 2 on the Python pool
-   and on the core with --native_server: 4 updates from 2 batches with
-   the launch checks, one target forward a dispatch, replicas armed by
-   the impact default (a refresh every 10 updates), then a resume from
-   the checkpoint; it prints SPS, learn SPS and the median update
-   interval; (o) monobeast --model mlp --use_lstm on 84x84x4 Mock
-   frames, 2 updates, V-trace and the tail launched. With --impact-only
+   and on the core with --native_server: 3 updates from 2 batches (the
+   run ends at the dispatch of the last fresh batch, before its replay,
+   as the reference's does) with the launch checks, one target forward
+   a dispatch, replicas armed by the impact default (a refresh every 10
+   updates), then a resume from the checkpoint for one more batch (1
+   update); it prints the update counts it checked, SPS, learn SPS and
+   the median update interval; (o) monobeast --model mlp --use_lstm on
+   84x84x4 Mock frames, 2 updates, V-trace and the tail launched. With --impact-only
    the script runs only this slice's phases 4, 5 (m)-(o) and 6, after
    the builds; (p) monobeast deep + LSTM with --remat auto and
    --hbm_budget_gb at what is allocated when it starts plus the midpoint
@@ -1373,14 +1375,17 @@ def run_polybeast(ops, savedir, k=1, native=False):
 def run_polybeast_impact(ops, savedir, native):
     """(n) polybeast deep + LSTM with --loss impact --replay_reuse 2 on
     the Python pool, or on the core with --native_runtime
-    --native_server: (1) two batches, each handed out twice (4 updates),
-    every update launching V-trace and the tail at least once and the
-    pool backward at least three times, one target forward a dispatch,
-    replicas armed by the impact default (a refresh every 10 updates,
-    without --replica_refresh_updates), finite losses, HEALTHY, a
-    checkpoint; (2) the same xpid for one more batch: it resumes from
-    the checkpoint and runs its 2 updates. Prints SPS, learn SPS and the
-    median update interval. Returns the launch counts of (1) and (2)."""
+    --native_server: (1) two batches, the first handed out twice and the
+    second once (3 updates: the run ends at the first dispatch whose env
+    frames reach --total_steps, as the reference's does), every update
+    launching V-trace and the tail at least once and the pool backward
+    at least three times, one target forward a dispatch, replicas armed
+    by the impact default (a refresh every 10 updates, without
+    --replica_refresh_updates), finite losses, HEALTHY, a checkpoint;
+    (2) the same xpid for one more batch: it resumes from the checkpoint
+    and runs its 1 update. Prints the update counts checked, SPS, learn
+    SPS and the median update interval. Returns the launch counts of (1)
+    and (2)."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import polybeast, telemetry
 
@@ -1402,8 +1407,8 @@ def run_polybeast_impact(ops, savedir, native):
     logging.getLogger("torchbeast_tpu_torch").setLevel(logging.INFO)
     by_path, runs = {}, []
     try:
-        for run_label, batches, want_updates in ((label, 2, 4),
-                                                 (label + " resume", 3, 2)):
+        for run_label, batches, want_updates in ((label, 2, 3),
+                                                 (label + " resume", 3, 1)):
             lines.lines.clear()
             before = replica_published.value()
             ops.reset_launch_counts()
@@ -1443,7 +1448,8 @@ def run_polybeast_impact(ops, savedir, native):
             check(os.path.exists(os.path.join(savedir, xpid, "model.ckpt")),
                   f"{run_label}: no checkpoint")
             print(f"{run_label} 84x84x4 T={T} B={B}, 16 env servers: "
-                  f"{updates} updates to step {stats['step']} in {wall:.1f} "
+                  f"{updates} updates to step {stats['step']} (the "
+                  f"reference's {want_updates}) in {wall:.1f} "
                   f"s; SPS {stats['sps']:.1f}; learn SPS "
                   f"{stats['learn_sps']:.1f}; median update interval on the "
                   f"shared stream {stats['update_interval_ms_median']:.2f} "

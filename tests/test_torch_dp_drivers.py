@@ -192,12 +192,16 @@ def test_poly_two_processes_end_to_end(tmp_path):
     """--coordinator_address: two processes, each with its own env
     servers, actors and inference on 2 of the 4 global rows, one
     collective update per dispatch over 4 shards (2 a process); the lead
-    alone checkpoints; a second launch resumes in both."""
+    alone checkpoints; a second launch resumes in both. Each process seeds
+    its acting generator from --seed + its rank, as the reference keys
+    its acting rng."""
     total = 60  # 3 collective updates of 5 x 4 global frames
     outs = _run_poly_workers(tmp_path, total)
     updates = set()
     for rank, out in enumerate(outs):
         assert f"worker {rank}: final step" in out
+        assert (f"Acting generator seeded from {1234 + rank} (host {rank})"
+                in out), out[-4000:]
         updates.add(out.split(f"worker {rank}: final step")[1].split()[2])
     assert len(updates) == 1, updates  # the same number of updates
     assert (tmp_path / "poly-dist" / "logs.csv").exists()

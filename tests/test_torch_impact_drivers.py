@@ -1,8 +1,10 @@
 """--loss impact, --replay_reuse and --target_refresh_updates in the port's
 drivers on the CPU, and --model mlp with --env tbt/MiniAtari-v0:
 
-- each driver (polybeast on both runtimes) with --replay_reuse 2 takes
-  exactly twice the updates of --replay_reuse 1 at the same env frames;
+- monobeast with --replay_reuse 2 takes exactly twice the updates of
+  --replay_reuse 1 at the same env frames; polybeast (on both runtimes)
+  takes the reference's count, ending at the first dispatch that reaches
+  --total_steps, so the last batch's replay is never handed out;
 - the target network's series and cadence are the reference's, every
   telemetry.jsonl line is valid, and a monobeast run writes the
   reference's series names;
@@ -178,9 +180,10 @@ def _poly(tmp_path, xpid, *extra, model=("--model", "deep", "--use_lstm"),
 @pytest.mark.parametrize("runtime", ["python", "native"])
 def test_polybeast_reuse_doubles_the_updates(tmp_path, runtime):
     """3 batches of env frames in both runs, on either runtime: --loss
-    impact --replay_reuse 2 takes 6 updates against 3 (the last batch's
-    replay included), replicas armed by the relaxed default, the target
-    and replica stores publishing their version 0, every line valid."""
+    impact --replay_reuse 2 takes 5 updates against 3, as the reference
+    does (the run ends at the dispatch of the third fresh batch, before
+    its replay), replicas armed by the relaxed default, the target and
+    replica stores publishing their version 0, every line valid."""
     if runtime == "native":
         gap = _toolchain_gap()
         if gap is not None:
@@ -202,10 +205,10 @@ def test_polybeast_reuse_doubles_the_updates(tmp_path, runtime):
         runs[reuse] = (stats, counts)
     (one, _), (two, counts) = runs[1], runs[2]
     assert one["step"] == two["step"] == 3 * T * B
-    assert (one["updates"], two["updates"]) == (3, 6)
-    assert counts["learner.updates"] == 6
+    assert (one["updates"], two["updates"]) == (3, 5)
+    assert counts["learner.updates"] == 5
     for _, counts in runs.values():
-        # Refreshes every 8 updates: version 0 alone in 6 updates.
+        # Refreshes every 8 updates: version 0 alone in 5 updates.
         assert counts["learner.target.snapshots_published"] == 1
         # Replicas armed without --replica_refresh_updates.
         assert counts["serving.snapshots_published"] == 1
@@ -237,15 +240,18 @@ def test_replica_refresh_default_matches_the_reference(loss, explicit):
 
 def test_polybeast_impact_superstep_and_resume(tmp_path):
     """--superstep_k 2 --replay_reuse 2 (a [2, T+1, B] arena stack,
-    dispatched twice), then a resume from its checkpoint that runs on."""
+    dispatched twice), then a resume from its checkpoint that runs on.
+    As the reference does, each run ends at the dispatch of its last
+    fresh stack, before that stack's replay: fresh, replay, fresh (3
+    dispatches), then fresh (1)."""
     argv = ["--no_native_runtime", "--loss", "impact", "--replay_reuse",
             "2", "--superstep_k", "2"]
     first = polybeast.train(_poly(tmp_path, "ks", *argv, "--total_steps",
                                   str(4 * T * B)))
-    assert first["step"] == 4 * T * B and first["updates"] == 4
+    assert first["step"] == 4 * T * B and first["updates"] == 3
     second = polybeast.train(_poly(tmp_path, "ks", *argv, "--total_steps",
                                    str(6 * T * B)))
-    assert second["step"] == 6 * T * B and second["updates"] == 2
+    assert second["step"] == 6 * T * B and second["updates"] == 1
     line = _lines(tmp_path, "ks")[-1]
     assert line["counters"]["learner.updates"] >= 4
 

@@ -59,6 +59,7 @@ Capture rules, kept by every class:
 """
 
 import contextlib
+import gc
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -139,13 +140,21 @@ def _capture(fn: Callable[[], Any], generator=None):
     stream, and a graph bakes in the workspace of the stream it was
     captured on, so two graphs captured on one stream would share it and
     could not replay concurrently (the learner's and the acting graph do,
-    under --overlap_collect)."""
+    under --overlap_collect). The cyclic garbage collector is off for the
+    capture: a graph it freed then (a finished run's, held in a reference
+    cycle) would be reset mid-capture, which invalidates the capture."""
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
     delta = _LaunchDelta()
-    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
-        out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     delta.captured()
     return graph, out, delta
 

@@ -150,9 +150,11 @@ the current target, and is refreshed after a dispatch when
 --target_refresh_updates are due. --replay_reuse K' hands each staged
 batch out K' times through the arena (runtime/queues.BatchArena, a
 unit-column one at K=1); env frames advance on the fresh handout only,
-and the run ends at --total_steps once the last batch's replays are
-learned from. Under impact the replica tier is armed every 10 updates
-unless --replica_refresh_updates says otherwise.
+and the run ends at the first dispatch whose env frames reach
+--total_steps, as the reference's does: N fresh dispatches take
+K' (N - 1) + 1 in all, the last batch's replays never handed out.
+Under impact the replica tier is armed every 10 updates unless
+--replica_refresh_updates says otherwise.
 
 The parser takes every flag of the reference with the same name, type,
 default and choices, plus --disable_cuda. Every feature of the
@@ -673,6 +675,22 @@ def effective_replica_refresh_updates(flags) -> int:
     return 0
 
 
+def resolve_host_rank(fleet) -> int:
+    """The rank of every host-scoped convention (xpid suffix, pipes, seeds):
+    the fleet's, else the process index (torchbeast_tpu/polybeast.py:591)."""
+    return fleet.host_rank if fleet is not None else parallel.process_index()
+
+
+def acting_seed(flags, host_rank: int) -> int:
+    """Each host's acting seed (torchbeast_tpu/polybeast.py:1165)."""
+    return flags.seed + host_rank
+
+
+def replica_seed(flags, host_rank: int) -> int:
+    """Each host's replica serving seed (torchbeast_tpu/polybeast.py:1633)."""
+    return flags.seed + 7919 * (host_rank + 1)
+
+
 def _probe_env_via_server(flags, address, timeout_s: float = 60.0):
     """(num_actions, frame shape) from a running env server, or from a
     local probe when none answers in time (the local env id is the
@@ -865,13 +883,9 @@ def _train(flags, device, fleet=None, strategy=None):
     """train's body, inside the process group when one was joined."""
     superstep_k = getattr(flags, "superstep_k", 1)
     proc_count = parallel.process_count()
-    # One host identity for every host-scoped convention (xpid suffix,
-    # pipe addresses, env seeds): the fleet rank when --fleet names one,
-    # else the process index; the wire strategy keeps proc_count 1 while
-    # the fleet spans n_hosts runtimes.
+    # The wire strategy keeps proc_count 1 while the fleet spans n_hosts.
     n_hosts = fleet.num_hosts if fleet is not None else proc_count
-    host_rank = (fleet.host_rank if fleet is not None
-                 else parallel.process_index())
+    host_rank = resolve_host_rank(fleet)
     is_lead = host_rank == 0
     if fleet is None:
         check_multihost_flags(flags, proc_count)
@@ -1121,8 +1135,10 @@ def _train(flags, device, fleet=None, strategy=None):
         learn_params = list(model.parameters())
         publish_acting = sharded.Publisher(act_params, model)
         generator = torch.Generator(device=device)
-        # A fleet's hosts draw their own actions.
-        generator.manual_seed(flags.seed + (host_rank if fleet else 0))
+        seed = acting_seed(flags, host_rank)
+        generator.manual_seed(seed)
+        log.info("Acting generator seeded from %d (host %d)", seed,
+                 host_rank)
 
         # --replay_reuse K': the arena hands each staged batch out K'
         # times; env frames advance on its first handout only, the learn
@@ -1269,8 +1285,8 @@ def _train(flags, device, fleet=None, strategy=None):
             snapshot_store.publish(0, act_params)
             replica_hooks = ReplicaServingHooks(
                 snapshot_store, max_policy_lag=flags.max_policy_lag,
-                rng_seed=flags.seed + 7919, health=health, batch_dim=1,
-                registry=reg, device=device)
+                rng_seed=replica_seed(flags, host_rank), health=health,
+                batch_dim=1, registry=reg, device=device)
             replica_model = copy.deepcopy(act_model).requires_grad_(False)
 
         def _replica_forward(env_d, agent_state):
@@ -1751,9 +1767,6 @@ def _train(flags, device, fleet=None, strategy=None):
             # Under supersteps each dispatch carries K updates and [K]
             # stats, so this one delayed sync covers K updates.
             pending = None  # (device stats, step after, timer, release)
-            # Replay handouts still owed by the last fresh batch: the run
-            # ends at --total_steps env frames once they are learned from.
-            owed = 0
 
             def merge(batch, agent_state):
                 # --loss impact: the target network's forward, inside the
@@ -1797,7 +1810,6 @@ def _train(flags, device, fleet=None, strategy=None):
                 # Replay handouts carry release.fresh == False: they
                 # advance the learn clock but not the env frames.
                 fresh = release is None or release.fresh
-                owed = replay_reuse - 1 if fresh else owed - 1
                 batch, initial_agent_state = _take_staged(staged)
                 timings.time("dequeue")
                 if throttle is not None:
@@ -1881,7 +1893,9 @@ def _train(flags, device, fleet=None, strategy=None):
                     flush(pending)
                 pending = (train_stats, now_step, (t0, t1), release)
                 timings.time("learn")
-                if now_step >= flags.total_steps and owed <= 0:
+                # As the reference: the last fresh batch's replays are
+                # never handed out.
+                if now_step >= flags.total_steps:
                     break
             if pending is not None:
                 flush(pending)
