@@ -1,0 +1,11 @@
+"""conv_ms (ms; model): the device milliseconds an update in kernels of
+the convolution group (yardstick.GROUPS), from the traced dispatches."""
+
+from portbench import trace, yardstick
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return trace.device_ms_per_update(
+        ctx.trace, lambda name: yardstick.group(name) == "convolution")
