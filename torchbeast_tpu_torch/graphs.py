@@ -50,24 +50,61 @@ Capture rules, kept by every class:
   replay overwrites: each call returns clones, made on the stream right
   after the replay.
 - A capture in a process whose other threads launch CUDA work fails, so
-  the drivers capture before their threads start. A failed capture or
-  replay raises; nothing falls back to the eager step on the card.
+  the drivers capture before their threads start. A thread that may run
+  while a capture is open (a telemetry snapshot on the /metrics server's
+  thread, whose collectors copy the device marks to the host) makes its
+  CUDA calls inside `outside_capture()`, which tells it whether a
+  capture is open and holds every capture off until it is done. A failed
+  capture or replay raises; nothing falls back to the eager step on the
+  card.
 - A model under a remat plan captures its checkpointed regions as they
   are: the recompute is part of the backward, so it is captured with it
   and replays inside the graph (models/layers.checkpointed saves no RNG
   state, which a capture could not read).
+- A CapturedUpdate captured while telemetry is enabled records the
+  update's device marks (marks.py) in its graph, and only there: its
+  warm-ups and every other graph run without them. Each call is a
+  `graph.stage_in`, a `graph.replay` and a `graph.outputs` span of the
+  global tracer.
 """
 
 import contextlib
 import gc
+import threading
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import nest, ops, precision
+from torchbeast_tpu_torch import marks, nest, ops, precision, telemetry
 
 WARMUP_RUNS = 2  # eager runs on a side stream before each capture
+
+_capture_lock = threading.Lock()
+_captures_open = 0  # guarded-by: _capture_lock
+
+
+@contextlib.contextmanager
+def outside_capture():
+    """Yields True, and holds every capture off until the body is done,
+    where no capture is open in the process; else yields False: in
+    torch's capture mode a CUDA call from another thread (a copy, a sync)
+    invalidates the capture, so the caller then makes none."""
+    with _capture_lock:
+        yield _captures_open == 0
+
+
+@contextlib.contextmanager
+def _capture_open():
+    global _captures_open
+    with _capture_lock:
+        _captures_open += 1
+    try:
+        yield
+    finally:
+        with _capture_lock:
+            _captures_open -= 1
 
 
 class _LaunchDelta:
@@ -142,7 +179,8 @@ def _capture(fn: Callable[[], Any], generator=None):
     could not replay concurrently (the learner's and the acting graph do,
     under --overlap_collect). The cyclic garbage collector is off for the
     capture: a graph it freed then (a finished run's, held in a reference
-    cycle) would be reset mid-capture, which invalidates the capture."""
+    cycle) would be reset mid-capture, which invalidates the capture.
+    Meanwhile `outside_capture()` yields False on every thread."""
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
@@ -150,7 +188,8 @@ def _capture(fn: Callable[[], Any], generator=None):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        with _capture_open(), torch.cuda.graph(graph,
+                                               stream=torch.cuda.Stream()):
             out = fn()
     finally:
         if collecting:
@@ -214,9 +253,15 @@ class CapturedUpdate:
         self._batch = nest.map(put, batch)
         self._state = nest.map(put, initial_agent_state)
         self._keys = None
+        # The device marks (marks.py), captured with the update while
+        # telemetry is on; the warm-ups run without them.
+        recorder = (marks.device_recorder(device)
+                    if telemetry.is_enabled() else None)
 
         def packed():
-            stats = self._step(self._batch, self._state)
+            capturing = torch.cuda.is_current_stream_capturing()
+            with marks.recording(recorder if capturing else None):
+                stats = self._step(self._batch, self._state)
             self._keys = list(stats)
             return torch.stack([stats[key].float() for key in self._keys],
                                -1)
@@ -228,6 +273,7 @@ class CapturedUpdate:
     def __call__(self, batch, initial_agent_state):
         if self._graph is None:
             self.capture(batch, initial_agent_state)
+        t0 = time.perf_counter()
         for what, static, value in (("batch", self._batch, batch),
                                     ("initial_agent_state", self._state,
                                      initial_agent_state)):
@@ -238,9 +284,18 @@ class CapturedUpdate:
                                  f"captured with {len(leaves)}")
             for s, v in zip(leaves, values):
                 _fill(s, v, what)
-        row = self._graph().clone()
+        t1 = time.perf_counter()
+        out = self._graph()
+        t2 = time.perf_counter()
+        row = out.clone()
         self._optimizer.advance_host_count(self.k)
-        return {key: row[..., j] for j, key in enumerate(self._keys)}
+        stats = {key: row[..., j] for j, key in enumerate(self._keys)}
+        t3 = time.perf_counter()
+        tracer = telemetry.get_tracer()
+        tracer.add_complete("graph.stage_in", "learner", t0, t1 - t0)
+        tracer.add_complete("graph.replay", "learner", t1, t2 - t1)
+        tracer.add_complete("graph.outputs", "learner", t2, t3 - t2)
+        return stats
 
 
 class CapturedForward:

@@ -31,7 +31,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from torchbeast_tpu_torch import graphs, nest, precision, telemetry
+from torchbeast_tpu_torch import graphs, marks, nest, precision, telemetry
 from torchbeast_tpu_torch.models.moe import recording_losses
 from torchbeast_tpu_torch.ops import (
     compute_entropy_loss,
@@ -590,6 +590,9 @@ def update_body(model, optimizer, hp: HParams):
         raise ValueError("the optimizer must hold model.parameters()")
 
     def update_step(batch, initial_agent_state):
+        # The device marks (marks.py) bound the update's regions where a
+        # dispatch is being recorded; elsewhere they do nothing.
+        marks.stamp(marks.START)
         # The anneal reads the device count (before this update ticks it),
         # so a captured update computes each replay's own cost.
         ecost = (None if anneal is None
@@ -597,10 +600,13 @@ def update_body(model, optimizer, hp: HParams):
         total_loss, stats = compute_loss(
             model, batch, initial_agent_state, hp, entropy_cost=ecost
         )
+        marks.stamp(marks.BACKWARD)
         grads = torch.autograd.grad(total_loss, params)
+        marks.stamp(marks.STEP)
         stats = {k: v.detach() for k, v in stats.items()}
         # The optimizer's norm pass already sums the squares.
         stats["grad_norm"] = torch.sqrt(optimizer.step(grads))
+        marks.stamp(marks.END)
         return stats
 
     return update_step
@@ -691,8 +697,14 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
       inside a capture), on the CPU from the first eager dispatch. A
       superstep body loops over its K updates, so the dispatch's figure is
       divided by K (the reference's scan counts its body once).
+
+    Each dispatch is also a `learner.dispatch` span of the global tracer
+    (telemetry.get_tracer()), over the same host interval as
+    learner.update_dispatch_s; a captured update adds its stage-in,
+    replay and outputs as child spans (graphs.CapturedUpdate).
     """
     reg = registry if registry is not None else telemetry.get_registry()
+    tracer = telemetry.get_tracer()
     h_dispatch = reg.histogram("learner.update_dispatch_s")
     h_per_dispatch = reg.histogram("learner.updates_per_dispatch")
     c_bytes = reg.counter("learner.batch_bytes")
@@ -717,7 +729,9 @@ def instrument_update_step(update_step, registry=None, superstep_k=1):
                 g_hbm.set(accessed / superstep_k)
         else:
             out = update_step(batch, initial_agent_state)
-        h_dispatch.observe(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        h_dispatch.observe(t1 - t0)
+        tracer.add_complete("learner.dispatch", "learner", t0, t1 - t0)
         c_bytes.inc(nbytes)
         c_updates.inc(superstep_k)
         h_per_dispatch.observe(superstep_k)

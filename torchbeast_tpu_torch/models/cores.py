@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchbeast_tpu_torch import marks
 from torchbeast_tpu_torch.models import init
 from torchbeast_tpu_torch.models.layers import Dense, checkpointed, linear
 from torchbeast_tpu_torch.types import AgentOutput
@@ -159,12 +160,18 @@ class RecurrentPolicyHead(nn.Module):
 
     def forward(self, core_input, done, core_state, T, B, sample_action,
                 generator=None):
+        # The trunk ends here and the core's output ends the core: device
+        # marks of a recorded learner update (marks.py), forward and back.
+        core_input = marks.boundary(core_input, marks.HEAD_IN,
+                                    marks.HEAD_IN_GRAD)
         core_input = core_input.to(self.dtype)
         if self.use_lstm:
             notdone = 1.0 - done.float()
             core_output, core_state = self.core(
                 core_input.reshape(T, B, -1), notdone, core_state
             )
+            core_output = marks.boundary(core_output, marks.CORE_OUT,
+                                         marks.CORE_OUT_GRAD)
             core_output = core_output.reshape(T * B, -1)
         else:
             core_output = core_input

@@ -57,6 +57,8 @@ SIGNATURES = {
     # dbias, partials, tickets, work, B, T, H, D, M, bf16, bias_bf16,
     # stream
     "tbt_attention_bwd": [_P] * 17 + [_I] * 7 + [_P],
+    # index, slots, acc, thresholds, fold (host ints, or NULL), stream
+    "tbt_mark_launch": [_I] + [_P] * 5,
 }
 
 

@@ -59,8 +59,10 @@ _HIST_KEYS = tuple(hist_stats({}, 0.0, 0.0).keys())
 
 
 def snapshot(registry: Optional[MetricsRegistry] = None) -> Dict:
-    """Cumulative snapshot of every instrument in the registry."""
+    """Cumulative snapshot of every instrument in the registry, its
+    collectors run first (MetricsRegistry.add_collector)."""
     registry = registry if registry is not None else get_registry()
+    registry.collect()
     counters, gauges, histograms = {}, {}, {}
     for name, inst in registry.instruments().items():
         if isinstance(inst, Counter):

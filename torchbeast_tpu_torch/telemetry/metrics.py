@@ -30,6 +30,7 @@ disabled.
 The port's copy of torchbeast_tpu/telemetry/metrics.py.
 """
 
+import logging
 import math
 import threading
 from typing import Dict, Iterable, Optional
@@ -398,6 +399,7 @@ class MetricsRegistry:
         self._gated = gated
         self._lock = threading.Lock()
         self._instruments: Dict[str, object] = {}  # guarded-by: self._lock
+        self._collectors = []  # guarded-by: self._lock
 
     def _get_or_create(self, name: str, cls):
         # Double-checked locking: the lock-free first read is re-checked
@@ -426,6 +428,25 @@ class MetricsRegistry:
 
     def histogram(self, name: str) -> Histogram:
         return self._get_or_create(name, Histogram)
+
+    def add_collector(self, fn) -> None:
+        """Run `fn(registry)` before every snapshot of this registry: a
+        source that accumulates elsewhere (the learner's device marks,
+        marks.py) merges what it gained since its last call."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def collect(self) -> None:
+        """Run every collector once. A failing collector is logged and
+        skipped: a snapshot never fails for one."""
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001
+                logging.getLogger(__name__).exception(
+                    "Telemetry collector %r failed", fn)
 
     def instruments(self) -> Dict[str, object]:
         # Snapshot copy; same GIL-atomic read as the fast path above.

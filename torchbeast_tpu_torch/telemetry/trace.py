@@ -98,6 +98,8 @@ class Tracer:
         self._open_lock = threading.Lock()
         self._tid_lock = threading.Lock()
         self._tids: Dict[int, int] = {}
+        # Tracer tid -> the OS thread id (what profilers show).
+        self._native: Dict[int, int] = {}  # guarded-by: self._tid_lock
         # One perf_counter<->wall-clock correspondence for the export.
         self._wall_at_zero = time.time() - time.perf_counter()
 
@@ -110,7 +112,14 @@ class Tracer:
         if tid is None:
             with self._tid_lock:
                 tid = self._tids.setdefault(ident, len(self._tids) + 1)
+                self._native.setdefault(tid, threading.get_native_id())
         return tid
+
+    def native_tids(self) -> Dict[int, int]:
+        """{tid of this tracer's events: the OS thread id}: the ids a
+        profiler's trace gives the same threads."""
+        with self._tid_lock:
+            return dict(self._native)
 
     def add_complete(
         self, name: str, cat: str, start: float, dur: float,
