@@ -33,8 +33,14 @@ exits non-zero without printing the final result line:
    torch.profiler. Each kernel with a bf16 variant (the tail, the pool
    backward, the attention forward and backward) has a second row, its
    bf16 variant against the plain version in bf16, checked, timed and
-   counted the same way. With --kernels-only the script stops here and
-   prints the kernels line (to compare two trees' kernels on one card);
+   counted the same way. The LSTM recurrence (forward and backward step
+   kernels) is checked at a layer of the shallow and of the deep
+   network's core, at the learner's T + 1 steps and at the acting shape,
+   timed a layer forward and back beside its plain version, and each
+   network's update graph counts its launches (2 (T + 1) a layer) and is
+   timed with the kernels and with the plain recurrence. With
+   --kernels-only the script stops here and prints the kernels line (to
+   compare two trees' kernels on one card);
    with --vtrace-only it does so after V-trace's row;
 4. graphs (TF32 off, cuDNN deterministic): the learner's CUDA graph
    (learner.make_update_dispatch) at K=1 and K=4, two dispatches against
@@ -163,7 +169,8 @@ exits non-zero without printing the final result line:
    off, cuDNN deterministic), at f32, bf16_compute and bf16_train, and
    the deep + LSTM IMPACT update (a lagged target's outputs on the
    batch) at f32 and bf16_train; params, RMSprop state and loss stats
-   must agree, at the tolerances printed.
+   must agree, at the tolerances printed. The LSTM recurrence runs its
+   kernels on both sides (check_lstm holds them to their plain version).
 7. Anakin and the MoE transformer (run after 5k in the full script; with
    --anakin-only alone after the builds): the pool backward at the deep
    trunk's stages on the device envs' frames (Catch's 10x5x1, Memory's
@@ -1085,6 +1092,9 @@ def time_attention_forward(attention, t, dev, dtype=torch.float32):
 # ------------------------------------------------------------- main paths
 
 DEEP_KERNELS = ("vtrace_targets", "rmsprop_tail", "pool_bwd")
+# An f32 LSTM core also launches the recurrence kernels, 2 (T + 1) a layer
+# an update; a bf16_train core never.
+DEEP_F32_KERNELS = DEEP_KERNELS + ("lstm_layer",)
 TRANSFORMER_KERNELS = ("vtrace_targets", "rmsprop_tail",
                        "transformer_attention", "transformer_attention_bwd")
 DEEP_ARGS = ["--model", "deep", "--use_lstm"]
@@ -1103,15 +1113,17 @@ IMPACT_ARGS = DEEP_ARGS + ["--loss", "impact", "--replay_reuse", "2",
                            "--target_refresh_updates", "2"]
 MLP_ARGS = ["--model", "mlp", "--use_lstm"]
 PATHS = (
-    ("deep+LSTM", DEEP_ARGS, DEEP_KERNELS, "f32", 3),
+    ("deep+LSTM", DEEP_ARGS, DEEP_F32_KERNELS, "f32", 3),
     ("transformer", TRANSFORMER_ARGS, TRANSFORMER_KERNELS, "f32", 3),
     ("deep+LSTM bf16_train", DEEP_ARGS, DEEP_KERNELS, "bf16_train", 3),
     ("transformer bf16_train", TRANSFORMER_ARGS, TRANSFORMER_KERNELS,
      "bf16_train", 3),
     ("deep+LSTM superstep_k 4 overlap_collect",
-     DEEP_ARGS + SUPERSTEP_ARGS, DEEP_KERNELS, "f32", 12),
-    ("deep+LSTM impact replay_reuse 2", IMPACT_ARGS, DEEP_KERNELS, "f32", 6),
-    ("mlp+LSTM", MLP_ARGS, ("vtrace_targets", "rmsprop_tail"), "f32", 2),
+     DEEP_ARGS + SUPERSTEP_ARGS, DEEP_F32_KERNELS, "f32", 12),
+    ("deep+LSTM impact replay_reuse 2", IMPACT_ARGS, DEEP_F32_KERNELS, "f32",
+     6),
+    ("mlp+LSTM", MLP_ARGS, ("vtrace_targets", "rmsprop_tail", "lstm_layer"),
+     "f32", 2),
 )
 
 
@@ -1203,8 +1215,10 @@ def run_main_path(ops, savedir, path, unroll=T):
               f"{stats['updates'] * T * B} frames learned from; learn SPS "
               f"{stats['learn_sps']:.1f}")
     for name in expected:
-        # The deep trunk's backward pools three times an update.
-        per_update = 3 if name == "pool_bwd" else 1
+        # The deep trunk's backward pools three times an update; the LSTM
+        # core's one layer steps unroll + 1 times forward and back.
+        per_update = {"pool_bwd": 3, "lstm_layer": 2 * (unroll + 1)}.get(
+            name, 1)
         check(counts[name] >= per_update * updates,
               f"{label} path launched {name} {counts[name]} times in "
               f"{updates} updates")
@@ -1212,6 +1226,9 @@ def run_main_path(ops, savedir, path, unroll=T):
             want = counts[name] if policy == "bf16_train" else 0
             check(bf16[name] == want, f"{label} path: {bf16[name]} of "
                   f"{counts[name]} {name} launches were bf16")
+    if policy == "bf16_train":
+        check(counts["lstm_layer"] == 0, f"{label} path: a bf16 core "
+              f"launched the f32 recurrence {counts['lstm_layer']} times")
     # The trunk hands the pool backward its tensors as they are (no layout
     # copy); every launch must have found them channels_last and aligned.
     vector = ops.pool_bwd.vector_launches
@@ -1780,7 +1797,8 @@ KERNEL_MARKS = {"vtrace_targets": "vtrace_targets_kernel",
                 "rmsprop_tail": "rmsprop_tail_kernel",
                 "pool_bwd": "pool_bwd_kernel",
                 "transformer_attention": "attention_fwd_kernel",
-                "transformer_attention_bwd": "attention_bwd_kernel"}
+                "transformer_attention_bwd": "attention_bwd_kernel",
+                "lstm_layer": "lstm_step_"}
 
 
 def profile_call(fn, windows=3):
@@ -2176,13 +2194,23 @@ def _norm_rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+# The kernels the update parity check runs plain in its twin: all but the
+# LSTM recurrence (check_update_parity).
+PARITY_PLAIN = ("vtrace_targets", "rmsprop_tail", "pool_bwd",
+                "transformer_attention")
+
+
 def check_update_parity(ops, dev, label, model_k, state, policy="f32",
                         impact=False, batch=None):
     """One learner update of `model_k` from `state` with the kernels and
     one of its copy with the plain versions, on the same random batch
     (`batch`, default random_batch(0)), at the precision `policy`; with
     `impact` under --loss impact, the batch carrying a lagged target
-    network's outputs."""
+    network's outputs. The LSTM recurrence runs its kernels in both:
+    its 81 steps summed in another order than cuBLAS's move the trunk's
+    params after one update by up to about 1e-7, past this check's atol,
+    and check_lstm holds the kernels to their plain version on their
+    own."""
     from torchbeast_tpu_torch import learner as learner_lib
     from torchbeast_tpu_torch import precision
 
@@ -2208,7 +2236,7 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32",
         optimizer = learner_lib.make_optimizer(hp, list(model.parameters()))
         step = learner_lib.update_body(model, optimizer, hp)
         if plain:
-            with ops.plain_on_device():
+            with ops.plain_on_device(*PARITY_PLAIN):
                 stats = step(batch, state)
         else:
             stats = step(batch, state)
@@ -2261,6 +2289,173 @@ def check_update_parity(ops, dev, label, model_k, state, policy="f32",
                       f"tolerance: {failed}")
     check(not stat_failed, f"{label} {policy} update parity: stats "
                            f"{stat_failed}")
+
+
+# ------------------------------------------------------------------- LSTM
+
+# The recurrence kernels (ops/lstm.py, csrc/lstm.cu): one layer of the
+# shallow network's core (H=519, odd: unaligned rows) and of the deep one's
+# (H=256), at the learner's T + 1 steps with a gradient and at the acting
+# shape (T=1) without.
+LSTM_CASES = (("shallow", 519, T + 1, True), ("deep", 256, T + 1, True),
+              ("shallow acting", 519, 1, False),
+              ("deep acting", 256, 1, False))
+LSTM_NAMES = ("h_seq", "h_T", "c_T", "d x_proj", "d h0", "d c0",
+              "d weight_hh")
+
+
+def lstm_inputs(steps, hidden, seed, dev):
+    """x_proj, notdone (dones at 5%), h0, c0 and weight_hh of a layer."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    done = torch.rand(steps, B, generator=g) < 0.05
+    xs = (torch.randn(steps, B, 4 * hidden, generator=g), (~done).float(),
+          0.5 * torch.randn(B, hidden, generator=g),
+          0.5 * torch.randn(B, hidden, generator=g),
+          hidden ** -0.5 * torch.randn(4 * hidden, hidden, generator=g))
+    return [x.to(dev) for x in xs]
+
+
+def lstm_run(lstm, xs, weights, grad):
+    """The layer's outputs and, with `grad`, the gradients of x_proj, h0,
+    c0 and weight_hh of the outputs weighted by `weights`."""
+    leaves = [x if i == 1 else x.detach().requires_grad_(grad)
+              for i, x in enumerate(xs)]
+    with torch.set_grad_enabled(grad):
+        outs = list(lstm.lstm_layer(*leaves))
+        if not grad:
+            return outs
+        loss = sum((o * w).sum() for o, w in zip(outs, weights))
+        return outs + list(torch.autograd.grad(
+            loss, [leaves[i] for i in (0, 2, 3, 4)]))
+
+
+def lstm_update_launches(ops, dev, name, layers):
+    """lstm_layer launches per replay of the full-width `name` + LSTM
+    update graph, and its median replay ms with the kernels and with the
+    recurrence's plain version."""
+    from torchbeast_tpu_torch import learner as learner_lib
+    from torchbeast_tpu_torch.models import create_model
+
+    ms = {}
+    for plain in (False, True):
+        torch.manual_seed(0)
+        model = create_model(name, NUM_ACTIONS, use_lstm=True).to(dev)
+        hp = learner_lib.HParams(unroll_length=T, batch_size=B,
+                                 vtrace_impl="pallas", opt_impl="pallas")
+        opt = learner_lib.make_optimizer(hp, list(model.parameters()))
+        batch, state = random_batch(0, dev), model.initial_state(B, dev)
+        with (ops.plain_on_device("lstm_layer") if plain
+              else contextlib.nullcontext()):
+            dispatch = learner_lib.make_update_dispatch(model, opt, hp)
+            dispatch.capture(batch, state)
+        per = dispatch.launches_per_replay.get("lstm_layer", 0)
+        want = 0 if plain else 2 * (T + 1) * layers
+        check(per == want, f"lstm {name}: {per} recurrence launches a "
+                           f"replay, want {want}")
+        if not plain:
+            launches = per
+        ms["plain" if plain else "kernel"] = time_ms(
+            lambda: dispatch(batch, state))
+        del model, opt, dispatch
+        _free_card()
+    return launches, ms
+
+
+def check_lstm(ops, dev):
+    """The recurrence kernels against their plain version on the card at
+    LSTM_CASES (rtol 1e-4 / atol 1e-5: f32 summed in another order, step
+    after step), bitwise over two calls; one layer timed forward alone
+    (T + 1 launches) and back alone (T + 1, outside the products after the
+    loop), kernel beside plain and beside the bound; the launches and the
+    update's time on the main path of the shallow and the deep network."""
+    from torchbeast_tpu_torch.ops import _build, lstm
+
+    err = 0.0
+    for label, hidden, steps, grad in LSTM_CASES:
+        xs = lstm_inputs(steps, hidden, 0, dev)
+        g = torch.Generator(device="cpu").manual_seed(1)
+        weights = [torch.randn(s, generator=g).to(dev) for s in (
+            (steps, B, hidden), (B, hidden), (B, hidden))]
+        got = lstm_run(lstm, xs, weights, grad)
+        again = lstm_run(lstm, xs, weights, grad)
+        with ops.plain_on_device("lstm_layer"):
+            want = lstm_run(lstm, xs, weights, grad)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"lstm {label}: two calls differ")
+        for what, a, b in zip(LSTM_NAMES, got, want):
+            e, ok = close(a, b, 1e-4, 1e-5)
+            err = max(err, e)
+            check(ok, f"lstm {label} {what}: kernel differs from plain, "
+                      f"max |err| {e}")
+    print(f"kernel lstm_layer: within rtol 1e-4 / atol 1e-5 of plain at "
+          f"{', '.join(c[0] for c in LSTM_CASES)} (max |err| {err:.3g}), "
+          "bitwise over two calls")
+
+    timings = {}
+    for label, hidden, steps, _ in LSTM_CASES[:2]:
+        x_proj, notdone, h0, c0, w = lstm_inputs(steps, hidden, 0, dev)
+        fwd = time_ms(lambda: lstm._forward(x_proj, notdone, h0, c0, w,
+                                            keep_gates=True))
+        _, _, _, c_seq, gates = lstm._forward(x_proj, notdone, h0, c0, w,
+                                              keep_gates=True)
+        dy = torch.randn(steps, B, hidden, device=dev)
+        dc, dgates = torch.zeros_like(c0), torch.empty_like(gates)
+        lib, stream = _build.library(), lstm._stream(x_proj)
+        bwd = time_ms(lambda: lib.tbt_lstm_bwd(
+            notdone.data_ptr(), w.data_ptr(), gates.data_ptr(),
+            c_seq.data_ptr(), c0.data_ptr(), dy.data_ptr(), None,
+            dc.data_ptr(), dgates.data_ptr(), steps, B, hidden, stream))
+        with torch.no_grad():
+            plain_fwd = time_ms(lambda: lstm.lstm_layer_plain(
+                x_proj, notdone, h0, c0, w))
+        leaves = [x.detach().requires_grad_() for x in (x_proj, h0, c0, w)]
+        outs = lstm.lstm_layer_plain(leaves[0], notdone, *leaves[1:])
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            outs[0], leaves, dy, retain_graph=True))
+        # Each operand read once and each result written once, f32:
+        # forward x_proj, notdone, W, h0 and c0 in, h_seq, c_seq, gates,
+        # h_T and c_T out; back notdone, W, gates, c_seq, dy, c0 and dc
+        # in, dgates and dc out. The product: 2 B 4H H a step.
+        bh, b4, w4 = B * hidden, 4 * B * hidden, 4 * hidden * hidden
+        fwd_bound = bound_ms(
+            4 * (steps * (b4 + B + 2 * bh + b4) + w4 + 4 * bh),
+            2 * steps * b4 * hidden)
+        bwd_bound = bound_ms(
+            4 * (steps * (B + b4 + 2 * bh + b4) + w4 + 3 * bh),
+            2 * (steps - 1) * b4 * hidden)
+        timings[label] = {
+            "fwd_ms": fwd, "bwd_ms": bwd, "plain_fwd_ms": plain_fwd,
+            "plain_bwd_ms": plain_bwd, "fwd_step_us": 1e3 * fwd / steps,
+            "bwd_step_us": 1e3 * bwd / steps,
+            "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0],
+            "bound_by": fwd_bound[1]}
+        print(f"kernel lstm_layer {label} H={hidden} T+1={steps} B={B}: "
+              f"forward {fwd:.4f} ms ({1e3 * fwd / steps:.2f} us a step), "
+              f"backward kernels {bwd:.4f} ms ({1e3 * bwd / steps:.2f} us "
+              f"a step); bound {fwd_bound[0]:.4f} / {bwd_bound[0]:.4f} ms "
+              f"({fwd_bound[1]}); plain forward {plain_fwd:.4f} ms, plain "
+              f"backward {plain_bwd:.4f} ms")
+    updates = {}
+    for name, layers in (("shallow", 2), ("deep", 1)):
+        launches, ms = lstm_update_launches(ops, dev, name, layers)
+        updates[name] = {"launches_per_update": launches, **ms}
+        print(f"main path {name}+LSTM update graph T={T} B={B}: "
+              f"{launches} lstm_layer launches a replay; median update "
+              f"{ms['kernel']:.3f} ms, with the plain recurrence "
+              f"{ms['plain']:.3f} ms")
+    shallow = timings["shallow"]
+    return {
+        "name": "lstm_layer", "route": "cuda",
+        "source": "torchbeast_tpu_torch/csrc/lstm.cu",
+        "replaces": "none (flax OptimizedLSTMCell under lax.scan, XLA)",
+        "max_abs_err": err,
+        "ms": shallow["fwd_ms"] + shallow["bwd_ms"],
+        "plain_ms": shallow["plain_fwd_ms"] + shallow["plain_bwd_ms"],
+        "bound_ms": shallow["fwd_bound_ms"] + shallow["bwd_bound_ms"],
+        "bound_by": shallow["bound_by"], "library_ms": None,
+        "layers": timings, "updates": updates,
+    }
 
 
 # ------------------------------------------------------------------ remat
@@ -2346,8 +2541,11 @@ def run_remat_graphs(ops, dev, plans=REMAT_PLANS):
     transformer), one line each. Every plan's params after one update
     must equal the default's bitwise, its launches per update be the
     default's (the transformer's attention forwards 2 -> 4 under
-    blocks=all, its backwards 2), and the deep model's `all` must peak
-    below its default. Returns {(model, policy): {plan: result}}."""
+    blocks=all, its backwards 2; an f32 LSTM core's recurrence kernels
+    2 (T + 1) unless the plan remats the core), and the deep model's `all`
+    must peak below its default. A rematted f32 core steps the plain
+    cell, so such a plan is held to the default run with the recurrence's
+    plain version. Returns {(model, policy): {plan: result}}."""
     want = {"deep": {"default": {"vtrace_targets": 1, "rmsprop_tail": 1,
                                  "pool_bwd": 3}},
             "pipelined_transformer": {"default": {"vtrace_targets": 1,
@@ -2364,14 +2562,25 @@ def run_remat_graphs(ops, dev, plans=REMAT_PLANS):
         label = ({"deep": "deep+LSTM"}.get(model_name, model_name)
                  + ("" if policy == "f32" else f" {policy}"))
         got = results[(model_name, policy)] = {}
+        lstm_f32 = (policy == "f32"
+                    and MODEL_CONFIGS[model_name].get("use_lstm", False))
+        plain_core = None
         for plan, spec in model_plans:
             r = got[plan] = check_remat_update(ops, dev, model_name, policy,
                                                label, spec)
             base = got["default"]
+            launches = dict(want[model_name].get(
+                plan, want[model_name]["default"]))
+            if lstm_f32 and "core=all" in r["assignment"]:
+                if plain_core is None:
+                    with ops.plain_on_device("lstm_layer"):
+                        plain_core = check_remat_update(
+                            ops, dev, model_name, policy, label, None)
+                base = plain_core
+            elif lstm_f32:
+                launches["lstm_layer"] = 2 * (T + 1)
             equal = all(torch.equal(a, b)
                         for a, b in zip(r["params"], base["params"]))
-            launches = want[model_name].get(plan,
-                                            want[model_name]["default"])
             print(f"remat {label} {plan} ({r['assignment']}): peak "
                   f"{r['peak'] / 2**30:.3f} GiB ({int(r['peak'])} bytes, "
                   f"the allocator's), bytes accessed "
@@ -2379,7 +2588,8 @@ def run_remat_graphs(ops, dev, plans=REMAT_PLANS):
                   f"{r['ms']:.3f} ms over {REMAT_REPLAYS} replays; launches "
                   f"per update {r['launches']}; params after one update "
                   f"{'bitwise equal to' if equal else 'DIFFER from'} the "
-                  "default's")
+                  "default's" + (" with the plain recurrence"
+                                 if base is plain_core else ""))
             check(r["launches"] == launches,
                   f"remat {label} {plan}: launches {r['launches']}, want "
                   f"{launches}")
@@ -5998,7 +6208,8 @@ def main(argv):
                *check_attention(ops, dev),
                check_opt(ops, dev, "deep", "bf16_train"),
                check_opt(ops, dev, "transformer", "bf16_train"),
-               check_pool(ops, dev, BF16), *check_attention(ops, dev, BF16)]
+               check_pool(ops, dev, BF16), *check_attention(ops, dev, BF16),
+               check_lstm(ops, dev)]
     torch.cuda.empty_cache()
     for k in kernels:
         lib = ("-" if k["library_ms"] is None

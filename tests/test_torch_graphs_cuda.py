@@ -98,7 +98,8 @@ def test_captured_update_matches_eager_bitwise(cuda, monkeypatch, k):
     # the capture counted.
     counts = ops.launch_counts()
     per = dispatch.launches_per_replay
-    assert per == {"vtrace_targets": k, "rmsprop_tail": k, "pool_bwd": 3 * k}
+    assert per == {"vtrace_targets": k, "rmsprop_tail": k, "pool_bwd": 3 * k,
+                   "lstm_layer": 2 * (T + 1) * k}
     warmup = 2 * k  # graphs.WARMUP_RUNS dispatches of k updates
     assert counts["rmsprop_tail"] == warmup + 2 * k
 

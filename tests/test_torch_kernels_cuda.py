@@ -668,3 +668,172 @@ def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(cuda, tmp_path):
         for a, b in zip(m0.parameters(), m1.parameters()):
             assert b.device.type == "cuda" and a.dtype == b.dtype
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ LSTM
+
+def _lstm_inputs(cuda, T, B, H, seed=0, grad=True):
+    """x_proj, notdone (dones at about 5%, and every row at step 0),
+    h0, c0 and weight_hh at the scales of a trained core."""
+    rng = np.random.default_rng(seed)
+    done = rng.random((T, B)) < 0.05
+    done[0] = True
+    arrays = [rng.standard_normal((T, B, 4 * H)),
+              1.0 - done,
+              0.5 * rng.standard_normal((B, H)),
+              0.5 * rng.standard_normal((B, H)),
+              H ** -0.5 * rng.standard_normal((4 * H, H))]
+    xs = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in arrays]
+    if grad:
+        for i in (0, 2, 3, 4):
+            xs[i].requires_grad_()
+    return xs
+
+
+def _lstm_weighting(xs, seed=1):
+    """Fixed random weights of the layer's three outputs, for a loss."""
+    T, B, H4 = xs[0].shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(xs[0].device) for shape in ((T, B, H4 // 4), (B, H4 // 4),
+                                            (B, H4 // 4))]
+
+
+def _lstm_run(xs, weighting=None):
+    """The layer's outputs and, under a gradient, the gradients of
+    x_proj, h0, c0 and weight_hh of a fixed weighting of all three."""
+    outs = ops.lstm_layer(*xs)
+    leaves = [xs[i] for i in (0, 2, 3, 4)]
+    if not torch.is_grad_enabled():
+        return outs, ()
+    weighting = weighting or _lstm_weighting(xs)
+    loss = sum((o * w).sum() for o, w in zip(outs, weighting))
+    return outs, torch.autograd.grad(loss, leaves)
+
+
+# The shallow network's core layer (H=519, odd: the unaligned rows), the
+# deep one's (H=256), the acting shape (T=1, no gradient), two batch tiles
+# (B=40) and J=1 (H=64).
+LSTM_SHAPES = [(81, 32, 519, True), (81, 32, 256, True),
+               (1, 32, 519, False), (1, 32, 256, False), (9, 40, 519, True),
+               (9, 7, 64, True)]
+
+
+@pytest.mark.parametrize("T,B,H,grad", LSTM_SHAPES)
+def test_lstm_kernel_matches_plain_version(cuda, T, B, H, grad):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xs = _lstm_inputs(cuda, T, B, H, grad=grad)
+        before = ops.lstm_layer.launches
+        with torch.set_grad_enabled(grad):
+            got, got_grads = _lstm_run(xs)
+        assert ops.lstm_layer.launches == before + T * (2 if grad else 1)
+        with ops.plain_on_device("lstm_layer"), torch.set_grad_enabled(grad):
+            want, want_grads = _lstm_run(xs)
+        assert ops.lstm_layer.launches == before + T * (2 if grad else 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    for name, g, w in zip(["x_proj", "h0", "c0", "weight_hh"], got_grads,
+                          want_grads):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_lstm_kernel_is_deterministic(cuda):
+    xs = _lstm_inputs(cuda, 81, 32, 519)
+    (a, ga), (b, gb) = _lstm_run(xs), _lstm_run(xs)
+    for x, y in zip((*a, *ga), (*b, *gb)):
+        assert torch.equal(x, y)
+
+
+def test_lstm_kernel_runs_inside_a_captured_graph(cuda):
+    """Forward and backward captured in one CUDA graph: a replay on new
+    inputs gives the eager call's bits, and counts its launches."""
+    T, B, H = 81, 32, 519
+    xs = _lstm_inputs(cuda, T, B, H)
+    fresh = _lstm_inputs(cuda, T, B, H, seed=3)
+    static = [x.detach().clone().requires_grad_(x.requires_grad) for x in xs]
+    weighting = _lstm_weighting(xs)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _lstm_run(static, weighting)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.lstm_layer.launches
+    with torch.cuda.graph(graph):
+        outs, grads = _lstm_run(static, weighting)
+    assert ops.lstm_layer.launches == before + 2 * T
+    with torch.no_grad():
+        for s, f in zip(static, fresh):
+            s.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    want, want_grads = _lstm_run(fresh, weighting)
+    for g, w in zip((*outs, *grads), (*want, *want_grads)):
+        assert torch.equal(g, w)
+
+
+def _main_path_launches(cuda, name, policy="f32", **levers):
+    """lstm_layer launches per replay of a captured learner update of the
+    full-width `name` + LSTM model at T=80, B=32 (TF32 off)."""
+    from torchbeast_tpu_torch import learner, precision
+
+    T, B, A = 80, 32, 6
+    pol = precision.get(policy)
+    torch.manual_seed(0)
+    model = create_model(name, A, use_lstm=True, dtype=pol.compute_dtype,
+                         head_dtype=pol.head_dtype, **levers)
+    model = precision.cast_params(model.to(cuda), pol)
+    hp = learner.HParams(unroll_length=T, batch_size=B, vtrace_impl="pallas",
+                         opt_impl="pallas", param_dtype=pol.param_dtype,
+                         opt_state_dtype=pol.opt_state_dtype)
+    optimizer = learner.make_optimizer(hp, list(model.parameters()))
+    rng = np.random.default_rng(0)
+    batch = {
+        "frame": rng.integers(0, 256, (T + 1, B, 84, 84, 4), dtype=np.uint8),
+        "reward": rng.standard_normal((T + 1, B)).astype(np.float32),
+        "done": rng.random((T + 1, B)) < 0.05,
+        "episode_return": rng.standard_normal((T + 1, B)).astype(np.float32),
+        "episode_step": rng.integers(0, 200, (T + 1, B)).astype(np.int32),
+        "last_action": rng.integers(0, A, (T + 1, B)).astype(np.int32),
+        "action": rng.integers(0, A, (T + 1, B)).astype(np.int32),
+        "policy_logits": rng.standard_normal((T + 1, B, A)).astype(
+            np.float32),
+        "baseline": rng.standard_normal((T + 1, B)).astype(np.float32),
+    }
+    batch = precision.cast_batch(
+        {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()},
+        pol.batch_dtype)
+    state = precision.cast_batch(model.initial_state(B, cuda),
+                                 pol.batch_dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dispatch = learner.make_update_dispatch(model, optimizer, hp)
+        dispatch(batch, state)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            stats = dispatch(batch, state)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.isfinite(float(stats["total_loss"]))
+    per = dispatch.launches_per_replay.get("lstm_layer", 0)
+    assert ops.launch_counts()["lstm_layer"] == 2 * per
+    return per
+
+
+@pytest.mark.parametrize("name,layers", [("shallow", 2), ("deep", 1)])
+def test_lstm_kernel_launches_on_the_main_path(cuda, name, layers):
+    """2 (T + 1) launches a layer an update: 324 shallow, 162 deep."""
+    assert _main_path_launches(cuda, name) == 2 * 81 * layers
+
+
+@pytest.mark.parametrize("policy,levers", [
+    ("f32", {"core_remat": True}), ("bf16_train", {})],
+    ids=["remat", "bf16_train"])
+def test_lstm_kernel_is_off_the_remat_and_bf16_paths(cuda, policy, levers):
+    assert _main_path_launches(cuda, "deep", policy, **levers) == 0

@@ -121,8 +121,11 @@ def test_update_graph_matches_eager_bitwise(cuda, family, policy):
     for key in want[0]:
         assert torch.equal(torch.cat([g[key].reshape(-1) for g in got]),
                            torch.stack([w[key].float() for w in want])), key
+    # The f32 LSTM head's layers: 2 (T + 1) recurrence kernels each.
+    lstm = {"lstm_layer": 2 * (T + 1) * m.num_layers
+            for m in model.modules() if getattr(m, "fused", False)}
     assert dispatch.launches_per_replay == {"vtrace_targets": 1,
-                                            "rmsprop_tail": 1}
+                                            "rmsprop_tail": 1, **lstm}
 
 
 @pytest.mark.parametrize("family,policy", CASES)

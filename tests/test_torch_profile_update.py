@@ -26,6 +26,10 @@ from tests.torch_port_fixtures import few_torch_threads  # noqa: F401
      "float const*, BwdShape, float)", "port kernels"),
     ("void (anonymous namespace)::attention_fwd_kernel<4, 1>(float const*, "
      "FwdShape, float)", "port kernels"),
+    ("void (anonymous namespace)::lstm_step_fwd_kernel<4>(float const*, "
+     "float const*, float*, int, int)", "port kernels"),
+    ("void (anonymous namespace)::lstm_step_bwd_kernel<2>(float const*, "
+     "float*, float*, int, int)", "port kernels"),
     # cuDNN convolutions: Hopper xmma kernels carry their direction.
     ("sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc_"
      "tilesize128x128x16_warpgroupsize1x1x1", "convolution"),

@@ -10,11 +10,13 @@ TF32 off and cuDNN deterministic: a replay, and a recomputed region,
 must then give the eager no-remat step's bits.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
-from torchbeast_tpu_torch import learner
+from torchbeast_tpu_torch import learner, ops
 from torchbeast_tpu_torch.models import create_model
 from torchbeast_tpu_torch.runtime import remat_plan
 
@@ -73,7 +75,9 @@ def test_remat_graph_replays_equal_the_eager_no_remat_step(cuda, monkeypatch,
     two eager updates of a no-remat twin from the same weights: params,
     nu and every stat bitwise; the port kernels per replay are the eager
     update's plus the recomputed forwards (pool_bwd 3, attention
-    forwards 4 and backwards 2)."""
+    forwards 4 and backwards 2). A rematted LSTM core steps the plain
+    cell, never the recurrence kernels, so its twin's core runs their
+    plain version too."""
     monkeypatch.setenv("TBT_POOL_PALLAS", "1")
     frame = FRAME if name == "deep" else TF_FRAME
     kw = (dict(use_lstm=True) if name == "deep" else TF_SIZE)
@@ -91,7 +95,10 @@ def test_remat_graph_replays_equal_the_eager_no_remat_step(cuda, monkeypatch,
     state = model.initial_state(B, cuda)
     batches = [_batch(i, cuda, frame) for i in range(2)]
     eager = learner.update_body(twin, opt_e, hp)
-    want = [eager(b, state) for b in batches]
+    core_remat = levers.get("core_remat", False)
+    with (ops.plain_on_device("lstm_layer") if core_remat
+          else contextlib.nullcontext()):
+        want = [eager(b, state) for b in batches]
     dispatch = learner.make_update_dispatch(model, opt_g, hp, 1)
     got = [dispatch(b, state) for b in batches]
     torch.cuda.synchronize()
@@ -104,7 +111,9 @@ def test_remat_graph_replays_equal_the_eager_no_remat_step(cuda, monkeypatch,
                            torch.stack([w[key].float() for w in want])), key
     per = dispatch.launches_per_replay
     if name == "deep":
-        assert per == {"vtrace_targets": 1, "rmsprop_tail": 1, "pool_bwd": 3}
+        lstm = {} if core_remat else {"lstm_layer": 2 * (T + 1)}
+        assert per == {"vtrace_targets": 1, "rmsprop_tail": 1, "pool_bwd": 3,
+                       **lstm}
     else:
         assert per == {"vtrace_targets": 1, "rmsprop_tail": 1,
                        "transformer_attention": 4,

@@ -15,6 +15,7 @@ from torch import nn
 from torchbeast_tpu_torch import marks
 from torchbeast_tpu_torch.models import init
 from torchbeast_tpu_torch.models.layers import Dense, checkpointed, linear
+from torchbeast_tpu_torch.ops.lstm import lstm_cell, lstm_layer
 from torchbeast_tpu_torch.types import AgentOutput
 
 
@@ -42,6 +43,16 @@ class LSTMCore(nn.Module):
     remat planner (runtime/remat_plan.py); the forward's values, the
     parameters and their names are the same either way.
 
+    At f32 the core runs layer-major: each layer's input product for all
+    steps at once, the bias with it (it takes the same gradient there),
+    then the layer's recurrence, whose output is the next layer's input.
+    Without remat that recurrence is `ops.lstm_layer`, the hand-written
+    kernels on a card (`fused`); under remat it is the same cell stepped
+    in PyTorch, each step checkpointed, since the kernels keep the gate
+    activations for their backward. At any other compute dtype the core
+    steps all layers a step at a time, as the reference scans. Both
+    choices are fixed when the module is built.
+
     forward(core_input [T, B, D], notdone [T, B], (h, c)) ->
         (core_output [T, B, H], (h, c))
     """
@@ -54,6 +65,8 @@ class LSTMCore(nn.Module):
         self.num_layers = num_layers
         self.dtype = dtype
         self.remat = bool(remat)
+        self.layer_major = dtype == torch.float32
+        self.fused = self.layer_major and not self.remat
         for layer in range(num_layers):
             d = input_size if layer == 0 else hidden_size
             for name, shape in (
@@ -75,6 +88,9 @@ class LSTMCore(nn.Module):
             nn.init.zeros_(getattr(self, f"bias_hh_l{layer}"))
 
     def forward(self, core_input, notdone, core_state):
+        if self.layer_major:
+            return self._layer_major(core_input.float(), notdone.float(),
+                                     core_state)
         core_input = core_input.to(self.dtype)
         notdone = notdone.to(self.dtype)
         h, c = (s.to(self.dtype) for s in core_state)
@@ -96,6 +112,28 @@ class LSTMCore(nn.Module):
             outputs.append(y)
         return torch.stack(outputs), (torch.stack(hs).float(),
                                       torch.stack(cs).float())
+
+    def _layer_major(self, x, notdone, core_state):
+        hs, cs = [], []
+        for layer, (h, c) in enumerate(zip(*core_state)):
+            h, c = h.float(), c.float()
+            # The weights in f32, whatever their resident dtype.
+            w_ih, w_hh, bias = (getattr(self, f"{name}_l{layer}").float()
+                                for name in ("weight_ih", "weight_hh",
+                                             "bias_hh"))
+            x_proj = F.linear(x, w_ih, bias)
+            if self.fused:
+                x, h, c = lstm_layer(x_proj, notdone, h, c, w_hh)
+            else:
+                steps = []
+                for t in range(x_proj.shape[0]):
+                    h, c = checkpointed(lstm_cell, x_proj[t], notdone[t], h,
+                                        c, w_hh)
+                    steps.append(h)
+                x = torch.stack(steps)
+            hs.append(h)
+            cs.append(c)
+        return x, (torch.stack(hs), torch.stack(cs))
 
     def _step(self, w, x_proj_t, notdone_t, *state):
         """One time step of every layer: (x_proj_t [B, 4H], notdone_t [B],

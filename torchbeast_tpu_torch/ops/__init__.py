@@ -1,6 +1,7 @@
 """Ops of the port: V-trace, losses (IMPALA's and IMPACT's), pooling, the
-optimizer tail and the transformer's attention, each kernel beside its
-plain PyTorch version (counterpart of torchbeast_tpu/ops/)."""
+optimizer tail, the transformer's attention and the LSTM layer's
+recurrence, each kernel beside its plain PyTorch version (counterpart of
+torchbeast_tpu/ops/; the LSTM's has none there)."""
 
 from torchbeast_tpu_torch.ops._route import (  # noqa: F401
     add_counts,
@@ -19,13 +20,15 @@ from torchbeast_tpu_torch.ops.losses import (  # noqa: F401
     compute_policy_gradient_loss,
     vtrace_policy_losses,
 )
+from torchbeast_tpu_torch.ops.lstm import lstm_layer  # noqa: F401
 from torchbeast_tpu_torch.ops.opt import rmsprop_tail  # noqa: F401
 from torchbeast_tpu_torch.ops.pool import max_pool2d, pool_bwd  # noqa: F401
 from torchbeast_tpu_torch.ops.vtrace import vtrace_targets  # noqa: F401
 
 # The kernel wrappers, each with its plain integer `launches` counter.
 KERNEL_WRAPPERS = (vtrace_targets, rmsprop_tail, pool_bwd,
-                   transformer_attention, transformer_attention_bwd)
+                   transformer_attention, transformer_attention_bwd,
+                   lstm_layer)
 
 
 # Of those, the wrappers with a bf16 variant, each also counting the

@@ -12,8 +12,9 @@ sees the aten ops of the plain versions, never a ctypes launch.
 
 `plain_on_device()` is the one exception, for tests only: inside it a CUDA
 tensor takes the plain version on the card, so a whole update can be held
-against its kernel twin on the same device (chip_smoke.py does this). It
-is process-wide, not per thread, because autograd runs CUDA backward
+against its kernel twin on the same device (chip_smoke.py does this);
+`plain_on_device("lstm_layer")` does so for the named kernels only. It is
+process-wide, not per thread, because autograd runs CUDA backward
 functions on its own device threads.
 """
 
@@ -22,7 +23,9 @@ import threading
 
 import torch
 
-_switch = {"plain": False}
+# The kernels whose plain versions CUDA tensors take: None for none, () for
+# every kernel.
+_switch = {"plain": None}
 
 
 def use_kernel(t: torch.Tensor, name: str) -> bool:
@@ -34,14 +37,16 @@ def use_kernel(t: torch.Tensor, name: str) -> bool:
             f"{name}: tensors must be on a CUDA device or the CPU, got "
             f"{t.device}"
         )
-    return not _switch["plain"]
+    plain = _switch["plain"]
+    return plain is None or (bool(plain) and name not in plain)
 
 
 @contextlib.contextmanager
-def plain_on_device():
-    """Test-only: run the plain versions on CUDA tensors."""
+def plain_on_device(*names: str):
+    """Test-only: run the plain versions of the kernels `names` (default:
+    every kernel) on CUDA tensors."""
     prev = _switch["plain"]
-    _switch["plain"] = True
+    _switch["plain"] = tuple(names)
     try:
         yield
     finally:

@@ -98,7 +98,7 @@ TAIL, BACKWARD, TOP_GAPS = "rmsprop_tail", "_bwd", 5
 # them under convolutions, and its bf16 ones nvjet_*.
 GROUPS = (
     ("port kernels", ("vtrace_targets_kernel", "rmsprop_",
-                      "pool_bwd_kernel", "attention_")),
+                      "pool_bwd_kernel", "attention_", "lstm_step_")),
     ("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
                      "fprop", "nchw", "nhwc")),
     ("matrix product", ("gemm", "gemv", "cutlass", "nvjet")),
