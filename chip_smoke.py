@@ -5,7 +5,7 @@
                            | --impact-only | --remat-only | --anakin-only
                            | --pipelined-only | --dp-only | --ep-only
                            | --split-only | --tp-pp-only
-                           | --sp-fleet-only]
+                           | --sp-fleet-only | --v2lite-tail-only]
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
@@ -25,7 +25,11 @@ exits non-zero without printing the final result line:
    shapes its 16-byte path does not take; V-trace must equal its plain
    version bit for bit, at ragged shapes and unaligned inputs too, and is
    timed beside an empty launch; the RMSprop tail is checked and
-   timed on both models' parameter trees; the attention forward is timed
+   timed on both models' parameter trees, and in f32 on the v2lite.learn
+   cell's tree (DeepSeek-V2-Lite cut to 5 layers and 32 held experts:
+   75 leaves, more than 64, and 1.37 B params, the gradients drawn on
+   the card; with --v2lite-tail-only alone after the builds); the
+   attention forward is timed
    at the learner shape (T=81) and the acting shape (T=1); the attention
    backward is also checked at a shape beyond one block of its kernel
    (T=300, D=64) and must give identical bits on two calls; the device
@@ -700,19 +704,27 @@ def check_pool(ops, dev, dtype=torch.float32):
     }
 
 
+# The v2lite.learn cell's cut of DeepSeek-V2-Lite
+# (portbench/configs/deepseek_v2_lite.json): 75 leaves, 1,370,939,911
+# params, drawn on the card.
+V2LITE_CUT = {"num_layers": 5, "experts_held": 32, "memory_len": 1024}
+
+
 def _param_tree(dev, name="deep", policy="f32", **levers):
     """A model of profile_update.MODEL_CONFIGS (deep + LSTM, the
     transformer with the attention kernel, the pipelined transformer, the
-    pipelined MLP + LSTM) at full width, random from seed 0, built at
-    the precision `policy` (its params cast to the resident dtype) with
-    the remat `levers` (runtime/remat_plan.model_kwargs), and a copy of
-    its parameters."""
+    pipelined MLP + LSTM) or deepseek_v2_lite at V2LITE_CUT, at full
+    width, random from seed 0, built at the precision `policy` (its
+    params cast to the resident dtype) with the remat `levers`
+    (runtime/remat_plan.model_kwargs), and a copy of its parameters."""
     from torchbeast_tpu_torch import precision
     from torchbeast_tpu_torch.models import create_model
 
     pol = precision.get(policy)
     torch.manual_seed(0)
-    model = create_model(name, NUM_ACTIONS, **MODEL_CONFIGS[name],
+    config = (dict(V2LITE_CUT, device=dev) if name == "deepseek_v2_lite"
+              else MODEL_CONFIGS[name])
+    model = create_model(name, NUM_ACTIONS, **config,
                          dtype=pol.compute_dtype, head_dtype=pol.head_dtype,
                          **levers)
     model = precision.cast_params(model.to(dev), pol)
@@ -759,14 +771,17 @@ def check_opt(ops, dev, tree, policy="f32"):
     params, grads and nu, f32 master and mom), clip active, clip inactive
     and momentum, then timed there beside its bound and, in f32,
     clip_grad_norm_ + RMSprop(foreach=True). No PyTorch call keeps an f32
-    master beside bf16 params, so the bf16 row has no library time."""
+    master beside bf16 params, so the bf16 row has no library time. A tree
+    above 2**28 params draws its gradients on the card, from a generator
+    of the card's seeded as the CPU one is."""
     from torchbeast_tpu_torch.ops import opt
 
     model, params0 = _param_tree(dev, tree, policy)
     bf16 = policy == "bf16_train"
     n_params = sum(p.numel() for p in params0)
     ragged = sum(p.numel() % 4 != 0 for p in params0)
-    g_cpu = torch.Generator(device="cpu").manual_seed(1)
+    draw_on = dev if n_params > 2 ** 28 else torch.device("cpu")
+    g_cpu = torch.Generator(device=draw_on).manual_seed(1)
     hyper = dict(alpha=0.99, eps=0.01, max_norm=40.0)
     # (what, rtol, atol) of each compared group; bf16 mom apart, below.
     if bf16:
@@ -795,7 +810,7 @@ def check_opt(ops, dev, tree, policy="f32"):
         # Each gradient in its param's own layout (the trunk's convs are
         # channels_last, the stacked [L, ...] leaves contiguous).
         grads = [[torch.empty_like(p).copy_(
-            gscale * torch.randn(p.shape, generator=g_cpu))
+            gscale * torch.randn(p.shape, generator=g_cpu, device=draw_on))
             for p in params0] for _ in range(steps)]
         runs = []
         for plain in (False, True):
@@ -839,6 +854,7 @@ def check_opt(ops, dev, tree, policy="f32"):
               f"4, {n_params} params): max_abs_err "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
               + f" ({tol_text})")
+        del runs, grads, sk, pk, mk, nk, momk, sp, pp, mp, npl, momp, pairs
     p, master, nu, _ = fresh(0.0)
     grads = [torch.randn_like(t) for t in p]
     lr = torch.tensor(1e-9, device=dev)
@@ -6082,6 +6098,7 @@ def main(argv):
     split_only = argv == ["--split-only"]
     tp_pp_only = argv == ["--tp-pp-only"]
     sp_fleet_only = argv == ["--sp-fleet-only"]
+    v2lite_tail_only = argv == ["--v2lite-tail-only"]
     if len(argv) == 2 and argv[0] == "--fleet-host":
         return fleet_host_worker(argv[1])
     if len(argv) == 3 and argv[0] == "--fleet-chaos":
@@ -6089,7 +6106,7 @@ def main(argv):
     if argv and not (kernels_only or vtrace_only or serving_only
                      or impact_only or remat_only or anakin_only
                      or pipelined_only or dp_only or ep_only or split_only
-                     or tp_pp_only or sp_fleet_only):
+                     or tp_pp_only or sp_fleet_only or v2lite_tail_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6162,6 +6179,10 @@ def main(argv):
     if vtrace_only:
         print(json.dumps({"kernels": [check_vtrace(ops, dev)]}))
         return 0
+    if v2lite_tail_only:
+        print(json.dumps({"kernels": [
+            check_opt(ops, dev, "deepseek_v2_lite")]}))
+        return 0
     if impact_only:
         run_impact_phases(ops, dev, savedir, tf32)
         return 0
@@ -6209,7 +6230,7 @@ def main(argv):
                check_opt(ops, dev, "deep", "bf16_train"),
                check_opt(ops, dev, "transformer", "bf16_train"),
                check_pool(ops, dev, BF16), *check_attention(ops, dev, BF16),
-               check_lstm(ops, dev)]
+               check_lstm(ops, dev), check_opt(ops, dev, "deepseek_v2_lite")]
     torch.cuda.empty_cache()
     for k in kernels:
         lib = ("-" if k["library_ms"] is None

@@ -216,6 +216,50 @@ def test_rmsprop_tail_kernel_matches_plain_version_on_transformer_tree(cuda):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("leaves", [64, 65, 203])
+def test_rmsprop_tail_kernel_takes_more_than_64_leaves(cuda, bf16, leaves):
+    """Trees on both sides of the two tables' boundary, and one of 203
+    leaves across all four words of the large table's 4-wide-access
+    mask: lengths not a multiple of 4 (scalar ends) and leaves one float
+    off 16-byte alignment, clip active, three steps, one launch each;
+    f32 params and nu, and the bf16_train pairing with its f32
+    master."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shapes = [(1 + (7 * i) % 37, 1 + i % 5) for i in range(leaves)]
+    dtype = torch.bfloat16 if bf16 else torch.float32
+
+    def leaf(shape, i):
+        n = shape[0] * shape[1]
+        off = i % 3 == 0
+        buf = torch.empty(n + off, device=cuda, dtype=dtype)
+        t = buf[off:].view(shape)
+        t.copy_(torch.randn(shape, generator=gen, device=cuda))
+        return t
+
+    params0 = [leaf(s, i) for i, s in enumerate(shapes)]
+    grads = [[leaf(s, i) for i, s in enumerate(shapes)] for _ in range(3)]
+    runs = []
+    for plain in (False, True):
+        p = [t.clone() for t in params0]
+        nu = [torch.zeros_like(t) for t in p]
+        masters = [t.float() for t in p] if bf16 else None
+        sumsqs = []
+        for gs in grads:
+            kw = dict(lr=4.8e-4, alpha=0.99, eps=0.01, max_norm=1.0,
+                      masters=masters)
+            if plain:
+                with ops.plain_on_device():
+                    sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+            else:
+                before = opt.rmsprop_tail.launches
+                sumsqs.append(opt.rmsprop_tail(p, gs, nu, None, **kw))
+                assert opt.rmsprop_tail.launches == before + 1
+        runs.append(sumsqs + p + nu + (masters or []))
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def attention_inputs(B, T, H, D, M, seed, device):
     """Random attention inputs with planted dones (segments and the
     no-done gate matter) and a partly valid cache, made with numpy."""

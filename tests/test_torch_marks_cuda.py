@@ -248,3 +248,110 @@ def test_metrics_scrapes_during_captures_leave_them_valid(card,
     torch.cuda.synchronize()
     after = _device(telemetry.snapshot())
     assert after["update"]["count"] - before["update"]["count"] == 3
+
+
+# A spin of about 0.1 ms at the H100's clocks (torch.cuda._sleep counts
+# cycles).
+SPIN = 200_000
+
+
+def test_a_summed_region_folds_five_intervals_an_update(card):
+    """A captured update that enters MLA five times around a spin and MOE
+    once around a spin five times as long: each folds one observation a
+    replay, the sum of its intervals, so the two read alike; the update's
+    span holds both."""
+    recorder = marks.device_recorder(card)
+    x = torch.ones(1, device=card)
+
+    def body():
+        with marks.recording(recorder):
+            marks.stamp(marks.START)
+            for _ in range(5):
+                marks.region_in(x, marks.MLA)
+                torch.cuda._sleep(SPIN)
+                marks.region_out(x, marks.MLA)
+            marks.region_in(x, marks.MOE)
+            torch.cuda._sleep(5 * SPIN)
+            marks.region_out(x, marks.MOE)
+            marks.stamp(marks.END)
+
+    graph = torch.cuda.CUDAGraph()
+    with graphs._capture_open(), torch.cuda.graph(graph):
+        body()
+    before = _device(telemetry.snapshot())
+    for _ in range(REPLAYS):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = _device(telemetry.snapshot())
+
+    def new(name, key):
+        return after[name][key] - before.get(name, {}).get(key, 0)
+
+    assert new("mla_fwd", "count") == new("moe_fwd", "count") == REPLAYS
+    assert "mla_bwd" not in after or new("mla_bwd", "count") == 0
+    mla, moe = new("mla_fwd", "total"), new("moe_fwd", "total")
+    assert mla == pytest.approx(moe, rel=0.1)
+    assert new("update", "count") == REPLAYS
+    assert mla + moe < new("update", "total")
+    print(f"mla {mla / REPLAYS * 1e3:.4f} ms (5 spans), moe "
+          f"{moe / REPLAYS * 1e3:.4f} ms (1 span)")
+
+
+def test_deepseek_update_folds_its_regions_in_the_graph(card):
+    """The DeepSeek-V2 family at a small size (5 layers) in a captured
+    update: MLA five times and MOE four times an update, forward and
+    back, each one observation a replay, inside the trunk's regions; the
+    boundary regions read as before; the peak expert load folds too. The
+    captured update leaves the parameters an eager update leaves."""
+    kw = dict(num_layers=5, d_model=64, num_heads=4, qk_nope_head_dim=16,
+              qk_rope_head_dim=8, v_head_dim=16, kv_lora_rank=32,
+              dense_width=96, num_experts=8, experts_held=4, moe_top_k=2,
+              expert_width=24, num_shared=1, memory_len=16, tile_rows=8)
+    hp = learner.HParams(unroll_length=profile_update.T,
+                         batch_size=profile_update.B, vtrace_impl="pallas",
+                         opt_impl="pallas")
+    torch.manual_seed(0)
+    models = [create_model("deepseek_v2_lite", profile_update.NUM_ACTIONS,
+                           device=card, **kw) for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    batch = profile_update.random_batch(0, card)
+    state = tuple(s.normal_() for s in models[0].initial_state(
+        profile_update.B, card))
+    steps = []
+    for capture, model in zip((True, False), models):
+        optimizer = learner.make_optimizer(hp, list(model.parameters()))
+        steps.append(learner.make_update_dispatch(model, optimizer, hp,
+                                                  capture=capture))
+    was = telemetry.is_enabled()
+    telemetry.set_enabled(True)
+    try:
+        steps[0].capture(batch, state)
+    finally:
+        telemetry.set_enabled(was)
+    before = _device(telemetry.snapshot())
+    load_before = telemetry.snapshot()["histograms"].get(
+        "learner.moe.peak_load", {}).get("count", 0)
+    steps[0](batch, state)
+    steps[1](batch, state)
+    torch.cuda.synchronize()
+    for (name, a), b in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+    for _ in range(4):
+        steps[0](batch, state)
+    torch.cuda.synchronize()
+    snap = telemetry.snapshot()
+    after = _device(snap)
+
+    def new(name, key):
+        return after[name][key] - before.get(name, {}).get(key, 0)
+
+    for name in ("mla_fwd", "mla_bwd", "moe_fwd", "moe_bwd", "trunk_fwd",
+                 "trunk_bwd", "loss_fwd", "loss_bwd", "opt", "update"):
+        assert new(name, "count") == 5, name
+    assert (new("mla_fwd", "total") + new("moe_fwd", "total")
+            < new("trunk_fwd", "total"))
+    assert (new("mla_bwd", "total") + new("moe_bwd", "total")
+            < new("trunk_bwd", "total"))
+    load = snap["histograms"]["learner.moe.peak_load"]
+    assert load["count"] - load_before == 5 and load["max"] >= 1.0

@@ -32,10 +32,18 @@ def _actions(parser):
 
 
 def test_parser_matches_the_reference():
+    """Every flag of the reference's, as it is; the port adds
+    --disable_cuda and the family of its own, deepseek_v2_lite, with its
+    three cut flags."""
     ours = _actions(monobeast.make_parser())
     theirs = _actions(jax_monobeast.make_parser())
-    assert set(ours) - set(theirs) == {("--disable_cuda",)}
+    assert set(ours) - set(theirs) == {
+        ("--disable_cuda",), *((f"--{k}",) for k in monobeast.DEEPSEEK_CUT)}
     assert set(theirs) - set(ours) == set()
+    kind, dest, type_, default, choices, nargs, const = ours[("--model",)]
+    assert choices[-1] == "deepseek_v2_lite"
+    ours[("--model",)] = (kind, dest, type_, default, choices[:-1], nargs,
+                          const)
     for flag, spec in theirs.items():
         assert ours[flag] == spec, flag
 

@@ -246,3 +246,32 @@ def test_cpu_tail_launches_no_kernel_and_checks_inputs():
         port_opt.rmsprop_tail(pb, [t.to(torch.bfloat16) for t in g], nu,
                               None, lr=0.1, alpha=0.9, eps=0.01,
                               masters=[t.float() for t in pb])
+
+
+def test_leaf_table_takes_a_tree_above_64_leaves():
+    """The kernel's table holds 256 leaves (a 5-layer DeepSeek-V2-Lite
+    tree has 75): the wrapper's check passes at 65 and at 256 and
+    refuses 257, and the CUDA source sizes its table to the same count.
+    The plain tail over 65 leaves is the update leaf by leaf."""
+    import os
+    import re
+
+    port_opt.check_leaf_count(65)
+    port_opt.check_leaf_count(port_opt.MAX_LEAVES)
+    with pytest.raises(ValueError, match="257 leaves"):
+        port_opt.check_leaf_count(257)
+    src = os.path.join(os.path.dirname(port_opt.__file__), "..", "csrc",
+                       "rmsprop_tail.cu")
+    with open(src) as f:
+        found = re.search(r"constexpr int kMaxLeaves = (\d+);", f.read())
+    assert int(found.group(1)) == port_opt.MAX_LEAVES == 256
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(i % 7 + 1, 3) for i in range(65)]
+    p = [torch.randn(s, generator=gen) for s in shapes]
+    g = [torch.randn(s, generator=gen) for s in shapes]
+    nu = [torch.zeros(s) for s in shapes]
+    want = [q - 0.1 * gi / (torch.sqrt(0.1 * gi * gi) + 0.01)
+            for q, gi in zip(p, g)]
+    port_opt.rmsprop_tail(p, g, nu, None, lr=0.1, alpha=0.9, eps=0.01)
+    for a, b in zip(p, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

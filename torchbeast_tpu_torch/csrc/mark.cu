@@ -18,6 +18,14 @@
 //   table of thresholds, so it is the bucket the registry's own
 //   bucket_index gives the same duration.
 //
+// Summed regions repeat within an update (a model's layers, forward and
+// back): tbt_region<R, 1> stamps slot kRegionBase + 2R on entry and
+// tbt_region<R, 0> adds the time since to slot kRegionBase + 2R + 1. A
+// fold row whose `from` is -2 reads its `to` slot as it stands: a
+// region's sum, or a value the learner wrote there with torch ops (an
+// integer of billionths); a slot still 0 (nothing ran) folds nothing.
+// Mark 0 clears these slots too.
+//
 // One thread stamps; a fold runs one thread a row, each row its own.
 #include "common.cuh"
 
@@ -26,6 +34,10 @@ namespace {
 // The buffer's layout; marks.py keeps the same numbers.
 constexpr int kBoundaries = 8;   // slots 0..7: the update's boundaries
 constexpr int kPrevEnd = 15;     // slot 15: the previous update's end
+constexpr int kRegionBase = 16;  // slots 16..23: summed regions; 24..: values
+constexpr int kSlots = 32;
+constexpr int kRegions = 4;
+constexpr int kFromSlot = -2;    // a fold row that reads its `to` slot
 constexpr int kBuckets = 192;    // histogram buckets a row
 constexpr int kCount = kBuckets;        // then the row's count,
 constexpr int kSum = kBuckets + 1;      // sum of durations (ns),
@@ -84,6 +96,7 @@ __global__ void tbt_mark(long long* slots, long long* acc,
     if (I == 0) {
       slots[0] = t;
       for (int i = 1; i < kBoundaries; ++i) slots[i] = 0;
+      for (int i = kRegionBase; i < kSlots; ++i) slots[i] = 0;
     } else if (slots[I] == 0) {
       slots[I] = t;
     }
@@ -92,7 +105,11 @@ __global__ void tbt_mark(long long* slots, long long* acc,
   if (fold.n == 0) return;
   __syncthreads();
   const int r = threadIdx.x;
-  if (r < fold.n) {
+  if (r < fold.n && fold.from[r] == kFromSlot) {
+    const long long v = slots[fold.to[r]];
+    if (v > 0) observe(acc + static_cast<long long>(fold.series[r]) * kRow,
+                       v, thr);
+  } else if (r < fold.n) {
     const long long end = slots[fold.to[r]];
     const long long start =
         fold.from[r] < 0 ? slots[kPrevEnd] : slots[fold.from[r]];
@@ -105,6 +122,18 @@ __global__ void tbt_mark(long long* slots, long long* acc,
   }
   __syncthreads();
   if (threadIdx.x == 0) slots[kPrevEnd] = now;
+}
+
+// Enter (E = 1) or leave (E = 0) summed region R.
+template <int R, int E>
+__global__ void tbt_region(long long* slots) {
+  const long long t = global_timer();
+  long long* entered = slots + kRegionBase + 2 * R;
+  if (E) {
+    *entered = t;
+  } else if (*entered != 0) {
+    entered[1] += t > *entered ? t - *entered : 0;
+  }
 }
 
 namespace {
@@ -148,4 +177,24 @@ TBT_API int tbt_mark_launch(int index, long long* slots, long long* acc,
     case 7: return static_cast<int>(launch<7>(slots, acc, thr, f, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// region: the summed region (0..3); enter: 1 on entry, 0 on exit.
+TBT_API int tbt_region_launch(int region, int enter, long long* slots,
+                              void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (region < 0 || region >= kRegions) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (region * 2 + (enter ? 1 : 0)) {
+    case 0: tbt_region<0, 0><<<1, 1, 0, s>>>(slots); break;
+    case 1: tbt_region<0, 1><<<1, 1, 0, s>>>(slots); break;
+    case 2: tbt_region<1, 0><<<1, 1, 0, s>>>(slots); break;
+    case 3: tbt_region<1, 1><<<1, 1, 0, s>>>(slots); break;
+    case 4: tbt_region<2, 0><<<1, 1, 0, s>>>(slots); break;
+    case 5: tbt_region<2, 1><<<1, 1, 0, s>>>(slots); break;
+    case 6: tbt_region<3, 0><<<1, 1, 0, s>>>(slots); break;
+    default: tbt_region<3, 1><<<1, 1, 0, s>>>(slots); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,12 @@
 // and the param are narrowed on write, rounding to nearest even.
 //
 // Design. The leaves ride in one table passed by value as a kernel
-// parameter (multi-tensor apply, at most kMaxLeaves pointers per role).
+// parameter (multi-tensor apply), at most kMaxLeaves = 256 leaves: 12.3
+// KB at f32, 14.4 KB with bf16's master column, above the classic 4 KB
+// limit of a launch's parameters and within the 32,764 bytes that CUDA
+// 12.1 and later take on Volta and newer cards, cooperative launches and
+// graph capture included. The kernel reads it where it lies, in the
+// constant bank.
 // Each leaf is cut into units of 4 elements, numbered across the leaves
 // (the table holds each leaf's first unit), and the grid is persistent:
 // cooperative, at most the blocks the card holds at once, so the grid-wide
@@ -48,7 +53,9 @@
 // for it; a leaf's ragged end (its last numel % 4 elements, e.g. the
 // 6-element policy bias) and any unaligned leaf take scalar accesses.
 // Pass 2 reads g again from the 50 MB L2, where pass 1 left it (6.5 MB for
-// the deep model's f32 tree, 16 MB for the transformer's).
+// the deep model's f32 tree, 16 MB for the transformer's); a tree whose
+// gradients outgrow L2 (DeepSeek-V2-Lite's cut, 5.5 GB) reads them twice
+// from HBM.
 //
 // Bound on the H100 (3.35 TB/s): bytes, counting each input read once and
 // each output written once. f32: g, nu, p in and nu, p out, 20 B a
@@ -71,14 +78,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxLeaves = 64;
+constexpr int kMaxLeaves = 256;
 constexpr int kTailThreads = 256;
 constexpr int kTailBlocksPerSm = 4;  // the grid: at most this many an SM
 constexpr unsigned kFull = 0xffffffffu;
 
 // The f32 master column, which only bf16 params have (f32 params are their
-// own master). For f32 params it is an empty base, so the f32 table is
-// byte for byte the one it was before the bf16 variants.
+// own master). For f32 params it is an empty base.
 template <typename PT>
 struct MasterColumn {};
 template <>
@@ -96,7 +102,8 @@ struct LeafTable : MasterColumn<PT> {
   float* mom[kMaxLeaves];
   long long numel[kMaxLeaves];
   long long unit0[kMaxLeaves + 1];  // each leaf's first unit of 4 elements
-  unsigned long long vec;           // bit l: leaf l takes 4-wide accesses
+  // bit l % 64 of word l / 64: leaf l takes 4-wide accesses
+  unsigned long long vec[kMaxLeaves / 64];
   int n;
 };
 
@@ -158,7 +165,7 @@ __device__ inline void for_each_unit(const Table& t, F f) {
     while (u >= t.unit0[leaf + 1]) ++leaf;
     const long long e = 4 * (u - t.unit0[leaf]);
     const int n = static_cast<int>(min(4LL, t.numel[leaf] - e));
-    f(leaf, e, n, n == 4 && ((t.vec >> leaf) & 1ULL));
+    f(leaf, e, n, n == 4 && ((t.vec[leaf >> 6] >> (leaf & 63)) & 1ULL));
   }
 }
 
@@ -254,12 +261,15 @@ int launch(void* const* params, void* const* grads, void* const* nus,
            int n_leaves, double* partials, int n_partials, float* sumsq,
            const Hyper& h, cudaStream_t stream) {
   constexpr bool kMaster = LeafTable<PT, NT>::kMaster;
+  static_assert(sizeof(LeafTable<PT, NT>) + sizeof(double*) +
+                        sizeof(float*) + sizeof(Hyper) <= 32764,
+                "the launch's parameters exceed CUDA's 32,764 bytes");
   // A unit's access: 4 elements of each role at once.
   constexpr int kP = 4 * sizeof(PT), kN = 4 * sizeof(NT), kF = 16;
   LeafTable<PT, NT> t;
   t.n = n_leaves;
   t.unit0[0] = 0;
-  t.vec = 0;
+  for (int w = 0; w < kMaxLeaves / 64; ++w) t.vec[w] = 0;
   for (int l = 0; l < n_leaves; ++l) {
     t.param[l] = static_cast<PT*>(params[l]);
     t.grad[l] = static_cast<const PT*>(grads[l]);
@@ -273,7 +283,7 @@ int launch(void* const* params, void* const* grads, void* const* nus,
                          tbt::aligned(t.nu[l], kN) &&
                          (!h.has_mom || tbt::aligned(t.mom[l], kF)) &&
                          (!kMaster || tbt::aligned(masters[l], kF));
-    if (aligned) t.vec |= 1ULL << l;
+    if (aligned) t.vec[l >> 6] |= 1ULL << (l & 63);
   }
   // The grid: no more blocks than the card holds at once (the grid-wide
   // barrier needs them all resident), than the partials, or than the work.

@@ -45,6 +45,24 @@ fold; everywhere else `stamp` and `boundary` do nothing. A HostRecorder
 stamps `time.perf_counter_ns()` and folds in Python: an eager update on
 the CPU, which runs synchronously, gives the same regions.
 
+**Summed regions** repeat within an update: a model's layers each run one,
+forward and back. `region_in(x, pair)` and `region_out(y, pair)` bound
+one instance: in the forward they enter and leave region pair[0]
+(`tbt_region<r, 1>` stamps slot entered_slot(r), `tbt_region<r, 0>` adds the
+time since to slot summed_slot(r)); their identity autograd Function
+leaves and enters region pair[1] in the backward (the gradient reaches
+y, then x). END folds each region that ran into one observation an
+update, the sum of its intervals: the series `learner.device.<name>_s`
+of SUMMED (MLA and MOE, the DeepSeek-V2 family's attention and MoE
+layers, models/deepseek_v2.py). A region must close before it opens
+again; regions of two pairs may nest.
+
+**Values**: `observe_max(name, x)` keeps the largest 0-d value an update
+of VALUES (the MoE layers' peak expert load, models/moe.DroplessMoE) in
+slot value_slot(name), with torch ops on the card (so no sync and nothing
+in the mark kernels), as an integer of billionths; END folds it as one
+observation into the series VALUES[name], read as the value itself.
+
 The marks are not counted in `ops.launch_counts()` and add nothing to
 `precision.count_bytes` (no capture counts bytes).
 """
@@ -81,9 +99,19 @@ REGIONS = {
 UPDATE, GAP = "update", "gap"
 SERIES_PREFIX = "learner.device."
 
+# Summed regions, in slot order, and the (forward, backward) pairs that
+# region_in and region_out take.
+SUMMED = ("mla_fwd", "mla_bwd", "moe_fwd", "moe_bwd")
+MLA, MOE = (0, 1), (2, 3)
+# Values: name -> series; observe_max keeps an update's largest.
+VALUES = {"moe_peak_load": "learner.moe.peak_load"}
+
 # The device buffers' layout (csrc/mark.cu keeps the same numbers).
-SLOTS = 16
+SLOTS = 32
 PREV_END = 15  # the slot of the previous update's end
+REGION_BASE = 16  # slots 16..23: each summed region's entry, then its sum
+VALUE_BASE = REGION_BASE + 2 * len(SUMMED)  # slot 24: the values
+FROM_SLOT = -2  # a fold row's `from` that reads `to` as a summed slot
 BUCKETS = 192  # up to 2^47.75 ns (2.6 days); longer counts in the last
 COUNT, SUM, MIN, MAX, SUMSQ = range(BUCKETS, BUCKETS + 5)
 ROW = BUCKETS + 5
@@ -91,6 +119,21 @@ ROWS = 16
 INT64_MAX = 2 ** 63 - 1
 
 log = logging.getLogger(__name__)
+
+
+def entered_slot(r: int) -> int:
+    """The slot of summed region r's last entry."""
+    return REGION_BASE + 2 * r
+
+
+def summed_slot(r: int) -> int:
+    """The slot of summed region r's sum over the update."""
+    return REGION_BASE + 2 * r + 1
+
+
+def value_slot(name: str) -> int:
+    """The slot of value `name` (VALUES)."""
+    return VALUE_BASE + list(VALUES).index(name)
 
 
 def thresholds() -> list:
@@ -126,17 +169,21 @@ class Accumulator:
         self.thr = torch.tensor(thresholds(), dtype=torch.int64,
                                 device=device)
         self._rows = {}  # guarded-by: self._lock
+        self._series = {}  # guarded-by: self._lock
         self._seen = acc.clone()  # guarded-by: self._lock
         self._lock = threading.Lock()
         if registry is not None:
             registry.add_collector(self.collect)
 
-    def row(self, name: str) -> int:
+    def row(self, name: str, series: str = None) -> int:
+        """The row of `name`, given out at its first call; its series is
+        `series`, or `learner.device.<name>_s`."""
         with self._lock:
             if name not in self._rows:
                 if len(self._rows) == ROWS:
                     raise ValueError(f"no accumulator row left for {name}")
                 self._rows[name] = len(self._rows)
+                self._series[name] = series or (SERIES_PREFIX + name + "_s")
             return self._rows[name]
 
     def collect(self, registry) -> None:
@@ -154,6 +201,7 @@ class Accumulator:
             now = self.table.to("cpu", copy=True)
             seen, self._seen = self._seen, now
             rows = dict(self._rows)
+            series = dict(self._series)
         sumsq = [t.view(torch.float64)[:, SUMSQ].tolist()
                  for t in (now, seen)]
         now, seen = now.tolist(), seen.tolist()
@@ -162,7 +210,7 @@ class Accumulator:
             if new[COUNT] <= 0:
                 continue
             buckets = {i: c for i, c in enumerate(new[:BUCKETS]) if c}
-            hist = registry.histogram(SERIES_PREFIX + name + "_s")
+            hist = registry.histogram(series[name])
             hist.observe_aggregate(
                 buckets, new[SUM] * 1e-9, sumsq[0][r] - sumsq[1][r],
                 now[r][MIN] * 1e-9, now[r][MAX] * 1e-9)
@@ -196,6 +244,8 @@ class Recorder:
         self.acc = acc
         self.updates = 0
         self._marked = []
+        self._summed = set()
+        self._values = set()
 
     def begin_dispatch(self) -> None:
         self.updates = 0
@@ -204,12 +254,23 @@ class Recorder:
         fold = None
         if index == START:
             self._marked = [START]
+            self._summed, self._values = set(), set()
             self.updates += 1
         elif index not in self._marked:
             self._marked.append(index)
         if index == END:
             fold = self._fold_rows()
         self._launch(index, fold)
+
+    def region(self, r: int, enter: bool) -> None:
+        """Enter or leave summed region r."""
+        self._summed.add(r)
+        self._launch_region(r, enter)
+
+    def value(self, name: str, x: torch.Tensor) -> None:
+        """Keep the larger of x (0-d) and what value_slot(name) holds."""
+        self._values.add(name)
+        self._launch_value(value_slot(name), x)
 
     def _fold_rows(self):
         """[(from slot, to slot, accumulator row)]: each region between
@@ -223,10 +284,26 @@ class Recorder:
         rows.append((START, END, self.acc.row(UPDATE)))
         if self.updates == 1:
             rows.append((-1, START, self.acc.row(GAP)))
+        for r in sorted(self._summed):
+            rows.append((FROM_SLOT, summed_slot(r), self.acc.row(SUMMED[r])))
+        for name in sorted(self._values):
+            rows.append((FROM_SLOT, value_slot(name),
+                         self.acc.row(name, VALUES[name])))
         return rows
 
     def _launch(self, index, fold):
         raise NotImplementedError
+
+    def _launch_region(self, r, enter):
+        raise NotImplementedError
+
+    def _launch_value(self, slot, x):
+        """Keep max(slots[slot], x in billionths), with torch ops on the
+        slots' device."""
+        with torch.no_grad():
+            v = torch.round(x.detach().double() * 1e9).to(torch.int64)
+            cell = self.acc.slots.narrow(0, slot, 1)
+            cell.copy_(torch.maximum(cell, v.reshape(1).to(cell.device)))
 
 
 class DeviceRecorder(Recorder):
@@ -252,6 +329,14 @@ class DeviceRecorder(Recorder):
             torch.cuda.current_stream(self.acc.slots.device).cuda_stream)
         _build.check(status, f"tbt_mark<{index}>")
 
+    def _launch_region(self, r, enter):
+        from torchbeast_tpu_torch.ops import _build
+
+        status = self._lib.tbt_region_launch(
+            r, int(enter), self.acc.slots.data_ptr(),
+            torch.cuda.current_stream(self.acc.slots.device).cuda_stream)
+        _build.check(status, f"tbt_region<{r}, {int(enter)}>")
+
 
 class HostRecorder(Recorder):
     """Marks stamped with the host's `time.perf_counter_ns()` into the
@@ -275,16 +360,30 @@ class HostRecorder(Recorder):
         now = time.perf_counter_ns()
         if index == START:
             slots[:END + 1] = 0
+            slots[REGION_BASE:] = 0
         if int(slots[index]) == 0:
             slots[index] = now
             self.stamps.append((self.dispatches, self.updates, index, now))
         if fold is not None:
             for a, b, r in fold:
+                if a == FROM_SLOT:
+                    if int(slots[b]) > 0:
+                        self.observe(r, int(slots[b]))
+                    continue
                 start = int(slots[PREV_END if a < 0 else a])
                 end = int(slots[b])
                 if start and end:
                     self.observe(r, max(end - start, 0))
             slots[PREV_END] = slots[END]
+
+    def _launch_region(self, r, enter):
+        """csrc/mark.cu's tbt_region<r, enter> on the host clock."""
+        slots = self.acc.slots
+        now = time.perf_counter_ns()
+        if enter:
+            slots[entered_slot(r)] = now
+        elif int(slots[entered_slot(r)]):
+            slots[summed_slot(r)] += max(now - int(slots[entered_slot(r)]), 0)
 
     def observe(self, r: int, d: int) -> None:
         """Add a duration of d ns to row r, as csrc/mark.cu's observe."""
@@ -363,6 +462,59 @@ def boundary(x: torch.Tensor, fwd: int, bwd: int) -> torch.Tensor:
     return _Boundary.apply(x, recorder, fwd, bwd)
 
 
+class _Region(torch.autograd.Function):
+    """The identity, entering (or leaving) summed region `fwd` as it runs
+    and leaving (or entering) region `bwd` when its gradient comes
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, recorder, fwd, bwd, enter):
+        ctx.recorder, ctx.bwd, ctx.enter = recorder, bwd, enter
+        recorder.region(fwd, enter)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.recorder.region(ctx.bwd, not ctx.enter)
+        return grad, None, None, None, None
+
+
+def _region(x, pair, enter):
+    recorder = _active[0]
+    if recorder is None:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        recorder.region(pair[0], enter)
+        return x
+    return _Region.apply(x, recorder, pair[0], pair[1], enter)
+
+
+def region_in(x: torch.Tensor, pair) -> torch.Tensor:
+    """`x` where a summed region's instance starts: pair[0] entered now,
+    pair[1] left when the backward reaches x, when a dispatch is being
+    recorded; else `x` itself."""
+    return _region(x, pair, True)
+
+
+def region_out(y: torch.Tensor, pair) -> torch.Tensor:
+    """`y` where the instance ends: pair[0] left now, pair[1] entered when
+    the backward reaches y."""
+    return _region(y, pair, False)
+
+
+def recording_now() -> bool:
+    """Whether a dispatch is being recorded (marks and values land)."""
+    return _active[0] is not None
+
+
+def observe_max(name: str, x: torch.Tensor) -> None:
+    """Keep the update's largest 0-d `x` of value `name` (VALUES), when a
+    dispatch is being recorded."""
+    recorder = _active[0]
+    if recorder is not None:
+        recorder.value(name, x)
+
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -377,14 +529,14 @@ def split_trace(events) -> list:
     export), put down to its regions by the marks' kernels on the
     trace's own clock: [{region: {op name: device us}}], one dict an
     update from a START mark to its END mark, in time order. The marks
-    themselves count in no region."""
+    and the summed regions' stamps count in no region."""
     ops = sorted((ev for ev in events if ev.get("cat") in DEVICE_CATS),
                  key=lambda ev: ev["ts"])
     updates, segment, at, current = [], [], None, None
     for ev in ops:
         index = mark_index(ev.get("name", ""))
         if index is None:
-            if at is not None:
+            if at is not None and "tbt_region<" not in ev.get("name", ""):
                 segment.append(ev)
             continue
         if index == START:

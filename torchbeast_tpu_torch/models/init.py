@@ -38,11 +38,14 @@ TRUNCATED_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator=None) -> torch.Tensor:
     """Fill t with lecun_normal for `fan_in`: cut at +-2 std. torch's
-    trunc_normal_ takes its cut-offs as values, not in units of std."""
+    trunc_normal_ takes its cut-offs as values, not in units of std.
+    `generator` (one on t's device) in place of the global one."""
     std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
-    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std)
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
 
 
 @torch.no_grad()

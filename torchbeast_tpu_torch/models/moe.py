@@ -105,6 +105,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchbeast_tpu_torch import marks
 from torchbeast_tpu_torch.models import init
 from torchbeast_tpu_torch.models.layers import linear
 from torchbeast_tpu_torch.models.sharded import slots
@@ -301,3 +302,223 @@ class MoEFFN(nn.Module):
             expert_out = expert_out.to(home)
         return torch.einsum("ecd,tec->td", expert_out.float(),
                             combine[:, experts])
+
+
+class _TileProduct(torch.autograd.Function):
+    """y[i] = x[i] @ w[expert[i]]^T over row tiles: x [tiles, rows, k],
+    w [E, n, k], expert [tiles] -> [tiles, rows, n]. Each tile's weight
+    is gathered for the product and again in the backward, so no
+    gathered copy is kept between the two; the weight's gradient is each
+    tile's x^T dy added into its expert's slot."""
+
+    @staticmethod
+    def forward(ctx, x, w, expert):
+        ctx.save_for_backward(x, w, expert)
+        return torch.bmm(x, w.index_select(0, expert).transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, expert = ctx.saved_tensors
+        dx = torch.bmm(dy, w.index_select(0, expert))
+        dw_tiles = torch.bmm(dy.transpose(1, 2), x)
+        dw = torch.zeros_like(w).index_add_(0, expert, dw_tiles)
+        return dx, dw, None
+
+
+def tile_product(x, w, expert):
+    """x [tiles, rows, k] times each tile's expert's w [E, n, k],
+    transposed: [tiles, rows, n] (_TileProduct)."""
+    return _TileProduct.apply(x, w, expert)
+
+
+class SwiGLU(nn.Module):
+    """down(silu(gate x) * up x), bias-free, in `dtype`; f32 out."""
+
+    def __init__(self, d_model: int, width: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gate = nn.Linear(d_model, width, bias=False)
+        self.up = nn.Linear(d_model, width, bias=False)
+        self.down = nn.Linear(width, d_model, bias=False)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        for layer in (self.gate, self.up, self.down):
+            init.lecun_normal_(layer.weight, layer.in_features)
+
+    def forward(self, x):
+        h = F.silu(linear(self.gate, x, self.dtype)) * linear(
+            self.up, x, self.dtype)
+        return linear(self.down, h, self.dtype).float()
+
+
+class DroplessMoE(nn.Module):
+    """DeepSeekMoE's layer (DeepSeek-AI 2024, arXiv:2405.04434 section
+    2.2): [tokens, d_model] -> [tokens, d_model] f32, every pick kept.
+
+    Routing: p = softmax_f32(x W_r^T) over all `num_experts`; each token's
+    top `top_k` experts by p, greedy, ties to the lower index (the head
+    of a stable descending sort), the gates p_e not renormalised (times
+    `routed_scaling_factor`). The layer holds experts
+    [expert_offset, expert_offset + experts_held), the share one device
+    of an expert-parallel deployment holds: it routes over all of them
+    and computes its own experts' part of the output,
+
+        y = sum_{e in top_k, e held} p_e SwiGLU_e(x) + SwiGLU_shared(x),
+
+    the shared experts' SwiGLU of width `num_shared` * `expert_width`
+    added for every token. The parts that the deployment's devices
+    compute, with the shared experts counted once, add up to the layer
+    that holds every expert.
+
+    Dispatch is sorted and static-shaped, so a CUDA graph captures it: the
+    held picks, ordered by expert (stable, so token order within one),
+    fill row tiles of `tile_rows` rows, each expert's run of rows padded to
+    a whole tile, and the tiles past the last held pick are empty (zero
+    rows). The tile count is the most any routing can need,
+    ceil(tokens * min(top_k, experts_held) / tile_rows) + experts_held,
+    so no pick is ever dropped. Each expert's three products run over its
+    tiles as one batched product (tile_product), then each row's output,
+    times its gate, is added into its token (index_add).
+
+    The expert-level balance loss (section 2.2.1, as DeepSeek's
+    `seq_aux` gate computes it): per sequence, f_i = E / (K T) times the
+    picks of expert i among its T tokens, P_i its mean p_i, and
+    aux_loss_alpha * sum_i f_i P_i, averaged over the sequences; recorded
+    under recording_losses() as MoEFFN records its loss. `sequences` in
+    forward gives their count; the tokens are sequence-major.
+
+    The largest held expert's picks over the held experts' mean, an
+    update's largest over its layers, is a device value of the marks
+    (marks.observe_max "moe_peak_load"), when a dispatch is recorded.
+
+    Parameters: `router` (bias-free Linear, weight [E, d]), `w_gate` and
+    `w_up` [held * expert_width, d], `w_down` [held * d, expert_width]
+    (the published per-expert Linear weights, stacked along their rows
+    and viewed per expert in forward, so each leaf is a matrix with its
+    expert's own fan-in), and `shared` (a SwiGLU).
+    `dtype` is the experts' compute dtype; routing and the combine stay
+    f32.
+    """
+
+    def __init__(self, d_model: int, expert_width: int, num_experts: int,
+                 top_k: int, experts_held=None, expert_offset: int = 0,
+                 num_shared: int = 2, routed_scaling_factor: float = 1.0,
+                 aux_loss_alpha: float = 1e-3, tile_rows: int = 256,
+                 dtype=torch.float32):
+        super().__init__()
+        held = num_experts if experts_held is None else experts_held
+        if top_k > num_experts:
+            raise ValueError(
+                f"top_k={top_k} exceeds num_experts={num_experts}")
+        if not 0 < held <= num_experts - expert_offset or expert_offset < 0:
+            raise ValueError(
+                f"experts [{expert_offset}, {expert_offset + held}) are not "
+                f"among the {num_experts}")
+        self.d_model, self.expert_width = d_model, expert_width
+        self.num_experts, self.top_k = num_experts, top_k
+        self.experts_held, self.expert_offset = held, expert_offset
+        self.routed_scaling_factor = routed_scaling_factor
+        self.aux_loss_alpha = aux_loss_alpha
+        self.tile_rows = tile_rows
+        self.dtype = dtype
+        self.router = nn.Linear(d_model, num_experts, bias=False)
+        self.w_gate = nn.Parameter(torch.empty(held * expert_width, d_model))
+        self.w_up = nn.Parameter(torch.empty(held * expert_width, d_model))
+        self.w_down = nn.Parameter(torch.empty(held * d_model, expert_width))
+        self.shared = SwiGLU(d_model, num_shared * expert_width, dtype)
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        init.lecun_normal_(self.router.weight, self.d_model)
+        init.lecun_normal_(self.w_gate, self.d_model)
+        init.lecun_normal_(self.w_up, self.d_model)
+        init.lecun_normal_(self.w_down, self.expert_width)
+
+    def route(self, x):
+        """(probs [t, E] f32, gate [t, K] f32, idx [t, K] int64)."""
+        probs = F.softmax(linear(self.router, x.float()), dim=-1)
+        order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate = order.values[:, :self.top_k] * self.routed_scaling_factor
+        return probs, gate, order.indices[:, :self.top_k]
+
+    def tiles(self, tokens: int) -> int:
+        """The most row tiles any routing of `tokens` tokens needs."""
+        picks = tokens * min(self.top_k, self.experts_held)
+        return -(-picks // self.tile_rows) + self.experts_held
+
+    def dispatch(self, idx, gate):
+        """The sorted layout of the held picks: (row_token [R], the token
+        of each of the R = tiles * tile_rows rows, `tokens` (a zero row)
+        where empty; row_gate [R] f32, 0 where empty; tile_expert [tiles],
+        each tile's held expert; counts [held], each held expert's
+        picks)."""
+        tokens, K = idx.shape
+        held, rows = self.experts_held, self.tile_rows
+        device = idx.device
+        local = idx.reshape(-1) - self.expert_offset
+        is_held = (local >= 0) & (local < held)
+        # Picks of experts held elsewhere sort after every held one.
+        key = torch.where(is_held, local, torch.full_like(local, held))
+        order = torch.sort(key, stable=True).indices
+        # scatter_add, not bincount: bincount sizes its output from the
+        # data, a sync that a graph capture refuses.
+        counts = torch.zeros(held + 1, dtype=torch.int64,
+                             device=device).scatter_add_(
+            0, key, torch.ones_like(key))[:held]
+        tiles = (counts + rows - 1) // rows
+        tile_end = torch.cumsum(tiles, 0)
+        first_row = (tile_end - tiles) * rows  # each expert's first row
+        first_pick = torch.cumsum(counts, 0) - counts  # in sorted order
+        sorted_key = key[order]
+        e = sorted_key.clamp(max=held - 1)
+        rank = torch.arange(tokens * K, device=device) - first_pick[e]
+        R = self.tiles(tokens) * rows
+        # Picks held elsewhere go to row R, cut off below.
+        row = torch.where(sorted_key < held, first_row[e] + rank,
+                          torch.full_like(rank, R))
+        row_token = torch.full((R + 1,), tokens, dtype=torch.int64,
+                               device=device)
+        row_token[row] = order // K
+        row_gate = torch.zeros(R + 1, device=device)
+        row_gate[row] = gate.reshape(-1)[order].float()
+        tile_expert = torch.bucketize(
+            torch.arange(self.tiles(tokens), device=device), tile_end,
+            right=True).clamp(max=held - 1)
+        return row_token[:R], row_gate[:R], tile_expert, counts
+
+    def forward(self, x, sequences: int = 1):
+        tokens, d = x.shape
+        probs, gate, idx = self.route(x)
+        row_token, row_gate, tile_expert, counts = self.dispatch(idx, gate)
+        dtype = self.dtype
+        held, f = self.experts_held, self.expert_width
+        padded = torch.cat([x.to(dtype), x.new_zeros(1, d, dtype=dtype)])
+        xt = padded[row_token].view(-1, self.tile_rows, d)
+        w_gate = self.w_gate.to(dtype).view(held, f, d)
+        w_up = self.w_up.to(dtype).view(held, f, d)
+        w_down = self.w_down.to(dtype).view(held, d, f)
+        h = F.silu(tile_product(xt, w_gate, tile_expert)) * (
+            tile_product(xt, w_up, tile_expert))
+        yt = tile_product(h, w_down, tile_expert)
+        rows = yt.reshape(-1, d).float() * row_gate[:, None]
+        routed = torch.zeros(tokens + 1, d, device=x.device).index_add_(
+            0, row_token, rows)[:tokens]
+        y = routed + self.shared(x)
+
+        recorded = getattr(_RECORDING, "losses", None)
+        if recorded is not None or torch.is_grad_enabled():
+            E, K = self.num_experts, self.top_k
+            length = tokens // sequences
+            picks = F.one_hot(idx, E).sum(1).view(sequences, length, E)
+            f = picks.sum(1).float() * (E / (K * length))
+            mean_p = probs.view(sequences, length, E).mean(1)
+            aux = self.aux_loss_alpha * (f * mean_p).sum(1).mean()
+            if recorded is not None:
+                recorded[self] = aux
+        if marks.recording_now():
+            with torch.no_grad():
+                load = counts.float()
+                marks.observe_max("moe_peak_load",
+                                  load.max() / load.mean().clamp_min(1e-9))
+        return y

@@ -26,6 +26,13 @@ experts' weights (2 MiB a layer and group at the full width's d 128, ff
 512, 4 experts a group, f32) and its share of the dispatched tokens, and
 take back its outputs; on one card (every group on it) nothing moves.
 
+--model deepseek_v2_lite (models/deepseek_v2.py; the port's own family,
+which the reference does not have) is DeepSeek-V2-Lite's block as the
+policy core at its published widths: latent attention over a rolling
+latent cache and a dropless top-6-of-64 MoE with shared experts, whose
+balance loss joins the objective as aux_loss. --num_layers,
+--experts_held and --memory_len cut it to one device of a deployment.
+
 --model pipelined_mlp and --model pipelined_transformer (models/
 pipelined.py, models/transformer_pp.py) run their stage-stacked towers
 sequentially on one device without --pipeline_parallel, as the
@@ -193,13 +200,30 @@ def make_parser():
                         help="The unroll length (time dimension).")
     parser.add_argument("--model", default="shallow",
                         choices=["shallow", "deep", "mlp", "pipelined_mlp",
-                                 "transformer", "pipelined_transformer"],
+                                 "transformer", "pipelined_transformer",
+                                 "deepseek_v2_lite"],
                         help="Model family: shallow (AtariNet), deep "
                              "(IMPALA ResNet), mlp, transformer "
-                             "(KV-cache attention), or the stage-stacked "
+                             "(KV-cache attention), the stage-stacked "
                              "pipelined_mlp and pipelined_transformer "
                              "(their towers run sequentially on one "
-                             "device).")
+                             "device), or deepseek_v2_lite "
+                             "(DeepSeek-V2-Lite's latent attention and "
+                             "dropless MoE at its published widths; cut "
+                             "by --num_layers, --experts_held and "
+                             "--memory_len).")
+    parser.add_argument("--num_layers", type=int, default=0,
+                        help="deepseek_v2_lite: layers kept (the first "
+                             "dense); 0 keeps the published 27.")
+    parser.add_argument("--experts_held", type=int, default=0,
+                        help="deepseek_v2_lite: routed experts this "
+                             "device holds, the first N of the router's "
+                             "64 (one device's share under expert "
+                             "parallelism); 0 holds all.")
+    parser.add_argument("--memory_len", type=int, default=0,
+                        help="deepseek_v2_lite: steps of latent cache "
+                             "carried across unrolls; 0 keeps the "
+                             "family's default (4096).")
     parser.add_argument("--use_lstm", action="store_true",
                         help="Use LSTM in the agent model.")
     parser.add_argument("--precision", default="f32",
@@ -832,7 +856,25 @@ def _attention_impl(flags):
 
 def _num_experts(flags):
     n = getattr(flags, "num_experts", 0)
+    if n and flags.model == "deepseek_v2_lite":
+        raise ValueError(
+            "--num_experts is the transformer's; deepseek_v2_lite routes "
+            "over its published 64 (--experts_held sets how many are held)")
     return {"num_experts": n} if n else {}
+
+
+DEEPSEEK_CUT = ("num_layers", "experts_held", "memory_len")
+
+
+def _deepseek_cut(flags):
+    """--num_layers, --experts_held and --memory_len, the cut of
+    --model deepseek_v2_lite (0: its default)."""
+    cut = {k: getattr(flags, k, 0) for k in DEEPSEEK_CUT
+           if getattr(flags, k, 0)}
+    if cut and flags.model != "deepseek_v2_lite":
+        raise ValueError(f"--{', --'.join(cut)} apply to --model "
+                         "deepseek_v2_lite only")
+    return cut
 
 
 def _pipeline_stages(flags):
@@ -860,7 +902,9 @@ def _create_model(flags, num_actions, frame_shape, device, **levers):
             frame_shape=frame_shape, dtype=policy.compute_dtype,
             head_dtype=policy.head_dtype, **_trunk_channels(flags),
             **_attention_impl(flags), **_num_experts(flags),
-            **_pipeline_stages(flags), **levers,
+            **_pipeline_stages(flags), **_deepseek_cut(flags),
+            **({"device": device} if flags.model == "deepseek_v2_lite"
+               else {}), **levers,
         )
     return precision.cast_params(model.to(device), policy)
 

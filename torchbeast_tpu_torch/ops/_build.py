@@ -59,6 +59,8 @@ SIGNATURES = {
     "tbt_attention_bwd": [_P] * 17 + [_I] * 7 + [_P],
     # index, slots, acc, thresholds, fold (host ints, or NULL), stream
     "tbt_mark_launch": [_I] + [_P] * 5,
+    # region (0..3), enter (1) or leave (0), slots, stream
+    "tbt_region_launch": [_I, _I, _P, _P],
     # x_proj, notdone, h0, c0, w, h_seq, c_seq, gates, h_last, c_last, T,
     # B, H, stream
     "tbt_lstm_fwd": [_P] * 10 + [_I] * 3 + [_P],

@@ -33,7 +33,7 @@ from torchbeast_tpu_torch.ops._route import (
     use_kernel,
 )
 
-MAX_LEAVES = 64  # kMaxLeaves in csrc/rmsprop_tail.cu
+MAX_LEAVES = 256  # kMaxLeaves in csrc/rmsprop_tail.cu
 BLOCKS_PER_SM = 4  # kTailBlocksPerSm: the persistent grid's blocks an SM
 STORAGE = (torch.float32, torch.bfloat16)  # of params/grads and of nu
 
@@ -98,6 +98,12 @@ def _num_partials(device) -> int:
     return BLOCKS_PER_SM * _sm_count[device]
 
 
+def check_leaf_count(n: int) -> None:
+    """Raise where `n` leaves would not fit the kernel's table."""
+    require(n <= MAX_LEAVES, "rmsprop_tail",
+            f"{n} leaves; the kernel's table holds {MAX_LEAVES}")
+
+
 def rmsprop_tail(params, grads, nus, moms, *, lr, alpha: float,
                  eps: float, momentum: float = 0.0,
                  max_norm: Optional[float] = None, masters=None):
@@ -149,8 +155,7 @@ def rmsprop_tail(params, grads, nus, moms, *, lr, alpha: float,
         return rmsprop_tail_plain(params, grads, nus, moms, lr=lr,
                                   alpha=alpha, eps=eps, momentum=momentum,
                                   max_norm=max_norm, masters=masters)
-    require(n <= MAX_LEAVES, name,
-            f"{n} leaves; the kernel's table holds {MAX_LEAVES}")
+    check_leaf_count(n)
     for i in range(n):
         for tensors, _ in roles:
             t = tensors[i]
